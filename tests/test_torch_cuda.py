@@ -1,0 +1,172 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU and skips without one (a CUDA kernel
+has no CPU mode).  The file imports nothing of jax, so it also runs on
+the GPU machine, where jax is absent and tests/conftest.py (which imports
+jax) cannot load:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerances: bfloat16 results differ from the plain versions by about one
+output rounding (both accumulate in f32): 2^-7 of the largest |value|;
+float32 results by summation order: 1e-4 of it.  Written cache rows are
+compared exactly.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tokenhawk_tpu_torch.config import LlamaConfig
+from tokenhawk_tpu_torch.ggml.quants import quantize_q4_0
+from tokenhawk_tpu_torch.ggml.writer import write_ggml
+from tokenhawk_tpu_torch.models import llama as tl
+from tokenhawk_tpu_torch.ops.cuda import ffn, flash_attention, flash_decode, qmatmul
+from tokenhawk_tpu_torch.ops.qweight import QWeight
+from tokenhawk_tpu_torch.runtime.engine import make_prefill_fn
+from tokenhawk_tpu_torch.runtime.loader import load_model
+
+from torch_helpers import cuda_device, padded_vocab
+
+pytestmark = pytest.mark.cuda
+Dh = 128
+
+
+def _tol(ref, dtype):
+    return (2.0**-7 if dtype == torch.bfloat16 else 1e-4) * ref.float().abs().max().item()
+
+
+def _err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("K,N", [(4096, 4096), (11008, 512), (704, 256)])
+@pytest.mark.parametrize("rows", [1, 3, 8, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_q4_matmul_kernel_matches_plain(K, N, rows, dtype):
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(K + rows)
+    w = QWeight.quantize(torch.randn(K, N, generator=g, device=dev) * 0.02)
+    x = torch.randn(rows, K, generator=g, device=dev).to(dtype)
+    gain = (1 + 0.1 * torch.randn(K, generator=g, device=dev)).to(dtype)
+    for ng in (None, gain):
+        before = qmatmul.launches
+        got = qmatmul.q4_matmul(x, w, ng)
+        assert qmatmul.launches == before + 1
+        want = qmatmul.q4_matmul_plain(x, w, ng)
+        assert _err(got, want) <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_ffn_kernel_matches_plain(rows, dtype):
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(rows)
+    D, F = 4096, 11008
+    w13 = QWeight.quantize(torch.randn(D, 2 * F, generator=g, device=dev) * 0.02)
+    w2 = QWeight.quantize(torch.randn(F, D, generator=g, device=dev) * 0.02)
+    x = torch.randn(rows, D, generator=g, device=dev).to(dtype)
+    gain = (1 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype)
+    got = ffn.fused_ffn(x, w13, w2, gain)
+    want = ffn.fused_ffn_plain(x, w13, w2, gain)
+    assert _err(got, want) <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+def test_append_attend_kernel_matches_plain(rep, cache_dtype):
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(rep)
+    B, Hkv, S = 4, 4, 512
+    lengths = torch.tensor([1, 33, 300, S + 5], dtype=torch.int32, device=dev)  # last clamps
+    q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).bfloat16()
+    kn = torch.randn(B, Hkv, Dh, generator=g, device=dev).bfloat16()
+    vn = torch.randn(B, Hkv, Dh, generator=g, device=dev).bfloat16()
+    kc = torch.randn(B, Hkv, S, Dh, generator=g, device=dev).to(cache_dtype)
+    vc = torch.randn(B, Hkv, S, Dh, generator=g, device=dev).to(cache_dtype)
+    kp, vp = kc.clone(), vc.clone()
+    got = flash_decode.flash_decode_append(q, kn, vn, kc, vc, lengths)
+    want = flash_decode.flash_decode_append_plain(q, kn, vn, kp, vp, lengths)
+    assert torch.equal(kc, kp) and torch.equal(vc, vp)
+    assert _err(got, want) <= _tol(want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("T,offset", [(64, 0), (16, 200), (13, 5), (512, 0)])
+@pytest.mark.parametrize("rep", [1, 4])
+def test_prefill_attention_kernel_matches_plain(T, offset, rep):
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(T + offset)
+    B, Hkv, S = 2, 4, 512
+    q = (torch.randn(B, Hkv, rep, T, Dh, generator=g, device=dev) / Dh**0.5).bfloat16()
+    kc = torch.randn(B, Hkv, S, Dh, generator=g, device=dev).bfloat16()
+    vc = torch.randn(B, Hkv, S, Dh, generator=g, device=dev).bfloat16()
+    offsets = torch.tensor([offset, 0], dtype=torch.int32, device=dev)
+    got = flash_attention.flash_attention(q, kc, vc, offsets)
+    want = flash_attention.flash_attention_plain(q, kc, vc, offsets)
+    assert _err(got, want) <= _tol(want, torch.bfloat16)
+
+
+def test_kernel_refuses_bad_input():
+    """A wrapper raises on what its kernel does not take; no fallback."""
+    dev = cuda_device()
+    w = QWeight.quantize(torch.randn(256, 128, device=dev))
+    with pytest.raises(ValueError):
+        qmatmul.q4_matmul(torch.randn(2, 128, device=dev), w)  # K mismatch
+    with pytest.raises(ValueError):  # weights left on the CPU
+        qmatmul.q4_matmul(torch.randn(2, 256, device=dev), w.to("cpu"))
+    q = torch.randn(1, 2, 1, 64, device=dev)  # head dim 64 is not a kernel shape
+    c = torch.zeros(1, 2, 128, 64, device=dev)
+    with pytest.raises(ValueError):
+        flash_decode.flash_decode_append(q, q[:, :, 0], q[:, :, 0], c, c.clone(),
+                                         torch.ones(1, dtype=torch.int32, device=dev))
+
+
+def test_slice_gpu_matches_cpu(tmp_path):
+    """A tiny f32 Q4_0 model loaded on the card (the four kernels) and on
+    the CPU (their plain versions): logits of prefill + 4 decode steps
+    within 1e-3 of the largest |logit| (bf16 cache on both sides)."""
+    dev = cuda_device()
+    cfg = LlamaConfig.tiny(n_vocab=300, n_embd=256, n_head=2, n_layer=2, n_ff=512, n_ctx=256)
+    rng = np.random.default_rng(5)
+    D, F, V = cfg.n_embd, cfg.n_ff, cfg.n_vocab
+
+    def w(*shape):
+        return (rng.standard_normal(shape) * 0.05).astype(np.float32)
+
+    tensors = {"tok_embeddings.weight": w(V, D), "norm.weight": 1 + w(D),
+               "output.weight": quantize_q4_0(w(V, D))}
+    for i in range(cfg.n_layer):
+        p = f"layers.{i}."
+        for name, shape in [("attention.wq", (D, D)), ("attention.wk", (D, D)),
+                            ("attention.wv", (D, D)), ("attention.wo", (D, D)),
+                            ("feed_forward.w1", (F, D)), ("feed_forward.w2", (D, F)),
+                            ("feed_forward.w3", (F, D))]:
+            tensors[p + name + ".weight"] = quantize_q4_0(w(*shape))
+        tensors[p + "attention_norm.weight"] = 1 + w(D)
+        tensors[p + "ffn_norm.weight"] = 1 + w(D)
+    tokens, scores = padded_vocab(V)
+    hp = dict(n_vocab=V, n_embd=D, n_mult=cfg.n_mult, n_head=cfg.n_head, n_layer=cfg.n_layer,
+              n_rot=cfg.head_dim, ftype=2)
+    write_ggml(tmp_path / "m.bin", hp, tokens, scores, tensors)
+
+    ids = torch.tensor([1, 40, 41, 42, 43, 44, 45, 7, 8, 9, 10])
+    n = len(ids) - 4
+
+    def run(d):
+        tcfg, params, _ = load_model(str(tmp_path / "m.bin"), n_ctx=256, dtype=torch.float32,
+                                     device=d)
+        cache = tl.KVCache.create(tcfg, 1, 256, torch.bfloat16, d)
+        toks = torch.zeros(1, 16, dtype=torch.long)
+        toks[0, :n] = ids[:n]
+        _, logits = make_prefill_fn(tcfg)(params, cache, toks.to(d),
+                                          torch.tensor([n], dtype=torch.int32, device=d),
+                                          torch.zeros(1, dtype=torch.int32, device=d))
+        out = [logits.cpu()]
+        for i in range(4):
+            off = torch.tensor([n + i], dtype=torch.int32, device=d)
+            h, cache = tl.forward(tcfg, params, ids[None, n + i:n + i + 1].to(d), cache, off)
+            out.append(tl.logits_from_hidden(tcfg, params, h[:, 0]).cpu())
+        return out
+
+    for a, b in zip(run(dev), run(torch.device("cpu"))):
+        assert _err(a, b) <= 1e-3 * b.abs().max().item()

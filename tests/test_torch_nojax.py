@@ -1,0 +1,53 @@
+"""The port runs where jax is absent (the GPU machine has none).
+
+A subprocess blocks `jax` (sys.modules["jax"] = None makes any import of
+it fail), imports every module of tokenhawk_tpu_torch, checks that
+nothing of tokenhawk_tpu came along, and runs a tiny Engine.generate on
+the CPU.  A source scan backs it up for imports inside functions.
+"""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+import torch
+import tokenhawk_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+assert not any(m == "tokenhawk_tpu" or m.startswith("tokenhawk_tpu.") for m in sys.modules)
+from tokenhawk_tpu_torch.config import LlamaConfig, SamplingConfig
+from tokenhawk_tpu_torch.models.llama import fuse_params, init_params
+from tokenhawk_tpu_torch.runtime.engine import Engine
+from tokenhawk_tpu_torch.tokenizer import byte_fallback_vocab
+cfg = LlamaConfig.tiny(n_vocab=300, n_embd=256, n_head=2, n_layer=2, n_ff=512, n_ctx=128)
+for quant in ("q4_0", None):  # Q4_0 projections, then dense ones
+    params = fuse_params(init_params(cfg, torch.Generator().manual_seed(0),
+                                     dtype=torch.float32, device="cpu", quant=quant))
+    eng = Engine(cfg, params, byte_fallback_vocab(), SamplingConfig(temperature=0.7),
+                 cache_dtype=torch.float32, decode_chunk=4, eos_id=-1)
+    r = eng.generate("hi there", max_new_tokens=9)
+    assert len(r.tokens) == 9 and all(0 <= t < 300 for t in r.tokens), r.tokens
+print("OK", len(names))
+"""
+
+
+def test_port_imports_and_generates_without_jax():
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("OK")
+
+
+def test_port_sources_import_no_jax():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|tokenhawk_tpu)\b", re.M)
+    files = sorted((ROOT / "tokenhawk_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    offenders = [str(f) for f in files if pat.search(f.read_text())]
+    assert offenders == []

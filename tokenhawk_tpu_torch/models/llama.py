@@ -1,0 +1,345 @@
+"""LLaMA-family model as plain functions over per-layer parameters.
+
+Counterpart of tokenhawk_tpu/models/llama.py, dense single-device path.
+The reference traces one XLA program (lax.scan over stacked layers,
+donated caches); here parameters are a per-layer list, the cache a
+per-layer list of [B, Hkv, S, Dh] tensors updated in place, and the
+forward is an eager Python loop whose hot operations are the port's
+CUDA kernels:
+
+  wqkv / wo / w13 / w2 / output   kernel 1, Q4_0 matmul + fused RMSNorm
+  decode FFN (<= 8 rows)          kernel 2, fused SwiGLU + residual
+  decode attention                kernel 3, append + attend in place
+  prefill attention               kernel 4, causal flash attention
+
+Weight orientation is [in, out] (y = x @ W) at every public function,
+as in the reference, whatever the Q4_0 storage layout.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from tokenhawk_tpu_torch.config import LlamaConfig
+from tokenhawk_tpu_torch.ggml.quants import QuantizedTensor, dequantize
+from tokenhawk_tpu_torch.ops.attention import update_kv_cache
+from tokenhawk_tpu_torch.ops.cuda.ffn import MAX_ROWS as _FFN_MAX_ROWS
+from tokenhawk_tpu_torch.ops.cuda.ffn import fused_ffn
+from tokenhawk_tpu_torch.ops.cuda.flash_attention import flash_attention
+from tokenhawk_tpu_torch.ops.cuda.flash_decode import flash_decode_append
+from tokenhawk_tpu_torch.ops.linear import matmul
+from tokenhawk_tpu_torch.ops.qweight import ArrayOrQ, QWeight, concat_qweights, take_columns
+from tokenhawk_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+
+
+@dataclasses.dataclass
+class LayerParams:
+    wq: Optional[ArrayOrQ]
+    wk: Optional[ArrayOrQ]
+    wv: Optional[ArrayOrQ]
+    wo: ArrayOrQ
+    w1: Optional[ArrayOrQ]
+    w2: ArrayOrQ
+    w3: Optional[ArrayOrQ]
+    attn_norm: torch.Tensor
+    ffn_norm: torch.Tensor
+    # Fused variants (fuse_params): wqkv = [wq|wk|wv], w13 = [w1|w3].
+    wqkv: Optional[ArrayOrQ] = None
+    w13: Optional[ArrayOrQ] = None
+
+
+@dataclasses.dataclass
+class LlamaParams:
+    tok_embd: torch.Tensor  # [V, D]
+    layers: List[LayerParams]
+    norm: torch.Tensor  # [D]
+    output: ArrayOrQ  # [D, V]
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok_embd.device
+
+    def to(self, device) -> "LlamaParams":
+        """A copy of every tensor on `device`."""
+
+        def mv(w):
+            return None if w is None else w.to(device)
+
+        layers = [LayerParams(**{f.name: mv(getattr(lp, f.name))
+                                 for f in dataclasses.fields(LayerParams)})
+                  for lp in self.layers]
+        return LlamaParams(mv(self.tok_embd), layers, mv(self.norm), mv(self.output))
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Dense KV cache, one [B, Hkv, S, Dh] tensor per layer for k and v."""
+
+    k: List[torch.Tensor]
+    v: List[torch.Tensor]
+
+    @staticmethod
+    def create(cfg: LlamaConfig, batch: int, max_seq: Optional[int] = None,
+               dtype=torch.bfloat16, device=None) -> "KVCache":
+        shape = (batch, cfg.n_kv_head, max_seq or cfg.n_ctx, cfg.head_dim)
+
+        def z():
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return KVCache([z() for _ in range(cfg.n_layer)], [z() for _ in range(cfg.n_layer)])
+
+
+def _attend_and_update(cfg: LlamaConfig, q, k, v, kc, vc, offsets, positions):
+    """Write (k, v) into this layer's cache and attend; q [B, T, H, Dh].
+
+    Decode (T == 1) runs kernel 3, which appends the row at slot
+    lengths-1 = min(position, S-1) and attends over lengths tokens.
+    Prefill writes its block with an index copy and runs kernel 4.
+    (The reference switches dense-weight programs to a decode kernel
+    without append to dodge TPU memory-space assignment; the port uses
+    its one append kernel for every weight kind.)"""
+    B, T, H, Dh = q.shape
+    Hkv, S = kc.shape[1], kc.shape[2]
+    rep = H // Hkv
+    scale = 1.0 / Dh**0.5
+    if T == 1:
+        qg = (q[:, 0] * scale).reshape(B, Hkv, rep, Dh)
+        lengths = torch.clamp(positions[:, 0] + 1, max=S).to(torch.int32)
+        out = flash_decode_append(qg, k[:, 0], v[:, 0], kc, vc, lengths)
+        return out.reshape(B, 1, H, Dh)
+    update_kv_cache(kc, vc, k, v, offsets)
+    qg = (q * scale).reshape(B, T, Hkv, rep, Dh).permute(0, 2, 3, 1, 4)
+    out = flash_attention(qg, kc, vc, positions[:, 0].to(torch.int32))
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, Dh)
+
+
+def _ffn_block(cfg: LlamaConfig, x, lp: LayerParams):
+    """SwiGLU MLP with residual: x + silu(norm(x)@w1)*(norm(x)@w3) @ w2.
+
+    At most 8 rows over Q4_0 w13/w2: kernel 2 in one call.  Otherwise
+    (prefill, dense weights): two matmuls and a SiLU, as the reference's
+    unfused form."""
+    rows = x.numel() // x.shape[-1]
+    if (isinstance(lp.w13, QWeight) and isinstance(lp.w2, QWeight)
+            and rows <= _FFN_MAX_ROWS):
+        return fused_ffn(x, lp.w13, lp.w2, lp.ffn_norm, eps=cfg.rms_norm_eps)
+    if lp.w13 is not None:
+        gate_up = matmul(x, lp.w13, lp.ffn_norm, eps=cfg.rms_norm_eps)
+        F = gate_up.shape[-1] // 2
+        g, u = gate_up[..., :F], gate_up[..., F:]
+    else:
+        g = matmul(x, lp.w1, lp.ffn_norm, eps=cfg.rms_norm_eps)
+        u = matmul(x, lp.w3, lp.ffn_norm, eps=cfg.rms_norm_eps)
+    gate = torch.nn.functional.silu(g.float()).to(x.dtype)
+    return x + matmul(gate * u, lp.w2)
+
+
+def _layer_forward(cfg: LlamaConfig, x, lp: LayerParams, kc, vc, cos, sin, offsets,
+                   positions):
+    B, T, D = x.shape
+    H, Hkv, Dh = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    Dq, Dkv = H * Dh, Hkv * Dh
+    eps = cfg.rms_norm_eps
+    if lp.wqkv is not None:
+        qkv = matmul(x, lp.wqkv, lp.attn_norm, eps=eps)  # [B, T, Dq + 2*Dkv]
+        q = qkv[..., :Dq].reshape(B, T, H, Dh)
+        k = qkv[..., Dq:Dq + Dkv].reshape(B, T, Hkv, Dh)
+        v = qkv[..., Dq + Dkv:].reshape(B, T, Hkv, Dh)
+    else:
+        q = matmul(x, lp.wq, lp.attn_norm, eps=eps).reshape(B, T, H, Dh)
+        k = matmul(x, lp.wk, lp.attn_norm, eps=eps).reshape(B, T, Hkv, Dh)
+        v = matmul(x, lp.wv, lp.attn_norm, eps=eps).reshape(B, T, Hkv, Dh)
+    q = apply_rope(q, cos, sin, cfg.rope_style)
+    k = apply_rope(k, cos, sin, cfg.rope_style)
+    ctx = _attend_and_update(cfg, q, k, v, kc, vc, offsets, positions)
+    x = x + matmul(ctx.reshape(B, T, Dq), lp.wo)
+    return _ffn_block(cfg, x, lp)
+
+
+def forward(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor, cache: KVCache,
+            offsets: torch.Tensor):
+    """Run a token block [B, T] through all layers; `offsets` [B] int32
+    is each sequence's cache write offset.  Returns the hidden states
+    [B, T, D] (before the final norm) and the cache, updated in place."""
+    B, T = tokens.shape
+    x = params.tok_embd[tokens]
+    positions = offsets.long()[:, None] + torch.arange(T, device=tokens.device)[None, :]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    for lp, kc, vc in zip(params.layers, cache.k, cache.v):
+        x = _layer_forward(cfg, x, lp, kc, vc, cos, sin, offsets, positions)
+    return x, cache
+
+
+def logits_from_hidden(cfg: LlamaConfig, params: LlamaParams, hidden: torch.Tensor):
+    """Final RMSNorm + output projection -> f32 logits [..., V] (rounded
+    through the activation dtype first, as the reference does)."""
+    return matmul(hidden, params.output, params.norm, eps=cfg.rms_norm_eps).float()
+
+
+# ---------------------------------------------------------------------------
+# Load-time transforms
+# ---------------------------------------------------------------------------
+
+
+def rope_half_params(cfg: LlamaConfig, params: LlamaParams):
+    """Interleaved RoPE -> "half" RoPE by permuting each head's wq/wk output
+    columns (new j = old 2j for j < Dh/2, new Dh/2+j = old 2j+1).  The
+    cache then stores permuted keys; attention is unchanged.  Run before
+    fuse_params.  Returns (cfg', params')."""
+    if cfg.rope_style != "interleaved":
+        return cfg, params
+    Dh = cfg.head_dim
+    half = Dh // 2
+    within = np.concatenate([np.arange(half) * 2, np.arange(half) * 2 + 1])
+
+    def perm(n_heads):
+        p = (np.arange(n_heads)[:, None] * Dh + within[None, :]).reshape(-1)
+        return torch.from_numpy(p).to(params.device)
+
+    pq, pk = perm(cfg.n_head), perm(cfg.n_kv_head)
+    layers = []
+    for lp in params.layers:
+        if lp.wqkv is not None:
+            raise ValueError("rope_half_params must run before fuse_params")
+        layers.append(dataclasses.replace(lp, wq=take_columns(lp.wq, pq),
+                                          wk=take_columns(lp.wk, pk)))
+    return (dataclasses.replace(cfg, rope_style="half"),
+            dataclasses.replace(params, layers=layers))
+
+
+def fuse_params(params: LlamaParams) -> LlamaParams:
+    """wq|wk|wv -> wqkv and w1|w3 -> w13 in every layer (one matmul
+    instead of three, and w13 is what kernel 2 reads)."""
+
+    def fusable(ws):
+        return all(isinstance(w, QWeight) for w in ws) or not any(
+            isinstance(w, QWeight) for w in ws)
+
+    def cat(ws):
+        if isinstance(ws[0], QWeight):
+            return concat_qweights(ws)
+        return torch.cat(ws, dim=-1)
+
+    layers = []
+    for lp in params.layers:
+        upd = {}
+        if lp.wq is not None and fusable([lp.wq, lp.wk, lp.wv]):
+            upd.update(wqkv=cat([lp.wq, lp.wk, lp.wv]), wq=None, wk=None, wv=None)
+        if lp.w1 is not None and fusable([lp.w1, lp.w3]):
+            upd.update(w13=cat([lp.w1, lp.w3]), w1=None, w3=None)
+        layers.append(dataclasses.replace(lp, **upd))
+    return dataclasses.replace(params, layers=layers)
+
+
+# ---------------------------------------------------------------------------
+# Parameter construction
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator, dtype=torch.bfloat16,
+                device=None, scale: float = 0.02, quant: Optional[str] = None) -> LlamaParams:
+    """Random parameters drawn from `generator` (which lives on `device`).
+
+    quant="q4_0" quantizes every projection (wq..w3, output) on the
+    device as it is drawn, so a full-width model never exists densely."""
+    if quant not in (None, "q4_0"):
+        raise ValueError(f"unsupported quant {quant!r}")
+    D, F, V = cfg.n_embd, cfg.n_ff, cfg.n_vocab
+    Dkv = cfg.n_embd_kv
+
+    def randn(*shape):
+        return torch.randn(shape, generator=generator, device=device) * scale
+
+    def w(k, n):
+        a = randn(k, n)
+        return QWeight.quantize(a) if quant == "q4_0" else a.to(dtype)
+
+    def ones():
+        return torch.ones(D, dtype=dtype, device=device)
+
+    layers = [LayerParams(wq=w(D, D), wk=w(D, Dkv), wv=w(D, Dkv), wo=w(D, D),
+                          w1=w(D, F), w2=w(F, D), w3=w(D, F),
+                          attn_norm=ones(), ffn_norm=ones())
+              for _ in range(cfg.n_layer)]
+    return LlamaParams(tok_embd=randn(V, D).to(dtype), layers=layers, norm=ones(),
+                       output=w(D, V))
+
+
+HostTensor = Union[np.ndarray, QuantizedTensor]
+
+
+def _device_weight(t: HostTensor, dtype, device, transpose: bool) -> ArrayOrQ:
+    if isinstance(t, QuantizedTensor):
+        if transpose:
+            return QWeight.from_quantized_tensor(t, device)
+        t = dequantize(t)
+    arr = np.asarray(t, np.float32)
+    if transpose:
+        arr = arr.T
+    # np.array copies: the reader's f32 tensors are read-only views of the mmap.
+    return torch.from_numpy(np.array(arr, order="C")).to(device=device, dtype=dtype)
+
+
+def params_from_ggml(cfg: LlamaConfig, tensors: Dict[str, HostTensor], dtype=torch.bfloat16,
+                     device=None) -> LlamaParams:
+    """Device parameters from loaded GGML tensors: 2-D projections go from
+    GGML's [out, in] to [in, out] (Q4_0 stays quantized); the embedding
+    table and the norm gains are dense."""
+
+    def get(name, transpose=True):
+        return _device_weight(tensors[name], dtype, device, transpose)
+
+    layers = []
+    for i in range(cfg.n_layer):
+        p = f"layers.{i}."
+        layers.append(LayerParams(
+            wq=get(p + "attention.wq.weight"), wk=get(p + "attention.wk.weight"),
+            wv=get(p + "attention.wv.weight"), wo=get(p + "attention.wo.weight"),
+            w1=get(p + "feed_forward.w1.weight"), w2=get(p + "feed_forward.w2.weight"),
+            w3=get(p + "feed_forward.w3.weight"),
+            attn_norm=get(p + "attention_norm.weight", False),
+            ffn_norm=get(p + "ffn_norm.weight", False)))
+    return LlamaParams(tok_embd=get("tok_embeddings.weight", False), layers=layers,
+                       norm=get("norm.weight", False), output=get("output.weight"))
+
+
+def params_from_jax(np_params: Mapping, dtype=torch.float32, device=None) -> LlamaParams:
+    """The JAX package's parameters, as numpy, -> the port's.
+
+    np_params maps LlamaParams field names (tok_embd, layers, norm,
+    output) to arrays; `layers` is a sequence of mappings with LayerParams
+    field names (unrolled) or one mapping of [L, ...] stacked leaves.  A
+    weight is an ndarray [K, N] (dense) or a mapping of the packed q4_0
+    QWeight fields qs, scales, scales_hi."""
+
+    def conv(w, layer=None):
+        if w is None:
+            return None
+        if isinstance(w, Mapping):
+            parts = [w["qs"], w["scales"], w["scales_hi"]]
+            if layer is not None:
+                parts = [a[layer] for a in parts]
+            return QWeight.from_jax_packed(*parts, device=device)
+        a = np.asarray(w if layer is None else w[layer], np.float32)
+        return torch.from_numpy(np.array(a, order="C")).to(device=device, dtype=dtype)
+
+    def gain(g, layer=None):  # the reference keeps gains [1, D] on a TPU
+        return conv(g, layer).reshape(-1)
+
+    def layer_params(get, layer=None):
+        kw = {f.name: conv(get(f.name), layer) for f in dataclasses.fields(LayerParams)
+              if not f.name.endswith("norm")}
+        return LayerParams(attn_norm=gain(get("attn_norm"), layer),
+                           ffn_norm=gain(get("ffn_norm"), layer), **kw)
+
+    lay = np_params["layers"]
+    if isinstance(lay, Mapping):  # stacked [L, ...] leaves
+        layers = [layer_params(lay.get, i) for i in range(len(lay["attn_norm"]))]
+    else:
+        layers = [layer_params(lp.get) for lp in lay]
+    return LlamaParams(tok_embd=conv(np_params["tok_embd"]), layers=layers,
+                       norm=gain(np_params["norm"]), output=conv(np_params["output"]))

@@ -1,0 +1,44 @@
+"""Attention over a dense KV cache in plain PyTorch.
+
+Counterpart of tokenhawk_tpu/ops/attention.py: the reference functions
+the attention kernels (ops/cuda/flash_decode.py, flash_attention.py) are
+checked against.  GQA: queries have H heads, the cache Hkv, H % Hkv == 0.
+A query at absolute position p attends to cache slots <= p.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def attend_cache(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 q_positions: torch.Tensor, scale: float | None = None) -> torch.Tensor:
+    """q [B, T, H, Dh]; caches [B, Hkv, S, Dh]; q_positions [B, T] ->
+    [B, T, H, Dh] in q.dtype (f32 math)."""
+    B, T, H, Dh = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    rep = H // Hkv
+    if scale is None:
+        scale = 1.0 / Dh**0.5
+    qg = q.reshape(B, T, Hkv, rep, Dh).float()
+    scores = torch.einsum("bthrd,bhsd->bhrts", qg, k_cache.float()) * scale
+    key_pos = torch.arange(S, device=q.device)[None, None, :]
+    mask = key_pos <= q_positions[:, :, None]  # [B, T, S]
+    scores = torch.where(mask[:, None, None], scores, _MASK_VALUE)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhrts,bhsd->bthrd", probs, v_cache.float())
+    return ctx.reshape(B, T, H, Dh).to(q.dtype)
+
+
+def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.Tensor,
+                    v_new: torch.Tensor, offsets: torch.Tensor) -> None:
+    """Write k_new/v_new [B, T, Hkv, Dh] at each sequence's offset, in
+    place (the reference returns new arrays; the port updates the cache
+    it is given).  offsets stays on the device: no host sync."""
+    B, T = k_new.shape[:2]
+    bi = torch.arange(B, device=k_cache.device)[:, None]
+    si = offsets.to(k_cache.device).long()[:, None] + torch.arange(T, device=k_cache.device)
+    k_cache[bi, :, si] = k_new.to(k_cache.dtype)
+    v_cache[bi, :, si] = v_new.to(v_cache.dtype)
