@@ -4,14 +4,28 @@
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
-  1. versions, the card's name and power limit, the kernel build;
+  1. versions, the card's name and power limit, the kernel build (one nvcc
+     per source, all started together);
   2. each CUDA kernel against its plain PyTorch version at LLaMA-7B shapes
-     (max error against the stated tolerance, median CUDA-event times);
+     (max error against the stated tolerance, median CUDA-event times, the
+     bound from the bytes and operations of the call, and the time of one
+     PyTorch call computing the same function where there is one); the
+     paged kernels in both pool layouts;
   3. slice check: a 2-layer LLaMA-7B-width Q4_0 model, prefill of 16
      tokens + 8 decode steps on the GPU (kernels) and on the CPU (plain
-     versions, same parameters), logits compared at every step;
+     versions, same parameters), logits compared at every step; then the
+     paged forward against the dense one on the GPU, 8 decode steps across
+     a page boundary;
   4. serve: the full 32-layer 7B Q4_0 model, Engine.generate on 3 prompts,
      and the launch count of every kernel over that run;
+  4b. paged serve: the same model under PagedScheduler (max_batch 8, n_ctx
+     2048, 128-token pages, prefix cache, prefill chunks of 512), 12 mixed
+     greedy/sampled requests, 4 sharing a 384-token prefix and one of 1500
+     tokens; launch counts of every kernel, page accounting, decode tok/s,
+     and the device's idle share under the profiler;
+  4c. HTTP: serve() over that scheduler, 4 concurrent SSE streams and one
+     /v1/completions, then `python -m tokenhawk_tpu_torch.serving`, dense
+     and --paged, on the 2-layer file of phase 5 answering one request;
   5. CLI: a 2-layer 7B-width ggjt Q4_0 file through tokenhawk_tpu_torch.cli.
 The next-to-last line is {"kernels": [...]}, the last {"ok": true, ...}.
 It needs one CUDA device and the rest of the repository beside it.
@@ -21,10 +35,13 @@ from __future__ import annotations
 
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 
@@ -38,6 +55,16 @@ KERNEL_TOL = 2.0**-7
 # plain: rounding flips of intermediate bfloat16 values propagate; 5% of
 # the largest |logit| bounds them while a wrong kernel is off by O(1).
 SLICE_TOL = 5e-2
+# The card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s and
+# dense bf16 tensor-core FLOP/s.  A kernel's bound is the larger of its
+# bytes (each input read once, each output written once) over the first
+# and its operations over the second.
+HBM_BPS = 3.35e12
+PEAK_FLOPS = 989e12
+# Paged-kernel shapes of phase 2: LLaMA-7B heads, 128-token pages, a
+# serve batch of 8 with ragged lengths up to n_ctx 2048.
+PAGED_LENGTHS = [1, 37, 128, 129, 300, 700, 1500, 2048]
+PAGED_PS, PAGED_POOL = 128, 140
 
 
 def log(msg: str = "") -> None:
@@ -90,9 +117,16 @@ def copies(tensors, nbytes: int) -> list:
     return [tensors] + [[x.clone() for x in tensors] for _ in range(n - 1)]
 
 
-def max_err(out, ref) -> tuple:
+def max_err(out, ref, frac: float = KERNEL_TOL) -> tuple:
     d = (out.float() - ref.float()).abs().max().item()
-    return d, KERNEL_TOL * ref.float().abs().max().item()
+    return d, frac * ref.float().abs().max().item()
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for a call (see HBM_BPS)."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase_env() -> None:
@@ -120,8 +154,15 @@ def phase_env() -> None:
 
 def phase_kernels() -> list:
     import torch
+    import torch.nn.functional as tf
 
-    from tokenhawk_tpu_torch.ops.cuda import ffn, flash_attention, flash_decode, qmatmul
+    from tokenhawk_tpu_torch.ops.cuda import (
+        ffn,
+        flash_attention,
+        flash_decode,
+        paged_decode,
+        qmatmul,
+    )
     from tokenhawk_tpu_torch.ops.qweight import QWeight
 
     log("== phase 2: kernels against their plain versions (7B shapes, bfloat16)")
@@ -135,9 +176,9 @@ def phase_kernels() -> list:
     def qweight(k, n):
         return QWeight.quantize(randn(k, n, scale=0.02, dtype=torch.float32))
 
-    def case(cases, label, shape, rows, out, ref, kernel_fns, plain_fns):
+    def case(cases, label, shape, rows, out, ref, kernel_fns, plain_fns, frac=KERNEL_TOL):
         """Check one shape against the tolerance, time both versions."""
-        err, tol = max_err(out, ref)
+        err, tol = max_err(out, ref, frac)
         kt, pt = timed(kernel_fns), timed(plain_fns)
         log(f"{label}: max_abs_err {err:.3e} (tol {tol:.3e})  kernel {kt['ms']:.4f} ms "
             f"[per call {kt['call_ms']:.4f}]  plain {pt['ms']:.4f} ms [per call {pt['call_ms']:.4f}]")
@@ -147,7 +188,13 @@ def phase_kernels() -> list:
                           plain_ms=pt["ms"], call_ms=kt["call_ms"],
                           plain_call_ms=pt["call_ms"]))
 
+    def library(label, fns) -> float:
+        ms = timed(fns)["ms"]
+        log(f"  library call {label}: {ms:.4f} ms")
+        return ms
+
     records = []
+    bf = 2  # bytes of a bfloat16 value
 
     # -- kernel 1: every projection of the path, decode and prefill rows --
     cases = []
@@ -165,9 +212,11 @@ def phase_kernels() -> list:
                  [lambda w=w: qmatmul.q4_matmul(x, w, gain) for w in ws],
                  [lambda w=w: qmatmul.q4_matmul_plain(x, w, gain) for w in ws])
         del w, ws
+    K, N = 4096, 12288  # the timed case: wqkv, one row, norm fused
     records.append(_record("q4_matmul", "tokenhawk_tpu_torch/csrc/qmatmul.cu",
                            "tokenhawk_tpu/ops/pallas/qmatmul.py:807 (q4_matmul); "
-                           "qmatmul.py:874 (q4_matmul_i4)", cases, ("wqkv", 1)))
+                           "qmatmul.py:874 (q4_matmul_i4)", cases, ("wqkv", 1),
+                           bound(K * N * 0.625 + 2 * K * bf + N * bf, 2 * K * N), None))
 
     # -- kernel 2: the decode FFN --
     cases = []
@@ -185,7 +234,8 @@ def phase_kernels() -> list:
     del w13, w2, sets
     records.append(_record("fused_ffn", "tokenhawk_tpu_torch/csrc/ffn.cu",
                            "tokenhawk_tpu/ops/pallas/ffn.py:270 (_fused_ffn via fused_ffn)",
-                           cases, ("ffn", 1)))
+                           cases, ("ffn", 1),
+                           bound(3 * D * F * 0.625 + 3 * D * bf, 6 * D * F), None))
 
     # -- kernel 3: decode append + attend; lengths in one batch, then timed at B=1 --
     cases = []
@@ -208,10 +258,18 @@ def phase_kernels() -> list:
               for c in caches],
              [lambda c=c: flash_decode.flash_decode_append_plain(q, kn, vn, *c, lengths)
               for c in caches])
+    # The timed case is the last (B=1, 512 live tokens); the library call
+    # attends over the same live rows (without the append).
+    L = S_CTX
+    lib = library("scaled_dot_product_attention, B=1, 512 keys",
+                  [lambda c=c: tf.scaled_dot_product_attention(
+                      q, c[0][:, :, :L], c[1][:, :, :L], scale=1.0)
+                   for c in caches])
     records.append(_record("flash_decode_append", "tokenhawk_tpu_torch/csrc/flash_decode.cu",
                            "tokenhawk_tpu/ops/pallas/flash_decode_dma.py:1112 "
                            "(flash_decode_append_walk); flash_decode_dma.py:1218 "
-                           "(flash_decode_append)", cases, ("B=1 L=512", 1)))
+                           "(flash_decode_append)", cases, ("B=1 L=512", 1),
+                           bound((2 * L + 6) * Hkv * Dh * bf, 4 * L * Hkv * Dh), lib))
 
     # -- kernel 4: prefill attention --
     cases = []
@@ -226,19 +284,111 @@ def phase_kernels() -> list:
              [lambda c=c: flash_attention.flash_attention(q, *c, offsets) for c in caches],
              [lambda c=c: flash_attention.flash_attention_plain(q, *c, offsets)
               for c in caches])
+    T = 512
+    lib = library("scaled_dot_product_attention, causal, T=512",
+                  [lambda c=c: tf.scaled_dot_product_attention(q[:, :, 0], c[0], c[1],
+                                                               is_causal=True, scale=1.0)
+                   for c in caches])
     records.append(_record("flash_attention", "tokenhawk_tpu_torch/csrc/flash_attention.cu",
                            "tokenhawk_tpu/ops/pallas/flash_attention.py:139 "
-                           "(flash_attention via attend_prefill)", cases, ("T=512 off=0", 512)))
+                           "(flash_attention via attend_prefill)", cases, ("T=512 off=0", 512),
+                           bound(4 * T * Hkv * Dh * bf, 4 * Hkv * Dh * T * (T + 1) / 2), lib))
+    records += _paged_kernel_records(randn, case, library, g)
     return records
 
 
-def _record(name, source, replaces, cases, main_case) -> dict:
+def _paged_kernel_records(randn, case, library, g) -> list:
+    """Kernels 5-7 at a serve batch of 8 (PAGED_LENGTHS) over a 140-page
+    pool with a shuffled table, in both layouts; timed in the default
+    (contig) layout."""
+    import torch
+
+    from tokenhawk_tpu_torch.ops.cuda import paged_decode as pd
+
+    dev = torch.device("cuda")
+    Hkv, Dh, ps, n_pool, bf = 32, 128, PAGED_PS, PAGED_POOL, 2
+    B, mp, live = len(PAGED_LENGTHS), max(PAGED_LENGTHS) // ps, sum(PAGED_LENGTHS)
+    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
+    perm = torch.randperm(n_pool, generator=g, device=dev)
+    table = perm[:B * mp].reshape(B, mp).to(torch.int32).contiguous()
+    tl = table.long()
+    trash = int(perm[-1])
+    # Each sequence appends its newest token; the last two are done slots
+    # parked on the trash page, at the same row.
+    pos = lengths.long() - 1
+    page = table.gather(1, (pos // ps)[:, None])[:, 0].clone()
+    slot = (pos % ps).to(torch.int32)
+    page[-2:], slot[-2:] = trash, 5
+    pl, sl = page.long(), slot.long()
+    keep = torch.arange(n_pool, device=dev) != trash
+    dec, app, gat, lib = [], [], [], {}
+    for layout in ("contig", "head"):
+        shape = (n_pool, Hkv, ps, Dh) if layout == "contig" else (Hkv, n_pool, ps, Dh)
+        kp, vp = randn(*shape), randn(*shape)
+        q = randn(B, Hkv, 1, Dh, scale=Dh**-0.5)
+        case(dec, f"paged_decode {layout} B={B} lengths={PAGED_LENGTHS} ps={ps}", layout, B,
+             pd.paged_decode(q, kp, vp, table, lengths, layout),
+             pd.paged_decode_plain(q, kp, vp, table, lengths, layout),
+             [lambda: pd.paged_decode(q, kp, vp, table, lengths, layout)],
+             [lambda: pd.paged_decode_plain(q, kp, vp, table, lengths, layout)])
+
+        kn, vn = randn(B, Hkv, Dh), randn(B, Hkv, Dh)
+        ka, va, kb, vb = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+        pd.paged_append(ka, va, kn, vn, page, slot, layout)
+        pd.paged_append_plain(kb, vb, kn, vn, page, slot, layout)
+
+        def kept(x):
+            return x[keep] if layout == "contig" else x[:, keep]
+
+        case(app, f"paged_append {layout} B={B} (2 rows on the trash page; pools outside it "
+                  f"identical)", layout, B, torch.stack([kept(ka), kept(va)]),
+             torch.stack([kept(kb), kept(vb)]),
+             [lambda: pd.paged_append(ka, va, kn, vn, page, slot, layout)],
+             [lambda: pd.paged_append_plain(kb, vb, kn, vn, page, slot, layout)], frac=0.0)
+
+        gk, gv = pd.gather_pages(kp, vp, table, layout)
+        pk, pv = pd.gather_pages_plain(kp, vp, table, layout)
+        if not torch.equal(gv, pv):
+            raise AssertionError(f"gather_pages {layout}: V differs from the plain version's")
+        case(gat, f"gather_pages {layout} B={B} max_pages={mp} (K and V identical)", layout, B,
+             gk, pk, [lambda: pd.gather_pages(kp, vp, table, layout)],
+             [lambda: pd.gather_pages_plain(kp, vp, table, layout)], frac=0.0)
+        del gk, gv, pk, pv
+        if layout == "contig":
+            lib["append"] = library("index_put_ of the new K and V rows (2 calls)", [
+                lambda: (ka.__setitem__((pl, slice(None), sl), kn),
+                         va.__setitem__((pl, slice(None), sl), vn))])
+            lib["gather"] = library("pages[table] with its permute, K and V (2 x 2 calls)", [
+                lambda: [x[tl].transpose(1, 2).reshape(B, Hkv, mp * ps, Dh) for x in (kp, vp)]])
+        del kp, vp, ka, va, kb, vb
+    src = "tokenhawk_tpu_torch/csrc/paged_decode.cu"
+    row = Hkv * Dh * bf
+    return [
+        _record("paged_decode", src, "tokenhawk_tpu/ops/pallas/paged_decode.py:683 "
+                "(paged_flash_decode_walk); paged_decode.py:497 (paged_flash_decode)",
+                dec, ("contig", B), bound(2 * live * row + 2 * B * row + B * (mp + 1) * 4,
+                                          4 * live * Hkv * Dh), None),
+        _record("paged_append", src, "tokenhawk_tpu/ops/pallas/paged_decode.py:205 "
+                "(paged_append_rows)", app, ("contig", B),
+                bound(4 * B * row + 2 * B * 4, 0), lib["append"]),
+        _record("gather_pages", src, "tokenhawk_tpu/ops/pallas/paged_decode.py:384 "
+                "(gather_pages_dense)", gat, ("contig", B),
+                bound(4 * B * mp * ps * row + B * mp * 4, 0), lib["gather"]),
+    ]
+
+
+def _record(name, source, replaces, cases, main_case, bound_at, library_ms) -> dict:
     """One kernel's JSON entry: worst error over its cases, times at the
-    shape the main path runs most (main_case = (shape, rows))."""
+    shape the main path runs most (main_case = (shape, rows)), its bound
+    there and the library call's time (None where no one PyTorch call
+    computes the same function)."""
     main = next(c for c in cases if (c["shape"], c["rows"]) == main_case)
+    log(f"{name}: {main['ms']:.4f} ms against a bound of {bound_at['bound_ms']:.4f} ms "
+        f"({bound_at['bound_by']}) at {main['shape']} rows={main['rows']}")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": 0, "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"], **bound_at,
+            "library_ms": library_ms,
             "timed_at": f"{main['shape']} rows={main['rows']}", "cases": cases}
 
 
@@ -302,9 +452,54 @@ def phase_slice() -> None:
             f"(tol {tol:.3e}), argmax equal {same}")
         if not err <= tol:
             raise AssertionError(f"slice step {i}: {err} > {tol}")
+    _paged_slice(cfg, p_gpu)
 
 
-def phase_serve(kernel_mods) -> dict:
+def _paged_slice(cfg, params) -> None:
+    """forward_paged_prefill / forward_paged_decode against the dense
+    forward, both on the GPU: a 124-token prompt, then 8 decode steps
+    across the first page boundary, pages 3 and 1 of a 6-page pool."""
+    import torch
+
+    from tokenhawk_tpu_torch.models.llama import (
+        KVCache,
+        forward,
+        forward_paged_decode,
+        forward_paged_prefill,
+        logits_from_hidden,
+    )
+    from tokenhawk_tpu_torch.runtime.paged import PagedKVCache
+
+    log("paged slice: forward_paged_* (kernels 5-7) vs the dense forward, both on the GPU")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 3)
+    n = 124
+    ids = torch.from_numpy(rng.integers(3, cfg.n_vocab, size=n + 8)).to(dev)[None]
+    cache = KVCache.create(cfg, 1, S_CTX, torch.bfloat16, dev)
+    pool = PagedKVCache.create(cfg, 6, PAGED_PS, torch.bfloat16, dev)
+    table = torch.tensor([[3, 1]], dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        h_d, _ = forward(cfg, params, ids[:, :n], cache, torch.zeros(1, dtype=torch.int32,
+                                                                     device=dev))
+        h_p, _ = forward_paged_prefill(cfg, params, ids[:, :n], pool, table)
+        pairs = [(h_p[:, -1], h_d[:, -1])]
+        for i in range(n, n + 8):
+            pos = torch.tensor([i], dtype=torch.int32, device=dev)
+            h_d, _ = forward(cfg, params, ids[:, i:i + 1], cache, pos)
+            h_p, _ = forward_paged_decode(cfg, params, ids[:, i:i + 1], pool, table, pos)
+            pairs.append((h_p[:, 0], h_d[:, 0]))
+        for i, (hp, hd) in enumerate(pairs):
+            a = logits_from_hidden(cfg, params, hp).float().cpu()
+            b = logits_from_hidden(cfg, params, hd).float().cpu()
+            err, tol = (a - b).abs().max().item(), SLICE_TOL * b.abs().max().item()
+            log(f"paged step {i} ({'prefill' if i == 0 else f'decode at {n + i - 1}'}): "
+                f"max |logit diff| {err:.3e} (tol {tol:.3e}), "
+                f"argmax equal {int(a.argmax()) == int(b.argmax())}")
+            if not (bool(torch.isfinite(a).all()) and err <= tol):
+                raise AssertionError(f"paged slice step {i}: {err} > {tol}")
+
+
+def phase_serve(kernel_mods) -> tuple:
     import torch
 
     from tokenhawk_tpu_torch.config import SamplingConfig
@@ -347,7 +542,7 @@ def phase_serve(kernel_mods) -> dict:
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel of the path was never launched: {counts}")
     _profile_request(engines[id(greedy)], [1] + rng.integers(3, cfg.n_vocab, size=4).tolist())
-    return counts
+    return counts, params
 
 
 def _profile_request(engine, prompt) -> None:
@@ -368,21 +563,33 @@ def _profile_request(engine, prompt) -> None:
         f"profiler): wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms, "
         f"idle share {1 - busy / wall:.1%}")
     for e in avgs[:8]:
-        name = e.key.split("(")[0].replace("void ", "")[:90]
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {name}")
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {_kernel_name(e.key)}")
 
 
-def phase_cli() -> None:
+def _kernel_name(key: str) -> str:
+    """A profiler key without its argument list (kernels in an anonymous
+    namespace keep their name)."""
+    return key.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")[:90]
+
+
+def _padded_vocab(V: int):
+    """Byte-fallback tokens padded with unused pieces to V: (tokens, scores)."""
+    from tokenhawk_tpu_torch.tokenizer import byte_fallback_vocab
+
+    vocab = byte_fallback_vocab()
+    return (vocab.id_to_token + [f"<unused{i}>".encode() for i in range(V - vocab.n_vocab)],
+            vocab.scores + [-1e9] * (V - vocab.n_vocab))
+
+
+def write_two_layer_file(path: str) -> None:
+    """A random 2-layer LLaMA-7B-width ggjt Q4_0 file (phases 4c and 5)."""
     import torch
 
-    from tokenhawk_tpu_torch import cli
     from tokenhawk_tpu_torch.ggml.format import GGMLType
     from tokenhawk_tpu_torch.ggml.quants import QuantizedTensor
     from tokenhawk_tpu_torch.ggml.writer import write_ggml
     from tokenhawk_tpu_torch.ops.qweight import QWeight
-    from tokenhawk_tpu_torch.tokenizer import byte_fallback_vocab
 
-    log("== phase 5: CLI on a 2-layer 7B-width ggjt Q4_0 file")
     cfg = _seven_b(2)
     D, F, V = cfg.n_embd, cfg.n_ff, cfg.n_vocab
     dev = torch.device("cuda")
@@ -407,20 +614,272 @@ def phase_cli() -> None:
             p + "feed_forward.w1.weight": q4(F, D), p + "feed_forward.w2.weight": q4(D, F),
             p + "feed_forward.w3.weight": q4(F, D),
             p + "attention_norm.weight": gain(), p + "ffn_norm.weight": gain()})
-    vocab = byte_fallback_vocab()
-    tokens = vocab.id_to_token + [f"<unused{i}>".encode() for i in range(V - vocab.n_vocab)]
-    scores = vocab.scores + [-1e9] * (V - vocab.n_vocab)
+    tokens, scores = _padded_vocab(V)
     hp = dict(n_vocab=V, n_embd=D, n_mult=cfg.n_mult, n_head=cfg.n_head,
               n_layer=cfg.n_layer, n_rot=cfg.head_dim, ftype=2)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "llama7b-2layer-q4_0.bin")
-        write_ggml(path, hp, tokens, scores, tensors)
-        log(f"wrote {path} ({os.path.getsize(path) / 1e6:.1f} MB)")
-        rc = cli.main(["-m", path, "Hello", "--greedy", "--max-tokens", "16", "--n-ctx", "512"])
+    write_ggml(path, hp, tokens, scores, tensors)
+    log(f"wrote {path} ({os.path.getsize(path) / 1e6:.1f} MB)")
+
+
+def phase_cli(path: str) -> None:
+    from tokenhawk_tpu_torch import cli
+
+    log("== phase 5: CLI on a 2-layer 7B-width ggjt Q4_0 file")
+    rc = cli.main(["-m", path, "Hello", "--greedy", "--max-tokens", "16", "--n-ctx", "512"])
     sys.stderr.flush()
     if rc != 0:
         raise AssertionError(f"cli returned {rc}")
     log("cli exit 0")
+
+
+def _reset_counts(mods) -> None:
+    for m in mods:
+        if isinstance(m.launches, dict):
+            m.launches.update({k: 0 for k in m.launches})
+        else:
+            m.launches = 0
+
+
+def _read_counts(mods) -> dict:
+    counts = {}
+    for m in mods:
+        if isinstance(m.launches, dict):
+            counts.update(m.launches)
+        else:
+            counts[m.__name__.rsplit(".", 1)[-1]] = m.launches
+    return counts
+
+
+def phase_paged_serve(params, kernel_mods):
+    """The paged server's main path at full width.  Returns (launch counts
+    of the run, the scheduler, its tokenizer)."""
+    import dataclasses
+
+    import torch
+
+    from tokenhawk_tpu_torch.config import SamplingConfig
+    from tokenhawk_tpu_torch.runtime.paged_scheduler import PagedScheduler
+    from tokenhawk_tpu_torch.runtime.scheduler import Request
+    from tokenhawk_tpu_torch.tokenizer import Tokenizer
+
+    log("== phase 4b: paged serve, LLaMA-7B Q4_0, 32 layers, bf16 pages of 128, max_batch 8, "
+        "n_ctx 2048, prefix cache, prefill chunk 512")
+    cfg = dataclasses.replace(_seven_b(32), n_ctx=2048)
+    greedy = SamplingConfig(temperature=0.0)
+    sampled = SamplingConfig(temperature=0.8, top_k=40, top_p=0.95, seed=SEED)
+    sched = PagedScheduler(cfg, params, sampling=greedy, max_batch=8, max_seq=2048,
+                           page_size=PAGED_PS, prefix_cache=True, prefill_chunk=512, eos_id=-1)
+    log(f"pool: {sched.n_pages} pages of {PAGED_PS} tokens, layout {sched.layout}, "
+        f"{sum(k.nbytes + v.nbytes for k, v in zip(sched.cache.k, sched.cache.v)) / 1e9:.3f} GB")
+    rng = np.random.default_rng(SEED + 4)
+    V = cfg.n_vocab
+    shared = [1] + rng.integers(3, V, 383).tolist()  # 3 full pages
+    prompts = [shared + rng.integers(3, V, 20 + 10 * i).tolist() for i in range(4)]
+    prompts += [[1] + rng.integers(3, V, n - 1).tolist()
+                for n in (1500, 5, 100, 300, 37, 700, 64, 200)]
+    reqs = [Request(prompt=p, max_new_tokens=64, sampling=sampled if i % 2 else None)
+            for i, p in enumerate(prompts)]
+    decode = {"s": 0.0, "chunks": 0}
+    run_decode = sched._decode
+
+    def timed_decode(*args):
+        t = time.perf_counter()
+        out = run_decode(*args)
+        torch.cuda.synchronize()  # the step reads the ids right after anyway
+        decode["s"] += time.perf_counter() - t
+        decode["chunks"] += 1
+        return out
+
+    sched._decode = timed_decode
+    _reset_counts(kernel_mods)
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts(kernel_mods)
+    sched._decode = run_decode
+    n_out = sum(len(r.output) for r in reqs)
+    log(f"12 requests ({sum(len(p) for p in prompts)} prompt tokens, {n_out} generated) in "
+        f"{wall:.2f} s: {n_out / wall:.1f} tok/s overall; decode {decode['chunks']} chunks, "
+        f"{decode['s']:.2f} s, {(n_out - len(reqs)) / decode['s']:.1f} tok/s")
+    for r in reqs:
+        log(f"  prompt {len(r.prompt):5d} tok, {'sampled' if r.sampling else 'greedy '}: "
+            f"{len(r.output)} tokens, {r.finish_reason}, ttft {r.ttft_seconds:.3f} s")
+    log(f"prefix cache hits {sched.prefix_hits} pages; kernel launches in the run: {counts}")
+    bad = [(len(r.output), r.finish_reason) for r in reqs
+           if r.finish_reason != "length" or len(r.output) != 64
+           or not all(0 <= t < V for t in r.output)]
+    if bad:
+        raise AssertionError(f"requests that did not finish cleanly: {bad}")
+    if sched.prefix_hits <= 0:
+        raise AssertionError("the shared prefix was never reused")
+    # Every kernel but kernel 3 (the dense cache's decode) is on this path.
+    if min(n for k, n in counts.items() if k != "flash_decode") <= 0:
+        raise AssertionError(f"a kernel of the path was never launched: {counts}")
+    parked = set(sched._pc.values())
+    if (sched.alloc.n_free + len(parked) != sched.n_pages - 1
+            or any(sched.page_refs.get(p, 0) for p in parked)):
+        raise AssertionError(f"page leak: {sched.alloc.n_free} free + {len(parked)} cached "
+                             f"of {sched.n_pages}")
+    log(f"pages: {sched.alloc.n_free} free + {len(parked)} cached at refcount 0 + 1 trash "
+        f"= {sched.n_pages}; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    _profile_paged(sched, rng, V)
+    tokens, scores = _padded_vocab(V)
+    return counts, sched, Tokenizer(tokens, scores)
+
+
+def _profile_paged(sched, rng, V) -> None:
+    """Device busy time against wall time over the decode of 8 concurrent
+    greedy requests (100-token prompts, 32 tokens each): the admission
+    step runs first, outside the profiler; the window holds the three
+    decode chunks that follow."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tokenhawk_tpu_torch.runtime.scheduler import Request
+
+    reqs = [Request(prompt=[1] + rng.integers(3, V, 99).tolist(), max_new_tokens=32)
+            for _ in range(8)]
+    for r in reqs:
+        sched.submit(r)
+    sched.step()  # admissions (prefill) and the first decode chunk
+    torch.cuda.synchronize()
+    before = sum(len(r.output) for r in reqs)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps = 0
+        while sched.has_work:
+            sched.step()
+            steps += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avgs = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in avgs) / 1e6
+    n_tok = sum(len(r.output) for r in reqs) - before
+    log(f"profiled paged decode (8 slots, {steps} chunks, {n_tok} tokens, profiler on): wall "
+        f"{wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms, idle share {1 - busy / wall:.1%}")
+    for e in avgs[:8]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {_kernel_name(e.key)}")
+    for e in avgs:
+        m = re.search(r"paged_decode_kernel|paged_append_kernel|gather_pages_kernel", e.key)
+        if m:
+            log(f"  {m.group(0)}: {e.self_device_time_total / 1e3:.3f} ms over {e.count} "
+                f"launches, {e.self_device_time_total / max(e.count, 1):.2f} us each")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _post(url: str, payload: dict, timeout: float = 600) -> str:
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read().decode()
+
+
+def _get_json(url: str, timeout: float = 30) -> dict:
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _sse_finish(body: str) -> tuple:
+    """(finish_reason, number of token frames) of a /generate SSE body."""
+    frames = [f for f in body.split("\n\n") if f.strip()]
+    if not frames or not frames[-1].startswith("event: done"):
+        raise AssertionError(f"stream did not end with event: done: {body[-300:]!r}")
+    return (json.loads(frames[-1].split("data: ", 1)[1])["finish_reason"],
+            sum(f.startswith("data: ") for f in frames))
+
+
+def phase_http(sched, tokenizer, model_path: str, tmp: str) -> None:
+    from tokenhawk_tpu_torch.serving.server import serve
+
+    log("== phase 4c: HTTP, serve() over the paged scheduler, then the entry point, "
+        "dense and paged")
+    httpd = serve(sched, tokenizer, host="127.0.0.1", port=0,
+                  model_info={"model": "llama-7b-q4_0-random"})
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        bodies = [None] * 4
+
+        def stream(i):
+            bodies[i] = _post(base + "/generate", {"prompt": f"Request {i}: tell me a story",
+                                                   "max_tokens": 32})
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=stream, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        ends = [_sse_finish(b) if b else ("no response", 0) for b in bodies]
+        comp = json.loads(_post(base + "/v1/completions", {"prompt": "Hello", "max_tokens": 16}))
+        health = _get_json(base + "/health")
+        log(f"4 concurrent /generate streams in {time.perf_counter() - t0:.2f} s: "
+            f"(finish, token frames) {ends}; /v1/completions finish "
+            f"{comp['choices'][0]['finish_reason']}, {comp['usage']}; /health steps "
+            f"{health['steps']}, step_errors {health['step_errors']}")
+        if health["step_errors"] != 0:
+            raise AssertionError(f"the serving loop swallowed step errors: {health['last_error']}")
+        if any(r not in ("length", "stop") for r, _ in ends) or \
+                comp["choices"][0]["finish_reason"] not in ("length", "stop"):
+            raise AssertionError(f"a request did not finish cleanly: {ends}, {comp}")
+    finally:
+        httpd.shutdown()
+        httpd.serving_loop.stop()
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    for extra in ([], ["--paged", "--prefill-chunk", "128"]):
+        _serve_subprocess(root, model_path, tmp, extra)
+
+
+def _serve_subprocess(root: str, model_path: str, tmp: str, extra: list) -> None:
+    """`python -m tokenhawk_tpu_torch.serving` on the 2-layer file: wait for
+    /health, stream one request to its end, stop the process."""
+    port = _free_port()
+    kind = "PagedScheduler" if "--paged" in extra else "dense Scheduler"
+    log_path = os.path.join(tmp, "serving.log")
+    cmd = [sys.executable, "-m", "tokenhawk_tpu_torch.serving", "-m", model_path,
+           "--port", str(port), "--n-ctx", "512", "--max-batch", "2", "--greedy", *extra]
+    base = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=root, stdout=out, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, PYTHONPATH=root))
+        try:
+            while True:
+                try:
+                    _get_json(base + "/health", timeout=5)
+                    break
+                except OSError:
+                    if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                        raise AssertionError("the server did not come up:\n"
+                                             + open(log_path).read()[-3000:])
+                    time.sleep(0.5)
+            up = time.perf_counter() - t0
+            reason, n = _sse_finish(_post(base + "/generate", {"prompt": "Hello",
+                                                               "max_tokens": 16}))
+            health = _get_json(base + "/health")
+            log(f"{' '.join(['python -m tokenhawk_tpu_torch.serving', *extra])} ({kind}, "
+                f"2-layer file): up in {up:.1f} s, /generate finish {reason} with {n} token "
+                f"frames, step_errors {health['step_errors']}")
+            if reason not in ("length", "stop") or health["step_errors"] != 0:
+                raise AssertionError(open(log_path).read()[-3000:])
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
 
 
 def main() -> int:
@@ -429,17 +888,32 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
-    from tokenhawk_tpu_torch.ops.cuda import ffn, flash_attention, flash_decode, qmatmul
+    from tokenhawk_tpu_torch.ops.cuda import (
+        ffn,
+        flash_attention,
+        flash_decode,
+        paged_decode,
+        qmatmul,
+    )
 
     t0 = time.perf_counter()
     phase_env()
     records = phase_kernels()
     phase_slice()
     mods = [qmatmul, ffn, flash_decode, flash_attention]
-    counts = phase_serve(mods)
+    counts, params = phase_serve(mods)
+    paged_counts, sched, tokenizer = phase_paged_serve(params, mods + [paged_decode])
+    # Each kernel's launches on the path of the slice that added it: the
+    # Engine run for kernels 1-4, the paged server's run for kernels 5-7.
     for rec, m in zip(records, mods):
         rec["launches"] = counts[m.__name__.rsplit(".", 1)[-1]]
-    phase_cli()
+    for rec in records[len(mods):]:
+        rec["launches"] = paged_counts[rec["name"]]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "llama7b-2layer-q4_0.bin")
+        write_two_layer_file(path)
+        phase_http(sched, tokenizer, path, tmp)
+        phase_cli(path)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -21,7 +21,7 @@ from tokenhawk_tpu_torch.config import LlamaConfig
 from tokenhawk_tpu_torch.ggml.quants import quantize_q4_0
 from tokenhawk_tpu_torch.ggml.writer import write_ggml
 from tokenhawk_tpu_torch.models import llama as tl
-from tokenhawk_tpu_torch.ops.cuda import ffn, flash_attention, flash_decode, qmatmul
+from tokenhawk_tpu_torch.ops.cuda import ffn, flash_attention, flash_decode, paged_decode, qmatmul
 from tokenhawk_tpu_torch.ops.qweight import QWeight
 from tokenhawk_tpu_torch.runtime.engine import make_prefill_fn
 from tokenhawk_tpu_torch.runtime.loader import load_model
@@ -169,4 +169,82 @@ def test_slice_gpu_matches_cpu(tmp_path):
         return out
 
     for a, b in zip(run(dev), run(torch.device("cpu"))):
+        assert _err(a, b) <= 1e-3 * b.abs().max().item()
+
+
+def _pools(g, dev, layout, Hkv, n_pages, ps, dtype):
+    shape = (n_pages, Hkv, ps, Dh) if layout == "contig" else (Hkv, n_pages, ps, Dh)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(2)]
+
+
+@pytest.mark.parametrize("layout", ["contig", "head"])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_kernel_matches_plain(layout, rep, dtype):
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(rep)
+    B, Hkv, ps, mp, n_pages = 5, 4, 128, 4, 24
+    kp, vp = _pools(g, dev, layout, Hkv, n_pages, ps, dtype)
+    table = torch.randperm(n_pages, generator=g, device=dev)[:B * mp].reshape(B, mp).int()
+    lengths = torch.tensor([1, 37, 128, 129, 0], dtype=torch.int32, device=dev)
+    q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).to(dtype)
+    got = paged_decode.paged_decode(q, kp, vp, table, lengths, layout)
+    want = paged_decode.paged_decode_plain(q, kp, vp, table, lengths, layout)
+    assert torch.equal(got[4], torch.zeros_like(got[4]))  # length 0 -> zeros, not NaN
+    assert _err(got, want) <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("layout", ["contig", "head"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_append_and_gather_kernels_match_plain(layout, dtype):
+    """Exact: distinct slots of one page all land; two rows on the trash
+    page (page 0) leave it unspecified, so it is left out."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(7)
+    Hkv, ps, n_pages = 4, 128, 10
+    kp, vp = _pools(g, dev, layout, Hkv, n_pages, ps, dtype)
+    kq, vq = kp.clone(), vp.clone()
+    page = torch.tensor([3, 0, 3, 0, 8], dtype=torch.int32, device=dev)
+    slot = torch.tensor([5, 9, 127, 9, 0], dtype=torch.int32, device=dev)
+    kn = torch.randn(5, Hkv, Dh, generator=g, device=dev).to(dtype)
+    vn = torch.randn(5, Hkv, Dh, generator=g, device=dev).to(dtype)
+    paged_decode.paged_append(kp, vp, kn, vn, page, slot, layout)
+    paged_decode.paged_append_plain(kq, vq, kn, vn, page, slot, layout)
+    live = slice(1, None)
+    for a, b in ((kp, kq), (vp, vq)):
+        if layout == "contig":
+            assert torch.equal(a[live], b[live])
+        else:
+            assert torch.equal(a[:, live], b[:, live])
+    table = torch.randint(0, n_pages, (3, 5), generator=g, device=dev, dtype=torch.int32)
+    got = paged_decode.gather_pages(kp, vp, table, layout)
+    want = paged_decode.gather_pages_plain(kp, vp, table, layout)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_paged_forward_decode_matches_dense_on_the_card():
+    """A tiny 2-layer model (head dim 128) on the card: prefill 120 tokens
+    into pages, then 12 decode steps across the page boundary, against the
+    dense forward: logits within 1e-3 of the largest (f32 everything)."""
+    from tokenhawk_tpu_torch.runtime.paged import PagedKVCache
+
+    dev = cuda_device()
+    cfg = LlamaConfig.tiny(n_vocab=300, n_embd=256, n_head=2, n_layer=2, n_ff=512, n_ctx=256)
+    g = torch.Generator(device=dev).manual_seed(3)
+    params = tl.fuse_params(tl.init_params(cfg, g, dtype=torch.float32, device=dev,
+                                           scale=0.05, quant="q4_0"))
+    ids = torch.randint(3, 300, (1, 132), generator=g, device=dev)
+    cache = tl.KVCache.create(cfg, 1, 256, torch.float32, dev)
+    h_d, _ = tl.forward(cfg, params, ids[:, :120], cache, torch.zeros(1, dtype=torch.int32,
+                                                                      device=dev))
+    pool = PagedKVCache.create(cfg, 6, 128, torch.float32, dev)
+    table = torch.tensor([[4, 1]], dtype=torch.int32, device=dev)
+    h_p, _ = tl.forward_paged_prefill(cfg, params, ids[:, :120], pool, table)
+    assert _err(h_p, h_d) <= 1e-3 * h_d.abs().max().item()
+    for i in range(120, 132):
+        pos = torch.tensor([i], dtype=torch.int32, device=dev)
+        h_d, _ = tl.forward(cfg, params, ids[:, i:i + 1], cache, pos)
+        h_p, _ = tl.forward_paged_decode(cfg, params, ids[:, i:i + 1], pool, table, pos)
+        a = tl.logits_from_hidden(cfg, params, h_p[:, 0])
+        b = tl.logits_from_hidden(cfg, params, h_d[:, 0])
         assert _err(a, b) <= 1e-3 * b.abs().max().item()

@@ -23,7 +23,6 @@ from tokenhawk_tpu.ggml.format import GGMLType
 from tokenhawk_tpu.ggml.quants import quantize
 from tokenhawk_tpu.ggml.writer import write_ggml
 from tokenhawk_tpu.models.llama import params_from_ggml as j_params_from_ggml
-from tokenhawk_tpu.ops.qweight import QWeight as JQWeight
 from tokenhawk_tpu.runtime.engine import Engine as JEngine
 from tokenhawk_tpu.runtime.engine import make_prefill_fn as j_make_prefill_fn
 from tokenhawk_tpu.runtime.loader import load_model as j_load_model
@@ -37,7 +36,7 @@ from tokenhawk_tpu_torch.runtime.engine import make_prefill_fn as t_make_prefill
 from tokenhawk_tpu_torch.runtime.loader import load_model as t_load_model
 
 from helpers import make_ggml_weights
-from torch_helpers import padded_vocab
+from torch_helpers import numpy_params, padded_vocab
 
 CFG = LlamaConfig.tiny(n_vocab=300, n_embd=256, n_head=2, n_layer=2, n_ff=512, n_ctx=256)
 PROMPT = "hello world, once more"
@@ -70,26 +69,6 @@ def loaded(model_path):
     return j, t
 
 
-def _numpy_params(params):
-    """The JAX package's LlamaParams as the numpy mapping params_from_jax takes."""
-
-    def conv(w):
-        if w is None:
-            return None
-        if isinstance(w, JQWeight):
-            return {"qs": np.asarray(w.qs), "scales": np.asarray(w.scales, np.float32),
-                    "scales_hi": np.asarray(w.scales_hi, np.float32)}
-        return np.asarray(w, np.float32)
-
-    def layer(lp):
-        return {f.name: conv(getattr(lp, f.name)) for f in dataclasses.fields(lp)}
-
-    lay = params.layers
-    return {"tok_embd": conv(params.tok_embd), "norm": conv(params.norm),
-            "output": conv(params.output),
-            "layers": [layer(lp) for lp in lay] if isinstance(lay, tuple) else layer(lay)}
-
-
 def _assert_params_equal(a: tl.LlamaParams, b: tl.LlamaParams):
     def eq(x, y):
         assert type(x) is type(y)
@@ -112,7 +91,7 @@ def test_load_model_matches_jax(loaded):
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
     assert tcfg.rope_style == "half"
     assert jtok.id_to_token == ttok.id_to_token
-    _assert_params_equal(tl.params_from_jax(_numpy_params(jparams)), tparams)
+    _assert_params_equal(tl.params_from_jax(numpy_params(jparams)), tparams)
 
 
 def test_params_from_jax_stacked_matches_params_from_ggml():
@@ -124,7 +103,7 @@ def test_params_from_jax_stacked_matches_params_from_ggml():
     tp = tl.params_from_ggml(tcfg, {k: v if isinstance(v, np.ndarray) else TQuantizedTensor(
         v.kind, v.shape, v.qs, v.scales, v.mins) for k, v in tensors.items()},
         dtype=torch.float32, device="cpu")
-    _assert_params_equal(tl.params_from_jax(_numpy_params(jp)), tp)
+    _assert_params_equal(tl.params_from_jax(numpy_params(jp)), tp)
 
 
 def _prefill_logits_match(loaded):

@@ -2,8 +2,9 @@
 
 A subprocess blocks `jax` (sys.modules["jax"] = None makes any import of
 it fail), imports every module of tokenhawk_tpu_torch, checks that
-nothing of tokenhawk_tpu came along, and runs a tiny Engine.generate on
-the CPU.  A source scan backs it up for imports inside functions.
+nothing of tokenhawk_tpu came along, and runs a tiny Engine.generate and
+both continuous-batching schedulers on the CPU.  A source scan backs it
+up for imports inside functions.
 """
 
 import re
@@ -34,6 +35,13 @@ for quant in ("q4_0", None):  # Q4_0 projections, then dense ones
                  cache_dtype=torch.float32, decode_chunk=4, eos_id=-1)
     r = eng.generate("hi there", max_new_tokens=9)
     assert len(r.tokens) == 9 and all(0 <= t < 300 for t in r.tokens), r.tokens
+from tokenhawk_tpu_torch.runtime.paged_scheduler import PagedScheduler
+from tokenhawk_tpu_torch.runtime.scheduler import Scheduler
+for sched in (PagedScheduler(cfg, params, max_batch=2, cache_dtype=torch.float32, page_size=16,
+                             prefix_cache=True, prefill_chunk=32, eos_id=-1),
+              Scheduler(cfg, params, max_batch=2, cache_dtype=torch.float32, eos_id=-1)):
+    reqs = sched.generate_many([[1, 5, 9], list(range(3, 70))], max_new_tokens=5)
+    assert [r.finish_reason for r in reqs] == ["length"] * 2, reqs
 print("OK", len(names))
 """
 

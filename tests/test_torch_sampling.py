@@ -1,10 +1,13 @@
 """The port's sampling against the JAX package's.
 
-Masks and greedy picks must be identical (same f32 arithmetic); draws
-come from different generators, so the sampled frequencies are held to
-the probabilities the JAX pipeline computes, by a chi-square test at
-p > 1e-4 on 40000 draws.
+Masks and greedy picks must be identical (same f32 arithmetic), and the
+per-slot processed distributions within 1e-6 (a sort, softmax and
+cumulative sum in another order); draws come from different generators,
+so the sampled frequencies are held to the processed probabilities by a
+chi-square test at p > 1e-4 on 40000 draws.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -73,3 +76,94 @@ def test_eos_helpers_match():
     tok = np.array([1, 2, 5, 7])
     np.testing.assert_array_equal(ts.is_eos(torch.from_numpy(tok), (2, 7)).numpy(),
                                   np.asarray(js.is_eos(jnp.asarray(tok), (2, 7))))
+
+
+# -- per-slot sampling (continuous batching) ---------------------------------
+
+CFGS = [SamplingConfig(temperature=0.0),
+        SamplingConfig(temperature=0.8, top_k=8, top_p=0.9, repeat_penalty=1.2),
+        SamplingConfig(temperature=1.3, top_k=0, top_p=1.0, repeat_penalty=1.0),
+        SamplingConfig(temperature=0.5, top_k=40, top_p=0.5, repeat_penalty=1.1, seed=7)]
+
+
+def _sp_pair(cfgs):
+    tcfgs = [TSamplingConfig(**dataclasses.asdict(c)) for c in cfgs]
+    return (js.SamplingParams.from_configs(cfgs, len(cfgs)),
+            ts.SamplingParams.from_configs(tcfgs, len(tcfgs)))
+
+
+def test_sampling_params_slot_updates_match_jax():
+    """broadcast, then set_slot (one slot) and set_rows (a scattered
+    group) leave the same per-slot values as the reference's set_slot."""
+    tcfgs = [TSamplingConfig(**dataclasses.asdict(c)) for c in CFGS]
+    jsp = js.SamplingParams.broadcast(CFGS[0], 4)
+    tsp = ts.SamplingParams.broadcast(tcfgs[0], 4)
+    jsp = jsp.set_slot(2, js.SamplingParams.slot_values(CFGS[1]))
+    tsp.set_slot(2, ts.SamplingParams.slot_values(tcfgs[1]))
+    for slot, i in ((3, 2), (0, 3)):
+        jsp = jsp.set_slot(slot, js.SamplingParams.slot_values(CFGS[i]))
+    tsp.set_rows(torch.tensor([3, 0]), ts.SamplingParams.from_configs(tcfgs[2:], 2))
+    want = [jsp.temperature, jsp.top_k, jsp.top_p, jsp.repeat_penalty, jsp.seed]
+    for got, w in zip(tsp.fields(), want):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(w).astype(got.numpy().dtype))
+
+
+def test_processed_probs_dynamic_matches_jax():
+    x = _logits(21, B=4, V=64)
+    last = np.array([[-1, 5, 7, 5], [0, -1, -1, -1], [63, 1, 2, 3], [9, 9, 10, 11]])
+    jsp, tsp = _sp_pair(CFGS)
+    want = np.asarray(js.processed_probs_dynamic(jnp.asarray(x), jsp, jnp.asarray(last)))
+    got = ts.processed_probs_dynamic(torch.from_numpy(x), tsp, torch.from_numpy(last))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+    # Greedy rows: the raw argmax, taken before the penalty.
+    got_ids = ts.sample_dynamic(torch.from_numpy(x), tsp, torch.zeros(4, dtype=torch.int64),
+                                torch.from_numpy(last))
+    want_ids = np.asarray(js.sample_dynamic(jnp.asarray(x), jsp, jnp.zeros(4, jnp.int32),
+                                            jnp.asarray(last)))
+    assert got_ids[0] == want_ids[0] == x[0].argmax()
+
+
+def test_sample_dynamic_slot_independent_of_its_batch():
+    """Row b's draw depends only on (logits[b], its params, seed, counter)."""
+    x = _logits(22, B=4, V=64)
+    _, tsp = _sp_pair(CFGS)
+    counters = torch.tensor([3, 17, 5, 0])
+    full = ts.sample_dynamic(torch.from_numpy(x), tsp, counters)
+    for b in range(4):
+        one = ts.SamplingParams(*[a[b:b + 1] for a in tsp.fields()])
+        alone = ts.sample_dynamic(torch.from_numpy(x[b:b + 1]), one, counters[b:b + 1])
+        assert alone.item() == full[b].item()
+    again = ts.sample_dynamic(torch.from_numpy(x), tsp, counters)
+    assert torch.equal(full, again)
+
+
+def test_sample_dynamic_draws_fit_processed_distribution():
+    """40000 draws of one slot over consecutive counters (its real stream)
+    against the processed probabilities: chi-square p > 1e-4; masked
+    tokens never drawn."""
+    V, n = 24, 40000
+    x = _logits(23, B=1, V=V)
+    last = np.array([[2, 3, -1]])
+    cfg = TSamplingConfig(temperature=0.8, top_k=12, top_p=0.9, repeat_penalty=1.2, seed=99)
+    sp = ts.SamplingParams.broadcast(cfg, n)
+    logits = torch.from_numpy(np.repeat(x, n, 0))
+    rings = torch.from_numpy(np.repeat(last, n, 0))
+    draws = ts.sample_dynamic(logits, sp, torch.arange(n), rings).numpy()
+    probs = ts.processed_probs_dynamic(logits[:1], ts.SamplingParams.broadcast(cfg, 1),
+                                       rings[:1])[0].double().numpy()
+    counts = np.bincount(draws, minlength=V)
+    assert counts[probs == 0].sum() == 0
+    live = probs > 0
+    assert chisquare(counts[live], probs[live] / probs[live].sum() * n).pvalue > 1e-4
+    # Another seed gives another stream of the same distribution.
+    other = ts.sample_dynamic(logits, ts.SamplingParams.broadcast(
+        dataclasses.replace(cfg, seed=100), n), torch.arange(n), rings).numpy()
+    assert (other != draws).mean() > 0.3
+
+
+def test_uniform_rows_are_uniform_and_open():
+    u = ts.uniform_rows(torch.tensor([1, 2**31 - 1]), torch.tensor([0, 12345]), 50000)
+    assert float(u.min()) > 0.0 and float(u.max()) < 1.0
+    for row in u.numpy():
+        hist = np.histogram(row, bins=20, range=(0, 1))[0]
+        assert chisquare(hist).pvalue > 1e-4

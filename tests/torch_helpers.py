@@ -43,3 +43,36 @@ def padded_vocab(n: int):
     pad = n - v.n_vocab
     return (v.id_to_token + [f"<unused{i}>".encode() for i in range(pad)],
             v.scores + [-1e9] * pad)
+
+
+def numpy_params(params):
+    """The JAX package's LlamaParams as the numpy mapping the port's
+    params_from_jax takes (stacked or unrolled layers)."""
+    import dataclasses
+
+    from tokenhawk_tpu.ops.qweight import QWeight as JQWeight
+
+    def conv(w):
+        if w is None:
+            return None
+        if isinstance(w, JQWeight):
+            return {"qs": np.asarray(w.qs), "scales": np.asarray(w.scales, np.float32),
+                    "scales_hi": np.asarray(w.scales_hi, np.float32)}
+        return np.asarray(w, np.float32)
+
+    def layer(lp):
+        return {f.name: conv(getattr(lp, f.name)) for f in dataclasses.fields(lp)}
+
+    lay = params.layers
+    return {"tok_embd": conv(params.tok_embd), "norm": conv(params.norm),
+            "output": conv(params.output),
+            "layers": [layer(lp) for lp in lay] if isinstance(lay, tuple) else layer(lay)}
+
+
+def port_config(jcfg):
+    """The port's LlamaConfig equal to a JAX LlamaConfig."""
+    import dataclasses
+
+    from tokenhawk_tpu_torch.config import LlamaConfig
+
+    return LlamaConfig(**dataclasses.asdict(jcfg))

@@ -11,6 +11,8 @@ CUDA kernels:
   decode FFN (<= 8 rows)          kernel 2, fused SwiGLU + residual
   decode attention                kernel 3, append + attend in place
   prefill attention               kernel 4, causal flash attention
+  paged decode (forward_paged_*)  kernels 6 + 5, paged append + attend;
+                                  chunked prefill gathers pages (kernel 7)
 
 Weight orientation is [in, out] (y = x @ W) at every public function,
 as in the reference, whatever the Q4_0 storage layout.
@@ -34,6 +36,14 @@ from tokenhawk_tpu_torch.ops.cuda.flash_decode import flash_decode_append
 from tokenhawk_tpu_torch.ops.linear import matmul
 from tokenhawk_tpu_torch.ops.qweight import ArrayOrQ, QWeight, concat_qweights, take_columns
 from tokenhawk_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from tokenhawk_tpu_torch.runtime.paged import (
+    PagedKVCache,
+    append_token_layer,
+    attend_paged_layer,
+    gather_pages,
+    paginate_fragment_layer,
+    paginate_fragment_layer_at,
+)
 
 
 @dataclasses.dataclass
@@ -138,8 +148,8 @@ def _ffn_block(cfg: LlamaConfig, x, lp: LayerParams):
     return x + matmul(gate * u, lp.w2)
 
 
-def _layer_forward(cfg: LlamaConfig, x, lp: LayerParams, kc, vc, cos, sin, offsets,
-                   positions):
+def _qkv(cfg: LlamaConfig, x, lp: LayerParams, cos, sin):
+    """Normed q / k / v projections with RoPE: [B, T, H|Hkv, Dh] each."""
     B, T, D = x.shape
     H, Hkv, Dh = cfg.n_head, cfg.n_kv_head, cfg.head_dim
     Dq, Dkv = H * Dh, Hkv * Dh
@@ -153,11 +163,21 @@ def _layer_forward(cfg: LlamaConfig, x, lp: LayerParams, kc, vc, cos, sin, offse
         q = matmul(x, lp.wq, lp.attn_norm, eps=eps).reshape(B, T, H, Dh)
         k = matmul(x, lp.wk, lp.attn_norm, eps=eps).reshape(B, T, Hkv, Dh)
         v = matmul(x, lp.wv, lp.attn_norm, eps=eps).reshape(B, T, Hkv, Dh)
-    q = apply_rope(q, cos, sin, cfg.rope_style)
-    k = apply_rope(k, cos, sin, cfg.rope_style)
-    ctx = _attend_and_update(cfg, q, k, v, kc, vc, offsets, positions)
-    x = x + matmul(ctx.reshape(B, T, Dq), lp.wo)
+    return apply_rope(q, cos, sin, cfg.rope_style), apply_rope(k, cos, sin, cfg.rope_style), v
+
+
+def _wo_ffn_block(cfg: LlamaConfig, x, ctx, lp: LayerParams):
+    """x + ctx @ Wo, then the SwiGLU MLP block with its residual."""
+    B, T = ctx.shape[:2]
+    x = x + matmul(ctx.reshape(B, T, -1), lp.wo)
     return _ffn_block(cfg, x, lp)
+
+
+def _layer_forward(cfg: LlamaConfig, x, lp: LayerParams, kc, vc, cos, sin, offsets,
+                   positions):
+    q, k, v = _qkv(cfg, x, lp, cos, sin)
+    ctx = _attend_and_update(cfg, q, k, v, kc, vc, offsets, positions)
+    return _wo_ffn_block(cfg, x, ctx, lp)
 
 
 def forward(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor, cache: KVCache,
@@ -171,6 +191,92 @@ def forward(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor, cache: 
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     for lp, kc, vc in zip(params.layers, cache.k, cache.v):
         x = _layer_forward(cfg, x, lp, kc, vc, cos, sin, offsets, positions)
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# Paged KV forwards (runtime/paged.py pools)
+# ---------------------------------------------------------------------------
+
+
+def _prefill_attention(q, k, v, offsets):
+    """Causal attention of q [B, T, H, Dh] (RoPE applied) over dense
+    k / v [B, Hkv, S, Dh] at query positions offsets[b] + t (kernel 4)."""
+    B, T, H, Dh = q.shape
+    Hkv = k.shape[1]
+    qg = (q * (1.0 / Dh**0.5)).reshape(B, T, Hkv, H // Hkv, Dh).permute(0, 2, 3, 1, 4)
+    out = flash_attention(qg, k, v, offsets.to(torch.int32))
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, Dh)
+
+
+def forward_paged_decode(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor,
+                         cache: PagedKVCache, page_table: torch.Tensor,
+                         lengths: torch.Tensor):
+    """One decode step over the paged pool: tokens [B, 1] land at position
+    lengths[b] (tokens already stored), through page_table [B, max_pages]
+    int32.  Returns (hidden [B, 1, D], the pool, updated in place)."""
+    x = params.tok_embd[tokens]
+    positions = lengths.long()[:, None]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    for lp, k_l, v_l in zip(params.layers, cache.k, cache.v):
+        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        append_token_layer(k_l, v_l, k[:, 0], v[:, 0], page_table, lengths, cache.layout)
+        ctx = attend_paged_layer(q, k_l, v_l, page_table, lengths + 1, cache.layout)
+        x = _wo_ffn_block(cfg, x, ctx, lp)
+    return x, cache
+
+
+def forward_paged_prefill(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor,
+                          cache: PagedKVCache, page_table: torch.Tensor):
+    """Prefill fresh prompts tokens [B, Tb] (positions 0..Tb-1) straight
+    into their pages: the block attends only to itself (kernel 4) and each
+    layer's K / V page out in place.  Padding rows past a prompt are
+    causally masked from its real rows.  Returns (hidden [B, Tb, D], the
+    pool)."""
+    B, T = tokens.shape
+    x = params.tok_embd[tokens]
+    positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    zeros = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
+    for lp, k_l, v_l in zip(params.layers, cache.k, cache.v):
+        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        k_b = k.transpose(1, 2).contiguous()  # [B, Hkv, T, Dh]
+        v_b = v.transpose(1, 2).contiguous()
+        ctx = _prefill_attention(q, k_b, v_b, zeros)
+        paginate_fragment_layer(k_l, k_b, page_table, cache.layout)
+        paginate_fragment_layer(v_l, v_b, page_table, cache.layout)
+        x = _wo_ffn_block(cfg, x, ctx, lp)
+    return x, cache
+
+
+def forward_paged_prefill_cont(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor,
+                               cache: PagedKVCache, page_table: torch.Tensor,
+                               start: torch.Tensor, n_new: torch.Tensor):
+    """One chunk tokens [B, C] of longer prompts, its first row at the
+    page-aligned position start[b], n_new[b] of its rows real: the chunk's
+    K / V page out in place, then every row attends to the slot's pages
+    gathered dense (kernel 7) up to its own position (kernel 4).
+
+    RoPE positions are the reference's: start + t for real rows, 0 for
+    padding rows.  The attention kernel places query t at start + t for
+    every row, which gives each real row exactly the reference's mask;
+    padding rows' outputs are discarded on both sides.  Returns
+    (hidden [B, C, D], the pool)."""
+    B, C = tokens.shape
+    x = params.tok_embd[tokens]
+    t = torch.arange(C, device=tokens.device)[None, :]
+    start = start.to(tokens.device)
+    positions = torch.where(t < n_new.to(tokens.device).long()[:, None],
+                            start.long()[:, None] + t, 0)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    start_page = start // cache.page_size
+    for lp, k_l, v_l in zip(params.layers, cache.k, cache.v):
+        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        paginate_fragment_layer_at(k_l, k.transpose(1, 2), page_table, start_page, cache.layout)
+        paginate_fragment_layer_at(v_l, v.transpose(1, 2), page_table, start_page, cache.layout)
+        kg, vg = gather_pages(k_l, v_l, page_table, cache.layout)
+        ctx = _prefill_attention(q, kg, vg, start)
+        x = _wo_ffn_block(cfg, x, ctx, lp)
     return x, cache
 
 

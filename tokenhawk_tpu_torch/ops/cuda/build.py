@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All of `tokenhawk_tpu_torch/csrc/*.cu` compile with nvcc into one shared
-library with a plain C interface, loaded through ctypes.  The build runs
+Each `tokenhawk_tpu_torch/csrc/*.cu` compiles with its own nvcc process,
+all started together, and the objects link into one shared library with a
+plain C interface, loaded through ctypes.  The build runs
 at first use, into `tokenhawk_tpu_torch/_build/`, under a name keyed by a
 hash of the sources and flags, so a checkout builds everything itself
 and a rebuilt source never loads a stale library.  A failed build raises.
@@ -25,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 _fns = {}
@@ -33,6 +34,7 @@ _fns = {}
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+LL = ctypes.c_longlong
 
 
 def nvcc() -> str:
@@ -57,12 +59,27 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{proc.stderr[-6000:]}")
+    tag = f"{so.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    cmds = [[nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+            for src, o in zip(sources, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    results = [(c, *p.communicate(), p.returncode) for c, p in zip(cmds, procs)]
+    tmp = so.with_name(f"{tag}.tmp")
+    if all(rc == 0 for *_, rc in results):
+        link = [nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, proc.stdout, proc.stderr, proc.returncode))
+    (BUILD_DIR / "build.log").write_text("".join(
+        " ".join(c) + "\n" + out + err for c, out, err, _ in results))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [(c, err, rc) for c, _, err, rc in results if rc != 0]
+    if failed:
+        c, err, rc = failed[0]
+        raise RuntimeError(f"nvcc failed with code {rc} ({c[-1]}):\n{err[-6000:]}")
     os.replace(tmp, so)
     return so
 

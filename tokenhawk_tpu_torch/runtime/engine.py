@@ -21,7 +21,7 @@ import torch
 from tokenhawk_tpu_torch.config import LlamaConfig, SamplingConfig
 from tokenhawk_tpu_torch.models.llama import KVCache, LlamaParams, forward, logits_from_hidden
 from tokenhawk_tpu_torch.sampling import is_eos as _is_eos
-from tokenhawk_tpu_torch.sampling import normalize_eos, sample
+from tokenhawk_tpu_torch.sampling import normalize_eos, sample, sample_dynamic
 from tokenhawk_tpu_torch.tokenizer import BOS_ID, EOS_ID, Tokenizer
 
 
@@ -39,11 +39,27 @@ class GenerationResult:
         return n / self.decode_seconds if self.decode_seconds > 0 else 0.0
 
 
+def prefill_buckets(max_seq: int) -> List[int]:
+    """Prefill block lengths: powers of two from 16, then max_seq."""
+    buckets = []
+    b = 16
+    while b < max_seq:
+        buckets.append(b)
+        b *= 2
+    return buckets + [max_seq]
+
+
 def _bucket(n: int, buckets: Sequence[int]) -> int:
     for b in buckets:
         if n <= b:
             return b
     raise ValueError(f"prompt length {n} exceeds max bucket {buckets[-1]}")
+
+
+def last_rows(h: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """h [B, T, D] -> the row at n[b]-1 of each sequence (clamped)."""
+    idx = torch.clamp(n.long() - 1, 0, h.shape[1] - 1)
+    return h[torch.arange(h.shape[0], device=h.device), idx]
 
 
 def make_prefill_fn(cfg: LlamaConfig):
@@ -53,9 +69,7 @@ def make_prefill_fn(cfg: LlamaConfig):
     @torch.inference_mode()
     def prefill(params, cache, tokens, lengths, offsets):
         h, cache = forward(cfg, params, tokens, cache, offsets)
-        idx = torch.clamp(lengths.long() - 1, 0, tokens.shape[1] - 1)
-        h_last = h[torch.arange(h.shape[0], device=h.device), idx]
-        return cache, logits_from_hidden(cfg, params, h_last)
+        return cache, logits_from_hidden(cfg, params, last_rows(h, lengths))
 
     return prefill
 
@@ -84,6 +98,37 @@ def make_decode_fn(cfg: LlamaConfig, sampling: SamplingConfig, chunk: int,
             toks.append(nxt)
             tok = nxt
         return cache, torch.stack(toks, dim=1), offsets, last_n, done
+
+    return decode
+
+
+def make_decode_fn_dynamic(cfg: LlamaConfig, chunk: int, eos_id: int = EOS_ID):
+    """Decode chunk with per-slot sampling parameters (the dense
+    Scheduler's step):
+    (params, cache, last_tok [B], offsets [B], last_n [B,N], done [B],
+     sp: SamplingParams, counters [B])
+      -> (cache, tokens [B,chunk], offsets, last_n, done, counters).
+    Each slot draws from its own (seed, counter) stream.  Runs under
+    no_grad, not inference_mode: the scheduler updates the returned slot
+    state in place outside the call."""
+    eos0, eos_ids = normalize_eos(eos_id)
+
+    @torch.no_grad()
+    def decode(params, cache, last_tok, offsets, last_n, done, sp, counters):
+        toks = []
+        tok = last_tok
+        for _ in range(chunk):
+            h, cache = forward(cfg, params, tok[:, None], cache, offsets)
+            logits = logits_from_hidden(cfg, params, h[:, 0])
+            nxt = sample_dynamic(logits, sp, counters, last_n)
+            nxt = torch.where(done, eos0, nxt)
+            offsets = offsets + (~done).to(offsets.dtype)
+            counters = counters + 1
+            done = done | _is_eos(nxt, eos_ids)
+            last_n = torch.cat([last_n[:, 1:], nxt[:, None]], dim=1)
+            toks.append(nxt)
+            tok = nxt
+        return cache, torch.stack(toks, dim=1), offsets, last_n, done, counters
 
     return decode
 
@@ -127,13 +172,7 @@ class Engine:
         self._decode = make_decode_fn(cfg, sampling, decode_chunk, eos_id)
         self._decode1 = make_decode_fn(cfg, sampling, 1, eos_id)
 
-        # Prefill buckets: powers of two from 16 up to max_seq.
-        self.buckets = []
-        b = 16
-        while b < self.max_seq:
-            self.buckets.append(b)
-            b *= 2
-        self.buckets.append(self.max_seq)
+        self.buckets = prefill_buckets(self.max_seq)
 
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(sampling.seed)
