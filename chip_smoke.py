@@ -13,9 +13,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      paged kernels in both pool layouts;
   3. slice check: a 2-layer LLaMA-7B-width Q4_0 model, prefill of 16
      tokens + 8 decode steps on the GPU (kernels) and on the CPU (plain
-     versions, same parameters), logits compared at every step; then the
-     paged forward against the dense one on the GPU, 8 decode steps across
-     a page boundary;
+     versions, same parameters), logits compared at every step, over a
+     bf16 cache and over an int8 one; then the paged forward against the
+     dense one on the GPU, 8 decode steps across a page boundary, bf16
+     pages against the bf16 cache and int8 pages against the int8 cache;
   4. serve: the full 32-layer 7B Q4_0 model, Engine.generate on 3 prompts,
      and the launch count of every kernel over that run;
   4b. paged serve: the same model under PagedScheduler (max_batch 8, n_ctx
@@ -24,9 +25,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      tokens; launch counts of every kernel, page accounting, decode tok/s,
      and the device's idle share under the profiler;
   4c. HTTP: serve() over that scheduler, 4 concurrent SSE streams and one
-     /v1/completions, then `python -m tokenhawk_tpu_torch.serving`, dense
-     and --paged, on the 2-layer file of phase 5 answering one request;
-  5. CLI: a 2-layer 7B-width ggjt Q4_0 file through tokenhawk_tpu_torch.cli.
+     /v1/completions, then `python -m tokenhawk_tpu_torch.serving`, dense,
+     --paged and --paged --kv int8, on the 2-layer file of phase 5
+     answering one request;
+  4i. int8 KV: Engine(cache_dtype="auto") at n_ctx 2048 (it picks int8),
+     prompts of 5, 300 and 1500 tokens, 64 new tokens each, decode tok/s;
+     kernels 8 and 9 launched, 3 and 4 not; then profiled decode windows
+     at 1500 live tokens, int8 against bf16 K/V in turns (idle share);
+  4bi. phase 4b's requests on int8 pages (the bf16 pool freed first):
+     kernels 10-12 launched, kernels 3 and 5-7 not;
+  5. CLI: a 2-layer 7B-width ggjt Q4_0 file through tokenhawk_tpu_torch.cli,
+     bf16 KV and --kv auto at n_ctx 2048 (kernel 8 instead of kernel 3).
 The next-to-last line is {"kernels": [...]}, the last {"ok": true, ...}.
 It needs one CUDA device and the rest of the repository beside it.
 """
@@ -65,6 +74,9 @@ PEAK_FLOPS = 989e12
 # serve batch of 8 with ragged lengths up to n_ctx 2048.
 PAGED_LENGTHS = [1, 37, 128, 129, 300, 700, 1500, 2048]
 PAGED_PS, PAGED_POOL = 128, 140
+# Context of the int8 phases: the CLI's default --n-ctx, where --kv auto
+# picks the int8 cache.
+INT8_CTX = 2048
 
 
 def log(msg: str = "") -> None:
@@ -294,7 +306,200 @@ def phase_kernels() -> list:
                            "(flash_attention via attend_prefill)", cases, ("T=512 off=0", 512),
                            bound(4 * T * Hkv * Dh * bf, 4 * Hkv * Dh * T * (T + 1) / 2), lib))
     records += _paged_kernel_records(randn, case, library, g)
+    records += _int8_kernel_records(randn, case, library)
+    records += _paged_int8_kernel_records(randn, case, library, g)
     return records
+
+
+def _deq(codes, scales):
+    """An int8 cache or pool's values in bfloat16, as the library calls use them."""
+    import torch
+
+    return codes.to(torch.bfloat16) * scales[..., None].to(torch.bfloat16)
+
+
+def _int8_kernel_records(randn, case, library) -> list:
+    """Kernels 8 and 9 over a dense int8 cache of n_ctx 2048 (the int8 Engine
+    of phase 4i): decode at ragged lengths, timed at B=1 with 2048 live
+    tokens; prefill timed at T=512 from offset 0."""
+    import torch
+    import torch.nn.functional as tf
+
+    from tokenhawk_tpu_torch.ops.cuda import kv_int8 as ki
+    from tokenhawk_tpu_torch.ops.kvquant import quantize_kv_block
+
+    dev = torch.device("cuda")
+    Hkv, Dh, S, bf = 32, 128, INT8_CTX, 2
+
+    def cache(B):
+        k, ks = quantize_kv_block(randn(B, Hkv, S, Dh, dtype=torch.float32))
+        v, vs = quantize_kv_block(randn(B, Hkv, S, Dh, dtype=torch.float32))
+        return [k, ks, v, vs]
+
+    def nbytes(c):
+        return sum(x.nbytes for x in c)
+
+    cases = []
+    for lens in ([1, 37, 300, S, 0], [300], [S]):
+        B = len(lens)
+        q = randn(B, Hkv, 1, Dh, scale=Dh**-0.5)
+        kn, vn = randn(B, Hkv, Dh), randn(B, Hkv, Dh)
+        c = cache(B)
+        p = [x.clone() for x in c]
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = ki.flash_decode_int8(q, kn, vn, *c, lengths)
+        ref = ki.flash_decode_int8_plain(q, kn, vn, *p, lengths)
+        if not all(torch.equal(a, b) for a, b in zip(c, p)):
+            raise AssertionError(f"flash_decode_int8 {lens}: appended rows differ from the plain's")
+        caches = copies(c, nbytes(c))
+        case(cases, f"flash_decode_int8 B={B} lengths={lens} S={S} (appended codes and scales "
+                    f"identical)", f"B={B} L={lens[-1]}", B, out, ref,
+             [lambda c=c: ki.flash_decode_int8(q, kn, vn, *c, lengths) for c in caches],
+             [lambda c=c: ki.flash_decode_int8_plain(q, kn, vn, *c, lengths) for c in caches])
+    L = S
+    # Kernel 3 on a bf16 cache of the same length: what --kv auto trades.
+    from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
+
+    bc = copies([randn(1, Hkv, S, Dh), randn(1, Hkv, S, Dh)], 2 * Hkv * S * Dh * bf)
+    k3 = timed([lambda c=c: fd.flash_decode_append(q, kn, vn, *c, lengths) for c in bc])["ms"]
+    log(f"  for comparison, kernel 3 over a bf16 cache, B=1 L={L} S={S}: {k3:.4f} ms")
+    del bc
+    lib8 = library("dequantize K and V + scaled_dot_product_attention, B=1, 2048 keys (3+ calls)",
+                   [lambda c=c: tf.scaled_dot_product_attention(q, _deq(c[0], c[1]),
+                                                                _deq(c[2], c[3]), scale=1.0)
+                    for c in caches])
+    rec8 = _record("flash_decode_int8", "tokenhawk_tpu_torch/csrc/kv_int8.cu",
+                   "tokenhawk_tpu/ops/pallas/flash_decode_int8.py:254 (flash_decode_int8)",
+                   cases, (f"B=1 L={L}", 1),
+                   bound(2 * L * Hkv * Dh + 2 * L * Hkv * bf + 4 * Hkv * Dh * bf,
+                         4 * L * Hkv * Dh), lib8)
+
+    cases = []
+    c = cache(1)
+    caches = copies(c, nbytes(c))
+    for T, off in ((64, 0), (16, 200), (13, 5), (512, 0), (S, 0)):
+        q = randn(1, Hkv, 1, T, Dh, scale=Dh**-0.5)
+        offsets = torch.tensor([off], dtype=torch.int32, device=dev)
+        case(cases, f"flash_attention_int8 T={T} offset={off} S={S}", f"T={T} off={off}", T,
+             ki.flash_attention_int8(q, *c, offsets), ki.flash_attention_int8_plain(q, *c, offsets),
+             [lambda c=c: ki.flash_attention_int8(q, *c, offsets) for c in caches],
+             [lambda c=c: ki.flash_attention_int8_plain(q, *c, offsets) for c in caches])
+        if T == 512:
+            q512 = q
+    T = 512
+    lib9 = library("dequantize K and V + scaled_dot_product_attention, causal, T=512 (3+ calls)",
+                   [lambda c=c: tf.scaled_dot_product_attention(
+                       q512[:, :, 0], _deq(c[0][:, :, :T], c[1][:, :, :T]),
+                       _deq(c[2][:, :, :T], c[3][:, :, :T]), is_causal=True, scale=1.0)
+                    for c in caches])
+    rec9 = _record("flash_attention_int8", "tokenhawk_tpu_torch/csrc/kv_int8.cu",
+                   "tokenhawk_tpu/ops/pallas/flash_attention_int8.py:138 "
+                   "(flash_attention_int8 via attend_prefill_int8)", cases, ("T=512 off=0", 512),
+                   bound(2 * T * Hkv * Dh * bf + 2 * T * Hkv * (Dh + bf),
+                         4 * Hkv * Dh * T * (T + 1) / 2), lib9)
+    return [rec8, rec9]
+
+
+def _paged_int8_kernel_records(randn, case, library, g) -> list:
+    """Kernels 10-12 at phase 2's paged shapes (B=8, PAGED_LENGTHS, a
+    140-page pool, shuffled table, two appends on the trash page), on int8
+    pages in both layouts; timed in the default (contig) layout."""
+    import torch
+    import torch.nn.functional as tf
+
+    from tokenhawk_tpu_torch.ops.cuda import paged_int8 as pi
+    from tokenhawk_tpu_torch.ops.kvquant import quantize_kv_block
+
+    dev = torch.device("cuda")
+    Hkv, Dh, ps, n_pool, bf = 32, 128, PAGED_PS, PAGED_POOL, 2
+    B, mp, live = len(PAGED_LENGTHS), max(PAGED_LENGTHS) // ps, sum(PAGED_LENGTHS)
+    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
+    perm = torch.randperm(n_pool, generator=g, device=dev)
+    table = perm[:B * mp].reshape(B, mp).to(torch.int32).contiguous()
+    tl_ = table.long()
+    trash = int(perm[-1])
+    pos = lengths.long() - 1
+    page = table.gather(1, (pos // ps)[:, None])[:, 0].clone()
+    slot = (pos % ps).to(torch.int32)
+    page[-2:], slot[-2:] = trash, 5
+    keep = torch.arange(n_pool, device=dev) != trash
+    mask = (torch.arange(mp * ps, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    dec, app, gat, lib = [], [], [], {}
+    for layout in ("contig", "head"):
+        shape = (n_pool, Hkv, ps, Dh) if layout == "contig" else (Hkv, n_pool, ps, Dh)
+        pool = []
+        for _ in range(2):
+            codes, scales = quantize_kv_block(randn(*shape, dtype=torch.float32))
+            pool += [codes, scales.float()]
+        q = randn(B, Hkv, 1, Dh, scale=Dh**-0.5)
+        case(dec, f"paged_decode_int8 {layout} B={B} lengths={PAGED_LENGTHS} ps={ps}", layout, B,
+             pi.paged_decode_int8(q, *pool, table, lengths, layout),
+             pi.paged_decode_int8_plain(q, *pool, table, lengths, layout),
+             [lambda: pi.paged_decode_int8(q, *pool, table, lengths, layout)],
+             [lambda: pi.paged_decode_int8_plain(q, *pool, table, lengths, layout)])
+
+        kn, vn = randn(B, Hkv, Dh), randn(B, Hkv, Dh)
+        pa, pb = [x.clone() for x in pool], [x.clone() for x in pool]
+        pi.paged_append_int8(*pa, kn, vn, page, slot, layout)
+        pi.paged_append_int8_plain(*pb, kn, vn, page, slot, layout)
+
+        def kept(xs):
+            return torch.cat([(x[keep] if layout == "contig" else x[:, keep]).float().flatten()
+                              for x in xs])
+
+        case(app, f"paged_append_int8 {layout} B={B} (2 rows on the trash page; codes and scales "
+                  f"outside it identical)", layout, B, kept(pa), kept(pb),
+             [lambda: pi.paged_append_int8(*pa, kn, vn, page, slot, layout)],
+             [lambda: pi.paged_append_int8_plain(*pb, kn, vn, page, slot, layout)], frac=0.0)
+
+        gk, gv = pi.gather_pages_int8(*pool, table, layout, torch.bfloat16)
+        pk, pv = pi.gather_pages_int8_plain(*pool, table, layout, torch.bfloat16)
+        if not torch.equal(gv, pv):
+            raise AssertionError(f"gather_pages_int8 {layout}: V differs from the plain version's")
+        case(gat, f"gather_pages_int8 {layout} B={B} max_pages={mp} -> bf16 (K and V identical)",
+             layout, B, gk, pk,
+             [lambda: pi.gather_pages_int8(*pool, table, layout, torch.bfloat16)],
+             [lambda: pi.gather_pages_int8_plain(*pool, table, layout, torch.bfloat16)], frac=0.0)
+        del gk, gv, pk, pv
+        if layout == "contig":
+            kp, ksp, vp, vsp = pool
+
+            def dense(c, s):
+                return _deq(c[tl_], s[tl_]).transpose(1, 2).reshape(B, Hkv, mp * ps, Dh)
+
+            lib["decode"] = library(
+                "gather + dequantize K and V + scaled_dot_product_attention with a length mask "
+                "(8+ calls)", [lambda: tf.scaled_dot_product_attention(
+                    q, dense(kp, ksp), dense(vp, vsp), attn_mask=mask, scale=1.0)])
+            pl_, sl_ = page.long(), slot.long()
+            qk, sk = quantize_kv_block(kn)
+            qv, sv = quantize_kv_block(vn)
+            lib["append"] = library("index_put_ of the quantized K and V codes and scales "
+                                    "(4 calls, quantization not included)", [
+                lambda: (pa[0].__setitem__((pl_, slice(None), sl_), qk),
+                         pa[1].__setitem__((pl_, slice(None), sl_), sk.float()),
+                         pa[2].__setitem__((pl_, slice(None), sl_), qv),
+                         pa[3].__setitem__((pl_, slice(None), sl_), sv.float()))])
+            lib["gather"] = library("pages[table] and scales[table], the multiply and the "
+                                    "permute, K and V", [lambda: (dense(kp, ksp), dense(vp, vsp))])
+        del pool, pa, pb
+    src = "tokenhawk_tpu_torch/csrc/paged_int8.cu"
+    row = Hkv * Dh  # bytes of one token's int8 codes across the kv heads
+    return [
+        _record("paged_decode_int8", src, "tokenhawk_tpu/ops/pallas/paged_decode_int8.py:450 "
+                "(paged_flash_decode_int8_walk); paged_decode_int8.py:216 "
+                "(paged_flash_decode_int8)", dec, ("contig", B),
+                bound(2 * live * (row + Hkv * 4) + 2 * B * row * bf + B * (mp + 1) * 4,
+                      4 * live * Hkv * Dh), lib["decode"]),
+        _record("paged_append_int8", src, "tokenhawk_tpu/ops/pallas/paged_decode.py:205 "
+                "(paged_append_rows, int8 payload); paged_decode.py:286 (paged_append_scales)",
+                app, ("contig", B),
+                bound(2 * B * row * bf + 2 * B * (row + Hkv * 4) + 2 * B * 4, 0), lib["append"]),
+        _record("gather_pages_int8", src, "tokenhawk_tpu/ops/pallas/paged_decode.py:456 "
+                "(gather_pages_dense_int8)", gat, ("contig", B),
+                bound(2 * B * mp * ps * (row + Hkv * 4) + 2 * B * mp * ps * row * bf + B * mp * 4,
+                      0), lib["gather"]),
+    ]
 
 
 def _paged_kernel_records(randn, case, library, g) -> list:
@@ -411,7 +616,6 @@ def _q4_params(cfg, device):
 def phase_slice() -> None:
     import torch
 
-    from tokenhawk_tpu_torch.models.llama import KVCache, forward, logits_from_hidden
     from tokenhawk_tpu_torch.runtime.engine import make_prefill_fn
 
     log("== phase 3: slice check, 2-layer 7B-width Q4_0, GPU kernels vs CPU plain")
@@ -421,9 +625,27 @@ def phase_slice() -> None:
     rng = np.random.default_rng(SEED)
     ids = rng.integers(3, cfg.n_vocab, size=16 + 8)
     prefill = make_prefill_fn(cfg)
+    for kv in ("bf16", "int8"):
+        _dense_slice(cfg, p_gpu, p_cpu, ids, prefill, kv)
+    for kv in ("bf16", "int8"):
+        _paged_slice(cfg, p_gpu, kv)
+
+
+def _dense_slice(cfg, p_gpu, p_cpu, ids, prefill, kv) -> None:
+    """Prefill of 16 tokens + 8 decode steps on the GPU and on the CPU,
+    over a bf16 cache (kernels 3, 4) or an int8 one (kernels 8, 9)."""
+    import torch
+
+    from tokenhawk_tpu_torch.models.llama import (
+        KVCache,
+        QuantKVCache,
+        forward,
+        logits_from_hidden,
+    )
 
     def run(params, dev):
-        cache = KVCache.create(cfg, 1, S_CTX, torch.bfloat16, dev)
+        cache = (QuantKVCache.create(cfg, 1, S_CTX, dev) if kv == "int8"
+                 else KVCache.create(cfg, 1, S_CTX, torch.bfloat16, dev))
         t = torch.from_numpy(ids).to(dev)
         cache, logits = prefill(params, cache, t[None, :16],
                                 torch.tensor([16], dtype=torch.int32, device=dev),
@@ -441,28 +663,29 @@ def phase_slice() -> None:
     t1 = time.perf_counter()
     want = run(p_cpu, torch.device("cpu"))
     t2 = time.perf_counter()
-    log(f"gpu {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s")
+    log(f"{kv} cache: gpu {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s")
     for i, (a, b) in enumerate(zip(got, want)):
         if not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"step {i}: non-finite logits on the GPU")
+            raise AssertionError(f"{kv} step {i}: non-finite logits on the GPU")
         err = (a - b).abs().max().item()
         tol = SLICE_TOL * b.abs().max().item()
         same = int(a.argmax()) == int(b.argmax())
-        log(f"step {i} ({'prefill' if i == 0 else 'decode'}): max |logit diff| {err:.3e} "
+        log(f"{kv} step {i} ({'prefill' if i == 0 else 'decode'}): max |logit diff| {err:.3e} "
             f"(tol {tol:.3e}), argmax equal {same}")
         if not err <= tol:
-            raise AssertionError(f"slice step {i}: {err} > {tol}")
-    _paged_slice(cfg, p_gpu)
+            raise AssertionError(f"{kv} slice step {i}: {err} > {tol}")
 
 
-def _paged_slice(cfg, params) -> None:
+def _paged_slice(cfg, params, kv) -> None:
     """forward_paged_prefill / forward_paged_decode against the dense
-    forward, both on the GPU: a 124-token prompt, then 8 decode steps
+    forward, both on the GPU, bf16 pages against the bf16 cache or int8
+    pages against the int8 cache: a 124-token prompt, then 8 decode steps
     across the first page boundary, pages 3 and 1 of a 6-page pool."""
     import torch
 
     from tokenhawk_tpu_torch.models.llama import (
         KVCache,
+        QuantKVCache,
         forward,
         forward_paged_decode,
         forward_paged_prefill,
@@ -470,13 +693,18 @@ def _paged_slice(cfg, params) -> None:
     )
     from tokenhawk_tpu_torch.runtime.paged import PagedKVCache
 
-    log("paged slice: forward_paged_* (kernels 5-7) vs the dense forward, both on the GPU")
+    kernels = "kernels 10-12" if kv == "int8" else "kernels 5-7"
+    log(f"paged slice, {kv}: forward_paged_* ({kernels}) vs the dense forward, both on the GPU")
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 3)
     n = 124
     ids = torch.from_numpy(rng.integers(3, cfg.n_vocab, size=n + 8)).to(dev)[None]
-    cache = KVCache.create(cfg, 1, S_CTX, torch.bfloat16, dev)
-    pool = PagedKVCache.create(cfg, 6, PAGED_PS, torch.bfloat16, dev)
+    if kv == "int8":
+        cache = QuantKVCache.create(cfg, 1, S_CTX, dev)
+        pool = PagedKVCache.create(cfg, 6, PAGED_PS, "int8", dev)
+    else:
+        cache = KVCache.create(cfg, 1, S_CTX, torch.bfloat16, dev)
+        pool = PagedKVCache.create(cfg, 6, PAGED_PS, torch.bfloat16, dev)
     table = torch.tensor([[3, 1]], dtype=torch.int32, device=dev)
     with torch.inference_mode():
         h_d, _ = forward(cfg, params, ids[:, :n], cache, torch.zeros(1, dtype=torch.int32,
@@ -492,11 +720,11 @@ def _paged_slice(cfg, params) -> None:
             a = logits_from_hidden(cfg, params, hp).float().cpu()
             b = logits_from_hidden(cfg, params, hd).float().cpu()
             err, tol = (a - b).abs().max().item(), SLICE_TOL * b.abs().max().item()
-            log(f"paged step {i} ({'prefill' if i == 0 else f'decode at {n + i - 1}'}): "
+            log(f"paged {kv} step {i} ({'prefill' if i == 0 else f'decode at {n + i - 1}'}): "
                 f"max |logit diff| {err:.3e} (tol {tol:.3e}), "
                 f"argmax equal {int(a.argmax()) == int(b.argmax())}")
             if not (bool(torch.isfinite(a).all()) and err <= tol):
-                raise AssertionError(f"paged slice step {i}: {err} > {tol}")
+                raise AssertionError(f"paged {kv} slice step {i}: {err} > {tol}")
 
 
 def phase_serve(kernel_mods) -> tuple:
@@ -543,6 +771,88 @@ def phase_serve(kernel_mods) -> tuple:
         raise AssertionError(f"a kernel of the path was never launched: {counts}")
     _profile_request(engines[id(greedy)], [1] + rng.integers(3, cfg.n_vocab, size=4).tolist())
     return counts, params
+
+
+def phase_int8_serve(params, kernel_mods, on_path, off_path) -> dict:
+    """Engine(cache_dtype="auto") at n_ctx 2048, which picks the int8 cache:
+    3 greedy requests (prompts of 5, 300 and 1500 tokens, 64 new tokens
+    each), then profiled decode windows at 1500 live tokens against a bf16
+    cache.  Returns the launch counts of the 3 requests."""
+    import dataclasses
+
+    import torch
+
+    from tokenhawk_tpu_torch.config import SamplingConfig
+    from tokenhawk_tpu_torch.runtime.engine import Engine
+    from tokenhawk_tpu_torch.tokenizer import byte_fallback_vocab
+
+    log(f"== phase 4i: Engine, LLaMA-7B Q4_0, 32 layers, cache_dtype auto at n_ctx {INT8_CTX}")
+    cfg = dataclasses.replace(_seven_b(32), n_ctx=INT8_CTX)
+    eng = Engine(cfg, params, byte_fallback_vocab(), sampling=SamplingConfig(temperature=0.0),
+                 cache_dtype="auto", eos_id=-1)
+    if eng.cache_dtype != "int8":
+        raise AssertionError(f"cache_dtype auto at n_ctx {INT8_CTX} chose {eng.cache_dtype}")
+    nbytes = sum(x.nbytes for lc in eng.new_cache(1).layers() for x in lc)
+    log(f"auto chose {eng.cache_dtype}: cache {nbytes / 1e9:.3f} GB for one sequence of "
+        f"{INT8_CTX}")
+    rng = np.random.default_rng(SEED + 5)
+    _reset_counts(kernel_mods)
+    decode_s = n_dec = 0
+    for n_prompt in (5, 300, 1500):
+        prompt = [1] + rng.integers(3, cfg.n_vocab, size=n_prompt - 1).tolist()
+        r = eng.generate(prompt, max_new_tokens=64)
+        log(f"int8 request prompt={n_prompt} tok (greedy): {len(r.tokens)} generated, prefill "
+            f"{r.prefill_seconds:.3f} s, decode {r.decode_tokens_per_second:.1f} tok/s")
+        if len(r.tokens) != 64 or not all(0 <= t < cfg.n_vocab for t in r.tokens):
+            raise AssertionError(f"request produced {len(r.tokens)} tokens out of range or short")
+        decode_s += r.decode_seconds
+        n_dec += len(r.tokens)
+    counts = _read_counts(kernel_mods)
+    log(f"3 int8 requests: decode {n_dec / decode_s:.1f} tok/s over {n_dec} tokens; kernel "
+        f"launches {counts}; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    _check_path(counts, on_path, off_path)
+    # Decode at 1500 live tokens, int8 against bf16 K/V, in turns.
+    bf16 = Engine(cfg, params, byte_fallback_vocab(), sampling=SamplingConfig(temperature=0.0),
+                  cache_dtype=torch.bfloat16, eos_id=-1)
+    prompt = [1] + rng.integers(3, cfg.n_vocab, size=1499).tolist()
+    for e in (eng, bf16, bf16, eng):
+        _decode_window(e, prompt)
+    return counts
+
+
+def _decode_window(engine, prompt, chunks: int = 4) -> None:
+    """Device busy time against wall time over `chunks` greedy decode
+    chunks after the prompt's prefill (outside the window), the host
+    reading each chunk's ids as Engine.generate does."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = engine.device
+    cache, logits, _ = engine.prefill(engine.new_cache(1), [prompt])
+    tok = logits.argmax(-1)
+    offsets = torch.tensor([len(prompt)], dtype=torch.int32, device=dev)
+    last_n = torch.full((1, max(engine.sampling.repeat_last_n, 1)), -1, dtype=torch.int64,
+                        device=dev)
+    done = torch.zeros(1, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(chunks):
+            cache, toks, offsets, last_n, done = engine._decode(
+                engine.params, cache, tok, offsets, last_n, done, engine.generator)
+            tok = toks[:, -1]
+            toks.tolist()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avgs = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in avgs) / 1e6
+    n = chunks * engine.decode_chunk
+    attn = [e for e in avgs if "decode_int8_kernel" in e.key or "decode_append_kernel" in e.key]
+    log(f"decode window, {engine.cache_dtype} cache, {len(prompt)}+ live tokens, {n} tokens "
+        f"(profiler on): wall {wall * 1e3:.1f} ms ({n / wall:.1f} tok/s), device busy "
+        f"{busy * 1e3:.1f} ms ({n / busy:.1f} tok/s), idle share {1 - busy / wall:.1%}; "
+        + ", ".join(f"{_kernel_name(e.key)} {e.self_device_time_total / max(e.count, 1):.2f} us "
+                    f"x {e.count}" for e in attn))
 
 
 def _profile_request(engine, prompt) -> None:
@@ -623,13 +933,20 @@ def write_two_layer_file(path: str) -> None:
 
 def phase_cli(path: str) -> None:
     from tokenhawk_tpu_torch import cli
+    from tokenhawk_tpu_torch.ops.cuda import flash_decode, kv_int8
 
-    log("== phase 5: CLI on a 2-layer 7B-width ggjt Q4_0 file")
-    rc = cli.main(["-m", path, "Hello", "--greedy", "--max-tokens", "16", "--n-ctx", "512"])
-    sys.stderr.flush()
-    if rc != 0:
-        raise AssertionError(f"cli returned {rc}")
-    log("cli exit 0")
+    log("== phase 5: CLI on a 2-layer 7B-width ggjt Q4_0 file, bf16 KV, then --kv auto")
+    for extra in (["--n-ctx", "512"], ["--kv", "auto", "--n-ctx", str(INT8_CTX)]):
+        _reset_counts([flash_decode, kv_int8])
+        rc = cli.main(["-m", path, "Hello", "--greedy", "--max-tokens", "16", *extra])
+        sys.stderr.flush()
+        counts = _read_counts([flash_decode, kv_int8])
+        if rc != 0:
+            raise AssertionError(f"cli {extra} returned {rc}")
+        int8 = "--kv" in extra
+        _check_path(counts, ["flash_decode_int8"] if int8 else ["flash_decode"],
+                    ["flash_decode"] if int8 else ["flash_decode_int8"])
+        log(f"cli {' '.join(extra)}: exit 0, decode kernel launches {counts}")
 
 
 def _reset_counts(mods) -> None:
@@ -650,9 +967,19 @@ def _read_counts(mods) -> dict:
     return counts
 
 
-def phase_paged_serve(params, kernel_mods):
-    """The paged server's main path at full width.  Returns (launch counts
-    of the run, the scheduler, its tokenizer)."""
+def _check_path(counts: dict, on_path, off_path) -> None:
+    """Every kernel of a path launched in its run, and none of another's."""
+    missed = [k for k in on_path if counts[k] <= 0]
+    strays = [k for k in off_path if counts[k] != 0]
+    if missed or strays:
+        raise AssertionError(f"kernels never launched: {missed}; kernels of another path "
+                             f"launched: {strays} ({counts})")
+
+
+def phase_paged_serve(params, kernel_mods, kv: str, on_path, off_path):
+    """The paged server's main path at full width, on bf16 pages (phase
+    4b) or int8 pages (phase 4bi).  Returns (launch counts of the run, the
+    scheduler, its tokenizer)."""
     import dataclasses
 
     import torch
@@ -662,15 +989,17 @@ def phase_paged_serve(params, kernel_mods):
     from tokenhawk_tpu_torch.runtime.scheduler import Request
     from tokenhawk_tpu_torch.tokenizer import Tokenizer
 
-    log("== phase 4b: paged serve, LLaMA-7B Q4_0, 32 layers, bf16 pages of 128, max_batch 8, "
-        "n_ctx 2048, prefix cache, prefill chunk 512")
+    name = "4bi" if kv == "int8" else "4b"
+    log(f"== phase {name}: paged serve, LLaMA-7B Q4_0, 32 layers, {kv} pages of 128, "
+        f"max_batch 8, n_ctx 2048, prefix cache, prefill chunk 512")
     cfg = dataclasses.replace(_seven_b(32), n_ctx=2048)
     greedy = SamplingConfig(temperature=0.0)
     sampled = SamplingConfig(temperature=0.8, top_k=40, top_p=0.95, seed=SEED)
     sched = PagedScheduler(cfg, params, sampling=greedy, max_batch=8, max_seq=2048,
-                           page_size=PAGED_PS, prefix_cache=True, prefill_chunk=512, eos_id=-1)
-    log(f"pool: {sched.n_pages} pages of {PAGED_PS} tokens, layout {sched.layout}, "
-        f"{sum(k.nbytes + v.nbytes for k, v in zip(sched.cache.k, sched.cache.v)) / 1e9:.3f} GB")
+                           page_size=PAGED_PS, prefix_cache=True, prefill_chunk=512, eos_id=-1,
+                           cache_dtype="int8" if kv == "int8" else torch.bfloat16)
+    log(f"pool: {sched.n_pages} pages of {PAGED_PS} tokens, layout {sched.layout}, {kv}, "
+        f"{sched.cache.nbytes / 1e9:.3f} GB")
     rng = np.random.default_rng(SEED + 4)
     V = cfg.n_vocab
     shared = [1] + rng.integers(3, V, 383).tolist()  # 3 full pages
@@ -701,8 +1030,9 @@ def phase_paged_serve(params, kernel_mods):
     counts = _read_counts(kernel_mods)
     sched._decode = run_decode
     n_out = sum(len(r.output) for r in reqs)
-    log(f"12 requests ({sum(len(p) for p in prompts)} prompt tokens, {n_out} generated) in "
-        f"{wall:.2f} s: {n_out / wall:.1f} tok/s overall; decode {decode['chunks']} chunks, "
+    log(f"{kv} pages: 12 requests ({sum(len(p) for p in prompts)} prompt tokens, {n_out} "
+        f"generated) in {wall:.2f} s: {n_out / wall:.1f} tok/s overall; decode "
+        f"{decode['chunks']} chunks, "
         f"{decode['s']:.2f} s, {(n_out - len(reqs)) / decode['s']:.1f} tok/s")
     for r in reqs:
         log(f"  prompt {len(r.prompt):5d} tok, {'sampled' if r.sampling else 'greedy '}: "
@@ -715,9 +1045,7 @@ def phase_paged_serve(params, kernel_mods):
         raise AssertionError(f"requests that did not finish cleanly: {bad}")
     if sched.prefix_hits <= 0:
         raise AssertionError("the shared prefix was never reused")
-    # Every kernel but kernel 3 (the dense cache's decode) is on this path.
-    if min(n for k, n in counts.items() if k != "flash_decode") <= 0:
-        raise AssertionError(f"a kernel of the path was never launched: {counts}")
+    _check_path(counts, on_path, off_path)
     parked = set(sched._pc.values())
     if (sched.alloc.n_free + len(parked) != sched.n_pages - 1
             or any(sched.page_refs.get(p, 0) for p in parked)):
@@ -765,7 +1093,8 @@ def _profile_paged(sched, rng, V) -> None:
     for e in avgs[:8]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {_kernel_name(e.key)}")
     for e in avgs:
-        m = re.search(r"paged_decode_kernel|paged_append_kernel|gather_pages_kernel", e.key)
+        m = re.search(r"paged_decode(_int8)?_kernel|paged_append(_int8)?_kernel|"
+                      r"gather_pages(_int8)?_kernel", e.key)
         if m:
             log(f"  {m.group(0)}: {e.self_device_time_total / 1e3:.3f} ms over {e.count} "
                 f"launches, {e.self_device_time_total / max(e.count, 1):.2f} us each")
@@ -837,7 +1166,7 @@ def phase_http(sched, tokenizer, model_path: str, tmp: str) -> None:
         httpd.serving_loop.stop()
 
     root = os.path.dirname(os.path.abspath(__file__))
-    for extra in ([], ["--paged", "--prefill-chunk", "128"]):
+    for extra in ([], ["--paged", "--prefill-chunk", "128"], ["--paged", "--kv", "int8"]):
         _serve_subprocess(root, model_path, tmp, extra)
 
 
@@ -892,7 +1221,9 @@ def main() -> int:
         ffn,
         flash_attention,
         flash_decode,
+        kv_int8,
         paged_decode,
+        paged_int8,
         qmatmul,
     )
 
@@ -901,19 +1232,38 @@ def main() -> int:
     records = phase_kernels()
     phase_slice()
     mods = [qmatmul, ffn, flash_decode, flash_attention]
+    every = mods + [paged_decode, kv_int8, paged_int8]
     counts, params = phase_serve(mods)
-    paged_counts, sched, tokenizer = phase_paged_serve(params, mods + [paged_decode])
-    # Each kernel's launches on the path of the slice that added it: the
-    # Engine run for kernels 1-4, the paged server's run for kernels 5-7.
-    for rec, m in zip(records, mods):
-        rec["launches"] = counts[m.__name__.rsplit(".", 1)[-1]]
-    for rec in records[len(mods):]:
-        rec["launches"] = paged_counts[rec["name"]]
+    bf16_paged = ["paged_decode", "paged_append", "gather_pages"]
+    int8_dense = ["flash_decode_int8", "flash_attention_int8"]
+    int8_paged = ["paged_decode_int8", "paged_append_int8", "gather_pages_int8"]
+    paged_counts, sched, tokenizer = phase_paged_serve(
+        params, every, "bf16", ["qmatmul", "ffn", "flash_attention"] + bf16_paged,
+        ["flash_decode"] + int8_dense + int8_paged)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "llama7b-2layer-q4_0.bin")
         write_two_layer_file(path)
         phase_http(sched, tokenizer, path, tmp)
+        sched.cache = None  # the bf16 pool goes before the int8 phases
+        del sched
+        torch.cuda.empty_cache()
+        int8_counts = phase_int8_serve(params, every, ["qmatmul", "ffn"] + int8_dense,
+                                       ["flash_decode", "flash_attention"] + bf16_paged
+                                       + int8_paged)
+        int8_paged_counts, _, _ = phase_paged_serve(
+            params, every, "int8", ["qmatmul", "ffn", "flash_attention"] + int8_paged,
+            ["flash_decode"] + bf16_paged + int8_dense)
         phase_cli(path)
+    # Each kernel's launches on the path of the slice that added it: the
+    # Engine run for kernels 1-4, the paged server's run for kernels 5-7,
+    # the int8 Engine's for kernels 8-9 and the int8 paged server's for
+    # kernels 10-12.
+    for rec, m in zip(records, mods):
+        rec["launches"] = counts[m.__name__.rsplit(".", 1)[-1]]
+    for rec in records[len(mods):]:
+        name = rec["name"]
+        rec["launches"] = (int8_counts if name in int8_dense
+                           else int8_paged_counts if name in int8_paged else paged_counts)[name]
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,9 @@ jax) cannot load:
 Tolerances: bfloat16 results differ from the plain versions by about one
 output rounding (both accumulate in f32): 2^-7 of the largest |value|;
 float32 results by summation order: 1e-4 of it.  Written cache rows are
-compared exactly.
+compared exactly, and so are the int8 kernels' quantized rows and
+dequantized gathers (the codec is bit for bit; a code times a bfloat16
+scale is exact in f32).
 """
 
 import numpy as np
@@ -21,7 +23,16 @@ from tokenhawk_tpu_torch.config import LlamaConfig
 from tokenhawk_tpu_torch.ggml.quants import quantize_q4_0
 from tokenhawk_tpu_torch.ggml.writer import write_ggml
 from tokenhawk_tpu_torch.models import llama as tl
-from tokenhawk_tpu_torch.ops.cuda import ffn, flash_attention, flash_decode, paged_decode, qmatmul
+from tokenhawk_tpu_torch.ops.cuda import (
+    ffn,
+    flash_attention,
+    flash_decode,
+    kv_int8,
+    paged_decode,
+    paged_int8,
+    qmatmul,
+)
+from tokenhawk_tpu_torch.ops.kvquant import quantize_kv_block
 from tokenhawk_tpu_torch.ops.qweight import QWeight
 from tokenhawk_tpu_torch.runtime.engine import make_prefill_fn
 from tokenhawk_tpu_torch.runtime.loader import load_model
@@ -248,3 +259,174 @@ def test_paged_forward_decode_matches_dense_on_the_card():
         a = tl.logits_from_hidden(cfg, params, h_p[:, 0])
         b = tl.logits_from_hidden(cfg, params, h_d[:, 0])
         assert _err(a, b) <= 1e-3 * b.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# The int8 KV cache: kernels 8-12
+# ---------------------------------------------------------------------------
+
+
+def _int8(g, dev, *shape):
+    codes, scales = quantize_kv_block(torch.randn(shape, generator=g, device=dev))
+    return codes, scales
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_codec_on_the_card_is_the_cpus(dtype):
+    """The codec bit for bit on 8192 rows (the CPU's matches JAX's, see
+    tests/test_torch_kvquant.py): the plain version on the card, and the
+    quantizing append (kernel 11) on 64 sequences of 32 K and V heads,
+    against the plain version on the CPU."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(11)
+    B, Hkv, ps = 64, 32, 128
+    spread = torch.exp(4 * torch.randn(B, Hkv, 1, generator=g, device=dev))
+    kn = (torch.randn(B, Hkv, Dh, generator=g, device=dev) * spread).to(dtype)
+    vn = (torch.randn(B, Hkv, Dh, generator=g, device=dev) * spread).to(dtype)
+    want = [quantize_kv_block(x.cpu()) for x in (kn, vn)]
+    for (q, s), (wq, ws) in zip((quantize_kv_block(kn), quantize_kv_block(vn)), want):
+        assert torch.equal(q.cpu(), wq) and torch.equal(s.cpu(), ws)
+    codes = torch.zeros(B, Hkv, ps, Dh, dtype=torch.int8, device=dev)
+    scales = torch.zeros(B, Hkv, ps, device=dev)
+    pool = [codes, scales, codes.clone(), scales.clone()]  # k, ks, v, vs
+    page = torch.arange(B, dtype=torch.int32, device=dev)
+    slot = torch.full((B,), 77, dtype=torch.int32, device=dev)
+    paged_int8.paged_append_int8(*pool, kn, vn, page, slot, "contig")
+    for (codes, scales), (wq, ws) in zip(((pool[0], pool[1]), (pool[2], pool[3])), want):
+        assert torch.equal(codes[:, :, 77].cpu(), wq)
+        assert torch.equal(scales[:, :, 77].cpu(), ws.float())
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_int8_kernel_matches_plain(rep, dtype):
+    """Kernel 8: the appended codes and scales exactly, the output within
+    one output rounding; a row of length 0 gives zeros and appends
+    nothing; the last length clamps to S."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(rep)
+    B, Hkv, S = 5, 4, 512
+    k, ks = _int8(g, dev, B, Hkv, S, Dh)
+    v, vs = _int8(g, dev, B, Hkv, S, Dh)
+    cache = [k, ks, v, vs]
+    plain = [c.clone() for c in cache]
+    lengths = torch.tensor([1, 33, 300, S + 5, 0], dtype=torch.int32, device=dev)
+    q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).to(dtype)
+    kn = torch.randn(B, Hkv, Dh, generator=g, device=dev).to(dtype)
+    vn = torch.randn(B, Hkv, Dh, generator=g, device=dev).to(dtype)
+    before = kv_int8.launches["flash_decode_int8"]
+    got = kv_int8.flash_decode_int8(q, kn, vn, *cache, lengths)
+    assert kv_int8.launches["flash_decode_int8"] == before + 1
+    want = kv_int8.flash_decode_int8_plain(q, kn, vn, *plain, lengths)
+    for a, b in zip(cache, plain):
+        assert torch.equal(a, b)
+    assert torch.equal(got[4], torch.zeros_like(got[4]))
+    assert _err(got, want) <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("T,offset", [(64, 0), (16, 200), (13, 5), (512, 0), (2, 7)])
+@pytest.mark.parametrize("rep", [1, 4])
+def test_prefill_int8_kernel_matches_plain(T, offset, rep):
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(T + offset)
+    B, Hkv, S = 2, 4, 512
+    k, ks = _int8(g, dev, B, Hkv, S, Dh)
+    v, vs = _int8(g, dev, B, Hkv, S, Dh)
+    q = (torch.randn(B, Hkv, rep, T, Dh, generator=g, device=dev) / Dh**0.5).bfloat16()
+    offsets = torch.tensor([offset, 0], dtype=torch.int32, device=dev)
+    got = kv_int8.flash_attention_int8(q, k, ks, v, vs, offsets)
+    want = kv_int8.flash_attention_int8_plain(q, k, ks, v, vs, offsets)
+    assert _err(got, want) <= _tol(want, torch.bfloat16)
+
+
+def _int8_pools(g, dev, layout, Hkv, n_pages, ps):
+    shape = (n_pages, Hkv, ps, Dh) if layout == "contig" else (Hkv, n_pages, ps, Dh)
+    out = []
+    for _ in range(2):
+        codes, scales = _int8(g, dev, *shape)
+        out += [codes, scales.float()]
+    return out  # k, ks, v, vs
+
+
+@pytest.mark.parametrize("layout", ["contig", "head"])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_int8_kernel_matches_plain(layout, rep, dtype):
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(rep)
+    B, Hkv, ps, mp, n_pages = 5, 4, 128, 4, 24
+    pool = _int8_pools(g, dev, layout, Hkv, n_pages, ps)
+    table = torch.randperm(n_pages, generator=g, device=dev)[:B * mp].reshape(B, mp).int()
+    lengths = torch.tensor([1, 37, 128, 129, 0], dtype=torch.int32, device=dev)
+    q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).to(dtype)
+    got = paged_int8.paged_decode_int8(q, *pool, table, lengths, layout)
+    want = paged_int8.paged_decode_int8_plain(q, *pool, table, lengths, layout)
+    assert torch.equal(got[4], torch.zeros_like(got[4]))
+    assert _err(got, want) <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("layout", ["contig", "head"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_append_and_gather_int8_kernels_match_plain(layout, dtype):
+    """Exact: codes and scales of distinct slots all land; two rows on the
+    trash page (page 0) leave it unspecified, so it is left out.  The
+    gather dequantizes to `dtype` exactly as the plain multiply does."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(7)
+    Hkv, ps, n_pages = 4, 128, 10
+    pool = _int8_pools(g, dev, layout, Hkv, n_pages, ps)
+    plain = [x.clone() for x in pool]
+    page = torch.tensor([3, 0, 3, 0, 8], dtype=torch.int32, device=dev)
+    slot = torch.tensor([5, 9, 127, 9, 0], dtype=torch.int32, device=dev)
+    kn = torch.randn(5, Hkv, Dh, generator=g, device=dev).to(dtype)
+    vn = torch.randn(5, Hkv, Dh, generator=g, device=dev).to(dtype)
+    paged_int8.paged_append_int8(*pool, kn, vn, page, slot, layout)
+    paged_int8.paged_append_int8_plain(*plain, kn, vn, page, slot, layout)
+    live = slice(1, None)
+    for a, b in zip(pool, plain):
+        if layout == "contig":
+            assert torch.equal(a[live], b[live])
+        else:
+            assert torch.equal(a[:, live], b[:, live])
+    table = torch.randint(0, n_pages, (3, 5), generator=g, device=dev, dtype=torch.int32)
+    got = paged_int8.gather_pages_int8(*pool, table, layout, dtype)
+    want = paged_int8.gather_pages_int8_plain(*pool, table, layout, dtype)
+    assert got[0].dtype == dtype
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_int8_forwards_on_the_card_match_the_cpu():
+    """A tiny 2-layer model (head dim 128): the dense int8 cache (kernels 8
+    and 9) and an int8 pool (kernels 10-12) on the card against the same
+    forwards on the CPU (plain versions): hidden states within 1e-3 of the
+    largest (f32 activations)."""
+    from tokenhawk_tpu_torch.runtime.paged import PagedKVCache
+
+    dev = cuda_device()
+    cfg = LlamaConfig.tiny(n_vocab=300, n_embd=256, n_head=2, n_layer=2, n_ff=512, n_ctx=256)
+    g = torch.Generator(device=dev).manual_seed(3)
+    params = tl.fuse_params(tl.init_params(cfg, g, dtype=torch.float32, device=dev,
+                                           scale=0.05, quant="q4_0"))
+    ids = torch.randint(3, 300, (1, 140), generator=g, device=dev)
+
+    def run(d):
+        p, t = params.to(d), ids.to(d)
+
+        def i32(*v):
+            return torch.tensor(v, dtype=torch.int32, device=d)
+
+        cache = tl.QuantKVCache.create(cfg, 1, 256, d)
+        outs = [tl.forward(cfg, p, t[:, :120], cache, i32(0))[0]]
+        outs += [tl.forward(cfg, p, t[:, i:i + 1], cache, i32(i))[0] for i in range(120, 124)]
+        pool = PagedKVCache.create(cfg, 6, 128, "int8", d)
+        table = i32(4, 1)[None]
+        outs.append(tl.forward_paged_prefill(cfg, p, t[:, :128], pool, table)[0])
+        outs.append(tl.forward_paged_prefill_cont(cfg, p, t[:, 128:136], pool, table, i32(128),
+                                                  i32(8))[0])
+        outs += [tl.forward_paged_decode(cfg, p, t[:, i:i + 1], pool, table, i32(i))[0]
+                 for i in range(136, 140)]
+        return [o.cpu() for o in outs]
+
+    with torch.no_grad():
+        for a, b in zip(run(dev), run(torch.device("cpu"))):
+            assert _err(a, b) <= 1e-3 * b.abs().max().item()

@@ -2,8 +2,9 @@
 
 A subprocess blocks `jax` (sys.modules["jax"] = None makes any import of
 it fail), imports every module of tokenhawk_tpu_torch, checks that
-nothing of tokenhawk_tpu came along, and runs a tiny Engine.generate and
-both continuous-batching schedulers on the CPU.  A source scan backs it
+nothing of tokenhawk_tpu came along, and runs a tiny Engine.generate (bf16
+and int8 caches) and both continuous-batching schedulers (the paged one on
+bf16 and int8 pages) on the CPU.  A source scan backs it
 up for imports inside functions.
 """
 
@@ -37,8 +38,14 @@ for quant in ("q4_0", None):  # Q4_0 projections, then dense ones
     assert len(r.tokens) == 9 and all(0 <= t < 300 for t in r.tokens), r.tokens
 from tokenhawk_tpu_torch.runtime.paged_scheduler import PagedScheduler
 from tokenhawk_tpu_torch.runtime.scheduler import Scheduler
+eng = Engine(cfg, params, byte_fallback_vocab(), SamplingConfig(temperature=0.7), max_seq=1024,
+             cache_dtype="auto", decode_chunk=4, eos_id=-1)
+assert eng.cache_dtype == "int8"
+assert len(eng.generate("hi there", max_new_tokens=9).tokens) == 9
 for sched in (PagedScheduler(cfg, params, max_batch=2, cache_dtype=torch.float32, page_size=16,
                              prefix_cache=True, prefill_chunk=32, eos_id=-1),
+              PagedScheduler(cfg, params, max_batch=2, cache_dtype="int8", page_size=16,
+                             prefix_cache=True, prefill_chunk=32, eos_id=-1, layout="head"),
               Scheduler(cfg, params, max_batch=2, cache_dtype=torch.float32, eos_id=-1)):
     reqs = sched.generate_many([[1, 5, 9], list(range(3, 70))], max_new_tokens=5)
     assert [r.finish_reason for r in reqs] == ["length"] * 2, reqs

@@ -4,10 +4,10 @@
 
 Same flags and output lines as the reference CLI, on one CUDA device,
 except the ones still to port: --tp (tensor parallelism) and
---draft-model / --gamma (speculative decoding); --kv takes bf16 only
-until the int8 KV cache is ported.  --device names the device (a
-machine without CUDA fails instead of running on the CPU unless
---device cpu is given).
+--draft-model / --gamma (speculative decoding).  --kv int8 keeps K/V as
+int8 codes with per-token scales; --kv auto picks int8 at --n-ctx >=
+1024.  --device names the device (a machine without CUDA fails instead
+of running on the CPU unless --device cpu is given).
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--greedy", action="store_true")
     p.add_argument("--seed", type=int, default=780658349)
     p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
-    p.add_argument("--kv", choices=["bf16"], default="bf16", help="KV cache dtype")
+    p.add_argument("--kv", choices=["bf16", "int8", "auto"], default="bf16",
+                   help="KV cache dtype; auto picks int8 at n-ctx >= 1024")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--timing", action="store_true", help="per-token latency stats")
     return p
@@ -67,8 +68,8 @@ def main(argv=None) -> int:
         repeat_penalty=args.repeat_penalty,
         seed=args.seed,
     )
-    engine = Engine(cfg, params, tokenizer=tokenizer, sampling=sampling,
-                    cache_dtype=torch.bfloat16)
+    kv = {"bf16": torch.bfloat16, "int8": "int8", "auto": "auto"}[args.kv]
+    engine = Engine(cfg, params, tokenizer=tokenizer, sampling=sampling, cache_dtype=kv)
     timer = TokenTimer() if args.timing else None
 
     def on_text(s: str):

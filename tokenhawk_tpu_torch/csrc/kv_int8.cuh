@@ -1,0 +1,58 @@
+// The int8 KV codec and int8 unpacking, shared by kernels 8-12.
+//
+// A K or V row of 128 values quantizes to 128 int8 codes and one scale,
+// bit for bit as tokenhawk_tpu/ops/kvquant.py quantize_kv_block does:
+//   scale = amax / 127 (f32, a correctly rounded division);
+//   inv   = 1 / scale (0 where scale is 0), then x * inv (a multiply);
+//   q     = round half to even (rintf), clipped to +-127;
+//   the stored scale is rounded to bfloat16; the codes were made with the
+//   unrounded f32 scale.
+// The explicit _rn intrinsics keep the division and the multiply IEEE
+// whatever flags the file is compiled with.
+#pragma once
+
+#include "common.cuh"
+
+namespace thawk {
+
+constexpr int kRowDh = 128;
+
+// One row held by a warp, 4 values per lane (lane l holds x[4l..4l+3]).
+// Returns the f32 scale before its bfloat16 rounding.
+static __device__ __forceinline__ float quantize_row4(const float4 x, char4& q) {
+  const float a = fmaxf(fmaxf(fabsf(x.x), fabsf(x.y)), fmaxf(fabsf(x.z), fabsf(x.w)));
+  const float scale = __fdiv_rn(warp_max(a), 127.f);
+  const float inv = scale > 0.f ? __fdiv_rn(1.f, scale) : 0.f;
+  auto code = [inv](float v) {
+    return static_cast<signed char>(fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f));
+  };
+  q = make_char4(code(x.x), code(x.y), code(x.z), code(x.w));
+  return scale;
+}
+
+// Four int8 codes packed in a 32-bit word (byte 0 first) as f32.
+static __device__ __forceinline__ void unpack4(uint32_t w, float* o) {
+  const int s = static_cast<int>(w);
+  o[0] = static_cast<float>((s << 24) >> 24);
+  o[1] = static_cast<float>((s << 16) >> 24);
+  o[2] = static_cast<float>((s << 8) >> 24);
+  o[3] = static_cast<float>(s >> 24);
+}
+
+// Eight f32 values stored in T (16-byte aligned for bfloat16, 32 for float).
+static __device__ __forceinline__ void store8(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+static __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
+  uint4 raw;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+}  // namespace thawk

@@ -11,8 +11,11 @@ CUDA kernels:
   decode FFN (<= 8 rows)          kernel 2, fused SwiGLU + residual
   decode attention                kernel 3, append + attend in place
   prefill attention               kernel 4, causal flash attention
+  int8 cache (QuantKVCache)       kernel 8, quantize + append + attend;
+                                  kernel 9, prefill over the int8 cache
   paged decode (forward_paged_*)  kernels 6 + 5, paged append + attend;
-                                  chunked prefill gathers pages (kernel 7)
+                                  chunked prefill gathers pages (kernel 7);
+                                  on int8 pages kernels 11, 10 and 12
 
 Weight orientation is [in, out] (y = x @ W) at every public function,
 as in the reference, whatever the Q4_0 storage layout.
@@ -33,16 +36,23 @@ from tokenhawk_tpu_torch.ops.cuda.ffn import MAX_ROWS as _FFN_MAX_ROWS
 from tokenhawk_tpu_torch.ops.cuda.ffn import fused_ffn
 from tokenhawk_tpu_torch.ops.cuda.flash_attention import flash_attention
 from tokenhawk_tpu_torch.ops.cuda.flash_decode import flash_decode_append
+from tokenhawk_tpu_torch.ops.cuda.kv_int8 import flash_attention_int8, flash_decode_int8
+from tokenhawk_tpu_torch.ops.kvquant import update_kv_cache_int8
 from tokenhawk_tpu_torch.ops.linear import matmul
 from tokenhawk_tpu_torch.ops.qweight import ArrayOrQ, QWeight, concat_qweights, take_columns
 from tokenhawk_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from tokenhawk_tpu_torch.runtime.paged import (
     PagedKVCache,
     append_token_layer,
+    append_token_layer_int8,
     attend_paged_layer,
+    attend_paged_layer_int8,
     gather_pages,
+    gather_pages_int8,
     paginate_fragment_layer,
     paginate_fragment_layer_at,
+    paginate_fragment_layer_int8,
+    paginate_fragment_layer_int8_at,
 )
 
 
@@ -102,28 +112,81 @@ class KVCache:
 
         return KVCache([z() for _ in range(cfg.n_layer)], [z() for _ in range(cfg.n_layer)])
 
+    def layers(self):
+        return list(zip(self.k, self.v))
 
-def _attend_and_update(cfg: LlamaConfig, q, k, v, kc, vc, offsets, positions):
+
+@dataclasses.dataclass
+class QuantKVCache:
+    """Dense int8 KV cache (ops/kvquant.py): per layer, int8 codes
+    [B, Hkv, S, Dh] and bfloat16 scales [B, Hkv, S] for k and v."""
+
+    k: List[torch.Tensor]
+    ks: List[torch.Tensor]
+    v: List[torch.Tensor]
+    vs: List[torch.Tensor]
+
+    @staticmethod
+    def create(cfg: LlamaConfig, batch: int, max_seq: Optional[int] = None,
+               device=None) -> "QuantKVCache":
+        shape = (batch, cfg.n_kv_head, max_seq or cfg.n_ctx, cfg.head_dim)
+
+        def z(shape, dtype):
+            return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.n_layer)]
+
+        return QuantKVCache(z(shape, torch.int8), z(shape[:3], torch.bfloat16),
+                            z(shape, torch.int8), z(shape[:3], torch.bfloat16))
+
+    def layers(self):
+        return list(zip(self.k, self.ks, self.v, self.vs))
+
+
+def cache_from_jax(np_cache, device=None) -> Union[KVCache, QuantKVCache]:
+    """The JAX package's dense cache, as numpy, -> the port's: a stacked
+    KVCache / QuantKVCache-like tuple of [L, ...] arrays ((k, v) or
+    (k, ks, v, vs)), or the unrolled per-layer tuple of such tuples."""
+
+    def conv(a):
+        return torch.from_numpy(np.array(a, order="C")).to(device)
+
+    if isinstance(np_cache[0], (tuple, list)):  # unrolled: one tuple per layer
+        parts = [[conv(a) for a in part] for part in zip(*np_cache)]
+    else:
+        parts = [[conv(a) for a in stacked] for stacked in np_cache]
+    return KVCache(*parts) if len(parts) == 2 else QuantKVCache(*parts)
+
+
+def _attend_and_update(cfg: LlamaConfig, q, k, v, lcache, offsets, positions):
     """Write (k, v) into this layer's cache and attend; q [B, T, H, Dh].
+    lcache is (k, v) of a bf16/f32 cache or (k, ks, v, vs) of an int8 one.
 
-    Decode (T == 1) runs kernel 3, which appends the row at slot
-    lengths-1 = min(position, S-1) and attends over lengths tokens.
-    Prefill writes its block with an index copy and runs kernel 4.
+    Decode (T == 1) runs kernel 3 (kernel 8 on int8), which appends the
+    row at slot lengths-1 = min(position, S-1) and attends over lengths
+    tokens.  Prefill writes its block with an index copy (quantized
+    first on int8) and runs kernel 4 (kernel 9): the prompt attends to
+    its own stored, so on int8 quantized, K / V, as in the reference.
     (The reference switches dense-weight programs to a decode kernel
     without append to dodge TPU memory-space assignment; the port uses
     its one append kernel for every weight kind.)"""
     B, T, H, Dh = q.shape
-    Hkv, S = kc.shape[1], kc.shape[2]
+    Hkv, S = lcache[0].shape[1], lcache[0].shape[2]
     rep = H // Hkv
     scale = 1.0 / Dh**0.5
     if T == 1:
         qg = (q[:, 0] * scale).reshape(B, Hkv, rep, Dh)
         lengths = torch.clamp(positions[:, 0] + 1, max=S).to(torch.int32)
-        out = flash_decode_append(qg, k[:, 0], v[:, 0], kc, vc, lengths)
+        if len(lcache) == 4:
+            out = flash_decode_int8(qg, k[:, 0], v[:, 0], *lcache, lengths)
+        else:
+            out = flash_decode_append(qg, k[:, 0], v[:, 0], *lcache, lengths)
         return out.reshape(B, 1, H, Dh)
-    update_kv_cache(kc, vc, k, v, offsets)
     qg = (q * scale).reshape(B, T, Hkv, rep, Dh).permute(0, 2, 3, 1, 4)
-    out = flash_attention(qg, kc, vc, positions[:, 0].to(torch.int32))
+    if len(lcache) == 4:
+        update_kv_cache_int8(*lcache, k, v, offsets)
+        out = flash_attention_int8(qg, *lcache, positions[:, 0].to(torch.int32))
+    else:
+        update_kv_cache(*lcache, k, v, offsets)
+        out = flash_attention(qg, *lcache, positions[:, 0].to(torch.int32))
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, Dh)
 
 
@@ -173,15 +236,15 @@ def _wo_ffn_block(cfg: LlamaConfig, x, ctx, lp: LayerParams):
     return _ffn_block(cfg, x, lp)
 
 
-def _layer_forward(cfg: LlamaConfig, x, lp: LayerParams, kc, vc, cos, sin, offsets,
+def _layer_forward(cfg: LlamaConfig, x, lp: LayerParams, lcache, cos, sin, offsets,
                    positions):
     q, k, v = _qkv(cfg, x, lp, cos, sin)
-    ctx = _attend_and_update(cfg, q, k, v, kc, vc, offsets, positions)
+    ctx = _attend_and_update(cfg, q, k, v, lcache, offsets, positions)
     return _wo_ffn_block(cfg, x, ctx, lp)
 
 
-def forward(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor, cache: KVCache,
-            offsets: torch.Tensor):
+def forward(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor,
+            cache: Union[KVCache, QuantKVCache], offsets: torch.Tensor):
     """Run a token block [B, T] through all layers; `offsets` [B] int32
     is each sequence's cache write offset.  Returns the hidden states
     [B, T, D] (before the final norm) and the cache, updated in place."""
@@ -189,8 +252,8 @@ def forward(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor, cache: 
     x = params.tok_embd[tokens]
     positions = offsets.long()[:, None] + torch.arange(T, device=tokens.device)[None, :]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-    for lp, kc, vc in zip(params.layers, cache.k, cache.v):
-        x = _layer_forward(cfg, x, lp, kc, vc, cos, sin, offsets, positions)
+    for lp, lcache in zip(params.layers, cache.layers()):
+        x = _layer_forward(cfg, x, lp, lcache, cos, sin, offsets, positions)
     return x, cache
 
 
@@ -218,10 +281,14 @@ def forward_paged_decode(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Te
     x = params.tok_embd[tokens]
     positions = lengths.long()[:, None]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-    for lp, k_l, v_l in zip(params.layers, cache.k, cache.v):
+    for lp, lc in zip(params.layers, cache.layers()):
         q, k, v = _qkv(cfg, x, lp, cos, sin)
-        append_token_layer(k_l, v_l, k[:, 0], v[:, 0], page_table, lengths, cache.layout)
-        ctx = attend_paged_layer(q, k_l, v_l, page_table, lengths + 1, cache.layout)
+        if cache.quant:  # kernels 11 + 10
+            append_token_layer_int8(*lc, k[:, 0], v[:, 0], page_table, lengths, cache.layout)
+            ctx = attend_paged_layer_int8(q, *lc, page_table, lengths + 1, cache.layout)
+        else:
+            append_token_layer(*lc, k[:, 0], v[:, 0], page_table, lengths, cache.layout)
+            ctx = attend_paged_layer(q, *lc, page_table, lengths + 1, cache.layout)
         x = _wo_ffn_block(cfg, x, ctx, lp)
     return x, cache
 
@@ -229,8 +296,9 @@ def forward_paged_decode(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Te
 def forward_paged_prefill(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor,
                           cache: PagedKVCache, page_table: torch.Tensor):
     """Prefill fresh prompts tokens [B, Tb] (positions 0..Tb-1) straight
-    into their pages: the block attends only to itself (kernel 4) and each
-    layer's K / V page out in place.  Padding rows past a prompt are
+    into their pages: the block attends only to itself (kernel 4, over
+    its unquantized K / V even on an int8 pool, as the reference does) and
+    each layer's K / V page out in place.  Padding rows past a prompt are
     causally masked from its real rows.  Returns (hidden [B, Tb, D], the
     pool)."""
     B, T = tokens.shape
@@ -238,13 +306,19 @@ def forward_paged_prefill(cfg: LlamaConfig, params: LlamaParams, tokens: torch.T
     positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     zeros = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
-    for lp, k_l, v_l in zip(params.layers, cache.k, cache.v):
+    for lp, lc in zip(params.layers, cache.layers()):
         q, k, v = _qkv(cfg, x, lp, cos, sin)
         k_b = k.transpose(1, 2).contiguous()  # [B, Hkv, T, Dh]
         v_b = v.transpose(1, 2).contiguous()
         ctx = _prefill_attention(q, k_b, v_b, zeros)
-        paginate_fragment_layer(k_l, k_b, page_table, cache.layout)
-        paginate_fragment_layer(v_l, v_b, page_table, cache.layout)
+        if cache.quant:
+            k_l, ks_l, v_l, vs_l = lc
+            paginate_fragment_layer_int8(k_l, ks_l, k_b, page_table, cache.layout)
+            paginate_fragment_layer_int8(v_l, vs_l, v_b, page_table, cache.layout)
+        else:
+            k_l, v_l = lc
+            paginate_fragment_layer(k_l, k_b, page_table, cache.layout)
+            paginate_fragment_layer(v_l, v_b, page_table, cache.layout)
         x = _wo_ffn_block(cfg, x, ctx, lp)
     return x, cache
 
@@ -255,7 +329,8 @@ def forward_paged_prefill_cont(cfg: LlamaConfig, params: LlamaParams, tokens: to
     """One chunk tokens [B, C] of longer prompts, its first row at the
     page-aligned position start[b], n_new[b] of its rows real: the chunk's
     K / V page out in place, then every row attends to the slot's pages
-    gathered dense (kernel 7) up to its own position (kernel 4).
+    gathered dense (kernel 7; on an int8 pool kernel 12, dequantized to
+    the activation dtype) up to its own position (kernel 4).
 
     RoPE positions are the reference's: start + t for real rows, 0 for
     padding rows.  The attention kernel places query t at start + t for
@@ -270,11 +345,22 @@ def forward_paged_prefill_cont(cfg: LlamaConfig, params: LlamaParams, tokens: to
                             start.long()[:, None] + t, 0)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     start_page = start // cache.page_size
-    for lp, k_l, v_l in zip(params.layers, cache.k, cache.v):
+    for lp, lc in zip(params.layers, cache.layers()):
         q, k, v = _qkv(cfg, x, lp, cos, sin)
-        paginate_fragment_layer_at(k_l, k.transpose(1, 2), page_table, start_page, cache.layout)
-        paginate_fragment_layer_at(v_l, v.transpose(1, 2), page_table, start_page, cache.layout)
-        kg, vg = gather_pages(k_l, v_l, page_table, cache.layout)
+        if cache.quant:
+            k_l, ks_l, v_l, vs_l = lc
+            paginate_fragment_layer_int8_at(k_l, ks_l, k.transpose(1, 2), page_table,
+                                            start_page, cache.layout)
+            paginate_fragment_layer_int8_at(v_l, vs_l, v.transpose(1, 2), page_table,
+                                            start_page, cache.layout)
+            kg, vg = gather_pages_int8(*lc, page_table, cache.layout, x.dtype)
+        else:
+            k_l, v_l = lc
+            paginate_fragment_layer_at(k_l, k.transpose(1, 2), page_table, start_page,
+                                       cache.layout)
+            paginate_fragment_layer_at(v_l, v.transpose(1, 2), page_table, start_page,
+                                       cache.layout)
+            kg, vg = gather_pages(k_l, v_l, page_table, cache.layout)
         ctx = _prefill_attention(q, kg, vg, start)
         x = _wo_ffn_block(cfg, x, ctx, lp)
     return x, cache

@@ -76,12 +76,11 @@ def gather_pool_payload(pages: torch.Tensor, page_table: torch.Tensor, layout: s
 # -- kernel 5: paged decode ---------------------------------------------------
 
 
-def paged_decode_plain(q, k_pages, v_pages, page_table, lengths, layout):
-    """The same function in plain PyTorch: gather, mask, softmax in f32."""
-    B, Hkv, rep, Dh = q.shape
-    kg = gather_pool_payload(k_pages, page_table, layout)
-    vg = gather_pool_payload(v_pages, page_table, layout)
-    mp, ps = kg.shape[2], kg.shape[3]
+def attend_gathered(q, kg, vg, lengths):
+    """q [B, Hkv, rep, Dh] (pre-scaled) over the first lengths[b] rows of
+    gathered kg / vg [B, Hkv, mp, ps, Dh], in f32 -> [B, Hkv, rep, Dh] in
+    q.dtype (the plain versions' attention, bf16 and int8 pools alike)."""
+    B, Hkv, mp, ps, Dh = kg.shape
     kg = kg.reshape(B, Hkv, mp * ps, Dh).float()
     vg = vg.reshape(B, Hkv, mp * ps, Dh).float()
     L = lengths.to(q.device).long()
@@ -91,6 +90,12 @@ def paged_decode_plain(q, k_pages, v_pages, page_table, lengths, layout):
     # A row of length 0 has no live key: its output is zeros (not NaN).
     probs = torch.softmax(scores, dim=-1).nan_to_num(0.0)
     return torch.einsum("bhrs,bhsd->bhrd", probs, vg).to(q.dtype)
+
+
+def paged_decode_plain(q, k_pages, v_pages, page_table, lengths, layout):
+    """The same function in plain PyTorch: gather, mask, softmax in f32."""
+    return attend_gathered(q, gather_pool_payload(k_pages, page_table, layout),
+                           gather_pool_payload(v_pages, page_table, layout), lengths)
 
 
 def paged_decode(q, k_pages, v_pages, page_table, lengths, layout):

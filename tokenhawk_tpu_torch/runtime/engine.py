@@ -7,6 +7,10 @@ to a power-of-two bucket, and a decode chunk is a Python loop of
 `chunk` steps whose sampled ids, EOS latch and repeat-penalty ring stay
 on the device.  The ids reach the host once per chunk.  Finished slots
 emit the EOS sentinel and do not advance their offset.
+
+cache_dtype is a torch dtype, "int8" (QuantKVCache, ops/kvquant.py) or
+"auto": int8 when max_seq >= 1024, else bfloat16 (the reference's rule
+on one device).
 """
 
 from __future__ import annotations
@@ -19,7 +23,13 @@ import numpy as np
 import torch
 
 from tokenhawk_tpu_torch.config import LlamaConfig, SamplingConfig
-from tokenhawk_tpu_torch.models.llama import KVCache, LlamaParams, forward, logits_from_hidden
+from tokenhawk_tpu_torch.models.llama import (
+    KVCache,
+    LlamaParams,
+    QuantKVCache,
+    forward,
+    logits_from_hidden,
+)
 from tokenhawk_tpu_torch.sampling import is_eos as _is_eos
 from tokenhawk_tpu_torch.sampling import normalize_eos, sample, sample_dynamic
 from tokenhawk_tpu_torch.tokenizer import BOS_ID, EOS_ID, Tokenizer
@@ -54,6 +64,14 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
         if n <= b:
             return b
     raise ValueError(f"prompt length {n} exceeds max bucket {buckets[-1]}")
+
+
+def resolve_cache_dtype(cache_dtype, max_seq: int):
+    """"auto" -> "int8" when max_seq >= 1024, else bfloat16 (the
+    reference's rule on one device); any other value as it is."""
+    if cache_dtype == "auto":
+        return "int8" if max_seq >= 1024 else torch.bfloat16
+    return cache_dtype
 
 
 def last_rows(h: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -163,7 +181,7 @@ class Engine:
         self.sampling = sampling
         self.max_seq = max_seq or cfg.n_ctx
         self.batch_size = batch_size
-        self.cache_dtype = cache_dtype
+        self.cache_dtype = resolve_cache_dtype(cache_dtype, self.max_seq)
         self.decode_chunk = decode_chunk
         self.eos_id, self.eos_ids = normalize_eos(eos_id)
         eos_id = self.eos_ids if len(self.eos_ids) > 1 else self.eos_id
@@ -179,9 +197,11 @@ class Engine:
 
     # -- low-level API ---------------------------------------------------
 
-    def new_cache(self, batch: Optional[int] = None) -> KVCache:
-        return KVCache.create(self.cfg, batch or self.batch_size, self.max_seq,
-                              self.cache_dtype, self.device)
+    def new_cache(self, batch: Optional[int] = None):
+        batch = batch or self.batch_size
+        if self.cache_dtype == "int8":
+            return QuantKVCache.create(self.cfg, batch, self.max_seq, self.device)
+        return KVCache.create(self.cfg, batch, self.max_seq, self.cache_dtype, self.device)
 
     def prefill(self, cache: KVCache, prompts: Sequence[Sequence[int]],
                 offsets: Optional[np.ndarray] = None):

@@ -1,10 +1,11 @@
 """Continuous batching over a paged KV pool.
 
-Counterpart of tokenhawk_tpu/runtime/paged_scheduler.py (bf16/f32 pages,
-one device).  Same discipline as the dense Scheduler (slot pool, batched
-admissions, chunked decode, EOS latching), but KV lives in a shared page
-pool (runtime/paged.py): admission allocates the prompt's pages, each
-decode chunk tops slots up, retirement returns pages to the free list.
+Counterpart of tokenhawk_tpu/runtime/paged_scheduler.py (bf16/f32 or
+int8 pages, one device).  Same discipline as the dense Scheduler (slot
+pool, batched admissions, chunked decode, EOS latching), but KV lives in
+a shared page pool (runtime/paged.py): admission allocates the prompt's
+pages, each decode chunk tops slots up, retirement returns pages to the
+free list.
 
   - Free and retired slots' table rows point at a reserved trash page, so
     their (masked, EOS-latched) decode writes cannot touch a live page;
@@ -19,8 +20,8 @@ decode chunk tops slots up, retirement returns pages to the free list.
     spinning; starved chunking slots give up the largest one first.
   - One host transfer per decode chunk: the sampled ids.
 
-Not ported yet: int8 pages (ROADMAP Queue 1 item 6), speculative serving
-(item 4) and tensor parallelism (item 8).
+Not ported yet: speculative serving (ROADMAP Queue 1 item 4) and tensor
+parallelism (item 8).
 """
 
 from __future__ import annotations
@@ -55,8 +56,6 @@ from tokenhawk_tpu_torch.runtime.scheduler import (
 from tokenhawk_tpu_torch.sampling import SamplingParams, normalize_eos, sample_dynamic
 from tokenhawk_tpu_torch.sampling import is_eos as _is_eos
 from tokenhawk_tpu_torch.tokenizer import EOS_ID
-
-INT8_TODO = "int8 KV pages are not ported yet (ROADMAP Queue 1 item 6)"
 
 
 def make_paged_decode_fn_dynamic(cfg: LlamaConfig, chunk: int, eos_id: int = EOS_ID):
@@ -140,9 +139,8 @@ class PagedScheduler:
         chunks interleaved with decode steps (a multiple of page_size;
         None = single-shot admission).  prefix_cache: reuse full prompt
         pages across requests.  layout: the pool's physical layout,
-        "contig" (page-major) or "head" (head-major)."""
-        if cache_dtype == "int8":
-            raise NotImplementedError(INT8_TODO)
+        "contig" (page-major) or "head" (head-major).  cache_dtype "int8"
+        makes int8 pages with per-token scales (runtime/paged.py)."""
         if draft_cfg is not None or draft_params is not None:
             raise NotImplementedError(SPEC_TODO)
         if mesh is not None:

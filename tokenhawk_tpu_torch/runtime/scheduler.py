@@ -187,6 +187,11 @@ class Scheduler:
             raise NotImplementedError(SPEC_TODO)
         if mesh is not None:
             raise NotImplementedError(TP_TODO)
+        if cache_dtype in ("int8", "auto"):
+            # The reference's dense Scheduler would build an int8 (k, v)
+            # cache and truncate bf16 K/V into it (ROADMAP Queue 3).
+            raise ValueError("the dense Scheduler keeps a bf16/f32 cache; int8 KV "
+                             "serving is the PagedScheduler's (cache_dtype='int8')")
         self.cfg = cfg
         self.params = params
         self.device = params.device

@@ -6,8 +6,10 @@ Continuous batching on one CUDA device behind an SSE streaming API:
 the dense per-slot Scheduler, or with --paged the PagedScheduler (page
 pool, prefix cache, chunked prefill).  --device names the torch device
 (cuda by default; a machine without CUDA fails unless --device cpu is
-given).  Not ported yet, and refused with an error: --tp (ROADMAP Queue
-1 item 8), --draft-model / --gamma (item 4) and --kv int8 (item 6).
+given).  --paged --kv int8 serves from int8 pages with per-token scales;
+the dense Scheduler keeps bf16 KV whatever --kv says, as the reference's
+does (a note on stderr).  Not ported yet, and refused with an error: --tp
+(ROADMAP Queue 1 item 8) and --draft-model / --gamma (item 4).
 """
 
 from __future__ import annotations
@@ -18,8 +20,7 @@ import time
 
 NOT_PORTED = {"tp": "--tp (tensor parallelism) is not ported yet (ROADMAP Queue 1 item 8)",
               "draft_model": "--draft-model is not ported yet (ROADMAP Queue 1 item 4)",
-              "gamma": "--gamma (speculative decoding) is not ported yet (ROADMAP Queue 1 item 4)",
-              "kv": "--kv int8 is not ported yet (ROADMAP Queue 1 item 6)"}
+              "gamma": "--gamma (speculative decoding) is not ported yet (ROADMAP Queue 1 item 4)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,7 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefill-chunk", type=int, default=None,
                    help="admit long prompts in chunks of this many tokens interleaved "
                         "with decode (paged only)")
-    p.add_argument("--kv", choices=["bf16", "int8"], default="bf16", help="paged KV dtype")
+    p.add_argument("--kv", choices=["bf16", "int8"], default="bf16",
+                   help="paged KV dtype (int8 halves page traffic)")
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--draft-model")
     p.add_argument("--gamma", type=int)
@@ -64,7 +66,7 @@ def main(argv=None) -> int:
     if not model_path:
         parser.error("one of -m/--model or -d/--dir is required")
     asked = {"tp": args.tp != 1, "draft_model": args.draft_model is not None,
-             "gamma": args.gamma is not None, "kv": args.kv != "bf16"}
+             "gamma": args.gamma is not None}
     for name, given in asked.items():
         if given:
             parser.error(NOT_PORTED[name])
@@ -94,11 +96,15 @@ def main(argv=None) -> int:
 
         sched = PagedScheduler(
             cfg, params, sampling=sampling, max_batch=args.max_batch, max_seq=args.n_ctx,
-            decode_chunk=args.decode_chunk, page_size=args.page_size, cache_dtype=dtype,
+            decode_chunk=args.decode_chunk, page_size=args.page_size,
+            cache_dtype="int8" if args.kv == "int8" else dtype,
             prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache, eos_id=eos_id)
     else:
         from tokenhawk_tpu_torch.runtime.scheduler import Scheduler
 
+        if args.kv == "int8":
+            print("note: --kv int8 applies to --paged; the dense server keeps bf16 KV",
+                  file=sys.stderr)
         sched = Scheduler(cfg, params, sampling=sampling, max_batch=args.max_batch,
                           max_seq=args.n_ctx, decode_chunk=args.decode_chunk, eos_id=eos_id)
     httpd = serve(sched, tokenizer, host=args.host, port=args.port,
