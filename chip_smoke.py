@@ -35,13 +35,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   4bi. phase 4b's requests on int8 pages (the bf16 pool freed first):
      kernels 10-12 launched, kernels 3 and 5-7 not;
   5. CLI: a 2-layer 7B-width ggjt Q4_0 file through tokenhawk_tpu_torch.cli,
-     bf16 KV and --kv auto at n_ctx 2048 (kernel 8 instead of kernel 3).
+     bf16 KV and --kv auto at n_ctx 2048 (kernel 8 instead of kernel 3);
+  6. GGUF weight kinds: a 32-layer Llama-3-8B-width model in llama.cpp's
+     Q4_K_M mix (random codes from a seed), Engine.generate at n_ctx 2048
+     (prompts of 5, 300, 1500 tokens), then phase 4b's requests through
+     the PagedScheduler; kernels 13 and 2 launched, kernel 1 not;
+  6q. the 32-layer LLaMA-7B model in Q8_0 through Engine.generate;
+  7. a 2-layer Llama-3-8B-width Q4_K_M GGUF file with a byte-level BPE
+     vocab of 128256 tokens: load_model, the CLI (bf16 KV and --kv auto),
+     and `python -m tokenhawk_tpu_torch.serving --paged` (SSE, one chat
+     request through the file's template, a request that stops on
+     <|eot_id|>).
+Phase 2 also holds kernel 13 (group-code matmul) and kernel 2 over the
+GGUF kinds at those models' shapes, and kernels 3-12 at Llama-3-8B's 8 KV
+heads of 4 queries each; phase 3 also runs a 2-layer Q4_K_M slice.
 The next-to-last line is {"kernels": [...]}, the last {"ok": true, ...}.
 It needs one CUDA device and the rest of the repository beside it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import socket
@@ -77,6 +91,12 @@ PAGED_PS, PAGED_POOL = 128, 140
 # Context of the int8 phases: the CLI's default --n-ctx, where --kv auto
 # picks the int8 cache.
 INT8_CTX = 2048
+# Kernel 2's launch counts by weight-form pairing (ops/cuda/ffn.py): Q4_0
+# over Q4_0; Q4_K (G 32 with mins) over Q6_K (G 16) and over Q4_K, the
+# two of a Q4_K_M file; Q8_0 (G 32) over Q8_0.
+FFN_Q4_0 = "ffn[q4_0/q4_0]"
+FFN_Q4_K_M = ["ffn[g32m/g16]", "ffn[g32m/g32m]"]
+FFN_Q8_0 = "ffn[g32/g32]"
 
 
 def log(msg: str = "") -> None:
@@ -134,11 +154,25 @@ def max_err(out, ref, frac: float = KERNEL_TOL) -> tuple:
     return d, frac * ref.float().abs().max().item()
 
 
-def bound(nbytes: float, flops: float) -> dict:
-    """The least time the card could take for a call (see HBM_BPS)."""
+def bound(nbytes: float, flops: float, layout_nbytes: float | None = None) -> dict:
+    """The least time the card could take for a call (see HBM_BPS).  For
+    weights whose GGML blocks the port stores wider, nbytes counts the
+    blocks and layout_nbytes the port's layout (layout_bound_ms)."""
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    out = {"bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if layout_nbytes is not None:
+        out["layout_bound_ms"] = max(layout_nbytes / HBM_BPS * 1e3, t_ops)
+    return out
+
+
+def _ggml_bytes(kind: str, k: int, n: int) -> int:
+    """Bytes of a [k, n] weight of GGML kind `kind` ("q4_k", "q6_k",
+    "q8_0") in a GGUF file's blocks."""
+    from tokenhawk_tpu_torch.ggml.format import GGMLType
+    from tokenhawk_tpu_torch.ggml.gguf import gguf_tensor_nbytes
+
+    return gguf_tensor_nbytes(GGMLType[kind.upper()], k * n)
 
 
 def phase_env() -> None:
@@ -188,10 +222,18 @@ def phase_kernels() -> list:
     def qweight(k, n):
         return QWeight.quantize(randn(k, n, scale=0.02, dtype=torch.float32))
 
-    def case(cases, label, shape, rows, out, ref, kernel_fns, plain_fns, frac=KERNEL_TOL):
-        """Check one shape against the tolerance, time both versions."""
+    def case(cases, label, shape, rows, out, ref, kernel_fns=None, plain_fns=None,
+             frac=KERNEL_TOL, calls=32):
+        """Check one shape against the tolerance, time both versions
+        (given no functions to time, only check)."""
         err, tol = max_err(out, ref, frac)
-        kt, pt = timed(kernel_fns), timed(plain_fns)
+        if kernel_fns is None:
+            log(f"{label}: max_abs_err {err:.3e} (tol {tol:.3e})")
+            if not err <= tol:
+                raise AssertionError(f"{label}: {err} > {tol}")
+            cases.append(dict(shape=shape, rows=rows, max_abs_err=err, tol=tol))
+            return
+        kt, pt = timed(kernel_fns, calls), timed(plain_fns, calls)
         log(f"{label}: max_abs_err {err:.3e} (tol {tol:.3e})  kernel {kt['ms']:.4f} ms "
             f"[per call {kt['call_ms']:.4f}]  plain {pt['ms']:.4f} ms [per call {pt['call_ms']:.4f}]")
         if not err <= tol:
@@ -220,15 +262,21 @@ def phase_kernels() -> list:
         for rows in (1, 64, 512):
             x = randn(rows, K)
             case(cases, f"q4_matmul {name} K={K} N={N} rows={rows} norm={norm}", name, rows,
-                 qmatmul.q4_matmul(x, w, gain), qmatmul.q4_matmul_plain(x, w, gain),
-                 [lambda w=w: qmatmul.q4_matmul(x, w, gain) for w in ws],
-                 [lambda w=w: qmatmul.q4_matmul_plain(x, w, gain) for w in ws])
+                 qmatmul.quant_matmul(x, w, gain), qmatmul.quant_matmul_plain(x, w, gain),
+                 [lambda w=w: qmatmul.quant_matmul(x, w, gain) for w in ws],
+                 [lambda w=w: qmatmul.quant_matmul_plain(x, w, gain) for w in ws])
+            if name == "wqkv" and rows == 1:
+                lib = library("dequantize (f32 torch ops, then bf16) + torch.matmul, no norm "
+                              "(2+ calls)", [lambda w=w: x @ w.dequantize(torch.bfloat16)
+                                             for w in ws])
         del w, ws
-    K, N = 4096, 12288  # the timed case: wqkv, one row, norm fused
+    # The timed case: wqkv, one row, norm fused.  A ggjt Q4_0 block holds 32
+    # weights in 20 bytes (f32 scale), as the port's layout does: 0.625 B each.
+    K, N = 4096, 12288
     records.append(_record("q4_matmul", "tokenhawk_tpu_torch/csrc/qmatmul.cu",
                            "tokenhawk_tpu/ops/pallas/qmatmul.py:807 (q4_matmul); "
                            "qmatmul.py:874 (q4_matmul_i4)", cases, ("wqkv", 1),
-                           bound(K * N * 0.625 + 2 * K * bf + N * bf, 2 * K * N), None))
+                           bound(K * N * 0.625 + 2 * K * bf + N * bf, 2 * K * N), lib))
 
     # -- kernel 2: the decode FFN --
     cases = []
@@ -243,11 +291,14 @@ def phase_kernels() -> list:
              ffn.fused_ffn(x, w13, w2, gain), ffn.fused_ffn_plain(x, w13, w2, gain),
              [lambda s=s: ffn.fused_ffn(x, *s, gain) for s in sets],
              [lambda s=s: ffn.fused_ffn_plain(x, *s, gain) for s in sets])
+        if rows == 1:
+            lib = library("rms_norm + dequantize w13 and w2 + 2 torch.matmul + silu, bf16 "
+                          "(10+ calls)", [lambda s=s: _ffn_library(x, *s, gain) for s in sets])
     del w13, w2, sets
     records.append(_record("fused_ffn", "tokenhawk_tpu_torch/csrc/ffn.cu",
                            "tokenhawk_tpu/ops/pallas/ffn.py:270 (_fused_ffn via fused_ffn)",
                            cases, ("ffn", 1),
-                           bound(3 * D * F * 0.625 + 3 * D * bf, 6 * D * F), None))
+                           bound(3 * D * F * 0.625 + 3 * D * bf, 6 * D * F), lib))
 
     # -- kernel 3: decode append + attend; lengths in one batch, then timed at B=1 --
     cases = []
@@ -308,7 +359,227 @@ def phase_kernels() -> list:
     records += _paged_kernel_records(randn, case, library, g)
     records += _int8_kernel_records(randn, case, library)
     records += _paged_int8_kernel_records(randn, case, library, g)
+    gqa = _gqa_cases(randn, case, g)
+    for rec in records:
+        rec["cases"] += gqa.get(rec["name"], [])
+        rec["max_abs_err"] = max(c["max_abs_err"] for c in rec["cases"])
+    records += _group_code_kernel_records(randn, case, library, g)
     return records
+
+
+def _weight_copies(w) -> list:
+    """copies() of a QWeight, each a QWeight."""
+    parts = [w.qs, w.scales] + ([] if w.mins is None else [w.mins])
+    return [dataclasses.replace(w, qs=c[0], scales=c[1], mins=c[2] if len(c) > 2 else None)
+            for c in copies(parts, w.nbytes)]
+
+
+def _group_code_kernel_records(randn, case, library, g) -> list:
+    """Kernel 13 at every projection shape of phases 6 and 6q (Llama-3-8B
+    in Q4_K_M: Q4_K, with Q6_K for the output and for w2 on some layers;
+    LLaMA-7B in Q8_0) at 1, 8 and 512 rows, with and without the fused
+    norm; kernel 2 over those models' FFN pairings at 1 and 8 rows.  Each
+    shape is timed in the form the path runs it (norm fused into wqkv and
+    the output), the other form only checked; each timed case gets its
+    bound and the time of the same function from PyTorch calls
+    (dequantize, then torch.matmul).  A record per model and per pairing,
+    timed at one row."""
+    import torch
+
+    from tokenhawk_tpu_torch.ops.cuda import ffn, qmatmul
+    from tokenhawk_tpu_torch.ops.qweight import QWeight
+
+    dev = torch.device("cuda")
+    bf = 2
+    src13, src2 = "tokenhawk_tpu_torch/csrc/qk_matmul.cu", "tokenhawk_tpu_torch/csrc/ffn.cu"
+    rep13 = ("tokenhawk_tpu/ops/pallas/qmatmul.py:742 (q8_matmul); "
+             "qmatmul.py:477 (qk_matmul)")
+    records = []
+    models = [
+        ("q4_k_m", "Llama-3-8B Q4_K_M", [("wqkv", 4096, 6144, "q4_k", True),
+                                         ("wo", 4096, 4096, "q4_k", False),
+                                         ("w2 q6_k", 14336, 4096, "q6_k", False),
+                                         ("w2 q4_k", 14336, 4096, "q4_k", False),
+                                         ("output", 4096, 128256, "q6_k", True)]),
+        ("q8_0", "LLaMA-7B Q8_0", [("wqkv", 4096, 12288, "q8_0", True),
+                                   ("wo", 4096, 4096, "q8_0", False),
+                                   ("output", 4096, 32000, "q8_0", True)])]
+    for tag, model, shapes in models:
+        cases = []
+        for name, K, N, form, norm in shapes:
+            w = QWeight.random(K, N, form, g, dev)
+            ws = _weight_copies(w)
+            gain = 1.0 + randn(K, scale=0.1)
+            for rows in (1, 8, 512):
+                x = randn(rows, K)
+                for ng in (gain, None):
+                    label = (f"qk_matmul {model} {name} ({form}) K={K} N={N} rows={rows} "
+                             f"norm={ng is not None}")
+                    out = qmatmul.quant_matmul(x, w, ng)
+                    ref = qmatmul.quant_matmul_plain(x, w, ng)
+                    if (ng is not None) != norm:
+                        case(cases, label, f"{name} norm={ng is not None}", rows, out, ref)
+                        continue
+                    calls = 32 if rows < 512 else 4
+                    case(cases, label, name, rows, out, ref,
+                         [lambda w=w: qmatmul.quant_matmul(x, w, ng) for w in ws],
+                         [lambda w=w: qmatmul.quant_matmul_plain(x, w, ng) for w in ws],
+                         calls=calls)
+                    # x, the gain and y once each, beside the weight's GGUF
+                    # blocks (its bytes in the port's layout as layout_bound_ms).
+                    io = (rows * (K + N) + K * norm) * bf
+                    b = bound(_ggml_bytes(form, K, N) + io, 2 * rows * K * N, w.nbytes + io)
+                    lib_ms = timed([lambda w=w: x @ w.dequantize(torch.bfloat16) for w in ws],
+                                   calls)["ms"]
+                    cases[-1].update(b, library_ms=lib_ms)
+                    log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}; in the port's layout "
+                        f"{b['layout_bound_ms']:.4f}); dequantize (f32 "
+                        f"torch ops, then bf16) + torch.matmul, no norm (2+ calls): "
+                        f"{lib_ms:.4f} ms")
+                    if name == "wqkv" and rows == 1:
+                        at, lib = b, lib_ms
+            del w, ws
+        records.append(_record(f"qk_matmul[{tag}]", src13, rep13, cases, ("wqkv", 1), at, lib))
+
+    pairs = [("q4_k/q6_k", 14336, "q4_k", "q6_k"), ("q4_k/q4_k", 14336, "q4_k", "q4_k"),
+             ("q8_0/q8_0", 11008, "q8_0", "q8_0")]
+    D = 4096
+    for tag, F, f13, f2 in pairs:
+        w13, w2 = QWeight.random(D, 2 * F, f13, g, dev), QWeight.random(F, D, f2, g, dev)
+        sets = list(zip(_weight_copies(w13), _weight_copies(w2)))
+        gain = 1.0 + randn(D, scale=0.1)
+        cases = []
+        for rows in (1, 8):
+            x = randn(rows, D)
+            case(cases, f"fused_ffn {tag} D={D} F={F} rows={rows}", "ffn", rows,
+                 ffn.fused_ffn(x, w13, w2, gain), ffn.fused_ffn_plain(x, w13, w2, gain),
+                 [lambda s=s: ffn.fused_ffn(x, *s, gain) for s in sets],
+                 [lambda s=s: ffn.fused_ffn_plain(x, *s, gain) for s in sets])
+            io = (2 * rows + 1) * D * bf
+            b = bound(_ggml_bytes(f13, D, 2 * F) + _ggml_bytes(f2, F, D) + io, 6 * rows * D * F,
+                      w13.nbytes + w2.nbytes + io)
+            lib_ms = library("rms_norm + dequantize w13 and w2 + 2 torch.matmul + silu, bf16 "
+                             "(10+ calls)", [lambda s=s: _ffn_library(x, *s, gain) for s in sets])
+            cases[-1].update(b, library_ms=lib_ms)
+            log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}; in the port's layout "
+                f"{b['layout_bound_ms']:.4f})")
+            if rows == 1:
+                at, lib = b, lib_ms
+        records.append(_record(f"fused_ffn[{tag}]", src2, "tokenhawk_tpu/ops/pallas/ffn.py:270 "
+                               "(_fused_ffn via fused_ffn)", cases, ("ffn", 1), at, lib))
+        del w13, w2, sets
+    return records
+
+
+def _ffn_library(x, w13, w2, gain, eps: float = 1e-6):
+    """Kernel 2's function from PyTorch calls in bfloat16 (the yardstick)."""
+    import torch
+
+    xn = torch.nn.functional.rms_norm(x, (x.shape[-1],), gain, eps)
+    gu = xn @ w13.dequantize(torch.bfloat16)
+    F = gu.shape[-1] // 2
+    return x + (torch.nn.functional.silu(gu[..., :F]) * gu[..., F:]) @ w2.dequantize(torch.bfloat16)
+
+
+def _gqa_cases(randn, case, g) -> dict:
+    """Kernels 3-12 at Llama-3-8B's heads (8 KV heads, 4 queries each, head
+    dim 128) against their plain versions, checked and not timed: the
+    lengths and pools of the cases above.  Returns kernel name -> cases."""
+    import torch
+
+    from tokenhawk_tpu_torch.ops.cuda import flash_attention as fa
+    from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
+    from tokenhawk_tpu_torch.ops.cuda import kv_int8 as ki
+    from tokenhawk_tpu_torch.ops.cuda import paged_decode as pd
+    from tokenhawk_tpu_torch.ops.cuda import paged_int8 as pi
+    from tokenhawk_tpu_torch.ops.kvquant import quantize_kv_block
+
+    log("-- kernels 3-12 at 8 KV heads x 4 queries (Llama-3-8B), checked against the plain")
+    dev = torch.device("cuda")
+    Hkv, rep, Dh, S = 8, 4, 128, INT8_CTX
+    out = {}
+
+    def check(name, label, got, want, frac=KERNEL_TOL):
+        case(out.setdefault(name, []), f"{name} GQA rep 4 {label}", f"rep4 {label}", rep, got,
+             want, frac=frac)
+
+    def same(name, a, b):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{name} at GQA rep 4: the caches differ from the plain's")
+
+    def q8(*shape):
+        k, ks = quantize_kv_block(randn(*shape, dtype=torch.float32))
+        return [k, ks]
+
+    lens = [1, 37, 300, S]
+    B = len(lens)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = randn(B, Hkv, rep, Dh, scale=Dh**-0.5)
+    kn, vn = randn(B, Hkv, Dh), randn(B, Hkv, Dh)
+    c = [randn(B, Hkv, S, Dh), randn(B, Hkv, S, Dh)]
+    p = [x.clone() for x in c]
+    got = fd.flash_decode_append(q, kn, vn, *c, lengths)
+    want = fd.flash_decode_append_plain(q, kn, vn, *p, lengths)
+    same("flash_decode_append", c, p)
+    check("flash_decode_append", f"B={B} lengths={lens} S={S}", got, want)
+    c = q8(B, Hkv, S, Dh) + q8(B, Hkv, S, Dh)
+    p = [x.clone() for x in c]
+    got = ki.flash_decode_int8(q, kn, vn, *c, lengths)
+    want = ki.flash_decode_int8_plain(q, kn, vn, *p, lengths)
+    same("flash_decode_int8", c, p)
+    check("flash_decode_int8", f"B={B} lengths={lens} S={S}", got, want)
+
+    kc, vc = randn(1, Hkv, S, Dh), randn(1, Hkv, S, Dh)
+    ic = q8(1, Hkv, S, Dh) + q8(1, Hkv, S, Dh)
+    for T, off in ((512, 0), (16, 200), (1500, 0)):
+        qp = randn(1, Hkv, rep, T, Dh, scale=Dh**-0.5)
+        offsets = torch.tensor([off], dtype=torch.int32, device=dev)
+        check("flash_attention", f"T={T} offset={off}", fa.flash_attention(qp, kc, vc, offsets),
+              fa.flash_attention_plain(qp, kc, vc, offsets))
+        check("flash_attention_int8", f"T={T} offset={off}",
+              ki.flash_attention_int8(qp, *ic, offsets), ki.flash_attention_int8_plain(qp, *ic, offsets))
+    del kc, vc, ic
+
+    ps, n_pool = PAGED_PS, PAGED_POOL
+    B, mp = len(PAGED_LENGTHS), max(PAGED_LENGTHS) // ps
+    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
+    perm = torch.randperm(n_pool, generator=g, device=dev)
+    table = perm[:B * mp].reshape(B, mp).to(torch.int32).contiguous()
+    pos = lengths.long() - 1
+    page = table.gather(1, (pos // ps)[:, None])[:, 0].to(torch.int32).contiguous()
+    slot = (pos % ps).to(torch.int32)
+    q = randn(B, Hkv, rep, Dh, scale=Dh**-0.5)
+    kn, vn = randn(B, Hkv, Dh), randn(B, Hkv, Dh)
+    shape = (n_pool, Hkv, ps, Dh)
+    pool = [randn(*shape), randn(*shape)]
+    check("paged_decode", f"contig B={B} lengths={PAGED_LENGTHS}",
+          pd.paged_decode(q, *pool, table, lengths, "contig"),
+          pd.paged_decode_plain(q, *pool, table, lengths, "contig"))
+    a, b = [x.clone() for x in pool], [x.clone() for x in pool]
+    pd.paged_append(*a, kn, vn, page, slot, "contig")
+    pd.paged_append_plain(*b, kn, vn, page, slot, "contig")
+    check("paged_append", f"contig B={B}", torch.stack(a), torch.stack(b), frac=0.0)
+    check("gather_pages", f"contig B={B} max_pages={mp}",
+          torch.stack(pd.gather_pages(*pool, table, "contig")),
+          torch.stack(pd.gather_pages_plain(*pool, table, "contig")), frac=0.0)
+    del pool, a, b
+    ipool = []
+    for _ in range(2):
+        codes, scales = quantize_kv_block(randn(*shape, dtype=torch.float32))
+        ipool += [codes, scales.float()]
+    check("paged_decode_int8", f"contig B={B} lengths={PAGED_LENGTHS}",
+          pi.paged_decode_int8(q, *ipool, table, lengths, "contig"),
+          pi.paged_decode_int8_plain(q, *ipool, table, lengths, "contig"))
+    a, b = [x.clone() for x in ipool], [x.clone() for x in ipool]
+    pi.paged_append_int8(*a, kn, vn, page, slot, "contig")
+    pi.paged_append_int8_plain(*b, kn, vn, page, slot, "contig")
+    check("paged_append_int8", f"contig B={B}", torch.cat([x.float().flatten() for x in a]),
+          torch.cat([x.float().flatten() for x in b]), frac=0.0)
+    check("gather_pages_int8", f"contig B={B} max_pages={mp}",
+          torch.stack(pi.gather_pages_int8(*ipool, table, "contig", torch.bfloat16)),
+          torch.stack(pi.gather_pages_int8_plain(*ipool, table, "contig", torch.bfloat16)),
+          frac=0.0)
+    return out
 
 
 def _deq(codes, scales):
@@ -507,6 +778,7 @@ def _paged_kernel_records(randn, case, library, g) -> list:
     pool with a shuffled table, in both layouts; timed in the default
     (contig) layout."""
     import torch
+    import torch.nn.functional as tf
 
     from tokenhawk_tpu_torch.ops.cuda import paged_decode as pd
 
@@ -560,11 +832,20 @@ def _paged_kernel_records(randn, case, library, g) -> list:
              [lambda: pd.gather_pages_plain(kp, vp, table, layout)], frac=0.0)
         del gk, gv, pk, pv
         if layout == "contig":
+            mask = (torch.arange(mp * ps, device=dev)[None, :] < lengths[:, None])[:, None, None]
+
+            def dense(x):
+                return x[tl].transpose(1, 2).reshape(B, Hkv, mp * ps, Dh)
+
+            lib["decode"] = library(
+                "gather K and V + scaled_dot_product_attention with a length mask (6+ calls)",
+                [lambda: tf.scaled_dot_product_attention(q, dense(kp), dense(vp), attn_mask=mask,
+                                                         scale=1.0)])
             lib["append"] = library("index_put_ of the new K and V rows (2 calls)", [
                 lambda: (ka.__setitem__((pl, slice(None), sl), kn),
                          va.__setitem__((pl, slice(None), sl), vn))])
             lib["gather"] = library("pages[table] with its permute, K and V (2 x 2 calls)", [
-                lambda: [x[tl].transpose(1, 2).reshape(B, Hkv, mp * ps, Dh) for x in (kp, vp)]])
+                lambda: [dense(x) for x in (kp, vp)]])
         del kp, vp, ka, va, kb, vb
     src = "tokenhawk_tpu_torch/csrc/paged_decode.cu"
     row = Hkv * Dh * bf
@@ -572,7 +853,7 @@ def _paged_kernel_records(randn, case, library, g) -> list:
         _record("paged_decode", src, "tokenhawk_tpu/ops/pallas/paged_decode.py:683 "
                 "(paged_flash_decode_walk); paged_decode.py:497 (paged_flash_decode)",
                 dec, ("contig", B), bound(2 * live * row + 2 * B * row + B * (mp + 1) * 4,
-                                          4 * live * Hkv * Dh), None),
+                                          4 * live * Hkv * Dh), lib["decode"]),
         _record("paged_append", src, "tokenhawk_tpu/ops/pallas/paged_decode.py:205 "
                 "(paged_append_rows)", app, ("contig", B),
                 bound(4 * B * row + 2 * B * 4, 0), lib["append"]),
@@ -603,14 +884,40 @@ def _seven_b(n_layer: int):
     return LlamaConfig(n_embd=4096, n_head=32, n_layer=n_layer, n_ctx=S_CTX)
 
 
-def _q4_params(cfg, device):
+def _llama3_8b(n_layer: int, n_ctx: int = S_CTX):
+    """Meta-Llama-3-8B's widths (its published config.json): 32 heads over
+    8 KV heads, n_ff 14336, vocab 128256, rope base 500000, eps 1e-5."""
+    from tokenhawk_tpu_torch.config import LlamaConfig
+
+    return LlamaConfig(n_vocab=128256, n_embd=4096, n_head=32, n_kv_head=8, n_layer=n_layer,
+                       n_ff=14336, n_ctx=n_ctx, rope_theta=500000.0, rms_norm_eps=1e-5)
+
+
+def _params(cfg, device, quant: str = "q4_0"):
+    """Random fused parameters from SEED: Q4_0, Q8_0 or the Q4_K_M mix."""
     import torch
 
     from tokenhawk_tpu_torch.models.llama import fuse_params, init_params
 
     g = torch.Generator(device=device)
     g.manual_seed(SEED)
-    return fuse_params(init_params(cfg, g, dtype=torch.bfloat16, device=device, quant="q4_0"))
+    return fuse_params(init_params(cfg, g, dtype=torch.bfloat16, device=device, quant=quant))
+
+
+# The GGML kind each group-code form holds in the models of phases 6 and
+# 6q.  Q4_0 weights come from ggjt files, whose 20-byte blocks of 32 (f32
+# scale) take the port's layout byte for byte.
+_FORM_KIND = {(32, True): "q4_k", (16, False): "q6_k", (32, False): "q8_0"}
+
+
+def _weight_gb(params) -> tuple:
+    """GB of the quantized projections and the head: in the port's layout,
+    and in the GGML blocks of their kinds."""
+    ws = [params.output] + [w for lp in params.layers for w in (
+        lp.wqkv, lp.wq, lp.wk, lp.wv, lp.wo, lp.w13, lp.w1, lp.w3, lp.w2) if w is not None]
+    blocks = sum(w.nbytes if w.kind == "q4_0" else
+                 _ggml_bytes(_FORM_KIND[w.group, w.mins is not None], *w.shape) for w in ws)
+    return sum(w.nbytes for w in ws) / 1e9, blocks / 1e9
 
 
 def phase_slice() -> None:
@@ -620,7 +927,7 @@ def phase_slice() -> None:
 
     log("== phase 3: slice check, 2-layer 7B-width Q4_0, GPU kernels vs CPU plain")
     cfg = _seven_b(2)
-    p_gpu = _q4_params(cfg, torch.device("cuda"))
+    p_gpu = _params(cfg, torch.device("cuda"))
     p_cpu = p_gpu.to("cpu")
     rng = np.random.default_rng(SEED)
     ids = rng.integers(3, cfg.n_vocab, size=16 + 8)
@@ -629,6 +936,32 @@ def phase_slice() -> None:
         _dense_slice(cfg, p_gpu, p_cpu, ids, prefill, kv)
     for kv in ("bf16", "int8"):
         _paged_slice(cfg, p_gpu, kv)
+    del p_gpu, p_cpu
+    _kquant_slice()
+
+
+def _kquant_slice() -> None:
+    """The 2-layer slice at Llama-3-8B widths in the Q4_K_M mix: layer 1
+    holds Q6_K wv and w2, so its wq | wk | wv stay three projections and
+    its FFN pairs Q4_K with Q6_K; kernels 13 and 2 launch, kernel 1 not."""
+    import torch
+
+    from tokenhawk_tpu_torch.ops.cuda import ffn, qmatmul
+    from tokenhawk_tpu_torch.runtime.engine import make_prefill_fn
+
+    log("-- 2-layer Llama-3-8B-width Q4_K_M slice, GPU kernels vs CPU plain")
+    cfg = _llama3_8b(2)
+    p_gpu = _params(cfg, torch.device("cuda"), "q4_k_m")
+    if not (p_gpu.layers[0].wqkv is not None and p_gpu.layers[1].wqkv is None
+            and p_gpu.layers[1].w2.group == 16 and p_gpu.output.group == 16):
+        raise AssertionError("the Q4_K_M mix did not give layer 1 Q6_K wv / w2 and a Q6_K head")
+    p_cpu = p_gpu.to("cpu")
+    ids = np.random.default_rng(SEED + 6).integers(3, cfg.n_vocab, size=16 + 8)
+    _reset_counts([qmatmul, ffn])
+    _dense_slice(cfg, p_gpu, p_cpu, ids, make_prefill_fn(cfg), "bf16")
+    counts = _read_counts([qmatmul, ffn])
+    log(f"Q4_K_M slice kernel launches on the GPU: {counts}")
+    _check_path(counts, ["qk_matmul", *FFN_Q4_K_M], ["q4_matmul"])
 
 
 def _dense_slice(cfg, p_gpu, p_cpu, ids, prefill, kv) -> None:
@@ -737,12 +1070,10 @@ def phase_serve(kernel_mods) -> tuple:
     log("== phase 4: serve, LLaMA-7B Q4_0, 32 layers, bf16 KV, n_ctx 512")
     cfg = _seven_b(32)
     t0 = time.perf_counter()
-    params = _q4_params(cfg, torch.device("cuda"))
+    params = _params(cfg, torch.device("cuda"))
     torch.cuda.synchronize()
-    wbytes = sum(lp.wqkv.nbytes + lp.wo.nbytes + lp.w13.nbytes + lp.w2.nbytes
-                 for lp in params.layers) + params.output.nbytes
-    log(f"weights built in {time.perf_counter() - t0:.1f} s: Q4_0 projections {wbytes / 1e9:.3f} GB, "
-        f"allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    log(f"weights built in {time.perf_counter() - t0:.1f} s: Q4_0 projections "
+        f"{_weight_gb(params)[0]:.3f} GB, allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB")
     tok = byte_fallback_vocab()
     greedy = SamplingConfig(temperature=0.0)
     sampled = SamplingConfig(temperature=0.8, top_k=40, top_p=0.95)
@@ -752,8 +1083,7 @@ def phase_serve(kernel_mods) -> tuple:
     requests = [(greedy, 5), (sampled, 100), (greedy, 300)]
     engines = {id(s): Engine(cfg, params, tok, sampling=s, max_seq=S_CTX, eos_id=-1)
                for s in (greedy, sampled)}
-    for m in kernel_mods:
-        m.launches = 0
+    _reset_counts(kernel_mods)
     results = []
     for sc, n_prompt in requests:
         prompt = [1] + rng.integers(3, cfg.n_vocab, size=n_prompt - 1).tolist()
@@ -764,11 +1094,10 @@ def phase_serve(kernel_mods) -> tuple:
         if len(r.tokens) < 64 or not all(0 <= t < cfg.n_vocab for t in r.tokens):
             raise AssertionError(f"request produced {len(r.tokens)} tokens out of range or short")
         results.append(r)
-    counts = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in kernel_mods}
+    counts = _read_counts(kernel_mods)
     log(f"kernel launches in the serve run: {counts}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel of the path was never launched: {counts}")
+    _check_path(counts, ["q4_matmul", FFN_Q4_0, "flash_decode", "flash_attention"], ["qk_matmul"])
     _profile_request(engines[id(greedy)], [1] + rng.integers(3, cfg.n_vocab, size=4).tolist())
     return counts, params
 
@@ -951,48 +1280,35 @@ def phase_cli(path: str) -> None:
 
 def _reset_counts(mods) -> None:
     for m in mods:
-        if isinstance(m.launches, dict):
-            m.launches.update({k: 0 for k in m.launches})
-        else:
-            m.launches = 0
+        m.launches.update(dict.fromkeys(m.launches, 0))
 
 
 def _read_counts(mods) -> dict:
-    counts = {}
-    for m in mods:
-        if isinstance(m.launches, dict):
-            counts.update(m.launches)
-        else:
-            counts[m.__name__.rsplit(".", 1)[-1]] = m.launches
-    return counts
+    """The kernels of `mods` that launched, with their counts."""
+    return {k: v for m in mods for k, v in m.launches.items() if v}
 
 
 def _check_path(counts: dict, on_path, off_path) -> None:
     """Every kernel of a path launched in its run, and none of another's."""
-    missed = [k for k in on_path if counts[k] <= 0]
-    strays = [k for k in off_path if counts[k] != 0]
+    missed = [k for k in on_path if counts.get(k, 0) <= 0]
+    strays = [k for k in off_path if counts.get(k, 0) != 0]
     if missed or strays:
         raise AssertionError(f"kernels never launched: {missed}; kernels of another path "
                              f"launched: {strays} ({counts})")
 
 
-def phase_paged_serve(params, kernel_mods, kv: str, on_path, off_path):
-    """The paged server's main path at full width, on bf16 pages (phase
-    4b) or int8 pages (phase 4bi).  Returns (launch counts of the run, the
-    scheduler, its tokenizer)."""
-    import dataclasses
-
+def phase_paged_serve(params, cfg, kernel_mods, kv: str, on_path, off_path, title: str):
+    """The paged server's main path at full width (cfg at n_ctx 2048), on
+    bf16 pages (phases 4b and 6) or int8 pages (phase 4bi).  Returns
+    (launch counts of the run, the scheduler)."""
     import torch
 
     from tokenhawk_tpu_torch.config import SamplingConfig
     from tokenhawk_tpu_torch.runtime.paged_scheduler import PagedScheduler
     from tokenhawk_tpu_torch.runtime.scheduler import Request
-    from tokenhawk_tpu_torch.tokenizer import Tokenizer
 
-    name = "4bi" if kv == "int8" else "4b"
-    log(f"== phase {name}: paged serve, LLaMA-7B Q4_0, 32 layers, {kv} pages of 128, "
-        f"max_batch 8, n_ctx 2048, prefix cache, prefill chunk 512")
-    cfg = dataclasses.replace(_seven_b(32), n_ctx=2048)
+    log(f"== {title}: {kv} pages of 128, max_batch 8, n_ctx 2048, prefix cache, "
+        f"prefill chunk 512")
     greedy = SamplingConfig(temperature=0.0)
     sampled = SamplingConfig(temperature=0.8, top_k=40, top_p=0.95, seed=SEED)
     sched = PagedScheduler(cfg, params, sampling=greedy, max_batch=8, max_seq=2048,
@@ -1054,8 +1370,7 @@ def phase_paged_serve(params, kernel_mods, kv: str, on_path, off_path):
     log(f"pages: {sched.alloc.n_free} free + {len(parked)} cached at refcount 0 + 1 trash "
         f"= {sched.n_pages}; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     _profile_paged(sched, rng, V)
-    tokens, scores = _padded_vocab(V)
-    return counts, sched, Tokenizer(tokens, scores)
+    return counts, sched
 
 
 def _profile_paged(sched, rng, V) -> None:
@@ -1211,6 +1526,226 @@ def _serve_subprocess(root: str, model_path: str, tmp: str, extra: list) -> None
                 proc.wait()
 
 
+def _engine_requests(cfg, params, kernel_mods, prompts, on_path, off_path) -> dict:
+    """Greedy Engine.generate at cfg.n_ctx over bf16 KV, 64 new tokens for
+    each prompt length, then a profiled request (the idle share).  Returns
+    the launch counts of the requests."""
+    import torch
+
+    from tokenhawk_tpu_torch.config import SamplingConfig
+    from tokenhawk_tpu_torch.runtime.engine import Engine
+    from tokenhawk_tpu_torch.tokenizer import byte_fallback_vocab
+
+    eng = Engine(cfg, params, byte_fallback_vocab(), sampling=SamplingConfig(temperature=0.0),
+                 max_seq=cfg.n_ctx, eos_id=-1)
+    rng = np.random.default_rng(SEED + 7)
+    _reset_counts(kernel_mods)
+    decode_s = n_dec = 0
+    for n_prompt in prompts:
+        prompt = [1] + rng.integers(3, cfg.n_vocab, size=n_prompt - 1).tolist()
+        r = eng.generate(prompt, max_new_tokens=64)
+        log(f"request prompt={n_prompt} tok (greedy): {len(r.tokens)} generated, prefill "
+            f"{r.prefill_seconds:.3f} s, decode {r.decode_tokens_per_second:.1f} tok/s")
+        if len(r.tokens) != 64 or not all(0 <= t < cfg.n_vocab for t in r.tokens):
+            raise AssertionError(f"request produced {len(r.tokens)} tokens out of range or short")
+        decode_s += r.decode_seconds
+        n_dec += len(r.tokens)
+    counts = _read_counts(kernel_mods)
+    log(f"{len(prompts)} requests: decode {n_dec / decode_s:.1f} tok/s over {n_dec} tokens; "
+        f"kernel launches {counts}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    _check_path(counts, on_path, off_path)
+    _profile_request(eng, [1] + rng.integers(3, cfg.n_vocab, size=4).tolist())
+    return counts
+
+
+def _model(cfg, quant: str, label: str):
+    import torch
+
+    t0 = time.perf_counter()
+    params = _params(cfg, torch.device("cuda"), quant)
+    torch.cuda.synchronize()
+    split = sum(lp.wqkv is None for lp in params.layers)
+    gb, file_gb = _weight_gb(params)
+    log(f"{label}: built in {time.perf_counter() - t0:.1f} s, projections and head "
+        f"{gb:.3f} GB in the port's layout, {file_gb:.3f} GB in GGML blocks (a decode step "
+        f"must read them once: {file_gb * 1e12 / HBM_BPS:.3f} ms at the HBM rate; "
+        f"{gb * 1e12 / HBM_BPS:.3f} ms in the port's layout), allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB; "
+        f"{split} of {cfg.n_layer} layers keep wq | wk | wv apart")
+    return params, split
+
+
+def phase_q4_k_m(kernel_mods, engine_path, paged_path) -> tuple:
+    """Phase 6: the 32-layer Llama-3-8B-width model in the Q4_K_M mix
+    through Engine (prompts of 5, 300 and 1500 tokens) and the
+    PagedScheduler (phase 4b's requests).  Returns both runs' counts."""
+    import torch
+
+    from tokenhawk_tpu_torch.models.llama import q4_k_m_more_bits
+
+    log(f"== phase 6: Llama-3-8B widths in llama.cpp's Q4_K_M mix, 32 layers, Engine at n_ctx "
+        f"{INT8_CTX}, bf16 KV")
+    cfg = _llama3_8b(32, INT8_CTX)
+    params, split = _model(cfg, "q4_k_m", "Q4_K_M model")
+    if split != sum(q4_k_m_more_bits(i, cfg.n_layer) for i in range(cfg.n_layer)):
+        raise AssertionError(f"{split} layers unfused, not the recipe's Q6_K-wv layers")
+    counts = _engine_requests(cfg, params, kernel_mods, (5, 300, 1500), *engine_path)
+    paged, sched = phase_paged_serve(params, cfg, kernel_mods, "bf16", *paged_path,
+                                     "phase 6 (paged): the Q4_K_M model under PagedScheduler")
+    sched.cache = None
+    del sched, params
+    torch.cuda.empty_cache()
+    return counts, paged
+
+
+def phase_q8_0(kernel_mods, engine_path) -> dict:
+    """Phase 6q: the 32-layer LLaMA-7B model in Q8_0 through Engine."""
+    import torch
+
+    log(f"== phase 6q: LLaMA-7B in Q8_0, 32 layers, Engine at n_ctx {INT8_CTX}, bf16 KV")
+    cfg = dataclasses.replace(_seven_b(32), n_ctx=INT8_CTX)
+    params, _ = _model(cfg, "q8_0", "Q8_0 model")
+    counts = _engine_requests(cfg, params, kernel_mods, (5, 300), *engine_path)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+# Phase 7's server: the flags of the served model; the stop check replays
+# them in process to find the tokens the server will produce.
+SERVE_GGUF_ARGS = ["--paged", "--greedy", "--n-ctx", str(S_CTX), "--max-batch", "2"]
+STOP_PROMPT = "Once upon a time, in a land far away,"
+EOT_ID = 128009
+
+
+def phase_gguf(tmp: str, kernel_mods) -> None:
+    """Phase 7: a 2-layer Llama-3-8B-width Q4_K_M GGUF through load_model,
+    the CLI and the paged server; a request stops on <|eot_id|>."""
+    import torch
+
+    from tokenhawk_tpu_torch import cli
+    from tokenhawk_tpu_torch.config import SamplingConfig
+    from tokenhawk_tpu_torch.ggml import synth
+    from tokenhawk_tpu_torch.runtime.loader import load_model
+    from tokenhawk_tpu_torch.runtime.paged_scheduler import PagedScheduler
+    from tokenhawk_tpu_torch.serving.__main__ import build_parser
+    from tokenhawk_tpu_torch.tokenizer_bpe import BpeTokenizer
+
+    log("== phase 7: a 2-layer Llama-3-8B-width Q4_K_M GGUF file, byte-level BPE vocab of 128256")
+    cfg = _llama3_8b(2)
+    path = os.path.join(tmp, "llama3-8b-2layer-q4_k_m.gguf")
+    t0 = time.perf_counter()
+    md = synth.bpe_vocab_metadata(cfg.n_vocab, np.random.default_rng(SEED + 8))
+    synth.write_random_llama(path, cfg, "q4_k_m", md, seed=SEED + 9)
+    log(f"wrote {path} ({os.path.getsize(path) / 1e6:.1f} MB) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lcfg, params, tok = load_model(path, n_ctx=S_CTX)
+    torch.cuda.synchronize()
+    log(f"load_model in {time.perf_counter() - t0:.1f} s: {type(tok).__name__} ({tok.pre}), "
+        f"bos {tok.bos_id}, eog {sorted(tok.eog_ids)}; n_kv_head {lcfg.n_kv_head}, rope base "
+        f"{lcfg.rope_theta}, eps {lcfg.rms_norm_eps}, n_ff {lcfg.n_ff}")
+    # GGUF stores the eps as float32.
+    want = (cfg.n_kv_head, cfg.rope_theta, float(np.float32(cfg.rms_norm_eps)), cfg.n_ff,
+            cfg.n_vocab)
+    got = (lcfg.n_kv_head, lcfg.rope_theta, lcfg.rms_norm_eps, lcfg.n_ff, lcfg.n_vocab)
+    if got != want or not isinstance(tok, BpeTokenizer) or tok.bos_id != 128000 \
+            or not {128001, EOT_ID} <= tok.eog_ids:
+        raise AssertionError(f"GGUF metadata read as {got}, tokenizer {type(tok).__name__} "
+                             f"bos {tok.bos_id} eog {tok.eog_ids}")
+    if not (params.layers[0].wqkv is not None and params.layers[1].wqkv is None
+            and params.output.group == 16 and params.output.mins is None):
+        raise AssertionError("the file's Q4_K / Q6_K mix did not load as in the reference")
+    # The server's first three greedy tokens for STOP_PROMPT, replayed here.
+    args = build_parser().parse_args(["-m", path, *SERVE_GGUF_ARGS])
+    sampling = SamplingConfig(temperature=0.0, top_k=args.top_k, top_p=args.top_p,
+                              repeat_penalty=args.repeat_penalty, seed=args.seed)
+    sched = PagedScheduler(lcfg, params, sampling=sampling, max_batch=args.max_batch,
+                           max_seq=args.n_ctx, decode_chunk=args.decode_chunk,
+                           page_size=args.page_size, cache_dtype=torch.bfloat16,
+                           prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
+                           eos_id=-1)
+    head = sched.generate_many([tok.encode_prompt(STOP_PROMPT)], max_new_tokens=3)[0].output
+    if len(set(head)) != 3 or set(head) & tok.eog_ids:
+        raise AssertionError(f"greedy head {head} cannot carry the stop check")
+    sched.cache = None
+    del sched, params
+    torch.cuda.empty_cache()
+
+    for extra in (["--n-ctx", str(S_CTX)], ["--kv", "auto", "--n-ctx", str(INT8_CTX)]):
+        _reset_counts(kernel_mods)
+        rc = cli.main(["-m", path, "Hello, my name is", "--greedy", "--max-tokens", "16", *extra])
+        sys.stderr.flush()
+        counts = _read_counts(kernel_mods)
+        if rc != 0:
+            raise AssertionError(f"cli {extra} returned {rc}")
+        dec = "flash_decode_int8" if "--kv" in extra else "flash_decode"
+        other = "flash_decode" if "--kv" in extra else "flash_decode_int8"
+        _check_path(counts, ["qk_matmul", *FFN_Q4_K_M, dec], ["q4_matmul", other])
+        log(f"cli on the GGUF {' '.join(extra)}: exit 0, kernel launches {counts}")
+
+    # Swap the head rows of the third token and <|eot_id|>: the server's
+    # third greedy token for STOP_PROMPT becomes <|eot_id|>.
+    synth.swap_output_rows(path, head[2], EOT_ID)
+    _serve_gguf(path, tmp, tok, md["tokenizer.chat_template"])
+
+
+def _serve_gguf(path: str, tmp: str, tok, template: str) -> None:
+    """`python -m tokenhawk_tpu_torch.serving --paged` on phase 7's file:
+    STOP_PROMPT ends on <|eot_id|> after two tokens, a plain request
+    streams, a chat request renders the file's template, 0 step errors."""
+    from tokenhawk_tpu_torch.serving.server import _render_chat_template
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    log_path = os.path.join(tmp, "serving_gguf.log")
+    cmd = [sys.executable, "-m", "tokenhawk_tpu_torch.serving", "-m", path, "--port", str(port),
+           *SERVE_GGUF_ARGS]
+    base = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=root, stdout=out, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, PYTHONPATH=root))
+        try:
+            while True:
+                try:
+                    _get_json(base + "/health", timeout=5)
+                    break
+                except OSError:
+                    if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                        raise AssertionError("the server did not come up:\n"
+                                             + open(log_path).read()[-3000:])
+                    time.sleep(0.5)
+            up = time.perf_counter() - t0
+            stop, n_stop = _sse_finish(_post(base + "/generate", {"prompt": STOP_PROMPT,
+                                                                  "max_tokens": 8}))
+            plain, n_plain = _sse_finish(_post(base + "/generate", {"prompt": "Hello",
+                                                                    "max_tokens": 16}))
+            messages = [{"role": "user", "content": "Hi there"}]
+            chat = json.loads(_post(base + "/v1/chat/completions",
+                                    {"messages": messages, "max_tokens": 8}))
+            n_chat = len(tok.encode_prompt(_render_chat_template(template, messages)))
+            health = _get_json(base + "/health")
+            log(f"serving --paged on the GGUF: up in {up:.1f} s; stop prompt finish {stop} after "
+                f"{n_stop} token frames; plain finish {plain} with {n_plain}; chat finish "
+                f"{chat['choices'][0]['finish_reason']}, prompt tokens "
+                f"{chat['usage']['prompt_tokens']} (template: {n_chat}); step_errors "
+                f"{health['step_errors']}")
+            if stop != "eos" or n_stop != 2:
+                raise AssertionError(f"the stop prompt did not end on <|eot_id|> after 2 tokens: "
+                                     f"{stop}, {n_stop}")
+            if plain not in ("length", "eos", "stop") or chat["usage"]["prompt_tokens"] != n_chat \
+                    or health["step_errors"] != 0:
+                raise AssertionError(open(log_path).read()[-3000:])
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
 def main() -> int:
     import torch
 
@@ -1226,6 +1761,7 @@ def main() -> int:
         paged_int8,
         qmatmul,
     )
+    from tokenhawk_tpu_torch.tokenizer import Tokenizer
 
     t0 = time.perf_counter()
     phase_env()
@@ -1237,33 +1773,59 @@ def main() -> int:
     bf16_paged = ["paged_decode", "paged_append", "gather_pages"]
     int8_dense = ["flash_decode_int8", "flash_attention_int8"]
     int8_paged = ["paged_decode_int8", "paged_append_int8", "gather_pages_int8"]
-    paged_counts, sched, tokenizer = phase_paged_serve(
-        params, every, "bf16", ["qmatmul", "ffn", "flash_attention"] + bf16_paged,
-        ["flash_decode"] + int8_dense + int8_paged)
+    cfg_2k = dataclasses.replace(_seven_b(32), n_ctx=2048)
+    paged_counts, sched = phase_paged_serve(
+        params, cfg_2k, every, "bf16", ["q4_matmul", FFN_Q4_0, "flash_attention"] + bf16_paged,
+        ["qk_matmul", "flash_decode"] + int8_dense + int8_paged,
+        "phase 4b: paged serve, LLaMA-7B Q4_0, 32 layers")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "llama7b-2layer-q4_0.bin")
         write_two_layer_file(path)
-        phase_http(sched, tokenizer, path, tmp)
+        phase_http(sched, Tokenizer(*_padded_vocab(cfg_2k.n_vocab)), path, tmp)
         sched.cache = None  # the bf16 pool goes before the int8 phases
         del sched
         torch.cuda.empty_cache()
-        int8_counts = phase_int8_serve(params, every, ["qmatmul", "ffn"] + int8_dense,
-                                       ["flash_decode", "flash_attention"] + bf16_paged
-                                       + int8_paged)
-        int8_paged_counts, _, _ = phase_paged_serve(
-            params, every, "int8", ["qmatmul", "ffn", "flash_attention"] + int8_paged,
-            ["flash_decode"] + bf16_paged + int8_dense)
+        int8_counts = phase_int8_serve(params, every, ["q4_matmul", FFN_Q4_0] + int8_dense,
+                                       ["qk_matmul", "flash_decode", "flash_attention"]
+                                       + bf16_paged + int8_paged)
+        int8_paged_counts, sched = phase_paged_serve(
+            params, cfg_2k, every, "int8", ["q4_matmul", FFN_Q4_0, "flash_attention"] + int8_paged,
+            ["qk_matmul", "flash_decode"] + bf16_paged + int8_dense,
+            "phase 4bi: paged serve, LLaMA-7B Q4_0, 32 layers")
         phase_cli(path)
+        sched.cache = None  # the Q4_0 model goes before the GGUF kinds' phases
+        del sched, params
+        torch.cuda.empty_cache()
+        # Phases 6 and 6q: group-code projections (kernel 13) and the FFN over
+        # them (kernel 2); kernel 1 (Q4_0) stays off.
+        def engine_path(ffn_keys):
+            return (["qk_matmul", *ffn_keys, "flash_decode", "flash_attention"],
+                    ["q4_matmul", FFN_Q4_0] + bf16_paged + int8_dense + int8_paged)
+
+        q4km_counts, _ = phase_q4_k_m(
+            every, engine_path(FFN_Q4_K_M),
+            (["qk_matmul", *FFN_Q4_K_M, "flash_attention"] + bf16_paged,
+             ["q4_matmul", FFN_Q4_0, "flash_decode"] + int8_dense + int8_paged))
+        q8_counts = phase_q8_0(every, engine_path([FFN_Q8_0]))
+        phase_gguf(tmp, every)
     # Each kernel's launches on the path of the slice that added it: the
-    # Engine run for kernels 1-4, the paged server's run for kernels 5-7,
-    # the int8 Engine's for kernels 8-9 and the int8 paged server's for
-    # kernels 10-12.
-    for rec, m in zip(records, mods):
-        rec["launches"] = counts[m.__name__.rsplit(".", 1)[-1]]
-    for rec in records[len(mods):]:
-        name = rec["name"]
-        rec["launches"] = (int8_counts if name in int8_dense
-                           else int8_paged_counts if name in int8_paged else paged_counts)[name]
+    # Q4_0 Engine run for kernels 1-4, the paged server's run for kernels
+    # 5-7, the int8 Engine's for kernels 8-9, the int8 paged server's for
+    # kernels 10-12, and the Engine runs of phases 6 (Q4_K_M) and 6q (Q8_0)
+    # for kernel 13 and kernel 2 over those kinds, each pairing its own.
+    launches = {"q4_matmul": counts["q4_matmul"], "fused_ffn": counts[FFN_Q4_0],
+                "flash_decode_append": counts["flash_decode"],
+                "flash_attention": counts["flash_attention"],
+                "qk_matmul[q4_k_m]": q4km_counts["qk_matmul"],
+                "qk_matmul[q8_0]": q8_counts["qk_matmul"],
+                "fused_ffn[q4_k/q6_k]": q4km_counts[FFN_Q4_K_M[0]],
+                "fused_ffn[q4_k/q4_k]": q4km_counts[FFN_Q4_K_M[1]],
+                "fused_ffn[q8_0/q8_0]": q8_counts[FFN_Q8_0],
+                **{k: paged_counts[k] for k in bf16_paged},
+                **{k: int8_counts[k] for k in int8_dense},
+                **{k: int8_paged_counts[k] for k in int8_paged}}
+    for rec in records:
+        rec["launches"] = launches[rec["name"]]
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

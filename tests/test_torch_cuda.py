@@ -61,10 +61,10 @@ def test_q4_matmul_kernel_matches_plain(K, N, rows, dtype):
     x = torch.randn(rows, K, generator=g, device=dev).to(dtype)
     gain = (1 + 0.1 * torch.randn(K, generator=g, device=dev)).to(dtype)
     for ng in (None, gain):
-        before = qmatmul.launches
-        got = qmatmul.q4_matmul(x, w, ng)
-        assert qmatmul.launches == before + 1
-        want = qmatmul.q4_matmul_plain(x, w, ng)
+        before = qmatmul.launches["q4_matmul"]
+        got = qmatmul.quant_matmul(x, w, ng)
+        assert qmatmul.launches["q4_matmul"] == before + 1
+        want = qmatmul.quant_matmul_plain(x, w, ng)
         assert _err(got, want) <= _tol(want, dtype)
 
 
@@ -79,6 +79,64 @@ def test_fused_ffn_kernel_matches_plain(rows, dtype):
     x = torch.randn(rows, D, generator=g, device=dev).to(dtype)
     gain = (1 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype)
     got = ffn.fused_ffn(x, w13, w2, gain)
+    want = ffn.fused_ffn_plain(x, w13, w2, gain)
+    assert _err(got, want) <= _tol(want, dtype)
+
+
+# The group-code forms (G, with mins) and a GGML kind of each: Q8_0
+# (32, no mins), Q4_K (32, mins), Q6_K (16, no mins), Q2_K (16, mins).
+QK_FORMS = [(32, False), (32, True), (16, False), (16, True)]
+
+
+def _weight(form, K, N, g, dev):
+    """A random [K, N] QWeight of `form`: "q4_0" or a (G, mins) pair."""
+    if form == "q4_0":
+        return QWeight.quantize(torch.randn(K, N, generator=g, device=dev) * 0.02)
+    group, mins = form
+    codes = torch.randint(-32, 32, (N, K), generator=g, device=dev, dtype=torch.int8)
+    s = (0.5 + torch.rand(N, K // group, generator=g, device=dev)) * 1e-3
+    m = -16 * s * torch.rand(N, K // group, generator=g, device=dev) if mins else None
+    return QWeight.from_group_codes(codes, s, m, group)
+
+
+@pytest.mark.parametrize("K,N", [(4096, 1024), (14336, 256), (800, 100)])  # 800: 25 slots
+@pytest.mark.parametrize("form", QK_FORMS)
+@pytest.mark.parametrize("rows", [1, 8, 33])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_qk_matmul_kernel_matches_plain(K, N, form, rows, dtype):
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(K + rows)
+    w = _weight(form, K, N, g, dev)
+    x = torch.randn(rows, K, generator=g, device=dev).to(dtype)
+    gain = (1 + 0.1 * torch.randn(K, generator=g, device=dev)).to(dtype)
+    for ng in (None, gain):
+        before = qmatmul.launches["qk_matmul"]
+        got = qmatmul.quant_matmul(x, w, ng)
+        assert qmatmul.launches["qk_matmul"] == before + 1
+        want = qmatmul.quant_matmul_plain(x, w, ng)
+        assert got.shape == (rows, N) and got.dtype == dtype
+        assert _err(got, want) <= _tol(want, dtype)
+
+
+# w13 / w2 pairings: Q4_K_M's two, Q8_0's, and mixed ones with Q4_0.
+FFN_PAIRS = [((32, True), (16, False)), ((32, True), (32, True)), ((32, False), (32, False)),
+             ((16, True), "q4_0"), ("q4_0", (16, True))]
+
+
+@pytest.mark.parametrize("pair", FFN_PAIRS)
+@pytest.mark.parametrize("rows", [1, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_ffn_kernel_matches_plain_over_every_form(pair, rows, dtype):
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(rows)
+    D, F = 4096, 14336
+    w13, w2 = _weight(pair[0], D, 2 * F, g, dev), _weight(pair[1], F, D, g, dev)
+    x = torch.randn(rows, D, generator=g, device=dev).to(dtype)
+    gain = (1 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype)
+    key = "ffn[{}/{}]".format(*(qmatmul.FORM_NAMES[qmatmul.form_code(w)] for w in (w13, w2)))
+    before = dict(ffn.launches)
+    got = ffn.fused_ffn(x, w13, w2, gain)
+    assert ffn.launches == {**before, key: before[key] + 1}
     want = ffn.fused_ffn_plain(x, w13, w2, gain)
     assert _err(got, want) <= _tol(want, dtype)
 
@@ -122,9 +180,17 @@ def test_kernel_refuses_bad_input():
     dev = cuda_device()
     w = QWeight.quantize(torch.randn(256, 128, device=dev))
     with pytest.raises(ValueError):
-        qmatmul.q4_matmul(torch.randn(2, 128, device=dev), w)  # K mismatch
+        qmatmul.quant_matmul(torch.randn(2, 128, device=dev), w)  # K mismatch
     with pytest.raises(ValueError):  # weights left on the CPU
-        qmatmul.q4_matmul(torch.randn(2, 256, device=dev), w.to("cpu"))
+        qmatmul.quant_matmul(torch.randn(2, 256, device=dev), w.to("cpu"))
+    with pytest.raises(ValueError):  # no kernel form for group 64
+        qmatmul.quant_matmul(torch.randn(2, 256, device=dev), QWeight(
+            torch.zeros(8, 256, dtype=torch.int8, device=dev), torch.ones(8, 4, device=dev),
+            kind="qk", group=64))
+    with pytest.raises(ValueError):  # K not a multiple of 32
+        qmatmul.quant_matmul(torch.randn(2, 48, device=dev), QWeight(
+            torch.zeros(8, 48, dtype=torch.int8, device=dev), torch.ones(8, 3, device=dev),
+            kind="qk", group=16))
     q = torch.randn(1, 2, 1, 64, device=dev)  # head dim 64 is not a kernel shape
     c = torch.zeros(1, 2, 128, 64, device=dev)
     with pytest.raises(ValueError):

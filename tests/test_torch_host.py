@@ -37,7 +37,8 @@ from torch_helpers import padded_vocab
 
 ROOT = Path(__file__).resolve().parents[1]
 COPIES = ["config.py", "tokenizer.py", "ggml/format.py", "ggml/quants.py", "ggml/reader.py",
-          "ggml/writer.py", "ggml/chunked.py", "utils/timing.py", "serving/server.py"]
+          "ggml/writer.py", "ggml/chunked.py", "ggml/kquants.py", "ggml/gguf.py",
+          "utils/timing.py", "serving/server.py"]
 CFG = j_config.LlamaConfig.tiny(n_vocab=300, n_embd=128, n_head=2, n_layer=2, n_ff=256)
 
 

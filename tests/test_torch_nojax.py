@@ -1,11 +1,12 @@
 """The port runs where jax is absent (the GPU machine has none).
 
-A subprocess blocks `jax` (sys.modules["jax"] = None makes any import of
-it fail), imports every module of tokenhawk_tpu_torch, checks that
-nothing of tokenhawk_tpu came along, and runs a tiny Engine.generate (bf16
-and int8 caches) and both continuous-batching schedulers (the paged one on
-bf16 and int8 pages) on the CPU.  A source scan backs it
-up for imports inside functions.
+A subprocess blocks `jax` and `regex` (sys.modules["jax"] = None makes
+any import of it fail; the GPU machine has neither), imports every
+module of tokenhawk_tpu_torch, checks that nothing of tokenhawk_tpu came
+along, runs the byte-level BPE tokenizer, a tiny Engine.generate (bf16
+and int8 caches) and both continuous-batching schedulers (the paged one
+on bf16 and int8 pages) on the CPU.  A source scan backs it up for
+imports inside functions.
 """
 
 import re
@@ -18,12 +19,18 @@ ROOT = Path(__file__).resolve().parents[1]
 SCRIPT = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
+sys.modules["regex"] = None
 import torch
 import tokenhawk_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
 assert not any(m == "tokenhawk_tpu" or m.startswith("tokenhawk_tpu.") for m in sys.modules)
+import numpy as np
+from tokenhawk_tpu_torch.ggml.synth import bpe_vocab_metadata
+from tokenhawk_tpu_torch.tokenizer_bpe import BpeTokenizer
+bpe = BpeTokenizer.from_gguf_metadata(bpe_vocab_metadata(600, np.random.default_rng(0), 16))
+assert bpe.decode(bpe.encode("Hi there, it's 2024!<|eot_id|>")) == "Hi there, it's 2024!"
 from tokenhawk_tpu_torch.config import LlamaConfig, SamplingConfig
 from tokenhawk_tpu_torch.models.llama import fuse_params, init_params
 from tokenhawk_tpu_torch.runtime.engine import Engine
@@ -61,7 +68,7 @@ def test_port_imports_and_generates_without_jax():
 
 
 def test_port_sources_import_no_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|tokenhawk_tpu)\b", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|tokenhawk_tpu|regex)\b", re.M)
     files = sorted((ROOT / "tokenhawk_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     offenders = [str(f) for f in files if pat.search(f.read_text())]

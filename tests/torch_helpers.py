@@ -6,6 +6,11 @@ import numpy as np
 import pytest
 import torch
 
+# The suite runs in several worker processes on one CPU; torch's default of
+# one intra-op thread per core in each of them oversubscribes the cores, and
+# the many tiny ops of these tests then wait on each other's threads.
+torch.set_num_threads(1)
+
 
 def cuda_device() -> torch.device:
     """The GPU for a kernel test; skips the test where there is none.
@@ -76,3 +81,14 @@ def port_config(jcfg):
     from tokenhawk_tpu_torch.config import LlamaConfig
 
     return LlamaConfig(**dataclasses.asdict(jcfg))
+
+
+def spm_metadata(n_vocab: int) -> dict:
+    """GGUF tokenizer.* metadata of a SentencePiece vocab: <unk>, <s>,
+    </s>, the 256 byte pieces, then word pieces up to n_vocab."""
+    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    tokens += [f"\u2581w{i}" for i in range(n_vocab - len(tokens))]
+    return {"tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": tokens,
+            "tokenizer.ggml.scores": [0.0] * 259 + [-1.0 - i for i in range(n_vocab - 259)],
+            "tokenizer.ggml.token_type": [2, 3, 3] + [6] * 256 + [1] * (n_vocab - 259),
+            "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2}

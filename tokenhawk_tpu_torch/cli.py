@@ -20,7 +20,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tokenhawk-torch",
                                 description="LLaMA inference on one CUDA GPU")
-    p.add_argument("-m", "--model", help="GGML model file")
+    p.add_argument("-m", "--model", help="GGML or GGUF model file")
     p.add_argument("-d", "--dir", help="TH chunk directory (split model)")
     p.add_argument("prompt", nargs="?", default="", help="prompt text")
     p.add_argument("--n-ctx", type=int, default=2048)

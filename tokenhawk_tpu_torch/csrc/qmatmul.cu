@@ -1,36 +1,49 @@
-// Kernel 1: Q4_0 dequant-matmul with fused RMSNorm.
+// Kernels 1 and 13: dequant-matmul with fused RMSNorm, one entry point for
+// every weight form.
 //
-// Replaces tokenhawk_tpu/ops/pallas/qmatmul.py q4_matmul (_q4_kernel) and
-// q4_matmul_i4 (_q4i4_kernel): y[B, N] = (rmsnorm(x) * g)[B, K] @ deq(W)
-// with f32 accumulation, output in x's type.  The norm is optional and,
-// unlike the reference (fused only when K fits one tile), always runs
-// here: a pre-pass writes inv_rms[B] and the GEMV scales each staged x
-// chunk by it, for any K (K = 11008 included).  Design in q4.cuh.
-#include "q4.cuh"
+// Kernel 1 (form Q4_0) replaces tokenhawk_tpu/ops/pallas/qmatmul.py
+// q4_matmul (_q4_kernel) and q4_matmul_i4 (_q4i4_kernel); kernel 13 (the
+// group-code forms) replaces q8_matmul (_q8_kernel) and qk_matmul
+// (_qk_kernel):
+//   y[b, n] = sum_g s[n,g] * (sum_{k in g} xn[b,k] q[n,k])
+//           + sum_g m[n,g] * (sum_{k in g} xn[b,k]),   xn = rmsnorm(x) * gain,
+// over Q4_0 nibbles, or int8 codes [N, K] with f32 scales (and mins) per
+// group of G = 16 or 32 inputs: Q8_0, Q5_0, Q4_1, Q5_1 and the k-quants
+// Q2_K..Q6_K (ops/qweight.py).  f32 accumulation, one rounding to x's
+// type.  The norm is optional and, unlike the reference (fused only when K
+// fits one tile), always runs here: a pre-pass writes inv_rms[B] and the
+// GEMV scales each staged x chunk by it, for any K (K = 11008 included).
+// At decode rows the kernel is bound by the weight bytes; it reads a
+// column's codes of one 32-input slot with 16-byte loads and converts each
+// once for every row of the tile (gemv.cuh).  The reference's RoPE
+// epilogue on q8_matmul (rope_meta, off by default) is not ported: RoPE
+// runs in torch.
+#include "gemv.cuh"
 
 using namespace thawk;
 
 template <typename T>
-static void run(const void* x, const void* qs, const void* scales, const void* gain, void* y,
-                float* inv, int B, int K, int N, float eps, cudaStream_t stream) {
+static bool run(const void* x, const void* qs, const void* scales, const void* mins,
+                const void* gain, void* y, float* inv, int B, int K, int N, int form, float eps,
+                cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const T* gt = static_cast<const T*>(gain);
-  if (gt != nullptr) row_inv_rms_kernel<T><<<B, 256, 0, stream>>>(xt, inv, K, eps);
-  launch_q4_gemv<T, T, kStore>(xt, B, K, static_cast<const uint8_t*>(qs),
-                               static_cast<const float*>(scales), N, gt, inv, nullptr,
-                               static_cast<T*>(y), stream);
+  return with_reader(form, qs, scales, mins, [&](const auto& wr) {
+    if (gt != nullptr) row_inv_rms_kernel<T><<<B, 256, 0, stream>>>(xt, inv, K, eps);
+    launch_gemv<T, T, kStore>(xt, B, K, wr, N, gt, inv, nullptr, static_cast<T*>(y), stream);
+  });
 }
 
-extern "C" int th_q4_matmul(const void* x, const void* qs, const void* scales, const void* gain,
-                            void* y, void* inv_scratch, int B, int K, int N, float eps,
-                            int dtype, void* stream) {
+extern "C" int th_quant_matmul(const void* x, const void* qs, const void* scales,
+                               const void* mins, const void* gain, void* y, void* inv_scratch,
+                               int B, int K, int N, int form, float eps, int dtype,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* inv = static_cast<float*>(inv_scratch);
-  if (dtype == kBF16)
-    run<__nv_bfloat16>(x, qs, scales, gain, y, inv, B, K, N, eps, s);
-  else
-    run<float>(x, qs, scales, gain, y, inv, B, K, N, eps, s);
-  return THAWK_LAUNCH_RESULT();
+  const bool known =
+      dtype == kBF16 ? run<__nv_bfloat16>(x, qs, scales, mins, gain, y, inv, B, K, N, form, eps, s)
+                     : run<float>(x, qs, scales, mins, gain, y, inv, B, K, N, form, eps, s);
+  return known ? THAWK_LAUNCH_RESULT() : static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* th_error_string(int code) {

@@ -7,8 +7,11 @@ per-layer list of [B, Hkv, S, Dh] tensors updated in place, and the
 forward is an eager Python loop whose hot operations are the port's
 CUDA kernels:
 
-  wqkv / wo / w13 / w2 / output   kernel 1, Q4_0 matmul + fused RMSNorm
-  decode FFN (<= 8 rows)          kernel 2, fused SwiGLU + residual
+  wqkv / wo / w13 / w2 / output   kernel 1 (Q4_0) or kernel 13 (group
+                                  codes: Q8_0, Q4_1, Q5_x, k-quants),
+                                  matmul + fused RMSNorm
+  decode FFN (<= 8 rows)          kernel 2, fused SwiGLU + residual, any
+                                  pairing of those weight forms
   decode attention                kernel 3, append + attend in place
   prefill attention               kernel 4, causal flash attention
   int8 cache (QuantKVCache)       kernel 8, quantize + append + attend;
@@ -18,7 +21,14 @@ CUDA kernels:
                                   on int8 pages kernels 11, 10 and 12
 
 Weight orientation is [in, out] (y = x @ W) at every public function,
-as in the reference, whatever the Q4_0 storage layout.
+as in the reference, whatever the quantized storage layout.
+
+A GGUF file of llama.cpp's *_M recipes mixes kinds within one family
+across layers (Q6_K attn_v / ffn_down on some layers of Q4_K_M).  The
+reference stacks its layers, so it re-encodes such a family exactly to a
+common group-16 form (to_qk16); the port keeps a list of layers, so each
+layer keeps its own kind, and since to_qk16 is exact the function is the
+same.
 """
 
 from __future__ import annotations
@@ -193,7 +203,8 @@ def _attend_and_update(cfg: LlamaConfig, q, k, v, lcache, offsets, positions):
 def _ffn_block(cfg: LlamaConfig, x, lp: LayerParams):
     """SwiGLU MLP with residual: x + silu(norm(x)@w1)*(norm(x)@w3) @ w2.
 
-    At most 8 rows over Q4_0 w13/w2: kernel 2 in one call.  Otherwise
+    At most 8 rows over quantized w13/w2 (any pairing of Q4_0 and
+    group-code forms): kernel 2 in one call.  Otherwise
     (prefill, dense weights): two matmuls and a SiLU, as the reference's
     unfused form."""
     rows = x.numel() // x.shape[-1]
@@ -405,11 +416,16 @@ def rope_half_params(cfg: LlamaConfig, params: LlamaParams):
 
 def fuse_params(params: LlamaParams) -> LlamaParams:
     """wq|wk|wv -> wqkv and w1|w3 -> w13 in every layer (one matmul
-    instead of three, and w13 is what kernel 2 reads)."""
+    instead of three, and w13 is what kernel 2 reads).  Weights of mixed
+    forms (a Q6_K wv beside Q4_K wq / wk: other group and no mins) stay
+    separate, as in the reference."""
 
     def fusable(ws):
-        return all(isinstance(w, QWeight) for w in ws) or not any(
-            isinstance(w, QWeight) for w in ws)
+        qws = [w for w in ws if isinstance(w, QWeight)]
+        if not qws:
+            return True
+        return len(qws) == len(ws) and len(
+            {(w.kind, w.group, w.mins is None) for w in qws}) == 1
 
     def cat(ws):
         if isinstance(ws[0], QWeight):
@@ -437,8 +453,11 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, dtype=torch.bfloat
     """Random parameters drawn from `generator` (which lives on `device`).
 
     quant="q4_0" quantizes every projection (wq..w3, output) on the
-    device as it is drawn, so a full-width model never exists densely."""
-    if quant not in (None, "q4_0"):
+    device as it is drawn; "q8_0" and "q4_k_m" draw codes and scales
+    directly (QWeight.random), Q8_0 everywhere or llama.cpp's Q4_K_M mix:
+    Q4_K, with Q6_K for the output and for wv and w2 on the layers that
+    recipe gives more bits.  A full-width model never exists densely."""
+    if quant not in (None, "q4_0", "q8_0", "q4_k_m"):
         raise ValueError(f"unsupported quant {quant!r}")
     D, F, V = cfg.n_embd, cfg.n_ff, cfg.n_vocab
     Dkv = cfg.n_embd_kv
@@ -446,25 +465,42 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, dtype=torch.bfloat
     def randn(*shape):
         return torch.randn(shape, generator=generator, device=device) * scale
 
-    def w(k, n):
-        a = randn(k, n)
-        return QWeight.quantize(a) if quant == "q4_0" else a.to(dtype)
+    def w(k, n, form="q4_k"):
+        if quant == "q4_0":
+            return QWeight.quantize(randn(k, n))
+        if quant is not None:
+            form = "q8_0" if quant == "q8_0" else form
+            return QWeight.random(k, n, form, generator, device, std=scale)
+        return randn(k, n).to(dtype)
 
     def ones():
         return torch.ones(D, dtype=dtype, device=device)
 
-    layers = [LayerParams(wq=w(D, D), wk=w(D, Dkv), wv=w(D, Dkv), wo=w(D, D),
-                          w1=w(D, F), w2=w(F, D), w3=w(D, F),
-                          attn_norm=ones(), ffn_norm=ones())
-              for _ in range(cfg.n_layer)]
+    def layer(i):
+        more = "q6_k" if q4_k_m_more_bits(i, cfg.n_layer) else "q4_k"
+        return LayerParams(wq=w(D, D), wk=w(D, Dkv), wv=w(D, Dkv, more), wo=w(D, D),
+                           w1=w(D, F), w2=w(F, D, more), w3=w(D, F),
+                           attn_norm=ones(), ffn_norm=ones())
+
+    layers = [layer(i) for i in range(cfg.n_layer)]
     return LlamaParams(tok_embd=randn(V, D).to(dtype), layers=layers, norm=ones(),
-                       output=w(D, V))
+                       output=w(D, V, "q6_k"))
+
+
+def q4_k_m_more_bits(layer: int, n_layer: int) -> bool:
+    """The layers whose attn_v and ffn_down llama.cpp's Q4_K_M recipe
+    stores in Q6_K (its use_more_bits): the first and last eighth, and
+    every third layer between."""
+    return (layer < n_layer // 8 or layer >= 7 * n_layer // 8
+            or (layer - n_layer // 8) % 3 == 2)
 
 
 HostTensor = Union[np.ndarray, QuantizedTensor]
 
 
 def _device_weight(t: HostTensor, dtype, device, transpose: bool) -> ArrayOrQ:
+    if isinstance(t, QWeight):
+        return t.to(device)  # built by the loader (k-quants)
     if isinstance(t, QuantizedTensor):
         if transpose:
             return QWeight.from_quantized_tensor(t, device)
@@ -479,8 +515,9 @@ def _device_weight(t: HostTensor, dtype, device, transpose: bool) -> ArrayOrQ:
 def params_from_ggml(cfg: LlamaConfig, tensors: Dict[str, HostTensor], dtype=torch.bfloat16,
                      device=None) -> LlamaParams:
     """Device parameters from loaded GGML tensors: 2-D projections go from
-    GGML's [out, in] to [in, out] (Q4_0 stays quantized); the embedding
-    table and the norm gains are dense."""
+    GGML's [out, in] to [in, out] (quantized kinds stay quantized; a
+    QWeight the loader built passes through); the embedding table and the
+    norm gains are dense."""
 
     def get(name, transpose=True):
         return _device_weight(tensors[name], dtype, device, transpose)
@@ -505,17 +542,18 @@ def params_from_jax(np_params: Mapping, dtype=torch.float32, device=None) -> Lla
     np_params maps LlamaParams field names (tok_embd, layers, norm,
     output) to arrays; `layers` is a sequence of mappings with LayerParams
     field names (unrolled) or one mapping of [L, ...] stacked leaves.  A
-    weight is an ndarray [K, N] (dense) or a mapping of the packed q4_0
-    QWeight fields qs, scales, scales_hi."""
+    weight is an ndarray [K, N] (dense) or a mapping of the reference's
+    QWeight fields (qs, scales, mins, scales_hi, kind, group; a q4_0
+    mapping may hold only the first three)."""
 
     def conv(w, layer=None):
         if w is None:
             return None
         if isinstance(w, Mapping):
-            parts = [w["qs"], w["scales"], w["scales_hi"]]
-            if layer is not None:
-                parts = [a[layer] for a in parts]
-            return QWeight.from_jax_packed(*parts, device=device)
+            arrays = {k: (v if layer is None or v is None else v[layer])
+                      for k, v in w.items() if k in ("qs", "scales", "mins", "scales_hi")}
+            return QWeight.from_jax(w.get("kind", "q4_0"), group=w.get("group", 32),
+                                    device=device, **arrays)
         a = np.asarray(w if layer is None else w[layer], np.float32)
         return torch.from_numpy(np.array(a, order="C")).to(device=device, dtype=dtype)
 

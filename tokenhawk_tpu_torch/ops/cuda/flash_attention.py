@@ -19,7 +19,7 @@ import torch
 from tokenhawk_tpu_torch.ops.attention import attend_cache
 from tokenhawk_tpu_torch.ops.cuda import build
 
-launches = 0
+launches = {"flash_attention": 0}
 HEAD_DIM = 128
 
 _ARGS = [build.P] * 5 + [build.I] * 7 + [build.P]
@@ -37,7 +37,6 @@ def flash_attention_plain(q, k_cache, v_cache, offsets):
 def flash_attention(q, k_cache, v_cache, offsets):
     """q [B, Hkv, rep, T, Dh] (pre-scaled), caches [B, Hkv, S, Dh],
     offsets [B] int32 -> out [B, Hkv, rep, T, Dh] in q.dtype."""
-    global launches
     if not q.is_cuda:
         return flash_attention_plain(q, k_cache, v_cache, offsets)
     B, Hkv, rep, T, Dh = q.shape
@@ -56,5 +55,5 @@ def flash_attention(q, k_cache, v_cache, offsets):
             out.data_ptr(), B, Hkv, rep, T, S, build.dtype_code(q.dtype),
             build.dtype_code(k_cache.dtype), build.stream_of(q))
     build.check(rc, "flash_attention")
-    launches += 1
+    launches["flash_attention"] += 1
     return out

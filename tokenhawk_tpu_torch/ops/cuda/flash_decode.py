@@ -21,7 +21,7 @@ import torch
 from tokenhawk_tpu_torch.ops.attention import attend_cache
 from tokenhawk_tpu_torch.ops.cuda import build
 
-launches = 0
+launches = {"flash_decode": 0}
 HEAD_DIM = 128
 REPS = (1, 2, 4, 8)
 
@@ -45,7 +45,6 @@ def flash_decode_append(q, k_new, v_new, k_cache, v_cache, lengths):
     """q [B, Hkv, rep, Dh] (pre-scaled), k_new/v_new [B, Hkv, Dh],
     caches [B, Hkv, S, Dh] (written in place), lengths [B] int32 valid
     tokens including the new one -> out [B, Hkv, rep, Dh] in q.dtype."""
-    global launches
     if not q.is_cuda:
         return flash_decode_append_plain(q, k_new, v_new, k_cache, v_cache, lengths)
     B, Hkv, rep, Dh = q.shape
@@ -69,5 +68,5 @@ def flash_decode_append(q, k_new, v_new, k_cache, v_cache, lengths):
             v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, Hkv, rep, S,
             build.dtype_code(q.dtype), build.dtype_code(k_cache.dtype), build.stream_of(q))
     build.check(rc, "flash_decode_append")
-    launches += 1
+    launches["flash_decode"] += 1
     return out

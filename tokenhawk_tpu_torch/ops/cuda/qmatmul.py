@@ -1,16 +1,21 @@
-"""Kernel 1: Q4_0 dequant-matmul with fused RMSNorm (csrc/qmatmul.cu).
+"""Kernels 1 and 13: dequant-matmul with fused RMSNorm (csrc/qmatmul.cu).
 
-Replaces tokenhawk_tpu/ops/pallas/qmatmul.py `q4_matmul` (_q4_kernel)
-and `q4_matmul_i4` (_q4i4_kernel).  On the H100 the decode rows (B <= 8)
-are bound by the weight bytes (0.5 B per weight + 4 B of scale per 32)
-and the prefill rows by f32 FMA issue.  The kernel reads each weight
-group with one 16-byte load and decodes its 32 codes once for every row
-of a row tile (q4.cuh); the row statistics of the norm come from a small
-pre-pass, so the norm is fused for every K, 11008 included.
+One entry point takes every weight form (ops/qweight.py).  Over Q4_0 it
+is kernel 1, which replaces tokenhawk_tpu/ops/pallas/qmatmul.py
+`q4_matmul` (_q4_kernel) and `q4_matmul_i4` (_q4i4_kernel); over the
+group-code kind (Q8_0, Q5_0, Q4_1, Q5_1, Q2_K..Q6_K) it is kernel 13,
+which replaces `q8_matmul` (_q8_kernel) and `qk_matmul` (_qk_kernel).
+Launches are counted per kernel: `launches["q4_matmul"]` and
+`launches["qk_matmul"]`.  On the H100 the decode rows (B <= 8) are bound
+by the weight bytes and the prefill rows by f32 FMA issue.  The kernel
+reads a column's codes with 16-byte loads and converts them once for
+every row of a row tile (gemv.cuh); the row statistics of the norm come
+from a small pre-pass, so the norm is fused for every K.
 
 Tolerance against the plain version: both accumulate in f32 and round
 once to the output dtype; they differ by summation order (~1e-6 relative
-in f32) plus that one rounding (2^-8 relative for bfloat16).
+in f32, of the terms, which for affine kinds includes the m * sum(x)
+term) plus that one rounding (2^-8 relative for bfloat16).
 """
 
 from __future__ import annotations
@@ -20,19 +25,37 @@ import torch
 from tokenhawk_tpu_torch.ops.cuda import build
 from tokenhawk_tpu_torch.ops.qweight import QWeight
 
-launches = 0
+launches = {"q4_matmul": 0, "qk_matmul": 0}
 
-_ARGS = [build.P] * 6 + [build.I] * 3 + [build.F, build.I, build.P]
+_ARGS = [build.P] * 7 + [build.I] * 4 + [build.F, build.I, build.P]
 
-
-def require_q4(*ws: QWeight) -> None:
-    """The kernels read uint8 codes and float32 scales (ops/qweight.py)."""
-    for w in ws:
-        build.require(w.qs.dtype == torch.uint8 and w.scales.dtype == torch.float32,
-                      "QWeight must hold uint8 codes and float32 scales")
+# Weight forms at the C boundary (csrc/gemv.cuh enum Form), by code.
+FORM_NAMES = ("q4_0", "g32", "g32m", "g16", "g16m")
+_FORMS = {("q4_0", 32, False): 0, ("qk", 32, False): 1, ("qk", 32, True): 2,
+          ("qk", 16, False): 3, ("qk", 16, True): 4}
 
 
-def q4_matmul_plain(x: torch.Tensor, w: QWeight, norm_gain=None, eps: float = 1e-6):
+def form_code(w: QWeight) -> int:
+    """The kernels' code for w's (kind, group, mins); checks the dtypes."""
+    form = _FORMS.get((w.kind, w.group, w.mins is not None))
+    build.require(form is not None, f"no kernel form for {w.kind} G {w.group} "
+                                    f"{'with' if w.mins is not None else 'without'} mins")
+    code_dtype = torch.uint8 if w.kind == "q4_0" else torch.int8
+    build.require(w.qs.dtype == code_dtype and w.scales.dtype == torch.float32
+                  and (w.mins is None or w.mins.dtype == torch.float32),
+                  f"QWeight {w.kind} must hold {code_dtype} codes and float32 sides")
+    build.require(w.shape[0] % 32 == 0, f"K {w.shape[0]} must be a multiple of 32")
+    return form
+
+
+def weight_args(w: QWeight, x: torch.Tensor) -> list:
+    """(qs, scales, mins) pointers of a weight checked to lie on x's GPU."""
+    build.require_cuda(x, *[t for t in (w.qs, w.scales, w.mins) if t is not None])
+    return [w.qs.data_ptr(), w.scales.data_ptr(),
+            w.mins.data_ptr() if w.mins is not None else None]
+
+
+def quant_matmul_plain(x: torch.Tensor, w: QWeight, norm_gain=None, eps: float = 1e-6):
     """The same function in plain PyTorch: f32 throughout, one rounding."""
     xf = x.float()
     if norm_gain is not None:
@@ -40,33 +63,27 @@ def q4_matmul_plain(x: torch.Tensor, w: QWeight, norm_gain=None, eps: float = 1e
     return (xf @ w.dequantize(torch.float32)).to(x.dtype)
 
 
-def q4_matmul(x: torch.Tensor, w: QWeight, norm_gain=None, eps: float = 1e-6):
-    """x [..., K] @ W [K, N] -> [..., N] in x.dtype; rms_norm(x)*gain first
-    when `norm_gain` is given."""
-    global launches
+def quant_matmul(x: torch.Tensor, w: QWeight, norm_gain=None, eps: float = 1e-6):
+    """x [..., K] @ W [K, N] -> [..., N] in x.dtype for a quantized W;
+    rms_norm(x)*gain first when `norm_gain` is given."""
     if not x.is_cuda:
-        return q4_matmul_plain(x, w, norm_gain, eps)
+        return quant_matmul_plain(x, w, norm_gain, eps)
+    form = form_code(w)
     K, N = w.shape
     build.require(x.shape[-1] == K, f"x {tuple(x.shape)} does not match W {w.shape}")
-    lead = x.shape[:-1]
     xb = x.reshape(-1, K).contiguous()
-    B = xb.shape[0]
-    build.require(B >= 1, "empty input")
-    code = build.dtype_code(xb.dtype)
-    tensors = [xb, w.qs, w.scales]
+    build.require(xb.shape[0] >= 1, "empty input")
     gain = None
     if norm_gain is not None:
         gain = norm_gain.to(xb.dtype).contiguous()
         build.require(gain.shape == (K,), f"gain {tuple(gain.shape)} != ({K},)")
-        tensors.append(gain)
-    build.require_cuda(*tensors)
-    require_q4(w)
-    y = torch.empty((B, N), dtype=xb.dtype, device=xb.device)
-    inv = torch.empty((B,), dtype=torch.float32, device=xb.device)
-    fn = build.function("th_q4_matmul", _ARGS)
-    rc = fn(xb.data_ptr(), w.qs.data_ptr(), w.scales.data_ptr(),
-            gain.data_ptr() if gain is not None else None, y.data_ptr(), inv.data_ptr(),
-            B, K, N, eps, code, build.stream_of(xb))
-    build.check(rc, "q4_matmul")
-    launches += 1
-    return y.reshape(*lead, N)
+    build.require_cuda(xb, *([] if gain is None else [gain]))
+    y = torch.empty((xb.shape[0], N), dtype=xb.dtype, device=xb.device)
+    inv = torch.empty((xb.shape[0],), dtype=torch.float32, device=xb.device)
+    fn = build.function("th_quant_matmul", _ARGS)
+    rc = fn(xb.data_ptr(), *weight_args(w, xb), gain.data_ptr() if gain is not None else None,
+            y.data_ptr(), inv.data_ptr(), xb.shape[0], K, N, form, eps,
+            build.dtype_code(xb.dtype), build.stream_of(xb))
+    build.check(rc, "quant_matmul")
+    launches["q4_matmul" if form == 0 else "qk_matmul"] += 1
+    return y.reshape(*x.shape[:-1], N)

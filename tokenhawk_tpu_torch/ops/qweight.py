@@ -1,21 +1,41 @@
-"""Q4_0 weight container in the Hopper layout.
+"""Quantized weight container in the Hopper layout.
 
-Counterpart of tokenhawk_tpu/ops/qweight.py for the Q4_0 kind.  The
-reference keeps q4_0 contraction-major ([K//2, N] bytes, row j packed
-with row j + K//2) because the TPU kernels tile (K, N) blocks into VMEM.
-On the GPU the matmul kernels are GEMVs at decode: one warp walks one
-output column down K, so the port stores each output column's codes
-contiguously, output-major, which is GGML's own [out, in] order:
+Counterpart of tokenhawk_tpu/ops/qweight.py.  The reference keeps codes
+contraction-major ([K, N], q4_0 packed [K//2, N]) because the TPU kernels
+tile (K, N) blocks into VMEM.  On the GPU the matmul kernels are GEMVs at
+decode: one warp walks one output column down K, so the port stores each
+output column's codes contiguously, output-major, which is GGML's own
+[out, in] order.  Two kinds:
 
-  qs:     uint8 [N, K//2]  group g of column n is bytes [16g, 16g+16) of
-          row n; byte j holds code 32g+j in its low nibble and code
-          32g+16+j in its high nibble, offset-binary (value + 8).
-  scales: f32 [N, K//32]   one scale per (column, group of 32 inputs).
+  kind "q4_0" (kernel 1; ggjt and GGUF Q4_0):
+    qs:     uint8 [N, K//2]  group g of column n is bytes [16g, 16g+16) of
+            row n; byte j holds code 32g+j in its low nibble and code
+            32g+16+j in its high nibble, offset-binary (value + 8).
+    scales: f32 [N, K//32]   one scale per (column, group of 32 inputs).
+  kind "qk" (kernel 13; every other int-code kind), w = code*s + m:
+    qs:     int8 [N, K]      the codes, one byte each.
+    scales: f32 [N, K//G]    s per (column, group of G inputs).
+    mins:   f32 [N, K//G]    m, or None for a symmetric kind.
+    group:  G, 16 or 32.
 
-A lane loads one whole group (16 bytes) with one 16-byte load and one
-4-byte scale; the lanes of a warp read 512 contiguous bytes.  The low
-and high nibbles of a 4-byte word cover inputs 4i..4i+3 and 16+4i..
-16+4i+3 of the group, two float4 loads of the activations.
+The qk forms of the GGML kinds are the reference's (from_quantized_tensor
+and from_kquant_raw with use_i4=False):
+
+  Q8_0  code            s = d        no mins   G 32
+  Q5_0  code - 16       s = d        no mins   G 32
+  Q4_1  code            s = d        m = min   G 32
+  Q5_1  code            s = d        m = min   G 32
+  Q2_K  code            s = d*sc     m = -dmin*mn       G 16
+  Q3_K  code (signed)   s = d*sc     no mins   G 16
+  Q4_K  code (0..15)    s = d*sc     m = -dmin*mn       G 32
+  Q5_K  code - 16       s = d*sc     m = 16s - dmin*mn  G 32
+  Q6_K  code - 32       s = d*sc     no mins   G 16
+
+Scales and mins stay float32 (the reference's loader rounds them to
+bfloat16 by default; ROADMAP Queue 3), so `dequantize()` equals the
+reference's QWeight.dequantize with f32 sides bit for bit.  4-bit codes
+take a byte each here (1.25 B per weight for Q4_K where the file holds
+0.5625): a known limit of this first kernel.
 
 `dequantize()` returns the logical [K, N] matrix (the reference's
 orientation) and is the oracle every kernel test holds the port to.
@@ -24,7 +44,7 @@ orientation) and is the oracle every kernel test holds the port to.
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -40,29 +60,36 @@ def _as_tensor(a, dtype=None, device=None) -> torch.Tensor:
 
 @dataclasses.dataclass
 class QWeight:
-    """Q4_0 weight of logical shape [K, N] (y = x @ W)."""
+    """Quantized weight of logical shape [K, N] (y = x @ W)."""
 
-    qs: torch.Tensor  # uint8 [N, K//2]
-    scales: torch.Tensor  # f32 [N, K//32]
+    qs: torch.Tensor  # q4_0: uint8 [N, K//2]; qk: int8 [N, K]
+    scales: torch.Tensor  # f32 [N, K//group]
+    mins: Optional[torch.Tensor] = None  # qk only: f32 [N, K//group] or None
+    kind: str = "q4_0"
+    group: int = QK
 
     @property
     def shape(self):
-        n, kh = self.qs.shape
-        return (kh * 2, n)
+        n, k = self.qs.shape
+        return (k * 2, n) if self.kind == "q4_0" else (k, n)
 
     @property
     def nbytes(self) -> int:
-        return self.qs.numel() * self.qs.element_size() + (
-            self.scales.numel() * self.scales.element_size())
+        return sum(t.numel() * t.element_size()
+                   for t in (self.qs, self.scales, self.mins) if t is not None)
+
+    def _replace(self, fn) -> "QWeight":
+        return dataclasses.replace(self, qs=fn(self.qs), scales=fn(self.scales),
+                                   mins=None if self.mins is None else fn(self.mins))
 
     def to(self, device) -> "QWeight":
-        return QWeight(self.qs.to(device), self.scales.to(device))
+        return self._replace(lambda t: t.to(device))
 
     # -- construction ----------------------------------------------------
 
     @staticmethod
     def from_codes(codes, scales, device=None) -> "QWeight":
-        """Offset-binary codes [N, K] in [0, 15] + scales [N, K//32]."""
+        """q4_0: offset-binary codes [N, K] in [0, 15] + scales [N, K//32]."""
         codes = _as_tensor(codes, torch.uint8, device)
         n, k = codes.shape
         if k % QK:
@@ -73,13 +100,66 @@ class QWeight:
         return QWeight(qs.contiguous(), s.contiguous())
 
     @staticmethod
+    def from_group_codes(codes, scales, mins=None, group: int = QK,
+                         device=None) -> "QWeight":
+        """qk: signed codes [N, K] + scales (and mins) [N, K//group]."""
+        qs = _as_tensor(codes, torch.int8, device)
+        n, k = qs.shape
+        if group not in (16, 32) or k % 32:
+            raise ValueError(f"group-code weights take G 16 or 32 and K a multiple of 32, "
+                             f"got G {group}, K {k}")
+
+        def side(a):
+            return _as_tensor(a, torch.float32, device).reshape(n, k // group).contiguous()
+
+        return QWeight(qs.contiguous(), side(scales), None if mins is None else side(mins),
+                       kind="qk", group=group)
+
+    @staticmethod
     def from_quantized_tensor(qt: QuantizedTensor, device=None) -> "QWeight":
-        """GGML host tensor [out, in] -> QWeight of logical shape [in, out]."""
-        if qt.kind != GGMLType.Q4_0 or qt.qs.ndim != 2:
-            raise ValueError(f"only 2-D q4_0 weights are ported, got "
-                             f"{qt.kind!r} {qt.shape}")
-        codes = (qt.qs.astype(np.int16) + 8).astype(np.uint8)  # [out, in]
-        return QWeight.from_codes(codes, qt.scales, device)
+        """GGML host tensor [out, in] -> QWeight of logical shape [in, out].
+
+        Q4_0 goes to the q4_0 kind; Q8_0, Q5_0, Q4_1 and Q5_1 to qk with
+        G 32 (the host codec's codes are already the reference's: Q5_0
+        code - 16, Q4_1 / Q5_1 unsigned with their mins)."""
+        if qt.qs.ndim != 2:
+            raise ValueError(f"expected a 2-D weight, got {qt.shape}")
+        if qt.kind == GGMLType.Q4_0:
+            codes = (qt.qs.astype(np.int16) + 8).astype(np.uint8)  # [out, in]
+            return QWeight.from_codes(codes, qt.scales, device)
+        if qt.kind not in (GGMLType.Q8_0, GGMLType.Q5_0, GGMLType.Q4_1, GGMLType.Q5_1):
+            raise ValueError(f"no device form for {qt.kind!r}")
+        return QWeight.from_group_codes(qt.qs, qt.scales, qt.mins, QK, device)
+
+    @staticmethod
+    def from_kquant_raw(gtype: GGMLType, raw: bytes, shape, device=None) -> "QWeight":
+        """GGUF k-quant block stream of an [out, in] tensor -> qk QWeight
+        of logical shape [in, out]: the reference's from_kquant_raw with
+        use_i4=False and f32 sides, in the port's output-major layout."""
+        from tokenhawk_tpu_torch.ggml import kquants
+
+        out_dim, in_dim = shape
+        n = out_dim * in_dim
+        if gtype == GGMLType.Q4_K:
+            codes, s, m = kquants.extract_q4_k(raw, n)
+            group, qs, bias = 32, codes.astype(np.int8), -m
+        elif gtype == GGMLType.Q5_K:
+            codes, s, m = kquants.extract_q5_k(raw, n)
+            group, qs, bias = 32, (codes.astype(np.int16) - 16).astype(np.int8), 16.0 * s - m
+        elif gtype == GGMLType.Q6_K:
+            codes, s = kquants.extract_q6_k(raw, n)
+            group, qs, bias = 16, codes, None
+        elif gtype == GGMLType.Q2_K:
+            codes, s, m = kquants.extract_q2_k(raw, n)
+            group, qs, bias = 16, codes.astype(np.int8), -m
+        elif gtype == GGMLType.Q3_K:
+            codes, s = kquants.extract_q3_k(raw, n)
+            group, qs, bias = 16, codes, None
+        else:
+            raise ValueError(f"not a supported k-quant: {gtype!r}")
+        return QWeight.from_group_codes(
+            qs.reshape(out_dim, in_dim), s.astype(np.float32),
+            None if bias is None else bias.astype(np.float32), group, device)
 
     @staticmethod
     def from_jax_packed(qs, scales, scales_hi, device=None) -> "QWeight":
@@ -95,6 +175,20 @@ class QWeight:
         return QWeight.from_codes(codes.T, full.T, device)
 
     @staticmethod
+    def from_jax(kind: str, qs, scales, mins=None, scales_hi=None, group: int = QK,
+                 device=None) -> "QWeight":
+        """The reference's QWeight fields (numpy) -> QWeight: q4_0 packed,
+        or the [K, N] int codes of q8_0, q4_1, qk_i8 and qk_i4 (int4 codes
+        passed as int8) with their [K//G, N] sides."""
+        if kind == "q4_0":
+            return QWeight.from_jax_packed(qs, scales, scales_hi, device)
+        if kind not in ("q8_0", "q4_1", "qk_i8", "qk_i4"):
+            raise ValueError(f"no device form for the reference's {kind!r}")
+        return QWeight.from_group_codes(
+            np.asarray(qs).astype(np.int8).T, np.asarray(scales, np.float32).T,
+            None if mins is None else np.asarray(mins, np.float32).T, group, device)
+
+    @staticmethod
     def quantize(w: torch.Tensor) -> "QWeight":
         """Dense [K, N] -> Q4_0 on w's device (signed-absmax, as
         ggml.quants.quantize_q4_0 does on the host)."""
@@ -107,10 +201,29 @@ class QWeight:
         codes = (q + 8).to(torch.uint8).reshape(n, k)
         return QWeight.from_codes(codes, d)
 
+    @staticmethod
+    def random(k: int, n: int, form: str, generator: torch.Generator, device=None,
+               std: float = 0.02) -> "QWeight":
+        """Random codes and sides of one GGML kind, drawn on `device` (no
+        dense matrix): form "q8_0", "q4_k" or "q6_k", with weights of
+        about `std` around zero."""
+        # (code range, group, code std, with mins)
+        lo, hi, group, code_std, affine = {
+            "q8_0": (-127, 128, 32, 73.6, False), "q4_k": (0, 16, 32, 4.61, True),
+            "q6_k": (-32, 32, 16, 18.5, False)}[form]
+        codes = torch.randint(lo, hi, (n, k), generator=generator, device=device,
+                              dtype=torch.int8)
+        u = torch.rand((n, k // group), generator=generator, device=device)
+        s = (std / code_std) * (0.75 + 0.5 * u)
+        mins = -7.5 * s * (0.9 + 0.2 * u.flip(-1)) if affine else None
+        return QWeight.from_group_codes(codes, s, mins, group)
+
     # -- oracle ----------------------------------------------------------
 
     def codes(self) -> torch.Tensor:
-        """Offset-binary codes at [N, K]."""
+        """Codes at [N, K]: offset-binary for q4_0, the qs for qk."""
+        if self.kind != "q4_0":
+            return self.qs
         n, kh = self.qs.shape
         g = self.qs.reshape(n, kh // (QK // 2), QK // 2)
         return torch.stack([g & 0x0F, g >> 4], dim=2).reshape(n, kh * 2)
@@ -119,20 +232,28 @@ class QWeight:
         """Materialize the dense logical [K, N] matrix."""
         c = self.codes()
         n, k = c.shape
-        w = (c.float() - 8.0).reshape(n, k // QK, QK) * self.scales[..., None]
+        q = c.float() - 8.0 if self.kind == "q4_0" else c.float()
+        w = q.reshape(n, k // self.group, self.group) * self.scales[..., None]
+        if self.mins is not None:
+            w = w + self.mins[..., None]
         return w.reshape(n, k).t().to(dtype)
 
 
 def concat_qweights(ws) -> QWeight:
-    """Concatenate along the output axis (wq|wk|wv -> wqkv, w1|w3 -> w13)."""
-    return QWeight(torch.cat([w.qs for w in ws], 0),
-                   torch.cat([w.scales for w in ws], 0))
+    """Concatenate along the output axis (wq|wk|wv -> wqkv, w1|w3 -> w13);
+    all of one kind, group and mins presence."""
+    forms = {(w.kind, w.group, w.mins is None) for w in ws}
+    if len(forms) != 1:
+        raise ValueError(f"cannot concatenate mixed forms {forms}")
+    mins = None if ws[0].mins is None else torch.cat([w.mins for w in ws], 0)
+    return dataclasses.replace(ws[0], qs=torch.cat([w.qs for w in ws], 0),
+                               scales=torch.cat([w.scales for w in ws], 0), mins=mins)
 
 
 def take_columns(w: "ArrayOrQ", idx: torch.Tensor) -> "ArrayOrQ":
     """Select output columns (load-time permutations)."""
     if isinstance(w, QWeight):
-        return QWeight(w.qs[idx].contiguous(), w.scales[idx].contiguous())
+        return w._replace(lambda t: t[idx].contiguous())
     return w[:, idx].contiguous()
 
 

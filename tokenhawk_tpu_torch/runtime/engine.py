@@ -31,7 +31,7 @@ from tokenhawk_tpu_torch.models.llama import (
     logits_from_hidden,
 )
 from tokenhawk_tpu_torch.sampling import is_eos as _is_eos
-from tokenhawk_tpu_torch.sampling import normalize_eos, sample, sample_dynamic
+from tokenhawk_tpu_torch.sampling import normalize_eos, sample, sample_dynamic, tokenizer_eos
 from tokenhawk_tpu_torch.tokenizer import BOS_ID, EOS_ID, Tokenizer
 
 
@@ -167,13 +167,7 @@ class Engine:
         eos_id: Optional[int] = None,
     ):
         if eos_id is None:
-            eog = getattr(tokenizer, "eog_ids", None)
-            if eog:
-                eos_id = tuple(sorted(int(e) for e in eog if e >= 0))
-            if not eos_id:
-                eos_id = getattr(tokenizer, "eos_id", EOS_ID)
-            if eos_id is None or (isinstance(eos_id, int) and eos_id < 0):
-                eos_id = EOS_ID
+            eos_id = tokenizer_eos(tokenizer)
         self.cfg = cfg
         self.params = params
         self.device = params.device

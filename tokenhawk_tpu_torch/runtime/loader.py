@@ -1,11 +1,19 @@
-"""Model loading: GGML file -> (config, device params, tokenizer).
+"""Model loading: GGML or GGUF file -> (config, device params, tokenizer).
 
-Counterpart of tokenhawk_tpu/runtime/loader.py for ggjt files (and TH
-chunk directories) on one device.  Q4_0 blocks are decoded on the host
-with numpy and uploaded in the port's Q4_0 layout (ops/qweight.py); then
-the same load-time transforms as the reference run: the interleaved->half
-RoPE column permutation and the wqkv / w13 fusion.  The reference's
-`norms_2d` only works around a TPU tile shape and has no counterpart.
+Counterpart of tokenhawk_tpu/runtime/loader.py on one device.  The file
+kind is sniffed from its magic bytes: ggjt v1 (or a TH chunk directory),
+or GGUF, whose metadata overrides the config (GQA, rope base, norm eps,
+n_ff) and carries the tokenizer (SentencePiece, or byte-level BPE for
+Llama-3-family files).  Q4_0 / Q8_0 / Q4_1 / Q5_x blocks are decoded on
+the host with numpy and uploaded in the port's layouts (ops/qweight.py);
+k-quant projections go straight from their block stream to the native
+group-code form (from_kquant_raw), never through the reference's Q8_0
+requantization, which exists for its tensor-parallel path only.  The
+embedding table is dequantized; a file without output.weight ties it to
+the embedding.  Then the same load-time transforms as the reference run:
+the interleaved->half RoPE column permutation and the wqkv / w13 fusion
+(within one weight form).  The reference's `norms_2d` only works around a
+TPU tile shape and has no counterpart.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ from typing import Tuple
 import torch
 
 from tokenhawk_tpu_torch.config import LlamaConfig
+from tokenhawk_tpu_torch.ggml.format import GGMLType
 from tokenhawk_tpu_torch.ggml.reader import GGMLFile
 from tokenhawk_tpu_torch.models.llama import (
     LlamaParams,
@@ -23,7 +32,10 @@ from tokenhawk_tpu_torch.models.llama import (
     params_from_ggml,
     rope_half_params,
 )
+from tokenhawk_tpu_torch.ops.qweight import QWeight
 from tokenhawk_tpu_torch.tokenizer import Tokenizer
+
+_KQUANTS = (GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K)
 
 
 def config_from_hparams(hp, n_ctx: int = 2048, **overrides) -> LlamaConfig:
@@ -33,16 +45,27 @@ def config_from_hparams(hp, n_ctx: int = 2048, **overrides) -> LlamaConfig:
     return LlamaConfig(**kw)
 
 
-def load_model(path: str, n_ctx: int = 2048, dtype=torch.bfloat16, device="cuda",
-               **config_overrides) -> Tuple[LlamaConfig, LlamaParams, Tokenizer]:
-    """Load a ggjt file (or TH chunk directory) onto `device`."""
+def open_model_file(path: str):
+    """A reader for `path`: ChunkedReader, GGUFFile or GGMLFile."""
     if os.path.isdir(path):
         from tokenhawk_tpu_torch.ggml.chunked import ChunkedReader
 
-        f = ChunkedReader(path)
-    else:
-        f = GGMLFile(path)
+        return ChunkedReader(path)
+    from tokenhawk_tpu_torch.ggml.gguf import GGUFFile, is_gguf
+
+    return GGUFFile(path) if is_gguf(path) else GGMLFile(path)
+
+
+def load_model(path: str, n_ctx: int = 2048, dtype=torch.bfloat16, device="cuda",
+               **config_overrides) -> Tuple[LlamaConfig, LlamaParams, object]:
+    """Load a ggjt or GGUF file (or TH chunk directory) onto `device`.
+    Returns (config, params, tokenizer): a Tokenizer, or a BpeTokenizer
+    for a GGUF file with a byte-level BPE vocab, with the file's
+    `chat_template` (or None)."""
+    f = open_model_file(path)
     try:
+        for k, v in getattr(f, "config_overrides", {}).items():
+            config_overrides.setdefault(k, v)
         # n_ff and the number of kv heads are not in the ggjt header: read
         # them off the w1 and wk tensors, as the reference does.
         w1 = f.tensors.get("layers.0.feed_forward.w1.weight")
@@ -53,8 +76,19 @@ def load_model(path: str, n_ctx: int = 2048, dtype=torch.bfloat16, device="cuda"
             head_dim = f.hparams.n_embd // f.hparams.n_head
             config_overrides.setdefault("n_kv_head", wk.shape[0] // head_dim)
         cfg = config_from_hparams(f.hparams, n_ctx=n_ctx, **config_overrides)
-        tokenizer = Tokenizer.from_vocab(f.vocab)
-        tensors = {name: f.load_tensor(name) for name in f.tensors}
+        tokenizer = (f.build_tokenizer() if hasattr(f, "build_tokenizer")
+                     else Tokenizer.from_vocab(f.vocab))
+        # A GGUF file's own chat template (the server renders it); None
+        # for ggjt files.
+        tokenizer.chat_template = getattr(f, "metadata", {}).get("tokenizer.chat_template")
+        tensors = {}
+        for name, rec in f.tensors.items():
+            if (rec.ggml_type in _KQUANTS and len(rec.shape) == 2 and "norm" not in name
+                    and name != "tok_embeddings.weight"):
+                tensors[name] = QWeight.from_kquant_raw(rec.ggml_type, bytes(f.raw(name)),
+                                                        rec.shape, device)
+            else:
+                tensors[name] = f.load_tensor(name)
         params = params_from_ggml(cfg, tensors, dtype=dtype, device=device)
     finally:
         f.close()

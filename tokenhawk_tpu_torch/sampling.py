@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from tokenhawk_tpu_torch.config import SamplingConfig
+from tokenhawk_tpu_torch.tokenizer import EOS_ID
 
 _NEG_INF = -1e30
 
@@ -33,6 +34,17 @@ def normalize_eos(eos_id):
             raise ValueError("empty eos id set")
         return ids[0], ids
     return int(eos_id), (int(eos_id),)
+
+
+def tokenizer_eos(tokenizer):
+    """The eos spec of a tokenizer: its end-of-generation ids (a Llama-3
+    BPE vocab stops on 128001 and the chat terminator 128009), else its
+    eos_id, else the SentencePiece default 2."""
+    eog = sorted(int(e) for e in getattr(tokenizer, "eog_ids", None) or () if e >= 0)
+    if eog:
+        return tuple(eog)
+    eos_id = getattr(tokenizer, "eos_id", None)
+    return EOS_ID if eos_id is None or eos_id < 0 else eos_id
 
 
 def is_eos(tok: torch.Tensor, eos_ids) -> torch.Tensor:

@@ -1,12 +1,15 @@
 """HTTP chat server entry point (counterpart of tokenhawk_tpu/serving/__main__.py).
 
-    python -m tokenhawk_tpu_torch.serving -m model.bin --port 22345 [--paged]
+    python -m tokenhawk_tpu_torch.serving -m model.gguf --port 22345 [--paged]
 
 Continuous batching on one CUDA device behind an SSE streaming API:
 the dense per-slot Scheduler, or with --paged the PagedScheduler (page
 pool, prefix cache, chunked prefill).  --device names the torch device
 (cuda by default; a machine without CUDA fails unless --device cpu is
-given).  --paged --kv int8 serves from int8 pages with per-token scales;
+given).  A ggjt or GGUF file (sniffed by its magic); requests stop on
+any of the tokenizer's end-of-generation ids (a Llama-3 BPE vocab's
+<|eot_id|> as well as its EOS), and /v1/chat/completions renders a GGUF
+file's own tokenizer.chat_template.  --paged --kv int8 serves from int8 pages with per-token scales;
 the dense Scheduler keeps bf16 KV whatever --kv says, as the reference's
 does (a note on stderr).  Not ported yet, and refused with an error: --tp
 (ROADMAP Queue 1 item 8) and --draft-model / --gamma (item 4).
@@ -26,7 +29,7 @@ NOT_PORTED = {"tp": "--tp (tensor parallelism) is not ported yet (ROADMAP Queue 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tokenhawk-torch-serve",
                                 description="LLaMA chat server on one CUDA GPU")
-    p.add_argument("-m", "--model", help="GGML model file")
+    p.add_argument("-m", "--model", help="GGML or GGUF model file")
     p.add_argument("-d", "--dir", help="TH chunk directory (split model)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=22345)
@@ -75,6 +78,7 @@ def main(argv=None) -> int:
 
     from tokenhawk_tpu_torch.config import SamplingConfig
     from tokenhawk_tpu_torch.runtime.loader import load_model
+    from tokenhawk_tpu_torch.sampling import tokenizer_eos
     from tokenhawk_tpu_torch.serving.server import serve
 
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
@@ -88,9 +92,7 @@ def main(argv=None) -> int:
         top_k=args.top_k, top_p=args.top_p,
         repeat_penalty=args.repeat_penalty, seed=args.seed,
     )
-    eos_id = getattr(tokenizer, "eos_id", 2)
-    if eos_id is None or eos_id < 0:
-        eos_id = 2
+    eos_id = tokenizer_eos(tokenizer)
     if args.paged:
         from tokenhawk_tpu_torch.runtime.paged_scheduler import PagedScheduler
 
@@ -109,7 +111,7 @@ def main(argv=None) -> int:
                           max_seq=args.n_ctx, decode_chunk=args.decode_chunk, eos_id=eos_id)
     httpd = serve(sched, tokenizer, host=args.host, port=args.port,
                   model_info={"model": model_path, "n_ctx": args.n_ctx, "paged": args.paged,
-                              "chat_template": None, "speculative": False,
+                              "chat_template": tokenizer.chat_template, "speculative": False,
                               "device": str(params.device)})
     print(f"Serving on http://{args.host}:{args.port}", file=sys.stderr)
     try:
