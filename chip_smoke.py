@@ -28,7 +28,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      /v1/completions, then `python -m tokenhawk_tpu_torch.serving`, dense,
      --paged and --paged --kv int8, on the 2-layer file of phase 5
      answering one request;
-  4i. int8 KV: Engine(cache_dtype="auto") at n_ctx 2048 (it picks int8),
+  4i. int8 KV, on the 7B's first 8 layers (its widths): Engine(cache_dtype=
+     "auto") at n_ctx 2048 (it picks int8),
      prompts of 5, 300 and 1500 tokens, 64 new tokens each, decode tok/s;
      kernels 8 and 9 launched, 3 and 4 not; then profiled decode windows
      at 1500 live tokens, int8 against bf16 K/V in turns (idle share);
@@ -45,10 +46,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      vocab of 128256 tokens: load_model, the CLI (bf16 KV and --kv auto),
      and `python -m tokenhawk_tpu_torch.serving --paged` (SSE, one chat
      request through the file's template, a request that stops on
-     <|eot_id|>).
+     <|eot_id|>);
+  8. dense weights: the 32-layer LLaMA-7B in bf16 (TokenHawk's f16
+     config) through Engine at n_ctx 512, prompts of 5 and 300 tokens:
+     kernel 14 (decode attention without append, behind an index copy)
+     and kernel 4 launched, kernels 1, 2 and 3 not; tok/s against the
+     weight-bytes roofline, the idle share of a profiled request;
+  9. speculation: 9a SpeculativeEngine, the 7B Q4_0 target with a
+     22-layer TinyLlama-width bf16 draft (kernel 14 at 4 KV heads of 64, 8
+     queries each), gamma 4, each stream held against the Engine's greedy
+     stream; 9b a 2-layer self-draft (acceptance >= 90%); 9c the
+     PagedScheduler with the draft (12 requests, half sampled); 9d the CLI
+     and `serving --paged` with --draft-model as subprocesses (a
+     TinyLlama-width F16 GGUF draft).  Phases 8 and 9 run after phase 5.
 Phase 2 also holds kernel 13 (group-code matmul) and kernel 2 over the
-GGUF kinds at those models' shapes, and kernels 3-12 at Llama-3-8B's 8 KV
-heads of 4 queries each; phase 3 also runs a 2-layer Q4_K_M slice.
+GGUF kinds at those models' shapes, kernels 3-12 at Llama-3-8B's 8 KV
+heads of 4 queries each, kernel 14 at the 7B's and TinyLlama's heads, and
+kernels 3, 4, 8 and 9 at TinyLlama's head dim 64; phase 3 also runs a
+2-layer Q4_K_M slice.
 The next-to-last line is {"kernels": [...]}, the last {"ok": true, ...}.
 It needs one CUDA device and the rest of the repository beside it.
 """
@@ -78,6 +93,12 @@ KERNEL_TOL = 2.0**-7
 # plain: rounding flips of intermediate bfloat16 values propagate; 5% of
 # the largest |logit| bounds them while a wrong kernel is off by O(1).
 SLICE_TOL = 5e-2
+# The speculative verify (kernel 4 over gamma+1 rows) against the Engine's
+# decode (kernel 3 at one row) with float32 activations and cache: one
+# function summed in other orders, about 1e-6 of the largest |logit|
+# through 32 layers; 1e-4 leaves a margin and sits far below the bfloat16
+# spread (a few %).
+F32_FORMS_TOL = 1e-4
 # The card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s and
 # dense bf16 tensor-core FLOP/s.  A kernel's bound is the larger of its
 # bytes (each input read once, each output written once) over the first
@@ -89,8 +110,11 @@ PEAK_FLOPS = 989e12
 PAGED_LENGTHS = [1, 37, 128, 129, 300, 700, 1500, 2048]
 PAGED_PS, PAGED_POOL = 128, 140
 # Context of the int8 phases: the CLI's default --n-ctx, where --kv auto
-# picks the int8 cache.
+# picks the int8 cache.  Phases 4i and 4bi run the 7B's first 8 layers
+# (its widths, kernels 8-12 at the same shapes) to keep the script's run
+# inside its time after phases 8 and 9 were added.
 INT8_CTX = 2048
+INT8_LAYERS = 8
 # Kernel 2's launch counts by weight-form pairing (ops/cuda/ffn.py): Q4_0
 # over Q4_0; Q4_K (G 32 with mins) over Q6_K (G 16) and over Q4_K, the
 # two of a Q4_K_M file; Q8_0 (G 32) over Q8_0.
@@ -359,9 +383,11 @@ def phase_kernels() -> list:
     records += _paged_kernel_records(randn, case, library, g)
     records += _int8_kernel_records(randn, case, library)
     records += _paged_int8_kernel_records(randn, case, library, g)
+    records.append(_decode_attend_record(randn, case))
     gqa = _gqa_cases(randn, case, g)
+    dh64 = _head_dim_64_cases(randn, case)
     for rec in records:
-        rec["cases"] += gqa.get(rec["name"], [])
+        rec["cases"] += gqa.get(rec["name"], []) + dh64.get(rec["name"], [])
         rec["max_abs_err"] = max(c["max_abs_err"] for c in rec["cases"])
     records += _group_code_kernel_records(randn, case, library, g)
     return records
@@ -579,6 +605,122 @@ def _gqa_cases(randn, case, g) -> dict:
           torch.stack(pi.gather_pages_int8(*ipool, table, "contig", torch.bfloat16)),
           torch.stack(pi.gather_pages_int8_plain(*ipool, table, "contig", torch.bfloat16)),
           frac=0.0)
+    return out
+
+
+def _sdpa_ms(q, caches, lens) -> float:
+    """scaled_dot_product_attention of q [B, Hkv, rep, Dh] (the rep query
+    heads of a KV head as its query rows) over each cache's live rows:
+    the live prefix when the lengths are equal, else a length mask."""
+    import torch
+    import torch.nn.functional as tf
+
+    S = caches[0][0].shape[2]
+    if len(set(lens)) == 1:
+        L = min(lens[0], S)
+        fns = [lambda c=c: tf.scaled_dot_product_attention(q, c[0][:, :, :L], c[1][:, :, :L],
+                                                           scale=1.0) for c in caches]
+    else:
+        n = torch.tensor(lens, device=q.device)
+        mask = (torch.arange(S, device=q.device)[None, :] < n[:, None])[:, None, None]
+        fns = [lambda c=c: tf.scaled_dot_product_attention(q, c[0], c[1], attn_mask=mask,
+                                                           scale=1.0) for c in caches]
+    return timed(fns)["ms"]
+
+
+def _decode_attend_record(randn, case) -> dict:
+    """Kernel 14 (decode attention, no append) at its paths' shapes:
+    LLaMA-7B's heads (32 KV heads of 128, one query each) over a 512-token
+    cache at B=1, as phase 8's dense 7B decodes, and TinyLlama's (4 KV
+    heads of 64, 8 queries each) over 2048 at B=1 and at B=8 with ragged
+    lengths, as phase 9's draft decodes.  Each case is timed, with its
+    bound and SDPA over the same live rows."""
+    import torch
+
+    from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
+
+    dev = torch.device("cuda")
+    bf = 2
+    cases = []
+    for label, Hkv, rep, Dh, S, lens in (("7B B=1 L=512", 32, 1, 128, S_CTX, [S_CTX]),
+                                         ("TinyLlama B=1 L=2048", 4, 8, 64, 2048, [2048]),
+                                         ("TinyLlama B=8 ragged", 4, 8, 64, 2048, PAGED_LENGTHS)):
+        B = len(lens)
+        q = randn(B, Hkv, rep, Dh, scale=Dh**-0.5)
+        kc, vc = randn(B, Hkv, S, Dh), randn(B, Hkv, S, Dh)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        caches = copies([kc, vc], 2 * kc.nbytes)
+        case(cases, f"flash_decode (kernel 14) {label} Hkv={Hkv} rep={rep} Dh={Dh} S={S} "
+                    f"lengths={lens}", label, B, fd.flash_decode(q, kc, vc, lengths),
+             fd.flash_decode_plain(q, kc, vc, lengths),
+             [lambda c=c: fd.flash_decode(q, *c, lengths) for c in caches],
+             [lambda c=c: fd.flash_decode_plain(q, *c, lengths) for c in caches])
+        live = sum(min(n, S) for n in lens)
+        # K and V rows of the live tokens, q and out, the lengths.
+        b = bound(2 * live * Hkv * Dh * bf + 2 * B * Hkv * rep * Dh * bf + 4 * B,
+                  4 * live * Hkv * rep * Dh)
+        lib = _sdpa_ms(q, caches, lens)
+        cases[-1].update(b, library_ms=lib)
+        log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}); library call "
+            f"scaled_dot_product_attention over the live rows: {lib:.4f} ms")
+        del kc, vc, caches
+    main = cases[0]
+    return _record("flash_decode_attend", "tokenhawk_tpu_torch/csrc/flash_decode.cu",
+                   "tokenhawk_tpu/ops/pallas/flash_decode_dma.py:1396 (flash_decode_dma); "
+                   "flash_decode_dma.py:1328 (flash_decode_loop); "
+                   "tokenhawk_tpu/ops/pallas/flash_decode.py:121 (flash_decode via "
+                   "attend_decode)", cases, ("7B B=1 L=512", 1),
+                   {k: main[k] for k in ("bound_ms", "bound_by")}, main["library_ms"])
+
+
+def _head_dim_64_cases(randn, case) -> dict:
+    """Kernels 3, 4, 8 and 9 at TinyLlama's heads (4 KV heads of 64, 8
+    queries each: the draft's dense cache) against their plain versions,
+    checked: ragged decode lengths up to 2048, and prefills from offsets 0
+    and 200.  Returns kernel name -> cases."""
+    import torch
+
+    from tokenhawk_tpu_torch.ops.cuda import flash_attention as fa
+    from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
+    from tokenhawk_tpu_torch.ops.cuda import kv_int8 as ki
+    from tokenhawk_tpu_torch.ops.kvquant import quantize_kv_block
+
+    log("-- kernels 3, 4, 8, 9 at 4 KV heads of 64 x 8 queries (TinyLlama), checked")
+    dev = torch.device("cuda")
+    Hkv, rep, Dh, S = 4, 8, 64, 2048
+    out = {}
+
+    def check(name, label, got, want):
+        case(out.setdefault(name, []), f"{name} Dh 64 rep 8 {label}", f"dh64 {label}", rep, got,
+             want)
+
+    def q8(*shape):
+        return list(quantize_kv_block(randn(*shape, dtype=torch.float32)))
+
+    lens = PAGED_LENGTHS
+    B = len(lens)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = randn(B, Hkv, rep, Dh, scale=Dh**-0.5)
+    kn, vn = randn(B, Hkv, Dh), randn(B, Hkv, Dh)
+    for name, c, run, plain in (
+            ("flash_decode_append", [randn(B, Hkv, S, Dh), randn(B, Hkv, S, Dh)],
+             fd.flash_decode_append, fd.flash_decode_append_plain),
+            ("flash_decode_int8", q8(B, Hkv, S, Dh) + q8(B, Hkv, S, Dh), ki.flash_decode_int8,
+             ki.flash_decode_int8_plain)):
+        p = [x.clone() for x in c]
+        got, want = run(q, kn, vn, *c, lengths), plain(q, kn, vn, *p, lengths)
+        if not all(torch.equal(x, y) for x, y in zip(c, p)):
+            raise AssertionError(f"{name} at Dh 64: the caches differ from the plain's")
+        check(name, f"B={B} lengths={lens} S={S} (caches identical)", got, want)
+    kc, vc = randn(1, Hkv, S, Dh), randn(1, Hkv, S, Dh)
+    ic = q8(1, Hkv, S, Dh) + q8(1, Hkv, S, Dh)
+    for T, off in ((300, 0), (5, 200)):
+        qp = randn(1, Hkv, rep, T, Dh, scale=Dh**-0.5)
+        offsets = torch.tensor([off], dtype=torch.int32, device=dev)
+        check("flash_attention", f"T={T} offset={off}", fa.flash_attention(qp, kc, vc, offsets),
+              fa.flash_attention_plain(qp, kc, vc, offsets))
+        check("flash_attention_int8", f"T={T} offset={off}",
+              ki.flash_attention_int8(qp, *ic, offsets), ki.flash_attention_int8_plain(qp, *ic, offsets))
     return out
 
 
@@ -1097,26 +1239,25 @@ def phase_serve(kernel_mods) -> tuple:
     counts = _read_counts(kernel_mods)
     log(f"kernel launches in the serve run: {counts}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
-    _check_path(counts, ["q4_matmul", FFN_Q4_0, "flash_decode", "flash_attention"], ["qk_matmul"])
+    _check_path(counts, ["q4_matmul", FFN_Q4_0, "flash_decode", "flash_attention"],
+                ["qk_matmul", "flash_decode_attend"])
     _profile_request(engines[id(greedy)], [1] + rng.integers(3, cfg.n_vocab, size=4).tolist())
     return counts, params
 
 
-def phase_int8_serve(params, kernel_mods, on_path, off_path) -> dict:
+def phase_int8_serve(cfg, params, kernel_mods, on_path, off_path) -> dict:
     """Engine(cache_dtype="auto") at n_ctx 2048, which picks the int8 cache:
     3 greedy requests (prompts of 5, 300 and 1500 tokens, 64 new tokens
     each), then profiled decode windows at 1500 live tokens against a bf16
     cache.  Returns the launch counts of the 3 requests."""
-    import dataclasses
-
     import torch
 
     from tokenhawk_tpu_torch.config import SamplingConfig
     from tokenhawk_tpu_torch.runtime.engine import Engine
     from tokenhawk_tpu_torch.tokenizer import byte_fallback_vocab
 
-    log(f"== phase 4i: Engine, LLaMA-7B Q4_0, 32 layers, cache_dtype auto at n_ctx {INT8_CTX}")
-    cfg = dataclasses.replace(_seven_b(32), n_ctx=INT8_CTX)
+    log(f"== phase 4i: Engine, LLaMA-7B Q4_0 widths, {cfg.n_layer} layers, cache_dtype auto at "
+        f"n_ctx {cfg.n_ctx}")
     eng = Engine(cfg, params, byte_fallback_vocab(), sampling=SamplingConfig(temperature=0.0),
                  cache_dtype="auto", eos_id=-1)
     if eng.cache_dtype != "int8":
@@ -1515,7 +1656,8 @@ def _serve_subprocess(root: str, model_path: str, tmp: str, extra: list) -> None
             log(f"{' '.join(['python -m tokenhawk_tpu_torch.serving', *extra])} ({kind}, "
                 f"2-layer file): up in {up:.1f} s, /generate finish {reason} with {n} token "
                 f"frames, step_errors {health['step_errors']}")
-            if reason not in ("length", "stop") or health["step_errors"] != 0:
+            if (reason not in ("length", "stop") or health["step_errors"] != 0
+                    or health.get("speculative") != ("--draft-model" in extra)):
                 raise AssertionError(open(log_path).read()[-3000:])
         finally:
             proc.terminate()
@@ -1746,6 +1888,421 @@ def _serve_gguf(path: str, tmp: str, tok, template: str) -> None:
                 proc.wait()
 
 
+# TinyLlama-1.1B's published widths (TinyLlama/TinyLlama-1.1B-Chat-v1.0,
+# config.json): 32 heads over 4 KV heads of 64, n_ff 5632, LLaMA's vocab.
+def _tinyllama(n_layer: int = 22, n_ctx: int = S_CTX):
+    from tokenhawk_tpu_torch.config import LlamaConfig
+
+    return LlamaConfig(n_vocab=32000, n_embd=2048, n_head=32, n_kv_head=4, n_layer=n_layer,
+                       n_ff=5632, n_ctx=n_ctx, rope_theta=10000.0, rms_norm_eps=1e-5)
+
+
+def _dense_gb(params) -> float:
+    """GB a decode step reads of dense weights: every projection, the head,
+    the norm gains (the embedding row is negligible)."""
+    ws = [params.output, params.norm] + [w for lp in params.layers for w in (
+        lp.wqkv, lp.wq, lp.wk, lp.wv, lp.wo, lp.w13, lp.w1, lp.w3, lp.w2, lp.attn_norm,
+        lp.ffn_norm) if w is not None]
+    return sum(w.nbytes for w in ws) / 1e9
+
+
+def phase_dense_7b(kernel_mods) -> dict:
+    """Phase 8: LLaMA-7B with dense weights (TokenHawk's f16 config: the
+    loader casts f16 to bf16; here random bf16 weights drawn on the card)
+    through Engine, bf16 KV, n_ctx 512: the reference's dense-weight
+    decode route, an index copy then kernel 14; kernel 4 prefills; kernels
+    1, 2 and 3 stay off.  Returns the launch counts of the requests."""
+    import torch
+
+    from tokenhawk_tpu_torch.ops.cuda import ffn
+
+    log(f"== phase 8: LLaMA-7B with dense bf16 weights, 32 layers, Engine, bf16 KV, n_ctx {S_CTX}")
+    cfg = _seven_b(32)
+    t0 = time.perf_counter()
+    params = _params(cfg, torch.device("cuda"), None)
+    torch.cuda.synchronize()
+    gb = _dense_gb(params)
+    log(f"dense weights built in {time.perf_counter() - t0:.1f} s: {gb:.3f} GB read per decode "
+        f"step, {gb * 1e12 / HBM_BPS:.3f} ms at the HBM rate ({HBM_BPS / (gb * 1e9):.1f} tok/s "
+        f"roofline); allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    counts = _engine_requests(cfg, params, kernel_mods, (5, 300),
+                              ["flash_decode_attend", "flash_attention"],
+                              ["q4_matmul", "qk_matmul", "flash_decode", *ffn.launches])
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _decode_and_verify_forms(engine, prompt, n: int, gamma: int) -> tuple:
+    """The Engine's greedy stream for `prompt` (its prefill, then one
+    decode forward per token, as its chunks run them: kernel 3) and, at
+    every step, the logits the speculative verify computes for the same
+    history when it accepts no draft: row 0 of a (gamma+1)-row block over
+    a cache the blocks wrote (kernel 4, the projections at gamma+1 rows).
+    Rows past 0 cannot reach row 0 (causal mask), so filler tokens stand
+    in for the drafts.  Returns, per step: the Engine's token, the
+    verify form's argmax, the Engine logits' top-two gap and the two
+    forms' largest logit difference, both over the largest |logit|."""
+    import torch
+
+    from tokenhawk_tpu_torch.models.llama import forward, logits_from_hidden
+
+    cfg, params, dev = engine.cfg, engine.params, engine.device
+    (c_dec, lg, _), (c_ver, _, _) = (engine.prefill(engine.new_cache(1), [prompt])
+                                     for _ in range(2))
+    lg_d = lg_v = lg[0].float()
+    toks, vtoks, gaps, diffs = [], [], [], []
+    with torch.inference_mode():
+        for i in range(n):
+            top = torch.topk(lg_d, 2).values
+            big = lg_d.abs().max()
+            gaps.append(float((top[0] - top[1]) / big))
+            diffs.append(float((lg_d - lg_v).abs().max() / big))
+            toks.append(int(lg_d.argmax()))
+            vtoks.append(int(lg_v.argmax()))
+            pos = torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev)
+            h, _ = forward(cfg, params, torch.tensor([[toks[-1]]], device=dev), c_dec, pos)
+            lg_d = logits_from_hidden(cfg, params, h[:, 0])[0].float()
+            block = torch.tensor([[toks[-1]] * (gamma + 1)], device=dev)
+            h, _ = forward(cfg, params, block, c_ver, pos)
+            lg_v = logits_from_hidden(cfg, params, h[:, 0])[0].float()
+    return toks, vtoks, gaps, diffs
+
+
+def _check_greedy_identity(label: str, spec_toks, forms, band_tol: float = SLICE_TOL) -> None:
+    """The speculative stream against the Engine's greedy stream: equal,
+    or first apart at a step where the verify's own arithmetic chose the
+    speculative token (the verify form's argmax) at a near-tie: the top
+    two Engine logits closer than the two forms' logits differ (a flip
+    needs gap <= 2 x that difference).  The difference itself must stay
+    under band_tol of the largest |logit|: bfloat16 rounding under
+    SLICE_TOL, as the slices; in float32 under F32_FORMS_TOL, which shows
+    the bfloat16 spread is rounding and not a fault of the verify."""
+    want, vtoks, gaps, diffs = forms
+    band = max(diffs[:len(spec_toks)])
+    i = next((j for j, (a, b) in enumerate(zip(spec_toks, want)) if a != b), None)
+    if not band < band_tol:
+        raise AssertionError(f"{label}: verify and decode logits differ by {band:.3e}, "
+                             f"over {band_tol:g}")
+    if i is None:
+        log(f"{label}: speculative stream = Engine's greedy stream ({len(want)} tokens); "
+            f"verify vs decode logits differ by at most {band:.3e} of the largest |logit| "
+            f"(tolerance {band_tol:g}); smallest top-two gap {min(gaps):.3e}")
+        return
+    log(f"{label}: first differs from the Engine's greedy stream at step {i}, where its top-two "
+        f"logit gap is {gaps[i]:.3%} of the largest |logit| (within 1%: {gaps[i] <= 0.01}); "
+        f"there the verify's logits differ from the decode's by {diffs[i]:.3%} (at most "
+        f"{band:.3%} over the steps), and the verify form picks the speculative token: "
+        f"{vtoks[i] == spec_toks[i]}")
+    if spec_toks[i] != vtoks[i] or not gaps[i] <= 2 * diffs[i]:
+        raise AssertionError(f"{label}: speculative stream diverges at step {i}: gap {gaps[i]}, "
+                             f"difference {diffs[i]}, verify token {vtoks[i]}, "
+                             f"speculative {spec_toks[i]}")
+
+
+def _profiled(run) -> tuple:
+    """(wall s, device busy s) of run() under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
+
+
+def _map_weights(params, fn):
+    """params with fn applied to each of its tensors and QWeights."""
+    layers = [dataclasses.replace(lp, **{f.name: fn(getattr(lp, f.name))
+                                         for f in dataclasses.fields(lp)})
+              for lp in params.layers]
+    return dataclasses.replace(params, tok_embd=fn(params.tok_embd), layers=layers,
+                               norm=fn(params.norm), output=fn(params.output))
+
+
+def _dequantized(params):
+    """A dense float32 copy of a quantized model's parameters."""
+    import torch
+
+    from tokenhawk_tpu_torch.ops.qweight import QWeight
+
+    return _map_weights(params, lambda w: w.dequantize(torch.float32)
+                        if isinstance(w, QWeight) else w)
+
+
+def _float32(params):
+    """params with every dense tensor in float32, so the activations are
+    float32 too; quantized weights are shared."""
+    import torch
+
+    return _map_weights(params, lambda w: w.float() if isinstance(w, torch.Tensor) else w)
+
+
+def _f32_identity_witness(params, draft, cfg, prompts) -> None:
+    """9a in float32: the same Q4_0 target with float32 activations and
+    cache, drafted by the draft's first 2 layers in float32 (a draft sets
+    only the speed).  The speculative stream and the verify form must match
+    the Engine's greedy decode within F32_FORMS_TOL at every step."""
+    import torch
+
+    from tokenhawk_tpu_torch.config import SamplingConfig
+    from tokenhawk_tpu_torch.runtime.engine import Engine
+    from tokenhawk_tpu_torch.runtime.speculative import SpeculativeEngine
+
+    log("== phase 9a, float32 witness: the 9a target with float32 activations and cache, the "
+        "draft's first 2 layers in float32, gamma 4")
+    target = _float32(params)
+    spec = SpeculativeEngine(cfg, target, _tinyllama(2),
+                             _float32(dataclasses.replace(draft, layers=draft.layers[:2])),
+                             gamma=4, max_seq=S_CTX, cache_dtype=torch.float32, eos_id=-1)
+    engine = Engine(cfg, target, sampling=SamplingConfig(temperature=0.0), max_seq=S_CTX,
+                    cache_dtype=torch.float32, eos_id=-1)
+    for p in prompts:
+        toks, _, _ = _spec_engine_run(spec, p, "9a f32")
+        _check_greedy_identity(f"9a f32 prompt={len(p)}", toks,
+                               _decode_and_verify_forms(engine, p, len(toks), spec.gamma),
+                               F32_FORMS_TOL)
+
+
+def _spec_engine_run(spec, prompt, label, n_new: int = 64) -> tuple:
+    """One SpeculativeEngine.generate of n_new tokens: logs and returns
+    (tokens, stats, decode tok/s)."""
+    toks, stats = spec.generate(prompt, max_new_tokens=n_new)
+    tps = (len(toks) - 1) / stats["decode_seconds"]
+    log(f"{label} prompt={len(prompt)} tok: {len(toks)} tokens in {stats['rounds']} rounds, "
+        f"acceptance {stats['acceptance_rate']:.1%}, {stats['tokens_per_round']:.2f} tokens per "
+        f"round, prefill {stats['prefill_seconds']:.3f} s, decode {tps:.1f} tok/s")
+    return toks, stats, tps
+
+
+def phase_speculation(params, kernel_mods, model_path: str, tmp: str) -> dict:
+    """Phase 9: speculative decoding.  9a: SpeculativeEngine, the 32-layer
+    LLaMA-7B Q4_0 target with a 22-layer TinyLlama-width bf16 draft, gamma
+    4, prompts of 5 and 300 tokens, 64 new tokens, each stream held
+    against the Engine's greedy stream, then again with float32
+    activations and cache; 9b: a 2-layer 7B-width Q4_0 target drafted by
+    its own weights dequantized to float32 (the first round accepts all
+    drafts; over 64 tokens acceptance >= 15%, >= 1.6 tokens per round; the
+    stream is the Engine's); 9c: PagedScheduler with the draft, 8 slots, 12 requests, half
+    sampled; 9d: the CLI and `serving --paged` with --draft-model, as
+    subprocesses, on phase 5's 2-layer ggjt file and a 2-layer
+    TinyLlama-width F16 GGUF draft.  Returns 9a's launch counts."""
+    import torch
+
+    from tokenhawk_tpu_torch.config import SamplingConfig
+    from tokenhawk_tpu_torch.models.llama import fuse_params, init_params
+    from tokenhawk_tpu_torch.runtime.engine import Engine
+    from tokenhawk_tpu_torch.runtime.speculative import SpeculativeEngine
+
+    dev = torch.device("cuda")
+    cfg = _seven_b(32)
+    dcfg = _tinyllama(22)
+    log(f"== phase 9a: SpeculativeEngine, LLaMA-7B Q4_0 target, TinyLlama-width draft "
+        f"({dcfg.n_layer} layers, dense bf16, {dcfg.n_kv_head} KV heads of {dcfg.head_dim}), "
+        f"gamma 4, n_ctx {S_CTX}")
+    t0 = time.perf_counter()
+    draft = _params(dcfg, dev, None)
+    torch.cuda.synchronize()
+    log(f"draft built in {time.perf_counter() - t0:.1f} s: {_dense_gb(draft):.3f} GB")
+    spec = SpeculativeEngine(cfg, params, dcfg, draft, gamma=4, max_seq=S_CTX, eos_id=-1)
+    engine = Engine(cfg, params, sampling=SamplingConfig(temperature=0.0), max_seq=S_CTX,
+                    eos_id=-1)
+    rng = np.random.default_rng(SEED + 11)
+    prompts = [[1] + rng.integers(3, cfg.n_vocab, n - 1).tolist() for n in (5, 300)]
+    _reset_counts(kernel_mods)
+    runs = [_spec_engine_run(spec, p, "9a") for p in prompts]
+    counts = _read_counts(kernel_mods)
+    log(f"9a kernel launches: {counts}")
+    _check_path(counts, ["q4_matmul", FFN_Q4_0, "flash_attention", "flash_decode_attend"],
+                ["flash_decode", "qk_matmul", "flash_decode_int8", "flash_attention_int8",
+                 "paged_decode", "paged_append", "gather_pages"])
+    for p, (toks, _, _) in zip(prompts, runs):
+        _check_greedy_identity(f"9a prompt={len(p)}", toks,
+                               _decode_and_verify_forms(engine, p, len(toks), spec.gamma))
+    wall, busy = _profiled(lambda: spec.generate(prompts[0], max_new_tokens=16))
+    log(f"9a profiled request (5-token prompt, 16 tokens, profiler on): wall {wall * 1e3:.1f} ms, "
+        f"device busy {busy * 1e3:.1f} ms, idle share {1 - busy / wall:.1%}")
+    _f32_identity_witness(params, draft, cfg, prompts)
+
+    log("== phase 9b: self-draft, a 2-layer 7B-width Q4_0 target and its weights dequantized to "
+        "float32 as the draft, f32 activations and cache, gamma 4")
+    cfg2 = _seven_b(2)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 12)
+    target2 = fuse_params(init_params(cfg2, g, dtype=torch.float32, device=dev, quant="q4_0"))
+    self_spec = SpeculativeEngine(cfg2, target2, cfg2, _dequantized(target2), gamma=4,
+                                  max_seq=S_CTX, cache_dtype=torch.float32, eos_id=-1)
+    # The first round drafts over a cache the prefill filled whole: it
+    # accepts all 4 drafts.  Later rounds miss the row of the last draft of
+    # each round that accepted all (as the reference's rounds do), so the
+    # acceptance over 64 tokens is lower.
+    _, first = self_spec.generate(prompts[1], max_new_tokens=6)
+    toks, stats, _ = _spec_engine_run(self_spec, prompts[1], "9b")
+    log(f"9b first round: {first['accepted_drafts']} of 4 drafts accepted")
+    if (first["rounds"], first["accepted_drafts"]) != (1, 4) or stats["acceptance_rate"] < 0.15 \
+            or stats["tokens_per_round"] < 1.6:
+        raise AssertionError(f"self-draft acceptance: first round {first}, 64 tokens {stats}")
+    engine2 = Engine(cfg2, target2, sampling=SamplingConfig(temperature=0.0), max_seq=S_CTX,
+                     cache_dtype=torch.float32, eos_id=-1)
+    _check_greedy_identity(f"9b prompt={len(prompts[1])}", toks,
+                           _decode_and_verify_forms(engine2, prompts[1], len(toks), 4),
+                           F32_FORMS_TOL)
+    wall, busy = _profiled(lambda: self_spec.generate(prompts[0], max_new_tokens=32))
+    log(f"9b profiled request (5-token prompt, 32 tokens): wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy * 1e3:.1f} ms, idle share {1 - busy / wall:.1%}")
+    del self_spec, engine2, target2
+
+    _paged_speculation(params, draft, cfg, dcfg, kernel_mods)
+    del draft, spec
+    torch.cuda.empty_cache()
+    _speculation_subprocesses(model_path, tmp)
+    return counts
+
+
+def _paged_speculation(params, draft, cfg, dcfg, kernel_mods) -> None:
+    """Phase 9c: PagedScheduler with the TinyLlama-width draft over the
+    7B Q4_0 target at n_ctx 2048 (pages of 128, prefix cache, prefill
+    chunks of 512): phase 4b's 12 prompts, half sampled, 32 tokens each;
+    every request ends at its length, no page leaks."""
+    import torch
+
+    from tokenhawk_tpu_torch.config import SamplingConfig
+    from tokenhawk_tpu_torch.runtime.paged_scheduler import PagedScheduler
+    from tokenhawk_tpu_torch.runtime.scheduler import Request
+
+    log("== phase 9c: PagedScheduler with the draft, 8 slots, n_ctx 2048, pages of 128, prefix "
+        "cache, prefill chunks of 512, gamma 4")
+    cfg = dataclasses.replace(cfg, n_ctx=2048)
+    dcfg = dataclasses.replace(dcfg, n_ctx=2048)
+    sampled = SamplingConfig(temperature=0.8, top_k=40, top_p=0.95, seed=SEED)
+    sched = PagedScheduler(cfg, params, sampling=SamplingConfig(temperature=0.0), max_batch=8,
+                           max_seq=2048, page_size=PAGED_PS, prefix_cache=True,
+                           prefill_chunk=512, eos_id=-1, draft_cfg=dcfg, draft_params=draft,
+                           gamma=4)
+    stats = {"rounds": 0, "slot_rounds": 0, "committed": 0}
+
+    def counted(fn):
+        def run(*args):
+            out = fn(*args)
+            stats["rounds"] += 1
+            stats["slot_rounds"] += int((~args[7]).sum())  # live slots of the round
+            stats["committed"] += int(out[3].sum())
+            return out
+        return run
+
+    sched._spec_step = counted(sched._spec_step)
+    sched._spec_step_sampled = counted(sched._spec_step_sampled)
+    rng = np.random.default_rng(SEED + 4)
+    V = cfg.n_vocab
+    shared = [1] + rng.integers(3, V, 383).tolist()
+    prompts = [shared + rng.integers(3, V, 20 + 10 * i).tolist() for i in range(4)]
+    prompts += [[1] + rng.integers(3, V, n - 1).tolist()
+                for n in (1500, 5, 100, 300, 37, 700, 64, 200)]
+    reqs = [Request(prompt=p, max_new_tokens=32, sampling=sampled if i % 2 else None)
+            for i, p in enumerate(prompts)]
+    _reset_counts(kernel_mods)
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts(kernel_mods)
+    n_out = sum(len(r.output) for r in reqs)
+    per = stats["committed"] / max(stats["slot_rounds"], 1)
+    log(f"9c: 12 requests, {n_out} tokens in {wall:.2f} s ({n_out / wall:.1f} tok/s overall), "
+        f"{stats['rounds']} rounds, {per:.2f} tokens per slot-round, acceptance "
+        f"{(per - 1) / 4:.1%}, prefix cache hits {sched.prefix_hits}; kernel launches {counts}")
+    bad = [(len(r.output), r.finish_reason) for r in reqs
+           if r.finish_reason != "length" or len(r.output) != 32
+           or not all(0 <= t < V for t in r.output)]
+    if bad:
+        raise AssertionError(f"requests that did not finish cleanly: {bad}")
+    _check_path(counts, ["q4_matmul", "flash_attention", "flash_decode_attend", "paged_append",
+                         "gather_pages"],
+                ["paged_decode", "flash_decode", "qk_matmul", "flash_decode_int8",
+                 "paged_decode_int8", "paged_append_int8", "gather_pages_int8"])
+    parked = set(sched._pc.values())
+    if (sched.alloc.n_free + len(parked) != sched.n_pages - 1
+            or any(sched.page_refs.get(p, 0) for p in parked)):
+        raise AssertionError(f"page leak: {sched.alloc.n_free} free + {len(parked)} cached "
+                             f"of {sched.n_pages}")
+    log(f"pages: {sched.alloc.n_free} free + {len(parked)} cached + 1 trash = {sched.n_pages}")
+    _profile_paged(sched, rng, V)
+    sched.cache = sched.draft_cache = None
+
+
+def _spm_metadata(n_vocab: int) -> dict:
+    """GGUF tokenizer metadata of a SentencePiece vocab of n_vocab pieces."""
+    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    tokens += [f"▁w{i}" for i in range(n_vocab - len(tokens))]
+    return {"tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": tokens,
+            "tokenizer.ggml.scores": [0.0] * 259 + [-1.0 - i for i in range(n_vocab - 259)],
+            "tokenizer.ggml.token_type": [2, 3, 3] + [6] * 256 + [1] * (n_vocab - 259),
+            "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2}
+
+
+def write_tinyllama_gguf(path: str) -> None:
+    """A random 2-layer TinyLlama-width GGUF in F16 (4 KV heads, which a
+    ggjt header cannot carry) with a 32000-piece SentencePiece vocab."""
+    import torch
+
+    from tokenhawk_tpu_torch.ggml.gguf import write_gguf
+    from tokenhawk_tpu_torch.ggml.synth import llama_metadata
+
+    cfg = _tinyllama(2)
+    D, F, V, Dkv = cfg.n_embd, cfg.n_ff, cfg.n_vocab, cfg.n_embd_kv
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 13)
+
+    def w(*shape, scale=0.02):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).half().cpu().numpy()
+
+    def gain():
+        return (1.0 + w(D, scale=0.1).astype(np.float32))
+
+    tensors = {"token_embd.weight": w(V, D), "output_norm.weight": gain(), "output.weight": w(V, D)}
+    for i in range(cfg.n_layer):
+        p = f"blk.{i}."
+        tensors.update({
+            p + "attn_norm.weight": gain(), p + "attn_q.weight": w(D, D),
+            p + "attn_k.weight": w(Dkv, D), p + "attn_v.weight": w(Dkv, D),
+            p + "attn_output.weight": w(D, D), p + "ffn_norm.weight": gain(),
+            p + "ffn_gate.weight": w(F, D), p + "ffn_down.weight": w(D, F),
+            p + "ffn_up.weight": w(F, D)})
+    # general.file_type 1: llama.cpp's LLAMA_FTYPE_MOSTLY_F16
+    write_gguf(path, {**llama_metadata(cfg, 1), **_spm_metadata(V)}, tensors)
+    log(f"wrote {path} ({os.path.getsize(path) / 1e6:.1f} MB)")
+
+
+def _speculation_subprocesses(model_path: str, tmp: str) -> None:
+    """Phase 9d: `python -m tokenhawk_tpu_torch.cli --draft-model` and
+    `python -m tokenhawk_tpu_torch.serving --paged --draft-model`, the
+    target phase 5's 2-layer 7B-width Q4_0 ggjt file, the draft a 2-layer
+    TinyLlama-width F16 GGUF file."""
+    log("== phase 9d: the CLI and `serving --paged` with --draft-model (subprocesses; their "
+        "idle share not measured)")
+    draft_path = os.path.join(tmp, "tinyllama-2layer-f16.gguf")
+    write_tinyllama_gguf(draft_path)
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "tokenhawk_tpu_torch.cli", "-m", model_path, "Hello",
+           "--greedy", "--max-tokens", "32", "--n-ctx", str(S_CTX), "--draft-model", draft_path,
+           "--gamma", "4"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=root))
+    line = [ln for ln in out.stderr.splitlines() if "tok/round" in ln]
+    log(f"cli --draft-model: exit {out.returncode} in {time.perf_counter() - t0:.1f} s; "
+        f"{line[-1] if line else out.stderr[-2000:]}")
+    if out.returncode != 0 or not line:
+        raise AssertionError(f"cli --draft-model failed: {out.stderr[-3000:]}")
+    _serve_subprocess(root, model_path, tmp, ["--paged", "--draft-model", draft_path,
+                                              "--gamma", "4"])
+
+
 def main() -> int:
     import torch
 
@@ -1785,22 +2342,33 @@ def main() -> int:
         sched.cache = None  # the bf16 pool goes before the int8 phases
         del sched
         torch.cuda.empty_cache()
-        int8_counts = phase_int8_serve(params, every, ["q4_matmul", FFN_Q4_0] + int8_dense,
+        cfg_i8 = dataclasses.replace(cfg_2k, n_layer=INT8_LAYERS)
+        params_i8 = dataclasses.replace(params, layers=params.layers[:INT8_LAYERS])
+        int8_counts = phase_int8_serve(cfg_i8, params_i8, every,
+                                       ["q4_matmul", FFN_Q4_0] + int8_dense,
                                        ["qk_matmul", "flash_decode", "flash_attention"]
                                        + bf16_paged + int8_paged)
         int8_paged_counts, sched = phase_paged_serve(
-            params, cfg_2k, every, "int8", ["q4_matmul", FFN_Q4_0, "flash_attention"] + int8_paged,
+            params_i8, cfg_i8, every, "int8",
+            ["q4_matmul", FFN_Q4_0, "flash_attention"] + int8_paged,
             ["qk_matmul", "flash_decode"] + bf16_paged + int8_dense,
-            "phase 4bi: paged serve, LLaMA-7B Q4_0, 32 layers")
+            f"phase 4bi: paged serve, LLaMA-7B Q4_0 widths, {INT8_LAYERS} layers")
         phase_cli(path)
-        sched.cache = None  # the Q4_0 model goes before the GGUF kinds' phases
-        del sched, params
+        sched.cache = None
+        del sched
+        torch.cuda.empty_cache()
+        # Phase 8: dense weights decode through kernel 14; phase 9: speculation
+        # over the Q4_0 model, its draft's decode through kernel 14 at Dh 64.
+        dense_counts = phase_dense_7b(every)
+        phase_speculation(params, every, path, tmp)
+        del params  # the Q4_0 model goes before the GGUF kinds' phases
         torch.cuda.empty_cache()
         # Phases 6 and 6q: group-code projections (kernel 13) and the FFN over
         # them (kernel 2); kernel 1 (Q4_0) stays off.
         def engine_path(ffn_keys):
             return (["qk_matmul", *ffn_keys, "flash_decode", "flash_attention"],
-                    ["q4_matmul", FFN_Q4_0] + bf16_paged + int8_dense + int8_paged)
+                    ["q4_matmul", FFN_Q4_0, "flash_decode_attend"] + bf16_paged + int8_dense
+                    + int8_paged)
 
         q4km_counts, _ = phase_q4_k_m(
             every, engine_path(FFN_Q4_K_M),
@@ -1812,7 +2380,8 @@ def main() -> int:
     # Q4_0 Engine run for kernels 1-4, the paged server's run for kernels
     # 5-7, the int8 Engine's for kernels 8-9, the int8 paged server's for
     # kernels 10-12, and the Engine runs of phases 6 (Q4_K_M) and 6q (Q8_0)
-    # for kernel 13 and kernel 2 over those kinds, each pairing its own.
+    # for kernel 13 and kernel 2 over those kinds, each pairing its own;
+    # the dense 7B Engine's of phase 8 for kernel 14.
     launches = {"q4_matmul": counts["q4_matmul"], "fused_ffn": counts[FFN_Q4_0],
                 "flash_decode_append": counts["flash_decode"],
                 "flash_attention": counts["flash_attention"],
@@ -1823,7 +2392,8 @@ def main() -> int:
                 "fused_ffn[q8_0/q8_0]": q8_counts[FFN_Q8_0],
                 **{k: paged_counts[k] for k in bf16_paged},
                 **{k: int8_counts[k] for k in int8_dense},
-                **{k: int8_paged_counts[k] for k in int8_paged}}
+                **{k: int8_paged_counts[k] for k in int8_paged},
+                "flash_decode_attend": dense_counts["flash_decode_attend"]}
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -41,6 +41,9 @@ from torch_helpers import cuda_device, padded_vocab
 
 pytestmark = pytest.mark.cuda
 Dh = 128
+# The dense-cache attention kernels (3, 4, 8, 9, 14) take both: 128 for
+# LLaMA-7B, 64 for a TinyLlama-width draft.
+HEAD_DIMS = [128, 64]
 
 
 def _tol(ref, dtype):
@@ -141,9 +144,10 @@ def test_fused_ffn_kernel_matches_plain_over_every_form(pair, rows, dtype):
     assert _err(got, want) <= _tol(want, dtype)
 
 
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
 @pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
-def test_append_attend_kernel_matches_plain(rep, cache_dtype):
+def test_append_attend_kernel_matches_plain(rep, cache_dtype, Dh):
     dev = cuda_device()
     g = torch.Generator(device=dev).manual_seed(rep)
     B, Hkv, S = 4, 4, 512
@@ -160,9 +164,34 @@ def test_append_attend_kernel_matches_plain(rep, cache_dtype):
     assert _err(got, want) <= _tol(want, torch.bfloat16)
 
 
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attend_kernel_matches_plain(rep, dtype, Dh):
+    """Kernel 14 (no append): lengths 1 .. S and one past S (clamped),
+    q and cache in `dtype`; the cache is left untouched."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(rep + Dh)
+    B, Hkv, S = 6, 4, 512
+    lengths = torch.tensor([1, 2, 31, 33, 300, S + 5], dtype=torch.int32, device=dev)
+    q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).to(dtype)
+    kc = torch.randn(B, Hkv, S, Dh, generator=g, device=dev).to(dtype)
+    vc = torch.randn(B, Hkv, S, Dh, generator=g, device=dev).to(dtype)
+    kp, vp = kc.clone(), vc.clone()
+    before = dict(flash_decode.launches)
+    got = flash_decode.flash_decode(q, kc, vc, lengths)
+    assert flash_decode.launches == {**before, "flash_decode_attend":
+                                     before["flash_decode_attend"] + 1}
+    want = flash_decode.flash_decode_plain(q, kc, vc, lengths)
+    assert torch.equal(kc, kp) and torch.equal(vc, vp)
+    assert got.shape == q.shape and got.dtype == dtype
+    assert _err(got, want) <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
 @pytest.mark.parametrize("T,offset", [(64, 0), (16, 200), (13, 5), (512, 0)])
 @pytest.mark.parametrize("rep", [1, 4])
-def test_prefill_attention_kernel_matches_plain(T, offset, rep):
+def test_prefill_attention_kernel_matches_plain(T, offset, rep, Dh):
     dev = cuda_device()
     g = torch.Generator(device=dev).manual_seed(T + offset)
     B, Hkv, S = 2, 4, 512
@@ -191,11 +220,16 @@ def test_kernel_refuses_bad_input():
         qmatmul.quant_matmul(torch.randn(2, 48, device=dev), QWeight(
             torch.zeros(8, 48, dtype=torch.int8, device=dev), torch.ones(8, 3, device=dev),
             kind="qk", group=16))
-    q = torch.randn(1, 2, 1, 64, device=dev)  # head dim 64 is not a kernel shape
-    c = torch.zeros(1, 2, 128, 64, device=dev)
+    q = torch.randn(1, 2, 1, 96, device=dev)  # head dim 96 is not a kernel shape
+    c = torch.zeros(1, 2, 128, 96, device=dev)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
-        flash_decode.flash_decode_append(q, q[:, :, 0], q[:, :, 0], c, c.clone(),
-                                         torch.ones(1, dtype=torch.int32, device=dev))
+        flash_decode.flash_decode_append(q, q[:, :, 0], q[:, :, 0], c, c.clone(), one)
+    with pytest.raises(ValueError):
+        flash_decode.flash_decode(q, c, c.clone(), one)
+    with pytest.raises(ValueError):  # 3 query heads per kv head
+        flash_decode.flash_decode(torch.randn(1, 2, 3, 64, device=dev),
+                                  *[torch.zeros(1, 2, 128, 64, device=dev)] * 2, one)
 
 
 def test_slice_gpu_matches_cpu(tmp_path):
@@ -363,9 +397,10 @@ def test_int8_codec_on_the_card_is_the_cpus(dtype):
         assert torch.equal(scales[:, :, 77].cpu(), ws.float())
 
 
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_decode_int8_kernel_matches_plain(rep, dtype):
+def test_decode_int8_kernel_matches_plain(rep, dtype, Dh):
     """Kernel 8: the appended codes and scales exactly, the output within
     one output rounding; a row of length 0 gives zeros and appends
     nothing; the last length clamps to S."""
@@ -390,9 +425,10 @@ def test_decode_int8_kernel_matches_plain(rep, dtype):
     assert _err(got, want) <= _tol(want, dtype)
 
 
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
 @pytest.mark.parametrize("T,offset", [(64, 0), (16, 200), (13, 5), (512, 0), (2, 7)])
 @pytest.mark.parametrize("rep", [1, 4])
-def test_prefill_int8_kernel_matches_plain(T, offset, rep):
+def test_prefill_int8_kernel_matches_plain(T, offset, rep, Dh):
     dev = cuda_device()
     g = torch.Generator(device=dev).manual_seed(T + offset)
     B, Hkv, S = 2, 4, 512
@@ -496,3 +532,66 @@ def test_int8_forwards_on_the_card_match_the_cpu():
     with torch.no_grad():
         for a, b in zip(run(dev), run(torch.device("cpu"))):
             assert _err(a, b) <= 1e-3 * b.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: the draft at TinyLlama's widths (head dim 64)
+# ---------------------------------------------------------------------------
+
+
+def _plain_kernels(monkeypatch):
+    """Route every kernel wrapper the model calls to its plain version, so
+    the same program runs in plain PyTorch on the card."""
+    from tokenhawk_tpu_torch.ops import linear
+    from tokenhawk_tpu_torch.runtime import paged
+
+    for mod, name, fn in [
+            (linear, "quant_matmul", qmatmul.quant_matmul_plain),
+            (tl, "fused_ffn", ffn.fused_ffn_plain),
+            (tl, "flash_attention", flash_attention.flash_attention_plain),
+            (tl, "flash_decode_append", flash_decode.flash_decode_append_plain),
+            (tl, "flash_decode", flash_decode.flash_decode_plain),
+            (tl, "flash_decode_int8", kv_int8.flash_decode_int8_plain),
+            (tl, "flash_attention_int8", kv_int8.flash_attention_int8_plain),
+            (paged, "paged_append", paged_decode.paged_append_plain),
+            (tl, "gather_pages", paged_decode.gather_pages_plain)]:
+        monkeypatch.setattr(mod, name, fn)
+
+
+def test_speculative_round_at_tinyllama_width_matches_plain_on_the_card(monkeypatch):
+    """One greedy round of the dense server's speculation (gamma 4, two
+    slots) with a 2-layer TinyLlama-width draft (2048 wide, 32 heads over
+    4 KV heads of 64, dense f32 weights: kernel 14 at rep 8) and a 2-layer
+    target of the same widths in Q4_0 (kernels 1-4, kernel 4 at Dh 64),
+    then the same program in plain PyTorch on the card: the same tokens
+    and counts (f32 activations; the two differ by summation order)."""
+    from tokenhawk_tpu_torch.runtime.speculative import make_spec_serving_fn
+
+    dev = cuda_device()
+    cfg = LlamaConfig(n_vocab=32000, n_embd=2048, n_head=32, n_kv_head=4, n_layer=2,
+                      n_ff=5632, n_ctx=256, rms_norm_eps=1e-5)
+    g = torch.Generator(device=dev).manual_seed(5)
+    params_t = tl.fuse_params(tl.init_params(cfg, g, dtype=torch.float32, device=dev,
+                                             quant="q4_0"))
+    params_d = tl.fuse_params(tl.init_params(cfg, g, dtype=torch.float32, device=dev))
+    prompt = torch.randint(3, cfg.n_vocab, (2, 40), generator=g, device=dev)
+    step = make_spec_serving_fn(cfg, cfg, 4, eos_id=-1)
+
+    def run():
+        caches = [tl.KVCache.create(cfg, 2, 256, torch.float32, dev) for _ in range(2)]
+        zeros = torch.zeros(2, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            for p, c in zip((params_d, params_t), caches):
+                tl.forward(cfg, p, prompt[:, :-1], c, zeros)
+        out = step(params_d, params_t, *caches, prompt[:, -1], zeros + 39,
+                   torch.zeros(2, dtype=torch.bool, device=dev))
+        return [x.cpu() for x in out[2:]]
+
+    flash_decode.launches.update(flash_decode_attend=0)
+    got = run()
+    assert flash_decode.launches["flash_decode_attend"] == 4 * cfg.n_layer
+    _plain_kernels(monkeypatch)
+    want = run()
+    assert flash_decode.launches["flash_decode_attend"] == 4 * cfg.n_layer
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -108,7 +108,8 @@ def test_tied_embeddings(tmp_path):
         for f in (jf, tf):
             assert dataclasses.astuple(f.tensors["output.weight"])[1:] == \
                 dataclasses.astuple(f.tensors["tok_embeddings.weight"])[1:]
-    _, params, _ = t_load_model(str(path), n_ctx=64, dtype=torch.float32, device="cpu")
+    _, params, _ = t_load_model(str(path), n_ctx=64, dtype=torch.float32, device="cpu",
+                                scale_dtype=torch.float32)
     assert params.output.kind == "qk" and params.output.group == 32
     assert torch.equal(params.output.dequantize(), params.tok_embd.t())
 

@@ -3,8 +3,9 @@
 One ggjt file (LlamaConfig.tiny at n_vocab 300, n_embd 256, 2 heads of
 128, 2 layers, n_ff 512, n_ctx 256; projections Q4_0 from
 make_ggml_weights) is loaded by both packages:
-  - the JAX load_model (f32 scales) and the port's load_model give the
-    same parameters (codes and scales exactly, through params_from_jax);
+  - the JAX load_model and the port's load_model give the same
+    parameters (codes and scales exactly, through params_from_jax), with
+    f32 scales and at both loaders' default, bfloat16-rounded scales;
   - their prefill logits agree (f32 on both sides: rtol 1e-4 and an atol
     of 1e-4 of the largest |logit|, summation order only);
   - Engine.generate, greedy, gives identical tokens for 16 steps.
@@ -65,7 +66,8 @@ def model_path(tmp_path_factory):
 @pytest.fixture(scope="module")
 def loaded(model_path):
     j = j_load_model(model_path, n_ctx=CFG.n_ctx, dtype=jnp.float32, scale_dtype=jnp.float32)
-    t = t_load_model(model_path, n_ctx=CFG.n_ctx, dtype=torch.float32, device="cpu")
+    t = t_load_model(model_path, n_ctx=CFG.n_ctx, dtype=torch.float32, device="cpu",
+                     scale_dtype=torch.float32)
     return j, t
 
 
@@ -92,6 +94,20 @@ def test_load_model_matches_jax(loaded):
     assert tcfg.rope_style == "half"
     assert jtok.id_to_token == ttok.id_to_token
     _assert_params_equal(tl.params_from_jax(numpy_params(jparams)), tparams)
+
+
+@pytest.mark.parametrize("scale_dtype", ["default", "float32"])
+def test_load_model_scales_match_jax(model_path, scale_dtype):
+    """At both loaders' default (Q4_0 scales rounded to bfloat16) and at
+    float32, the two packages hold the same codes and scales."""
+    kw = {} if scale_dtype == "default" else {"scale_dtype": jnp.float32}
+    _, jparams, _ = j_load_model(model_path, n_ctx=CFG.n_ctx, dtype=jnp.float32, **kw)
+    kw = {} if scale_dtype == "default" else {"scale_dtype": torch.float32}
+    _, tparams, _ = t_load_model(model_path, n_ctx=CFG.n_ctx, dtype=torch.float32, device="cpu",
+                                 **kw)
+    _assert_params_equal(tl.params_from_jax(numpy_params(jparams)), tparams)
+    rounded = tparams.output.scales.to(torch.bfloat16).float()
+    assert torch.equal(rounded, tparams.output.scales) == (scale_dtype == "default")
 
 
 def test_params_from_jax_stacked_matches_params_from_ggml():

@@ -4,8 +4,9 @@ A subprocess blocks `jax` and `regex` (sys.modules["jax"] = None makes
 any import of it fail; the GPU machine has neither), imports every
 module of tokenhawk_tpu_torch, checks that nothing of tokenhawk_tpu came
 along, runs the byte-level BPE tokenizer, a tiny Engine.generate (bf16
-and int8 caches) and both continuous-batching schedulers (the paged one
-on bf16 and int8 pages) on the CPU.  A source scan backs it up for
+and int8 caches), both continuous-batching schedulers (the paged one
+on bf16 and int8 pages) and speculative decoding (SpeculativeEngine and
+both schedulers with a draft) on the CPU.  A source scan backs it up for
 imports inside functions.
 """
 
@@ -55,6 +56,16 @@ for sched in (PagedScheduler(cfg, params, max_batch=2, cache_dtype=torch.float32
                              prefix_cache=True, prefill_chunk=32, eos_id=-1, layout="head"),
               Scheduler(cfg, params, max_batch=2, cache_dtype=torch.float32, eos_id=-1)):
     reqs = sched.generate_many([[1, 5, 9], list(range(3, 70))], max_new_tokens=5)
+    assert [r.finish_reason for r in reqs] == ["length"] * 2, reqs
+from tokenhawk_tpu_torch.runtime.speculative import SpeculativeEngine
+toks, stats = SpeculativeEngine(cfg, params, cfg, params, gamma=3,
+                                cache_dtype=torch.float32, eos_id=-1).generate([1, 5], 9)
+assert len(toks) == 9 and stats["rounds"] > 0
+for sched in (Scheduler(cfg, params, max_batch=2, cache_dtype=torch.float32, eos_id=-1,
+                        draft_cfg=cfg, draft_params=params),
+              PagedScheduler(cfg, params, max_batch=2, cache_dtype=torch.float32, page_size=16,
+                             eos_id=-1, draft_cfg=cfg, draft_params=params)):
+    reqs = sched.generate_many([[1, 5, 9], list(range(3, 40))], max_new_tokens=5)
     assert [r.finish_reason for r in reqs] == ["length"] * 2, reqs
 print("OK", len(names))
 """

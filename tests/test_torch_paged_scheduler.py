@@ -196,21 +196,24 @@ def test_cancel_mid_chunking_and_reset_device_state(params):
 
 
 def test_unported_options_raise(params):
-    """Speculative and tensor-parallel serving are refused with their
-    ROADMAP item; int8 pages are served (tests/test_torch_paged_int8.py),
-    while the dense Scheduler refuses an int8 cache (the reference's would
-    truncate bf16 K/V into int8, ROADMAP Queue 3)."""
+    """Tensor-parallel serving is refused with its ROADMAP item, with or
+    without a draft; speculation refuses int8 pages (as the reference's)
+    and a draft without its config; int8 pages are served
+    (tests/test_torch_paged_int8.py), while the dense Scheduler refuses an
+    int8 cache (the reference's would truncate bf16 K/V into int8, ROADMAP
+    Queue 3)."""
     tparams = params[1]
-    for kw, item in ((dict(cache_dtype="int8", mesh=object()), "item 8"),
-                     (dict(mesh=object()), "item 8"),
-                     (dict(draft_params=tparams), "item 4"),
-                     (dict(cache_dtype="int8", draft_params=tparams), "item 4")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw in (dict(cache_dtype="int8", mesh=object()), dict(mesh=object()),
+               dict(mesh=object(), draft_cfg=TCFG, draft_params=tparams)):
+        with pytest.raises(NotImplementedError, match="item 8"):
             PagedScheduler(TCFG, tparams, **kw)
+    with pytest.raises(ValueError, match="bf16 pages"):
+        PagedScheduler(TCFG, tparams, cache_dtype="int8", draft_cfg=TCFG, draft_params=tparams)
     with pytest.raises(ValueError):
         PagedScheduler(TCFG, tparams, page_size=16, prefill_chunk=20)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Scheduler(TCFG, tparams, draft_params=tparams)
+    for cls in (PagedScheduler, Scheduler):
+        with pytest.raises(ValueError, match="draft_cfg"):
+            cls(TCFG, tparams, draft_params=tparams)
     assert PagedScheduler(TCFG, tparams, cache_dtype="int8", **KW).cache.quant
     for kv in ("int8", "auto"):
         with pytest.raises(ValueError, match="PagedScheduler"):

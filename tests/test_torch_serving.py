@@ -208,8 +208,8 @@ def test_web_assets_are_the_reference_ones():
                 == (ROOT / "tokenhawk_tpu/serving/web" / name).read_bytes())
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--draft-model", "d.bin"],
-                                  ["--gamma", "3"], ["--kv", "int8", "--tp", "2"]])
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--draft-model", "d.bin", "--tp", "2"],
+                                  ["--gamma", "3", "--tp", "4"], ["--kv", "int8", "--tp", "2"]])
 def test_entry_point_refuses_unported_options(flag, capsys):
     with pytest.raises(SystemExit) as e:
         serving_main.main(["-m", "model.bin", *flag])

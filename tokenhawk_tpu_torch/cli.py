@@ -3,11 +3,13 @@
     python -m tokenhawk_tpu_torch.cli -m models/7B/ggml-model-q4_0.bin "<prompt>"
 
 Same flags and output lines as the reference CLI, on one CUDA device,
-except the ones still to port: --tp (tensor parallelism) and
---draft-model / --gamma (speculative decoding).  --kv int8 keeps K/V as
+except --tp (tensor parallelism), still to port.  --kv int8 keeps K/V as
 int8 codes with per-token scales; --kv auto picks int8 at --n-ctx >=
-1024.  --device names the device (a machine without CUDA fails instead
-of running on the CPU unless --device cpu is given).
+1024.  --draft-model FILE with --gamma N decodes speculatively: the draft
+proposes N tokens a round and the target verifies them in one pass
+(greedy only; the output is the target's greedy stream).  --device names
+the device (a machine without CUDA fails instead of running on the CPU
+unless --device cpu is given).
 """
 
 from __future__ import annotations
@@ -36,6 +38,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="KV cache dtype; auto picks int8 at n-ctx >= 1024")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--timing", action="store_true", help="per-token latency stats")
+    p.add_argument("--draft-model", help="GGML or GGUF draft model for speculative decoding "
+                   "(greedy only; output identical to the target's)")
+    p.add_argument("--gamma", type=int, default=4,
+                   help="draft tokens proposed per speculative round")
     return p
 
 
@@ -69,6 +75,9 @@ def main(argv=None) -> int:
         seed=args.seed,
     )
     kv = {"bf16": torch.bfloat16, "int8": "int8", "auto": "auto"}[args.kv]
+    if args.draft_model:
+        return _speculate(args, cfg, params, tokenizer, dtype,
+                          kv if kv != "auto" else torch.bfloat16)
     engine = Engine(cfg, params, tokenizer=tokenizer, sampling=sampling, cache_dtype=kv)
     timer = TokenTimer() if args.timing else None
 
@@ -88,6 +97,32 @@ def main(argv=None) -> int:
     )
     if timer:
         timer.print_stats(file=sys.stderr)
+    return 0
+
+
+def _speculate(args, cfg, params, tokenizer, dtype, kv) -> int:
+    """Greedy speculative generation (the acceptance rule verifies the
+    target's argmax, so --temp is ignored with a note)."""
+    from tokenhawk_tpu_torch.runtime.loader import load_model
+    from tokenhawk_tpu_torch.runtime.speculative import SpeculativeEngine
+
+    if not args.greedy and args.temp > 0:
+        print("note: --draft-model implies greedy decoding", file=sys.stderr)
+    cfg_d, params_d, _ = load_model(args.draft_model, n_ctx=args.n_ctx, dtype=dtype,
+                                    device=args.device)
+    spec = SpeculativeEngine(cfg, params, cfg_d, params_d, tokenizer=tokenizer,
+                             gamma=args.gamma, cache_dtype=kv)
+
+    def on_token(t: int):
+        sys.stdout.buffer.write(tokenizer.decode_token_bytes(t))
+        sys.stdout.flush()
+
+    toks, stats = spec.generate(args.prompt, max_new_tokens=args.max_tokens, on_token=on_token)
+    sys.stdout.write("\n")
+    dps = (len(toks) - 1) / stats["decode_seconds"] if stats["decode_seconds"] > 0 else 0.0
+    print(f"[{len(toks)} generated; prefill {stats['prefill_seconds']:.2f}s, decode "
+          f"{dps:.1f} tok/s; accept {stats['acceptance_rate']:.0%}, "
+          f"{stats['tokens_per_round']:.2f} tok/round]", file=sys.stderr)
     return 0
 
 

@@ -49,6 +49,29 @@ static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
+// Two consecutive elements as f32 (p must be 8-byte aligned for float,
+// 4-byte aligned for bfloat16).
+static __device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+static __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// N consecutive elements (N = 2 or 4) as f32: the head dims one lane owns
+// at head dim 64 or 128 (global or shared memory).
+template <int N, typename T>
+__device__ __forceinline__ void load_n(const T* p, float* out) {
+  static_assert(N == 2 || N == 4, "a lane owns 2 or 4 head dims");
+  if constexpr (N == 4) {
+    const float4 v = load4(p);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else {
+    const float2 v = load2(p);
+    out[0] = v.x; out[1] = v.y;
+  }
+}
+
 // Eight consecutive elements as f32 (16-byte aligned).
 static __device__ __forceinline__ void load8(const float* p, float* out) {
   float4 a = *reinterpret_cast<const float4*>(p);

@@ -1,63 +1,62 @@
-// Kernel 3: decode append + attend over the dense bf16 KV cache.
+// Kernels 3 and 14: decode attention over the dense bf16/f32 KV cache.
 //
-// Replaces tokenhawk_tpu/ops/pallas/flash_decode_dma.py
+// Kernel 3 replaces tokenhawk_tpu/ops/pallas/flash_decode_dma.py
 // flash_decode_append_walk (_kernel_walk_append) and its grid form
-// flash_decode_append (_kernel_vec_append).  For each (b, kv head) it
-// writes k_new / v_new at slot lengths[b]-1 in place, then attends the
-// rep query heads of that kv head over lengths[b] tokens with an online
-// softmax in f32.  q is pre-scaled by 1/sqrt(Dh).
+// flash_decode_append (_kernel_vec_append): for each (b, kv head) it
+// writes k_new / v_new at slot lengths[b]-1 in place, then attends the rep
+// query heads of that kv head over lengths[b] tokens.
 //
-// One block per (b, kv head): the block that writes a head's row is the
-// block that reads it, and __syncthreads() orders the write before every
-// read of the block (the cache is read with plain loads, never through
-// the non-coherent read-only path).  The 8 warps split the live tokens in
-// tiles of 32; a lane scores one token of a tile against every query head
-// of the group, then owns 4 of the 128 head dims for P·V.  The warps'
-// (max, sum, acc) states merge through shared memory at the end.  Only
-// the live tiles are read: the kernel is bound by the cache bytes of the
-// live tokens, 2*L*Dh*2 bytes per head.
+// Kernel 14 replaces flash_decode_dma (_kernel, _kernel_vec),
+// flash_decode_loop (_kernel_loop) and ops/pallas/flash_decode.py
+// flash_decode (_kernel, reached through attend_decode): the same
+// attention with no write.  It serves
+// dense-weight models, whose decode writes the cache with an index copy
+// first, as the reference does.
+//
+// Both run one body (attend_head): one block per (b, kv head), q
+// pre-scaled by 1/sqrt(Dh), an online softmax in f32.  The 8 warps split
+// the live tokens in tiles of 32; a lane scores one token of a tile
+// against every query head of the group (16-byte loads of the K row),
+// then owns Dh/32 of the head dims (4 at Dh 128, 2 at Dh 64) for P·V.
+// The warps' (max, sum, acc) states merge through shared memory at the
+// end.  Only the live tiles are read: both are bound by the cache bytes of
+// the live tokens, 2*L*Dh*sizeof(cache) per head.
+//
+// Kernel 3: the block that writes a head's row is the block that reads
+// it, and the barrier after q is staged orders the write before every
+// read (its cache is read with plain loads, never through the
+// non-coherent read-only path).  Kernel 14 writes nothing: its cache
+// pointers are const __restrict__, so loads may take the read-only path.
 #include "common.cuh"
 
 using namespace thawk;
 
 namespace {
 
-constexpr int kDh = 128;
 constexpr int kWarps = 8;
 
-template <typename TQ, typename TC, int REP>
-__global__ void __launch_bounds__(kWarps * 32)
-    decode_append_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
-                         const TQ* __restrict__ v_new, TC* kc, TC* vc,
-                         const int* __restrict__ lengths, TQ* __restrict__ out, int Hkv, int S) {
-  __shared__ __align__(16) float qsm[REP][kDh];
+// Attention of one block's REP query rows q [REP, DH] (f32 math) over the
+// first L rows of one head's cache kh, vh [S, DH] -> out [REP, DH].
+template <typename TQ, typename TC, int REP, int DH>
+__device__ __forceinline__ void attend_head(const TQ* __restrict__ q, const TC* kh,
+                                            const TC* vh, int L, TQ* __restrict__ out) {
+  constexpr int kPer = DH / 32;  // head dims a lane owns for P·V
+  __shared__ __align__(16) float qsm[REP][DH];
   __shared__ float red_m[kWarps][REP];
   __shared__ float red_l[kWarps][REP];
-  __shared__ __align__(16) float red_acc[kWarps][REP][kDh];
+  __shared__ __align__(16) float red_acc[kWarps][REP][DH];
 
-  const int bh = blockIdx.x;
-  const int b = bh / Hkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int L = max(1, min(lengths[b], S));
-  TC* kh = kc + static_cast<size_t>(bh) * S * kDh;
-  TC* vh = vc + static_cast<size_t>(bh) * S * kDh;
+  for (int i = tid; i < REP * DH; i += blockDim.x) qsm[i / DH][i % DH] = to_f32(q[i]);
+  __syncthreads();  // q staged (and kernel 3's appended row visible to the block)
 
-  if (tid < kDh) {
-    const size_t src = static_cast<size_t>(bh) * kDh + tid;
-    const size_t dst = static_cast<size_t>(L - 1) * kDh + tid;
-    kh[dst] = from_f32<TC>(to_f32(k_new[src]));
-    vh[dst] = from_f32<TC>(to_f32(v_new[src]));
-  }
-  for (int i = tid; i < REP * kDh; i += blockDim.x)
-    qsm[i / kDh][i % kDh] = to_f32(q[static_cast<size_t>(bh) * REP * kDh + i]);
-  __syncthreads();  // the appended row is visible to the whole block
-
-  float m[REP], l[REP], acc[REP][4];
+  float m[REP], l[REP], acc[REP][kPer];
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
-    acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) acc[r][i] = 0.f;
   }
 
   const int n_tiles = (L + 31) / 32;
@@ -68,9 +67,9 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
     for (int r = 0; r < REP; ++r) s[r] = 0.f;
     if (valid) {
-      const TC* krow = kh + static_cast<size_t>(tok) * kDh;
+      const TC* krow = kh + static_cast<size_t>(tok) * DH;
 #pragma unroll 4
-      for (int i = 0; i < kDh; i += 8) {
+      for (int i = 0; i < DH; i += 8) {
         float kv[8];
         load8(krow + i, kv);
 #pragma unroll
@@ -89,18 +88,17 @@ __global__ void __launch_bounds__(kWarps * 32)
       l[r] = l[r] * alpha + warp_sum(p[r]);
       m[r] = m_new;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[r][i] *= alpha;
+      for (int i = 0; i < kPer; ++i) acc[r][i] *= alpha;
     }
     const int n_live = min(32, L - t * 32);
     for (int j = 0; j < n_live; ++j) {
-      const float4 v = load4(vh + static_cast<size_t>(t * 32 + j) * kDh + lane * 4);
+      float v[kPer];
+      load_n<kPer>(vh + static_cast<size_t>(t * 32 + j) * DH + lane * kPer, v);
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
         const float pj = __shfl_sync(0xffffffffu, p[r], j);
-        acc[r][0] += pj * v.x;
-        acc[r][1] += pj * v.y;
-        acc[r][2] += pj * v.z;
-        acc[r][3] += pj * v.w;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) acc[r][i] += pj * v[i];
       }
     }
   }
@@ -111,12 +109,12 @@ __global__ void __launch_bounds__(kWarps * 32)
       red_m[warp][r] = m[r];
       red_l[warp][r] = l[r];
     }
-    *reinterpret_cast<float4*>(&red_acc[warp][r][lane * 4]) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) red_acc[warp][r][lane * kPer + i] = acc[r][i];
   }
   __syncthreads();
-  for (int i = tid; i < REP * kDh; i += blockDim.x) {
-    const int r = i / kDh, d = i % kDh;
+  for (int i = tid; i < REP * DH; i += blockDim.x) {
+    const int r = i / DH, d = i % DH;
     float mx = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red_m[w][r]);
@@ -127,53 +125,120 @@ __global__ void __launch_bounds__(kWarps * 32)
       num += red_acc[w][r][d] * f;
       den += red_l[w][r] * f;
     }
-    out[static_cast<size_t>(bh) * REP * kDh + i] = from_f32<TQ>(num / den);
+    out[i] = from_f32<TQ>(num / den);
+  }
+}
+
+// Kernel 3: append the new row at lengths-1, then attend.
+template <typename TQ, typename TC, int REP, int DH>
+__global__ void __launch_bounds__(kWarps * 32)
+    decode_append_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
+                         const TQ* __restrict__ v_new, TC* kc, TC* vc,
+                         const int* __restrict__ lengths, TQ* __restrict__ out, int Hkv, int S) {
+  const int bh = blockIdx.x;
+  const int L = max(1, min(lengths[bh / Hkv], S));
+  TC* kh = kc + static_cast<size_t>(bh) * S * DH;
+  TC* vh = vc + static_cast<size_t>(bh) * S * DH;
+  const int tid = threadIdx.x;
+  if (tid < DH) {
+    const size_t src = static_cast<size_t>(bh) * DH + tid;
+    const size_t dst = static_cast<size_t>(L - 1) * DH + tid;
+    kh[dst] = from_f32<TC>(to_f32(k_new[src]));
+    vh[dst] = from_f32<TC>(to_f32(v_new[src]));
+  }
+  const size_t qo = static_cast<size_t>(bh) * REP * DH;
+  attend_head<TQ, TC, REP, DH>(q + qo, kh, vh, L, out + qo);
+}
+
+// Kernel 14: attend only.
+template <typename TQ, typename TC, int REP, int DH>
+__global__ void __launch_bounds__(kWarps * 32)
+    decode_attend_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc,
+                         const TC* __restrict__ vc, const int* __restrict__ lengths,
+                         TQ* __restrict__ out, int Hkv, int S) {
+  const int bh = blockIdx.x;
+  const int L = max(1, min(lengths[bh / Hkv], S));
+  const size_t qo = static_cast<size_t>(bh) * REP * DH;
+  const size_t co = static_cast<size_t>(bh) * S * DH;
+  attend_head<TQ, TC, REP, DH>(q + qo, kc + co, vc + co, L, out + qo);
+}
+
+struct Args {
+  const void* q;
+  const void* k_new;  // null for kernel 14
+  const void* v_new;
+  void* kc;
+  void* vc;
+  const int* lengths;
+  void* out;
+  int B, Hkv, S;
+  cudaStream_t stream;
+};
+
+template <typename TQ, typename TC, int REP, int DH>
+void launch_one(const Args& a) {
+  const dim3 grid(a.B * a.Hkv), block(kWarps * 32);
+  const TQ* q = static_cast<const TQ*>(a.q);
+  TQ* o = static_cast<TQ*>(a.out);
+  if (a.k_new != nullptr)
+    decode_append_kernel<TQ, TC, REP, DH><<<grid, block, 0, a.stream>>>(
+        q, static_cast<const TQ*>(a.k_new), static_cast<const TQ*>(a.v_new),
+        static_cast<TC*>(a.kc), static_cast<TC*>(a.vc), a.lengths, o, a.Hkv, a.S);
+  else
+    decode_attend_kernel<TQ, TC, REP, DH><<<grid, block, 0, a.stream>>>(
+        q, static_cast<const TC*>(a.kc), static_cast<const TC*>(a.vc), a.lengths, o, a.Hkv, a.S);
+}
+
+template <typename TQ, typename TC, int DH>
+void launch_rep(const Args& a, int rep) {
+  switch (rep) {
+    case 1: launch_one<TQ, TC, 1, DH>(a); break;
+    case 2: launch_one<TQ, TC, 2, DH>(a); break;
+    case 4: launch_one<TQ, TC, 4, DH>(a); break;
+    default: launch_one<TQ, TC, 8, DH>(a); break;
   }
 }
 
 template <typename TQ, typename TC>
-void launch(const void* q, const void* k_new, const void* v_new, void* kc, void* vc,
-            const int* lengths, void* out, int B, int Hkv, int rep, int S, cudaStream_t stream) {
-  const dim3 grid(B * Hkv), block(kWarps * 32);
-  const TQ* qt = static_cast<const TQ*>(q);
-  const TQ* kn = static_cast<const TQ*>(k_new);
-  const TQ* vn = static_cast<const TQ*>(v_new);
-  TC* kt = static_cast<TC*>(kc);
-  TC* vt = static_cast<TC*>(vc);
-  TQ* o = static_cast<TQ*>(out);
-  switch (rep) {
-    case 1:
-      decode_append_kernel<TQ, TC, 1><<<grid, block, 0, stream>>>(qt, kn, vn, kt, vt, lengths, o, Hkv, S);
-      break;
-    case 2:
-      decode_append_kernel<TQ, TC, 2><<<grid, block, 0, stream>>>(qt, kn, vn, kt, vt, lengths, o, Hkv, S);
-      break;
-    case 4:
-      decode_append_kernel<TQ, TC, 4><<<grid, block, 0, stream>>>(qt, kn, vn, kt, vt, lengths, o, Hkv, S);
-      break;
-    default:
-      decode_append_kernel<TQ, TC, 8><<<grid, block, 0, stream>>>(qt, kn, vn, kt, vt, lengths, o, Hkv, S);
-      break;
-  }
+void launch_dh(const Args& a, int rep, int Dh) {
+  if (Dh == 64)
+    launch_rep<TQ, TC, 64>(a, rep);
+  else
+    launch_rep<TQ, TC, 128>(a, rep);
+}
+
+int launch(const Args& a, int rep, int Dh, int q_dtype, int cache_dtype) {
+  if (q_dtype == kBF16 && cache_dtype == kBF16)
+    launch_dh<__nv_bfloat16, __nv_bfloat16>(a, rep, Dh);
+  else if (q_dtype == kBF16)
+    launch_dh<__nv_bfloat16, float>(a, rep, Dh);
+  else if (cache_dtype == kBF16)
+    launch_dh<float, __nv_bfloat16>(a, rep, Dh);
+  else
+    launch_dh<float, float>(a, rep, Dh);
+  return THAWK_LAUNCH_RESULT();
 }
 
 }  // namespace
 
-// q, out [B, Hkv, rep, 128] and k_new, v_new [B, Hkv, 128] in q_dtype;
-// caches [B, Hkv, S, 128] in cache_dtype, updated in place; lengths [B]
-// int32.  rep must be 1, 2, 4 or 8 (checked by the Python wrapper).
+// Kernel 3.  q, out [B, Hkv, rep, Dh] and k_new, v_new [B, Hkv, Dh] in
+// q_dtype; caches [B, Hkv, S, Dh] in cache_dtype, updated in place;
+// lengths [B] int32.  rep is 1, 2, 4 or 8 and Dh 64 or 128 (checked by
+// the Python wrapper).
 extern "C" int th_decode_append(const void* q, const void* k_new, const void* v_new, void* kc,
                                 void* vc, const void* lengths, void* out, int B, int Hkv, int rep,
+                                int Dh, int S, int q_dtype, int cache_dtype, void* stream) {
+  const Args a{q, k_new, v_new, kc, vc, static_cast<const int*>(lengths), out, B, Hkv, S,
+               static_cast<cudaStream_t>(stream)};
+  return launch(a, rep, Dh, q_dtype, cache_dtype);
+}
+
+// Kernel 14.  As kernel 3 without the new rows; the caches are only read.
+extern "C" int th_decode_attend(const void* q, const void* kc, const void* vc,
+                                const void* lengths, void* out, int B, int Hkv, int rep, int Dh,
                                 int S, int q_dtype, int cache_dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* len = static_cast<const int*>(lengths);
-  if (q_dtype == kBF16 && cache_dtype == kBF16)
-    launch<__nv_bfloat16, __nv_bfloat16>(q, k_new, v_new, kc, vc, len, out, B, Hkv, rep, S, s);
-  else if (q_dtype == kBF16)
-    launch<__nv_bfloat16, float>(q, k_new, v_new, kc, vc, len, out, B, Hkv, rep, S, s);
-  else if (cache_dtype == kBF16)
-    launch<float, __nv_bfloat16>(q, k_new, v_new, kc, vc, len, out, B, Hkv, rep, S, s);
-  else
-    launch<float, float>(q, k_new, v_new, kc, vc, len, out, B, Hkv, rep, S, s);
-  return THAWK_LAUNCH_RESULT();
+  const Args a{q, nullptr, nullptr, const_cast<void*>(kc), const_cast<void*>(vc),
+               static_cast<const int*>(lengths), out, B, Hkv, S,
+               static_cast<cudaStream_t>(stream)};
+  return launch(a, rep, Dh, q_dtype, cache_dtype);
 }

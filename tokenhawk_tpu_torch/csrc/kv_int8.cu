@@ -1,8 +1,8 @@
 // Kernels 8 and 9: attention over the dense int8 KV cache.
 //
-// The cache holds int8 codes [B, Hkv, S, 128] and one bfloat16 scale per
+// The cache holds int8 codes [B, Hkv, S, Dh] and one bfloat16 scale per
 // (sequence, head, token) [B, Hkv, S] for K and for V (kv_int8.cuh has the
-// codec).  Both kernels compute exact attention over the dequantized cache,
+// codec); Dh is 64 or 128.  Both kernels compute exact attention over the dequantized cache,
 // code x scale in f32, with an online softmax in f32.  (The TPU decode
 // kernel also quantizes the query and the probabilities to int8 to feed its
 // matrix unit; the port does not.)
@@ -14,10 +14,10 @@
 // head over lengths[b] tokens; a row of length 0 writes zeros and appends
 // nothing.  One block per (b, kv head), as kernel 3: the block that writes a
 // head's row reads it after a barrier.  The 8 warps split the live tokens in
-// tiles of 32; a lane scores one token (its 128 codes in 16-byte loads,
-// times the token's K scale), then owns 4 head dims for P·V with the
+// tiles of 32; a lane scores one token (its Dh codes in 16-byte loads,
+// times the token's K scale), then owns Dh/32 head dims for P·V with the
 // probability times the token's V scale.  Bound by the bytes of the live
-// codes and scales, (2*L*128 + 2*L*2) bytes per head: half of kernel 3's.
+// codes and scales, (2*L*Dh + 2*L*2) bytes per head: half of kernel 3's.
 //
 // Kernel 9, prefill, replaces tokenhawk_tpu/ops/pallas/flash_attention_int8.py
 // flash_attention_int8 (_kernel), reached through attend_prefill_int8.  It
@@ -25,25 +25,33 @@
 // 8 consecutive queries of one (b, kv head, group member), stages each tile
 // of 32 keys dequantized to f32 in shared memory, skips tiles past its last
 // query and masks keys past each query's position.  Any T >= 1 (the TPU
-// kernel needs T % 8 == 0).  The work is O(T * L * 128) on the CUDA cores.
+// kernel needs T % 8 == 0).  The work is O(T * L * Dh) on the CUDA cores.
 #include "kv_int8.cuh"
 
 using namespace thawk;
 
 namespace {
 
-constexpr int kDh = kRowDh;
 constexpr int kWarps = 8;
 constexpr int kQueries = 8;  // kernel 9: warps per block, one query each
 constexpr int kKeys = 32;
-constexpr int kRow = kDh + 4;
 
-template <typename TQ, int REP>
+// The kPer int8 codes a lane owns for P·V (kPer = 2 or 4) as f32.
+template <int kPer>
+__device__ __forceinline__ void load_codes(const int8_t* p, float* o) {
+  if constexpr (kPer == 4)
+    unpack4(*reinterpret_cast<const uint32_t*>(p), o);
+  else
+    unpack2(*reinterpret_cast<const uint16_t*>(p), o);
+}
+
+template <typename TQ, int REP, int kDh>
 __global__ void __launch_bounds__(kWarps * 32)
     decode_int8_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
                        const TQ* __restrict__ v_new, int8_t* kc, __nv_bfloat16* ksc,
                        int8_t* vc, __nv_bfloat16* vsc, const int* __restrict__ lengths,
                        TQ* __restrict__ out, int Hkv, int S) {
+  constexpr int kPer = kDh / 32;  // head dims a lane owns
   __shared__ __align__(16) float qsm[REP][kDh];
   __shared__ float red_m[kWarps][REP];
   __shared__ float red_l[kWarps][REP];
@@ -64,23 +72,27 @@ __global__ void __launch_bounds__(kWarps * 32)
   __nv_bfloat16* vsh = vsc + static_cast<size_t>(bh) * S;
 
   if (warp < 2) {  // warp 0 appends the K row, warp 1 the V row
-    const TQ* src = (warp == 0 ? k_new : v_new) + static_cast<size_t>(bh) * kDh + lane * 4;
-    char4 codes;
-    const float scale = quantize_row4(load4(src), codes);
-    *reinterpret_cast<char4*>((warp == 0 ? kh : vh) + static_cast<size_t>(L - 1) * kDh +
-                              lane * 4) = codes;
+    const TQ* src = (warp == 0 ? k_new : v_new) + static_cast<size_t>(bh) * kDh + lane * kPer;
+    float x[kPer];
+    load_n<kPer>(src, x);
+    signed char codes[kPer];
+    const float scale = quantize_row<kPer>(x, codes);
+    int8_t* dst = (warp == 0 ? kh : vh) + static_cast<size_t>(L - 1) * kDh + lane * kPer;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) dst[i] = codes[i];
     if (lane == 0) (warp == 0 ? ksh : vsh)[L - 1] = __float2bfloat16_rn(scale);
   }
   for (int i = tid; i < REP * kDh; i += blockDim.x)
     qsm[i / kDh][i % kDh] = to_f32(q[static_cast<size_t>(bh) * REP * kDh + i]);
   __syncthreads();  // the appended rows are visible to the whole block
 
-  float m[REP], l[REP], acc[REP][4];
+  float m[REP], l[REP], acc[REP][kPer];
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
-    acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) acc[r][i] = 0.f;
   }
 
   const int n_tiles = (L + 31) / 32;
@@ -122,21 +134,17 @@ __global__ void __launch_bounds__(kWarps * 32)
       m[r] = m_new;
       pv[r] = p * v_scale;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[r][i] *= alpha;
+      for (int i = 0; i < kPer; ++i) acc[r][i] *= alpha;
     }
     const int n_live = min(32, L - t * 32);
     for (int j = 0; j < n_live; ++j) {
-      float v[4];
-      unpack4(*reinterpret_cast<const uint32_t*>(vh + static_cast<size_t>(t * 32 + j) * kDh +
-                                                 lane * 4),
-              v);
+      float v[kPer];
+      load_codes<kPer>(vh + static_cast<size_t>(t * 32 + j) * kDh + lane * kPer, v);
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
         const float pj = __shfl_sync(0xffffffffu, pv[r], j);
-        acc[r][0] += pj * v[0];
-        acc[r][1] += pj * v[1];
-        acc[r][2] += pj * v[2];
-        acc[r][3] += pj * v[3];
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) acc[r][i] += pj * v[i];
       }
     }
   }
@@ -147,8 +155,8 @@ __global__ void __launch_bounds__(kWarps * 32)
       red_m[warp][r] = m[r];
       red_l[warp][r] = l[r];
     }
-    *reinterpret_cast<float4*>(&red_acc[warp][r][lane * 4]) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) red_acc[warp][r][lane * kPer + i] = acc[r][i];
   }
   __syncthreads();
   for (int i = tid; i < REP * kDh; i += blockDim.x) {
@@ -167,12 +175,14 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename TQ>
+template <typename TQ, int kDh>
 __global__ void __launch_bounds__(kQueries * 32)
     prefill_int8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ kc,
                         const __nv_bfloat16* __restrict__ ksc, const int8_t* __restrict__ vc,
                         const __nv_bfloat16* __restrict__ vsc, const int* __restrict__ offsets,
                         TQ* __restrict__ out, int Hkv, int rep, int T, int S) {
+  constexpr int kRow = kDh + 4;
+  constexpr int kPer = kDh / 32;  // head dims a lane owns for P·V
   __shared__ __align__(16) float ks[kKeys][kRow];
   __shared__ __align__(16) float vs[kKeys][kRow];
   __shared__ __align__(16) float qsm[kQueries][kDh];
@@ -201,7 +211,9 @@ __global__ void __launch_bounds__(kQueries * 32)
   const int n_tiles = last / kKeys + 1;
 
   float m = -INFINITY, l = 0.f;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float acc[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
   for (int tile = 0; tile < n_tiles; ++tile) {
     __syncthreads();  // previous tile consumed (and q staged, on the first)
     for (int i = tid; i < kKeys * (kDh / 8); i += blockDim.x) {
@@ -252,25 +264,24 @@ __global__ void __launch_bounds__(kQueries * 32)
     l = l * alpha + warp_sum(p);
     m = m_new;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] *= alpha;
+    for (int i = 0; i < kPer; ++i) acc[i] *= alpha;
 #pragma unroll 8
     for (int j = 0; j < kKeys; ++j) {
       const float pj = __shfl_sync(0xffffffffu, p, j);
-      const float4 v = *reinterpret_cast<const float4*>(&vs[j][lane * 4]);
-      acc[0] += pj * v.x;
-      acc[1] += pj * v.y;
-      acc[2] += pj * v.z;
-      acc[3] += pj * v.w;
+      float v[kPer];
+      load_n<kPer>(&vs[j][lane * kPer], v);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) acc[i] += pj * v[i];
     }
   }
   if (!active) return;
   const float inv = l > 0.f ? 1.f / l : 1.f;
-  TQ* o = out + (qbase + t) * kDh + lane * 4;
+  TQ* o = out + (qbase + t) * kDh + lane * kPer;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) o[i] = from_f32<TQ>(acc[i] * inv);
+  for (int i = 0; i < kPer; ++i) o[i] = from_f32<TQ>(acc[i] * inv);
 }
 
-template <typename TQ>
+template <typename TQ, int kDh>
 void launch_decode(const void* q, const void* k_new, const void* v_new, void* kc, void* ksc,
                    void* vc, void* vsc, const int* lengths, void* out, int B, int Hkv, int rep,
                    int S, cudaStream_t stream) {
@@ -284,7 +295,7 @@ void launch_decode(const void* q, const void* k_new, const void* v_new, void* kc
   __nv_bfloat16* vs = static_cast<__nv_bfloat16*>(vsc);
   TQ* o = static_cast<TQ*>(out);
 #define THAWK_DECODE8(R) \
-  decode_int8_kernel<TQ, R><<<grid, block, 0, stream>>>(qt, kn, vn, kq, ks, vq, vs, lengths, o, Hkv, S)
+  decode_int8_kernel<TQ, R, kDh><<<grid, block, 0, stream>>>(qt, kn, vn, kq, ks, vq, vs, lengths, o, Hkv, S)
   switch (rep) {
     case 1: THAWK_DECODE8(1); break;
     case 2: THAWK_DECODE8(2); break;
@@ -294,12 +305,12 @@ void launch_decode(const void* q, const void* k_new, const void* v_new, void* kc
 #undef THAWK_DECODE8
 }
 
-template <typename TQ>
+template <typename TQ, int kDh>
 void launch_prefill(const void* q, const void* kc, const void* ksc, const void* vc,
                     const void* vsc, const int* offsets, void* out, int B, int Hkv, int rep,
                     int T, int S, cudaStream_t stream) {
   const dim3 grid((T + kQueries - 1) / kQueries, rep, B * Hkv), block(kQueries * 32);
-  prefill_int8_kernel<TQ><<<grid, block, 0, stream>>>(
+  prefill_int8_kernel<TQ, kDh><<<grid, block, 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const int8_t*>(kc),
       static_cast<const __nv_bfloat16*>(ksc), static_cast<const int8_t*>(vc),
       static_cast<const __nv_bfloat16*>(vsc), offsets, static_cast<TQ*>(out), Hkv, rep, T, S);
@@ -307,34 +318,42 @@ void launch_prefill(const void* q, const void* kc, const void* ksc, const void* 
 
 }  // namespace
 
-// q, out [B, Hkv, rep, 128] and k_new, v_new [B, Hkv, 128] in q_dtype (q
-// pre-scaled); kc, vc int8 [B, Hkv, S, 128] and ksc, vsc bfloat16 [B, Hkv, S],
-// written in place; lengths [B] int32.  rep is 1, 2, 4 or 8 (checked by the
-// Python wrapper).
+// q, out [B, Hkv, rep, Dh] and k_new, v_new [B, Hkv, Dh] in q_dtype (q
+// pre-scaled); kc, vc int8 [B, Hkv, S, Dh] and ksc, vsc bfloat16 [B, Hkv, S],
+// written in place; lengths [B] int32.  rep is 1, 2, 4 or 8 and Dh 64 or 128
+// (checked by the Python wrapper).
 extern "C" int th_flash_decode_int8(const void* q, const void* k_new, const void* v_new,
                                     void* kc, void* ksc, void* vc, void* vsc,
                                     const void* lengths, void* out, int B, int Hkv, int rep,
-                                    int S, int q_dtype, void* stream) {
+                                    int Dh, int S, int q_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
-  if (q_dtype == kBF16)
-    launch_decode<__nv_bfloat16>(q, k_new, v_new, kc, ksc, vc, vsc, len, out, B, Hkv, rep, S, s);
-  else
-    launch_decode<float>(q, k_new, v_new, kc, ksc, vc, vsc, len, out, B, Hkv, rep, S, s);
+#define THAWK_DECODE8(TQ, DH) \
+  launch_decode<TQ, DH>(q, k_new, v_new, kc, ksc, vc, vsc, len, out, B, Hkv, rep, S, s)
+  if (q_dtype == kBF16) {
+    if (Dh == 64) THAWK_DECODE8(__nv_bfloat16, 64); else THAWK_DECODE8(__nv_bfloat16, 128);
+  } else {
+    if (Dh == 64) THAWK_DECODE8(float, 64); else THAWK_DECODE8(float, 128);
+  }
+#undef THAWK_DECODE8
   return THAWK_LAUNCH_RESULT();
 }
 
-// q, out [B, Hkv, rep, T, 128] in q_dtype (q pre-scaled); the int8 cache as
+// q, out [B, Hkv, rep, T, Dh] in q_dtype (q pre-scaled); the int8 cache as
 // above; offsets [B] int32.
 extern "C" int th_flash_attention_int8(const void* q, const void* kc, const void* ksc,
                                        const void* vc, const void* vsc, const void* offsets,
-                                       void* out, int B, int Hkv, int rep, int T, int S,
+                                       void* out, int B, int Hkv, int rep, int Dh, int T, int S,
                                        int q_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(offsets);
-  if (q_dtype == kBF16)
-    launch_prefill<__nv_bfloat16>(q, kc, ksc, vc, vsc, off, out, B, Hkv, rep, T, S, s);
-  else
-    launch_prefill<float>(q, kc, ksc, vc, vsc, off, out, B, Hkv, rep, T, S, s);
+#define THAWK_PREFILL8(TQ, DH) \
+  launch_prefill<TQ, DH>(q, kc, ksc, vc, vsc, off, out, B, Hkv, rep, T, S, s)
+  if (q_dtype == kBF16) {
+    if (Dh == 64) THAWK_PREFILL8(__nv_bfloat16, 64); else THAWK_PREFILL8(__nv_bfloat16, 128);
+  } else {
+    if (Dh == 64) THAWK_PREFILL8(float, 64); else THAWK_PREFILL8(float, 128);
+  }
+#undef THAWK_PREFILL8
   return THAWK_LAUNCH_RESULT();
 }

@@ -30,6 +30,29 @@ static __device__ __forceinline__ float quantize_row4(const float4 x, char4& q) 
   return scale;
 }
 
+// The same codec over a row of 32*N values held N per lane (lane l holds
+// x[N*l .. N*l+N-1]): N = 2 for a row of 64 (the dense int8 cache at head
+// dim 64), N = 4 for 128.
+template <int N>
+__device__ __forceinline__ float quantize_row(const float* x, signed char* q) {
+  float a = fabsf(x[0]);
+#pragma unroll
+  for (int i = 1; i < N; ++i) a = fmaxf(a, fabsf(x[i]));
+  const float scale = __fdiv_rn(warp_max(a), 127.f);
+  const float inv = scale > 0.f ? __fdiv_rn(1.f, scale) : 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    q[i] = static_cast<signed char>(fminf(fmaxf(rintf(__fmul_rn(x[i], inv)), -127.f), 127.f));
+  return scale;
+}
+
+// Two int8 codes in the low 16 bits of a word (byte 0 first) as f32.
+static __device__ __forceinline__ void unpack2(uint32_t w, float* o) {
+  const int s = static_cast<int>(w);
+  o[0] = static_cast<float>((s << 24) >> 24);
+  o[1] = static_cast<float>((s << 16) >> 24);
+}
+
 // Four int8 codes packed in a 32-bit word (byte 0 first) as f32.
 static __device__ __forceinline__ void unpack4(uint32_t w, float* o) {
   const int s = static_cast<int>(w);

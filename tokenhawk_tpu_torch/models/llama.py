@@ -12,13 +12,17 @@ CUDA kernels:
                                   matmul + fused RMSNorm
   decode FFN (<= 8 rows)          kernel 2, fused SwiGLU + residual, any
                                   pairing of those weight forms
-  decode attention                kernel 3, append + attend in place
+  decode attention                quantized weights: kernel 3, append +
+                                  attend in place; dense weights: an
+                                  index copy, then kernel 14 (attend only)
   prefill attention               kernel 4, causal flash attention
   int8 cache (QuantKVCache)       kernel 8, quantize + append + attend;
                                   kernel 9, prefill over the int8 cache
   paged decode (forward_paged_*)  kernels 6 + 5, paged append + attend;
                                   chunked prefill gathers pages (kernel 7);
                                   on int8 pages kernels 11, 10 and 12
+  speculative verify (paged)      kernel 6 for every row of the block,
+                                  kernel 7, then kernel 4
 
 Weight orientation is [in, out] (y = x @ W) at every public function,
 as in the reference, whatever the quantized storage layout.
@@ -45,7 +49,7 @@ from tokenhawk_tpu_torch.ops.attention import update_kv_cache
 from tokenhawk_tpu_torch.ops.cuda.ffn import MAX_ROWS as _FFN_MAX_ROWS
 from tokenhawk_tpu_torch.ops.cuda.ffn import fused_ffn
 from tokenhawk_tpu_torch.ops.cuda.flash_attention import flash_attention
-from tokenhawk_tpu_torch.ops.cuda.flash_decode import flash_decode_append
+from tokenhawk_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_append
 from tokenhawk_tpu_torch.ops.cuda.kv_int8 import flash_attention_int8, flash_decode_int8
 from tokenhawk_tpu_torch.ops.kvquant import update_kv_cache_int8
 from tokenhawk_tpu_torch.ops.linear import matmul
@@ -166,32 +170,39 @@ def cache_from_jax(np_cache, device=None) -> Union[KVCache, QuantKVCache]:
     return KVCache(*parts) if len(parts) == 2 else QuantKVCache(*parts)
 
 
-def _attend_and_update(cfg: LlamaConfig, q, k, v, lcache, offsets, positions):
+def _attend_and_update(cfg: LlamaConfig, q, k, v, lcache, offsets, positions,
+                       prefer_append: bool = True):
     """Write (k, v) into this layer's cache and attend; q [B, T, H, Dh].
     lcache is (k, v) of a bf16/f32 cache or (k, ks, v, vs) of an int8 one.
 
-    Decode (T == 1) runs kernel 3 (kernel 8 on int8), which appends the
-    row at slot lengths-1 = min(position, S-1) and attends over lengths
-    tokens.  Prefill writes its block with an index copy (quantized
-    first on int8) and runs kernel 4 (kernel 9): the prompt attends to
-    its own stored, so on int8 quantized, K / V, as in the reference.
-    (The reference switches dense-weight programs to a decode kernel
-    without append to dodge TPU memory-space assignment; the port uses
-    its one append kernel for every weight kind.)"""
+    Decode (T == 1) on an int8 cache runs kernel 8, which quantizes and
+    appends the row at slot lengths-1 = min(position, S-1) and attends
+    over lengths tokens.  On a bf16/f32 cache it follows the reference's
+    route: with prefer_append (quantized weights) kernel 3, the append
+    and the attention in one launch; without it (dense weights) an index
+    copy writes the row and kernel 14 attends, as the reference's
+    update_kv_cache and flash_decode_dma do.  Prefill writes its block
+    with an index copy (quantized first on int8) and runs kernel 4
+    (kernel 9): the prompt attends to its own stored, so on int8
+    quantized, K / V, as in the reference."""
     B, T, H, Dh = q.shape
     Hkv, S = lcache[0].shape[1], lcache[0].shape[2]
     rep = H // Hkv
     scale = 1.0 / Dh**0.5
+    int8 = len(lcache) == 4
     if T == 1:
         qg = (q[:, 0] * scale).reshape(B, Hkv, rep, Dh)
         lengths = torch.clamp(positions[:, 0] + 1, max=S).to(torch.int32)
-        if len(lcache) == 4:
+        if int8:
             out = flash_decode_int8(qg, k[:, 0], v[:, 0], *lcache, lengths)
-        else:
+        elif prefer_append:
             out = flash_decode_append(qg, k[:, 0], v[:, 0], *lcache, lengths)
+        else:
+            update_kv_cache(*lcache, k, v, offsets)
+            out = flash_decode(qg, *lcache, lengths)
         return out.reshape(B, 1, H, Dh)
     qg = (q * scale).reshape(B, T, Hkv, rep, Dh).permute(0, 2, 3, 1, 4)
-    if len(lcache) == 4:
+    if int8:
         update_kv_cache_int8(*lcache, k, v, offsets)
         out = flash_attention_int8(qg, *lcache, positions[:, 0].to(torch.int32))
     else:
@@ -250,7 +261,9 @@ def _wo_ffn_block(cfg: LlamaConfig, x, ctx, lp: LayerParams):
 def _layer_forward(cfg: LlamaConfig, x, lp: LayerParams, lcache, cos, sin, offsets,
                    positions):
     q, k, v = _qkv(cfg, x, lp, cos, sin)
-    ctx = _attend_and_update(cfg, q, k, v, lcache, offsets, positions)
+    quantized = isinstance(lp.wqkv if lp.wqkv is not None else lp.wq, QWeight)
+    ctx = _attend_and_update(cfg, q, k, v, lcache, offsets, positions,
+                             prefer_append=quantized)
     return _wo_ffn_block(cfg, x, ctx, lp)
 
 
@@ -377,6 +390,45 @@ def forward_paged_prefill_cont(cfg: LlamaConfig, params: LlamaParams, tokens: to
     return x, cache
 
 
+def forward_paged_verify(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor,
+                         cache: PagedKVCache, page_table: torch.Tensor, start: torch.Tensor,
+                         adv: torch.Tensor):
+    """The target's verify block of speculative decoding over bf16/f32
+    pages: tokens [B, T] (T = gamma+1) at positions start[b] + adv[b]*t,
+    any alignment (adv 1 for a live slot, 0 for a frozen one).  Each
+    layer writes all B*T K / V rows into their pages in one kernel-6
+    launch, gathers the slot's pages dense (kernel 7) and attends with
+    kernel 4 from offset start.  Rejected drafts' rows stay past the
+    committed frontier, masked by length, and the next round overwrites
+    them (no rollback, as in the reference).
+
+    A frozen slot's rows all sit at `start`: they write one (page, slot)
+    in the same launch, and which row lands is unordered, which is
+    harmless since the row is past the slot's committed tokens (like the
+    shared trash page).  Kernel 4 places such a slot's query t at
+    start + t where the reference keeps every query at start; the rows
+    are discarded on both sides.  Returns (hidden [B, T, D], the pool)."""
+    if cache.quant:
+        raise ValueError("the speculative verify runs over bf16/f32 pages")
+    B, T = tokens.shape
+    H, Hkv, Dh = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    dev = tokens.device
+    x = params.tok_embd[tokens]
+    start = start.to(dev)
+    positions = start.long()[:, None] + adv.to(dev).long()[:, None] * torch.arange(T, device=dev)
+    cos, sin = rope_cos_sin(positions, Dh, cfg.rope_theta)
+    rows_table = page_table.repeat_interleave(T, dim=0)  # one table row per block row
+    flat = positions.reshape(-1)
+    for lp, (k_l, v_l) in zip(params.layers, cache.layers()):
+        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        append_token_layer(k_l, v_l, k.reshape(B * T, Hkv, Dh), v.reshape(B * T, Hkv, Dh),
+                           rows_table, flat, cache.layout)
+        kg, vg = gather_pages(k_l, v_l, page_table, cache.layout)
+        ctx = _prefill_attention(q, kg, vg, start)
+        x = _wo_ffn_block(cfg, x, ctx, lp)
+    return x, cache
+
+
 def logits_from_hidden(cfg: LlamaConfig, params: LlamaParams, hidden: torch.Tensor):
     """Final RMSNorm + output projection -> f32 logits [..., V] (rounded
     through the activation dtype first, as the reference does)."""
@@ -498,12 +550,13 @@ def q4_k_m_more_bits(layer: int, n_layer: int) -> bool:
 HostTensor = Union[np.ndarray, QuantizedTensor]
 
 
-def _device_weight(t: HostTensor, dtype, device, transpose: bool) -> ArrayOrQ:
+def _device_weight(t: HostTensor, dtype, device, transpose: bool,
+                   scale_dtype=torch.float32) -> ArrayOrQ:
     if isinstance(t, QWeight):
         return t.to(device)  # built by the loader (k-quants)
     if isinstance(t, QuantizedTensor):
         if transpose:
-            return QWeight.from_quantized_tensor(t, device)
+            return QWeight.from_quantized_tensor(t, device, scale_dtype)
         t = dequantize(t)
     arr = np.asarray(t, np.float32)
     if transpose:
@@ -513,14 +566,14 @@ def _device_weight(t: HostTensor, dtype, device, transpose: bool) -> ArrayOrQ:
 
 
 def params_from_ggml(cfg: LlamaConfig, tensors: Dict[str, HostTensor], dtype=torch.bfloat16,
-                     device=None) -> LlamaParams:
+                     device=None, scale_dtype=torch.float32) -> LlamaParams:
     """Device parameters from loaded GGML tensors: 2-D projections go from
-    GGML's [out, in] to [in, out] (quantized kinds stay quantized; a
-    QWeight the loader built passes through); the embedding table and the
-    norm gains are dense."""
+    GGML's [out, in] to [in, out] (quantized kinds stay quantized, their
+    sides rounded to scale_dtype; a QWeight the loader built passes
+    through); the embedding table and the norm gains are dense."""
 
     def get(name, transpose=True):
-        return _device_weight(tensors[name], dtype, device, transpose)
+        return _device_weight(tensors[name], dtype, device, transpose, scale_dtype)
 
     layers = []
     for i in range(cfg.n_layer):

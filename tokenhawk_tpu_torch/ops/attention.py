@@ -36,9 +36,13 @@ def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.T
                     v_new: torch.Tensor, offsets: torch.Tensor) -> None:
     """Write k_new/v_new [B, T, Hkv, Dh] at each sequence's offset, in
     place (the reference returns new arrays; the port updates the cache
-    it is given).  offsets stays on the device: no host sync."""
+    it is given).  A block that would run past the cache end starts at
+    S - T instead, as the reference's dynamic_update_slice clamps its
+    start.  offsets stays on the device: no host sync."""
     B, T = k_new.shape[:2]
+    S = k_cache.shape[2]
     bi = torch.arange(B, device=k_cache.device)[:, None]
-    si = offsets.to(k_cache.device).long()[:, None] + torch.arange(T, device=k_cache.device)
+    start = offsets.to(k_cache.device).long().clamp(0, S - T)
+    si = start[:, None] + torch.arange(T, device=k_cache.device)
     k_cache[bi, :, si] = k_new.to(k_cache.dtype)
     v_cache[bi, :, si] = v_new.to(v_cache.dtype)

@@ -3,7 +3,8 @@
 Replaces tokenhawk_tpu/ops/pallas/flash_attention.py `flash_attention`
 (_kernel), reached through `attend_prefill`.  The query at absolute
 position offsets[b] + t attends to cache slots at or before it, online
-softmax in f32, tiles past the block's diagonal skipped.  On the H100 a
+softmax in f32, tiles past the block's diagonal skipped; head dim 64 or
+128.  On the H100 a
 prefill's attention is a small share of its FLOPs next to the
 projections; this first kernel runs on the CUDA cores with K/V tiles
 staged in shared memory, and tensor-core tiles come later.
@@ -20,9 +21,9 @@ from tokenhawk_tpu_torch.ops.attention import attend_cache
 from tokenhawk_tpu_torch.ops.cuda import build
 
 launches = {"flash_attention": 0}
-HEAD_DIM = 128
+HEAD_DIMS = (64, 128)
 
-_ARGS = [build.P] * 5 + [build.I] * 7 + [build.P]
+_ARGS = [build.P] * 5 + [build.I] * 8 + [build.P]
 
 
 def flash_attention_plain(q, k_cache, v_cache, offsets):
@@ -41,7 +42,7 @@ def flash_attention(q, k_cache, v_cache, offsets):
         return flash_attention_plain(q, k_cache, v_cache, offsets)
     B, Hkv, rep, T, Dh = q.shape
     S = k_cache.shape[2]
-    build.require(Dh == HEAD_DIM, f"head dim {Dh} != {HEAD_DIM}")
+    build.require(Dh in HEAD_DIMS, f"head dim {Dh} not in {HEAD_DIMS}")
     build.require(k_cache.shape == (B, Hkv, S, Dh) and v_cache.shape == k_cache.shape,
                   f"cache {tuple(k_cache.shape)} does not match q {tuple(q.shape)}")
     build.require(offsets.dtype == torch.int32 and offsets.shape == (B,),
@@ -52,7 +53,7 @@ def flash_attention(q, k_cache, v_cache, offsets):
     out = torch.empty_like(q)
     fn = build.function("th_flash_prefill", _ARGS)
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), offsets.data_ptr(),
-            out.data_ptr(), B, Hkv, rep, T, S, build.dtype_code(q.dtype),
+            out.data_ptr(), B, Hkv, rep, Dh, T, S, build.dtype_code(q.dtype),
             build.dtype_code(k_cache.dtype), build.stream_of(q))
     build.check(rc, "flash_attention")
     launches["flash_attention"] += 1

@@ -10,7 +10,7 @@
                         `attend_prefill_int8`: causal prefill over the cache.
 
 The cache is int8 codes [B, Hkv, S, Dh] with bfloat16 scales [B, Hkv, S]
-(ops/kvquant.py).  Both kernels compute exact attention over the
+(ops/kvquant.py), Dh 64 or 128.  Both kernels compute exact attention over the
 dequantized cache; the TPU decode kernel also quantizes the query and the
 probabilities to int8 for its matrix unit, which adds about 0.4% relative
 error (ROADMAP Queue 3).  Their plain version is `attend_cache_int8`.  On
@@ -30,23 +30,24 @@ from tokenhawk_tpu_torch.ops.cuda import build
 from tokenhawk_tpu_torch.ops.kvquant import attend_cache_int8, quantize_kv_block
 
 launches = {"flash_decode_int8": 0, "flash_attention_int8": 0}
-HEAD_DIM = 128
+HEAD_DIMS = (64, 128)
 REPS = (1, 2, 4, 8)
 
-_DECODE_ARGS = [build.P] * 9 + [build.I] * 5 + [build.P]
-_PREFILL_ARGS = [build.P] * 7 + [build.I] * 5 + [build.P]
+_DECODE_ARGS = [build.P] * 9 + [build.I] * 6 + [build.P]
+_PREFILL_ARGS = [build.P] * 7 + [build.I] * 6 + [build.P]
 
 
-def _check_cache(k_cache, ks_cache, v_cache, vs_cache, B, Hkv):
+def _check_cache(k_cache, ks_cache, v_cache, vs_cache, B, Hkv, Dh):
     S = k_cache.shape[2]
+    build.require(Dh in HEAD_DIMS, f"head dim {Dh} not in {HEAD_DIMS}")
     build.require(k_cache.dtype == torch.int8 and v_cache.dtype == torch.int8,
                   "the cache codes must be int8")
     build.require(ks_cache.dtype == torch.bfloat16 and vs_cache.dtype == torch.bfloat16,
                   "the cache scales must be bfloat16")
-    build.require(k_cache.shape == (B, Hkv, S, HEAD_DIM) and v_cache.shape == k_cache.shape
+    build.require(k_cache.shape == (B, Hkv, S, Dh) and v_cache.shape == k_cache.shape
                   and ks_cache.shape == (B, Hkv, S) and vs_cache.shape == ks_cache.shape,
                   f"cache {tuple(k_cache.shape)} / {tuple(ks_cache.shape)} does not match "
-                  f"B={B} Hkv={Hkv} Dh={HEAD_DIM}")
+                  f"B={B} Hkv={Hkv} Dh={Dh}")
     return S
 
 
@@ -80,9 +81,8 @@ def flash_decode_int8(q, k_new, v_new, k_cache, ks_cache, v_cache, vs_cache, len
         return flash_decode_int8_plain(q, k_new, v_new, k_cache, ks_cache, v_cache, vs_cache,
                                        lengths)
     B, Hkv, rep, Dh = q.shape
-    build.require(Dh == HEAD_DIM, f"head dim {Dh} != {HEAD_DIM}")
     build.require(rep in REPS, f"query heads per kv head {rep} not in {REPS}")
-    S = _check_cache(k_cache, ks_cache, v_cache, vs_cache, B, Hkv)
+    S = _check_cache(k_cache, ks_cache, v_cache, vs_cache, B, Hkv, Dh)
     build.require(k_new.shape == (B, Hkv, Dh) and v_new.shape == (B, Hkv, Dh),
                   f"new rows {tuple(k_new.shape)} do not match q {tuple(q.shape)}")
     build.require(lengths.dtype == torch.int32 and lengths.shape == (B,),
@@ -95,7 +95,7 @@ def flash_decode_int8(q, k_new, v_new, k_cache, ks_cache, v_cache, vs_cache, len
     fn = build.function("th_flash_decode_int8", _DECODE_ARGS)
     rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
             ks_cache.data_ptr(), v_cache.data_ptr(), vs_cache.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), B, Hkv, rep, S, build.dtype_code(q.dtype), build.stream_of(q))
+            out.data_ptr(), B, Hkv, rep, Dh, S, build.dtype_code(q.dtype), build.stream_of(q))
     build.check(rc, "flash_decode_int8")
     launches["flash_decode_int8"] += 1
     return out
@@ -120,8 +120,7 @@ def flash_attention_int8(q, k_cache, ks_cache, v_cache, vs_cache, offsets):
     if not q.is_cuda:
         return flash_attention_int8_plain(q, k_cache, ks_cache, v_cache, vs_cache, offsets)
     B, Hkv, rep, T, Dh = q.shape
-    build.require(Dh == HEAD_DIM, f"head dim {Dh} != {HEAD_DIM}")
-    S = _check_cache(k_cache, ks_cache, v_cache, vs_cache, B, Hkv)
+    S = _check_cache(k_cache, ks_cache, v_cache, vs_cache, B, Hkv, Dh)
     build.require(offsets.dtype == torch.int32 and offsets.shape == (B,),
                   "offsets must be int32 [B]")
     q = q.contiguous()
@@ -129,7 +128,7 @@ def flash_attention_int8(q, k_cache, ks_cache, v_cache, vs_cache, offsets):
     out = torch.empty_like(q)
     fn = build.function("th_flash_attention_int8", _PREFILL_ARGS)
     rc = fn(q.data_ptr(), k_cache.data_ptr(), ks_cache.data_ptr(), v_cache.data_ptr(),
-            vs_cache.data_ptr(), offsets.data_ptr(), out.data_ptr(), B, Hkv, rep, T, S,
+            vs_cache.data_ptr(), offsets.data_ptr(), out.data_ptr(), B, Hkv, rep, Dh, T, S,
             build.dtype_code(q.dtype), build.stream_of(q))
     build.check(rc, "flash_attention_int8")
     launches["flash_attention_int8"] += 1

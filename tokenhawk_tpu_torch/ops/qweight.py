@@ -31,9 +31,11 @@ and from_kquant_raw with use_i4=False):
   Q5_K  code - 16       s = d*sc     m = 16s - dmin*mn  G 32
   Q6_K  code - 32       s = d*sc     no mins   G 16
 
-Scales and mins stay float32 (the reference's loader rounds them to
-bfloat16 by default; ROADMAP Queue 3), so `dequantize()` equals the
-reference's QWeight.dequantize with f32 sides bit for bit.  4-bit codes
+Scales and mins are stored float32.  The constructors take the
+reference's `scale_dtype`: at bfloat16 (load_model's default, as the
+reference's) each side is rounded to bfloat16 and kept in float32, so the
+kernels are unchanged and `dequantize()` equals the reference's
+QWeight.dequantize bit for bit at either scale_dtype.  4-bit codes
 take a byte each here (1.25 B per weight for Q4_K where the file holds
 0.5625): a known limit of this first kernel.
 
@@ -56,6 +58,13 @@ from tokenhawk_tpu_torch.ggml.quants import QuantizedTensor
 def _as_tensor(a, dtype=None, device=None) -> torch.Tensor:
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a, order="C"))
     return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def _side(a, device, scale_dtype) -> torch.Tensor:
+    """A scale or min array as float32, its values rounded to scale_dtype
+    (round to nearest even, as the reference's device cast)."""
+    t = _as_tensor(a, torch.float32, device)
+    return t if scale_dtype == torch.float32 else t.to(scale_dtype).to(torch.float32)
 
 
 @dataclasses.dataclass
@@ -88,7 +97,7 @@ class QWeight:
     # -- construction ----------------------------------------------------
 
     @staticmethod
-    def from_codes(codes, scales, device=None) -> "QWeight":
+    def from_codes(codes, scales, device=None, scale_dtype=torch.float32) -> "QWeight":
         """q4_0: offset-binary codes [N, K] in [0, 15] + scales [N, K//32]."""
         codes = _as_tensor(codes, torch.uint8, device)
         n, k = codes.shape
@@ -96,12 +105,12 @@ class QWeight:
             raise ValueError(f"q4_0 input dim {k} must be a multiple of {QK}")
         c = codes.reshape(n, k // QK, 2, QK // 2)
         qs = (c[:, :, 0, :] | (c[:, :, 1, :] << 4)).reshape(n, k // 2)
-        s = _as_tensor(scales, torch.float32, device).reshape(n, k // QK)
+        s = _side(scales, device, scale_dtype).reshape(n, k // QK)
         return QWeight(qs.contiguous(), s.contiguous())
 
     @staticmethod
-    def from_group_codes(codes, scales, mins=None, group: int = QK,
-                         device=None) -> "QWeight":
+    def from_group_codes(codes, scales, mins=None, group: int = QK, device=None,
+                         scale_dtype=torch.float32) -> "QWeight":
         """qk: signed codes [N, K] + scales (and mins) [N, K//group]."""
         qs = _as_tensor(codes, torch.int8, device)
         n, k = qs.shape
@@ -110,13 +119,14 @@ class QWeight:
                              f"got G {group}, K {k}")
 
         def side(a):
-            return _as_tensor(a, torch.float32, device).reshape(n, k // group).contiguous()
+            return _side(a, device, scale_dtype).reshape(n, k // group).contiguous()
 
         return QWeight(qs.contiguous(), side(scales), None if mins is None else side(mins),
                        kind="qk", group=group)
 
     @staticmethod
-    def from_quantized_tensor(qt: QuantizedTensor, device=None) -> "QWeight":
+    def from_quantized_tensor(qt: QuantizedTensor, device=None,
+                              scale_dtype=torch.float32) -> "QWeight":
         """GGML host tensor [out, in] -> QWeight of logical shape [in, out].
 
         Q4_0 goes to the q4_0 kind; Q8_0, Q5_0, Q4_1 and Q5_1 to qk with
@@ -126,16 +136,18 @@ class QWeight:
             raise ValueError(f"expected a 2-D weight, got {qt.shape}")
         if qt.kind == GGMLType.Q4_0:
             codes = (qt.qs.astype(np.int16) + 8).astype(np.uint8)  # [out, in]
-            return QWeight.from_codes(codes, qt.scales, device)
+            return QWeight.from_codes(codes, qt.scales, device, scale_dtype)
         if qt.kind not in (GGMLType.Q8_0, GGMLType.Q5_0, GGMLType.Q4_1, GGMLType.Q5_1):
             raise ValueError(f"no device form for {qt.kind!r}")
-        return QWeight.from_group_codes(qt.qs, qt.scales, qt.mins, QK, device)
+        return QWeight.from_group_codes(qt.qs, qt.scales, qt.mins, QK, device, scale_dtype)
 
     @staticmethod
-    def from_kquant_raw(gtype: GGMLType, raw: bytes, shape, device=None) -> "QWeight":
+    def from_kquant_raw(gtype: GGMLType, raw: bytes, shape, device=None,
+                        scale_dtype=torch.float32) -> "QWeight":
         """GGUF k-quant block stream of an [out, in] tensor -> qk QWeight
         of logical shape [in, out]: the reference's from_kquant_raw with
-        use_i4=False and f32 sides, in the port's output-major layout."""
+        use_i4=False, in the port's output-major layout.  The derived
+        sides s = d*sc and the bias are rounded to scale_dtype, as there."""
         from tokenhawk_tpu_torch.ggml import kquants
 
         out_dim, in_dim = shape
@@ -159,7 +171,7 @@ class QWeight:
             raise ValueError(f"not a supported k-quant: {gtype!r}")
         return QWeight.from_group_codes(
             qs.reshape(out_dim, in_dim), s.astype(np.float32),
-            None if bias is None else bias.astype(np.float32), group, device)
+            None if bias is None else bias.astype(np.float32), group, device, scale_dtype)
 
     @staticmethod
     def from_jax_packed(qs, scales, scales_hi, device=None) -> "QWeight":

@@ -12,7 +12,9 @@ requantization, which exists for its tensor-parallel path only.  The
 embedding table is dequantized; a file without output.weight ties it to
 the embedding.  Then the same load-time transforms as the reference run:
 the interleaved->half RoPE column permutation and the wqkv / w13 fusion
-(within one weight form).  The reference's `norms_2d` only works around a
+(within one weight form).  Quant scales and mins are rounded to
+`scale_dtype`, bfloat16 by default, as the reference's loader does (the
+values rounded, the storage float32: ops/qweight.py).  The reference's `norms_2d` only works around a
 TPU tile shape and has no counterpart.
 """
 
@@ -57,6 +59,7 @@ def open_model_file(path: str):
 
 
 def load_model(path: str, n_ctx: int = 2048, dtype=torch.bfloat16, device="cuda",
+               scale_dtype=torch.bfloat16,
                **config_overrides) -> Tuple[LlamaConfig, LlamaParams, object]:
     """Load a ggjt or GGUF file (or TH chunk directory) onto `device`.
     Returns (config, params, tokenizer): a Tokenizer, or a BpeTokenizer
@@ -86,10 +89,11 @@ def load_model(path: str, n_ctx: int = 2048, dtype=torch.bfloat16, device="cuda"
             if (rec.ggml_type in _KQUANTS and len(rec.shape) == 2 and "norm" not in name
                     and name != "tok_embeddings.weight"):
                 tensors[name] = QWeight.from_kquant_raw(rec.ggml_type, bytes(f.raw(name)),
-                                                        rec.shape, device)
+                                                        rec.shape, device, scale_dtype)
             else:
                 tensors[name] = f.load_tensor(name)
-        params = params_from_ggml(cfg, tensors, dtype=dtype, device=device)
+        params = params_from_ggml(cfg, tensors, dtype=dtype, device=device,
+                                  scale_dtype=scale_dtype)
     finally:
         f.close()
     cfg, params = rope_half_params(cfg, params)

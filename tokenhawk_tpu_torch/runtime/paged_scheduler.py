@@ -19,9 +19,13 @@ free list.
   - A request that can never fit fails with `oom_pages` instead of
     spinning; starved chunking slots give up the largest one first.
   - One host transfer per decode chunk: the sampled ids.
+  - With a draft model (bf16/f32 pages only) every step is one
+    speculative round (runtime/speculative.py): the draft keeps a dense
+    per-slot cache, prefilled with the whole prompt at activation, and
+    the target verifies its gamma tokens with forward_paged_verify at
+    each slot's frontier, over the table cut to the live pages.
 
-Not ported yet: speculative serving (ROADMAP Queue 1 item 4) and tensor
-parallelism (item 8).
+Not ported yet: tensor parallelism (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -37,16 +41,17 @@ import torch
 
 from tokenhawk_tpu_torch.config import LlamaConfig, SamplingConfig
 from tokenhawk_tpu_torch.models.llama import (
+    KVCache,
     LlamaParams,
     forward_paged_decode,
     forward_paged_prefill,
     forward_paged_prefill_cont,
     logits_from_hidden,
 )
+from tokenhawk_tpu_torch.runtime import speculative
 from tokenhawk_tpu_torch.runtime.engine import _bucket, last_rows, prefill_buckets
 from tokenhawk_tpu_torch.runtime.paged import PageAllocator, PagedKVCache
 from tokenhawk_tpu_torch.runtime.scheduler import (
-    SPEC_TODO,
     TP_TODO,
     Request,
     admit_state,
@@ -134,15 +139,16 @@ class PagedScheduler:
         draft_params: Optional[LlamaParams] = None,
         mesh=None,
         layout: str = "contig",
+        gamma: int = 4,
     ):
         """prefill_chunk: admit prompts longer than this in page-aligned
         chunks interleaved with decode steps (a multiple of page_size;
         None = single-shot admission).  prefix_cache: reuse full prompt
         pages across requests.  layout: the pool's physical layout,
         "contig" (page-major) or "head" (head-major).  cache_dtype "int8"
-        makes int8 pages with per-token scales (runtime/paged.py)."""
-        if draft_cfg is not None or draft_params is not None:
-            raise NotImplementedError(SPEC_TODO)
+        makes int8 pages with per-token scales (runtime/paged.py).
+        draft_cfg / draft_params: speculative serving, gamma draft tokens
+        per round."""
         if mesh is not None:
             raise NotImplementedError(TP_TODO)
         if prefill_chunk is not None and prefill_chunk % page_size:
@@ -169,6 +175,20 @@ class PagedScheduler:
         self._prefill = make_paged_prefill_fn(cfg)
         self._decode = make_paged_decode_fn_dynamic(cfg, decode_chunk, eos_id)
         self._prefill_cont = make_paged_prefill_cont_fn(cfg)
+        self.spec = draft_params is not None
+        self.gamma = gamma
+        if self.spec:
+            speculative.check_draft(draft_cfg, cfg)
+            if cache_dtype == "int8":
+                raise ValueError("speculative serving needs bf16 pages")
+            self.draft_cfg, self.draft_params = draft_cfg, draft_params
+            self.draft_cache = KVCache.create(draft_cfg, self.B, self.S, cache_dtype,
+                                              self.device)
+            self._spec_step = speculative.make_spec_serving_fn_paged(draft_cfg, cfg, gamma,
+                                                                     eos_id)
+            self._spec_step_sampled = speculative.make_spec_serving_fn_paged_sampled(
+                draft_cfg, cfg, gamma, eos_id)
+            self._slot_sampled = [False] * self.B
         self.prefill_chunk = prefill_chunk
         self.prefix_cache_enabled = prefix_cache
         self.prefix_hits = 0  # pages reused across requests (stats)
@@ -446,6 +466,12 @@ class PagedScheduler:
         first = admit_state(logits, self.sp, self.counters, self.last_tok, self.last_n,
                             self.done, to_device(self.device, slots),
                             to_device(self.device, rings), slot_sp)
+        if self.spec:
+            speculative.draft_prefill(self.draft_cfg, self.draft_params, self.draft_cache,
+                                      [(slot, req.prompt, 0) for slot, req in rows],
+                                      self.buckets)
+            for slot, req in rows:
+                self._slot_sampled[slot] = (req.sampling or self.sampling).temperature > 0.0
         first_host = first.tolist()
         now = time.perf_counter()
         for i, (slot, req) in enumerate(rows):
@@ -533,7 +559,10 @@ class PagedScheduler:
         if len(req.output) >= req.max_new_tokens:
             self._retire(slot, "length")
             return False
-        if len(req.prompt) + len(req.output) >= self.S - 1:
+        # A speculative slot retires gamma tokens early: the next round
+        # writes a block of gamma+1 rows.
+        margin = 1 + (self.gamma if self.spec else 0)
+        if len(req.prompt) + len(req.output) >= self.S - margin:
             self._retire(slot, "context_full")
             return False
         return True
@@ -593,12 +622,17 @@ class PagedScheduler:
         if self.n_active == 0:
             return
 
-        # Top up pages so every live slot can absorb a full chunk.
+        # Top up pages so every live slot can absorb a full chunk (or a
+        # speculative round's gamma+1 rows).
+        grow = (self.gamma + 1 if self.spec else self.decode_chunk) + 1
         for slot in range(self.B):
             if self.slots[slot] is not None:
-                if not self._ensure_pages(slot, int(self.lengths[slot]) + self.decode_chunk + 1):
+                if not self._ensure_pages(slot, int(self.lengths[slot]) + grow):
                     self._retire(slot, "oom_pages")
         if self.n_active == 0:
+            return
+        if self.spec:
+            self._spec_round()
             return
         (self.cache, toks, self.done, self.counters, self.last_n) = self._decode(
             self.params, self.cache, to_device(self.device, self._masked_table()), self.last_tok,
@@ -614,6 +648,33 @@ class PagedScheduler:
                 if not self._deliver(slot, int(t)):
                     break
             self.lengths[slot] += n_emitted
+
+    def _spec_round(self):
+        """One speculative round over every slot.  The verify reads the
+        table cut to the power-of-two page count that covers every slot's
+        block (rows past it are masked in any case).  One host transfer:
+        the committed ids and their counts."""
+        W = self._table_width(int(self.lengths.max()) + self.gamma + 1)
+        table = to_device(self.device, self._masked_table()[:, :W])
+        lengths = to_device(self.device, self.lengths)
+        if any(self._slot_sampled[s] for s in range(self.B) if self.slots[s] is not None):
+            (self.draft_cache, self.cache, out, n_new, _, self.done, self.last_tok, self.last_n,
+             self.counters) = self._spec_step_sampled(
+                self.draft_params, self.params, self.draft_cache, self.cache, table,
+                self.last_tok, lengths, self.done, self.last_n, self.sp, self.counters)
+        else:
+            (self.draft_cache, self.cache, out, n_new, _, self.done,
+             self.last_tok) = self._spec_step(
+                self.draft_params, self.params, self.draft_cache, self.cache, table,
+                self.last_tok, lengths, self.done)
+        rows = torch.cat([n_new[:, None], out], dim=1).tolist()
+        self.lengths += np.array([row[0] for row in rows], np.int32)
+        for slot, (n, *toks) in enumerate(rows):
+            if self.slots[slot] is None:
+                continue
+            for t in toks[:n]:
+                if not self._deliver(slot, int(t)):
+                    break
 
     # -- serving surface (serving/server.py drives either scheduler) ----
 
@@ -657,6 +718,9 @@ class PagedScheduler:
         first); the pending queue is untouched."""
         self.cache = PagedKVCache.create(self.cfg, self.n_pages, self.ps, self.cache_dtype,
                                          self.device, self.layout)
+        if self.spec:
+            self.draft_cache = KVCache.create(self.draft_cfg, self.B, self.S, self.cache_dtype,
+                                              self.device)
         self._reset_pool_state()
         self._reset_slot_state()
 

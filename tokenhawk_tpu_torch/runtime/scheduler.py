@@ -10,8 +10,15 @@ host transfer per chunk.  Sessions keep a slot's KV between requests, so
 a follow-up message prefills only its new tokens, straight into the
 stripe (a view of the cache, written in place).
 
-Not ported yet: speculative serving (draft model; ROADMAP Queue 1 item
-4) and tensor parallelism (a mesh; Queue 1 item 8).
+With a draft model (draft_cfg / draft_params) every step is one
+speculative round instead of a decode chunk (runtime/speculative.py):
+the draft keeps its own dense per-slot cache, mirrored at every
+admission, proposes gamma tokens, and the target commits the accepted
+prefix and one token of its own.  Greedy slots take the exact-match
+rule (the target-only greedy stream); a round with a sampled slot takes
+rejection sampling for every slot.
+
+Not ported yet: tensor parallelism (a mesh; ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 
 from tokenhawk_tpu_torch.config import LlamaConfig, SamplingConfig
 from tokenhawk_tpu_torch.models.llama import KVCache, LlamaParams
+from tokenhawk_tpu_torch.runtime import speculative
 from tokenhawk_tpu_torch.runtime.engine import (
     _bucket,
     make_decode_fn_dynamic,
@@ -36,7 +44,6 @@ from tokenhawk_tpu_torch.runtime.engine import (
 from tokenhawk_tpu_torch.sampling import SamplingParams, normalize_eos, sample_dynamic
 from tokenhawk_tpu_torch.tokenizer import EOS_ID
 
-SPEC_TODO = "speculative serving is not ported yet (ROADMAP Queue 1 item 4)"
 TP_TODO = "tensor-parallel serving is not ported yet (ROADMAP Queue 1 item 8)"
 
 
@@ -182,9 +189,8 @@ class Scheduler:
         mesh=None,
         draft_cfg: Optional[LlamaConfig] = None,
         draft_params: Optional[LlamaParams] = None,
+        gamma: int = 4,
     ):
-        if draft_cfg is not None or draft_params is not None:
-            raise NotImplementedError(SPEC_TODO)
         if mesh is not None:
             raise NotImplementedError(TP_TODO)
         if cache_dtype in ("int8", "auto"):
@@ -205,6 +211,21 @@ class Scheduler:
         self._decode = make_decode_fn_dynamic(cfg, decode_chunk, eos_id)
         self.cache_dtype = cache_dtype
         self.cache = KVCache.create(cfg, self.B, self.S, cache_dtype, self.device)
+        self.buckets = prefill_buckets(self.S)
+
+        self.spec = draft_params is not None
+        self.gamma = gamma
+        if self.spec:
+            speculative.check_draft(draft_cfg, cfg)
+            self.draft_cfg, self.draft_params = draft_cfg, draft_params
+            self.draft_cache = KVCache.create(draft_cfg, self.B, self.S, cache_dtype,
+                                              self.device)
+            self._spec_step = speculative.make_spec_serving_fn(draft_cfg, cfg, gamma, eos_id)
+            self._spec_step_sampled = speculative.make_spec_serving_fn_sampled(
+                draft_cfg, cfg, gamma, eos_id)
+            # Host mirror of the slots' temperatures: a round whose live
+            # slots are all greedy takes the cheaper exact-match round.
+            self._slot_sampled = [False] * self.B
 
         self.n_ring = max(sampling.repeat_last_n, 1)
         self._reset_slot_state()
@@ -217,7 +238,6 @@ class Scheduler:
         # slots are evicted LRU when fresh admissions need capacity.
         self.sessions: dict = {}
         self.pinned: dict = {}
-        self.buckets = prefill_buckets(self.S)
 
     def _reset_slot_state(self):
         dev = self.device
@@ -249,9 +269,9 @@ class Scheduler:
             return self._fail(req, "error:prompt_too_long")
         sess = self.sessions.get(req.session) if req.session else None
         if sess is not None:
-            # The padded new message must fit behind the session's
-            # resident tokens.
-            pad = -(-len(req.prompt) // 8) * 8
+            # The padded new message (and a speculative round's block)
+            # must fit behind the session's resident tokens.
+            pad = -(-len(req.prompt) // 8) * 8 + (self.gamma if self.spec else 0)
             if sess.n_past + pad >= self.S:
                 return self._fail(req, "error:context_full")
         self.pending.append(req)
@@ -305,9 +325,12 @@ class Scheduler:
                             self.done, slots_dev, rings,
                             SamplingParams.from_configs(scfgs, Nb, self.device))
         self.offsets[slots_dev[:n]] = lengths_dev[:n]
+        if self.spec:
+            self._draft_prefill([(slot, req.prompt, 0) for slot, req, _Tb in group])
         first_host = first.tolist()
         now = time.perf_counter()
         for i, (slot, req, _Tb) in enumerate(group):
+            self._note_sampling(slot, req)
             req.n_past0 = 0
             self.slots[slot] = req
             self.pinned.pop(slot, None)
@@ -337,8 +360,19 @@ class Scheduler:
         _, logits = self._prefill(self.params, stripe, to_device(self.device, toks),
                                   to_device(self.device, [len(combined)], torch.int32),
                                   to_device(self.device, [base_w], torch.int32))
+        if self.spec:
+            self._draft_prefill([(slot, combined, base_w)])
         self._finish_admit(slot, req, logits, base=sess.n_past, tail=sess.tail)
         return True
+
+    def _draft_prefill(self, rows):
+        """Mirror admissions (slot, tokens, base) into the draft's cache."""
+        speculative.draft_prefill(self.draft_cfg, self.draft_params, self.draft_cache, rows,
+                                  self.buckets)
+
+    def _note_sampling(self, slot: int, req: Request):
+        if self.spec:
+            self._slot_sampled[slot] = (req.sampling or self.sampling).temperature > 0.0
 
     def _finish_admit(self, slot: int, req: Request, logits, base: int, tail: List[int]):
         req.n_past0 = base
@@ -349,6 +383,7 @@ class Scheduler:
                             self.done, to_device(self.device, [slot]), rings,
                             SamplingParams.broadcast(scfg, 1, self.device))
         self.offsets[slot] = base + len(req.prompt)
+        self._note_sampling(slot, req)
         self.slots[slot] = req
         # The slot now belongs to this request; drop any idle pin.
         self.pinned.pop(slot, None)
@@ -372,7 +407,10 @@ class Scheduler:
         if len(req.output) >= req.max_new_tokens:
             self._retire(slot, "length")
             return False
-        if req.n_past0 + len(req.prompt) + len(req.output) >= self.S - 1:
+        # A speculative slot retires gamma tokens early: the next round
+        # writes a block of gamma+1 rows, which must stay inside the cache.
+        margin = 1 + (self.gamma if self.spec else 0)
+        if req.n_past0 + len(req.prompt) + len(req.output) >= self.S - margin:
             self._retire(slot, "context_full")
             return False
         return True
@@ -430,6 +468,9 @@ class Scheduler:
         repeated step failures (callers retire the active slots first).
         Sessions lose their context; the pending queue is untouched."""
         self.cache = KVCache.create(self.cfg, self.B, self.S, self.cache_dtype, self.device)
+        if self.spec:
+            self.draft_cache = KVCache.create(self.draft_cfg, self.B, self.S, self.cache_dtype,
+                                              self.device)
         self._reset_slot_state()
         self.sessions.clear()
         self.pinned.clear()
@@ -488,6 +529,9 @@ class Scheduler:
                 self._admit_batch(list(grp))
         if self.n_active == 0:
             return
+        if self.spec:
+            self._spec_round()
+            return
 
         (self.cache, toks, self.offsets, self.last_n, self.done,
          self.counters) = self._decode(
@@ -500,6 +544,27 @@ class Scheduler:
             if self.slots[slot] is None:
                 continue
             for t in toks_host[slot]:
+                if not self._deliver(slot, int(t)):
+                    break
+
+    def _spec_round(self):
+        """One speculative round over every slot; each live slot receives
+        its n_new committed tokens (one host transfer)."""
+        if any(self._slot_sampled[s] for s in range(self.B) if self.slots[s] is not None):
+            (self.draft_cache, self.cache, out, n_new, self.offsets, self.done, self.last_tok,
+             self.last_n, self.counters) = self._spec_step_sampled(
+                self.draft_params, self.params, self.draft_cache, self.cache, self.last_tok,
+                self.offsets, self.done, self.last_n, self.sp, self.counters)
+        else:
+            (self.draft_cache, self.cache, out, n_new, self.offsets, self.done,
+             self.last_tok) = self._spec_step(
+                self.draft_params, self.params, self.draft_cache, self.cache, self.last_tok,
+                self.offsets, self.done)
+        rows = torch.cat([n_new[:, None], out], dim=1).tolist()
+        for slot, (n, *toks) in enumerate(rows):
+            if self.slots[slot] is None:
+                continue
+            for t in toks[:n]:
                 if not self._deliver(slot, int(t)):
                     break
 

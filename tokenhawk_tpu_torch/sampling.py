@@ -8,8 +8,9 @@ mass reaches top_p, the crossing token included.  Draws come from an
 explicit torch.Generator on the logits' device, so the ids never leave
 the device inside a decode chunk.
 
-The per-slot half (SamplingParams, sample_dynamic) is the counterpart of
-the reference's traced sampling for continuous batching.
+The per-slot half (SamplingParams, sample_dynamic, processed_probs_dynamic,
+categorical_probs) is the counterpart of the reference's traced sampling
+for continuous batching and speculative sampling.
 """
 
 from __future__ import annotations
@@ -251,6 +252,17 @@ def processed_probs_dynamic(logits: torch.Tensor, sp: SamplingParams,
                                           logits.shape[-1]).float()
     probs = torch.softmax(_filtered(logits, sp, last_tokens), dim=-1)
     return torch.where(sp.temperature[:, None] <= 0.0, one_hot, probs)
+
+
+def categorical_probs(probs: torch.Tensor, seeds: torch.Tensor,
+                      counters: torch.Tensor) -> torch.Tensor:
+    """One draw per row from probability rows [B, V] -> [B] int64, slot b's
+    noise from (seeds[b], counters[b]) (Gumbel-max, as sample_dynamic).
+    Zero-probability tokens are unreachable: speculative sampling's
+    residual and top-k / top-p masks rely on it."""
+    z = torch.where(probs > 0, torch.log(torch.clamp(probs, min=1e-30)), _NEG_INF)
+    u = uniform_rows(seeds, counters, probs.shape[-1])
+    return torch.argmax(z - torch.log(-torch.log(u)), dim=-1)
 
 
 def sample_dynamic(logits: torch.Tensor, sp: SamplingParams, counters: torch.Tensor,

@@ -11,8 +11,11 @@ any of the tokenizer's end-of-generation ids (a Llama-3 BPE vocab's
 <|eot_id|> as well as its EOS), and /v1/chat/completions renders a GGUF
 file's own tokenizer.chat_template.  --paged --kv int8 serves from int8 pages with per-token scales;
 the dense Scheduler keeps bf16 KV whatever --kv says, as the reference's
-does (a note on stderr).  Not ported yet, and refused with an error: --tp
-(ROADMAP Queue 1 item 8) and --draft-model / --gamma (item 4).
+does (a note on stderr).  --draft-model FILE (with --gamma N) serves
+speculatively through either scheduler: greedy requests get the target's
+greedy stream, sampled ones rejection sampling (bf16 pages only with
+--paged).  Not ported yet, and refused with an error: --tp (ROADMAP
+Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -21,9 +24,7 @@ import argparse
 import sys
 import time
 
-NOT_PORTED = {"tp": "--tp (tensor parallelism) is not ported yet (ROADMAP Queue 1 item 8)",
-              "draft_model": "--draft-model is not ported yet (ROADMAP Queue 1 item 4)",
-              "gamma": "--gamma (speculative decoding) is not ported yet (ROADMAP Queue 1 item 4)"}
+NOT_PORTED = {"tp": "--tp (tensor parallelism) is not ported yet (ROADMAP Queue 1 item 8)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -56,8 +57,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv", choices=["bf16", "int8"], default="bf16",
                    help="paged KV dtype (int8 halves page traffic)")
     p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--draft-model")
-    p.add_argument("--gamma", type=int)
+    p.add_argument("--draft-model",
+                   help="GGML or GGUF draft model: speculative continuous batching")
+    p.add_argument("--gamma", type=int, default=4,
+                   help="draft tokens proposed per speculative round")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     return p
 
@@ -68,11 +71,8 @@ def main(argv=None) -> int:
     model_path = args.model or args.dir
     if not model_path:
         parser.error("one of -m/--model or -d/--dir is required")
-    asked = {"tp": args.tp != 1, "draft_model": args.draft_model is not None,
-             "gamma": args.gamma is not None}
-    for name, given in asked.items():
-        if given:
-            parser.error(NOT_PORTED[name])
+    if args.tp != 1:
+        parser.error(NOT_PORTED["tp"])
 
     import torch
 
@@ -87,6 +87,11 @@ def main(argv=None) -> int:
     cfg, params, tokenizer = load_model(model_path, n_ctx=args.n_ctx, dtype=dtype,
                                         device=args.device)
     print(f"Loaded in {time.perf_counter() - t0:.1f}s", file=sys.stderr)
+    draft_cfg = draft_params = None
+    if args.draft_model:
+        draft_cfg, draft_params, _ = load_model(args.draft_model, n_ctx=args.n_ctx, dtype=dtype,
+                                                device=args.device)
+    spec = dict(draft_cfg=draft_cfg, draft_params=draft_params, gamma=args.gamma)
     sampling = SamplingConfig(
         temperature=0.0 if args.greedy else args.temp,
         top_k=args.top_k, top_p=args.top_p,
@@ -100,7 +105,8 @@ def main(argv=None) -> int:
             cfg, params, sampling=sampling, max_batch=args.max_batch, max_seq=args.n_ctx,
             decode_chunk=args.decode_chunk, page_size=args.page_size,
             cache_dtype="int8" if args.kv == "int8" else dtype,
-            prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache, eos_id=eos_id)
+            prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache, eos_id=eos_id,
+            **spec)
     else:
         from tokenhawk_tpu_torch.runtime.scheduler import Scheduler
 
@@ -108,10 +114,11 @@ def main(argv=None) -> int:
             print("note: --kv int8 applies to --paged; the dense server keeps bf16 KV",
                   file=sys.stderr)
         sched = Scheduler(cfg, params, sampling=sampling, max_batch=args.max_batch,
-                          max_seq=args.n_ctx, decode_chunk=args.decode_chunk, eos_id=eos_id)
+                          max_seq=args.n_ctx, decode_chunk=args.decode_chunk, eos_id=eos_id,
+                          **spec)
     httpd = serve(sched, tokenizer, host=args.host, port=args.port,
                   model_info={"model": model_path, "n_ctx": args.n_ctx, "paged": args.paged,
-                              "chat_template": tokenizer.chat_template, "speculative": False,
+                              "chat_template": tokenizer.chat_template, "speculative": bool(args.draft_model),
                               "device": str(params.device)})
     print(f"Serving on http://{args.host}:{args.port}", file=sys.stderr)
     try:
