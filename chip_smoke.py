@@ -43,8 +43,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      the PagedScheduler; kernels 13 and 2 launched, kernel 1 not;
   6q. the 32-layer LLaMA-7B model in Q8_0 through Engine.generate;
   7. a 2-layer Llama-3-8B-width Q4_K_M GGUF file with a byte-level BPE
-     vocab of 128256 tokens: load_model, the CLI (bf16 KV and --kv auto),
-     and `python -m tokenhawk_tpu_torch.serving --paged` (SSE, one chat
+     vocab of 128256 tokens: load_model, the CLI (--kv auto; since phase
+     10 was added the CLI's bf16 run is phase 5's alone, a load of this
+     file taking 35-50 s), and `python -m tokenhawk_tpu_torch.serving --paged` (SSE, one chat
      request through the file's template, a request that stops on
      <|eot_id|>);
   8. dense weights: the 32-layer LLaMA-7B in bf16 (TokenHawk's f16
@@ -52,18 +53,33 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      kernel 14 (decode attention without append, behind an index copy)
      and kernel 4 launched, kernels 1, 2 and 3 not; tok/s against the
      weight-bytes roofline, the idle share of a profiled request;
-  9. speculation: 9a SpeculativeEngine, the 7B Q4_0 target with a
-     22-layer TinyLlama-width bf16 draft (kernel 14 at 4 KV heads of 64, 8
-     queries each), gamma 4, each stream held against the Engine's greedy
-     stream; 9b a 2-layer self-draft (acceptance >= 90%); 9c the
-     PagedScheduler with the draft (12 requests, half sampled); 9d the CLI
-     and `serving --paged` with --draft-model as subprocesses (a
-     TinyLlama-width F16 GGUF draft).  Phases 8 and 9 run after phase 5.
+  9. speculation: 9a SpeculativeEngine, the 7B Q4_0 target (its first 16
+     layers since phase 10 was added) with a 22-layer TinyLlama-width bf16
+     draft (kernel 14 at 4 KV heads of 64, 8 queries each), gamma 4, each
+     stream held against the Engine's greedy stream; 9b a 2-layer
+     self-draft (acceptance >= 90%); 9c the PagedScheduler with the draft
+     (12 requests, half sampled); 9d the CLI and `serving --paged` with
+     --draft-model as subprocesses (a TinyLlama-width F16 GGUF draft).
+     Phases 8 and 9 run after phase 5.
+  10. the reference's fused decode-layer kernels, off by default
+     (THAWK_FUSED_OWO, THAWK_FUSED_ATTN) and set here on the built model:
+     10a the 32-layer LLaMA-7B Q4_0 Engine with neither, OWO (kernel 15),
+     ATTN (kernel 16) and both, in turns: exact launches per decode token
+     (kernel 3 and Wo's kernel-1 launches gone under ATTN, kernel 2 under
+     OWO alone), tok/s and the idle share of each, each fused greedy
+     stream held to the unfused one up to near-ties and in float32; 10b
+     phase 4b's paged server with OWO (kernel 15 at 8 rows); 10c a
+     TinyLlama-width Q4_0 model (22 layers, head dim 64) under the
+     PagedScheduler on bf16 and int8 pages (kernels 5-7 and 10-12 at Dh
+     64), then `serving --paged` (bf16, int8 pages) on phase 9d's F16 GGUF
+     file.  Phase 10 runs after phase 9.
 Phase 2 also holds kernel 13 (group-code matmul) and kernel 2 over the
 GGUF kinds at those models' shapes, kernels 3-12 at Llama-3-8B's 8 KV
-heads of 4 queries each, kernel 14 at the 7B's and TinyLlama's heads, and
-kernels 3, 4, 8 and 9 at TinyLlama's head dim 64; phase 3 also runs a
-2-layer Q4_K_M slice.
+heads of 4 queries each, kernel 14 at the 7B's and TinyLlama's heads,
+kernels 3-12 at TinyLlama's head dim 64 (8 queries a KV head), and
+kernels 15 and 16 at the 7B's widths in Q4_0 and Q8_0, each beside the
+unfused port kernels it replaces; phase 3 also runs a 2-layer Q4_K_M
+slice.  Each phase's header line ends with the seconds since the start.
 The next-to-last line is {"kernels": [...]}, the last {"ok": true, ...}.
 It needs one CUDA device and the rest of the repository beside it.
 """
@@ -99,6 +115,15 @@ SLICE_TOL = 5e-2
 # through 32 layers; 1e-4 leaves a margin and sits far below the bfloat16
 # spread (a few %).
 F32_FORMS_TOL = 1e-4
+# Logits after 32 layers of bfloat16 activations from two correct forms of
+# one function, the fused decode-layer kernels against the unfused path:
+# the roundings they do not share (x' and the context kept in f32, the
+# query's scale rounded to bf16 as the reference's wrapper rounds it) move
+# them 4-6% of the largest |logit| apart (on an H100: 4.398% with kernel
+# 15, 5.196% with kernel 16; phase 9a's two forms 3.971%), while a wrong
+# kernel is off by O(1).  Phase 10a's float32 witness holds the same
+# forms within F32_FORMS_TOL, which is the decisive check.
+DEEP_BF16_TOL = 0.1
 # The card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s and
 # dense bf16 tensor-core FLOP/s.  A kernel's bound is the larger of its
 # bytes (each input read once, each output written once) over the first
@@ -115,6 +140,9 @@ PAGED_PS, PAGED_POOL = 128, 140
 # inside its time after phases 8 and 9 were added.
 INT8_CTX = 2048
 INT8_LAYERS = 8
+# Phase 9 runs the 7B target's first 16 layers (its widths) since phase 10
+# was added, to keep the script's run inside its time.
+SPEC_LAYERS = 16
 # Kernel 2's launch counts by weight-form pairing (ops/cuda/ffn.py): Q4_0
 # over Q4_0; Q4_K (G 32 with mins) over Q6_K (G 16) and over Q4_K, the
 # two of a Q4_K_M file; Q8_0 (G 32) over Q8_0.
@@ -123,7 +151,13 @@ FFN_Q4_K_M = ["ffn[g32m/g16]", "ffn[g32m/g32m]"]
 FFN_Q8_0 = "ffn[g32/g32]"
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str = "") -> None:
+    """Print a line; a phase's header line gets the seconds since start."""
+    if msg.startswith("== "):
+        msg += f" [{time.perf_counter() - _T0:.0f} s]"
     print(msg, flush=True)
 
 
@@ -386,18 +420,212 @@ def phase_kernels() -> list:
     records.append(_decode_attend_record(randn, case))
     gqa = _gqa_cases(randn, case, g)
     dh64 = _head_dim_64_cases(randn, case)
+    paged64 = _paged_head_dim_64_cases(randn, case, g)
     for rec in records:
-        rec["cases"] += gqa.get(rec["name"], []) + dh64.get(rec["name"], [])
+        rec["cases"] += (gqa.get(rec["name"], []) + dh64.get(rec["name"], [])
+                         + paged64.get(rec["name"], []))
         rec["max_abs_err"] = max(c["max_abs_err"] for c in rec["cases"])
     records += _group_code_kernel_records(randn, case, library, g)
+    records += _fused_layer_records(randn, case, library, g)
     return records
+
+
+def _qweights(parts, ws) -> list:
+    """QWeights like ws (a list) over the flat tensor list `parts` (each
+    weight's qs, scales and mins where it has them), as copies() makes them."""
+    out, i = [], 0
+    for w in ws:
+        n = 2 if w.mins is None else 3
+        out.append(dataclasses.replace(w, qs=parts[i], scales=parts[i + 1],
+                                       mins=parts[i + 2] if n == 3 else None))
+        i += n
+    return out
+
+
+def _weight_sets(ws) -> list:
+    """copies() of a list of QWeights, each a list of QWeights."""
+    parts = [t for w in ws for t in (w.qs, w.scales, w.mins) if t is not None]
+    return [_qweights(c, ws) for c in copies(parts, sum(w.nbytes for w in ws))]
+
+
+def _fused_layer_records(randn, case, library, g) -> list:
+    """Kernels 15 and 16 (the reference's env-gated fused decode-layer
+    kernels) at LLaMA-7B's widths, Q4_0 and Q8_0, against their plain
+    versions; each timed beside the unfused port kernels it replaces on the
+    model's path (kernel 1's Wo + add + kernel 2; the q scale + kernel 3 +
+    kernel 1's Wo + add) and the PyTorch calls that compute the same."""
+    import torch
+    import torch.nn.functional as tf
+
+    from tokenhawk_tpu_torch.ops.cuda import ffn, flash_decode, qmatmul
+    from tokenhawk_tpu_torch.ops.qweight import QWeight
+
+    log("-- kernels 15 and 16: the fused decode-layer kernels (7B widths)")
+    dev = torch.device("cuda")
+    bf = 2
+    D, F, H, Dh = 4096, 11008, 32, 128
+
+    def weight(quant, k, n):
+        if quant == "q4_0":
+            return QWeight.quantize(randn(k, n, scale=0.02, dtype=torch.float32))
+        return QWeight.random(k, n, "q8_0", g, dev)
+
+    def unfused_ms(fns) -> float:
+        ms = timed(fns)["ms"]
+        log(f"  unfused port kernels: {ms:.4f} ms")
+        return ms
+
+    # -- kernel 15 --
+    cases, extra = [], {}
+    for quant in ("q4_0", "q8_0"):
+        ws = [weight(quant, D, D), weight(quant, D, 2 * F), weight(quant, F, D)]
+        sets = _weight_sets(ws)
+        gain = 1.0 + randn(D, scale=0.1)
+        for rows in (1, 8):
+            ctx, x = randn(rows, D), randn(rows, D)
+            case(cases, f"fused_owo_ffn {quant} Dq=D={D} F={F} rows={rows}", quant, rows,
+                 ffn.fused_owo_ffn(ctx, x, *ws, gain), ffn.fused_owo_ffn_plain(ctx, x, *ws, gain),
+                 [lambda s=s: ffn.fused_owo_ffn(ctx, x, *s, gain) for s in sets],
+                 [lambda s=s: ffn.fused_owo_ffn_plain(ctx, x, *s, gain) for s in sets])
+            if quant == "q4_0" and rows == 1:
+                extra["owo_unfused"] = unfused_ms(
+                    [lambda s=s: ffn.fused_ffn(x + qmatmul.quant_matmul(ctx, s[0]), s[1], s[2],
+                                               gain) for s in sets])
+                extra["owo_lib"] = library(
+                    "dequantize Wo + matmul + add, then rms_norm + dequantize w13 and w2 + 2 "
+                    "matmul + silu, bf16 (14+ calls)",
+                    [lambda s=s: _ffn_library(x + ctx @ s[0].dequantize(torch.bfloat16), s[1],
+                                              s[2], gain) for s in sets])
+        del ws, sets
+    owo = _record("fused_owo_ffn", "tokenhawk_tpu_torch/csrc/ffn.cu",
+                  "tokenhawk_tpu/ops/pallas/ffn.py:431 (_fused_owo_ffn via fused_owo_ffn)",
+                  cases, ("q4_0", 1),
+                  bound((D * D + 3 * D * F) * 0.625 + 4 * D * bf, 2 * (D * D + 3 * D * F)),
+                  extra["owo_lib"])
+    owo["unfused_ms"] = extra["owo_unfused"]
+
+    # -- kernel 16: B=1, one query per kv head, n_ctx 512 --
+    cases = []
+    S = S_CTX
+    scale = 1.0 / Dh**0.5
+    for quant in ("q4_0", "q8_0"):
+        wo = weight(quant, D, D)
+        for L in ((1, 37, S) if quant == "q4_0" else (S,)):
+            q, kn, vn = (randn(1, 1, H, Dh) for _ in range(3))
+            x = randn(1, 1, D)
+            kc, vc = randn(1, H, S, Dh), randn(1, H, S, Dh)
+            kp, vp = kc.clone(), vc.clone()
+            lengths = torch.tensor([L], dtype=torch.int32, device=dev)
+            out = flash_decode.fused_attn_out(x, q, kn, vn, kc, vc, lengths, wo)
+            ref = flash_decode.fused_attn_out_plain(x, q, kn, vn, kp, vp, lengths, wo)
+            if not (torch.equal(kc, kp) and torch.equal(vc, vp)):
+                raise AssertionError(f"fused_attn_out L={L}: caches differ from the plain's")
+            sets = [[c[0], c[1], *_qweights(c[2:], [wo])] for c in
+                    copies([kc, vc, wo.qs, wo.scales], 2 * kc.nbytes + wo.nbytes)]
+            case(cases, f"fused_attn_out {quant} H={H} Dh={Dh} L={L} S={S} (caches identical)",
+                 f"{quant} L={L}", 1, out, ref,
+                 [lambda c=c: flash_decode.fused_attn_out(x, q, kn, vn, *c[:2], lengths, c[2])
+                  for c in sets],
+                 [lambda c=c: flash_decode.fused_attn_out_plain(x, q, kn, vn, *c[:2], lengths,
+                                                                c[2]) for c in sets])
+            if quant == "q4_0" and L == S:
+                extra["attn_unfused"] = unfused_ms([lambda c=c: x + qmatmul.quant_matmul(
+                    flash_decode.flash_decode_append(
+                        (q[:, 0] * scale).reshape(1, H, 1, Dh), kn[:, 0], vn[:, 0], *c[:2],
+                        lengths).reshape(1, 1, D), c[2]) for c in sets])
+                extra["attn_lib"] = library(
+                    "scaled_dot_product_attention over the live rows (no append) + dequantize "
+                    "Wo + matmul + add (4+ calls)",
+                    [lambda c=c: x + tf.scaled_dot_product_attention(
+                        q.transpose(1, 2), c[0][:, :, :L], c[1][:, :, :L]).reshape(1, 1, D)
+                     @ c[2].dequantize(torch.bfloat16) for c in sets])
+            del kc, vc, kp, vp, sets
+        del wo
+    attn = _record("fused_attn_out", "tokenhawk_tpu_torch/csrc/flash_decode.cu",
+                   "tokenhawk_tpu/ops/pallas/attn_block.py:303 (_attn_wo via fused_attn_out)",
+                   cases, (f"q4_0 L={S}", 1),
+                   bound(D * D * 0.625 + (2 * S + 5) * H * Dh * bf + 2 * D * bf,
+                         2 * D * D + 4 * S * H * Dh), extra["attn_lib"])
+    attn["unfused_ms"] = extra["attn_unfused"]
+    return [owo, attn]
+
+
+def _paged_head_dim_64_cases(randn, case, g) -> dict:
+    """Kernels 5-7 and 10-12 at TinyLlama's heads (4 KV heads of 64, 8
+    queries each) over phase 2's paged shapes (B=8, PAGED_LENGTHS, a 140-page
+    pool, shuffled table, two appends on the trash page), bf16 and int8
+    pages, both layouts, checked: appends and gathers exactly.  Returns
+    kernel name -> cases."""
+    import torch
+
+    from tokenhawk_tpu_torch.ops.cuda import paged_decode as pd
+    from tokenhawk_tpu_torch.ops.cuda import paged_int8 as pi
+    from tokenhawk_tpu_torch.ops.kvquant import quantize_kv_block
+
+    log("-- kernels 5-7 and 10-12 at 4 KV heads of 64 x 8 queries (TinyLlama), checked")
+    dev = torch.device("cuda")
+    Hkv, rep, Dh, ps, n_pool = 4, 8, 64, PAGED_PS, PAGED_POOL
+    B, mp = len(PAGED_LENGTHS), max(PAGED_LENGTHS) // ps
+    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
+    perm = torch.randperm(n_pool, generator=g, device=dev)
+    table = perm[:B * mp].reshape(B, mp).to(torch.int32).contiguous()
+    trash = int(perm[-1])
+    pos = lengths.long() - 1
+    page = table.gather(1, (pos // ps)[:, None])[:, 0].clone()
+    slot = (pos % ps).to(torch.int32)
+    page[-2:], slot[-2:] = trash, 5
+    keep = torch.arange(n_pool, device=dev) != trash
+    out = {}
+
+    def check(name, label, got, want, frac=KERNEL_TOL):
+        case(out.setdefault(name, []), f"{name} Dh 64 rep 8 {label}", f"dh64 {label}", B, got,
+             want, frac=frac)
+
+    for layout in ("contig", "head"):
+        shape = (n_pool, Hkv, ps, Dh) if layout == "contig" else (Hkv, n_pool, ps, Dh)
+
+        def kept(xs):
+            return torch.cat([(x[keep] if layout == "contig" else x[:, keep]).float().flatten()
+                              for x in xs])
+
+        q = randn(B, Hkv, rep, Dh, scale=Dh**-0.5)
+        kn, vn = randn(B, Hkv, Dh), randn(B, Hkv, Dh)
+        pool = [randn(*shape), randn(*shape)]
+        check("paged_decode", f"{layout} lengths={PAGED_LENGTHS}",
+              pd.paged_decode(q, *pool, table, lengths, layout),
+              pd.paged_decode_plain(q, *pool, table, lengths, layout))
+        pa, pb = [x.clone() for x in pool], [x.clone() for x in pool]
+        pd.paged_append(*pa, kn, vn, page, slot, layout)
+        pd.paged_append_plain(*pb, kn, vn, page, slot, layout)
+        check("paged_append", f"{layout} (outside the trash page, exact)", kept(pa), kept(pb),
+              0.0)
+        got, want = pd.gather_pages(*pool, table, layout), pd.gather_pages_plain(*pool, table,
+                                                                                 layout)
+        check("gather_pages", f"{layout} (K and V, exact)", torch.cat(got), torch.cat(want), 0.0)
+
+        ipool = []
+        for _ in range(2):
+            codes, scales = quantize_kv_block(randn(*shape, dtype=torch.float32))
+            ipool += [codes, scales.float()]
+        check("paged_decode_int8", f"{layout} lengths={PAGED_LENGTHS}",
+              pi.paged_decode_int8(q, *ipool, table, lengths, layout),
+              pi.paged_decode_int8_plain(q, *ipool, table, lengths, layout))
+        pa, pb = [x.clone() for x in ipool], [x.clone() for x in ipool]
+        pi.paged_append_int8(*pa, kn, vn, page, slot, layout)
+        pi.paged_append_int8_plain(*pb, kn, vn, page, slot, layout)
+        check("paged_append_int8", f"{layout} (codes and scales outside the trash page, exact)",
+              kept(pa), kept(pb), 0.0)
+        got = pi.gather_pages_int8(*ipool, table, layout, torch.bfloat16)
+        want = pi.gather_pages_int8_plain(*ipool, table, layout, torch.bfloat16)
+        check("gather_pages_int8", f"{layout} -> bf16 (K and V, exact)", torch.cat(got),
+              torch.cat(want), 0.0)
+        del pool, ipool, pa, pb, got, want
+    return out
 
 
 def _weight_copies(w) -> list:
     """copies() of a QWeight, each a QWeight."""
-    parts = [w.qs, w.scales] + ([] if w.mins is None else [w.mins])
-    return [dataclasses.replace(w, qs=c[0], scales=c[1], mins=c[2] if len(c) > 2 else None)
-            for c in copies(parts, w.nbytes)]
+    return [ws[0] for ws in _weight_sets([w])]
 
 
 def _group_code_kernel_records(randn, case, library, g) -> list:
@@ -1290,10 +1518,16 @@ def phase_int8_serve(cfg, params, kernel_mods, on_path, off_path) -> dict:
     return counts
 
 
-def _decode_window(engine, prompt, chunks: int = 4) -> None:
+def _decode_window(engine, prompt, chunks: int = 4, kernel_mods=(),
+                   profiled: bool = True) -> dict:
     """Device busy time against wall time over `chunks` greedy decode
     chunks after the prompt's prefill (outside the window), the host
-    reading each chunk's ids as Engine.generate does."""
+    reading each chunk's ids as Engine.generate does.  Returns the
+    window's tok/s, tokens and the launches of kernel_mods' kernels in it,
+    and, profiled, its idle share and device ms per token.  Unprofiled,
+    the wall time carries no profiler cost per launch."""
+    import contextlib
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1305,7 +1539,9 @@ def _decode_window(engine, prompt, chunks: int = 4) -> None:
                         device=dev)
     done = torch.zeros(1, dtype=torch.bool, device=dev)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    _reset_counts(kernel_mods)
+    with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+          else contextlib.nullcontext()) as prof:
         t0 = time.perf_counter()
         for _ in range(chunks):
             cache, toks, offsets, last_n, done = engine._decode(
@@ -1314,15 +1550,20 @@ def _decode_window(engine, prompt, chunks: int = 4) -> None:
             toks.tolist()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    counts = _read_counts(kernel_mods)
+    n = chunks * engine.decode_chunk
+    if not profiled:
+        return {"tok_s": n / wall, "tokens": n, "counts": counts}
     avgs = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in avgs) / 1e6
-    n = chunks * engine.decode_chunk
     attn = [e for e in avgs if "decode_int8_kernel" in e.key or "decode_append_kernel" in e.key]
     log(f"decode window, {engine.cache_dtype} cache, {len(prompt)}+ live tokens, {n} tokens "
         f"(profiler on): wall {wall * 1e3:.1f} ms ({n / wall:.1f} tok/s), device busy "
         f"{busy * 1e3:.1f} ms ({n / busy:.1f} tok/s), idle share {1 - busy / wall:.1%}; "
         + ", ".join(f"{_kernel_name(e.key)} {e.self_device_time_total / max(e.count, 1):.2f} us "
                     f"x {e.count}" for e in attn))
+    return {"tok_s": n / wall, "idle": 1 - busy / wall, "tokens": n, "counts": counts,
+            "device_ms": busy * 1e3 / n}
 
 
 def _profile_request(engine, prompt) -> None:
@@ -1814,17 +2055,18 @@ def phase_gguf(tmp: str, kernel_mods) -> None:
     del sched, params
     torch.cuda.empty_cache()
 
-    for extra in (["--n-ctx", str(S_CTX)], ["--kv", "auto", "--n-ctx", str(INT8_CTX)]):
-        _reset_counts(kernel_mods)
-        rc = cli.main(["-m", path, "Hello, my name is", "--greedy", "--max-tokens", "16", *extra])
-        sys.stderr.flush()
-        counts = _read_counts(kernel_mods)
-        if rc != 0:
-            raise AssertionError(f"cli {extra} returned {rc}")
-        dec = "flash_decode_int8" if "--kv" in extra else "flash_decode"
-        other = "flash_decode" if "--kv" in extra else "flash_decode_int8"
-        _check_path(counts, ["qk_matmul", *FFN_Q4_K_M, dec], ["q4_matmul", other])
-        log(f"cli on the GGUF {' '.join(extra)}: exit 0, kernel launches {counts}")
+    # The CLI with --kv auto (int8 at n_ctx 2048); its bf16 run on a file
+    # is phase 5's, and each load of this file takes 35-50 s of host time.
+    extra = ["--kv", "auto", "--n-ctx", str(INT8_CTX)]
+    _reset_counts(kernel_mods)
+    rc = cli.main(["-m", path, "Hello, my name is", "--greedy", "--max-tokens", "16", *extra])
+    sys.stderr.flush()
+    counts = _read_counts(kernel_mods)
+    if rc != 0:
+        raise AssertionError(f"cli {extra} returned {rc}")
+    _check_path(counts, ["qk_matmul", *FFN_Q4_K_M, "flash_decode_int8"],
+                ["q4_matmul", "flash_decode"])
+    log(f"cli on the GGUF {' '.join(extra)}: exit 0, kernel launches {counts}")
 
     # Swap the head rows of the third token and <|eot_id|>: the server's
     # third greedy token for STOP_PROMPT becomes <|eot_id|>.
@@ -1970,34 +2212,35 @@ def _decode_and_verify_forms(engine, prompt, n: int, gamma: int) -> tuple:
 
 
 def _check_greedy_identity(label: str, spec_toks, forms, band_tol: float = SLICE_TOL) -> None:
-    """The speculative stream against the Engine's greedy stream: equal,
-    or first apart at a step where the verify's own arithmetic chose the
-    speculative token (the verify form's argmax) at a near-tie: the top
-    two Engine logits closer than the two forms' logits differ (a flip
-    needs gap <= 2 x that difference).  The difference itself must stay
-    under band_tol of the largest |logit|: bfloat16 rounding under
-    SLICE_TOL, as the slices; in float32 under F32_FORMS_TOL, which shows
-    the bfloat16 spread is rounding and not a fault of the verify."""
+    """A stream (speculative, or fused) against the Engine's greedy
+    stream: equal, or first apart at a step where the other form's own
+    arithmetic chose the stream's token (that form's argmax: the verify's,
+    or the fused forward's) at a near-tie: the top two Engine logits closer
+    than the two forms' logits differ (a flip needs gap <= 2 x that
+    difference).  The difference itself must stay under band_tol of the
+    largest |logit|: bfloat16 rounding under SLICE_TOL, as the slices; in
+    float32 under F32_FORMS_TOL, which shows the bfloat16 spread is
+    rounding and not a fault of the other form."""
     want, vtoks, gaps, diffs = forms
     band = max(diffs[:len(spec_toks)])
     i = next((j for j, (a, b) in enumerate(zip(spec_toks, want)) if a != b), None)
     if not band < band_tol:
-        raise AssertionError(f"{label}: verify and decode logits differ by {band:.3e}, "
+        raise AssertionError(f"{label}: the forms' logits differ by {band:.3e}, "
                              f"over {band_tol:g}")
     if i is None:
-        log(f"{label}: speculative stream = Engine's greedy stream ({len(want)} tokens); "
-            f"verify vs decode logits differ by at most {band:.3e} of the largest |logit| "
+        log(f"{label}: stream = Engine's greedy stream ({len(want)} tokens); the two forms' "
+            f"logits differ by at most {band:.3e} of the largest |logit| "
             f"(tolerance {band_tol:g}); smallest top-two gap {min(gaps):.3e}")
         return
     log(f"{label}: first differs from the Engine's greedy stream at step {i}, where its top-two "
         f"logit gap is {gaps[i]:.3%} of the largest |logit| (within 1%: {gaps[i] <= 0.01}); "
-        f"there the verify's logits differ from the decode's by {diffs[i]:.3%} (at most "
-        f"{band:.3%} over the steps), and the verify form picks the speculative token: "
+        f"there the other form's logits differ from the decode's by {diffs[i]:.3%} (at most "
+        f"{band:.3%} over the steps), and that form picks the stream's token: "
         f"{vtoks[i] == spec_toks[i]}")
     if spec_toks[i] != vtoks[i] or not gaps[i] <= 2 * diffs[i]:
-        raise AssertionError(f"{label}: speculative stream diverges at step {i}: gap {gaps[i]}, "
-                             f"difference {diffs[i]}, verify token {vtoks[i]}, "
-                             f"speculative {spec_toks[i]}")
+        raise AssertionError(f"{label}: stream diverges at step {i}: gap {gaps[i]}, "
+                             f"difference {diffs[i]}, the other form's token {vtoks[i]}, "
+                             f"the stream's {spec_toks[i]}")
 
 
 def _profiled(run) -> tuple:
@@ -2079,8 +2322,9 @@ def _spec_engine_run(spec, prompt, label, n_new: int = 64) -> tuple:
 
 
 def phase_speculation(params, kernel_mods, model_path: str, tmp: str) -> dict:
-    """Phase 9: speculative decoding.  9a: SpeculativeEngine, the 32-layer
-    LLaMA-7B Q4_0 target with a 22-layer TinyLlama-width bf16 draft, gamma
+    """Phase 9: speculative decoding.  9a: SpeculativeEngine, the LLaMA-7B
+    Q4_0 target (its first SPEC_LAYERS layers) with a 22-layer
+    TinyLlama-width bf16 draft, gamma
     4, prompts of 5 and 300 tokens, 64 new tokens, each stream held
     against the Engine's greedy stream, then again with float32
     activations and cache; 9b: a 2-layer 7B-width Q4_0 target drafted by
@@ -2098,9 +2342,11 @@ def phase_speculation(params, kernel_mods, model_path: str, tmp: str) -> dict:
     from tokenhawk_tpu_torch.runtime.speculative import SpeculativeEngine
 
     dev = torch.device("cuda")
-    cfg = _seven_b(32)
+    cfg = _seven_b(SPEC_LAYERS)
+    params = dataclasses.replace(params, layers=params.layers[:SPEC_LAYERS])
     dcfg = _tinyllama(22)
-    log(f"== phase 9a: SpeculativeEngine, LLaMA-7B Q4_0 target, TinyLlama-width draft "
+    log(f"== phase 9a: SpeculativeEngine, LLaMA-7B Q4_0 target ({SPEC_LAYERS} layers), "
+        f"TinyLlama-width draft "
         f"({dcfg.n_layer} layers, dense bf16, {dcfg.n_kv_head} KV heads of {dcfg.head_dim}), "
         f"gamma 4, n_ctx {S_CTX}")
     t0 = time.perf_counter()
@@ -2303,6 +2549,211 @@ def _speculation_subprocesses(model_path: str, tmp: str) -> None:
                                               "--gamma", "4"])
 
 
+# Kernel 15's and kernel 16's launch keys (ops/cuda/ffn.py, flash_decode.py).
+OWO_Q4_0 = "owo_ffn[q4_0/q4_0]"
+ATTN_WO = "attn_wo"
+
+
+def _fused_forms(engine, prompt, n: int, fusions) -> tuple:
+    """As _decode_and_verify_forms, for the fused decode-layer kernels: the
+    unfused greedy stream (prefill, then one decode forward a token) and,
+    at every step on the same history, the logits of the forward with
+    `fusions` over a cache of its own.  Returns per step: the unfused
+    token, the fused form's argmax, the unfused logits' top-two gap and
+    the two forms' largest logit difference, both over the largest |logit|."""
+    import torch
+
+    from tokenhawk_tpu_torch.models.llama import Fusions, forward, logits_from_hidden
+
+    cfg, params, dev = engine.cfg, engine.params, engine.device
+    forms = (Fusions(), fusions)
+
+    def with_fusions(f, run):
+        params.fusions = f
+        try:
+            return run()
+        finally:
+            params.fusions = Fusions()
+
+    caches, lgs = [], []
+    for f in forms:
+        c, lg, _ = with_fusions(f, lambda: engine.prefill(engine.new_cache(1), [prompt]))
+        caches.append(c)
+        lgs.append(lg[0].float())
+    toks, ftoks, gaps, diffs = [], [], [], []
+    with torch.inference_mode():
+        for i in range(n):
+            lu, lf = lgs
+            top = torch.topk(lu, 2).values
+            big = lu.abs().max()
+            gaps.append(float((top[0] - top[1]) / big))
+            diffs.append(float((lu - lf).abs().max() / big))
+            toks.append(int(lu.argmax()))
+            ftoks.append(int(lf.argmax()))
+            pos = torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev)
+            tok = torch.tensor([[toks[-1]]], device=dev)
+            for j, f in enumerate(forms):
+                h, _ = with_fusions(f, lambda j=j: forward(cfg, params, tok, caches[j], pos))
+                lgs[j] = logits_from_hidden(cfg, params, h[:, 0])[0].float()
+    return toks, ftoks, gaps, diffs
+
+
+def phase_fused_engine(params, kernel_mods) -> dict:
+    """Phase 10a: the reference's fused decode-layer kernels on the 32-layer
+    LLaMA-7B Q4_0 Engine (phase 4's params, n_ctx 512): with neither, OWO
+    (kernel 15), ATTN (kernel 16) and both, in turns, two rounds, the
+    second in reverse order.  At each first turn, greedy requests of 5 and
+    300 prompt tokens, 64 new tokens each (their launches); at every turn
+    two decode windows after the 300-token prompt, one unprofiled (64
+    tokens: tok/s) and one under the profiler (32 tokens: idle share,
+    device ms a token), whose launches per token must be exactly the
+    form's: kernel 3 and Wo's kernel-1 launches gone under ATTN, kernel 2
+    gone under OWO alone.  Each fused stream is held to the unfused one up
+    to near-ties, as phase 9a holds its streams, and in float32 (at B=1
+    "both" decodes as ATTN does, kernel 16 then kernel 2, so a "both"
+    stream equal to ATTN's needs no second check).  Returns each form's
+    request launches."""
+    from tokenhawk_tpu_torch.config import SamplingConfig
+    from tokenhawk_tpu_torch.models.llama import Fusions
+    from tokenhawk_tpu_torch.runtime.engine import Engine
+    from tokenhawk_tpu_torch.tokenizer import byte_fallback_vocab
+
+    log("== phase 10a: fused decode-layer kernels, LLaMA-7B Q4_0, 32 layers, Engine, bf16 KV, "
+        f"n_ctx {S_CTX}: neither, OWO (kernel 15), ATTN (kernel 16), both, in turns")
+    cfg = _seven_b(32)
+    L = cfg.n_layer
+    eng = Engine(cfg, params, byte_fallback_vocab(), sampling=SamplingConfig(temperature=0.0),
+                 max_seq=S_CTX, eos_id=-1)
+    rng = np.random.default_rng(SEED + 21)
+    prompts = [[1] + rng.integers(3, cfg.n_vocab, n - 1).tolist() for n in (5, 300)]
+    forms = {"neither": Fusions(), "owo": Fusions(owo=True), "attn": Fusions(attn=True),
+             "both": Fusions(owo=True, attn=True)}
+    # Launches per decode token: wqkv and the head are kernel 1 in every form.
+    per_token = {"neither": {"q4_matmul": 2 * L + 1, "flash_decode": L, FFN_Q4_0: L},
+                 "owo": {"q4_matmul": L + 1, "flash_decode": L, OWO_Q4_0: L},
+                 "attn": {"q4_matmul": L + 1, ATTN_WO: L, FFN_Q4_0: L},
+                 "both": {"q4_matmul": L + 1, ATTN_WO: L, FFN_Q4_0: L}}
+    streams, requests, windows = {}, {}, {k: [] for k in forms}
+    order = ["neither", "owo", "attn", "both"]
+    try:
+        for name in order + order[::-1]:
+            params.fusions = forms[name]
+            if name not in streams:
+                _reset_counts(kernel_mods)
+                runs = [eng.generate(p, max_new_tokens=64) for p in prompts]
+                requests[name] = _read_counts(kernel_mods)
+                streams[name] = [r.tokens for r in runs]
+                log(f"10a {name}: requests of {[len(p) for p in prompts]} prompt tokens decode "
+                    f"{', '.join(f'{r.decode_tokens_per_second:.1f}' for r in runs)} tok/s; "
+                    f"launches {requests[name]}")
+                if any(len(r.tokens) != 64 for r in runs):
+                    raise AssertionError(f"10a {name}: a request ended short")
+            t = _decode_window(eng, prompts[1], 8, kernel_mods, profiled=False)
+            w = _decode_window(eng, prompts[1], kernel_mods=kernel_mods)
+            for x in (t, w):
+                want = {k: v * x["tokens"] for k, v in per_token[name].items()}
+                if x["counts"] != want:
+                    raise AssertionError(f"10a {name}: decode launches {x['counts']}, want {want}")
+            windows[name].append((t["tok_s"], w["idle"], w["device_ms"]))
+    finally:
+        params.fusions = Fusions()
+    for name in ("owo", "attn", "both"):
+        for i, (p, got, want) in enumerate(zip(prompts, streams[name], streams["neither"])):
+            label = f"10a {name} prompt={len(p)}"
+            if got == want:
+                log(f"{label}: stream = the unfused greedy stream ({len(want)} tokens)")
+            elif name == "both" and got == streams["attn"][i]:
+                log(f"{label}: stream = ATTN's stream ({len(want)} tokens), checked above")
+            else:
+                _check_greedy_identity(label, got, _fused_forms(eng, p, len(want), forms[name]),
+                                       DEEP_BF16_TOL)
+    _fused_f32_witness(params, prompts[0], {k: forms[k] for k in ("owo", "attn")},
+                       kernel_mods)
+    log("10a A/B, decode windows at 300+ live tokens, per form in turns: tok/s unprofiled "
+        "(median) | idle share and device ms a token under the profiler:")
+    for k, v in windows.items():
+        log(f"  {k:7s} " + ", ".join(f"{x[0]:.1f}" for x in v)
+            + f" ({float(np.median([x[0] for x in v])):.1f}) | "
+            + ", ".join(f"{x[1]:.1%} {x[2]:.3f}" for x in v))
+    return requests
+
+
+def _fused_f32_witness(params, prompt, forms, kernel_mods) -> None:
+    """10a in float32: the same Q4_0 model with float32 activations and
+    cache; each fused greedy stream (32 tokens, its fused kernel launched)
+    and, step by step, the fused forward's logits against the unfused ones
+    within F32_FORMS_TOL."""
+    import torch
+
+    from tokenhawk_tpu_torch.config import SamplingConfig
+    from tokenhawk_tpu_torch.models.llama import Fusions
+    from tokenhawk_tpu_torch.runtime.engine import Engine
+
+    log("== phase 10a, float32 witness: the 10a model with float32 activations and cache")
+    target = _float32(params)
+    eng = Engine(_seven_b(32), target, sampling=SamplingConfig(temperature=0.0), max_seq=S_CTX,
+                 cache_dtype=torch.float32, eos_id=-1)
+    for name, fusions in forms.items():
+        target.fusions = fusions
+        _reset_counts(kernel_mods)
+        try:
+            toks = eng.generate(prompt, max_new_tokens=32).tokens
+        finally:
+            target.fusions = Fusions()
+        _check_path(_read_counts(kernel_mods), [OWO_Q4_0 if fusions.owo else ATTN_WO], [])
+        _check_greedy_identity(f"10a f32 {name} prompt={len(prompt)}", toks,
+                               _fused_forms(eng, prompt, len(toks), fusions), F32_FORMS_TOL)
+
+
+def phase_fused_paged(params, kernel_mods, bf16_paged, off_path) -> dict:
+    """Phase 10b: phase 4b's paged server (LLaMA-7B Q4_0, 8 slots) with OWO
+    on: kernel 15 at up to 8 decode rows, kernel 2 never.  Returns the
+    run's launches."""
+    from tokenhawk_tpu_torch.models.llama import Fusions
+
+    cfg = dataclasses.replace(_seven_b(32), n_ctx=2048)
+    params.fusions = Fusions(owo=True)
+    try:
+        counts, sched = phase_paged_serve(
+            params, cfg, kernel_mods, "bf16", ["q4_matmul", OWO_Q4_0, "flash_attention"]
+            + bf16_paged, [FFN_Q4_0, ATTN_WO, "flash_decode"] + off_path,
+            "phase 10b: paged serve with OWO (kernel 15), LLaMA-7B Q4_0, 32 layers")
+    finally:
+        params.fusions = Fusions()
+    sched.cache = None
+    return counts
+
+
+def phase_tinyllama_paged(kernel_mods, bf16_paged, int8_paged, dense_off, tmp: str) -> dict:
+    """Phase 10c: a TinyLlama-width Q4_0 model (22 layers, 32 heads over 4
+    KV heads of 64) as the PagedScheduler's model, phase 4b's requests on
+    bf16 then int8 pages: kernels 5-7, then 10-12, at head dim 64; then
+    `python -m tokenhawk_tpu_torch.serving --paged` (bf16 and int8 pages)
+    on phase 9d's 2-layer TinyLlama-width F16 GGUF file.  Returns the bf16
+    and int8 runs' launches."""
+    import torch
+
+    cfg = _tinyllama(22, n_ctx=2048)
+    params, _ = _model(cfg, "q4_0", "phase 10c: TinyLlama widths, Q4_0, 22 layers")
+    base_off = ["qk_matmul", "flash_decode", OWO_Q4_0, ATTN_WO] + dense_off
+    counts = {}
+    for kv, on, off in (("bf16", bf16_paged, int8_paged), ("int8", int8_paged, bf16_paged)):
+        counts[kv], sched = phase_paged_serve(
+            params, cfg, kernel_mods, kv, ["q4_matmul", FFN_Q4_0, "flash_attention"] + on,
+            base_off + off, f"phase 10c: paged serve, TinyLlama widths (head dim 64), Q4_0, "
+                            f"{cfg.n_layer} layers")
+        sched.cache = None
+        del sched
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    gguf = os.path.join(tmp, "tinyllama-2layer-f16.gguf")
+    for extra in (["--paged"], ["--paged", "--kv", "int8"]):
+        _serve_subprocess(root, gguf, tmp, extra)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2361,6 +2812,12 @@ def main() -> int:
         # over the Q4_0 model, its draft's decode through kernel 14 at Dh 64.
         dense_counts = phase_dense_7b(every)
         phase_speculation(params, every, path, tmp)
+        # Phase 10: the fused decode-layer kernels (10a Engine, 10b paged),
+        # then a head-dim-64 model under the paged server (10c).
+        fused_counts = phase_fused_engine(params, every)
+        phase_fused_paged(params, every, bf16_paged, int8_dense + int8_paged)
+        torch.cuda.empty_cache()
+        phase_tinyllama_paged(every, bf16_paged, int8_paged, int8_dense, tmp)
         del params  # the Q4_0 model goes before the GGUF kinds' phases
         torch.cuda.empty_cache()
         # Phases 6 and 6q: group-code projections (kernel 13) and the FFN over
@@ -2381,7 +2838,8 @@ def main() -> int:
     # 5-7, the int8 Engine's for kernels 8-9, the int8 paged server's for
     # kernels 10-12, and the Engine runs of phases 6 (Q4_K_M) and 6q (Q8_0)
     # for kernel 13 and kernel 2 over those kinds, each pairing its own;
-    # the dense 7B Engine's of phase 8 for kernel 14.
+    # the dense 7B Engine's of phase 8 for kernel 14; phase 10a's requests
+    # with OWO for kernel 15 and with ATTN for kernel 16.
     launches = {"q4_matmul": counts["q4_matmul"], "fused_ffn": counts[FFN_Q4_0],
                 "flash_decode_append": counts["flash_decode"],
                 "flash_attention": counts["flash_attention"],
@@ -2393,7 +2851,9 @@ def main() -> int:
                 **{k: paged_counts[k] for k in bf16_paged},
                 **{k: int8_counts[k] for k in int8_dense},
                 **{k: int8_paged_counts[k] for k in int8_paged},
-                "flash_decode_attend": dense_counts["flash_decode_attend"]}
+                "flash_decode_attend": dense_counts["flash_decode_attend"],
+                "fused_owo_ffn": fused_counts["owo"][OWO_Q4_0],
+                "fused_attn_out": fused_counts["attn"][ATTN_WO]}
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -144,6 +144,72 @@ def test_fused_ffn_kernel_matches_plain_over_every_form(pair, rows, dtype):
     assert _err(got, want) <= _tol(want, dtype)
 
 
+@pytest.mark.parametrize("form", ["q4_0", (32, False)])  # Q4_0 and Q8_0
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_owo_ffn_kernel_matches_plain(form, rows, dtype):
+    """Kernel 15 at LLaMA-7B's widths, Wo, w13 and w2 in one form."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(rows)
+    D, F = 4096, 11008
+    wo, w13, w2 = (_weight(form, k, n, g, dev) for k, n in ((D, D), (D, 2 * F), (F, D)))
+    ctx = torch.randn(rows, D, generator=g, device=dev).to(dtype)
+    x = torch.randn(rows, D, generator=g, device=dev).to(dtype)
+    gain = (1 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype)
+    assert ffn.can_fuse_owo_ffn(wo, w13, w2, rows)
+    name = qmatmul.FORM_NAMES[qmatmul.form_code(w13)]
+    key = f"owo_ffn[{name}/{name}]"
+    before = dict(ffn.launches)
+    got = ffn.fused_owo_ffn(ctx, x, wo, w13, w2, gain)
+    assert ffn.launches == {**before, key: before[key] + 1}
+    want = ffn.fused_owo_ffn_plain(ctx, x, wo, w13, w2, gain)
+    assert got.shape == (rows, D) and got.dtype == dtype
+    assert _err(got, want) <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("pair", FFN_PAIRS)
+def test_owo_ffn_kernel_matches_plain_over_every_form(pair):
+    """Kernel 15 over every weight form (Wo in w13's form), 5 rows."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(5)
+    D, F = 1024, 2048
+    wo, w13 = _weight(pair[0], D, D, g, dev), _weight(pair[0], D, 2 * F, g, dev)
+    w2 = _weight(pair[1], F, D, g, dev)
+    ctx, x = (torch.randn(5, D, generator=g, device=dev).bfloat16() for _ in range(2))
+    gain = (1 + 0.1 * torch.randn(D, generator=g, device=dev)).bfloat16()
+    got = ffn.fused_owo_ffn(ctx, x, wo, w13, w2, gain)
+    want = ffn.fused_owo_ffn_plain(ctx, x, wo, w13, w2, gain)
+    assert _err(got, want) <= _tol(want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
+@pytest.mark.parametrize("form", ["q4_0", (32, False)])  # Q4_0 and Q8_0
+@pytest.mark.parametrize("length", [1, 37, 512])
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+def test_attn_wo_kernel_matches_plain(form, length, cache_dtype, Dh):
+    """Kernel 16 at LLaMA-7B's widths (32 heads of 128; also 64 heads of
+    64), n_ctx 512: the appended rows exactly, x' within tolerance."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(length + Dh)
+    D, S = 4096, 512
+    H = D // Dh
+    wo = _weight(form, D, D, g, dev)
+    q, kn, vn = (torch.randn(1, 1, H, Dh, generator=g, device=dev).bfloat16()
+                 for _ in range(3))
+    x = torch.randn(1, 1, D, generator=g, device=dev).bfloat16()
+    kc, vc = (torch.randn(1, H, S, Dh, generator=g, device=dev).to(cache_dtype)
+              for _ in range(2))
+    kp, vp = kc.clone(), vc.clone()
+    lengths = torch.tensor([length], dtype=torch.int32, device=dev)
+    before = flash_decode.launches["attn_wo"]
+    got = flash_decode.fused_attn_out(x, q, kn, vn, kc, vc, lengths, wo)
+    assert flash_decode.launches["attn_wo"] == before + 1
+    want = flash_decode.fused_attn_out_plain(x, q, kn, vn, kp, vp, lengths, wo)
+    assert torch.equal(kc, kp) and torch.equal(vc, vp)
+    assert got.shape == (1, 1, D) and got.dtype == torch.bfloat16
+    assert _err(got, want) <= _tol(want, torch.bfloat16)
+
+
 @pytest.mark.parametrize("Dh", HEAD_DIMS)
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
 @pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
@@ -230,6 +296,22 @@ def test_kernel_refuses_bad_input():
     with pytest.raises(ValueError):  # 3 query heads per kv head
         flash_decode.flash_decode(torch.randn(1, 2, 3, 64, device=dev),
                                   *[torch.zeros(1, 2, 128, 64, device=dev)] * 2, one)
+    pool = torch.zeros(4, 2, 16, 96, device=dev)  # paged pools of head dim 96
+    with pytest.raises(ValueError):
+        paged_decode.paged_decode(q, pool, pool.clone(), torch.zeros(1, 4, dtype=torch.int32,
+                                                                     device=dev), one, "contig")
+    w = QWeight.quantize(torch.randn(256, 256, device=dev) * 0.02)
+    x = torch.randn(9, 256, device=dev)
+    with pytest.raises(ValueError):  # kernel 15 takes at most 8 rows
+        ffn.fused_owo_ffn(x, x, w, QWeight.quantize(torch.randn(256, 512, device=dev)),
+                          QWeight.quantize(torch.randn(256, 256, device=dev)), x[0])
+    q = torch.randn(1, 1, 2, 128, device=dev)
+    c = torch.zeros(1, 2, 128, 128, device=dev)
+    with pytest.raises(ValueError):  # kernel 16 takes one query head per kv head
+        flash_decode.fused_attn_out(x[:1, None], torch.randn(1, 1, 4, 64, device=dev),
+                                    q, q, c, c.clone(), one, w)
+    with pytest.raises(ValueError):  # x of another width than Wo's output
+        flash_decode.fused_attn_out(x[:1, None, :128], q, q, q, c, c.clone(), one, w)
 
 
 def test_slice_gpu_matches_cpu(tmp_path):
@@ -283,19 +365,21 @@ def test_slice_gpu_matches_cpu(tmp_path):
         assert _err(a, b) <= 1e-3 * b.abs().max().item()
 
 
-def _pools(g, dev, layout, Hkv, n_pages, ps, dtype):
+def _pools(g, dev, layout, Hkv, n_pages, ps, dtype, Dh=Dh):
     shape = (n_pages, Hkv, ps, Dh) if layout == "contig" else (Hkv, n_pages, ps, Dh)
     return [torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(2)]
 
 
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
 @pytest.mark.parametrize("layout", ["contig", "head"])
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_paged_decode_kernel_matches_plain(layout, rep, dtype):
+def test_paged_decode_kernel_matches_plain(layout, rep, dtype, Dh):
+    """4 KV heads: at Dh 64 and rep 8, TinyLlama's heads."""
     dev = cuda_device()
     g = torch.Generator(device=dev).manual_seed(rep)
     B, Hkv, ps, mp, n_pages = 5, 4, 128, 4, 24
-    kp, vp = _pools(g, dev, layout, Hkv, n_pages, ps, dtype)
+    kp, vp = _pools(g, dev, layout, Hkv, n_pages, ps, dtype, Dh)
     table = torch.randperm(n_pages, generator=g, device=dev)[:B * mp].reshape(B, mp).int()
     lengths = torch.tensor([1, 37, 128, 129, 0], dtype=torch.int32, device=dev)
     q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).to(dtype)
@@ -305,15 +389,16 @@ def test_paged_decode_kernel_matches_plain(layout, rep, dtype):
     assert _err(got, want) <= _tol(want, dtype)
 
 
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
 @pytest.mark.parametrize("layout", ["contig", "head"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_paged_append_and_gather_kernels_match_plain(layout, dtype):
+def test_paged_append_and_gather_kernels_match_plain(layout, dtype, Dh):
     """Exact: distinct slots of one page all land; two rows on the trash
     page (page 0) leave it unspecified, so it is left out."""
     dev = cuda_device()
     g = torch.Generator(device=dev).manual_seed(7)
     Hkv, ps, n_pages = 4, 128, 10
-    kp, vp = _pools(g, dev, layout, Hkv, n_pages, ps, dtype)
+    kp, vp = _pools(g, dev, layout, Hkv, n_pages, ps, dtype, Dh)
     kq, vq = kp.clone(), vp.clone()
     page = torch.tensor([3, 0, 3, 0, 8], dtype=torch.int32, device=dev)
     slot = torch.tensor([5, 9, 127, 9, 0], dtype=torch.int32, device=dev)
@@ -371,8 +456,9 @@ def _int8(g, dev, *shape):
     return codes, scales
 
 
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_int8_codec_on_the_card_is_the_cpus(dtype):
+def test_int8_codec_on_the_card_is_the_cpus(dtype, Dh):
     """The codec bit for bit on 8192 rows (the CPU's matches JAX's, see
     tests/test_torch_kvquant.py): the plain version on the card, and the
     quantizing append (kernel 11) on 64 sequences of 32 K and V heads,
@@ -441,7 +527,7 @@ def test_prefill_int8_kernel_matches_plain(T, offset, rep, Dh):
     assert _err(got, want) <= _tol(want, torch.bfloat16)
 
 
-def _int8_pools(g, dev, layout, Hkv, n_pages, ps):
+def _int8_pools(g, dev, layout, Hkv, n_pages, ps, Dh=Dh):
     shape = (n_pages, Hkv, ps, Dh) if layout == "contig" else (Hkv, n_pages, ps, Dh)
     out = []
     for _ in range(2):
@@ -450,14 +536,16 @@ def _int8_pools(g, dev, layout, Hkv, n_pages, ps):
     return out  # k, ks, v, vs
 
 
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
 @pytest.mark.parametrize("layout", ["contig", "head"])
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_paged_decode_int8_kernel_matches_plain(layout, rep, dtype):
+def test_paged_decode_int8_kernel_matches_plain(layout, rep, dtype, Dh):
+    """4 KV heads: at Dh 64 and rep 8, TinyLlama's heads."""
     dev = cuda_device()
     g = torch.Generator(device=dev).manual_seed(rep)
     B, Hkv, ps, mp, n_pages = 5, 4, 128, 4, 24
-    pool = _int8_pools(g, dev, layout, Hkv, n_pages, ps)
+    pool = _int8_pools(g, dev, layout, Hkv, n_pages, ps, Dh)
     table = torch.randperm(n_pages, generator=g, device=dev)[:B * mp].reshape(B, mp).int()
     lengths = torch.tensor([1, 37, 128, 129, 0], dtype=torch.int32, device=dev)
     q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).to(dtype)
@@ -467,16 +555,17 @@ def test_paged_decode_int8_kernel_matches_plain(layout, rep, dtype):
     assert _err(got, want) <= _tol(want, dtype)
 
 
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
 @pytest.mark.parametrize("layout", ["contig", "head"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_paged_append_and_gather_int8_kernels_match_plain(layout, dtype):
+def test_paged_append_and_gather_int8_kernels_match_plain(layout, dtype, Dh):
     """Exact: codes and scales of distinct slots all land; two rows on the
     trash page (page 0) leave it unspecified, so it is left out.  The
     gather dequantizes to `dtype` exactly as the plain multiply does."""
     dev = cuda_device()
     g = torch.Generator(device=dev).manual_seed(7)
     Hkv, ps, n_pages = 4, 128, 10
-    pool = _int8_pools(g, dev, layout, Hkv, n_pages, ps)
+    pool = _int8_pools(g, dev, layout, Hkv, n_pages, ps, Dh)
     plain = [x.clone() for x in pool]
     page = torch.tensor([3, 0, 3, 0, 8], dtype=torch.int32, device=dev)
     slot = torch.tensor([5, 9, 127, 9, 0], dtype=torch.int32, device=dev)

@@ -4,7 +4,8 @@ A subprocess blocks `jax` and `regex` (sys.modules["jax"] = None makes
 any import of it fail; the GPU machine has neither), imports every
 module of tokenhawk_tpu_torch, checks that nothing of tokenhawk_tpu came
 along, runs the byte-level BPE tokenizer, a tiny Engine.generate (bf16
-and int8 caches), both continuous-batching schedulers (the paged one
+and int8 caches, then with the fused decode-layer kernels 15 and 16 that
+THAWK_FUSED_OWO / THAWK_FUSED_ATTN turn on), both continuous-batching schedulers (the paged one
 on bf16 and int8 pages) and speculative decoding (SpeculativeEngine and
 both schedulers with a draft) on the CPU.  A source scan backs it up for
 imports inside functions.
@@ -44,6 +45,29 @@ for quant in ("q4_0", None):  # Q4_0 projections, then dense ones
                  cache_dtype=torch.float32, decode_chunk=4, eos_id=-1)
     r = eng.generate("hi there", max_new_tokens=9)
     assert len(r.tokens) == 9 and all(0 <= t < 300 for t in r.tokens), r.tokens
+import os
+from tokenhawk_tpu_torch.models import llama as M
+calls = {"fused_owo_ffn": 0, "fused_attn_out": 0}
+def spy(name):
+    fn = getattr(M, name)
+    def run(*args, **kwargs):
+        calls[name] += 1
+        return fn(*args, **kwargs)
+    setattr(M, name, run)
+for name in calls:
+    spy(name)
+os.environ.update(THAWK_FUSED_OWO="1", THAWK_FUSED_ATTN="1")
+fcfg = LlamaConfig.tiny(n_vocab=300, n_embd=512, n_head=4, n_layer=2, n_ff=512, n_ctx=128)
+fparams = fuse_params(init_params(fcfg, torch.Generator().manual_seed(0), dtype=torch.float32,
+                                  device="cpu", quant="q4_0"))
+del os.environ["THAWK_FUSED_OWO"], os.environ["THAWK_FUSED_ATTN"]
+assert fparams.fusions == M.Fusions(owo=True, attn=True), fparams.fusions
+for fusions in (M.Fusions(owo=True, attn=True), M.Fusions(owo=True)):
+    fparams.fusions = fusions  # kernel 16 then kernel 2, or kernel 15, at each decode step
+    r = Engine(fcfg, fparams, byte_fallback_vocab(), SamplingConfig(temperature=0.0),
+               cache_dtype=torch.float32, decode_chunk=4, eos_id=-1).generate("hi", max_new_tokens=5)
+    assert len(r.tokens) == 5 and all(0 <= t < 300 for t in r.tokens), r.tokens
+assert all(calls.values()), calls
 from tokenhawk_tpu_torch.runtime.paged_scheduler import PagedScheduler
 from tokenhawk_tpu_torch.runtime.scheduler import Scheduler
 eng = Engine(cfg, params, byte_fallback_vocab(), SamplingConfig(temperature=0.7), max_seq=1024,

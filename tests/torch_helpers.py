@@ -60,9 +60,13 @@ def numpy_params(params):
     def conv(w):
         if w is None:
             return None
-        if isinstance(w, JQWeight):
+        if isinstance(w, JQWeight) and w.kind == "q4_0":
             return {"qs": np.asarray(w.qs), "scales": np.asarray(w.scales, np.float32),
                     "scales_hi": np.asarray(w.scales_hi, np.float32)}
+        if isinstance(w, JQWeight):  # int codes [K, N] with [K//G, N] sides
+            return {"kind": w.kind, "group": w.group, "qs": np.asarray(w.qs).astype(np.int8),
+                    "scales": np.asarray(w.scales, np.float32),
+                    "mins": None if w.mins is None else np.asarray(w.mins, np.float32)}
         return np.asarray(w, np.float32)
 
     def layer(lp):

@@ -27,7 +27,23 @@
 // read (its cache is read with plain loads, never through the
 // non-coherent read-only path).  Kernel 14 writes nothing: its cache
 // pointers are const __restrict__, so loads may take the read-only path.
-#include "common.cuh"
+//
+// Kernel 16 replaces tokenhawk_tpu/ops/pallas/attn_block.py fused_attn_out
+// (_attn_wo): the attention block of one decode token (B = 1, one query per
+// kv head), x' = x + attend(q, cache + new row) @ Wo, with the new K / V rows
+// written in place.  Two launches on one stream:
+//   1. kernel 3's body, q pre-scaled in the block by 1/sqrt(Dh) and
+//      rounded to q's type (the scale itself in q's type, as the
+//      reference's wrapper has it), the context written as f32 into a
+//      [H*Dh] scratch, never rounded;
+//   2. the Wo GEMV (gemv.cuh, one row) over that f32 context, x added in
+//      its epilogue and y rounded once.
+// The TPU kernel streams Wo through a DMA ring during the KV walk; on the
+// GPU the two launches run back to back, each bound by its own bytes (the
+// live K / V rows, then Wo's blocks).
+#include <type_traits>
+
+#include "gemv.cuh"
 
 using namespace thawk;
 
@@ -36,10 +52,13 @@ namespace {
 constexpr int kWarps = 8;
 
 // Attention of one block's REP query rows q [REP, DH] (f32 math) over the
-// first L rows of one head's cache kh, vh [S, DH] -> out [REP, DH].
-template <typename TQ, typename TC, int REP, int DH>
+// first L rows of one head's cache kh, vh [S, DH] -> out [REP, DH] in TO.
+// q_scale multiplies q first, rounded back to TQ (1 for kernels 3 and 14,
+// where that is exact).
+template <typename TQ, typename TC, int REP, int DH, typename TO>
 __device__ __forceinline__ void attend_head(const TQ* __restrict__ q, const TC* kh,
-                                            const TC* vh, int L, TQ* __restrict__ out) {
+                                            const TC* vh, int L, TO* __restrict__ out,
+                                            float q_scale) {
   constexpr int kPer = DH / 32;  // head dims a lane owns for P·V
   __shared__ __align__(16) float qsm[REP][DH];
   __shared__ float red_m[kWarps][REP];
@@ -47,7 +66,8 @@ __device__ __forceinline__ void attend_head(const TQ* __restrict__ q, const TC* 
   __shared__ __align__(16) float red_acc[kWarps][REP][DH];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < REP * DH; i += blockDim.x) qsm[i / DH][i % DH] = to_f32(q[i]);
+  for (int i = tid; i < REP * DH; i += blockDim.x)
+    qsm[i / DH][i % DH] = to_f32(from_f32<TQ>(to_f32(q[i]) * q_scale));
   __syncthreads();  // q staged (and kernel 3's appended row visible to the block)
 
   float m[REP], l[REP], acc[REP][kPer];
@@ -125,16 +145,18 @@ __device__ __forceinline__ void attend_head(const TQ* __restrict__ q, const TC* 
       num += red_acc[w][r][d] * f;
       den += red_l[w][r] * f;
     }
-    out[i] = from_f32<TQ>(num / den);
+    out[i] = from_f32<TO>(num / den);
   }
 }
 
-// Kernel 3: append the new row at lengths-1, then attend.
-template <typename TQ, typename TC, int REP, int DH>
+// Kernel 3 (TO = TQ, q_scale 1) and kernel 16's first phase (B = 1, REP 1,
+// TO = float): append the new row at lengths-1, then attend.
+template <typename TQ, typename TC, int REP, int DH, typename TO>
 __global__ void __launch_bounds__(kWarps * 32)
     decode_append_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
                          const TQ* __restrict__ v_new, TC* kc, TC* vc,
-                         const int* __restrict__ lengths, TQ* __restrict__ out, int Hkv, int S) {
+                         const int* __restrict__ lengths, TO* __restrict__ out, int Hkv, int S,
+                         float q_scale) {
   const int bh = blockIdx.x;
   const int L = max(1, min(lengths[bh / Hkv], S));
   TC* kh = kc + static_cast<size_t>(bh) * S * DH;
@@ -147,7 +169,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     vh[dst] = from_f32<TC>(to_f32(v_new[src]));
   }
   const size_t qo = static_cast<size_t>(bh) * REP * DH;
-  attend_head<TQ, TC, REP, DH>(q + qo, kh, vh, L, out + qo);
+  attend_head<TQ, TC, REP, DH, TO>(q + qo, kh, vh, L, out + qo, q_scale);
 }
 
 // Kernel 14: attend only.
@@ -160,7 +182,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int L = max(1, min(lengths[bh / Hkv], S));
   const size_t qo = static_cast<size_t>(bh) * REP * DH;
   const size_t co = static_cast<size_t>(bh) * S * DH;
-  attend_head<TQ, TC, REP, DH>(q + qo, kc + co, vc + co, L, out + qo);
+  attend_head<TQ, TC, REP, DH, TQ>(q + qo, kc + co, vc + co, L, out + qo, 1.f);
 }
 
 struct Args {
@@ -181,9 +203,9 @@ void launch_one(const Args& a) {
   const TQ* q = static_cast<const TQ*>(a.q);
   TQ* o = static_cast<TQ*>(a.out);
   if (a.k_new != nullptr)
-    decode_append_kernel<TQ, TC, REP, DH><<<grid, block, 0, a.stream>>>(
+    decode_append_kernel<TQ, TC, REP, DH, TQ><<<grid, block, 0, a.stream>>>(
         q, static_cast<const TQ*>(a.k_new), static_cast<const TQ*>(a.v_new),
-        static_cast<TC*>(a.kc), static_cast<TC*>(a.vc), a.lengths, o, a.Hkv, a.S);
+        static_cast<TC*>(a.kc), static_cast<TC*>(a.vc), a.lengths, o, a.Hkv, a.S, 1.f);
   else
     decode_attend_kernel<TQ, TC, REP, DH><<<grid, block, 0, a.stream>>>(
         q, static_cast<const TC*>(a.kc), static_cast<const TC*>(a.vc), a.lengths, o, a.Hkv, a.S);
@@ -241,4 +263,71 @@ extern "C" int th_decode_attend(const void* q, const void* kc, const void* vc,
                static_cast<const int*>(lengths), out, B, Hkv, S,
                static_cast<cudaStream_t>(stream)};
   return launch(a, rep, Dh, q_dtype, cache_dtype);
+}
+
+namespace {
+
+struct AttnWoArgs {
+  const void* q;  // [H, Dh], not yet scaled
+  const void* k_new;
+  const void* v_new;
+  void* kc;  // [H, S, Dh]
+  void* vc;
+  const int* lengths;  // [1]
+  const void* x;       // [D]
+  const void *wo_qs, *wo_s, *wo_m;
+  int wo_form;
+  float* ctx;  // [H*Dh] f32 scratch
+  void* y;     // [D]
+  int H, S, D;
+  float q_scale;
+  cudaStream_t stream;
+};
+
+template <typename TQ, typename TC, int DH>
+bool launch_attn_wo(const AttnWoArgs& a) {
+  decode_append_kernel<TQ, TC, 1, DH, float><<<a.H, kWarps * 32, 0, a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TQ*>(a.k_new),
+      static_cast<const TQ*>(a.v_new), static_cast<TC*>(a.kc), static_cast<TC*>(a.vc),
+      a.lengths, a.ctx, a.H, a.S, a.q_scale);
+  return with_reader(a.wo_form, a.wo_qs, a.wo_s, a.wo_m, [&](const auto& wr) {
+    using Reader = std::decay_t<decltype(wr)>;
+    gemv_kernel<float, TQ, 1, kResidual, Reader, float, TQ>
+        <<<dim3(1, gemv_col_blocks(kResidual, a.D)), kGemvThreads, 0, a.stream>>>(
+            a.ctx, 1, a.H * DH, wr, a.D, nullptr, nullptr, static_cast<const TQ*>(a.x),
+            static_cast<TQ*>(a.y));
+  });
+}
+
+template <typename TQ, typename TC>
+bool launch_attn_wo_dh(const AttnWoArgs& a, int Dh) {
+  return Dh == 64 ? launch_attn_wo<TQ, TC, 64>(a) : launch_attn_wo<TQ, TC, 128>(a);
+}
+
+}  // namespace
+
+// Kernel 16.  q, k_new, v_new [H, Dh] in q_dtype (q unscaled); caches
+// [H, S, Dh] in cache_dtype, written in place; lengths [1] int32 (tokens
+// including the new one); x, y [D] in q_dtype; Wo [H*Dh, D] as (qs, scales,
+// mins, form); ctx [H*Dh] f32 scratch.  Dh is 64 or 128 (checked by the
+// Python wrapper).
+extern "C" int th_attn_wo(const void* q, const void* k_new, const void* v_new, void* kc,
+                          void* vc, const void* lengths, const void* x, const void* wo_qs,
+                          const void* wo_s, const void* wo_m, int wo_form, void* ctx, void* y,
+                          int H, int Dh, int S, int D, float q_scale, int q_dtype,
+                          int cache_dtype, void* stream) {
+  if (wo_form < kFormQ4 || wo_form > kFormG16Mins) return static_cast<int>(cudaErrorInvalidValue);
+  const AttnWoArgs a{q, k_new, v_new, kc, vc, static_cast<const int*>(lengths), x, wo_qs, wo_s,
+                     wo_m, wo_form, static_cast<float*>(ctx), y, H, S, D, q_scale,
+                     static_cast<cudaStream_t>(stream)};
+  bool known;
+  if (q_dtype == kBF16 && cache_dtype == kBF16)
+    known = launch_attn_wo_dh<__nv_bfloat16, __nv_bfloat16>(a, Dh);
+  else if (q_dtype == kBF16)
+    known = launch_attn_wo_dh<__nv_bfloat16, float>(a, Dh);
+  else if (cache_dtype == kBF16)
+    known = launch_attn_wo_dh<float, __nv_bfloat16>(a, Dh);
+  else
+    known = launch_attn_wo_dh<float, float>(a, Dh);
+  return known ? THAWK_LAUNCH_RESULT() : static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,6 @@
 // Dequant-GEMV/GEMM core shared by qmatmul.cu (kernel 1 over Q4_0 and
-// kernel 13 over group codes) and ffn.cu (kernel 2, either).
+// kernel 13 over group codes), ffn.cu (kernels 2 and 15, either) and
+// flash_decode.cu (kernel 16's Wo projection).
 //
 // Weight layouts (tokenhawk_tpu_torch/ops/qweight.py), output-major:
 //   q4_0: qs uint8 [N, K/2]; group g of column n is 16 bytes at qs[n][16g],
@@ -145,11 +146,15 @@ struct QkReader {
 //   kStore:    y[B, N]   = acc
 //   kSwiGLU:   y[B, N/2] = silu(acc[:, f]) * acc[:, f + N/2]   (TY = float)
 //   kResidual: y[B, N]   = residual + acc
-template <typename TX, typename TY, int ROWS, int EPI, typename Reader>
+// The gain (TG) and the residual (TR) may differ in type from x and y:
+// kernel 15 adds a bfloat16 residual into an f32 output, normalises an f32
+// input with a bfloat16 gain, and adds an f32 residual into a bfloat16
+// output, each value rounded once.
+template <typename TX, typename TY, int ROWS, int EPI, typename Reader, typename TG, typename TR>
 __global__ void __launch_bounds__(kGemvThreads, 2)
     gemv_kernel(const TX* __restrict__ x, int B, int K, Reader wr, int N,
-                const TX* __restrict__ gain, const float* __restrict__ inv_rms,
-                const TY* __restrict__ residual, TY* __restrict__ y) {
+                const TG* __restrict__ gain, const float* __restrict__ inv_rms,
+                const TR* __restrict__ residual, TY* __restrict__ y) {
   constexpr int SUB = Reader::kSub;
   constexpr int F4_PER_SUB = 8 / SUB;  // float4s of one group
   __shared__ __align__(16) float xs[ROWS][kChunkSlots * kSlotStride];
@@ -267,27 +272,41 @@ __global__ void __launch_bounds__(kGemvThreads, 2)
   }
 }
 
-// Host side: pick the row tile and launch.  Returns nothing; the caller
-// reads cudaGetLastError().
-template <typename TX, typename TY, int EPI, typename Reader>
-void launch_gemv(const TX* x, int B, int K, const Reader& wr, int N, const TX* gain,
-                 const float* inv_rms, const TY* residual, TY* y, cudaStream_t stream) {
+// The column blocks of a launch: 16 output columns each (8 gate/up pairs
+// for kSwiGLU).
+inline int gemv_col_blocks(int EPI, int N) {
   const int cols_per_block = EPI == kSwiGLU ? kGemvWarps : kGemvWarps * kGemvCols;
   const int ncols = EPI == kSwiGLU ? N / 2 : N;
-  const int col_blocks = (ncols + cols_per_block - 1) / cols_per_block;
+  return (ncols + cols_per_block - 1) / cols_per_block;
+}
+
+template <typename T>
+struct Same {
+  using type = T;
+};
+
+// Host side: pick the row tile and launch.  Returns nothing; the caller
+// reads cudaGetLastError().  TG and TR default to the types of x and y;
+// the gain and residual arguments never deduce them (nullptr is allowed).
+template <typename TX, typename TY, int EPI, typename TG = TX, typename TR = TY, typename Reader>
+void launch_gemv(const TX* x, int B, int K, const Reader& wr, int N,
+                 const typename Same<TG>::type* gain, const float* inv_rms,
+                 const typename Same<TR>::type* residual, TY* y, cudaStream_t stream) {
+  const int col_blocks = gemv_col_blocks(EPI, N);
   const dim3 block(kGemvThreads);
   if (B <= 1) {
-    gemv_kernel<TX, TY, 1, EPI, Reader><<<dim3(B, col_blocks), block, 0, stream>>>(
+    gemv_kernel<TX, TY, 1, EPI, Reader, TG, TR><<<dim3(B, col_blocks), block, 0, stream>>>(
         x, B, K, wr, N, gain, inv_rms, residual, y);
   } else if (B <= 2) {
-    gemv_kernel<TX, TY, 2, EPI, Reader><<<dim3(1, col_blocks), block, 0, stream>>>(
+    gemv_kernel<TX, TY, 2, EPI, Reader, TG, TR><<<dim3(1, col_blocks), block, 0, stream>>>(
         x, B, K, wr, N, gain, inv_rms, residual, y);
   } else if (B <= 4) {
-    gemv_kernel<TX, TY, 4, EPI, Reader><<<dim3(1, col_blocks), block, 0, stream>>>(
+    gemv_kernel<TX, TY, 4, EPI, Reader, TG, TR><<<dim3(1, col_blocks), block, 0, stream>>>(
         x, B, K, wr, N, gain, inv_rms, residual, y);
   } else {
-    gemv_kernel<TX, TY, 8, EPI, Reader><<<dim3((B + 7) / 8, col_blocks), block, 0, stream>>>(
-        x, B, K, wr, N, gain, inv_rms, residual, y);
+    gemv_kernel<TX, TY, 8, EPI, Reader, TG, TR>
+        <<<dim3((B + 7) / 8, col_blocks), block, 0, stream>>>(x, B, K, wr, N, gain, inv_rms,
+                                                              residual, y);
   }
 }
 

@@ -36,15 +36,6 @@ constexpr int kWarps = 8;
 constexpr int kQueries = 8;  // kernel 9: warps per block, one query each
 constexpr int kKeys = 32;
 
-// The kPer int8 codes a lane owns for P·V (kPer = 2 or 4) as f32.
-template <int kPer>
-__device__ __forceinline__ void load_codes(const int8_t* p, float* o) {
-  if constexpr (kPer == 4)
-    unpack4(*reinterpret_cast<const uint32_t*>(p), o);
-  else
-    unpack2(*reinterpret_cast<const uint16_t*>(p), o);
-}
-
 template <typename TQ, int REP, int kDh>
 __global__ void __launch_bounds__(kWarps * 32)
     decode_int8_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_new,

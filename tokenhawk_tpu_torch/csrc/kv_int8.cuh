@@ -1,6 +1,6 @@
 // The int8 KV codec and int8 unpacking, shared by kernels 8-12.
 //
-// A K or V row of 128 values quantizes to 128 int8 codes and one scale,
+// A K or V row of Dh values quantizes to Dh int8 codes and one scale,
 // bit for bit as tokenhawk_tpu/ops/kvquant.py quantize_kv_block does:
 //   scale = amax / 127 (f32, a correctly rounded division);
 //   inv   = 1 / scale (0 where scale is 0), then x * inv (a multiply);
@@ -15,24 +15,10 @@
 
 namespace thawk {
 
-constexpr int kRowDh = 128;
-
-// One row held by a warp, 4 values per lane (lane l holds x[4l..4l+3]).
-// Returns the f32 scale before its bfloat16 rounding.
-static __device__ __forceinline__ float quantize_row4(const float4 x, char4& q) {
-  const float a = fmaxf(fmaxf(fabsf(x.x), fabsf(x.y)), fmaxf(fabsf(x.z), fabsf(x.w)));
-  const float scale = __fdiv_rn(warp_max(a), 127.f);
-  const float inv = scale > 0.f ? __fdiv_rn(1.f, scale) : 0.f;
-  auto code = [inv](float v) {
-    return static_cast<signed char>(fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f));
-  };
-  q = make_char4(code(x.x), code(x.y), code(x.z), code(x.w));
-  return scale;
-}
-
-// The same codec over a row of 32*N values held N per lane (lane l holds
-// x[N*l .. N*l+N-1]): N = 2 for a row of 64 (the dense int8 cache at head
-// dim 64), N = 4 for 128.
+// A row of 32*N values held by a warp, N per lane (lane l holds
+// x[N*l .. N*l+N-1]): N = 2 for a row of 64 (head dim 64), N = 4 for 128.
+// Writes the lane's N codes and returns the f32 scale before its bfloat16
+// rounding.
 template <int N>
 __device__ __forceinline__ float quantize_row(const float* x, signed char* q) {
   float a = fabsf(x[0]);
@@ -60,6 +46,16 @@ static __device__ __forceinline__ void unpack4(uint32_t w, float* o) {
   o[1] = static_cast<float>((s << 16) >> 24);
   o[2] = static_cast<float>((s << 8) >> 24);
   o[3] = static_cast<float>(s >> 24);
+}
+
+// The N int8 codes a lane owns for P·V (N = 2 or 4) as f32.
+template <int N>
+__device__ __forceinline__ void load_codes(const int8_t* p, float* o) {
+  static_assert(N == 2 || N == 4, "a lane owns 2 or 4 head dims");
+  if constexpr (N == 4)
+    unpack4(*reinterpret_cast<const uint32_t*>(p), o);
+  else
+    unpack2(*reinterpret_cast<const uint16_t*>(p), o);
 }
 
 // Eight f32 values stored in T (16-byte aligned for bfloat16, 32 for float).

@@ -12,8 +12,8 @@
 // its own page table in tiles of 32 and keeps an f32 online softmax for the
 // rep query heads of that kv head, as kernel 3 does over a dense cache
 // (flash_decode.cu): a lane scores one token against every query head, then
-// owns 4 of the 128 head dims for P·V; the 8 warps' states merge through
-// shared memory.  Bound by the bytes of the live K and V rows; at B=1 the
+// owns Dh/32 of the head dims for P·V (4 at Dh 128, 2 at Dh 64); the 8
+// warps' states merge through shared memory.  Bound by the bytes of the live K and V rows; at B=1 the
 // grid is only Hkv blocks (32 of 132 SMs at 7B), the known limit of this
 // first version.  A row of length 0 writes zeros.
 //
@@ -26,33 +26,36 @@
 // block per (sequence, table entry, kv head) copies that page's ps x Dh
 // block of K and of V into the dense [B, Hkv, mp*ps, Dh] outputs.  A copy
 // with 16-byte vector loads and stores, bound by bytes.
+//
+// Kernels 6 and 7 copy rows and pages as bytes, whatever the head dim;
+// kernel 5 is built for head dims 64 (TinyLlama's) and 128 (LLaMA's).
 #include "common.cuh"
 
 using namespace thawk;
 
 namespace {
 
-constexpr int kDh = 128;
 constexpr int kWarps = 8;
 
-template <typename TQ, typename TC, int REP>
+template <typename TQ, typename TC, int REP, int DH>
 __global__ void __launch_bounds__(kWarps * 32)
     paged_decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ kp,
                         const TC* __restrict__ vp, const int* __restrict__ table,
                         const int* __restrict__ lengths, TQ* __restrict__ out, int Hkv, int ps,
                         int max_pages, long long page_stride, long long head_stride) {
-  __shared__ __align__(16) float qsm[REP][kDh];
+  constexpr int kPer = DH / 32;  // head dims a lane owns for P·V
+  __shared__ __align__(16) float qsm[REP][DH];
   __shared__ float red_m[kWarps][REP];
   __shared__ float red_l[kWarps][REP];
-  __shared__ __align__(16) float red_acc[kWarps][REP][kDh];
+  __shared__ __align__(16) float red_acc[kWarps][REP][DH];
 
   const int bh = blockIdx.x;
   const int b = bh / Hkv, h = bh % Hkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int L = min(lengths[b], max_pages * ps);
-  TQ* o = out + static_cast<size_t>(bh) * REP * kDh;
+  TQ* o = out + static_cast<size_t>(bh) * REP * DH;
   if (L <= 0) {
-    for (int i = tid; i < REP * kDh; i += blockDim.x) o[i] = from_f32<TQ>(0.f);
+    for (int i = tid; i < REP * DH; i += blockDim.x) o[i] = from_f32<TQ>(0.f);
     return;
   }
   const int* row_pages = table + static_cast<size_t>(b) * max_pages;
@@ -61,19 +64,20 @@ __global__ void __launch_bounds__(kWarps * 32)
   // Row of token t in this head's pages.
   auto row = [&](const TC* base, int t) {
     return base + static_cast<size_t>(row_pages[t / ps]) * page_stride +
-           static_cast<size_t>(t % ps) * kDh;
+           static_cast<size_t>(t % ps) * DH;
   };
 
-  for (int i = tid; i < REP * kDh; i += blockDim.x)
-    qsm[i / kDh][i % kDh] = to_f32(q[static_cast<size_t>(bh) * REP * kDh + i]);
+  for (int i = tid; i < REP * DH; i += blockDim.x)
+    qsm[i / DH][i % DH] = to_f32(q[static_cast<size_t>(bh) * REP * DH + i]);
   __syncthreads();
 
-  float m[REP], l[REP], acc[REP][4];
+  float m[REP], l[REP], acc[REP][kPer];
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
-    acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) acc[r][i] = 0.f;
   }
 
   const int n_tiles = (L + 31) / 32;
@@ -86,7 +90,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     if (valid) {
       const TC* krow = row(kh, tok);
 #pragma unroll 4
-      for (int i = 0; i < kDh; i += 8) {
+      for (int i = 0; i < DH; i += 8) {
         float kv[8];
         load8(krow + i, kv);
 #pragma unroll
@@ -105,18 +109,17 @@ __global__ void __launch_bounds__(kWarps * 32)
       l[r] = l[r] * alpha + warp_sum(p[r]);
       m[r] = m_new;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[r][i] *= alpha;
+      for (int i = 0; i < kPer; ++i) acc[r][i] *= alpha;
     }
     const int n_live = min(32, L - t * 32);
     for (int j = 0; j < n_live; ++j) {
-      const float4 v = load4(row(vh, t * 32 + j) + lane * 4);
+      float v[kPer];
+      load_n<kPer>(row(vh, t * 32 + j) + lane * kPer, v);
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
         const float pj = __shfl_sync(0xffffffffu, p[r], j);
-        acc[r][0] += pj * v.x;
-        acc[r][1] += pj * v.y;
-        acc[r][2] += pj * v.z;
-        acc[r][3] += pj * v.w;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) acc[r][i] += pj * v[i];
       }
     }
   }
@@ -127,12 +130,12 @@ __global__ void __launch_bounds__(kWarps * 32)
       red_m[warp][r] = m[r];
       red_l[warp][r] = l[r];
     }
-    *reinterpret_cast<float4*>(&red_acc[warp][r][lane * 4]) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) red_acc[warp][r][lane * kPer + i] = acc[r][i];
   }
   __syncthreads();
-  for (int i = tid; i < REP * kDh; i += blockDim.x) {
-    const int r = i / kDh, d = i % kDh;
+  for (int i = tid; i < REP * DH; i += blockDim.x) {
+    const int r = i / DH, d = i % DH;
     float mx = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red_m[w][r]);
@@ -147,7 +150,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename TQ, typename TC>
+template <typename TQ, typename TC, int DH>
 void launch_decode(const void* q, const void* kp, const void* vp, const int* table,
                    const int* lengths, void* out, int B, int Hkv, int rep, int ps, int max_pages,
                    long long page_stride, long long head_stride, cudaStream_t stream) {
@@ -156,10 +159,10 @@ void launch_decode(const void* q, const void* kp, const void* vp, const int* tab
   const TC* kt = static_cast<const TC*>(kp);
   const TC* vt = static_cast<const TC*>(vp);
   TQ* o = static_cast<TQ*>(out);
-#define THAWK_PAGED(R)                                                                  \
-  paged_decode_kernel<TQ, TC, R><<<grid, block, 0, stream>>>(qt, kt, vt, table, lengths, o, \
-                                                             Hkv, ps, max_pages,           \
-                                                             page_stride, head_stride)
+#define THAWK_PAGED(R)                                                                      \
+  paged_decode_kernel<TQ, TC, R, DH><<<grid, block, 0, stream>>>(qt, kt, vt, table, lengths, o, \
+                                                                 Hkv, ps, max_pages,           \
+                                                                 page_stride, head_stride)
   switch (rep) {
     case 1: THAWK_PAGED(1); break;
     case 2: THAWK_PAGED(2); break;
@@ -167,6 +170,19 @@ void launch_decode(const void* q, const void* kp, const void* vp, const int* tab
     default: THAWK_PAGED(8); break;
   }
 #undef THAWK_PAGED
+}
+
+template <typename TQ, typename TC>
+void launch_decode_dh(int Dh, const void* q, const void* kp, const void* vp, const int* table,
+                      const int* lengths, void* out, int B, int Hkv, int rep, int ps,
+                      int max_pages, long long page_stride, long long head_stride,
+                      cudaStream_t stream) {
+  if (Dh == 64)
+    launch_decode<TQ, TC, 64>(q, kp, vp, table, lengths, out, B, Hkv, rep, ps, max_pages,
+                              page_stride, head_stride, stream);
+  else
+    launch_decode<TQ, TC, 128>(q, kp, vp, table, lengths, out, B, Hkv, rep, ps, max_pages,
+                               page_stride, head_stride, stream);
 }
 
 // One block per sequence: Hkv rows of row_vecs 16-byte vectors each, for K
@@ -209,28 +225,29 @@ __global__ void gather_pages_kernel(const uint4* __restrict__ kp, const uint4* _
 
 }  // namespace
 
-// q, out [B, Hkv, rep, 128] in q_dtype (q pre-scaled); k_pages, v_pages one
+// q, out [B, Hkv, rep, Dh] in q_dtype (q pre-scaled); k_pages, v_pages one
 // layer's pools in pool_dtype (strides in elements); table [B, max_pages]
-// and lengths [B] int32.  rep must be 1, 2, 4 or 8 (checked by the wrapper).
+// and lengths [B] int32.  rep must be 1, 2, 4 or 8 and Dh 64 or 128
+// (checked by the wrapper).
 extern "C" int th_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                                const void* table, const void* lengths, void* out, int B, int Hkv,
-                               int rep, int ps, int max_pages, long long page_stride,
+                               int rep, int Dh, int ps, int max_pages, long long page_stride,
                                long long head_stride, int q_dtype, int pool_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tb = static_cast<const int*>(table);
   const int* len = static_cast<const int*>(lengths);
+#define THAWK_DECODE(TQ, TC)                                                                   \
+  launch_decode_dh<TQ, TC>(Dh, q, k_pages, v_pages, tb, len, out, B, Hkv, rep, ps, max_pages, \
+                           page_stride, head_stride, s)
   if (q_dtype == kBF16 && pool_dtype == kBF16)
-    launch_decode<__nv_bfloat16, __nv_bfloat16>(q, k_pages, v_pages, tb, len, out, B, Hkv, rep,
-                                                ps, max_pages, page_stride, head_stride, s);
+    THAWK_DECODE(__nv_bfloat16, __nv_bfloat16);
   else if (q_dtype == kBF16)
-    launch_decode<__nv_bfloat16, float>(q, k_pages, v_pages, tb, len, out, B, Hkv, rep, ps,
-                                        max_pages, page_stride, head_stride, s);
+    THAWK_DECODE(__nv_bfloat16, float);
   else if (pool_dtype == kBF16)
-    launch_decode<float, __nv_bfloat16>(q, k_pages, v_pages, tb, len, out, B, Hkv, rep, ps,
-                                        max_pages, page_stride, head_stride, s);
+    THAWK_DECODE(float, __nv_bfloat16);
   else
-    launch_decode<float, float>(q, k_pages, v_pages, tb, len, out, B, Hkv, rep, ps, max_pages,
-                                page_stride, head_stride, s);
+    THAWK_DECODE(float, float);
+#undef THAWK_DECODE
   return THAWK_LAUNCH_RESULT();
 }
 

@@ -1,8 +1,9 @@
 // Kernels 10-12: the int8 paged KV pool (decode attention, quantizing row
 // append, dequantizing page gather).
 //
-// A pool holds one layer's int8 codes, [n_pages, Hkv, ps, 128] ("contig")
-// or [Hkv, n_pages, ps, 128] ("head"), and its f32 scale pages of the same
+// A pool holds one layer's int8 codes, [n_pages, Hkv, ps, Dh] ("contig")
+// or [Hkv, n_pages, ps, Dh] ("head"), Dh 64 or 128 (a template parameter of
+// every kernel), and its f32 scale pages of the same
 // layout without the last axis, [n_pages, Hkv, ps] or [Hkv, n_pages, ps].
 // Every kernel takes the page and head strides of the codes and of the
 // scales, in elements, so both layouts run the same code.  A stored scale is
@@ -14,7 +15,7 @@
 // paged_flash_decode_int8 (_kernel_vec).  Kernel 5's walk (paged_decode.cu)
 // over int8 pages: one block per (sequence, kv head), tiles of 32 tokens
 // across 8 warps, a lane scoring one token (16-byte code loads, times the
-// token's K scale) and owning 4 head dims for P·V (probability times the
+// token's K scale) and owning Dh/32 head dims for P·V (probability times the
 // token's V scale); f32 online softmax, exact attention over the dequantized
 // pages (the TPU kernel also quantizes the query and the probabilities).
 // Bound by the bytes of the live codes and scales.  A row of length 0
@@ -31,16 +32,15 @@
 // Kernel 12, page gather, replaces gather_pages_dense_int8 and the
 // dequantizing multiply its caller does (tokenhawk_tpu/models/llama.py
 // forward_paged_prefill_cont): one block per (sequence, table entry, kv
-// head) reads that page's ps x 128 codes of K and of V and its scales and
+// head) reads that page's ps x Dh codes of K and of V and its scales and
 // writes the dequantized rows, code x scale rounded once to the output type,
-// into dense [B, Hkv, mp*ps, 128] outputs.  Bound by bytes.
+// into dense [B, Hkv, mp*ps, Dh] outputs.  Bound by bytes.
 #include "kv_int8.cuh"
 
 using namespace thawk;
 
 namespace {
 
-constexpr int kDh = kRowDh;
 constexpr int kWarps = 8;
 
 struct PoolStrides {
@@ -48,13 +48,14 @@ struct PoolStrides {
   long long spage, shead;  // scales, in elements
 };
 
-template <typename TQ, int REP>
+template <typename TQ, int REP, int kDh>
 __global__ void __launch_bounds__(kWarps * 32)
     paged_decode_int8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ kp,
                              const float* __restrict__ ksp, const int8_t* __restrict__ vp,
                              const float* __restrict__ vsp, const int* __restrict__ table,
                              const int* __restrict__ lengths, TQ* __restrict__ out, int Hkv,
                              int ps, int max_pages, PoolStrides st) {
+  constexpr int kPer = kDh / 32;  // head dims a lane owns for P·V
   __shared__ __align__(16) float qsm[REP][kDh];
   __shared__ float red_m[kWarps][REP];
   __shared__ float red_l[kWarps][REP];
@@ -87,12 +88,13 @@ __global__ void __launch_bounds__(kWarps * 32)
     qsm[i / kDh][i % kDh] = to_f32(q[static_cast<size_t>(bh) * REP * kDh + i]);
   __syncthreads();
 
-  float m[REP], l[REP], acc[REP][4];
+  float m[REP], l[REP], acc[REP][kPer];
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
-    acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) acc[r][i] = 0.f;
   }
 
   const int n_tiles = (L + 31) / 32;
@@ -134,19 +136,17 @@ __global__ void __launch_bounds__(kWarps * 32)
       m[r] = m_new;
       pv[r] = p * v_scale;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[r][i] *= alpha;
+      for (int i = 0; i < kPer; ++i) acc[r][i] *= alpha;
     }
     const int n_live = min(32, L - t * 32);
     for (int j = 0; j < n_live; ++j) {
-      float v[4];
-      unpack4(*reinterpret_cast<const uint32_t*>(row(vh, t * 32 + j) + lane * 4), v);
+      float v[kPer];
+      load_codes<kPer>(row(vh, t * 32 + j) + lane * kPer, v);
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
         const float pj = __shfl_sync(0xffffffffu, pv[r], j);
-        acc[r][0] += pj * v[0];
-        acc[r][1] += pj * v[1];
-        acc[r][2] += pj * v[2];
-        acc[r][3] += pj * v[3];
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) acc[r][i] += pj * v[i];
       }
     }
   }
@@ -157,8 +157,8 @@ __global__ void __launch_bounds__(kWarps * 32)
       red_m[warp][r] = m[r];
       red_l[warp][r] = l[r];
     }
-    *reinterpret_cast<float4*>(&red_acc[warp][r][lane * 4]) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) red_acc[warp][r][lane * kPer + i] = acc[r][i];
   }
   __syncthreads();
   for (int i = tid; i < REP * kDh; i += blockDim.x) {
@@ -178,8 +178,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 // Block (b, y): warp w quantizes row 8y + w of sequence b's 2*Hkv rows (K
-// heads, then V heads).
-template <typename TN>
+// heads, then V heads), kDh/32 values a lane.
+template <typename TN, int kDh>
 __global__ void __launch_bounds__(kWarps * 32)
     paged_append_int8_kernel(int8_t* kp, float* ksp, int8_t* vp, float* vsp,
                              const TN* __restrict__ k_new, const TN* __restrict__ v_new,
@@ -192,12 +192,17 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (r < 2 * Hkv) {
     const bool is_v = r >= Hkv;
     const int h = is_v ? r - Hkv : r;
-    const TN* src = (is_v ? v_new : k_new) + (static_cast<size_t>(b) * Hkv + h) * kDh + lane * 4;
-    char4 codes;
-    const float sc = quantize_row4(load4(src), codes);
+    constexpr int kPer = kDh / 32;
+    const TN* src =
+        (is_v ? v_new : k_new) + (static_cast<size_t>(b) * Hkv + h) * kDh + lane * kPer;
+    float x[kPer];
+    load_n<kPer>(src, x);
+    signed char codes[kPer];
+    const float sc = quantize_row<kPer>(x, codes);
     int8_t* dst = (is_v ? vp : kp) + pg * st.page + static_cast<size_t>(h) * st.head +
-                  static_cast<size_t>(sl) * kDh + lane * 4;
-    *reinterpret_cast<char4*>(dst) = codes;
+                  static_cast<size_t>(sl) * kDh + lane * kPer;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) dst[i] = codes[i];
     if (lane == 0)
       (is_v ? vsp : ksp)[pg * st.spage + static_cast<size_t>(h) * st.shead + sl] =
           __bfloat162float(__float2bfloat16_rn(sc));
@@ -206,7 +211,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 // Block (b*max_pages + i, h): page table[b, i], head h; a thread turns 8
 // codes of a row into 8 outputs at a time.
-template <typename TO>
+template <typename TO, int kDh>
 __global__ void __launch_bounds__(256)
     gather_pages_int8_kernel(const int8_t* __restrict__ kp, const float* __restrict__ ksp,
                              const int8_t* __restrict__ vp, const float* __restrict__ vsp,
@@ -241,7 +246,7 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename TQ>
+template <typename TQ, int kDh>
 void launch_decode(const void* q, const void* kp, const void* ksp, const void* vp,
                    const void* vsp, const int* table, const int* lengths, void* out, int B,
                    int Hkv, int rep, int ps, int max_pages, PoolStrides st, cudaStream_t stream) {
@@ -252,10 +257,9 @@ void launch_decode(const void* q, const void* kp, const void* ksp, const void* v
   const float* ks = static_cast<const float*>(ksp);
   const float* vs = static_cast<const float*>(vsp);
   TQ* o = static_cast<TQ*>(out);
-#define THAWK_PAGED8(R)                                                                      \
-  paged_decode_int8_kernel<TQ, R><<<grid, block, 0, stream>>>(qt, kc, ks, vc, vs, table,     \
-                                                              lengths, o, Hkv, ps, max_pages, \
-                                                              st)
+#define THAWK_PAGED8(R)                                                                 \
+  paged_decode_int8_kernel<TQ, R, kDh><<<grid, block, 0, stream>>>(                     \
+      qt, kc, ks, vc, vs, table, lengths, o, Hkv, ps, max_pages, st)
   switch (rep) {
     case 1: THAWK_PAGED8(1); break;
     case 2: THAWK_PAGED8(2); break;
@@ -265,82 +269,86 @@ void launch_decode(const void* q, const void* kp, const void* ksp, const void* v
 #undef THAWK_PAGED8
 }
 
+template <typename TN, int kDh>
+void launch_append(void* k_pages, void* ks_pages, void* v_pages, void* vs_pages,
+                   const void* k_new, const void* v_new, const int* page, const int* slot, int B,
+                   int Hkv, PoolStrides st, cudaStream_t stream) {
+  const dim3 grid(B, (2 * Hkv + kWarps - 1) / kWarps);
+  paged_append_int8_kernel<TN, kDh><<<grid, kWarps * 32, 0, stream>>>(
+      static_cast<int8_t*>(k_pages), static_cast<float*>(ks_pages),
+      static_cast<int8_t*>(v_pages), static_cast<float*>(vs_pages),
+      static_cast<const TN*>(k_new), static_cast<const TN*>(v_new), page, slot, Hkv, st);
+}
+
+template <typename TO, int kDh>
+void launch_gather(const void* k_pages, const void* ks_pages, const void* v_pages,
+                   const void* vs_pages, const int* table, void* k_out, void* v_out, int B,
+                   int Hkv, int max_pages, int ps, PoolStrides st, cudaStream_t stream) {
+  const dim3 grid(B * max_pages, Hkv);
+  gather_pages_int8_kernel<TO, kDh><<<grid, 256, 0, stream>>>(
+      static_cast<const int8_t*>(k_pages), static_cast<const float*>(ks_pages),
+      static_cast<const int8_t*>(v_pages), static_cast<const float*>(vs_pages), table,
+      static_cast<TO*>(k_out), static_cast<TO*>(v_out), Hkv, max_pages, ps, st);
+}
+
 }  // namespace
 
-// q, out [B, Hkv, rep, 128] in q_dtype (q pre-scaled); k_pages, v_pages one
+// Every entry point takes Dh, 64 or 128 (checked by the wrapper), and
+// dispatches on it and on the activation type (kF32 or kBF16).
+#define THAWK_DISPATCH(DTYPE, LAUNCH, ...)                                  \
+  do {                                                                      \
+    if (DTYPE == kBF16) {                                                   \
+      if (Dh == 64) LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);                 \
+      else LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__);                         \
+    } else {                                                                \
+      if (Dh == 64) LAUNCH<float, 64>(__VA_ARGS__);                         \
+      else LAUNCH<float, 128>(__VA_ARGS__);                                 \
+    }                                                                       \
+  } while (0)
+
+// q, out [B, Hkv, rep, Dh] in q_dtype (q pre-scaled); k_pages, v_pages one
 // layer's int8 codes and ks_pages, vs_pages its f32 scales; table
 // [B, max_pages] and lengths [B] int32; strides in elements.  rep is 1, 2,
 // 4 or 8 (checked by the wrapper).
 extern "C" int th_paged_decode_int8(const void* q, const void* k_pages, const void* ks_pages,
                                     const void* v_pages, const void* vs_pages,
                                     const void* table, const void* lengths, void* out, int B,
-                                    int Hkv, int rep, int ps, int max_pages,
+                                    int Hkv, int rep, int Dh, int ps, int max_pages,
                                     long long page_stride, long long head_stride,
                                     long long spage_stride, long long shead_stride, int q_dtype,
                                     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const PoolStrides st{page_stride, head_stride, spage_stride, shead_stride};
-  const int* tb = static_cast<const int*>(table);
-  const int* len = static_cast<const int*>(lengths);
-  if (q_dtype == kBF16)
-    launch_decode<__nv_bfloat16>(q, k_pages, ks_pages, v_pages, vs_pages, tb, len, out, B, Hkv,
-                                 rep, ps, max_pages, st, s);
-  else
-    launch_decode<float>(q, k_pages, ks_pages, v_pages, vs_pages, tb, len, out, B, Hkv, rep, ps,
-                         max_pages, st, s);
+  THAWK_DISPATCH(q_dtype, launch_decode, q, k_pages, ks_pages, v_pages, vs_pages,
+                 static_cast<const int*>(table), static_cast<const int*>(lengths), out, B, Hkv,
+                 rep, ps, max_pages, st, static_cast<cudaStream_t>(stream));
   return THAWK_LAUNCH_RESULT();
 }
 
-// k_new, v_new [B, Hkv, 128] in new_dtype; page, slot [B] int32; the pools
+// k_new, v_new [B, Hkv, Dh] in new_dtype; page, slot [B] int32; the pools
 // as above, written in place.
 extern "C" int th_paged_append_int8(void* k_pages, void* ks_pages, void* v_pages,
                                     void* vs_pages, const void* k_new, const void* v_new,
-                                    const void* page, const void* slot, int B, int Hkv,
+                                    const void* page, const void* slot, int B, int Hkv, int Dh,
                                     long long page_stride, long long head_stride,
                                     long long spage_stride, long long shead_stride,
                                     int new_dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const PoolStrides st{page_stride, head_stride, spage_stride, shead_stride};
-  int8_t* kc = static_cast<int8_t*>(k_pages);
-  int8_t* vc = static_cast<int8_t*>(v_pages);
-  float* ks = static_cast<float*>(ks_pages);
-  float* vs = static_cast<float*>(vs_pages);
-  const int* pg = static_cast<const int*>(page);
-  const int* sl = static_cast<const int*>(slot);
-  const dim3 grid(B, (2 * Hkv + kWarps - 1) / kWarps);
-  if (new_dtype == kBF16)
-    paged_append_int8_kernel<__nv_bfloat16><<<grid, kWarps * 32, 0, s>>>(
-        kc, ks, vc, vs, static_cast<const __nv_bfloat16*>(k_new),
-        static_cast<const __nv_bfloat16*>(v_new), pg, sl, Hkv, st);
-  else
-    paged_append_int8_kernel<float><<<grid, kWarps * 32, 0, s>>>(
-        kc, ks, vc, vs, static_cast<const float*>(k_new), static_cast<const float*>(v_new), pg,
-        sl, Hkv, st);
+  THAWK_DISPATCH(new_dtype, launch_append, k_pages, ks_pages, v_pages, vs_pages, k_new, v_new,
+                 static_cast<const int*>(page), static_cast<const int*>(slot), B, Hkv, st,
+                 static_cast<cudaStream_t>(stream));
   return THAWK_LAUNCH_RESULT();
 }
 
-// k_out, v_out [B, Hkv, max_pages*ps, 128] in out_dtype; the pools as above.
+// k_out, v_out [B, Hkv, max_pages*ps, Dh] in out_dtype; the pools as above.
 extern "C" int th_gather_pages_int8(const void* k_pages, const void* ks_pages,
                                     const void* v_pages, const void* vs_pages, const void* table,
-                                    void* k_out, void* v_out, int B, int Hkv, int max_pages,
-                                    int ps, long long page_stride, long long head_stride,
-                                    long long spage_stride, long long shead_stride,
-                                    int out_dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                                    void* k_out, void* v_out, int B, int Hkv, int Dh,
+                                    int max_pages, int ps, long long page_stride,
+                                    long long head_stride, long long spage_stride,
+                                    long long shead_stride, int out_dtype, void* stream) {
   const PoolStrides st{page_stride, head_stride, spage_stride, shead_stride};
-  const dim3 grid(B * max_pages, Hkv);
-  const int8_t* kc = static_cast<const int8_t*>(k_pages);
-  const int8_t* vc = static_cast<const int8_t*>(v_pages);
-  const float* ks = static_cast<const float*>(ks_pages);
-  const float* vs = static_cast<const float*>(vs_pages);
-  const int* tb = static_cast<const int*>(table);
-  if (out_dtype == kBF16)
-    gather_pages_int8_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
-        kc, ks, vc, vs, tb, static_cast<__nv_bfloat16*>(k_out),
-        static_cast<__nv_bfloat16*>(v_out), Hkv, max_pages, ps, st);
-  else
-    gather_pages_int8_kernel<float><<<grid, 256, 0, s>>>(
-        kc, ks, vc, vs, tb, static_cast<float*>(k_out), static_cast<float*>(v_out), Hkv,
-        max_pages, ps, st);
+  THAWK_DISPATCH(out_dtype, launch_gather, k_pages, ks_pages, v_pages, vs_pages,
+                 static_cast<const int*>(table), k_out, v_out, B, Hkv, max_pages, ps, st,
+                 static_cast<cudaStream_t>(stream));
   return THAWK_LAUNCH_RESULT();
 }

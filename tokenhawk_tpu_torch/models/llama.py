@@ -23,6 +23,16 @@ CUDA kernels:
                                   on int8 pages kernels 11, 10 and 12
   speculative verify (paged)      kernel 6 for every row of the block,
                                   kernel 7, then kernel 4
+  Fusions.owo (THAWK_FUSED_OWO=1) kernel 15: Wo + residual + norm + FFN +
+                                  residual in one entry point, at decode
+                                  rows (every forward)
+  Fusions.attn (THAWK_FUSED_ATTN=1)  kernel 16: append + attend + Wo +
+                                  residual, one token of one sequence
+                                  over the dense bf16/f32 cache, H == Hkv
+
+Both fusions are off by default, as in the reference; each model reads
+the two variables once, when its LlamaParams are built, and a caller may
+set `params.fusions` on a built model.
 
 Weight orientation is [in, out] (y = x @ W) at every public function,
 as in the reference, whatever the quantized storage layout.
@@ -38,6 +48,7 @@ same.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Mapping, Optional, Union
 
 import numpy as np
@@ -47,9 +58,14 @@ from tokenhawk_tpu_torch.config import LlamaConfig
 from tokenhawk_tpu_torch.ggml.quants import QuantizedTensor, dequantize
 from tokenhawk_tpu_torch.ops.attention import update_kv_cache
 from tokenhawk_tpu_torch.ops.cuda.ffn import MAX_ROWS as _FFN_MAX_ROWS
-from tokenhawk_tpu_torch.ops.cuda.ffn import fused_ffn
+from tokenhawk_tpu_torch.ops.cuda.ffn import can_fuse_owo_ffn, fused_ffn, fused_owo_ffn
 from tokenhawk_tpu_torch.ops.cuda.flash_attention import flash_attention
-from tokenhawk_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_append
+from tokenhawk_tpu_torch.ops.cuda.flash_decode import (
+    can_fuse_attn_out,
+    flash_decode,
+    flash_decode_append,
+    fused_attn_out,
+)
 from tokenhawk_tpu_torch.ops.cuda.kv_int8 import flash_attention_int8, flash_decode_int8
 from tokenhawk_tpu_torch.ops.kvquant import update_kv_cache_int8
 from tokenhawk_tpu_torch.ops.linear import matmul
@@ -86,12 +102,30 @@ class LayerParams:
     w13: Optional[ArrayOrQ] = None
 
 
+@dataclasses.dataclass(frozen=True)
+class Fusions:
+    """The reference's fused decode-layer kernels, off by default as there
+    (negative results on its TPU): owo, kernel 15, under THAWK_FUSED_OWO=1;
+    attn, kernel 16, under THAWK_FUSED_ATTN=1.  The model takes each where
+    its gate passes, as the reference does."""
+
+    owo: bool = False
+    attn: bool = False
+
+    @staticmethod
+    def from_env() -> "Fusions":
+        return Fusions(owo=os.environ.get("THAWK_FUSED_OWO", "0") == "1",
+                       attn=os.environ.get("THAWK_FUSED_ATTN", "0") == "1")
+
+
 @dataclasses.dataclass
 class LlamaParams:
     tok_embd: torch.Tensor  # [V, D]
     layers: List[LayerParams]
     norm: torch.Tensor  # [D]
     output: ArrayOrQ  # [D, V]
+    # Read from the environment when the model is built.
+    fusions: Fusions = dataclasses.field(default_factory=Fusions.from_env)
 
     @property
     def device(self) -> torch.device:
@@ -106,7 +140,8 @@ class LlamaParams:
         layers = [LayerParams(**{f.name: mv(getattr(lp, f.name))
                                  for f in dataclasses.fields(LayerParams)})
                   for lp in self.layers]
-        return LlamaParams(mv(self.tok_embd), layers, mv(self.norm), mv(self.output))
+        return LlamaParams(mv(self.tok_embd), layers, mv(self.norm), mv(self.output),
+                           self.fusions)
 
 
 @dataclasses.dataclass
@@ -251,20 +286,36 @@ def _qkv(cfg: LlamaConfig, x, lp: LayerParams, cos, sin):
     return apply_rope(q, cos, sin, cfg.rope_style), apply_rope(k, cos, sin, cfg.rope_style), v
 
 
-def _wo_ffn_block(cfg: LlamaConfig, x, ctx, lp: LayerParams):
-    """x + ctx @ Wo, then the SwiGLU MLP block with its residual."""
+def _wo_ffn_block(cfg: LlamaConfig, x, ctx, lp: LayerParams, fusions: Fusions):
+    """x + ctx @ Wo, then the SwiGLU MLP block with its residual; kernel 15
+    in one call where fusions.owo asks for it and its gate passes."""
     B, T = ctx.shape[:2]
-    x = x + matmul(ctx.reshape(B, T, -1), lp.wo)
+    ctx = ctx.reshape(B, T, -1)
+    if fusions.owo and can_fuse_owo_ffn(lp.wo, lp.w13, lp.w2, B * T):
+        return fused_owo_ffn(ctx, x, lp.wo, lp.w13, lp.w2, lp.ffn_norm, eps=cfg.rms_norm_eps)
+    x = x + matmul(ctx, lp.wo)
     return _ffn_block(cfg, x, lp)
 
 
 def _layer_forward(cfg: LlamaConfig, x, lp: LayerParams, lcache, cos, sin, offsets,
-                   positions):
+                   positions, fusions: Fusions):
+    """One layer of the dense-cache forward.  Where fusions.attn asks for it
+    (one token of one sequence over a bf16/f32 cache with quantized weights
+    and H == Hkv) and its gate passes, kernel 16 runs the attention block
+    and the layer goes on with the FFN block, as the reference does."""
+    B, T = x.shape[:2]
     q, k, v = _qkv(cfg, x, lp, cos, sin)
     quantized = isinstance(lp.wqkv if lp.wqkv is not None else lp.wq, QWeight)
+    if (fusions.attn and quantized and B == 1 and T == 1 and cfg.n_head == cfg.n_kv_head
+            and len(lcache) == 2):
+        S = lcache[0].shape[2]
+        if can_fuse_attn_out(lp.wo, B, T, 1, cfg.head_dim, S):
+            lengths = torch.clamp(positions[:, 0] + 1, max=S).to(torch.int32)
+            x = fused_attn_out(x, q, k, v, *lcache, lengths, lp.wo)
+            return _ffn_block(cfg, x, lp)
     ctx = _attend_and_update(cfg, q, k, v, lcache, offsets, positions,
                              prefer_append=quantized)
-    return _wo_ffn_block(cfg, x, ctx, lp)
+    return _wo_ffn_block(cfg, x, ctx, lp, fusions)
 
 
 def forward(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor,
@@ -277,7 +328,7 @@ def forward(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor,
     positions = offsets.long()[:, None] + torch.arange(T, device=tokens.device)[None, :]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     for lp, lcache in zip(params.layers, cache.layers()):
-        x = _layer_forward(cfg, x, lp, lcache, cos, sin, offsets, positions)
+        x = _layer_forward(cfg, x, lp, lcache, cos, sin, offsets, positions, params.fusions)
     return x, cache
 
 
@@ -313,7 +364,7 @@ def forward_paged_decode(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Te
         else:
             append_token_layer(*lc, k[:, 0], v[:, 0], page_table, lengths, cache.layout)
             ctx = attend_paged_layer(q, *lc, page_table, lengths + 1, cache.layout)
-        x = _wo_ffn_block(cfg, x, ctx, lp)
+        x = _wo_ffn_block(cfg, x, ctx, lp, params.fusions)
     return x, cache
 
 
@@ -343,7 +394,7 @@ def forward_paged_prefill(cfg: LlamaConfig, params: LlamaParams, tokens: torch.T
             k_l, v_l = lc
             paginate_fragment_layer(k_l, k_b, page_table, cache.layout)
             paginate_fragment_layer(v_l, v_b, page_table, cache.layout)
-        x = _wo_ffn_block(cfg, x, ctx, lp)
+        x = _wo_ffn_block(cfg, x, ctx, lp, params.fusions)
     return x, cache
 
 
@@ -386,7 +437,7 @@ def forward_paged_prefill_cont(cfg: LlamaConfig, params: LlamaParams, tokens: to
                                        cache.layout)
             kg, vg = gather_pages(k_l, v_l, page_table, cache.layout)
         ctx = _prefill_attention(q, kg, vg, start)
-        x = _wo_ffn_block(cfg, x, ctx, lp)
+        x = _wo_ffn_block(cfg, x, ctx, lp, params.fusions)
     return x, cache
 
 
@@ -425,7 +476,7 @@ def forward_paged_verify(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Te
                            rows_table, flat, cache.layout)
         kg, vg = gather_pages(k_l, v_l, page_table, cache.layout)
         ctx = _prefill_attention(q, kg, vg, start)
-        x = _wo_ffn_block(cfg, x, ctx, lp)
+        x = _wo_ffn_block(cfg, x, ctx, lp, params.fusions)
     return x, cache
 
 

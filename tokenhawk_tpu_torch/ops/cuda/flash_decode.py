@@ -21,9 +21,20 @@ a barrier orders the two.  Head dim 64 or 128; 1, 2, 4 or 8 query heads
 per kv head.  Launches are counted per kernel: `launches["flash_decode"]`
 (kernel 3) and `launches["flash_decode_attend"]` (kernel 14).
 
+Kernel 16, `fused_attn_out`, replaces tokenhawk_tpu/ops/pallas/
+attn_block.py `fused_attn_out` (_attn_wo): the attention block of one
+decode token of one sequence with one query per kv head, x + attend(q,
+cache + new row) @ Wo, the new K / V rows written in place.  Two launches
+on one stream (csrc/flash_decode.cu th_attn_wo): kernel 3's body with q
+pre-scaled in the block and an f32 context, then the Wo GEMV with x in its
+epilogue.  Off by default, as in the reference: the model takes it where
+`can_fuse_attn_out` passes and its Fusions ask for it (THAWK_FUSED_ATTN=1).
+Counted as `launches["attn_wo"]`.
+
 Tolerance against the plain versions: f32 scores and softmax in both;
 the kernel's online softmax sums in another order (~1e-6 relative) and
-both round once to q.dtype.
+both round once to q.dtype (kernel 16: once to x.dtype, after the Wo
+product).
 """
 
 from __future__ import annotations
@@ -32,13 +43,19 @@ import torch
 
 from tokenhawk_tpu_torch.ops.attention import attend_cache
 from tokenhawk_tpu_torch.ops.cuda import build
+from tokenhawk_tpu_torch.ops.cuda.qmatmul import form_code, weight_args
+from tokenhawk_tpu_torch.ops.qweight import QWeight
 
-launches = {"flash_decode": 0, "flash_decode_attend": 0}
+launches = {"flash_decode": 0, "flash_decode_attend": 0, "attn_wo": 0}
 HEAD_DIMS = (64, 128)
 REPS = (1, 2, 4, 8)
 
 _APPEND_ARGS = [build.P] * 7 + [build.I] * 7 + [build.P]
 _ATTEND_ARGS = [build.P] * 5 + [build.I] * 7 + [build.P]
+# q, k_new, v_new, kc, vc, lengths, x; wo (qs, scales, mins, form); ctx, y;
+# H, Dh, S, D; q_scale; q and cache dtypes; stream.
+_ATTN_WO_ARGS = [build.P] * 10 + [build.I] + [build.P] * 2 + [build.I] * 4 + [
+    build.F, build.I, build.I, build.P]
 
 
 def _attend(q, k_cache, v_cache, L):
@@ -120,3 +137,78 @@ def flash_decode_append(q, k_new, v_new, k_cache, v_cache, lengths):
     build.check(rc, "flash_decode_append")
     launches["flash_decode"] += 1
     return out
+
+
+# -- kernel 16: append + attend + Wo + residual --------------------------------
+
+
+def can_fuse_attn_out(wo, B: int, T: int, rep: int, Dh: int, S: int) -> bool:
+    """The reference's gate for kernel 16 (attn_block.py can_fuse_attn_out):
+    Wo in Q4_0 or the symmetric G 32 form (the reference's q4_0_i4 and q8_0
+    kinds) without mins; one token of one sequence, one query per kv head;
+    Dh % 128, S % 128, Dq % 256 and D % 128 all 0."""
+    if not (isinstance(wo, QWeight) and wo.group == 32 and wo.mins is None):
+        return False
+    if B != 1 or T != 1 or rep != 1:
+        return False
+    Dq, D = wo.shape
+    return Dh % 128 == 0 and S % 128 == 0 and Dq % 256 == 0 and D % 128 == 0
+
+
+def _q_scale(q: torch.Tensor) -> float:
+    """1/sqrt(Dh) rounded to q's type: the reference's wrapper multiplies q
+    by a weakly typed Python float, which takes q's type first."""
+    return float(torch.tensor(1.0 / q.shape[-1]**0.5, dtype=q.dtype))
+
+
+def fused_attn_out_plain(x, q, k_new, v_new, k_cache, v_cache, lengths, wo: QWeight):
+    """Kernel 16's function in plain PyTorch: q scaled in its own type (as
+    the reference's wrapper does), then f32 to one rounding of y."""
+    B, T, H, Dh = q.shape
+    Hkv = k_cache.shape[1]
+    qg = (q[:, 0] * _q_scale(q)).float().reshape(B, Hkv, H // Hkv, Dh)
+    ctx = flash_decode_append_plain(qg, k_new[:, 0], v_new[:, 0], k_cache, v_cache, lengths)
+    y = x.float() + ctx.reshape(B, 1, H * Dh) @ wo.dequantize(torch.float32)
+    return y.to(x.dtype)
+
+
+def fused_attn_out(x, q, k_new, v_new, k_cache, v_cache, lengths, wo: QWeight):
+    """Kernel 16.  x [1, 1, D] residual, q [1, 1, H, Dh] (RoPE applied,
+    unscaled), k_new / v_new [1, 1, H, Dh], caches [1, H, S, Dh] (written in
+    place at min(lengths, S) - 1), lengths [1] int32 tokens including the
+    new one, Wo [H*Dh, D] -> x + attend @ Wo, [1, 1, D] in x.dtype."""
+    if not q.is_cuda:
+        return fused_attn_out_plain(x, q, k_new, v_new, k_cache, v_cache, lengths, wo)
+    B, T, H, Dh = q.shape
+    S = k_cache.shape[2]
+    Dq, D = wo.shape
+    build.require(B == 1 and T == 1, f"fused_attn_out takes one token of one sequence, got "
+                                     f"{tuple(q.shape)}")
+    build.require(Dh in HEAD_DIMS, f"head dim {Dh} not in {HEAD_DIMS}")
+    build.require(k_cache.shape == (1, H, S, Dh) and v_cache.shape == k_cache.shape,
+                  f"cache {tuple(k_cache.shape)} is not one kv head per query of q "
+                  f"{tuple(q.shape)}")
+    build.require(k_cache.dtype == v_cache.dtype, "k and v caches differ in dtype")
+    build.require(k_new.shape == q.shape and v_new.shape == q.shape,
+                  f"new rows {tuple(k_new.shape)} do not match q {tuple(q.shape)}")
+    build.require(lengths.dtype == torch.int32 and lengths.shape == (1,),
+                  "lengths must be int32 [1]")
+    build.require(Dq == H * Dh and x.shape == (1, 1, D) and x.dtype == q.dtype,
+                  f"x {tuple(x.shape)} {x.dtype}, Wo {wo.shape} do not match q {tuple(q.shape)} "
+                  f"{q.dtype}")
+    form = form_code(wo)
+    q = q.contiguous()
+    k_new = k_new.to(q.dtype).contiguous()
+    v_new = v_new.to(q.dtype).contiguous()
+    x = x.contiguous()
+    build.require_cuda(q, k_new, v_new, k_cache, v_cache, lengths, x)
+    ctx = torch.empty((H * Dh,), dtype=torch.float32, device=q.device)
+    y = torch.empty_like(x)
+    fn = build.function("th_attn_wo", _ATTN_WO_ARGS)
+    rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), lengths.data_ptr(), x.data_ptr(), *weight_args(wo, q), form,
+            ctx.data_ptr(), y.data_ptr(), H, Dh, S, D, _q_scale(q),
+            build.dtype_code(q.dtype), build.dtype_code(k_cache.dtype), build.stream_of(q))
+    build.check(rc, "fused_attn_out")
+    launches["attn_wo"] += 1
+    return y

@@ -12,7 +12,7 @@
 A pool is one layer's pages in one of two layouts, fixed when the pool is
 made (runtime/paged.py) and passed here by name: "contig" (page-major)
 [n_pages, Hkv, ps, Dh] or "head" (head-major) [Hkv, n_pages, ps, Dh].
-All three are bound by bytes on the H100.  The kernels trust the page
+Head dim 64 or 128.  All three are bound by bytes on the H100.  The kernels trust the page
 ids; the plain versions raise on one out of range.  A wrapper runs its
 plain version only for CPU tensors.
 
@@ -26,14 +26,13 @@ from __future__ import annotations
 import torch
 
 from tokenhawk_tpu_torch.ops.cuda import build
+from tokenhawk_tpu_torch.ops.cuda.flash_decode import HEAD_DIMS, REPS
 
 LAYOUTS = ("contig", "head")
-HEAD_DIM = 128
-REPS = (1, 2, 4, 8)
 launches = {"paged_decode": 0, "paged_append": 0, "gather_pages": 0}
 
 _LL = build.LL
-_DECODE_ARGS = [build.P] * 6 + [build.I] * 5 + [_LL, _LL] + [build.I] * 2 + [build.P]
+_DECODE_ARGS = [build.P] * 6 + [build.I] * 6 + [_LL, _LL] + [build.I] * 2 + [build.P]
 _APPEND_ARGS = [build.P] * 6 + [build.I] * 3 + [_LL, _LL, build.P]
 _GATHER_ARGS = [build.P] * 5 + [build.I] * 4 + [_LL, _LL, build.P]
 
@@ -106,7 +105,8 @@ def paged_decode(q, k_pages, v_pages, page_table, lengths, layout):
         return paged_decode_plain(q, k_pages, v_pages, page_table, lengths, layout)
     B, Hkv, rep, Dh = q.shape
     n_pages, pHkv, ps, pDh = pool_dims(k_pages, layout)
-    build.require(Dh == HEAD_DIM and pDh == Dh, f"head dim {Dh} != {HEAD_DIM}")
+    build.require(Dh in HEAD_DIMS and pDh == Dh,
+                  f"head dim {Dh} (pool {pDh}) not in {HEAD_DIMS}")
     build.require(rep in REPS, f"query heads per kv head {rep} not in {REPS}")
     build.require(pHkv == Hkv and v_pages.shape == k_pages.shape,
                   f"pools {tuple(k_pages.shape)} do not match q {tuple(q.shape)}")
@@ -122,7 +122,7 @@ def paged_decode(q, k_pages, v_pages, page_table, lengths, layout):
     page_stride, head_stride = _strides(k_pages, layout)
     fn = build.function("th_paged_decode", _DECODE_ARGS)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), B, Hkv, rep, ps, page_table.shape[1],
+            lengths.data_ptr(), out.data_ptr(), B, Hkv, rep, Dh, ps, page_table.shape[1],
             page_stride, head_stride, build.dtype_code(q.dtype),
             build.dtype_code(k_pages.dtype), build.stream_of(q))
     build.check(rc, "paged_decode")

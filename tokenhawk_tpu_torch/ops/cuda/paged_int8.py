@@ -13,7 +13,8 @@
                      dequantized [B, Hkv, mp*ps, Dh] K and V.
 
 An int8 pool is one layer's codes in a layout of paged_decode.LAYOUTS,
-[n_pages, Hkv, ps, Dh] ("contig") or [Hkv, n_pages, ps, Dh] ("head"), and
+[n_pages, Hkv, ps, Dh] ("contig") or [Hkv, n_pages, ps, Dh] ("head"), Dh 64
+or 128, and
 its f32 scale pages, the same without Dh.  A stored scale is the codec's
 bfloat16-rounded scale (ops/kvquant.py) held as f32, as the reference
 stores it.  The kernels trust the page ids; the plain versions raise on
@@ -32,7 +33,7 @@ import torch
 
 from tokenhawk_tpu_torch.ops.cuda import build
 from tokenhawk_tpu_torch.ops.cuda.paged_decode import (
-    HEAD_DIM,
+    HEAD_DIMS,
     REPS,
     _check_ids,
     _strides,
@@ -45,9 +46,9 @@ from tokenhawk_tpu_torch.ops.kvquant import quantize_kv_block
 launches = {"paged_decode_int8": 0, "paged_append_int8": 0, "gather_pages_int8": 0}
 
 _LL = build.LL
-_DECODE_ARGS = [build.P] * 8 + [build.I] * 5 + [_LL] * 4 + [build.I, build.P]
-_APPEND_ARGS = [build.P] * 8 + [build.I] * 2 + [_LL] * 4 + [build.I, build.P]
-_GATHER_ARGS = [build.P] * 7 + [build.I] * 4 + [_LL] * 4 + [build.I, build.P]
+_DECODE_ARGS = [build.P] * 8 + [build.I] * 6 + [_LL] * 4 + [build.I, build.P]
+_APPEND_ARGS = [build.P] * 8 + [build.I] * 3 + [_LL] * 4 + [build.I, build.P]
+_GATHER_ARGS = [build.P] * 7 + [build.I] * 5 + [_LL] * 4 + [build.I, build.P]
 
 
 def gather_pool_scales(spages: torch.Tensor, page_table: torch.Tensor, layout: str):
@@ -63,18 +64,19 @@ def gather_pool_scales(spages: torch.Tensor, page_table: torch.Tensor, layout: s
 def _all_strides(k_pages, layout):
     """(code page, code head, scale page, scale head) strides in elements."""
     page, head = _strides(k_pages, layout)
-    return page, head, page // HEAD_DIM, head // HEAD_DIM
+    Dh = pool_dims(k_pages, layout)[3]
+    return page, head, page // Dh, head // Dh
 
 
 def _check_pool(k_pages, ks_pages, v_pages, vs_pages, layout):
     n_pages, Hkv, ps, Dh = pool_dims(k_pages, layout)
-    build.require(Dh == HEAD_DIM, f"head dim {Dh} != {HEAD_DIM}")
+    build.require(Dh in HEAD_DIMS, f"head dim {Dh} not in {HEAD_DIMS}")
     build.require(k_pages.dtype == torch.int8 and v_pages.shape == k_pages.shape
                   and v_pages.dtype == torch.int8, "the pools' codes must be int8, K as V")
     build.require(ks_pages.dtype == torch.float32 and ks_pages.shape == k_pages.shape[:3]
                   and vs_pages.shape == ks_pages.shape and vs_pages.dtype == torch.float32,
                   f"scale pages {tuple(ks_pages.shape)} must be f32 {tuple(k_pages.shape[:3])}")
-    return n_pages, Hkv, ps
+    return n_pages, Hkv, ps, Dh
 
 
 # -- kernel 10: paged decode ----------------------------------------------------
@@ -99,8 +101,8 @@ def paged_decode_int8(q, k_pages, ks_pages, v_pages, vs_pages, page_table, lengt
         return paged_decode_int8_plain(q, k_pages, ks_pages, v_pages, vs_pages, page_table,
                                        lengths, layout)
     B, Hkv, rep, Dh = q.shape
-    n_pages, pHkv, ps = _check_pool(k_pages, ks_pages, v_pages, vs_pages, layout)
-    build.require(Dh == HEAD_DIM and pHkv == Hkv,
+    n_pages, pHkv, ps, pDh = _check_pool(k_pages, ks_pages, v_pages, vs_pages, layout)
+    build.require(Dh == pDh and pHkv == Hkv,
                   f"pools {tuple(k_pages.shape)} do not match q {tuple(q.shape)}")
     build.require(rep in REPS, f"query heads per kv head {rep} not in {REPS}")
     build.require(page_table.dtype == torch.int32 and page_table.dim() == 2
@@ -114,7 +116,7 @@ def paged_decode_int8(q, k_pages, ks_pages, v_pages, vs_pages, page_table, lengt
     fn = build.function("th_paged_decode_int8", _DECODE_ARGS)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), ks_pages.data_ptr(), v_pages.data_ptr(),
             vs_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, Hkv, rep, ps, page_table.shape[1], *_all_strides(k_pages, layout),
+            B, Hkv, rep, Dh, ps, page_table.shape[1], *_all_strides(k_pages, layout),
             build.dtype_code(q.dtype), build.stream_of(q))
     build.check(rc, "paged_decode_int8")
     launches["paged_decode_int8"] += 1
@@ -149,9 +151,9 @@ def paged_append_int8(k_pages, ks_pages, v_pages, vs_pages, k_new, v_new, page, 
     if not k_pages.is_cuda:
         return paged_append_int8_plain(k_pages, ks_pages, v_pages, vs_pages, k_new, v_new,
                                        page, slot, layout)
-    n_pages, Hkv, ps = _check_pool(k_pages, ks_pages, v_pages, vs_pages, layout)
+    n_pages, Hkv, ps, Dh = _check_pool(k_pages, ks_pages, v_pages, vs_pages, layout)
     B = k_new.shape[0]
-    build.require(k_new.shape == (B, Hkv, HEAD_DIM) and v_new.shape == k_new.shape,
+    build.require(k_new.shape == (B, Hkv, Dh) and v_new.shape == k_new.shape,
                   f"new rows {tuple(k_new.shape)} do not match the pool {tuple(k_pages.shape)}")
     build.require(page.dtype == torch.int32 and slot.dtype == torch.int32
                   and page.shape == (B,) and slot.shape == (B,), "page and slot must be int32 [B]")
@@ -160,7 +162,7 @@ def paged_append_int8(k_pages, ks_pages, v_pages, vs_pages, k_new, v_new, page, 
     build.require_cuda(k_pages, ks_pages, v_pages, vs_pages, k_new, v_new, page, slot)
     fn = build.function("th_paged_append_int8", _APPEND_ARGS)
     rc = fn(k_pages.data_ptr(), ks_pages.data_ptr(), v_pages.data_ptr(), vs_pages.data_ptr(),
-            k_new.data_ptr(), v_new.data_ptr(), page.data_ptr(), slot.data_ptr(), B, Hkv,
+            k_new.data_ptr(), v_new.data_ptr(), page.data_ptr(), slot.data_ptr(), B, Hkv, Dh,
             *_all_strides(k_pages, layout), build.dtype_code(k_new.dtype),
             build.stream_of(k_pages))
     build.check(rc, "paged_append_int8")
@@ -190,16 +192,16 @@ def gather_pages_int8(k_pages, ks_pages, v_pages, vs_pages, page_table, layout, 
     if not k_pages.is_cuda:
         return gather_pages_int8_plain(k_pages, ks_pages, v_pages, vs_pages, page_table,
                                        layout, dtype)
-    n_pages, Hkv, ps = _check_pool(k_pages, ks_pages, v_pages, vs_pages, layout)
+    n_pages, Hkv, ps, Dh = _check_pool(k_pages, ks_pages, v_pages, vs_pages, layout)
     B, mp = page_table.shape
     build.require(page_table.dtype == torch.int32, "page_table must be int32")
     page_table = page_table.contiguous()
     build.require_cuda(k_pages, ks_pages, v_pages, vs_pages, page_table)
-    k_out = torch.empty((B, Hkv, mp * ps, HEAD_DIM), dtype=dtype, device=k_pages.device)
+    k_out = torch.empty((B, Hkv, mp * ps, Dh), dtype=dtype, device=k_pages.device)
     v_out = torch.empty_like(k_out)
     fn = build.function("th_gather_pages_int8", _GATHER_ARGS)
     rc = fn(k_pages.data_ptr(), ks_pages.data_ptr(), v_pages.data_ptr(), vs_pages.data_ptr(),
-            page_table.data_ptr(), k_out.data_ptr(), v_out.data_ptr(), B, Hkv, mp, ps,
+            page_table.data_ptr(), k_out.data_ptr(), v_out.data_ptr(), B, Hkv, Dh, mp, ps,
             *_all_strides(k_pages, layout), build.dtype_code(dtype), build.stream_of(k_pages))
     build.check(rc, "gather_pages_int8")
     launches["gather_pages_int8"] += 1
