@@ -37,7 +37,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      kernels 10-12 launched, kernels 3 and 5-7 not;
   5. CLI: a 2-layer 7B-width ggjt Q4_0 file through tokenhawk_tpu_torch.cli,
      bf16 KV and --kv auto at n_ctx 2048 (kernel 8 instead of kernel 3);
-  6. GGUF weight kinds: a 32-layer Llama-3-8B-width model in llama.cpp's
+  6. GGUF weight kinds: a Llama-3-8B-width model (16 of its 32 layers
+     since phase 11 was added) in llama.cpp's
      Q4_K_M mix (random codes from a seed), Engine.generate at n_ctx 2048
      (prompts of 5, 300, 1500 tokens), then phase 4b's requests through
      the PagedScheduler; kernels 13 and 2 launched, kernel 1 not;
@@ -53,8 +54,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      kernel 14 (decode attention without append, behind an index copy)
      and kernel 4 launched, kernels 1, 2 and 3 not; tok/s against the
      weight-bytes roofline, the idle share of a profiled request;
-  9. speculation: 9a SpeculativeEngine, the 7B Q4_0 target (its first 16
-     layers since phase 10 was added) with a 22-layer TinyLlama-width bf16
+  9. speculation: 9a SpeculativeEngine, the 7B Q4_0 target (its first 8
+     layers since phase 11 was added) with a 22-layer TinyLlama-width bf16
      draft (kernel 14 at 4 KV heads of 64, 8 queries each), gamma 4, each
      stream held against the Engine's greedy stream; 9b a 2-layer
      self-draft (acceptance >= 90%); 9c the PagedScheduler with the draft
@@ -63,7 +64,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      Phases 8 and 9 run after phase 5.
   10. the reference's fused decode-layer kernels, off by default
      (THAWK_FUSED_OWO, THAWK_FUSED_ATTN) and set here on the built model:
-     10a the 32-layer LLaMA-7B Q4_0 Engine with neither, OWO (kernel 15),
+     10a the LLaMA-7B Q4_0 Engine (its first 16 layers since phase 11 was
+     added) with neither, OWO (kernel 15),
      ATTN (kernel 16) and both, in turns: exact launches per decode token
      (kernel 3 and Wo's kernel-1 launches gone under ATTN, kernel 2 under
      OWO alone), tok/s and the idle share of each, each fused greedy
@@ -73,7 +75,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      PagedScheduler on bf16 and int8 pages (kernels 5-7 and 10-12 at Dh
      64), then `serving --paged` (bf16, int8 pages) on phase 9d's F16 GGUF
      file.  Phase 10 runs after phase 9.
-Phase 2 also holds kernel 13 (group-code matmul) and kernel 2 over the
+  11. the Q4_K super-block forms (THAWK_Q4K_SB=1), after phase 7: 11a
+     phase 6's model at all 32 layers, drawn in them, through Engine (kernel 17 and
+     kernel 2 with an sb w13 launched, kernel 13 only for the Q6_K weights
+     and the flat w2), B=1 decode windows against the flat form of the same
+     codes in turns, and phase 4b's requests through the PagedScheduler;
+     11b phase 7's file loaded with the flag at float32 sides, its greedy
+     stream held against the flat form's, the CLI and `serving --paged`
+     with the flag; 11c runtime/eval.py's perplexity of that file, sb
+     against flat, at float32 and bfloat16 sides.
+The entry points a phase runs as subprocesses (CLI, servers) run side by
+side, as their loads are host work.
+Phase 2 also holds kernel 17 (Q4_K super-blocks) beside kernel 13 over the
+flat form of the same codes, kernel 2 with an sb w13, kernel 13
+(group-code matmul) and kernel 2 over the
 GGUF kinds at those models' shapes, kernels 3-12 at Llama-3-8B's 8 KV
 heads of 4 queries each, kernel 14 at the 7B's and TinyLlama's heads,
 kernels 3-12 at TinyLlama's head dim 64 (8 queries a KV head), and
@@ -89,6 +104,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -140,15 +156,22 @@ PAGED_PS, PAGED_POOL = 128, 140
 # inside its time after phases 8 and 9 were added.
 INT8_CTX = 2048
 INT8_LAYERS = 8
-# Phase 9 runs the 7B target's first 16 layers (its widths) since phase 10
-# was added, to keep the script's run inside its time.
-SPEC_LAYERS = 16
+# Phase 9 runs the 7B target's first 8 layers (its widths; 16 from phase
+# 10's addition, 8 since phase 11's), and phase 10a the 7B's first 16 (32
+# before phase 11), to keep the script's run inside its time.
+SPEC_LAYERS = 8
+FUSED_LAYERS = 16
+# Phase 6 runs 16 of the Q4_K_M model's 32 layers since phase 11a runs all
+# 32 of the same model, its flat form included in 11a's decode windows.
+Q4KM_LAYERS = 16
 # Kernel 2's launch counts by weight-form pairing (ops/cuda/ffn.py): Q4_0
 # over Q4_0; Q4_K (G 32 with mins) over Q6_K (G 16) and over Q4_K, the
 # two of a Q4_K_M file; Q8_0 (G 32) over Q8_0.
 FFN_Q4_0 = "ffn[q4_0/q4_0]"
 FFN_Q4_K_M = ["ffn[g32m/g16]", "ffn[g32m/g32m]"]
 FFN_Q8_0 = "ffn[g32/g32]"
+# The same two with a Q4_K super-block w13 (THAWK_Q4K_SB=1's forms).
+FFN_SB = ["ffn[sb/g16]", "ffn[sb/g32m]"]
 
 
 _T0 = time.perf_counter()
@@ -426,25 +449,25 @@ def phase_kernels() -> list:
                          + paged64.get(rec["name"], []))
         rec["max_abs_err"] = max(c["max_abs_err"] for c in rec["cases"])
     records += _group_code_kernel_records(randn, case, library, g)
+    records += _sb_kernel_records(randn, case, library, g)
     records += _fused_layer_records(randn, case, library, g)
     return records
 
 
 def _qweights(parts, ws) -> list:
     """QWeights like ws (a list) over the flat tensor list `parts` (each
-    weight's qs, scales and mins where it has them), as copies() makes them."""
+    weight's QWeight.tensors()), as copies() makes them."""
     out, i = [], 0
     for w in ws:
-        n = 2 if w.mins is None else 3
-        out.append(dataclasses.replace(w, qs=parts[i], scales=parts[i + 1],
-                                       mins=parts[i + 2] if n == 3 else None))
-        i += n
+        names = [f for f in ("qs", "scales", "mins", "scmn") if getattr(w, f) is not None]
+        out.append(dataclasses.replace(w, **dict(zip(names, parts[i:i + len(names)]))))
+        i += len(names)
     return out
 
 
 def _weight_sets(ws) -> list:
     """copies() of a list of QWeights, each a list of QWeights."""
-    parts = [t for w in ws for t in (w.qs, w.scales, w.mins) if t is not None]
+    parts = [t for w in ws for t in w.tensors()]
     return [_qweights(c, ws) for c in copies(parts, sum(w.nbytes for w in ws))]
 
 
@@ -645,7 +668,7 @@ def _group_code_kernel_records(randn, case, library, g) -> list:
 
     dev = torch.device("cuda")
     bf = 2
-    src13, src2 = "tokenhawk_tpu_torch/csrc/qk_matmul.cu", "tokenhawk_tpu_torch/csrc/ffn.cu"
+    src13, src2 = "tokenhawk_tpu_torch/csrc/qmatmul.cu", "tokenhawk_tpu_torch/csrc/ffn.cu"
     rep13 = ("tokenhawk_tpu/ops/pallas/qmatmul.py:742 (q8_matmul); "
              "qmatmul.py:477 (qk_matmul)")
     records = []
@@ -722,6 +745,92 @@ def _group_code_kernel_records(randn, case, library, g) -> list:
         records.append(_record(f"fused_ffn[{tag}]", src2, "tokenhawk_tpu/ops/pallas/ffn.py:270 "
                                "(_fused_ffn via fused_ffn)", cases, ("ffn", 1), at, lib))
         del w13, w2, sets
+    return records
+
+
+def _sb_kernel_records(randn, case, library, g) -> list:
+    """Kernel 17 (Q4_K super-blocks, the forms of THAWK_Q4K_SB=1) at phase
+    11a's projection shapes (Llama-3-8B: wqkv and w13 with the norm fused,
+    wo without; the other norm form only checked) at 1, 8 and 512 rows,
+    each timed with its bound at the GGUF blocks' 0.5625 B a weight and at
+    the layout's bytes, dequantize + torch.matmul, and kernel 13 over the
+    flat form of the same codes (flat_ms); then kernel 2 with an sb w13 over
+    a Q6_K and a flat Q4_K w2 at one row, beside kernel 2 over the flat w13."""
+    import torch
+
+    from tokenhawk_tpu_torch.ops.cuda import ffn, qmatmul
+    from tokenhawk_tpu_torch.ops.qweight import QWeight
+
+    dev = torch.device("cuda")
+    bf = 2
+    cases = []
+    shapes = [("wqkv", 4096, 6144, True), ("wo", 4096, 4096, False), ("w13", 4096, 28672, True)]
+    for name, K, N, norm in shapes:
+        w = QWeight.random(K, N, "q4k_sb", g, dev)
+        ws = _weight_copies(w)
+        flats = [v.flat() for v in ws]
+        gain = 1.0 + randn(K, scale=0.1)
+        for rows in (1, 8, 512):
+            x = randn(rows, K)
+            for ng in (gain, None):
+                label = (f"qk_sb_matmul Llama-3-8B {name} K={K} N={N} rows={rows} "
+                         f"norm={ng is not None}")
+                out = qmatmul.quant_matmul(x, w, ng)
+                ref = qmatmul.quant_matmul_plain(x, w, ng)
+                if (ng is not None) != norm:
+                    case(cases, label, f"{name} norm={ng is not None}", rows, out, ref)
+                    continue
+                calls = 32 if rows < 512 else 4
+                case(cases, label, name, rows, out, ref,
+                     [lambda w=w: qmatmul.quant_matmul(x, w, ng) for w in ws],
+                     [lambda w=w: qmatmul.quant_matmul_plain(x, w, ng) for w in ws],
+                     calls=calls)
+                io = (rows * (K + N) + K * norm) * bf
+                b = bound(_ggml_bytes("q4_k", K, N) + io, 2 * rows * K * N, w.nbytes + io)
+                lib_ms = timed([lambda w=w: x @ w.dequantize(torch.bfloat16) for w in ws],
+                               calls)["ms"]
+                flat_ms = timed([lambda f=f: qmatmul.quant_matmul(x, f, ng) for f in flats],
+                                calls)["ms"]
+                cases[-1].update(b, library_ms=lib_ms, flat_ms=flat_ms)
+                log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}; in the port's layout "
+                    f"{b['layout_bound_ms']:.4f}); dequantize (f32 torch ops, then bf16) + "
+                    f"torch.matmul, no norm (2+ calls): {lib_ms:.4f} ms; kernel 13 over the "
+                    f"flat form of the same codes ({flats[0].nbytes / 1e6:.1f} MB against "
+                    f"{w.nbytes / 1e6:.1f}): {flat_ms:.4f} ms")
+                if name == "wqkv" and rows == 1:
+                    at, lib, flat_at = b, lib_ms, flat_ms
+        del w, ws, flats
+    records = [_record("qk_sb_matmul", "tokenhawk_tpu_torch/csrc/qmatmul.cu",
+                       "tokenhawk_tpu/ops/pallas/qmatmul.py:637 (qk_sb_matmul)", cases,
+                       ("wqkv", 1), at, lib) | {"flat_ms": flat_at}]
+
+    D, F = 4096, 14336
+    for tag, f2 in (("q4k_sb/q6_k", "q6_k"), ("q4k_sb/q4_k", "q4_k")):
+        w13, w2 = QWeight.random(D, 2 * F, "q4k_sb", g, dev), QWeight.random(F, D, f2, g, dev)
+        sets = list(zip(_weight_copies(w13), _weight_copies(w2)))
+        flat_sets = [(a.flat(), b) for a, b in sets]
+        gain = 1.0 + randn(D, scale=0.1)
+        x = randn(1, D)
+        cases = []
+        case(cases, f"fused_ffn {tag} D={D} F={F} rows=1", "ffn", 1,
+             ffn.fused_ffn(x, w13, w2, gain), ffn.fused_ffn_plain(x, w13, w2, gain),
+             [lambda s=s: ffn.fused_ffn(x, *s, gain) for s in sets],
+             [lambda s=s: ffn.fused_ffn_plain(x, *s, gain) for s in sets])
+        io = 3 * D * bf
+        b = bound(_ggml_bytes("q4_k", D, 2 * F) + _ggml_bytes(f2, F, D) + io, 6 * D * F,
+                  w13.nbytes + w2.nbytes + io)
+        lib_ms = library("rms_norm + dequantize w13 and w2 + 2 torch.matmul + silu, bf16 "
+                         "(10+ calls)", [lambda s=s: _ffn_library(x, *s, gain) for s in sets])
+        flat_ms = timed([lambda s=s: ffn.fused_ffn(x, *s, gain) for s in flat_sets])["ms"]
+        cases[-1].update(b, library_ms=lib_ms, flat_ms=flat_ms)
+        log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}; in the port's layout "
+            f"{b['layout_bound_ms']:.4f}); kernel 2 over the flat w13 of the same codes: "
+            f"{flat_ms:.4f} ms")
+        records.append(_record(f"fused_ffn[{tag}]", "tokenhawk_tpu_torch/csrc/ffn.cu",
+                               "tokenhawk_tpu/ops/pallas/ffn.py:270 (_fused_ffn via fused_ffn, "
+                               "sb w13: ffn.py:195-197)", cases, ("ffn", 1), b, lib_ms)
+                       | {"flat_ms": flat_ms})
+        del w13, w2, sets, flat_sets
     return records
 
 
@@ -1263,15 +1372,17 @@ def _llama3_8b(n_layer: int, n_ctx: int = S_CTX):
                        n_ff=14336, n_ctx=n_ctx, rope_theta=500000.0, rms_norm_eps=1e-5)
 
 
-def _params(cfg, device, quant: str = "q4_0"):
-    """Random fused parameters from SEED: Q4_0, Q8_0 or the Q4_K_M mix."""
+def _params(cfg, device, quant: str = "q4_0", sb: bool = False):
+    """Random fused parameters from SEED: Q4_0, Q8_0 or the Q4_K_M mix
+    (with sb, in THAWK_Q4K_SB=1's forms)."""
     import torch
 
     from tokenhawk_tpu_torch.models.llama import fuse_params, init_params
 
     g = torch.Generator(device=device)
     g.manual_seed(SEED)
-    return fuse_params(init_params(cfg, g, dtype=torch.bfloat16, device=device, quant=quant))
+    return fuse_params(init_params(cfg, g, dtype=torch.bfloat16, device=device, quant=quant,
+                                   sb=sb))
 
 
 # The GGML kind each group-code form holds in the models of phases 6 and
@@ -1285,8 +1396,9 @@ def _weight_gb(params) -> tuple:
     and in the GGML blocks of their kinds."""
     ws = [params.output] + [w for lp in params.layers for w in (
         lp.wqkv, lp.wq, lp.wk, lp.wv, lp.wo, lp.w13, lp.w1, lp.w3, lp.w2) if w is not None]
-    blocks = sum(w.nbytes if w.kind == "q4_0" else
-                 _ggml_bytes(_FORM_KIND[w.group, w.mins is not None], *w.shape) for w in ws)
+    blocks = sum(w.nbytes if w.kind == "q4_0" else _ggml_bytes(
+        "q4_k" if w.kind == "q4k_sb" else _FORM_KIND[w.group, w.mins is not None], *w.shape)
+        for w in ws)
     return sum(w.nbytes for w in ws) / 1e9, blocks / 1e9
 
 
@@ -1863,23 +1975,52 @@ def phase_http(sched, tokenizer, model_path: str, tmp: str) -> None:
         httpd.serving_loop.stop()
 
     root = os.path.dirname(os.path.abspath(__file__))
-    for extra in ([], ["--paged", "--prefill-chunk", "128"], ["--paged", "--kv", "int8"]):
-        _serve_subprocess(root, model_path, tmp, extra)
+    _concurrently(*(lambda e=extra: _serve_subprocess(root, model_path, tmp, e) for extra in
+                    ([], ["--paged", "--prefill-chunk", "128"], ["--paged", "--kv", "int8"])))
 
 
-def _serve_subprocess(root: str, model_path: str, tmp: str, extra: list) -> None:
-    """`python -m tokenhawk_tpu_torch.serving` on the 2-layer file: wait for
-    /health, stream one request to its end, stop the process."""
+def _concurrently(*calls) -> list:
+    """Run the zero-argument calls in threads and return their results,
+    raising the first error.  Subprocesses that load a model (the entry
+    points) spend most of their time on host work, so they overlap."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(calls)) as ex:
+        futures = [ex.submit(c) for c in calls]
+        return [f.result() for f in futures]
+
+
+def _cli_subprocess(root: str, args: list, marker: str, env=None) -> None:
+    """`python -m tokenhawk_tpu_torch.cli ARGS` (with `env` added to its
+    environment): exit 0 and a stats line holding `marker` on stderr."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "tokenhawk_tpu_torch.cli", *args], cwd=root,
+                         capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=root, **(env or {})))
+    line = [ln for ln in out.stderr.splitlines() if marker in ln]
+    label = " ".join(f"{k}={v}" for k, v in (env or {}).items())
+    log(f"{label} cli {' '.join(a for a in args if a.startswith('--'))}: exit "
+        f"{out.returncode} in {time.perf_counter() - t0:.1f} s; "
+        f"{line[-1] if line else out.stderr[-2000:]}")
+    if out.returncode != 0 or not line:
+        raise AssertionError(f"the CLI failed: {out.stderr[-3000:]}")
+
+
+def _serve_subprocess(root: str, model_path: str, tmp: str, extra: list, env=None,
+                      finishes=("length", "stop")) -> None:
+    """`python -m tokenhawk_tpu_torch.serving` on the 2-layer file (with
+    `env` added to its environment): wait for /health, stream one request
+    to one of `finishes`, stop the process."""
     port = _free_port()
     kind = "PagedScheduler" if "--paged" in extra else "dense Scheduler"
-    log_path = os.path.join(tmp, "serving.log")
+    log_path = os.path.join(tmp, f"serving_{port}.log")
     cmd = [sys.executable, "-m", "tokenhawk_tpu_torch.serving", "-m", model_path,
            "--port", str(port), "--n-ctx", "512", "--max-batch", "2", "--greedy", *extra]
     base = f"http://127.0.0.1:{port}"
     t0 = time.perf_counter()
     with open(log_path, "w") as out:
         proc = subprocess.Popen(cmd, cwd=root, stdout=out, stderr=subprocess.STDOUT,
-                                env=dict(os.environ, PYTHONPATH=root))
+                                env=dict(os.environ, PYTHONPATH=root, **(env or {})))
         try:
             while True:
                 try:
@@ -1897,7 +2038,7 @@ def _serve_subprocess(root: str, model_path: str, tmp: str, extra: list) -> None
             log(f"{' '.join(['python -m tokenhawk_tpu_torch.serving', *extra])} ({kind}, "
                 f"2-layer file): up in {up:.1f} s, /generate finish {reason} with {n} token "
                 f"frames, step_errors {health['step_errors']}")
-            if (reason not in ("length", "stop") or health["step_errors"] != 0
+            if (reason not in finishes or health["step_errors"] != 0
                     or health.get("speculative") != ("--draft-model" in extra)):
                 raise AssertionError(open(log_path).read()[-3000:])
         finally:
@@ -1942,11 +2083,11 @@ def _engine_requests(cfg, params, kernel_mods, prompts, on_path, off_path) -> di
     return counts
 
 
-def _model(cfg, quant: str, label: str):
+def _model(cfg, quant: str, label: str, sb: bool = False):
     import torch
 
     t0 = time.perf_counter()
-    params = _params(cfg, torch.device("cuda"), quant)
+    params = _params(cfg, torch.device("cuda"), quant, sb)
     torch.cuda.synchronize()
     split = sum(lp.wqkv is None for lp in params.layers)
     gb, file_gb = _weight_gb(params)
@@ -1960,16 +2101,16 @@ def _model(cfg, quant: str, label: str):
 
 
 def phase_q4_k_m(kernel_mods, engine_path, paged_path) -> tuple:
-    """Phase 6: the 32-layer Llama-3-8B-width model in the Q4_K_M mix
+    """Phase 6: the Llama-3-8B-width model in the Q4_K_M mix (Q4KM_LAYERS)
     through Engine (prompts of 5, 300 and 1500 tokens) and the
     PagedScheduler (phase 4b's requests).  Returns both runs' counts."""
     import torch
 
     from tokenhawk_tpu_torch.models.llama import q4_k_m_more_bits
 
-    log(f"== phase 6: Llama-3-8B widths in llama.cpp's Q4_K_M mix, 32 layers, Engine at n_ctx "
-        f"{INT8_CTX}, bf16 KV")
-    cfg = _llama3_8b(32, INT8_CTX)
+    log(f"== phase 6: Llama-3-8B widths in llama.cpp's Q4_K_M mix, {Q4KM_LAYERS} layers, Engine "
+        f"at n_ctx {INT8_CTX}, bf16 KV")
+    cfg = _llama3_8b(Q4KM_LAYERS, INT8_CTX)
     params, split = _model(cfg, "q4_k_m", "Q4_K_M model")
     if split != sum(q4_k_m_more_bits(i, cfg.n_layer) for i in range(cfg.n_layer)):
         raise AssertionError(f"{split} layers unfused, not the recipe's Q6_K-wv layers")
@@ -2002,9 +2143,10 @@ STOP_PROMPT = "Once upon a time, in a land far away,"
 EOT_ID = 128009
 
 
-def phase_gguf(tmp: str, kernel_mods) -> None:
+def phase_gguf(tmp: str, kernel_mods) -> str:
     """Phase 7: a 2-layer Llama-3-8B-width Q4_K_M GGUF through load_model,
-    the CLI and the paged server; a request stops on <|eot_id|>."""
+    the CLI and the paged server; a request stops on <|eot_id|>.  Returns
+    the file's path (phase 11 loads it again)."""
     import torch
 
     from tokenhawk_tpu_torch import cli
@@ -2057,21 +2199,28 @@ def phase_gguf(tmp: str, kernel_mods) -> None:
 
     # The CLI with --kv auto (int8 at n_ctx 2048); its bf16 run on a file
     # is phase 5's, and each load of this file takes 35-50 s of host time.
-    extra = ["--kv", "auto", "--n-ctx", str(INT8_CTX)]
-    _reset_counts(kernel_mods)
-    rc = cli.main(["-m", path, "Hello, my name is", "--greedy", "--max-tokens", "16", *extra])
-    sys.stderr.flush()
-    counts = _read_counts(kernel_mods)
-    if rc != 0:
-        raise AssertionError(f"cli {extra} returned {rc}")
-    _check_path(counts, ["qk_matmul", *FFN_Q4_K_M, "flash_decode_int8"],
-                ["q4_matmul", "flash_decode"])
-    log(f"cli on the GGUF {' '.join(extra)}: exit 0, kernel launches {counts}")
+    # The server loads its copy of the file meanwhile.
+    def run_cli():
+        extra = ["--kv", "auto", "--n-ctx", str(INT8_CTX)]
+        _reset_counts(kernel_mods)
+        rc = cli.main(["-m", path, "Hello, my name is", "--greedy", "--max-tokens", "16",
+                       *extra])
+        sys.stderr.flush()
+        counts = _read_counts(kernel_mods)
+        if rc != 0:
+            raise AssertionError(f"cli {extra} returned {rc}")
+        _check_path(counts, ["qk_matmul", *FFN_Q4_K_M, "flash_decode_int8"],
+                    ["q4_matmul", "flash_decode", "qk_sb_matmul", *FFN_SB])
+        log(f"cli on the GGUF {' '.join(extra)}: exit 0, kernel launches {counts}")
 
-    # Swap the head rows of the third token and <|eot_id|>: the server's
-    # third greedy token for STOP_PROMPT becomes <|eot_id|>.
-    synth.swap_output_rows(path, head[2], EOT_ID)
-    _serve_gguf(path, tmp, tok, md["tokenizer.chat_template"])
+    # The server's copy swaps the head rows of the third token and
+    # <|eot_id|>: its third greedy token for STOP_PROMPT becomes <|eot_id|>.
+    served = os.path.join(tmp, "llama3-8b-2layer-q4_k_m-eot.gguf")
+    shutil.copyfile(path, served)
+    synth.swap_output_rows(served, head[2], EOT_ID)
+    _concurrently(run_cli, lambda: _serve_gguf(served, tmp, tok, md["tokenizer.chat_template"]))
+    os.remove(served)
+    return path
 
 
 def _serve_gguf(path: str, tmp: str, tok, template: str) -> None:
@@ -2128,6 +2277,205 @@ def _serve_gguf(path: str, tmp: str, tok, template: str) -> None:
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait()
+
+
+def _flat(params):
+    """params with every q4k_sb weight in the flat qk form of its codes
+    (QWeight.flat: what a load without THAWK_Q4K_SB gives at float32 sides)."""
+    from tokenhawk_tpu_torch.ops.qweight import QWeight
+
+    return _map_weights(params, lambda w: w.flat() if isinstance(w, QWeight)
+                        and w.kind == "q4k_sb" else w)
+
+
+def _sides_as(params, dtype):
+    """params with every quantized weight's scales and mins rounded to
+    dtype, as load_model's scale_dtype rounds them: d / dmin of a q4k_sb
+    weight, s and the bias of a flat one."""
+    from tokenhawk_tpu_torch.ops.qweight import QWeight
+
+    def rounded(w):
+        if not isinstance(w, QWeight):
+            return w
+        return dataclasses.replace(w, scales=w.scales.to(dtype).float(),
+                                   mins=None if w.mins is None else w.mins.to(dtype).float())
+
+    return _map_weights(params, rounded)
+
+
+def _kernel13_weights(run) -> set:
+    """The (group, mins, K) of every weight that went to kernel 13 (the qk
+    forms) through the model's projections while run() ran."""
+    from tokenhawk_tpu_torch.ops import linear
+
+    seen, plain = set(), linear.quant_matmul
+
+    def spy(x, w, *args, **kwargs):
+        if w.kind == "qk":
+            seen.add((w.group, w.mins is not None, w.shape[0]))
+        return plain(x, w, *args, **kwargs)
+
+    linear.quant_matmul = spy
+    try:
+        run()
+    finally:
+        linear.quant_matmul = plain
+    return seen
+
+
+def phase_q4k_sb(kernel_mods, engine_path, paged_path) -> tuple:
+    """Phase 11a: the 32-layer Llama-3-8B-width Q4_K_M model of phase 6 with the
+    forms THAWK_Q4K_SB=1 gives (init_params(sb=True): q4k_sb for every Q4_K
+    weight but w2) through Engine (prompts of 5, 300 and 1500 tokens) and
+    the PagedScheduler (phase 4b's requests); kernel 13 may take only the
+    Q6_K weights and the flat w2.  Between them, decode windows at B=1 on
+    these weights and on the flat form of the same codes, in turns (device
+    ms a token, idle share).  Returns both runs' counts."""
+    import torch
+
+    from tokenhawk_tpu_torch.config import SamplingConfig
+    from tokenhawk_tpu_torch.runtime.engine import Engine
+    from tokenhawk_tpu_torch.tokenizer import byte_fallback_vocab
+
+    log(f"== phase 11a: Llama-3-8B widths in Q4_K_M, super-block forms (THAWK_Q4K_SB=1's), 32 "
+        f"layers, Engine at n_ctx {INT8_CTX}, bf16 KV")
+    cfg = _llama3_8b(32, INT8_CTX)
+    params, _ = _model(cfg, "q4_k_m", "Q4_K_M model in super-block forms", sb=True)
+    kinds = {}
+    for lp in params.layers:
+        for name in ("wqkv", "wq", "wk", "wv", "wo", "w13", "w2"):
+            w = getattr(lp, name)
+            if w is not None:
+                kinds.setdefault(name, set()).add(
+                    w.kind if w.kind == "q4k_sb" else f"qk G{w.group}")
+    log(f"weight kinds by projection: { {k: sorted(v) for k, v in kinds.items()} }; head "
+        f"qk G{params.output.group}")
+    if (kinds["wo"] != {"q4k_sb"} or kinds["w13"] != {"q4k_sb"} or "q4k_sb" in kinds["w2"]
+            or kinds["wv"] != {"qk G16"} or kinds["wqkv"] != {"q4k_sb"}):
+        raise AssertionError(f"the super-block forms are not where the reference's gate "
+                             f"puts them: {kinds}")
+    counts = {}
+    seen = _kernel13_weights(lambda: counts.update(
+        _engine_requests(cfg, params, kernel_mods, (5, 300, 1500), *engine_path)))
+    log(f"kernel 13 took (group, mins, K): {sorted(seen)}")
+    if not seen or not all(g == 16 or (g, k) == (32, cfg.n_ff) for g, _, k in seen):
+        raise AssertionError(f"kernel 13 took weights other than Q6_K and the flat w2: {seen}")
+    flat = _flat(params)
+    greedy = SamplingConfig(temperature=0.0)
+    engines = {form: Engine(cfg, p, byte_fallback_vocab(), sampling=greedy, max_seq=cfg.n_ctx,
+                            eos_id=-1) for form, p in (("sb", params), ("flat", flat))}
+    prompt = [1] + np.random.default_rng(SEED + 11).integers(3, cfg.n_vocab, 299).tolist()
+    windows = {"sb": [], "flat": []}
+    for form in ("sb", "flat", "flat", "sb"):
+        w = _decode_window(engines[form], prompt, chunks=4, kernel_mods=kernel_mods)
+        windows[form].append(w)
+        log(f"  {form}: {w['device_ms']:.4f} device ms a token, idle {w['idle']:.1%}, "
+            f"{w['tok_s']:.1f} tok/s (profiled)")
+    sb_counts, flat_counts = windows["sb"][0]["counts"], windows["flat"][0]["counts"]
+    if not sb_counts.get("qk_sb_matmul") or flat_counts.get("qk_sb_matmul"):
+        raise AssertionError(f"decode windows: sb {sb_counts}, flat {flat_counts}")
+    log("device ms a token at B=1, 300+ live, sb against the flat form of the same codes: "
+        + ", ".join(f"{f} {[round(w['device_ms'], 4) for w in ws]}"
+                    for f, ws in windows.items()))
+    del engines, flat
+    torch.cuda.empty_cache()
+    paged, sched = phase_paged_serve(params, cfg, kernel_mods, "bf16", *paged_path,
+                                     "phase 11a (paged): the super-block model under "
+                                     "PagedScheduler")
+    sched.cache = None
+    del sched, params
+    torch.cuda.empty_cache()
+    return counts, paged
+
+
+def phase_gguf_sb(path: str, tmp: str) -> None:
+    """Phases 11b and 11c on phase 7's 2-layer Llama-3-8B-width Q4_K_M GGUF
+    file.  11b: load_model with THAWK_Q4K_SB=1 at float32 sides (sb kinds
+    where the reference's gate puts them); its greedy stream over 32 tokens
+    against the flat form of the same weights (what a load without the flag
+    gives), equal up to near-ties, as phase 9's rule has it; then the CLI and
+    `serving --paged` with THAWK_Q4K_SB=1 in their environment.  11c:
+    runtime/eval.perplexity over a seeded stream of 4 windows of 512 tokens,
+    sb against flat, at float32 sides and at bfloat16 sides (the loader's
+    default; there the two forms round different sides)."""
+    import torch
+
+    from tokenhawk_tpu_torch.config import SamplingConfig
+    from tokenhawk_tpu_torch.runtime import eval as th_eval
+    from tokenhawk_tpu_torch.runtime.engine import Engine
+    from tokenhawk_tpu_torch.runtime.loader import load_model
+
+    log("== phase 11b: phase 7's GGUF file loaded with THAWK_Q4K_SB=1, float32 sides; the CLI "
+        "and `serving --paged` with the flag load it meanwhile")
+    sb_env = {"THAWK_Q4K_SB": "1"}
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def load():
+        t0 = time.perf_counter()
+        os.environ.update(sb_env)
+        try:
+            loaded = load_model(path, n_ctx=S_CTX, scale_dtype=torch.float32)
+        finally:
+            del os.environ["THAWK_Q4K_SB"]
+        torch.cuda.synchronize()
+        log(f"load_model in {time.perf_counter() - t0:.1f} s")
+        return loaded
+
+    # A random model may meet <|eot_id|>: a request may end there.
+    (cfg, params, tok), _, _ = _concurrently(
+        load,
+        lambda: _cli_subprocess(root, ["-m", path, "Hello, my name is", "--greedy",
+                                       "--max-tokens", "16", "--n-ctx", str(S_CTX)], "tok/s",
+                                sb_env),
+        lambda: _serve_subprocess(root, path, tmp, ["--paged"], env=sb_env,
+                                  finishes=("length", "stop", "eos")))
+    l0, l1 = params.layers
+    got = [w.kind for w in (l0.wqkv, l0.wo, l0.w13, l1.wq, l1.wk, l1.wo, l1.w13)]
+    log(f"layer 0 wqkv, wo, w13 and layer 1 wq, wk, wo, w13: {got}; w2 {l0.w2.kind} "
+        f"G{l0.w2.group}, {l1.w2.kind} G{l1.w2.group}; layer 1 wv {l1.wv.kind} G{l1.wv.group}; "
+        f"projections and head {_weight_gb(params)[0]:.3f} GB (flat form: "
+        f"{_weight_gb(_flat(params))[0]:.3f})")
+    if got != ["q4k_sb"] * 7 or "q4k_sb" in (l0.w2.kind, l1.w2.kind, l1.wv.kind):
+        raise AssertionError("the file did not load in the reference's super-block forms")
+    flat = _flat(params)
+    greedy = SamplingConfig(temperature=0.0)
+    engines = [Engine(cfg, p, tok, sampling=greedy, max_seq=S_CTX, eos_id=-1)
+               for p in (flat, params)]
+    prompt = tok.encode_prompt(STOP_PROMPT)
+    stream = engines[1].generate(prompt, max_new_tokens=32).tokens
+    forms = _stream_forms(engines[0].device, [_engine_form(e, prompt) for e in engines],
+                          prompt, len(stream))
+    _check_greedy_identity("11b sb stream against the flat form's", stream, forms)
+
+    log("== phase 11c: runtime/eval.perplexity, sb against flat, 4 windows of 512 tokens")
+    toks = np.random.default_rng(SEED + 12).integers(0, cfg.n_vocab, 4 * 512).tolist()
+
+    def nll(p, label):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = th_eval.mean_nll(cfg, p, toks, window=512)
+        torch.cuda.synchronize()
+        log(f"  {label}: perplexity {np.exp(v):.4f} (mean nll {v:.6f}), "
+            f"{(time.perf_counter() - t0) / 4:.3f} s a window")
+        return v
+
+    for sides in ("float32", "bfloat16"):
+        got = {form: nll(_sides_as(p, getattr(torch, sides)), f"{form}, {sides} sides")
+               for form, p in (("sb", params), ("flat", flat))}
+        log(f"  {sides} sides, bfloat16 activations: log(ppl_sb / ppl_flat) = "
+            f"{got['sb'] - got['flat']:.3e}")
+        if not all(np.isfinite(v) for v in got.values()):
+            raise AssertionError(f"perplexity not finite: {got}")
+    # float32 sides and activations: the two forms hold the same weights, so
+    # their scores differ by summation order alone.
+    ratio = (nll(_float32(params), "sb, float32 sides and activations")
+             - nll(_float32(flat), "flat, float32 sides and activations"))
+    log(f"  float32 sides and activations: log(ppl_sb / ppl_flat) = {ratio:.3e} (tolerance "
+        f"{F32_FORMS_TOL:g})")
+    if not abs(ratio) < F32_FORMS_TOL:
+        raise AssertionError(f"sb and flat perplexities apart by {ratio} in log")
+    del engines, params, flat
+    torch.cuda.empty_cache()
 
 
 # TinyLlama-1.1B's published widths (TinyLlama/TinyLlama-1.1B-Chat-v1.0,
@@ -2534,19 +2882,12 @@ def _speculation_subprocesses(model_path: str, tmp: str) -> None:
     draft_path = os.path.join(tmp, "tinyllama-2layer-f16.gguf")
     write_tinyllama_gguf(draft_path)
     root = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "tokenhawk_tpu_torch.cli", "-m", model_path, "Hello",
-           "--greedy", "--max-tokens", "32", "--n-ctx", str(S_CTX), "--draft-model", draft_path,
-           "--gamma", "4"]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600,
-                         env=dict(os.environ, PYTHONPATH=root))
-    line = [ln for ln in out.stderr.splitlines() if "tok/round" in ln]
-    log(f"cli --draft-model: exit {out.returncode} in {time.perf_counter() - t0:.1f} s; "
-        f"{line[-1] if line else out.stderr[-2000:]}")
-    if out.returncode != 0 or not line:
-        raise AssertionError(f"cli --draft-model failed: {out.stderr[-3000:]}")
-    _serve_subprocess(root, model_path, tmp, ["--paged", "--draft-model", draft_path,
-                                              "--gamma", "4"])
+    _concurrently(
+        lambda: _cli_subprocess(root, ["-m", model_path, "Hello", "--greedy", "--max-tokens",
+                                       "32", "--n-ctx", str(S_CTX), "--draft-model", draft_path,
+                                       "--gamma", "4"], "tok/round"),
+        lambda: _serve_subprocess(root, model_path, tmp, ["--paged", "--draft-model",
+                                                          draft_path, "--gamma", "4"]))
 
 
 # Kernel 15's and kernel 16's launch keys (ops/cuda/ffn.py, flash_decode.py).
@@ -2554,53 +2895,76 @@ OWO_Q4_0 = "owo_ffn[q4_0/q4_0]"
 ATTN_WO = "attn_wo"
 
 
-def _fused_forms(engine, prompt, n: int, fusions) -> tuple:
-    """As _decode_and_verify_forms, for the fused decode-layer kernels: the
-    unfused greedy stream (prefill, then one decode forward a token) and,
-    at every step on the same history, the logits of the forward with
-    `fusions` over a cache of its own.  Returns per step: the unfused
-    token, the fused form's argmax, the unfused logits' top-two gap and
-    the two forms' largest logit difference, both over the largest |logit|."""
+def _stream_forms(dev, forms, prompt, n: int) -> tuple:
+    """Two forms of one model, each a (prefill, step) pair: prefill() ->
+    (cache, logits [1, V]) for `prompt`, step(tok [1, 1], cache, pos) ->
+    logits [1, V].  The first form's greedy stream (its prefill, then one
+    step a token) and, at every step on the same history, the second
+    form's logits over a cache of its own.  Returns per step: the stream's
+    token, the second form's argmax, the first logits' top-two gap and the
+    two forms' largest logit difference, both over the largest |logit|."""
     import torch
 
-    from tokenhawk_tpu_torch.models.llama import Fusions, forward, logits_from_hidden
-
-    cfg, params, dev = engine.cfg, engine.params, engine.device
-    forms = (Fusions(), fusions)
-
-    def with_fusions(f, run):
-        params.fusions = f
-        try:
-            return run()
-        finally:
-            params.fusions = Fusions()
-
     caches, lgs = [], []
-    for f in forms:
-        c, lg, _ = with_fusions(f, lambda: engine.prefill(engine.new_cache(1), [prompt]))
+    for prefill, _ in forms:
+        c, lg = prefill()
         caches.append(c)
         lgs.append(lg[0].float())
-    toks, ftoks, gaps, diffs = [], [], [], []
+    toks, otoks, gaps, diffs = [], [], [], []
     with torch.inference_mode():
         for i in range(n):
-            lu, lf = lgs
-            top = torch.topk(lu, 2).values
-            big = lu.abs().max()
+            la, lb = lgs
+            top = torch.topk(la, 2).values
+            big = la.abs().max()
             gaps.append(float((top[0] - top[1]) / big))
-            diffs.append(float((lu - lf).abs().max() / big))
-            toks.append(int(lu.argmax()))
-            ftoks.append(int(lf.argmax()))
+            diffs.append(float((la - lb).abs().max() / big))
+            toks.append(int(la.argmax()))
+            otoks.append(int(lb.argmax()))
             pos = torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev)
             tok = torch.tensor([[toks[-1]]], device=dev)
-            for j, f in enumerate(forms):
-                h, _ = with_fusions(f, lambda j=j: forward(cfg, params, tok, caches[j], pos))
-                lgs[j] = logits_from_hidden(cfg, params, h[:, 0])[0].float()
-    return toks, ftoks, gaps, diffs
+            for j, (_, step) in enumerate(forms):
+                lgs[j] = step(tok, caches[j], pos)[0].float()
+    return toks, otoks, gaps, diffs
+
+
+def _engine_form(engine, prompt):
+    """An Engine's (prefill, step) pair for _stream_forms."""
+    from tokenhawk_tpu_torch.models.llama import forward, logits_from_hidden
+
+    cfg, params = engine.cfg, engine.params
+
+    def step(tok, cache, pos):
+        h, _ = forward(cfg, params, tok, cache, pos)
+        return logits_from_hidden(cfg, params, h[:, 0])
+
+    return (lambda: engine.prefill(engine.new_cache(1), [prompt])[:2]), step
+
+
+def _fused_forms(engine, prompt, n: int, fusions) -> tuple:
+    """_stream_forms for the fused decode-layer kernels: the unfused form's
+    stream against the form with `fusions`, both on engine's params."""
+    from tokenhawk_tpu_torch.models.llama import Fusions
+
+    params = engine.params
+    prefill, step = _engine_form(engine, prompt)
+
+    def with_fusions(f, run):
+        def call(*args):
+            params.fusions = f
+            try:
+                return run(*args)
+            finally:
+                params.fusions = Fusions()
+        return call
+
+    return _stream_forms(engine.device, [(with_fusions(f, prefill), with_fusions(f, step))
+                                         for f in (Fusions(), fusions)], prompt, n)
 
 
 def phase_fused_engine(params, kernel_mods) -> dict:
-    """Phase 10a: the reference's fused decode-layer kernels on the 32-layer
-    LLaMA-7B Q4_0 Engine (phase 4's params, n_ctx 512): with neither, OWO
+    """Phase 10a: the reference's fused decode-layer kernels on the LLaMA-7B
+    Q4_0 Engine (phase 4's params, their first FUSED_LAYERS layers, n_ctx
+    512): with neither, OWO
     (kernel 15), ATTN (kernel 16) and both, in turns, two rounds, the
     second in reverse order.  At each first turn, greedy requests of 5 and
     300 prompt tokens, 64 new tokens each (their launches); at every turn
@@ -2618,9 +2982,11 @@ def phase_fused_engine(params, kernel_mods) -> dict:
     from tokenhawk_tpu_torch.runtime.engine import Engine
     from tokenhawk_tpu_torch.tokenizer import byte_fallback_vocab
 
-    log("== phase 10a: fused decode-layer kernels, LLaMA-7B Q4_0, 32 layers, Engine, bf16 KV, "
-        f"n_ctx {S_CTX}: neither, OWO (kernel 15), ATTN (kernel 16), both, in turns")
-    cfg = _seven_b(32)
+    log(f"== phase 10a: fused decode-layer kernels, LLaMA-7B Q4_0, {FUSED_LAYERS} layers, "
+        f"Engine, bf16 KV, n_ctx {S_CTX}: neither, OWO (kernel 15), ATTN (kernel 16), both, "
+        f"in turns")
+    cfg = _seven_b(FUSED_LAYERS)
+    params = dataclasses.replace(params, layers=params.layers[:FUSED_LAYERS])
     L = cfg.n_layer
     eng = Engine(cfg, params, byte_fallback_vocab(), sampling=SamplingConfig(temperature=0.0),
                  max_seq=S_CTX, eos_id=-1)
@@ -2691,8 +3057,8 @@ def _fused_f32_witness(params, prompt, forms, kernel_mods) -> None:
 
     log("== phase 10a, float32 witness: the 10a model with float32 activations and cache")
     target = _float32(params)
-    eng = Engine(_seven_b(32), target, sampling=SamplingConfig(temperature=0.0), max_seq=S_CTX,
-                 cache_dtype=torch.float32, eos_id=-1)
+    eng = Engine(_seven_b(len(params.layers)), target, sampling=SamplingConfig(temperature=0.0),
+                 max_seq=S_CTX, cache_dtype=torch.float32, eos_id=-1)
     for name, fusions in forms.items():
         target.fusions = fusions
         _reset_counts(kernel_mods)
@@ -2749,8 +3115,8 @@ def phase_tinyllama_paged(kernel_mods, bf16_paged, int8_paged, dense_off, tmp: s
     torch.cuda.empty_cache()
     root = os.path.dirname(os.path.abspath(__file__))
     gguf = os.path.join(tmp, "tinyllama-2layer-f16.gguf")
-    for extra in (["--paged"], ["--paged", "--kv", "int8"]):
-        _serve_subprocess(root, gguf, tmp, extra)
+    _concurrently(*(lambda e=extra: _serve_subprocess(root, gguf, tmp, e)
+                    for extra in (["--paged"], ["--paged", "--kv", "int8"])))
     return counts
 
 
@@ -2822,22 +3188,34 @@ def main() -> int:
         torch.cuda.empty_cache()
         # Phases 6 and 6q: group-code projections (kernel 13) and the FFN over
         # them (kernel 2); kernel 1 (Q4_0) stays off.
-        def engine_path(ffn_keys):
-            return (["qk_matmul", *ffn_keys, "flash_decode", "flash_attention"],
-                    ["q4_matmul", FFN_Q4_0, "flash_decode_attend"] + bf16_paged + int8_dense
-                    + int8_paged)
+        def engine_path(on, off):
+            return (["qk_matmul", *on, "flash_decode", "flash_attention"],
+                    ["q4_matmul", FFN_Q4_0, "flash_decode_attend", *off] + bf16_paged
+                    + int8_dense + int8_paged)
 
-        q4km_counts, _ = phase_q4_k_m(
-            every, engine_path(FFN_Q4_K_M),
-            (["qk_matmul", *FFN_Q4_K_M, "flash_attention"] + bf16_paged,
-             ["q4_matmul", FFN_Q4_0, "flash_decode"] + int8_dense + int8_paged))
-        q8_counts = phase_q8_0(every, engine_path([FFN_Q8_0]))
-        phase_gguf(tmp, every)
+        def paged_path(on, off):
+            return (["qk_matmul", *on, "flash_attention"] + bf16_paged,
+                    ["q4_matmul", FFN_Q4_0, "flash_decode", *off] + int8_dense + int8_paged)
+
+        # Without THAWK_Q4K_SB the super-block kernels stay off.
+        flat_off = ["qk_sb_matmul", *FFN_SB]
+        q4km_counts, _ = phase_q4_k_m(every, engine_path(FFN_Q4_K_M, flat_off),
+                                      paged_path(FFN_Q4_K_M, flat_off))
+        q8_counts = phase_q8_0(every, engine_path([FFN_Q8_0], flat_off))
+        gguf_path = phase_gguf(tmp, every)
+        # Phase 11: the Q4_K super-block forms (kernel 17, kernel 2 with an
+        # sb w13); 11a on phase 6's model, 11b and 11c on phase 7's file.
+        sb_on = ["qk_sb_matmul", *FFN_SB]
+        sb_counts, _ = phase_q4k_sb(every, engine_path(sb_on, FFN_Q4_K_M),
+                                    paged_path(sb_on, FFN_Q4_K_M))
+        phase_gguf_sb(gguf_path, tmp)
     # Each kernel's launches on the path of the slice that added it: the
     # Q4_0 Engine run for kernels 1-4, the paged server's run for kernels
     # 5-7, the int8 Engine's for kernels 8-9, the int8 paged server's for
     # kernels 10-12, and the Engine runs of phases 6 (Q4_K_M) and 6q (Q8_0)
     # for kernel 13 and kernel 2 over those kinds, each pairing its own;
+    # phase 11a's (Q4_K_M in super-block forms) for kernel 17 and kernel 2
+    # with an sb w13;
     # the dense 7B Engine's of phase 8 for kernel 14; phase 10a's requests
     # with OWO for kernel 15 and with ATTN for kernel 16.
     launches = {"q4_matmul": counts["q4_matmul"], "fused_ffn": counts[FFN_Q4_0],
@@ -2848,6 +3226,9 @@ def main() -> int:
                 "fused_ffn[q4_k/q6_k]": q4km_counts[FFN_Q4_K_M[0]],
                 "fused_ffn[q4_k/q4_k]": q4km_counts[FFN_Q4_K_M[1]],
                 "fused_ffn[q8_0/q8_0]": q8_counts[FFN_Q8_0],
+                "qk_sb_matmul": sb_counts["qk_sb_matmul"],
+                "fused_ffn[q4k_sb/q6_k]": sb_counts[FFN_SB[0]],
+                "fused_ffn[q4k_sb/q4_k]": sb_counts[FFN_SB[1]],
                 **{k: paged_counts[k] for k in bf16_paged},
                 **{k: int8_counts[k] for k in int8_dense},
                 **{k: int8_paged_counts[k] for k in int8_paged},

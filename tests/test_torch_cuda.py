@@ -144,6 +144,52 @@ def test_fused_ffn_kernel_matches_plain_over_every_form(pair, rows, dtype):
     assert _err(got, want) <= _tol(want, dtype)
 
 
+@pytest.mark.parametrize("K,N", [(1024, 768), (4096, 1024)])
+@pytest.mark.parametrize("rows", [1, 8, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_qk_sb_matmul_kernel_matches_plain(K, N, rows, dtype):
+    """Kernel 17 over Q4_K super-blocks, with and without the norm; kernel
+    13 over the flat form of the same codes computes the same function."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(K + rows)
+    w = QWeight.random(K, N, "q4k_sb", g, dev)
+    x = torch.randn(rows, K, generator=g, device=dev).to(dtype)
+    gain = (1 + 0.1 * torch.randn(K, generator=g, device=dev)).to(dtype)
+    for ng in (None, gain):
+        before = dict(qmatmul.launches)
+        got = qmatmul.quant_matmul(x, w, ng)
+        assert qmatmul.launches == {**before, "qk_sb_matmul": before["qk_sb_matmul"] + 1}
+        want = qmatmul.quant_matmul_plain(x, w, ng)
+        assert got.shape == (rows, N) and got.dtype == dtype
+        assert _err(got, want) <= _tol(want, dtype)
+        assert _err(qmatmul.quant_matmul(x, w.flat(), ng), want) <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("w2_form", [(16, False), (32, True)])  # Q6_K, flat Q4_K
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_ffn_kernel_takes_an_sb_w13(w2_form, rows, dtype):
+    """Kernel 2 with a super-block w13 (Llama-3-8B widths); an sb w2 is
+    refused, as the reference's gate refuses it."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(rows)
+    D, F = 4096, 14336
+    w13, w2 = QWeight.random(D, 2 * F, "q4k_sb", g, dev), _weight(w2_form, F, D, g, dev)
+    x = torch.randn(rows, D, generator=g, device=dev).to(dtype)
+    gain = (1 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype)
+    assert ffn.can_fuse_ffn(w13, w2, rows)
+    key = f"ffn[sb/{qmatmul.FORM_NAMES[qmatmul.form_code(w2)]}]"
+    before = dict(ffn.launches)
+    got = ffn.fused_ffn(x, w13, w2, gain)
+    assert ffn.launches == {**before, key: before[key] + 1}
+    want = ffn.fused_ffn_plain(x, w13, w2, gain)
+    assert _err(got, want) <= _tol(want, dtype)
+    sb2 = QWeight.random(F, D, "q4k_sb", g, dev)
+    assert not ffn.can_fuse_ffn(w13, sb2, rows)
+    with pytest.raises(ValueError):
+        ffn.fused_ffn(x, w13, sb2, gain)
+
+
 @pytest.mark.parametrize("form", ["q4_0", (32, False)])  # Q4_0 and Q8_0
 @pytest.mark.parametrize("rows", [1, 8])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -6,9 +6,10 @@ module of tokenhawk_tpu_torch, checks that nothing of tokenhawk_tpu came
 along, runs the byte-level BPE tokenizer, a tiny Engine.generate (bf16
 and int8 caches, then with the fused decode-layer kernels 15 and 16 that
 THAWK_FUSED_OWO / THAWK_FUSED_ATTN turn on), both continuous-batching schedulers (the paged one
-on bf16 and int8 pages) and speculative decoding (SpeculativeEngine and
-both schedulers with a draft) on the CPU.  A source scan backs it up for
-imports inside functions.
+on bf16 and int8 pages), speculative decoding (SpeculativeEngine and
+both schedulers with a draft) and the perplexity of a Q4_K_M model in the
+super-block form (runtime/eval.py) on the CPU.  A source scan backs it up
+for imports inside functions.
 """
 
 import re
@@ -91,6 +92,13 @@ for sched in (Scheduler(cfg, params, max_batch=2, cache_dtype=torch.float32, eos
                              eos_id=-1, draft_cfg=cfg, draft_params=params)):
     reqs = sched.generate_many([[1, 5, 9], list(range(3, 40))], max_new_tokens=5)
     assert [r.finish_reason for r in reqs] == ["length"] * 2, reqs
+import math
+from tokenhawk_tpu_torch.runtime.eval import perplexity
+scfg = LlamaConfig.tiny(n_vocab=300, n_embd=1024, n_head=8, n_layer=2, n_ff=1024, n_ctx=64)
+sparams = fuse_params(init_params(scfg, torch.Generator().manual_seed(0), dtype=torch.float32,
+                                  device="cpu", quant="q4_k_m", sb=True))
+assert sparams.layers[0].wqkv.kind == "q4k_sb" and sparams.layers[0].w2.kind == "qk"
+assert math.isfinite(perplexity(scfg, sparams, list(range(3, 67)), window=32))
 print("OK", len(names))
 """
 

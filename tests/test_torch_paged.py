@@ -299,5 +299,6 @@ def test_pool_layout_is_stored_not_read_from_the_environment(monkeypatch):
     readers = sorted(p.name for p in root.rglob("*.py")
                      if re.search(r"os\.environ|getenv", p.read_text()))
     # build.py: where nvcc lives, read once at build time; llama.py: the
-    # reference's THAWK_FUSED_OWO / THAWK_FUSED_ATTN, read once per built model.
-    assert readers == ["build.py", "llama.py"]
+    # reference's THAWK_FUSED_OWO / THAWK_FUSED_ATTN, read once per built model;
+    # loader.py: the reference's THAWK_Q4K_SB, read once per load.
+    assert readers == ["build.py", "llama.py", "loader.py"]

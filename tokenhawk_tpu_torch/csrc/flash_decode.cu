@@ -290,7 +290,7 @@ bool launch_attn_wo(const AttnWoArgs& a) {
       static_cast<const TQ*>(a.q), static_cast<const TQ*>(a.k_new),
       static_cast<const TQ*>(a.v_new), static_cast<TC*>(a.kc), static_cast<TC*>(a.vc),
       a.lengths, a.ctx, a.H, a.S, a.q_scale);
-  return with_reader(a.wo_form, a.wo_qs, a.wo_s, a.wo_m, [&](const auto& wr) {
+  return with_reader<false>(a.wo_form, a.wo_qs, a.wo_s, a.wo_m, nullptr, [&](const auto& wr) {
     using Reader = std::decay_t<decltype(wr)>;
     gemv_kernel<float, TQ, 1, kResidual, Reader, float, TQ>
         <<<dim3(1, gemv_col_blocks(kResidual, a.D)), kGemvThreads, 0, a.stream>>>(
@@ -309,13 +309,13 @@ bool launch_attn_wo_dh(const AttnWoArgs& a, int Dh) {
 // Kernel 16.  q, k_new, v_new [H, Dh] in q_dtype (q unscaled); caches
 // [H, S, Dh] in cache_dtype, written in place; lengths [1] int32 (tokens
 // including the new one); x, y [D] in q_dtype; Wo [H*Dh, D] as (qs, scales,
-// mins, form); ctx [H*Dh] f32 scratch.  Dh is 64 or 128 (checked by the
-// Python wrapper).
+// mins, hi, form), hi unused (no sb form); ctx [H*Dh] f32 scratch.  Dh is
+// 64 or 128 (checked by the Python wrapper).
 extern "C" int th_attn_wo(const void* q, const void* k_new, const void* v_new, void* kc,
                           void* vc, const void* lengths, const void* x, const void* wo_qs,
-                          const void* wo_s, const void* wo_m, int wo_form, void* ctx, void* y,
-                          int H, int Dh, int S, int D, float q_scale, int q_dtype,
-                          int cache_dtype, void* stream) {
+                          const void* wo_s, const void* wo_m, const void*, int wo_form,
+                          void* ctx, void* y, int H, int Dh, int S, int D, float q_scale,
+                          int q_dtype, int cache_dtype, void* stream) {
   if (wo_form < kFormQ4 || wo_form > kFormG16Mins) return static_cast<int>(cudaErrorInvalidValue);
   const AttnWoArgs a{q, k_new, v_new, kc, vc, static_cast<const int*>(lengths), x, wo_qs, wo_s,
                      wo_m, wo_form, static_cast<float*>(ctx), y, H, S, D, q_scale,

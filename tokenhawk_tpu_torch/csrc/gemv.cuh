@@ -1,5 +1,6 @@
-// Dequant-GEMV/GEMM core shared by qmatmul.cu (kernel 1 over Q4_0 and
-// kernel 13 over group codes), ffn.cu (kernels 2 and 15, either) and
+// Dequant-GEMV/GEMM core shared by qmatmul.cu (kernel 1 over Q4_0,
+// kernel 13 over group codes, kernel 17 over Q4_K super-blocks), ffn.cu
+// (kernels 2 and 15, any of them; kernel 2's w13 also super-blocks) and
 // flash_decode.cu (kernel 16's Wo projection).
 //
 // Weight layouts (tokenhawk_tpu_torch/ops/qweight.py), output-major:
@@ -8,9 +9,12 @@
 //         nibble), offset binary; scales f32 [N, K/32].
 //   qk:   qs int8 [N, K]; scales f32 [N, K/G] and optional mins f32
 //         [N, K/G], G 16 or 32; w = code * s + m.
-// A reader (Q4Reader, QkReader<G, MINS>) turns one 32-input slot of a
-// column into 32 code values in registers plus the 32/G scales and mins
-// of its groups.
+//   sb:   qs as q4_0's (Q4_K codes); d, dmin f32 [N, K/256]; scmn uint8
+//         [N, 2K/32], the 6-bit sc of each group of 32 then its mn;
+//         w = (code - 8) * s + b, s = d*sc, b = 8s - dmin*mn.
+// A reader (Q4Reader, QkReader<G, MINS>, SbReader) turns one 32-input slot
+// of a column into 32 code values in registers plus the 32/G scales and
+// mins of its groups.
 //
 // Work split: a block of 8 warps owns a tile of ROWS activation rows and
 // 16 output columns (2 per warp).  K is walked in chunks of 32 slots
@@ -41,7 +45,14 @@ constexpr int kSlotStride = 36;  // floats per staged slot (32 + pad)
 enum Epilogue { kStore = 0, kSwiGLU = 1, kResidual = 2 };
 
 // Weight forms at the C boundary (ops/cuda/qmatmul.py form_code).
-enum Form { kFormQ4 = 0, kFormG32 = 1, kFormG32Mins = 2, kFormG16 = 3, kFormG16Mins = 4 };
+enum Form {
+  kFormQ4 = 0,
+  kFormG32 = 1,
+  kFormG32Mins = 2,
+  kFormG16 = 3,
+  kFormG16Mins = 4,
+  kFormSb = 5
+};
 
 // inv[b] = rsqrt(mean(x[b]^2) + eps); one block per row.
 template <typename TX>
@@ -78,12 +89,24 @@ static __device__ __forceinline__ float sbyte(uint32_t w, int shift) {
   return __uint_as_float(0x4B000000u | (((w >> shift) & 0xFFu) ^ 0x80u)) - 8388736.0f;
 }
 
+// The 32 codes - 8 of one slot of a packed 4-bit column (q4_0 and sb).
+static __device__ __forceinline__ void unpack_nibbles(uint4 raw, float (&w)[32]) {
+  const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      w[4 * i + b] = nib(words[i], 8 * b);           // input 4i+b
+      w[16 + 4 * i + b] = nib(words[i], 8 * b + 4);  // input 16+4i+b
+    }
+  }
+}
+
 struct Q4Reader {
   static constexpr int kSub = 1;  // groups per 32-input slot
   static constexpr bool kMins = false;
   const uint8_t* qs;
   const float* scales;
-  const float* mins;
 
   __device__ __forceinline__ void load(int col, int slot, int K, bool live, float (&w)[32],
                                        float (&sc)[kSub], float (&mn)[kSub]) const {
@@ -94,15 +117,37 @@ struct Q4Reader {
                                                  slot * 16));
       sc[0] = __ldg(scales + static_cast<size_t>(col) * (K / 32) + slot);
     }
-    const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        w[4 * i + b] = nib(words[i], 8 * b);           // input 4i+b
-        w[16 + 4 * i + b] = nib(words[i], 8 * b + 4);  // input 16+4i+b
-      }
+    unpack_nibbles(raw, w);
+  }
+};
+
+// Kernel 17's reader: Q4_K's two levels expanded per slot in registers.
+// A slot is one group of 32 (sc[g], mn[g]) in super-block g/8 (d, dmin);
+// s and b round each step (no FMA contraction), as the plain version does.
+// The group's bias b rides the "mins" path: b times the group's input sum.
+struct SbReader {
+  static constexpr int kSub = 1;
+  static constexpr bool kMins = true;
+  const uint8_t* qs;
+  const float* d;
+  const float* dmin;
+  const uint8_t* scmn;
+
+  __device__ __forceinline__ void load(int col, int slot, int K, bool live, float (&w)[32],
+                                       float (&sc)[kSub], float (&mn)[kSub]) const {
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    sc[0] = mn[0] = 0.f;
+    if (live) {
+      raw = __ldg(reinterpret_cast<const uint4*>(qs + static_cast<size_t>(col) * (K / 2) +
+                                                 slot * 16));
+      const size_t sb = static_cast<size_t>(col) * (K / 256) + slot / 8;
+      const uint8_t* h = scmn + static_cast<size_t>(col) * (K / 16);
+      const float s = __fmul_rn(__ldg(d + sb), static_cast<float>(__ldg(h + slot)));
+      const float m = __fmul_rn(__ldg(dmin + sb), static_cast<float>(__ldg(h + K / 32 + slot)));
+      sc[0] = s;
+      mn[0] = __fsub_rn(__fmul_rn(8.f, s), m);
     }
+    unpack_nibbles(raw, w);
   }
 };
 
@@ -311,16 +356,26 @@ void launch_gemv(const TX* x, int B, int K, const Reader& wr, int N,
 }
 
 // Calls f(reader) with the reader of weight form `form` (enum Form);
-// returns false for an unknown form.
-template <typename Fn>
-bool with_reader(int form, const void* qs, const void* scales, const void* mins, Fn&& f) {
+// returns false for an unknown form, and for kFormSb unless SB (the
+// launches that never take it do not instantiate its reader).  `hi` is
+// the sb form's scmn.
+template <bool SB, typename Fn>
+bool with_reader(int form, const void* qs, const void* scales, const void* mins, const void* hi,
+                 Fn&& f) {
   const float* s = static_cast<const float*>(scales);
   const float* m = static_cast<const float*>(mins);
   const int8_t* q8 = static_cast<const int8_t*>(qs);
+  const uint8_t* q4 = static_cast<const uint8_t*>(qs);
   switch (form) {
     case kFormQ4:
-      f(Q4Reader{static_cast<const uint8_t*>(qs), s, nullptr});
+      f(Q4Reader{q4, s});
       return true;
+    case kFormSb:
+      if constexpr (SB) {
+        f(SbReader{q4, s, m, static_cast<const uint8_t*>(hi)});
+        return true;
+      }
+      return false;
     case kFormG32:
       f(QkReader<32, false>{q8, s, nullptr});
       return true;

@@ -7,11 +7,13 @@ per-layer list of [B, Hkv, S, Dh] tensors updated in place, and the
 forward is an eager Python loop whose hot operations are the port's
 CUDA kernels:
 
-  wqkv / wo / w13 / w2 / output   kernel 1 (Q4_0) or kernel 13 (group
-                                  codes: Q8_0, Q4_1, Q5_x, k-quants),
-                                  matmul + fused RMSNorm
+  wqkv / wo / w13 / w2 / output   kernel 1 (Q4_0), kernel 13 (group
+                                  codes: Q8_0, Q4_1, Q5_x, k-quants) or
+                                  kernel 17 (Q4_K super-blocks, under
+                                  THAWK_Q4K_SB=1), matmul + fused RMSNorm
   decode FFN (<= 8 rows)          kernel 2, fused SwiGLU + residual, any
-                                  pairing of those weight forms
+                                  pairing of those weight forms (a
+                                  super-block w13, never w2: can_fuse_ffn)
   decode attention                quantized weights: kernel 3, append +
                                   attend in place; dense weights: an
                                   index copy, then kernel 14 (attend only)
@@ -40,9 +42,10 @@ as in the reference, whatever the quantized storage layout.
 A GGUF file of llama.cpp's *_M recipes mixes kinds within one family
 across layers (Q6_K attn_v / ffn_down on some layers of Q4_K_M).  The
 reference stacks its layers, so it re-encodes such a family exactly to a
-common group-16 form (to_qk16); the port keeps a list of layers, so each
-layer keeps its own kind, and since to_qk16 is exact the function is the
-same.
+common group-16 form (to_qk16, which also expands a Q4_K super-block
+weight); the port keeps a list of layers, so each layer keeps its own
+kind, a super-block one included, and since to_qk16 is exact the
+function is the same.
 """
 
 from __future__ import annotations
@@ -57,8 +60,12 @@ import torch
 from tokenhawk_tpu_torch.config import LlamaConfig
 from tokenhawk_tpu_torch.ggml.quants import QuantizedTensor, dequantize
 from tokenhawk_tpu_torch.ops.attention import update_kv_cache
-from tokenhawk_tpu_torch.ops.cuda.ffn import MAX_ROWS as _FFN_MAX_ROWS
-from tokenhawk_tpu_torch.ops.cuda.ffn import can_fuse_owo_ffn, fused_ffn, fused_owo_ffn
+from tokenhawk_tpu_torch.ops.cuda.ffn import (
+    can_fuse_ffn,
+    can_fuse_owo_ffn,
+    fused_ffn,
+    fused_owo_ffn,
+)
 from tokenhawk_tpu_torch.ops.cuda.flash_attention import flash_attention
 from tokenhawk_tpu_torch.ops.cuda.flash_decode import (
     can_fuse_attn_out,
@@ -69,7 +76,13 @@ from tokenhawk_tpu_torch.ops.cuda.flash_decode import (
 from tokenhawk_tpu_torch.ops.cuda.kv_int8 import flash_attention_int8, flash_decode_int8
 from tokenhawk_tpu_torch.ops.kvquant import update_kv_cache_int8
 from tokenhawk_tpu_torch.ops.linear import matmul
-from tokenhawk_tpu_torch.ops.qweight import ArrayOrQ, QWeight, concat_qweights, take_columns
+from tokenhawk_tpu_torch.ops.qweight import (
+    ArrayOrQ,
+    QWeight,
+    concat_qweights,
+    q4k_sb_fits,
+    take_columns,
+)
 from tokenhawk_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from tokenhawk_tpu_torch.runtime.paged import (
     PagedKVCache,
@@ -250,12 +263,11 @@ def _ffn_block(cfg: LlamaConfig, x, lp: LayerParams):
     """SwiGLU MLP with residual: x + silu(norm(x)@w1)*(norm(x)@w3) @ w2.
 
     At most 8 rows over quantized w13/w2 (any pairing of Q4_0 and
-    group-code forms): kernel 2 in one call.  Otherwise
-    (prefill, dense weights): two matmuls and a SiLU, as the reference's
-    unfused form."""
+    group-code forms; a super-block w13 too): kernel 2 in one call.
+    Otherwise (prefill, dense weights): two matmuls and a SiLU, as the
+    reference's unfused form."""
     rows = x.numel() // x.shape[-1]
-    if (isinstance(lp.w13, QWeight) and isinstance(lp.w2, QWeight)
-            and rows <= _FFN_MAX_ROWS):
+    if can_fuse_ffn(lp.w13, lp.w2, rows):
         return fused_ffn(x, lp.w13, lp.w2, lp.ffn_norm, eps=cfg.rms_norm_eps)
     if lp.w13 is not None:
         gate_up = matmul(x, lp.w13, lp.ffn_norm, eps=cfg.rms_norm_eps)
@@ -552,27 +564,33 @@ def fuse_params(params: LlamaParams) -> LlamaParams:
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator, dtype=torch.bfloat16,
-                device=None, scale: float = 0.02, quant: Optional[str] = None) -> LlamaParams:
+                device=None, scale: float = 0.02, quant: Optional[str] = None,
+                sb: bool = False) -> LlamaParams:
     """Random parameters drawn from `generator` (which lives on `device`).
 
     quant="q4_0" quantizes every projection (wq..w3, output) on the
     device as it is drawn; "q8_0" and "q4_k_m" draw codes and scales
     directly (QWeight.random), Q8_0 everywhere or llama.cpp's Q4_K_M mix:
     Q4_K, with Q6_K for the output and for wv and w2 on the layers that
-    recipe gives more bits.  A full-width model never exists densely."""
-    if quant not in (None, "q4_0", "q8_0", "q4_k_m"):
-        raise ValueError(f"unsupported quant {quant!r}")
+    recipe gives more bits.  With sb (q4_k_m only) the Q4_K weights take
+    the super-block form where the loader's THAWK_Q4K_SB=1 would put them:
+    every one but w2, at widths q4k_sb_fits.  A full-width model never
+    exists densely."""
+    if quant not in (None, "q4_0", "q8_0", "q4_k_m") or (sb and quant != "q4_k_m"):
+        raise ValueError(f"unsupported quant {quant!r}{' with sb' if sb else ''}")
     D, F, V = cfg.n_embd, cfg.n_ff, cfg.n_vocab
     Dkv = cfg.n_embd_kv
 
     def randn(*shape):
         return torch.randn(shape, generator=generator, device=device) * scale
 
-    def w(k, n, form="q4_k"):
+    def w(k, n, form="q4_k", sb_ok=True):
         if quant == "q4_0":
             return QWeight.quantize(randn(k, n))
         if quant is not None:
             form = "q8_0" if quant == "q8_0" else form
+            if form == "q4_k" and sb and sb_ok and q4k_sb_fits(k):
+                form = "q4k_sb"
             return QWeight.random(k, n, form, generator, device, std=scale)
         return randn(k, n).to(dtype)
 
@@ -582,7 +600,7 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, dtype=torch.bfloat
     def layer(i):
         more = "q6_k" if q4_k_m_more_bits(i, cfg.n_layer) else "q4_k"
         return LayerParams(wq=w(D, D), wk=w(D, Dkv), wv=w(D, Dkv, more), wo=w(D, D),
-                           w1=w(D, F), w2=w(F, D, more), w3=w(D, F),
+                           w1=w(D, F), w2=w(F, D, more, sb_ok=False), w3=w(D, F),
                            attn_norm=ones(), ffn_norm=ones())
 
     layers = [layer(i) for i in range(cfg.n_layer)]

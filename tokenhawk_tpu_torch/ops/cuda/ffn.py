@@ -4,7 +4,9 @@ Replaces tokenhawk_tpu/ops/pallas/ffn.py `fused_ffn` (_ffn_kernel):
 y = x + (silu(xn @ W1) * (xn @ W3)) @ W2 with xn = rmsnorm(x) * g, for
 B <= 8 rows over quantized w13 [D, 2F] and w2 [F, D], each Q4_0 or a
 group-code form (G 16 / 32, with or without mins; ops/qweight.py), in any
-pairing: the reference's gate lets "w13 and w2 differ in kind".  Bound by
+pairing: the reference's gate lets "w13 and w2 differ in kind".  w13 may
+also be a Q4_K super-block weight (q4k_sb, kernel 17's reader), w2 not,
+as the reference's `can_fuse_ffn` has it (`can_fuse_ffn` here).  Bound by
 the weight bytes on the H100.  The TPU kernel carries the W2 sums across a
 sequential grid; GPU blocks cannot, so the kernel runs two phases (the
 gate/up GEMV with a SiLU epilogue into an f32 scratch of B*F*4 bytes that
@@ -46,14 +48,24 @@ MAX_ROWS = 8
 # conditions so that both packages fuse the same layers.
 BLOCK_F, BLOCK_NW = 256, 512
 
-# x; (qs, scales, mins, form) of w13 and of w2; gain, h, inv, y; B, D, F;
-# eps; dtype; stream.
-_ARGS = [build.P] + ([build.P] * 3 + [build.I]) * 2 + [build.P] * 4 + [build.I] * 3 + [
+# x; (qs, scales, mins, scmn, form) of w13 and of w2; gain, h, inv, y; B, D,
+# F; eps; dtype; stream.
+_ARGS = [build.P] + ([build.P] * 4 + [build.I]) * 2 + [build.P] * 4 + [build.I] * 3 + [
     build.F, build.I, build.P]
-# ctx, x; (qs, scales, mins, form) of wo, w13 and w2; gain, xp, h, inv, y;
-# B, Dq, D, F; eps; dtype; stream.
-_OWO_ARGS = [build.P] * 2 + ([build.P] * 3 + [build.I]) * 3 + [build.P] * 5 + [build.I] * 4 + [
+# ctx, x; (qs, scales, mins, scmn, form) of wo, w13 and w2; gain, xp, h, inv,
+# y; B, Dq, D, F; eps; dtype; stream.
+_OWO_ARGS = [build.P] * 2 + ([build.P] * 4 + [build.I]) * 3 + [build.P] * 5 + [build.I] * 4 + [
     build.F, build.I, build.P]
+
+
+def can_fuse_ffn(w13, w2, rows: int) -> bool:
+    """Whether kernel 2 takes the layer: quantized w13 and w2 at most 8
+    rows, and the reference's conditions on the super-block form
+    (ffn.py can_fuse_ffn): a q4k_sb w13 with D % 1024 == 0, never a
+    q4k_sb w2.  The port's GEMV takes any other width."""
+    if not (isinstance(w13, QWeight) and isinstance(w2, QWeight)) or rows > MAX_ROWS:
+        return False
+    return w2.kind != "q4k_sb" and (w13.kind != "q4k_sb" or w13.shape[0] % 1024 == 0)
 
 
 def fused_ffn_plain(x, w13: QWeight, w2: QWeight, norm_gain, eps: float = 1e-6):
@@ -81,7 +93,7 @@ def fused_ffn(x, w13: QWeight, w2: QWeight, norm_gain, eps: float = 1e-6):
     gain = norm_gain.to(xb.dtype).contiguous()
     build.require(gain.shape == (D,), f"gain {tuple(gain.shape)} != ({D},)")
     build.require_cuda(xb, gain)
-    f13, f2 = form_code(w13), form_code(w2)
+    f13, f2 = form_code(w13), form_code(w2, sb=False)
     code = build.dtype_code(xb.dtype)
     h = torch.empty((B, F), dtype=torch.float32, device=xb.device)
     inv = torch.empty((B,), dtype=torch.float32, device=xb.device)
@@ -104,7 +116,7 @@ def can_fuse_owo_ffn(wo, w13, w2, rows: int) -> bool:
     (quantized w13 and w2, at most 8 rows) with the reference's FFN tiling,
     then Wo quantized in w13's form without mins, D % 512 == 0, Dq % 256 ==
     0 and Wo's output width w13's input width."""
-    if not all(isinstance(w, QWeight) for w in (wo, w13, w2)) or rows > MAX_ROWS:
+    if not can_fuse_ffn(w13, w2, rows) or not isinstance(wo, QWeight):
         return False
     D, F2 = w13.shape
     F, D2 = w2.shape
@@ -148,7 +160,7 @@ def fused_owo_ffn(ctx, x, wo: QWeight, w13: QWeight, w2: QWeight, norm_gain,
     gain = norm_gain.to(xb.dtype).contiguous()
     build.require(gain.shape == (D,), f"gain {tuple(gain.shape)} != ({D},)")
     build.require_cuda(xb, cb, gain)
-    fo, f13, f2 = form_code(wo), form_code(w13), form_code(w2)
+    fo, f13, f2 = (form_code(w, sb=False) for w in (wo, w13, w2))
     xp = torch.empty((B, D), dtype=torch.float32, device=xb.device)
     h = torch.empty((B, F), dtype=torch.float32, device=xb.device)
     inv = torch.empty((B,), dtype=torch.float32, device=xb.device)

@@ -52,9 +52,9 @@ REPS = (1, 2, 4, 8)
 
 _APPEND_ARGS = [build.P] * 7 + [build.I] * 7 + [build.P]
 _ATTEND_ARGS = [build.P] * 5 + [build.I] * 7 + [build.P]
-# q, k_new, v_new, kc, vc, lengths, x; wo (qs, scales, mins, form); ctx, y;
-# H, Dh, S, D; q_scale; q and cache dtypes; stream.
-_ATTN_WO_ARGS = [build.P] * 10 + [build.I] + [build.P] * 2 + [build.I] * 4 + [
+# q, k_new, v_new, kc, vc, lengths, x; wo (qs, scales, mins, hi, form); ctx,
+# y; H, Dh, S, D; q_scale; q and cache dtypes; stream.
+_ATTN_WO_ARGS = [build.P] * 11 + [build.I] + [build.P] * 2 + [build.I] * 4 + [
     build.F, build.I, build.I, build.P]
 
 
@@ -196,7 +196,7 @@ def fused_attn_out(x, q, k_new, v_new, k_cache, v_cache, lengths, wo: QWeight):
     build.require(Dq == H * Dh and x.shape == (1, 1, D) and x.dtype == q.dtype,
                   f"x {tuple(x.shape)} {x.dtype}, Wo {wo.shape} do not match q {tuple(q.shape)} "
                   f"{q.dtype}")
-    form = form_code(wo)
+    form = form_code(wo, sb=False)
     q = q.contiguous()
     k_new = k_new.to(q.dtype).contiguous()
     v_new = v_new.to(q.dtype).contiguous()

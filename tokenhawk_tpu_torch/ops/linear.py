@@ -2,8 +2,8 @@
 
 A quantized weight goes to ops/cuda/qmatmul.py with the RMSNorm fused:
 kernel 1 for Q4_0, kernel 13 for a group-code weight (Q8_0, Q5_0, Q4_1,
-Q5_1, the k-quants); a dense weight to torch.matmul, as the JAX package
-leaves dense products to XLA.
+Q5_1, the k-quants), kernel 17 for a Q4_K super-block weight; a dense
+weight to torch.matmul, as the JAX package leaves dense products to XLA.
 """
 
 from __future__ import annotations

@@ -16,6 +16,14 @@ the interleaved->half RoPE column permutation and the wqkv / w13 fusion
 `scale_dtype`, bfloat16 by default, as the reference's loader does (the
 values rounded, the storage float32: ops/qweight.py).  The reference's `norms_2d` only works around a
 TPU tile shape and has no counterpart.
+
+THAWK_Q4K_SB=1, read once per load as the reference's loader reads it,
+gives Q4_K projections the super-block kind (q4k_sb, kernel 17) where the
+reference's gate does: every one but feed_forward.w2, at in_dim % 1024
+== 0 and (in_dim % 4096 == 0 or in_dim <= 16384).  The reference stacks
+its layers and re-encodes a family of mixed kinds exactly (to_qk16); the
+port keeps each layer's kind (a Q6_K wv stays qk, and that layer's wq /
+wk / wv stay unfused), so its function is the reference's.
 """
 
 from __future__ import annotations
@@ -85,11 +93,13 @@ def load_model(path: str, n_ctx: int = 2048, dtype=torch.bfloat16, device="cuda"
         # for ggjt files.
         tokenizer.chat_template = getattr(f, "metadata", {}).get("tokenizer.chat_template")
         tensors = {}
+        sb = os.environ.get("THAWK_Q4K_SB", "0") == "1"
         for name, rec in f.tensors.items():
             if (rec.ggml_type in _KQUANTS and len(rec.shape) == 2 and "norm" not in name
                     and name != "tok_embeddings.weight"):
-                tensors[name] = QWeight.from_kquant_raw(rec.ggml_type, bytes(f.raw(name)),
-                                                        rec.shape, device, scale_dtype)
+                tensors[name] = QWeight.from_kquant_raw(
+                    rec.ggml_type, bytes(f.raw(name)), rec.shape, device, scale_dtype, sb=sb,
+                    sb_ok=not name.endswith("feed_forward.w2.weight"))
             else:
                 tensors[name] = f.load_tensor(name)
         params = params_from_ggml(cfg, tensors, dtype=dtype, device=device,
