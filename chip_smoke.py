@@ -65,7 +65,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   10. the reference's fused decode-layer kernels, off by default
      (THAWK_FUSED_OWO, THAWK_FUSED_ATTN) and set here on the built model:
      10a the LLaMA-7B Q4_0 Engine (its first 16 layers since phase 11 was
-     added) with neither, OWO (kernel 15),
+     added, 8 since phase 12) with neither, OWO (kernel 15),
      ATTN (kernel 16) and both, in turns: exact launches per decode token
      (kernel 3 and Wo's kernel-1 launches gone under ATTN, kernel 2 under
      OWO alone), tok/s and the idle share of each, each fused greedy
@@ -76,7 +76,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      64), then `serving --paged` (bf16, int8 pages) on phase 9d's F16 GGUF
      file.  Phase 10 runs after phase 9.
   11. the Q4_K super-block forms (THAWK_Q4K_SB=1), after phase 7: 11a
-     phase 6's model at all 32 layers, drawn in them, through Engine (kernel 17 and
+     phase 6's model (at 16 layers since phase 12, as phase 6's), drawn in
+     them, through Engine (kernel 17 and
      kernel 2 with an sb w13 launched, kernel 13 only for the Q6_K weights
      and the flat w2), B=1 decode windows against the flat form of the same
      codes in turns, and phase 4b's requests through the PagedScheduler;
@@ -84,6 +85,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      stream held against the flat form's, the CLI and `serving --paged`
      with the flag; 11c runtime/eval.py's perplexity of that file, sb
      against flat, at float32 and bfloat16 sides.
+  12. context parallelism (parallel/): 12a, after phase 2, kernels 18
+     (decode partials) and 19 (ring-attention step) against their plain
+     versions at the 7B's heads, kernel 19 at T=512 on one shard and over
+     2 and 4 cyclic shards (every query shard against every KV shard,
+     merged), kernel 18 at B=1 over 512, 2048 and 3 live tokens on one
+     shard and on 4 cyclic shards (strided views of the cache; at 3 tokens
+     one shard is empty), each merged result held against kernel 4 or 14
+     on the unsplit cache; then kernel 18 cut into 1, 4, 8 and 16 splits
+     at TinyLlama's heads beside kernel 14 (B=1 at 2048, B=8 ragged);
+     12b, after phase 10, the 32-layer 7B Q4_0 model through
+     Engine(parallel="cp") over a world-1 NCCL group at n_ctx 2048
+     (prompts of 5, 300 and 1500 tokens, 32 greedy tokens each): kernels
+     1, 18 and 19 launched, 2, 3, 4 and 14 not; each stream held against
+     the dense Engine's up to near-ties; tok/s beside the dense Engine's,
+     the idle share of a profiled request.  One H100 runs CP at one
+     rank only; the shard merges of 12a stand in for more.
 The entry points a phase runs as subprocesses (CLI, servers) run side by
 side, as their loads are host work.
 Phase 2 also holds kernel 17 (Q4_K super-blocks) beside kernel 13 over the
@@ -140,6 +157,10 @@ F32_FORMS_TOL = 1e-4
 # kernel is off by O(1).  Phase 10a's float32 witness holds the same
 # forms within F32_FORMS_TOL, which is the decisive check.
 DEEP_BF16_TOL = 0.1
+# Softmax partials (kernels 18, 19) against their plain versions, and
+# merged shards against the unsplit float32 kernel: f32 sums in other
+# orders, 1e-4 of the largest |value| (tests/test_torch_cuda.py's rule).
+PARTIALS_TOL = 1e-4
 # The card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s and
 # dense bf16 tensor-core FLOP/s.  A kernel's bound is the larger of its
 # bytes (each input read once, each output written once) over the first
@@ -157,12 +178,13 @@ PAGED_PS, PAGED_POOL = 128, 140
 INT8_CTX = 2048
 INT8_LAYERS = 8
 # Phase 9 runs the 7B target's first 8 layers (its widths; 16 from phase
-# 10's addition, 8 since phase 11's), and phase 10a the 7B's first 16 (32
-# before phase 11), to keep the script's run inside its time.
+# 10's addition, 8 since phase 11's), and phase 10a the 7B's first 8 (32
+# before phase 11, 16 before phase 12), to keep the script's run inside
+# its time.
 SPEC_LAYERS = 8
-FUSED_LAYERS = 16
-# Phase 6 runs 16 of the Q4_K_M model's 32 layers since phase 11a runs all
-# 32 of the same model, its flat form included in 11a's decode windows.
+FUSED_LAYERS = 8
+# Phases 6 and 11a run 16 of the Q4_K_M model's 32 layers (11a all 32
+# before phase 12), its flat form included in 11a's decode windows.
 Q4KM_LAYERS = 16
 # Kernel 2's launch counts by weight-form pairing (ops/cuda/ffn.py): Q4_0
 # over Q4_0; Q4_K (G 32 with mins) over Q6_K (G 16) and over Q4_K, the
@@ -451,7 +473,206 @@ def phase_kernels() -> list:
     records += _group_code_kernel_records(randn, case, library, g)
     records += _sb_kernel_records(randn, case, library, g)
     records += _fused_layer_records(randn, case, library, g)
+    records += _cp_kernel_records(randn, case)
     return records
+
+
+def _partials_err(label: str, got, want) -> float:
+    """Largest error of partials (o, m, l) against the plain version's, each
+    within PARTIALS_TOL of its own largest |value|; infinite entries (the
+    merge identity's m) must match exactly."""
+    import torch
+
+    worst = 0.0
+    for name, a, b in zip("oml", got, want):
+        inf = torch.isinf(b)
+        if not (torch.equal(torch.isinf(a), inf) and torch.equal(a[inf], b[inf])):
+            raise AssertionError(f"{label}: {name} differs at the infinite entries")
+        if bool(inf.all()):  # an empty shard's m: nothing finite to compare
+            continue
+        err, tol = max_err(a[~inf], b[~inf], PARTIALS_TOL)
+        if not err <= tol:
+            raise AssertionError(f"{label}: {name} off by {err} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def _merge_partials(o, m, l):
+    """Normalised attention from partials stacked on dim 0 (o [n, ..., Dh],
+    m, l of o's leading shape, or flattened past n as kernel 18 gives them),
+    as decode_attend_cp merges its shards: the max, each
+    partial weighted by exp(m - max) (0 for an empty one), the sums."""
+    import torch
+
+    m, l = m.reshape(o.shape[:-1]), l.reshape(o.shape[:-1])
+    m_g = m.amax(dim=0)
+    alpha = torch.where(torch.isinf(m) & (m < 0), 0.0, torch.exp(m - m_g))
+    return (o * alpha[..., None]).sum(0) / (l * alpha).sum(0)[..., None]
+
+
+def _cp_kernel_records(randn, case) -> list:
+    """Phase 12a: kernels 18 and 19, context parallelism's softmax partials,
+    at the 7B's heads (32 KV heads of 128), each against its plain version
+    and, merged over 1, 2 or 4 cyclic shards, against the unsplit kernel
+    (4 or 14); then kernel 18 in 1, 4, 8 and 16 splits at TinyLlama's heads
+    beside kernel 14.  Each timed case has its bound, and the library call
+    that gives the same partials: memory-efficient attention with its
+    log-sum-exp (o = out * l, log l = lse - m)."""
+    import torch
+
+    from tokenhawk_tpu_torch.ops.cuda import flash_attention as fa
+    from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
+    from tokenhawk_tpu_torch.parallel.cp import _shard_count
+
+    log("== phase 12a: kernels 18 and 19 (context parallelism's partials), 7B heads")
+    dev = torch.device("cuda")
+    eff = torch.ops.aten._scaled_dot_product_efficient_attention
+    bf, f4 = 2, 4
+    Hkv, Dh = 32, 128
+
+    def i32(*xs):
+        return torch.tensor(xs, dtype=torch.int32, device=dev)
+
+    # -- kernel 19: one shard (stride 1), then 2 and 4 cyclic shards --
+    cases = []
+    T = 512
+    q = randn(1, Hkv, 1, T, Dh, scale=Dh**-0.5, dtype=torch.float32)
+    kc, vc = randn(1, Hkv, T, Dh), randn(1, Hkv, T, Dh)
+    zero = i32(0)
+    got = fa.flash_attention_stats(q, kc, vc, zero, zero, 1)
+    _partials_err("flash_attention_stats T=512", got,
+                  fa.flash_attention_stats_plain(q, kc, vc, zero, zero, 1))
+    caches = copies([kc, vc], 2 * kc.nbytes)
+    case(cases, f"flash_attention_stats (kernel 19) one shard T={T} Hkv={Hkv} Dh={Dh}, q f32, "
+                f"K/V bf16", f"T={T} shards=1", T, got[0],
+         fa.flash_attention_stats_plain(q, kc, vc, zero, zero, 1)[0],
+         [lambda c=c: fa.flash_attention_stats(q, *c, zero, zero, 1) for c in caches],
+         [lambda c=c: fa.flash_attention_stats_plain(q, *c, zero, zero, 1) for c in caches],
+         frac=PARTIALS_TOL)
+    b19 = bound(2 * f4 * T * Hkv * Dh + 2 * bf * T * Hkv * Dh + 2 * f4 * T * Hkv + 8,
+                4 * Hkv * Dh * T * (T + 1) / 2)
+    kf, vf = kc.float(), vc.float()
+    lib_out = eff(q[:, :, 0], kf, vf, None, True, is_causal=True, scale=1.0)
+    err = (lib_out[0] - got[0][:, :, 0] / got[2][:, :, 0, :, None]).abs().max().item()
+    lib19 = timed([lambda c=c: eff(q[:, :, 0], c[0], c[1], None, True, is_causal=True, scale=1.0)
+                   for c in copies([kf, vf], 2 * kf.nbytes)])["ms"]
+    log(f"  bound {b19['bound_ms']:.4f} ms ({b19['bound_by']}); library call "
+        f"_scaled_dot_product_efficient_attention(compute_log_sumexp, causal), f32 K/V: "
+        f"{lib19:.4f} ms (its output against o / l: {err:.3e})")
+    full = fa.flash_attention(q, kc, vc, zero)  # kernel 4 at an f32 q: f32 out
+    for n in (2, 4):
+        merged = torch.empty_like(full)
+        worst = 0.0
+        for i in range(n):
+            qi = q[:, :, :, i::n].contiguous()
+            parts = []
+            for j in range(n):
+                kj, vj = kc[:, :, j::n].contiguous(), vc[:, :, j::n].contiguous()
+                part = fa.flash_attention_stats(qi, kj, vj, i32(i), i32(j), n)
+                worst = max(worst, _partials_err(
+                    f"flash_attention_stats query shard {i}, KV shard {j} of {n}", part,
+                    fa.flash_attention_stats_plain(qi, kj, vj, i32(i), i32(j), n)))
+                parts.append(part)
+            merged[:, :, :, i::n] = _merge_partials(*(torch.stack(x) for x in zip(*parts)))
+        case(cases, f"flash_attention_stats {n} cyclic shards x {n} KV shards, merged, against "
+                    f"kernel 4 on the unsplit block (f32 q)", f"T={T} shards={n}", T, merged,
+             full, frac=PARTIALS_TOL)
+        log(f"  partials of the {n * n} shard pairs against the plain version: max_abs_err "
+            f"{worst:.3e}")
+    records = [_record("flash_attention_stats", "tokenhawk_tpu_torch/csrc/flash_attention.cu",
+                       "tokenhawk_tpu/ops/pallas/flash_attention.py:298 (flash_attention_stats, "
+                       "_kernel_stats)", cases, (f"T={T} shards=1", T), b19, lib19)]
+    del kc, vc, kf, vf, caches
+
+    # -- kernel 18: B=1 at 512, 2048 and 3 live tokens, one shard and 4 cyclic --
+    cases = []
+    S = 2048
+    q = randn(1, Hkv, 1, Dh, scale=Dh**-0.5)
+    kc, vc = randn(1, Hkv, S, Dh), randn(1, Hkv, S, Dh)
+    caches = copies([kc, vc], 2 * kc.nbytes)
+    lib18 = b18 = None
+    for L in (512, 2048, 3):
+        lengths = i32(L)
+        ref = fd.flash_decode(q, kc, vc, lengths)  # kernel 14
+        got = fd.flash_decode_stats(q, kc, vc, lengths)
+        _partials_err(f"flash_decode_stats L={L}", got,
+                      fd.flash_decode_stats_plain(q, kc, vc, lengths))
+        one = _merge_partials(*got).reshape(ref.shape)
+        if L == S:
+            case(cases, f"flash_decode_stats (kernel 18) B=1 L={L} S={S} Hkv={Hkv} Dh={Dh}, one "
+                        f"shard, o / l against kernel 14", f"B=1 L={L} shards=1", 1, one, ref,
+                 [lambda c=c: fd.flash_decode_stats(q, *c, lengths) for c in caches],
+                 [lambda c=c: fd.flash_decode_stats_plain(q, *c, lengths) for c in caches])
+            b18 = bound(2 * L * Hkv * Dh * bf + Hkv * Dh * bf + Hkv * Dh * f4 + 2 * Hkv * f4 + 4,
+                        4 * L * Hkv * Dh)
+            qe = q.reshape(1, Hkv, 1, Dh)
+            lib18 = timed([lambda c=c: eff(qe, c[0][:, :, :L], c[1][:, :, :L], None, True,
+                                           scale=1.0) for c in caches])["ms"]
+            log(f"  bound {b18['bound_ms']:.4f} ms ({b18['bound_by']}); library call "
+                f"_scaled_dot_product_efficient_attention(compute_log_sumexp) over the live "
+                f"rows: {lib18:.4f} ms")
+        else:
+            case(cases, f"flash_decode_stats B=1 L={L} one shard, o / l against kernel 14",
+                 f"B=1 L={L} shards=1", 1, one, ref)
+        parts = []
+        for i in range(4):
+            sl = _shard_count(lengths, i, 4).to(torch.int32)
+            kv = (kc[:, :, i::4], vc[:, :, i::4])  # strided views
+            part = fd.flash_decode_stats(q, *kv, sl)
+            _partials_err(f"flash_decode_stats shard {i} of 4 (L={int(sl[0])})", part,
+                          fd.flash_decode_stats_plain(q, *kv, sl))
+            parts.append([x[0] for x in part])
+        merged = _merge_partials(*(torch.stack(x) for x in zip(*parts))).reshape(ref.shape)
+        case(cases, f"flash_decode_stats B=1 L={L} over 4 cyclic shards (lengths "
+                    f"{[int(_shard_count(lengths, i, 4)[0]) for i in range(4)]}), merged, "
+                    f"against kernel 14", f"B=1 L={L} shards=4", 1, merged, ref)
+    del kc, vc, caches
+    cases += _split_decode_cases(randn, case)
+    records.append(_record("flash_decode_stats", "tokenhawk_tpu_torch/csrc/flash_decode.cu",
+                           "tokenhawk_tpu/ops/pallas/flash_decode_dma.py:761 (flash_decode_stats, "
+                           "_kernel_vec_stats)", cases, (f"B=1 L={S} shards=1", 1), b18, lib18))
+    return records
+
+
+def _split_decode_cases(randn, case) -> list:
+    """Kernel 18 cut into 1, 4, 8 and 16 splits of S, merged in torch, at
+    TinyLlama's heads (4 KV heads of 64, 8 queries each: the draft's) over
+    2048 slots, B=1 at 2048 live and B=8 ragged, each held against kernel
+    14 and timed beside it (ROADMAP.md Queue 3 open fault 2)."""
+    import torch
+
+    from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
+
+    log("-- kernel 18 in splits of S (+ the merge) against kernel 14, 4 KV heads of 64 x 8")
+    dev = torch.device("cuda")
+    Hkv, rep, Dh, S = 4, 8, 64, 2048
+    cases = []
+    for lens in ([S], PAGED_LENGTHS):
+        B = len(lens)
+        q = randn(B, Hkv, rep, Dh, scale=Dh**-0.5)
+        kc, vc = randn(B, Hkv, S, Dh), randn(B, Hkv, S, Dh)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        caches = copies([kc, vc], 2 * kc.nbytes)
+        ref = fd.flash_decode(q, kc, vc, lengths)
+        k14 = timed([lambda c=c: fd.flash_decode(q, *c, lengths) for c in caches])["ms"]
+        live = sum(lens)
+        b = bound(2 * live * Hkv * Dh * 2 + 2 * B * Hkv * rep * Dh * 2 + 4 * B,
+                  4 * live * Hkv * rep * Dh)
+        log(f"  kernel 14 B={B} lengths={lens}: {k14:.4f} ms (bound {b['bound_ms']:.4f} ms)")
+        for splits in (1, 4, 8, 16):
+            def run(c, splits=splits):
+                return _merge_partials(*fd.flash_decode_stats(q, *c, lengths, splits))
+
+            def plain(c, splits=splits):
+                return _merge_partials(*fd.flash_decode_stats_plain(q, *c, lengths, splits))
+
+            case(cases, f"flash_decode_stats splits={splits} + merge, B={B} lengths={lens}, "
+                        f"against kernel 14 ({k14:.4f} ms)", f"dh64 B={B} splits={splits}", B,
+                 run(caches[0]).to(ref.dtype), ref, [lambda c=c: run(c) for c in caches],
+                 [lambda c=c: plain(c) for c in caches])
+            cases[-1].update(kernel14_ms=k14, **b)
+        del kc, vc, caches
+    return cases
 
 
 def _qweights(parts, ws) -> list:
@@ -2324,7 +2545,7 @@ def _kernel13_weights(run) -> set:
 
 
 def phase_q4k_sb(kernel_mods, engine_path, paged_path) -> tuple:
-    """Phase 11a: the 32-layer Llama-3-8B-width Q4_K_M model of phase 6 with the
+    """Phase 11a: the Llama-3-8B-width Q4_K_M model of phase 6 (Q4KM_LAYERS) with the
     forms THAWK_Q4K_SB=1 gives (init_params(sb=True): q4k_sb for every Q4_K
     weight but w2) through Engine (prompts of 5, 300 and 1500 tokens) and
     the PagedScheduler (phase 4b's requests); kernel 13 may take only the
@@ -2337,9 +2558,9 @@ def phase_q4k_sb(kernel_mods, engine_path, paged_path) -> tuple:
     from tokenhawk_tpu_torch.runtime.engine import Engine
     from tokenhawk_tpu_torch.tokenizer import byte_fallback_vocab
 
-    log(f"== phase 11a: Llama-3-8B widths in Q4_K_M, super-block forms (THAWK_Q4K_SB=1's), 32 "
-        f"layers, Engine at n_ctx {INT8_CTX}, bf16 KV")
-    cfg = _llama3_8b(32, INT8_CTX)
+    log(f"== phase 11a: Llama-3-8B widths in Q4_K_M, super-block forms (THAWK_Q4K_SB=1's), "
+        f"{Q4KM_LAYERS} layers, Engine at n_ctx {INT8_CTX}, bf16 KV")
+    cfg = _llama3_8b(Q4KM_LAYERS, INT8_CTX)
     params, _ = _model(cfg, "q4_k_m", "Q4_K_M model in super-block forms", sb=True)
     kinds = {}
     for lp in params.layers:
@@ -3120,6 +3341,97 @@ def phase_tinyllama_paged(kernel_mods, bf16_paged, int8_paged, dense_off, tmp: s
     return counts
 
 
+def _cp_forms(dense, cp, prompt, n: int) -> tuple:
+    """The dense Engine's greedy stream for `prompt` (kernel 4, then kernel
+    3 a token) and, at every step, the CP Engine's logits for the same
+    history (kernel 19, then kernel 18 a token): per step, the dense
+    token, the CP form's argmax, the dense logits' top-two gap and the two
+    forms' largest logit difference, both over the largest |logit|."""
+    import torch
+
+    from tokenhawk_tpu_torch.models.llama import forward, logits_from_hidden
+    from tokenhawk_tpu_torch.parallel.cp import forward_cp_decode
+
+    cfg, params, dev = dense.cfg, dense.params, dense.device
+    c_d, lg_d, _ = dense.prefill(dense.new_cache(1), [prompt])
+    c_c, lg_c, _ = cp.prefill(cp.new_cache(1), [prompt])
+    lg_d, lg_c = lg_d[0].float(), lg_c[0].float()
+    toks, ctoks, gaps, diffs = [], [], [], []
+    with torch.inference_mode():
+        for i in range(n):
+            top = torch.topk(lg_d, 2).values
+            big = lg_d.abs().max()
+            gaps.append(float((top[0] - top[1]) / big))
+            diffs.append(float((lg_d - lg_c).abs().max() / big))
+            toks.append(int(lg_d.argmax()))
+            ctoks.append(int(lg_c.argmax()))
+            pos = torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev)
+            tok = torch.tensor([[toks[-1]]], device=dev)
+            h, _ = forward(cfg, params, tok, c_d, pos)
+            lg_d = logits_from_hidden(cfg, params, h[:, 0])[0].float()
+            h, _ = forward_cp_decode(cfg, cp.mesh, params, tok, c_c, pos)
+            lg_c = logits_from_hidden(cfg, params, h[:, 0])[0].float()
+    return toks, ctoks, gaps, diffs
+
+
+def phase_cp_engine(params, kernel_mods, tmp: str) -> dict:
+    """Phase 12b: the 32-layer 7B Q4_0 model through Engine(parallel="cp")
+    at n_ctx 2048 over a NCCL group of one rank (one H100): prompts of 5,
+    300 and 1500 tokens, 32 greedy tokens each.  Kernels 1, 18 and 19
+    launch; kernels 2, 3, 4 and 14 do not.  Each stream is held against
+    the dense Engine's (near-ties apart: kernel 19 takes the scaled q in
+    f32 where kernel 4 takes it in bf16); decode tok/s beside the dense
+    Engine's; a profiled request's idle share.  The group is destroyed
+    before the phase returns.  Returns the CP run's launches."""
+    import torch
+    import torch.distributed as dist
+
+    from tokenhawk_tpu_torch.config import SamplingConfig
+    from tokenhawk_tpu_torch.parallel.mesh import make_cp_mesh
+    from tokenhawk_tpu_torch.runtime.engine import Engine
+    from tokenhawk_tpu_torch.tokenizer import byte_fallback_vocab
+
+    log("== phase 12b: Engine(parallel='cp'), NCCL group of 1 rank, LLaMA-7B Q4_0, 32 layers, "
+        "bf16 KV, n_ctx 2048")
+    cfg = dataclasses.replace(_seven_b(32), n_ctx=2048)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_cp_mesh()
+        log(f"ctx group: backend {dist.get_backend(mesh.group)}, {mesh.ncp} rank")
+        tok, greedy = byte_fallback_vocab(), SamplingConfig(temperature=0.0)
+        cp = Engine(cfg, params, tok, sampling=greedy, eos_id=-1, mesh=mesh, parallel="cp")
+        dense = Engine(cfg, params, tok, sampling=greedy, eos_id=-1)
+        rng = np.random.default_rng(SEED + 12)
+        prompts = [[1] + rng.integers(3, cfg.n_vocab, size=n - 1).tolist() for n in (5, 300, 1500)]
+        _reset_counts(kernel_mods)
+        runs = [cp.generate(p, max_new_tokens=32) for p in prompts]
+        torch.cuda.synchronize()
+        counts = _read_counts(kernel_mods)
+        log(f"CP kernel launches over the 3 requests: {counts}")
+        _check_path(counts, ["q4_matmul", "flash_decode_stats", "flash_attention_stats"],
+                    [FFN_Q4_0, "flash_decode", "flash_attention", "flash_decode_attend"])
+        rates = {"cp": [], "dense": []}
+        for p, r in zip(prompts, runs):
+            d = dense.generate(p, max_new_tokens=32)
+            if len(r.tokens) != 32 or not all(0 <= t < cfg.n_vocab for t in r.tokens):
+                raise AssertionError(f"CP request produced {len(r.tokens)} tokens")
+            rates["cp"].append(r.decode_tokens_per_second)
+            rates["dense"].append(d.decode_tokens_per_second)
+            log(f"prompt {len(p)}: prefill CP {r.prefill_seconds:.3f} s, dense "
+                f"{d.prefill_seconds:.3f} s; decode CP {r.decode_tokens_per_second:.1f} tok/s, "
+                f"dense {d.decode_tokens_per_second:.1f} tok/s")
+            _check_greedy_identity(f"CP stream, prompt {len(p)}", r.tokens,
+                                   _cp_forms(dense, cp, p, 32), band_tol=DEEP_BF16_TOL)
+        log(f"decode tok/s over the 3 requests: CP {np.mean(rates['cp']):.1f}, dense "
+            f"{np.mean(rates['dense']):.1f}")
+        _profile_request(cp, prompts[0])
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3184,6 +3496,9 @@ def main() -> int:
         phase_fused_paged(params, every, bf16_paged, int8_dense + int8_paged)
         torch.cuda.empty_cache()
         phase_tinyllama_paged(every, bf16_paged, int8_paged, int8_dense, tmp)
+        torch.cuda.empty_cache()
+        # Phase 12b: context parallelism over a one-rank NCCL group.
+        cp_counts = phase_cp_engine(params, every, tmp)
         del params  # the Q4_0 model goes before the GGUF kinds' phases
         torch.cuda.empty_cache()
         # Phases 6 and 6q: group-code projections (kernel 13) and the FFN over
@@ -3217,7 +3532,8 @@ def main() -> int:
     # phase 11a's (Q4_K_M in super-block forms) for kernel 17 and kernel 2
     # with an sb w13;
     # the dense 7B Engine's of phase 8 for kernel 14; phase 10a's requests
-    # with OWO for kernel 15 and with ATTN for kernel 16.
+    # with OWO for kernel 15 and with ATTN for kernel 16; phase 12b's CP
+    # Engine for kernels 18 and 19.
     launches = {"q4_matmul": counts["q4_matmul"], "fused_ffn": counts[FFN_Q4_0],
                 "flash_decode_append": counts["flash_decode"],
                 "flash_attention": counts["flash_attention"],
@@ -3234,7 +3550,9 @@ def main() -> int:
                 **{k: int8_paged_counts[k] for k in int8_paged},
                 "flash_decode_attend": dense_counts["flash_decode_attend"],
                 "fused_owo_ffn": fused_counts["owo"][OWO_Q4_0],
-                "fused_attn_out": fused_counts["attn"][ATTN_WO]}
+                "fused_attn_out": fused_counts["attn"][ATTN_WO],
+                "flash_decode_stats": cp_counts["flash_decode_stats"],
+                "flash_attention_stats": cp_counts["flash_attention_stats"]}
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -316,6 +316,75 @@ def test_prefill_attention_kernel_matches_plain(T, offset, rep, Dh):
     assert _err(got, want) <= _tol(want, torch.bfloat16)
 
 
+def _close_f32(got, want):
+    """Partials in f32 from one function summed in other orders: within 1e-4
+    of the largest |value|; infinities (the merge identity's m) equal."""
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf) and torch.equal(got[inf], want[inf])
+    assert _err(got[~inf], want[~inf]) <= 1e-4 * want[~inf].abs().max().item()
+
+
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
+@pytest.mark.parametrize("stride,q_start,k_start", [(1, [0, 64], [0, 16]), (4, [3, 1], [2, 9])])
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+def test_attention_stats_kernel_matches_plain(stride, q_start, k_start, cache_dtype, Dh):
+    """Kernel 19 (ring-attention step): rows that see no key of the block
+    give (0, _MASK, 0) in both."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(stride + Dh)
+    B, Hkv, rep, T, S = 2, 4, 2, 77, 100
+    q = torch.randn(B, Hkv, rep, T, Dh, generator=g, device=dev) / Dh**0.5
+    kc = torch.randn(B, Hkv, S, Dh, generator=g, device=dev).to(cache_dtype)
+    vc = torch.randn(B, Hkv, S, Dh, generator=g, device=dev).to(cache_dtype)
+    qs, ks = (torch.tensor(x, dtype=torch.int32, device=dev) for x in (q_start, k_start))
+    before = flash_attention.launches["flash_attention_stats"]
+    got = flash_attention.flash_attention_stats(q, kc, vc, qs, ks, stride)
+    assert flash_attention.launches["flash_attention_stats"] == before + 1
+    want = flash_attention.flash_attention_stats_plain(q, kc, vc, qs, ks, stride)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        _close_f32(a, b)
+
+
+@pytest.mark.parametrize("splits", [1, 5])
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_stats_kernel_matches_plain(rep, dtype, Dh, splits):
+    """Kernel 18 over a strided view (every other row of a larger cache),
+    lengths 0 .. S and one past S; empty ranges give (0, -inf, 0) exactly."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(rep + Dh + splits)
+    B, Hkv, S = 6, 4, 512
+    lengths = torch.tensor([0, 1, 31, 33, 300, S + 5], dtype=torch.int32, device=dev)
+    q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).to(dtype)
+    big = [torch.randn(B, Hkv, 2 * S, Dh, generator=g, device=dev).to(dtype) for _ in range(2)]
+    kc, vc = (c[:, :, 1::2] for c in big)
+    before = flash_decode.launches["flash_decode_stats"]
+    got = flash_decode.flash_decode_stats(q, kc, vc, lengths, splits)
+    assert flash_decode.launches["flash_decode_stats"] == before + 1
+    want = flash_decode.flash_decode_stats_plain(q, kc, vc, lengths, splits)
+    assert torch.all(got[0][:, 0] == 0) and torch.all(got[1][:, 0] == -torch.inf)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        _close_f32(a, b)
+
+
+def test_stats_kernels_refuse_bad_input():
+    dev = cuda_device()
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    c = torch.zeros(1, 2, 128, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # kernel 19 takes an f32 q
+        flash_attention.flash_attention_stats(torch.zeros(1, 2, 1, 4, 128, device=dev,
+                                                          dtype=torch.bfloat16), c, c, one, one)
+    with pytest.raises(ValueError):  # kernel 18 takes q in the cache's type
+        flash_decode.flash_decode_stats(torch.zeros(1, 2, 1, 128, device=dev), c, c, one)
+    wide = torch.zeros(1, 2, 256, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # k and v with other strides
+        flash_decode.flash_decode_stats(torch.zeros(1, 2, 1, 128, device=dev,
+                                                    dtype=torch.bfloat16), c, wide[:, :, ::2], one)
+
+
 def test_kernel_refuses_bad_input():
     """A wrapper raises on what its kernel does not take; no fallback."""
     dev = cuda_device()

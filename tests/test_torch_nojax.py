@@ -8,8 +8,9 @@ and int8 caches, then with the fused decode-layer kernels 15 and 16 that
 THAWK_FUSED_OWO / THAWK_FUSED_ATTN turn on), both continuous-batching schedulers (the paged one
 on bf16 and int8 pages), speculative decoding (SpeculativeEngine and
 both schedulers with a draft) and the perplexity of a Q4_K_M model in the
-super-block form (runtime/eval.py) on the CPU.  A source scan backs it up
-for imports inside functions.
+super-block form (runtime/eval.py) and a context-parallel
+Engine.generate (parallel/, a gloo group of one rank) on the CPU.  A
+source scan backs it up for imports inside functions.
 """
 
 import re
@@ -99,6 +100,16 @@ sparams = fuse_params(init_params(scfg, torch.Generator().manual_seed(0), dtype=
                                   device="cpu", quant="q4_k_m", sb=True))
 assert sparams.layers[0].wqkv.kind == "q4k_sb" and sparams.layers[0].w2.kind == "qk"
 assert math.isfinite(perplexity(scfg, sparams, list(range(3, 67)), window=32))
+import tempfile
+import torch.distributed as dist
+from tokenhawk_tpu_torch.parallel.mesh import make_cp_mesh
+with tempfile.TemporaryDirectory() as tmp:
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+    r = Engine(cfg, params, byte_fallback_vocab(), SamplingConfig(temperature=0.7),
+               cache_dtype=torch.float32, decode_chunk=4, eos_id=-1, mesh=make_cp_mesh(),
+               parallel="cp").generate("hi there", max_new_tokens=9)
+    dist.destroy_process_group()
+assert len(r.tokens) == 9 and all(0 <= t < 300 for t in r.tokens), r.tokens
 print("OK", len(names))
 """
 

@@ -1,10 +1,23 @@
-// Kernel 4: causal prefill flash attention against the cache.
+// Kernel 4: causal prefill flash attention against the cache, and kernel
+// 19: the same walk returning softmax partials for context parallelism.
 //
-// Replaces tokenhawk_tpu/ops/pallas/flash_attention.py flash_attention
-// (_kernel), reached through attend_prefill.  q [B, Hkv, rep, T, Dh] is
-// pre-scaled; the query at absolute position offsets[b] + t attends to
-// cache slots 0 .. offsets[b] + t with an online softmax in f32.  Dh is
-// 64 or 128.
+// Kernel 4 replaces tokenhawk_tpu/ops/pallas/flash_attention.py
+// flash_attention (_kernel), reached through attend_prefill.  q [B, Hkv,
+// rep, T, Dh] is pre-scaled; the query at absolute position offsets[b] + t
+// attends to cache slots 0 .. offsets[b] + t with an online softmax in f32.
+// Dh is 64 or 128.
+//
+// Kernel 19 replaces flash_attention.py flash_attention_stats
+// (_kernel_stats), the ring-attention step of parallel/ring.py: q (f32,
+// pre-scaled) is one shard's query block and K / V a visiting KV block,
+// at affine positions q_start[b] + stride*t and k_start[b] + stride*j
+// (stride 1 for contiguous blocks, the shard count for the cyclic layout),
+// under the causal mask kpos <= qpos.  It writes the unnormalised o in
+// f32 and the row's max m and sum l; a row that sees no key of the block
+// gets (0, _MASK, 0), _MASK = -0.7 * FLT_MAX being finite so that two
+// such partials merge without NaN and vanish against any real one.  The
+// TPU kernel's fully masked rows inside a partly visible tile collect
+// exp(_MASK - _MASK) = 1 per slot instead; both merge to the same result.
 //
 // A block owns 8 consecutive queries of one (b, kv head, group member),
 // one per warp.  It walks the keys in tiles of 32: all threads stage the
@@ -24,12 +37,20 @@ namespace {
 
 constexpr int kQueries = 8;  // warps per block
 constexpr int kKeys = 32;
+// parallel/ring.py _MASK, rounded to f32 as the Python float is.
+constexpr float kMask = static_cast<float>(-0.7 * 3.4028234663852886e38);
 
-template <typename TQ, typename TC, int DH>
+// Query t sits at q_starts[b] + stride*t and key j at k_starts[b] +
+// stride*j (kernel 4: q_starts = offsets, no k_starts, stride 1).  STATS
+// (kernel 19, TQ = float) writes the unnormalised o and m_out, l_out
+// [B, Hkv, rep, T]; otherwise out = o / l in TQ.
+template <typename TQ, typename TC, int DH, bool STATS>
 __global__ void __launch_bounds__(kQueries * 32)
     prefill_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc,
-                   const TC* __restrict__ vc, const int* __restrict__ offsets,
-                   TQ* __restrict__ out, int Hkv, int rep, int T, int S) {
+                   const TC* __restrict__ vc, const int* __restrict__ q_starts,
+                   const int* __restrict__ k_starts, int stride, TQ* __restrict__ out,
+                   float* __restrict__ m_out, float* __restrict__ l_out, int Hkv, int rep, int T,
+                   int S) {
   constexpr int kRow = DH + 4;
   constexpr int kPer = DH / 32;  // head dims a lane owns for P·V
   __shared__ __align__(16) float ks[kKeys][kRow];
@@ -41,7 +62,8 @@ __global__ void __launch_bounds__(kQueries * 32)
   const int r = blockIdx.y;
   const int t0 = blockIdx.x * kQueries;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int off = offsets[b];
+  const int q0 = q_starts[b];
+  const int k0 = k_starts == nullptr ? 0 : k_starts[b];
   const size_t qbase = (static_cast<size_t>(bh) * rep + r) * T;  // row index of (b, h, r, 0)
   const TC* kh = kc + static_cast<size_t>(bh) * S * DH;
   const TC* vh = vc + static_cast<size_t>(bh) * S * DH;
@@ -53,9 +75,10 @@ __global__ void __launch_bounds__(kQueries * 32)
 
   const int t = t0 + warp;
   const bool active = t < T;
-  const int qpos = off + t;
-  const int last = min(off + min(t0 + kQueries, T) - 1, S - 1);  // block's last key
-  const int n_tiles = last / kKeys + 1;
+  const int qpos = q0 + stride * t;
+  const int last_q = q0 + stride * (min(t0 + kQueries, T) - 1);  // block's last query position
+  // The block's last visible key (none when its last query precedes the first key).
+  const int n_tiles = last_q < k0 ? 0 : min((last_q - k0) / stride, S - 1) / kKeys + 1;
 
   float m = -INFINITY, l = 0.f;
   float acc[kPer];
@@ -83,7 +106,7 @@ __global__ void __launch_bounds__(kQueries * 32)
     if (!active) continue;
 
     const int key = tile * kKeys + lane;
-    const bool valid = key <= qpos && key < S;
+    const bool valid = k0 + stride * key <= qpos && key < S;
     const float4* kr = reinterpret_cast<const float4*>(&ks[lane][0]);
     const float4* qr = reinterpret_cast<const float4*>(&qsm[warp][0]);
     float s = 0.f;
@@ -112,28 +135,50 @@ __global__ void __launch_bounds__(kQueries * 32)
     }
   }
   if (!active) return;
-  const float inv = l > 0.f ? 1.f / l : 1.f;
   TQ* o = out + (qbase + t) * DH + lane * kPer;
+  if constexpr (STATS) {
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) o[i] = from_f32<TQ>(acc[i] * inv);
+    for (int i = 0; i < kPer; ++i) o[i] = acc[i];  // 0 where no key was seen
+    if (lane == 0) {
+      m_out[qbase + t] = m == -INFINITY ? kMask : m;
+      l_out[qbase + t] = l;
+    }
+  } else {
+    const float inv = l > 0.f ? 1.f / l : 1.f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) o[i] = from_f32<TQ>(acc[i] * inv);
+  }
 }
 
-template <typename TQ, typename TC, int DH>
-void launch_dh(const void* q, const void* kc, const void* vc, const int* offsets, void* out,
-               int B, int Hkv, int rep, int T, int S, cudaStream_t stream) {
-  const dim3 grid((T + kQueries - 1) / kQueries, rep, B * Hkv), block(kQueries * 32);
-  prefill_kernel<TQ, TC, DH><<<grid, block, 0, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TC*>(kc), static_cast<const TC*>(vc),
-      offsets, static_cast<TQ*>(out), Hkv, rep, T, S);
+struct Args {
+  const void* q;
+  const void* kc;
+  const void* vc;
+  const int* q_starts;
+  const int* k_starts;  // null for kernel 4
+  int stride;
+  void* out;
+  float* m;  // null for kernel 4
+  float* l;
+  int B, Hkv, rep, T, S;
+  cudaStream_t stream;
+};
+
+template <typename TQ, typename TC, int DH, bool STATS>
+void launch_dh(const Args& a) {
+  const dim3 grid((a.T + kQueries - 1) / kQueries, a.rep, a.B * a.Hkv), block(kQueries * 32);
+  prefill_kernel<TQ, TC, DH, STATS><<<grid, block, 0, a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TC*>(a.kc), static_cast<const TC*>(a.vc),
+      a.q_starts, a.k_starts, a.stride, static_cast<TQ*>(a.out), a.m, a.l, a.Hkv, a.rep, a.T,
+      a.S);
 }
 
-template <typename TQ, typename TC>
-void launch(const void* q, const void* kc, const void* vc, const int* offsets, void* out, int B,
-            int Hkv, int rep, int Dh, int T, int S, cudaStream_t stream) {
+template <typename TQ, typename TC, bool STATS = false>
+void launch(const Args& a, int Dh) {
   if (Dh == 64)
-    launch_dh<TQ, TC, 64>(q, kc, vc, offsets, out, B, Hkv, rep, T, S, stream);
+    launch_dh<TQ, TC, 64, STATS>(a);
   else
-    launch_dh<TQ, TC, 128>(q, kc, vc, offsets, out, B, Hkv, rep, T, S, stream);
+    launch_dh<TQ, TC, 128, STATS>(a);
 }
 
 }  // namespace
@@ -144,15 +189,32 @@ void launch(const void* q, const void* kc, const void* vc, const int* offsets, v
 extern "C" int th_flash_prefill(const void* q, const void* kc, const void* vc,
                                 const void* offsets, void* out, int B, int Hkv, int rep, int Dh,
                                 int T, int S, int q_dtype, int cache_dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* off = static_cast<const int*>(offsets);
+  const Args a{q, kc, vc, static_cast<const int*>(offsets), nullptr, 1, out, nullptr, nullptr,
+               B, Hkv, rep, T, S, static_cast<cudaStream_t>(stream)};
   if (q_dtype == kBF16 && cache_dtype == kBF16)
-    launch<__nv_bfloat16, __nv_bfloat16>(q, kc, vc, off, out, B, Hkv, rep, Dh, T, S, s);
+    launch<__nv_bfloat16, __nv_bfloat16>(a, Dh);
   else if (q_dtype == kBF16)
-    launch<__nv_bfloat16, float>(q, kc, vc, off, out, B, Hkv, rep, Dh, T, S, s);
+    launch<__nv_bfloat16, float>(a, Dh);
   else if (cache_dtype == kBF16)
-    launch<float, __nv_bfloat16>(q, kc, vc, off, out, B, Hkv, rep, Dh, T, S, s);
+    launch<float, __nv_bfloat16>(a, Dh);
   else
-    launch<float, float>(q, kc, vc, off, out, B, Hkv, rep, Dh, T, S, s);
+    launch<float, float>(a, Dh);
+  return THAWK_LAUNCH_RESULT();
+}
+
+// Kernel 19.  q, o [B, Hkv, rep, T, Dh] f32 (q pre-scaled); K / V blocks
+// [B, Hkv, S, Dh] in cache_dtype; q_starts, k_starts [B] int32; stride >= 1;
+// m, l [B, Hkv, rep, T] f32; Dh 64 or 128 (checked by the Python wrapper).
+extern "C" int th_flash_attention_stats(const void* q, const void* kc, const void* vc,
+                                        const void* q_starts, const void* k_starts, int stride,
+                                        void* o, void* m, void* l, int B, int Hkv, int rep,
+                                        int Dh, int T, int S, int cache_dtype, void* stream) {
+  const Args a{q, kc, vc, static_cast<const int*>(q_starts), static_cast<const int*>(k_starts),
+               stride, o, static_cast<float*>(m), static_cast<float*>(l), B, Hkv, rep, T, S,
+               static_cast<cudaStream_t>(stream)};
+  if (cache_dtype == kBF16)
+    launch<float, __nv_bfloat16, true>(a, Dh);
+  else
+    launch<float, float, true>(a, Dh);
   return THAWK_LAUNCH_RESULT();
 }

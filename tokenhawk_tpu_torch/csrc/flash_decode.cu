@@ -1,4 +1,4 @@
-// Kernels 3 and 14: decode attention over the dense bf16/f32 KV cache.
+// Kernels 3, 14 and 18: decode attention over the dense bf16/f32 KV cache.
 //
 // Kernel 3 replaces tokenhawk_tpu/ops/pallas/flash_decode_dma.py
 // flash_decode_append_walk (_kernel_walk_append) and its grid form
@@ -28,6 +28,18 @@
 // non-coherent read-only path).  Kernel 14 writes nothing: its cache
 // pointers are const __restrict__, so loads may take the read-only path.
 //
+// Kernel 18 replaces flash_decode_dma.py flash_decode_stats
+// (_kernel_vec_stats), the per-shard half of context-parallel decode
+// (parallel/ring.py decode_attend_cp): the same body without the final
+// normalisation, writing the unnormalised o in f32 and each query row's
+// max m and sum l.  A sequence of length 0 writes the merge identity
+// (0, -inf, 0) before any read.  Its cache may be a strided view (one
+// shard of a larger cache: batch, head and row strides come from the
+// wrapper), and its live rows may be cut into `splits` tile-aligned
+// ranges, one block each, whose partials the caller merges (an empty range
+// writes the identity): with few (b, kv head) pairs, splits put more than
+// B*Hkv blocks on the 132 SMs.  Bound by the live rows' bytes, as kernel 14.
+//
 // Kernel 16 replaces tokenhawk_tpu/ops/pallas/attn_block.py fused_attn_out
 // (_attn_wo): the attention block of one decode token (B = 1, one query per
 // kv head), x' = x + attend(q, cache + new row) @ Wo, with the new K / V rows
@@ -51,14 +63,16 @@ namespace {
 
 constexpr int kWarps = 8;
 
-// Attention of one block's REP query rows q [REP, DH] (f32 math) over the
-// first L rows of one head's cache kh, vh [S, DH] -> out [REP, DH] in TO.
-// q_scale multiplies q first, rounded back to TQ (1 for kernels 3 and 14,
-// where that is exact).
-template <typename TQ, typename TC, int REP, int DH, typename TO>
+// Attention of one block's REP query rows q [REP, DH] (f32 math) over rows
+// [begin, L) of one head's cache kh, vh (rows `row` elements apart) -> out
+// [REP, DH] in TO.  q_scale multiplies q first, rounded back to TQ (1 for
+// kernels 3, 14 and 18, where that is exact).  STATS (kernel 18, TO =
+// float) writes the unnormalised out and each row's m_out, l_out [REP].
+template <typename TQ, typename TC, int REP, int DH, typename TO, bool STATS = false>
 __device__ __forceinline__ void attend_head(const TQ* __restrict__ q, const TC* kh,
-                                            const TC* vh, int L, TO* __restrict__ out,
-                                            float q_scale) {
+                                            const TC* vh, int begin, int L, size_t row,
+                                            TO* __restrict__ out, float q_scale,
+                                            float* m_out = nullptr, float* l_out = nullptr) {
   constexpr int kPer = DH / 32;  // head dims a lane owns for P·V
   __shared__ __align__(16) float qsm[REP][DH];
   __shared__ float red_m[kWarps][REP];
@@ -79,15 +93,15 @@ __device__ __forceinline__ void attend_head(const TQ* __restrict__ q, const TC* 
     for (int i = 0; i < kPer; ++i) acc[r][i] = 0.f;
   }
 
-  const int n_tiles = (L + 31) / 32;
+  const int n_tiles = (L - begin + 31) / 32;
   for (int t = warp; t < n_tiles; t += kWarps) {
-    const int tok = t * 32 + lane;
+    const int tok = begin + t * 32 + lane;
     const bool valid = tok < L;
     float s[REP];
 #pragma unroll
     for (int r = 0; r < REP; ++r) s[r] = 0.f;
     if (valid) {
-      const TC* krow = kh + static_cast<size_t>(tok) * DH;
+      const TC* krow = kh + static_cast<size_t>(tok) * row;
 #pragma unroll 4
       for (int i = 0; i < DH; i += 8) {
         float kv[8];
@@ -110,10 +124,10 @@ __device__ __forceinline__ void attend_head(const TQ* __restrict__ q, const TC* 
 #pragma unroll
       for (int i = 0; i < kPer; ++i) acc[r][i] *= alpha;
     }
-    const int n_live = min(32, L - t * 32);
+    const int n_live = min(32, L - begin - t * 32);
     for (int j = 0; j < n_live; ++j) {
       float v[kPer];
-      load_n<kPer>(vh + static_cast<size_t>(t * 32 + j) * DH + lane * kPer, v);
+      load_n<kPer>(vh + static_cast<size_t>(begin + t * 32 + j) * row + lane * kPer, v);
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
         const float pj = __shfl_sync(0xffffffffu, p[r], j);
@@ -145,7 +159,15 @@ __device__ __forceinline__ void attend_head(const TQ* __restrict__ q, const TC* 
       num += red_acc[w][r][d] * f;
       den += red_l[w][r] * f;
     }
-    out[i] = from_f32<TO>(num / den);
+    if constexpr (STATS) {
+      out[i] = num;
+      if (d == 0) {
+        m_out[r] = mx;
+        l_out[r] = den;
+      }
+    } else {
+      out[i] = from_f32<TO>(num / den);
+    }
   }
 }
 
@@ -169,7 +191,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     vh[dst] = from_f32<TC>(to_f32(v_new[src]));
   }
   const size_t qo = static_cast<size_t>(bh) * REP * DH;
-  attend_head<TQ, TC, REP, DH, TO>(q + qo, kh, vh, L, out + qo, q_scale);
+  attend_head<TQ, TC, REP, DH, TO>(q + qo, kh, vh, 0, L, DH, out + qo, q_scale);
 }
 
 // Kernel 14: attend only.
@@ -182,7 +204,35 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int L = max(1, min(lengths[bh / Hkv], S));
   const size_t qo = static_cast<size_t>(bh) * REP * DH;
   const size_t co = static_cast<size_t>(bh) * S * DH;
-  attend_head<TQ, TC, REP, DH, TQ>(q + qo, kc + co, vc + co, L, out + qo, 1.f);
+  attend_head<TQ, TC, REP, DH, TQ>(q + qo, kc + co, vc + co, 0, L, DH, out + qo, 1.f);
+}
+
+// Kernel 18: block (b * Hkv + h, split) writes the partials of its range of
+// the live rows; o [splits, B, Hkv, REP, DH], m, l [splits, B, Hkv * REP].
+template <typename T, int REP, int DH>
+__global__ void __launch_bounds__(kWarps * 32)
+    decode_stats_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                        const T* __restrict__ vc, const int* __restrict__ lengths,
+                        float* __restrict__ o, float* __restrict__ m, float* __restrict__ l,
+                        int B, int Hkv, int S, long long sb, long long sh, long long sr) {
+  const int bh = blockIdx.x, split = blockIdx.y;
+  const int b = bh / Hkv, h = bh % Hkv;
+  const int L = min(max(lengths[b], 0), S);
+  const int per = ((L + 31) / 32 + gridDim.y - 1) / gridDim.y * 32;  // rows of a split
+  const int begin = min(split * per, L), end = min(begin + per, L);
+  const size_t row0 = (static_cast<size_t>(split) * B * Hkv + bh) * REP;  // (split, b, h, 0)
+  if (begin == end) {  // nothing to read: the merge identity
+    for (int i = threadIdx.x; i < REP * DH; i += blockDim.x) o[row0 * DH + i] = 0.f;
+    if (threadIdx.x < REP) {
+      m[row0 + threadIdx.x] = -INFINITY;
+      l[row0 + threadIdx.x] = 0.f;
+    }
+    return;
+  }
+  const size_t co = b * sb + h * sh;
+  attend_head<T, T, REP, DH, float, true>(q + static_cast<size_t>(bh) * REP * DH, kc + co,
+                                          vc + co, begin, end, sr, o + row0 * DH, 1.f,
+                                          m + row0, l + row0);
 }
 
 struct Args {
@@ -263,6 +313,66 @@ extern "C" int th_decode_attend(const void* q, const void* kc, const void* vc,
                static_cast<const int*>(lengths), out, B, Hkv, S,
                static_cast<cudaStream_t>(stream)};
   return launch(a, rep, Dh, q_dtype, cache_dtype);
+}
+
+namespace {
+
+struct StatsArgs {
+  const void* q;
+  const void* kc;
+  const void* vc;
+  const int* lengths;
+  float *o, *m, *l;
+  int B, Hkv, S, splits;
+  long long sb, sh, sr;
+  cudaStream_t stream;
+};
+
+template <typename T, int REP, int DH>
+void launch_stats(const StatsArgs& a) {
+  decode_stats_kernel<T, REP, DH><<<dim3(a.B * a.Hkv, a.splits), kWarps * 32, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.kc), static_cast<const T*>(a.vc),
+      a.lengths, a.o, a.m, a.l, a.B, a.Hkv, a.S, a.sb, a.sh, a.sr);
+}
+
+template <typename T, int DH>
+void launch_stats_rep(const StatsArgs& a, int rep) {
+  switch (rep) {
+    case 1: launch_stats<T, 1, DH>(a); break;
+    case 2: launch_stats<T, 2, DH>(a); break;
+    case 4: launch_stats<T, 4, DH>(a); break;
+    default: launch_stats<T, 8, DH>(a); break;
+  }
+}
+
+template <typename T>
+void launch_stats_dh(const StatsArgs& a, int rep, int Dh) {
+  if (Dh == 64)
+    launch_stats_rep<T, 64>(a, rep);
+  else
+    launch_stats_rep<T, 128>(a, rep);
+}
+
+}  // namespace
+
+// Kernel 18.  q [B, Hkv, rep, Dh] in dtype (pre-scaled); caches of
+// [B, Hkv, S, Dh] shape in dtype, element strides sb, sh, sr between
+// sequences, heads and rows (the last dim contiguous); lengths [B] int32
+// (clamped to [0, S]); o [splits, B, Hkv, rep, Dh], m, l [splits, B,
+// Hkv*rep] f32.  rep is 1, 2, 4 or 8, Dh 64 or 128, splits >= 1 (checked
+// by the Python wrapper).
+extern "C" int th_flash_decode_stats(const void* q, const void* kc, const void* vc,
+                                     const void* lengths, void* o, void* m, void* l, int B,
+                                     int Hkv, int rep, int Dh, int S, int splits, long long sb,
+                                     long long sh, long long sr, int dtype, void* stream) {
+  const StatsArgs a{q, kc, vc, static_cast<const int*>(lengths), static_cast<float*>(o),
+                    static_cast<float*>(m), static_cast<float*>(l), B, Hkv, S, splits, sb, sh,
+                    sr, static_cast<cudaStream_t>(stream)};
+  if (dtype == kBF16)
+    launch_stats_dh<__nv_bfloat16>(a, rep, Dh);
+  else
+    launch_stats_dh<float>(a, rep, Dh);
+  return THAWK_LAUNCH_RESULT();
 }
 
 namespace {

@@ -4,6 +4,10 @@ Counterpart of tokenhawk_tpu/ops/attention.py: the reference functions
 the attention kernels (ops/cuda/flash_decode.py, flash_attention.py) are
 checked against.  GQA: queries have H heads, the cache Hkv, H % Hkv == 0.
 A query at absolute position p attends to cache slots <= p.
+
+`attend_stats` is the softmax-partials form (tokenhawk_tpu/parallel/
+ring.py _block_attend_stats) the plain versions of kernels 18 and 19
+compute.
 """
 
 from __future__ import annotations
@@ -46,3 +50,18 @@ def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.T
     si = start[:, None] + torch.arange(T, device=k_cache.device)
     k_cache[bi, :, si] = k_new.to(k_cache.dtype)
     v_cache[bi, :, si] = v_new.to(v_cache.dtype)
+
+
+def attend_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor):
+    """Softmax partials of grouped queries q [B, Hkv, rep, T, Dh] (scaled)
+    over k / v [B, Hkv, S, Dh] under mask [B, T, S] (True: visible), f32:
+    (o [B, Hkv, rep, T, Dh], m [B, Hkv, rep, T], l [B, Hkv, rep, T]) with m
+    the largest visible score and o, l the sums of exp(s - m) * v and of
+    exp(s - m) over the visible keys.  A row that sees no key gets
+    (0, _MASK_VALUE, 0)."""
+    vis = mask[:, None, None]
+    s = torch.einsum("bhrtd,bhsd->bhrts", q.float(), k.float())
+    s = torch.where(vis, s, _MASK_VALUE)
+    m = s.amax(dim=-1)
+    p = torch.where(vis, torch.exp(s - m[..., None]), 0.0)
+    return torch.einsum("bhrts,bhsd->bhrtd", p, v.float()), m, p.sum(dim=-1)

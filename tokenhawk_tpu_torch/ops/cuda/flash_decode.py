@@ -1,4 +1,4 @@
-"""Kernels 3 and 14: decode attention over the dense KV cache (csrc/flash_decode.cu).
+"""Kernels 3, 14 and 18: decode attention over the dense KV cache (csrc/flash_decode.cu).
 
   flash_decode_append  kernel 3, replaces tokenhawk_tpu/ops/pallas/
                        flash_decode_dma.py `flash_decode_append_walk`
@@ -21,6 +21,16 @@ a barrier orders the two.  Head dim 64 or 128; 1, 2, 4 or 8 query heads
 per kv head.  Launches are counted per kernel: `launches["flash_decode"]`
 (kernel 3) and `launches["flash_decode_attend"]` (kernel 14).
 
+Kernel 18, `flash_decode_stats`, replaces flash_decode_dma.py
+`flash_decode_stats` (_kernel_vec_stats), one shard's half of
+context-parallel decode (parallel/ring.py decode_attend_cp): kernel 14's
+body without the final normalisation, returning the unnormalised o, m and
+l in f32; a sequence of length 0 gives the merge identity (0, -inf, 0)
+exactly.  The cache may be a strided view (one cyclic shard of a larger
+cache), and `splits` cuts each sequence's live rows into that many
+tile-aligned ranges, one block each, for the caller to merge: more blocks
+than (sequence, kv head) pairs.  Counted as `launches["flash_decode_stats"]`.
+
 Kernel 16, `fused_attn_out`, replaces tokenhawk_tpu/ops/pallas/
 attn_block.py `fused_attn_out` (_attn_wo): the attention block of one
 decode token of one sequence with one query per kv head, x + attend(q,
@@ -41,17 +51,20 @@ from __future__ import annotations
 
 import torch
 
-from tokenhawk_tpu_torch.ops.attention import attend_cache
+from tokenhawk_tpu_torch.ops.attention import attend_cache, attend_stats
 from tokenhawk_tpu_torch.ops.cuda import build
 from tokenhawk_tpu_torch.ops.cuda.qmatmul import form_code, weight_args
 from tokenhawk_tpu_torch.ops.qweight import QWeight
 
-launches = {"flash_decode": 0, "flash_decode_attend": 0, "attn_wo": 0}
+launches = {"flash_decode": 0, "flash_decode_attend": 0, "flash_decode_stats": 0,
+            "attn_wo": 0}
 HEAD_DIMS = (64, 128)
 REPS = (1, 2, 4, 8)
 
 _APPEND_ARGS = [build.P] * 7 + [build.I] * 7 + [build.P]
 _ATTEND_ARGS = [build.P] * 5 + [build.I] * 7 + [build.P]
+# q, k, v, lengths, o, m, l; B, Hkv, rep, Dh, S, splits; strides; dtype; stream.
+_STATS_ARGS = [build.P] * 7 + [build.I] * 6 + [build.LL] * 3 + [build.I, build.P]
 # q, k_new, v_new, kc, vc, lengths, x; wo (qs, scales, mins, hi, form); ctx,
 # y; H, Dh, S, D; q_scale; q and cache dtypes; stream.
 _ATTN_WO_ARGS = [build.P] * 11 + [build.I] + [build.P] * 2 + [build.I] * 4 + [
@@ -137,6 +150,67 @@ def flash_decode_append(q, k_new, v_new, k_cache, v_cache, lengths):
     build.check(rc, "flash_decode_append")
     launches["flash_decode"] += 1
     return out
+
+
+# -- kernel 18: one shard's softmax partials ------------------------------------
+
+
+def _split_ranges(lengths, S: int, splits: int):
+    """[splits, B] row ranges [begin, end) of each sequence's live rows,
+    cut at whole 32-row tiles, as kernel 18's blocks take them."""
+    L = lengths.long().clamp(0, S)
+    per = ((L + 31) // 32 + splits - 1) // splits * 32
+    begin = torch.minimum(torch.arange(splits, device=L.device)[:, None] * per, L)
+    return begin, torch.minimum(begin + per, L)
+
+
+def flash_decode_stats_plain(q, k_cache, v_cache, lengths, splits: int = 1):
+    """Kernel 18's function in plain PyTorch."""
+    B, Hkv, rep, Dh = q.shape
+    S = k_cache.shape[2]
+    begin, end = _split_ranges(lengths.to(q.device), S, splits)
+    slot = torch.arange(S, device=q.device)
+    mask = (slot >= begin[..., None]) & (slot < end[..., None])  # [splits, B, S]
+    qs = q[:, :, :, None].expand(B, Hkv, rep, splits, Dh)  # one query row per split
+    o, m, l = attend_stats(qs, k_cache, v_cache, mask.transpose(0, 1))
+    m = torch.where((begin == end).T[:, None, None], -torch.inf, m)
+    return (o.permute(3, 0, 1, 2, 4), m.permute(3, 0, 1, 2).reshape(splits, B, Hkv * rep),
+            l.permute(3, 0, 1, 2).reshape(splits, B, Hkv * rep))
+
+
+def flash_decode_stats(q, k_cache, v_cache, lengths, splits: int = 1):
+    """Kernel 18.  q [B, Hkv, rep, Dh] (pre-scaled) in the caches' dtype;
+    caches [B, Hkv, S, Dh], any strides with the last dim contiguous (k and
+    v alike); lengths [B] int32 live rows (clamped to [0, S]) -> partials
+    of `splits` ranges of them: (o [splits, B, Hkv, rep, Dh], m [splits, B,
+    Hkv*rep], l [splits, B, Hkv*rep]) f32; an empty range gives
+    (0, -inf, 0)."""
+    if not q.is_cuda:
+        return flash_decode_stats_plain(q, k_cache, v_cache, lengths, splits)
+    B, Hkv, rep, Dh, S = _check(q, k_cache, v_cache, lengths)
+    build.require(q.dtype == k_cache.dtype, f"q {q.dtype} and caches {k_cache.dtype} differ")
+    build.require(splits >= 1, f"splits must be positive, got {splits}")
+    build.require(k_cache.stride() == v_cache.stride() and k_cache.stride(-1) == 1,
+                  f"caches need one set of strides with contiguous rows, got "
+                  f"{k_cache.stride()} and {v_cache.stride()}")
+    item = k_cache.element_size()
+    build.require(all(st * item % 16 == 0 for st in k_cache.stride()[:3])
+                  and k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0,
+                  "cache rows must be 16-byte aligned")
+    build.require(k_cache.device == q.device == v_cache.device,
+                  "q and the caches must share a device")
+    q = q.contiguous()
+    build.require_cuda(q, lengths)
+    o = torch.empty((splits, B, Hkv, rep, Dh), dtype=torch.float32, device=q.device)
+    m = torch.empty((splits, B, Hkv * rep), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    fn = build.function("th_flash_decode_stats", _STATS_ARGS)
+    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+            o.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hkv, rep, Dh, S, splits,
+            *k_cache.stride()[:3], build.dtype_code(q.dtype), build.stream_of(q))
+    build.check(rc, "flash_decode_stats")
+    launches["flash_decode_stats"] += 1
+    return o, m, l
 
 
 # -- kernel 16: append + attend + Wo + residual --------------------------------

@@ -10,7 +10,12 @@ emit the EOS sentinel and do not advance their offset.
 
 cache_dtype is a torch dtype, "int8" (QuantKVCache, ops/kvquant.py) or
 "auto": int8 when max_seq >= 1024, else bfloat16 (the reference's rule
-on one device).
+on one device; bfloat16 under a mesh).
+
+With `mesh` (parallel/mesh.py make_cp_mesh) and parallel="cp", every rank
+of the ctx group runs the same Engine over the whole parameters and its
+slice of the cache (parallel/cp.py), as the reference's Engine does over
+its (data, ctx) mesh.
 """
 
 from __future__ import annotations
@@ -93,10 +98,12 @@ def make_prefill_fn(cfg: LlamaConfig):
 
 
 def make_decode_fn(cfg: LlamaConfig, sampling: SamplingConfig, chunk: int,
-                   eos_id: int = EOS_ID):
+                   eos_id: int = EOS_ID, forward=forward):
     """fn decoding `chunk` tokens:
     (params, cache, last_tok [B], offsets [B], last_n [B,N], done [B], generator)
-      -> (cache, tokens [B,chunk], offsets, last_n, done)."""
+      -> (cache, tokens [B,chunk], offsets, last_n, done).
+    `forward(cfg, params, tokens [B, 1], cache, offsets)` -> (hidden, cache)
+    runs one token (models/llama.py forward; parallel/cp.py passes its own)."""
     eos0, eos_ids = normalize_eos(eos_id)
 
     @torch.inference_mode()
@@ -165,7 +172,16 @@ class Engine:
         cache_dtype=torch.bfloat16,
         decode_chunk: int = 8,
         eos_id: Optional[int] = None,
+        mesh=None,
+        parallel: Optional[str] = None,
     ):
+        if parallel in ("tp", "pp"):
+            item = "item 5" if parallel == "tp" else "item 5, after TP"
+            raise NotImplementedError(f"parallel={parallel!r} is not ported yet "
+                                      f"(ROADMAP.md Queue 1 {item})")
+        if parallel not in (None, "cp") or (parallel == "cp") != (mesh is not None):
+            raise ValueError(f"parallel={parallel!r} with mesh={mesh!r}: the port runs "
+                             "parallel='cp' over a make_cp_mesh() mesh, or neither")
         if eos_id is None:
             eos_id = tokenizer_eos(tokenizer)
         self.cfg = cfg
@@ -175,14 +191,33 @@ class Engine:
         self.sampling = sampling
         self.max_seq = max_seq or cfg.n_ctx
         self.batch_size = batch_size
+        self.mesh = mesh
+        if mesh is not None:
+            # The reference's CP caches are bfloat16 or f32; it has no int8 CP.
+            if cache_dtype == "int8":
+                raise ValueError("an int8 cache has no CP form (the reference's neither)")
+            if cache_dtype == "auto":
+                cache_dtype = torch.bfloat16
         self.cache_dtype = resolve_cache_dtype(cache_dtype, self.max_seq)
         self.decode_chunk = decode_chunk
         self.eos_id, self.eos_ids = normalize_eos(eos_id)
         eos_id = self.eos_ids if len(self.eos_ids) > 1 else self.eos_id
 
-        self._prefill = make_prefill_fn(cfg)
-        self._decode = make_decode_fn(cfg, sampling, decode_chunk, eos_id)
-        self._decode1 = make_decode_fn(cfg, sampling, 1, eos_id)
+        if mesh is not None:
+            from tokenhawk_tpu_torch.parallel.cp import (
+                make_cp_decode_fn,
+                make_cp_prefill_fn,
+                validate_cp,
+            )
+
+            validate_cp(cfg, mesh.ncp, self.max_seq)
+            self._prefill = make_cp_prefill_fn(cfg, mesh)
+            self._decode = make_cp_decode_fn(cfg, mesh, sampling, decode_chunk, eos_id)
+            self._decode1 = make_cp_decode_fn(cfg, mesh, sampling, 1, eos_id)
+        else:
+            self._prefill = make_prefill_fn(cfg)
+            self._decode = make_decode_fn(cfg, sampling, decode_chunk, eos_id)
+            self._decode1 = make_decode_fn(cfg, sampling, 1, eos_id)
 
         self.buckets = prefill_buckets(self.max_seq)
 
@@ -193,6 +228,9 @@ class Engine:
 
     def new_cache(self, batch: Optional[int] = None):
         batch = batch or self.batch_size
+        if self.mesh is not None:  # this rank's max_seq / ncp slots (parallel/cp.py)
+            return KVCache.create(self.cfg, batch, self.max_seq // self.mesh.ncp,
+                                  self.cache_dtype, self.device)
         if self.cache_dtype == "int8":
             return QuantKVCache.create(self.cfg, batch, self.max_seq, self.device)
         return KVCache.create(self.cfg, batch, self.max_seq, self.cache_dtype, self.device)
