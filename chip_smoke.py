@@ -101,6 +101,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      the dense Engine's up to near-ties; tok/s beside the dense Engine's,
      the idle share of a profiled request.  One H100 runs CP at one
      rank only; the shard merges of 12a stand in for more.
+  13. the bench and the last three kernels, after phase 11 (every earlier
+     model freed): 13a kernel 20 (the HBM stream probe) against its plain
+     version on a 2 GiB array, timed beside torch.sum, the probe's GB/s
+     before and after (each at most 105% of the card's spec); 13b the
+     bench on the 32-layer LLaMA-7B Q4_0 (its own synthetic weights, each
+     layer its own buffers): decode (B=1, ctx 512, 128 tokens) and serve
+     (B=8, 16 requests, 64 tokens) in this process, ttft as `python -m
+     tokenhawk_tpu_torch.bench`; each JSON line checked, its probe
+     readings and roofline shares at most 105%, kernel 20's 336 launches
+     in the decode run; 13c kernel 21 (experiments/dequant_exp.py's three
+     dequant variants) against its plain versions and timed over 8 weight
+     sets, then the script; kernel 22 (experiments/sm90_probe.py) through
+     the script (all seven probes ok), each probe against its plain
+     version, and the int8 tensor-core product on random codes.
 The entry points a phase runs as subprocesses (CLI, servers) run side by
 side, as their loads are host work.
 Phase 2 also holds kernel 17 (Q4_K super-blocks) beside kernel 13 over the
@@ -257,11 +271,13 @@ def max_err(out, ref, frac: float = KERNEL_TOL) -> tuple:
     return d, frac * ref.float().abs().max().item()
 
 
-def bound(nbytes: float, flops: float, layout_nbytes: float | None = None) -> dict:
-    """The least time the card could take for a call (see HBM_BPS).  For
-    weights whose GGML blocks the port stores wider, nbytes counts the
-    blocks and layout_nbytes the port's layout (layout_bound_ms)."""
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS * 1e3
+def bound(nbytes: float, flops: float, layout_nbytes: float | None = None,
+          peak: float = PEAK_FLOPS) -> dict:
+    """The least time the card could take for a call (see HBM_BPS), its
+    operations at `peak` per second.  For weights whose GGML blocks the
+    port stores wider, nbytes counts the blocks and layout_nbytes the
+    port's layout (layout_bound_ms)."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
     out = {"bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     if layout_nbytes is not None:
@@ -3432,6 +3448,230 @@ def phase_cp_engine(params, kernel_mods, tmp: str) -> dict:
     return counts
 
 
+# -- phase 13: the bench entry point and kernels 20-22 ------------------------
+
+# Bounds of kernels 20-22 at their operations' own peaks (NVIDIA H100 SXM
+# data sheet): f32 adds on the CUDA cores, int8 products on the tensor cores.
+F32_FLOPS = 67e12
+INT8_OPS = 1979e12
+# A probe reading above the card's spec by more than this is not HBM: the
+# array, or a model's weights, would be served from cache.
+SOL_SLACK = 1.05
+
+
+def _check_probe(gbps: float, label: str) -> None:
+    spec = HBM_BPS / 1e9
+    log(f"{label}: {gbps:.1f} GB/s ({gbps / spec * 100:.1f}% of the spec)")
+    if not 0 < gbps <= SOL_SLACK * spec:
+        raise AssertionError(f"{label}: {gbps} GB/s outside (0, {SOL_SLACK * spec}]")
+
+
+def phase_stream_kernel() -> dict:
+    """13a: kernel 20 against its plain version on a 2 GiB random array,
+    within 1e-5 of sum(|x|), its time beside torch.sum's and the bound;
+    the probe's reading before and after."""
+    import torch
+
+    from tokenhawk_tpu_torch.ops.cuda import stream
+    from tokenhawk_tpu_torch.utils import benchlib
+
+    log("== phase 13a: kernel 20, the HBM stream probe")
+    _check_probe(benchlib.hbm_stream_gbps(), "hbm_stream_gbps() before")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((1 << 20, 1024), generator=g, device="cuda", dtype=torch.bfloat16)
+    seed = torch.full((1, 1), 1.5, device="cuda")
+    got, want = stream.stream_sum(x, seed), benchlib.stream_sum_plain(x, seed)
+    err = abs(got.item() - want.item())
+    tol = 1e-5 * x.float().abs().sum().item()
+    kt = timed([lambda: stream.stream_sum(x, seed)], calls=16)
+    pt = timed([lambda: benchlib.stream_sum_plain(x, seed)], calls=4)
+    lib = timed([lambda: torch.sum(x, dtype=torch.float32)], calls=16)["ms"]
+    b = bound(x.numel() * 2 + 8, x.numel(), peak=F32_FLOPS)
+    log(f"stream_sum bf16 [1048576, 1024] (2 GiB): max_abs_err {err:.3e} (tol {tol:.3e})  "
+        f"kernel {kt['ms']:.4f} ms [per call {kt['call_ms']:.4f}]  plain {pt['ms']:.4f} ms  "
+        f"torch.sum {lib:.4f} ms  bound {b['bound_ms']:.4f} ms ({b['bound_by']}): "
+        f"{x.numel() * 2 / kt['ms'] / 1e6:.1f} GB/s")
+    if not err <= tol:
+        raise AssertionError(f"stream_sum: {err} > {tol}")
+    del x
+    torch.cuda.empty_cache()
+    _check_probe(benchlib.hbm_stream_gbps(), "hbm_stream_gbps() after")
+    return {"name": "stream_sum", "route": "cuda",
+            "source": "tokenhawk_tpu_torch/csrc/stream.cu",
+            "replaces": "tokenhawk_tpu/utils/benchlib.py:108 (hbm_stream_gbps, "
+                        "_stream_sum_kernel)", "launches": 0, "max_abs_err": err,
+            "ms": kt["ms"], "plain_ms": pt["ms"], **b, "library_ms": lib,
+            "timed_at": "bf16 [1048576, 1024] (2 GiB)",
+            "cases": [dict(shape="bf16 [1048576, 1024]", rows=1 << 20, max_abs_err=err,
+                           tol=tol, ms=kt["ms"], call_ms=kt["call_ms"], plain_ms=pt["ms"])]}
+
+
+def _check_bench_line(rec: dict, metric: str) -> None:
+    """A bench JSON line: its metric, a finite positive value, the card
+    and both probe readings in it, and no share of a roofline above
+    SOL_SLACK."""
+    import torch
+
+    if rec["metric"] != metric or not (0 < rec["value"] < float("inf")):
+        raise AssertionError(f"bench line {rec}")
+    if torch.cuda.get_device_name(0) not in rec["device"]:
+        raise AssertionError(f"bench line names another device: {rec['device']}")
+    for k in ("measured_hbm_gbps", "measured_hbm_gbps_after"):
+        _check_probe(rec[k], f"  {metric} {k}")
+    for k in ("pct_of_spec_sol", "pct_of_measured_sol", "pct_of_mxu_roofline"):
+        if k in rec and not 0 < rec[k] <= SOL_SLACK * 100:
+            raise AssertionError(f"{metric}: {k} = {rec[k]} outside (0, {SOL_SLACK * 100}]")
+
+
+def phase_bench(kernel_mods) -> int:
+    """13b: the bench on the full 32-layer LLaMA-7B Q4_0: decode (B=1, ctx
+    512, 128 tokens) and serve (B=8, 16 requests, 64 tokens) in this
+    process, ttft as `python -m tokenhawk_tpu_torch.bench`.  Returns
+    kernel 20's launches in the decode run."""
+    import torch
+
+    from tokenhawk_tpu_torch import bench
+    from tokenhawk_tpu_torch.ops.cuda import stream
+
+    log("== phase 13b: the bench, LLaMA-7B Q4_0, 32 layers")
+    mods = [stream, *kernel_mods]
+    runs = {}
+    for mode, argv, metric, on_path in (
+            ("decode", ["--tokens", "128"], "llama7b_q4_0_decode_tokens_per_sec",
+             ["q4_matmul", FFN_Q4_0, "flash_decode", "flash_attention"]),
+            ("serve", ["--batch", "8", "--requests", "16", "--tokens", "64"],
+             "llama7b_q4_0_serve_agg_tokens_per_sec_b8",
+             ["q4_matmul", FFN_Q4_0, "flash_attention", "paged_decode", "paged_append"])):
+        args = bench.parse_args(["--mode", mode, *argv])
+        _reset_counts(mods)
+        t0 = time.perf_counter()
+        rec = bench.run(bench.model_config(args), args)
+        counts = _read_counts(mods)
+        log(f"bench --mode {mode} {' '.join(argv)}: {time.perf_counter() - t0:.1f} s; "
+            f"launches {counts}")
+        _check_path(counts, ["stream_sum", *on_path], [])
+        _check_bench_line(rec, metric)
+        runs[mode] = counts["stream_sum"]
+        torch.cuda.empty_cache()
+    # Two probes of (4 + 24) passes of warm-up and 5 trials of (4 + 24).
+    if runs["decode"] != 2 * (4 + 24 + 5 * 28):
+        raise AssertionError(f"kernel 20 launched {runs['decode']} times in a bench run")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "tokenhawk_tpu_torch.bench", "--mode", "ttft"],
+                         cwd=root, capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=root))
+    log(f"python -m tokenhawk_tpu_torch.bench --mode ttft: exit {out.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; " + " | ".join(out.stderr.splitlines()[-3:]))
+    if out.returncode != 0:
+        raise AssertionError(f"the bench failed: {out.stderr[-3000:]}")
+    lines = out.stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"the bench printed {len(lines)} lines: {out.stdout[-2000:]}")
+    log(lines[0])
+    _check_bench_line(json.loads(lines[0]), "llama7b_q4_0_ttft_p50_ms_prompt64")
+    return runs["decode"]
+
+
+def phase_experiments() -> tuple:
+    """13c: kernel 21's three variants against their plain versions at the
+    experiment's shapes, timed over its 8 weight sets, then the script;
+    kernel 22's seven probes through the script (all ok), against their
+    plain versions, and the int8 tensor-core product on random codes.
+    Returns both records with the scripts' launches."""
+    import torch
+
+    from tokenhawk_tpu_torch.experiments import dequant_exp as dx
+    from tokenhawk_tpu_torch.experiments import sm90_probe as sp
+
+    log("== phase 13c: the experiment kernels 21 (dequant_exp) and 22 (sm90_probe)")
+    K, N, B = dx.K, dx.N, dx.B
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((B, K), generator=g, device="cuda").to(torch.bfloat16)
+    sets = [(torch.randint(0, 256, (K // 2, N), generator=g, device="cuda", dtype=torch.uint8),
+             (0.01 * (0.5 + torch.rand((K // 64, N), generator=g, device="cuda")))
+             .to(torch.bfloat16)) for _ in range(dx.NW)]
+
+    def dequantized(qs, s):
+        sf = s.float().repeat_interleave(32, dim=0)
+        return torch.cat([((qs & 0x0F).float() - 8.0) * sf,
+                          ((qs >> 4).float() - 8.0) * sf]).to(torch.bfloat16)
+
+    lib = timed([lambda qs=qs, s=s: torch.matmul(x, dequantized(qs, s)) for qs, s in sets],
+                calls=16)["ms"]
+    nbytes = B * K * 2 + K // 2 * N + K // 64 * N * 2 + B * N * 2
+    b = bound(nbytes, 2 * B * K * N)
+    cases = []
+    for v in dx.VARIANTS:
+        qs, s = sets[0]
+        got, want = dx.dequant_matmul(x, qs, s, v), dx.dequant_matmul_plain(x, qs, s, v)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2.0 ** (np.floor(np.log2(want.float().abs().max().item())) - 7)
+        kt = timed([lambda qs=qs, s=s: dx.dequant_matmul(x, qs, s, v) for qs, s in sets])
+        pt = timed([lambda qs=qs, s=s: dx.dequant_matmul_plain(x, qs, s, v) for qs, s in sets],
+                   calls=8)
+        log(f"dequant_exp {v} x [8, {K}] codes [{K // 2}, {N}]: max_abs_err {err:.3e} "
+            f"(tol {tol:.3e})  kernel {kt['ms']:.4f} ms [per call {kt['call_ms']:.4f}]  "
+            f"plain {pt['ms']:.4f} ms  {nbytes / kt['ms'] / 1e6:.1f} GB/s")
+        if not err <= tol:
+            raise AssertionError(f"dequant_exp {v}: {err} > {tol}")
+        cases.append(dict(shape=f"x [8, {K}], codes [{K // 2}, {N}]", rows=v, max_abs_err=err,
+                          tol=tol, ms=kt["ms"], call_ms=kt["call_ms"], plain_ms=pt["ms"]))
+    log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}); library call dequantize + "
+        f"torch.matmul: {lib:.4f} ms")
+    del x, sets
+    _reset_counts([dx, sp])
+    if dx.main() != 0:
+        raise AssertionError("experiments/dequant_exp.py failed")
+    if sp.main() != 0:
+        raise AssertionError("experiments/sm90_probe.py reported a FAIL")
+    counts = _read_counts([dx, sp])
+    log(f"the scripts' launches: {counts}")
+    _check_path(counts, ["dequant_exp", "sm90_probe"], [])
+    dq = _record("dequant_exp", "tokenhawk_tpu_torch/csrc/dequant_exp.cu",
+                 "experiments/dequant_exp.py:50 (build, make_kernel)", cases,
+                 (cases[0]["shape"], "int32"), b, lib)
+    dq["launches"] = counts["dequant_exp"]
+
+    ins = sp.inputs("cuda")
+    pcases = []
+    for i, name in enumerate(sp.PROBES):
+        got, want = sp.probe(i, ins), sp.probe_plain(i, ins)
+        if not torch.equal(got, want):
+            raise AssertionError(f"sm90_probe {name}: differs from the plain version")
+        src = ins["i8sq"] if i == 5 else ins["u8"]
+        library = {0: lambda: ins["i8"].float(), 1: lambda: (ins["u8"].to(torch.int16) & 0xF)
+                   .float(), 2: lambda: (ins["u8"] & 0xF).int().float(),
+                   3: lambda: ins["i4"].float(), 4: lambda: ins["u8"].view(torch.int8).float(),
+                   5: lambda: torch._int_mm(ins["i8sq"], ins["i8sq"]),
+                   6: lambda: torch.addcmul(torch.ones_like(ins["s"]), ins["u8"].float(),
+                                            ins["s"])}[i]
+        kt = timed([lambda i=i: sp.probe(i, ins)])
+        pt = timed([lambda i=i: sp.probe_plain(i, ins)])
+        lt = timed([library])["ms"]
+        pb = (bound(2 * 128 * 128 + 128 * 128 * 4, 2 * 128**3, peak=INT8_OPS) if i == 5
+              else bound(src.numel() * src.element_size() + got.numel() * 4, 0))
+        log(f"sm90_probe {name}: equal  kernel {kt['ms']:.4f} ms [per call "
+            f"{kt['call_ms']:.4f}]  plain {pt['ms']:.4f} ms  torch op {lt:.4f} ms  "
+            f"bound {pb['bound_ms']:.6f} ms ({pb['bound_by']})")
+        pcases.append(dict(shape=name, rows=list(got.shape)[0], max_abs_err=0.0, tol=0.0,
+                           ms=kt["ms"], call_ms=kt["call_ms"], plain_ms=pt["ms"],
+                           library_ms=lt, **pb))
+    for m, k, n in [(128, 128, 128), (256, 4096, 256)]:
+        a = torch.randint(-128, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+        w = torch.randint(-128, 128, (k, n), generator=g, device="cuda", dtype=torch.int8)
+        if not torch.equal(sp.int8_matmul(a, w), (a.double() @ w.double()).to(torch.int32)):
+            raise AssertionError(f"int8_matmul [{m}, {k}] x [{k}, {n}] differs")
+        log(f"int8_matmul (mma.sync s8) [{m}, {k}] x [{k}, {n}] on random codes: exact")
+    main = pcases[5]
+    pr = _record("sm90_probe", "tokenhawk_tpu_torch/csrc/sm90_probe.cu",
+                 "experiments/mosaic_probe.py:25 (run_kernel), :51 (_i4_kernel_input)",
+                 pcases, (main["shape"], main["rows"]),
+                 {k: main[k] for k in ("bound_ms", "bound_by")}, main["library_ms"])
+    pr["launches"] = counts["sm90_probe"]
+    return dq, pr
+
+
 def main() -> int:
     import torch
 
@@ -3524,6 +3764,12 @@ def main() -> int:
         sb_counts, _ = phase_q4k_sb(every, engine_path(sb_on, FFN_Q4_K_M),
                                     paged_path(sb_on, FFN_Q4_K_M))
         phase_gguf_sb(gguf_path, tmp)
+    # Phase 13: the bench (kernel 20 on its path) and the experiment kernels
+    # 21 and 22, after every earlier phase's model is gone.
+    torch.cuda.empty_cache()
+    stream_rec = phase_stream_kernel()
+    stream_rec["launches"] = phase_bench(every)
+    bench_records = [stream_rec, *phase_experiments()]
     # Each kernel's launches on the path of the slice that added it: the
     # Q4_0 Engine run for kernels 1-4, the paged server's run for kernels
     # 5-7, the int8 Engine's for kernels 8-9, the int8 paged server's for
@@ -3555,6 +3801,7 @@ def main() -> int:
                 "flash_attention_stats": cp_counts["flash_attention_stats"]}
     for rec in records:
         rec["launches"] = launches[rec["name"]]
+    records += bench_records  # kernels 20-22, launches on their own paths
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

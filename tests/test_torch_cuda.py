@@ -799,3 +799,77 @@ def test_speculative_round_at_tinyllama_width_matches_plain_on_the_card(monkeypa
     assert flash_decode.launches["flash_decode_attend"] == 4 * cfg.n_layer
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Kernels 20-22: the HBM stream probe and the two experiment kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [8, 1000, 1 << 20, (1 << 24) + 5])
+def test_stream_sum_kernel_matches_plain(n):
+    """Kernel 20: seed + sum(x) within 1e-6 of sum(|x|) (f32 sums in
+    another order), the tail past a multiple of 8 included."""
+    from tokenhawk_tpu_torch.ops.cuda import stream
+    from tokenhawk_tpu_torch.utils import benchlib
+
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(n % 1000)
+    x = torch.randn(n, generator=g, device=dev).to(torch.bfloat16)
+    seed = torch.full((1, 1), 2.5, device=dev)
+    before = stream.launches["stream_sum"]
+    got = stream.stream_sum(x, seed)
+    assert stream.launches["stream_sum"] == before + 1
+    want = benchlib.stream_sum_plain(x, seed)
+    assert got.shape == (1, 1)
+    assert abs(got.item() - want.item()) <= 1e-6 * x.float().abs().sum().item()
+    assert stream.stream_sum(x, got).item() == pytest.approx(2 * want.item() - 2.5, abs=1e-3 * n)
+
+
+def test_hbm_stream_probe_reads_about_the_cards_bandwidth():
+    """The probe at 256 MiB (5x L2) on the card: a positive rate below 110%
+    of the card's HBM figure, where the card has one on record."""
+    from tokenhawk_tpu_torch.utils import benchlib, profiling
+
+    dev = cuda_device()
+    gbps = benchlib.hbm_stream_gbps(nbytes=1 << 28, trials=3, device=dev)
+    assert gbps > 0
+    if torch.cuda.get_device_name(dev) in profiling.HBM_GBPS:
+        assert gbps <= 1.1 * profiling.hbm_gbps()
+
+
+@pytest.mark.parametrize("K,N", [(1024, 512), (4096, 11008)])
+@pytest.mark.parametrize("variant", ["int32", "u8int8", "biasdot"])
+def test_dequant_exp_kernel_matches_plain(K, N, variant):
+    """Kernel 21 against its plain version on random codes and scales:
+    one bfloat16 step of the largest |output|."""
+    from tokenhawk_tpu_torch.experiments import dequant_exp
+
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(K + len(variant))
+    x = torch.randn((8, K), generator=g, device=dev).to(torch.bfloat16)
+    qs = torch.randint(0, 256, (K // 2, N), generator=g, device=dev, dtype=torch.uint8)
+    s = (0.01 * (0.5 + torch.rand((K // 64, N), generator=g, device=dev))).to(torch.bfloat16)
+    before = dequant_exp.launches["dequant_exp"]
+    got = dequant_exp.dequant_matmul(x, qs, s, variant)
+    assert dequant_exp.launches["dequant_exp"] == before + 1
+    want = dequant_exp.dequant_matmul_plain(x, qs, s, variant)
+    top = want.float().abs().max().item()
+    assert _err(got, want) <= 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+def test_sm90_probes_equal_their_plain_versions():
+    """Kernel 22: the seven probes on the reference's inputs, exactly, and
+    the int8 tensor-core product on random codes at other shapes."""
+    from tokenhawk_tpu_torch.experiments import sm90_probe
+
+    dev = cuda_device()
+    ins = sm90_probe.inputs(dev)
+    for i in range(len(sm90_probe.PROBES)):
+        assert torch.equal(sm90_probe.probe(i, ins), sm90_probe.probe_plain(i, ins)), i
+    g = torch.Generator(device=dev).manual_seed(22)
+    for m, k, n in [(128, 128, 128), (16, 32, 8), (64, 256, 40)]:
+        a = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        b = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+        want = (a.double() @ b.double()).to(torch.int32)
+        assert torch.equal(sm90_probe.int8_matmul(a, b), want), (m, k, n)

@@ -9,8 +9,9 @@ THAWK_FUSED_OWO / THAWK_FUSED_ATTN turn on), both continuous-batching schedulers
 on bf16 and int8 pages), speculative decoding (SpeculativeEngine and
 both schedulers with a draft) and the perplexity of a Q4_K_M model in the
 super-block form (runtime/eval.py) and a context-parallel
-Engine.generate (parallel/, a gloo group of one rank) on the CPU.  A
-source scan backs it up for imports inside functions.
+Engine.generate (parallel/, a gloo group of one rank) and a decode run of
+the bench (bench.py) on the CPU.  A source scan backs it up for imports
+inside functions.
 """
 
 import re
@@ -110,6 +111,13 @@ with tempfile.TemporaryDirectory() as tmp:
                parallel="cp").generate("hi there", max_new_tokens=9)
     dist.destroy_process_group()
 assert len(r.tokens) == 9 and all(0 <= t < 300 for t in r.tokens), r.tokens
+import contextlib, dataclasses, io
+from tokenhawk_tpu_torch import bench
+with contextlib.redirect_stdout(io.StringIO()):  # the bench's JSON line
+    rec = bench.run(dataclasses.replace(cfg, n_ctx=256), bench.parse_args(
+        ["--device", "cpu", "--mode", "decode", "--ctx", "256", "--prompt-tokens", "16",
+         "--tokens", "16", "--chunk", "8"]))
+assert rec["metric"] == "llama7b_q4_0_decode_tokens_per_sec" and rec["value"] > 0, rec
 print("OK", len(names))
 """
 

@@ -66,6 +66,12 @@ def open_model_file(path: str):
     return GGUFFile(path) if is_gguf(path) else GGMLFile(path)
 
 
+def q4k_sb_enabled() -> bool:
+    """The reference's THAWK_Q4K_SB=1: Q4_K weights in the super-block
+    form where its gate admits them (read at each call)."""
+    return os.environ.get("THAWK_Q4K_SB", "0") == "1"
+
+
 def load_model(path: str, n_ctx: int = 2048, dtype=torch.bfloat16, device="cuda",
                scale_dtype=torch.bfloat16,
                **config_overrides) -> Tuple[LlamaConfig, LlamaParams, object]:
@@ -93,7 +99,7 @@ def load_model(path: str, n_ctx: int = 2048, dtype=torch.bfloat16, device="cuda"
         # for ggjt files.
         tokenizer.chat_template = getattr(f, "metadata", {}).get("tokenizer.chat_template")
         tensors = {}
-        sb = os.environ.get("THAWK_Q4K_SB", "0") == "1"
+        sb = q4k_sb_enabled()
         for name, rec in f.tensors.items():
             if (rec.ggml_type in _KQUANTS and len(rec.shape) == 2 and "norm" not in name
                     and name != "tok_embeddings.weight"):
