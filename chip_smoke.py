@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (tokenhawk_tpu_torch) once on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --prefill   # phase 1, then phase 2's kernels 4 and 9 alone
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. versions, the card's name and power limit, the kernel build (one nvcc
@@ -149,8 +150,12 @@ import numpy as np
 SEED = 1234
 S_CTX = 512
 # bfloat16 outputs: the kernels and their plain versions both accumulate in
-# f32 and round once, so they differ by about one bfloat16 rounding
-# (at most 2^-8 of an element); the tolerance is 2^-7 of the largest |reference|.
+# f32 and round the output once, so they differ by about one bfloat16
+# rounding (at most 2^-8 of an element).  The tensor-core prefill walk
+# (kernels 4 and 9 on bf16 q) also rounds the probabilities P to bfloat16
+# before P.V, as tensor-core flash attention does: each weight moves by at
+# most 2^-9 of itself, in no common direction, which adds less than one
+# output rounding.  The tolerance is 2^-7 of the largest |reference|.
 KERNEL_TOL = 2.0**-7
 # Logits of the slice after 2 layers of bfloat16 activations, kernels vs
 # plain: rounding flips of intermediate bfloat16 values propagate; 5% of
@@ -175,6 +180,46 @@ DEEP_BF16_TOL = 0.1
 # merged shards against the unsplit float32 kernel: f32 sums in other
 # orders, 1e-4 of the largest |value| (tests/test_torch_cuda.py's rule).
 PARTIALS_TOL = 1e-4
+# Float32 results of one function summed in other orders, kernel against
+# plain version (kernels 4 and 9 with float32 q, case g below): 1e-4 of the
+# largest |value| (tests/test_torch_cuda.py's rule).
+F32_KERNEL_TOL = 1e-4
+# Kernels 4 and 9 (causal prefill attention): the cases phase 2 checks and
+# times, (tag, Hkv, rep, Dh, B, T, offsets, S).  a: LLaMA-7B's heads at
+# T=512 from offset 0 (kernel 4's main case; kernel 9's, a9, over the int8
+# phases' n_ctx 2048); b: short prompts and, for kernel 9, a whole 2048;
+# c: a 512-token chunk of phase 4b's 1500-token prompt; d: the paged
+# verify after its gather (9c: 8 slots of gamma + 1 = 5 rows); e:
+# Llama-3-8B's heads (8 KV heads x 4 queries); f: TinyLlama's (4 KV heads
+# of 64 x 8 queries).  Case g, float32 q (the CUDA-core walk), runs at the
+# first case's shape.
+VERIFY_OFFSETS = [0, 37, 300, 700, 1024, 1500, 1800, 2043]
+PREFILL_CASES = {
+    "flash_attention": [
+        ("a", 32, 1, 128, 1, 512, [0], 512),
+        ("b", 32, 1, 128, 1, 64, [0], 512),
+        ("b", 32, 1, 128, 1, 16, [200], 512),
+        ("c", 32, 1, 128, 1, 512, [1024], 2048),
+        ("d", 32, 1, 128, 8, 5, VERIFY_OFFSETS, 2048),
+        ("e", 8, 4, 128, 1, 512, [0], 2048),
+        ("f", 4, 8, 64, 1, 512, [0], 2048)],
+    "flash_attention_int8": [
+        ("a9", 32, 1, 128, 1, 512, [0], 2048),
+        ("b", 32, 1, 128, 1, 64, [0], 2048),
+        ("b", 32, 1, 128, 1, 16, [200], 2048),
+        ("b", 32, 1, 128, 1, 13, [5], 2048),
+        ("b", 32, 1, 128, 1, 2048, [0], 2048),
+        ("c", 32, 1, 128, 1, 512, [1024], 2048),
+        ("d", 32, 1, 128, 8, 5, VERIFY_OFFSETS, 2048),
+        ("e", 8, 4, 128, 1, 512, [0], 2048)],
+}
+# Kernel 4's and kernel 9's launch counters, one a walk
+# (ops/cuda/flash_attention.py, kv_int8.py): bf16 q (and, for kernel 4, a
+# bf16 cache) runs the tensor-core walk, float32 the CUDA-core one.  The
+# bf16 phases' launch checks ask for the first and forbid the second; the
+# float32 witnesses the reverse.
+K4, K9 = "flash_attention_tc", "flash_attention_int8_tc"
+CUDA_CORE_PREFILL = ["flash_attention", "flash_attention_int8"]
 # The card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s and
 # dense bf16 tensor-core FLOP/s.  A kernel's bound is the larger of its
 # bytes (each input read once, each output written once) over the first
@@ -317,29 +362,18 @@ def phase_env() -> None:
         f"spills: {spills or 'none'}")
 
 
-def phase_kernels() -> list:
+def _case_tools(seed: int = SEED) -> tuple:
+    """Phase 2's helpers on the card: randn (bf16 by default, from a
+    generator seeded with `seed`), case (check one shape against its
+    tolerance and time both versions) and library (time PyTorch calls)."""
     import torch
-    import torch.nn.functional as tf
 
-    from tokenhawk_tpu_torch.ops.cuda import (
-        ffn,
-        flash_attention,
-        flash_decode,
-        paged_decode,
-        qmatmul,
-    )
-    from tokenhawk_tpu_torch.ops.qweight import QWeight
-
-    log("== phase 2: kernels against their plain versions (7B shapes, bfloat16)")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
-    g.manual_seed(SEED)
+    g.manual_seed(seed)
 
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
-
-    def qweight(k, n):
-        return QWeight.quantize(randn(k, n, scale=0.02, dtype=torch.float32))
 
     def case(cases, label, shape, rows, out, ref, kernel_fns=None, plain_fns=None,
              frac=KERNEL_TOL, calls=32):
@@ -366,6 +400,28 @@ def phase_kernels() -> list:
         log(f"  library call {label}: {ms:.4f} ms")
         return ms
 
+    return g, randn, case, library
+
+
+def phase_kernels() -> list:
+    import torch
+    import torch.nn.functional as tf
+
+    from tokenhawk_tpu_torch.ops.cuda import (
+        ffn,
+        flash_decode,
+        paged_decode,
+        qmatmul,
+    )
+    from tokenhawk_tpu_torch.ops.qweight import QWeight
+
+    log("== phase 2: kernels against their plain versions (7B shapes, bfloat16)")
+    dev = torch.device("cuda")
+    g, randn, case, library = _case_tools()
+
+    def qweight(k, n):
+        return QWeight.quantize(randn(k, n, scale=0.02, dtype=torch.float32))
+
     records = []
     bf = 2  # bytes of a bfloat16 value
 
@@ -388,6 +444,13 @@ def phase_kernels() -> list:
                 lib = library("dequantize (f32 torch ops, then bf16) + torch.matmul, no norm "
                               "(2+ calls)", [lambda w=w: x @ w.dequantize(torch.bfloat16)
                                              for w in ws])
+            elif name == "wqkv" and rows == 512:
+                # A 512-token prefill's projection: its bound and library time.
+                b = bound(K * N * 0.625 + (rows * (K + N) + K) * bf, 2 * rows * K * N)
+                lib512 = library("dequantize + torch.matmul at 512 rows, no norm (2+ calls)",
+                                 [lambda w=w: x @ w.dequantize(torch.bfloat16) for w in ws])
+                cases[-1].update(b, library_ms=lib512)
+                log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
         del w, ws
     # The timed case: wqkv, one row, norm fused.  A ggjt Q4_0 block holds 32
     # weights in 20 bytes (f32 scale), as the port's layout does: 0.625 B each.
@@ -453,30 +516,12 @@ def phase_kernels() -> list:
                            "(flash_decode_append)", cases, ("B=1 L=512", 1),
                            bound((2 * L + 6) * Hkv * Dh * bf, 4 * L * Hkv * Dh), lib))
 
-    # -- kernel 4: prefill attention --
-    cases = []
-    kc, vc = randn(1, Hkv, S_CTX, Dh), randn(1, Hkv, S_CTX, Dh)
-    caches = copies([kc, vc], 2 * kc.nbytes)
-    for T, off in ((64, 0), (16, 200), (512, 0)):
-        q = randn(1, Hkv, 1, T, Dh, scale=Dh**-0.5)
-        offsets = torch.tensor([off], dtype=torch.int32, device=dev)
-        case(cases, f"flash_attention T={T} offset={off} S={S_CTX}", f"T={T} off={off}", T,
-             flash_attention.flash_attention(q, kc, vc, offsets),
-             flash_attention.flash_attention_plain(q, kc, vc, offsets),
-             [lambda c=c: flash_attention.flash_attention(q, *c, offsets) for c in caches],
-             [lambda c=c: flash_attention.flash_attention_plain(q, *c, offsets)
-              for c in caches])
-    T = 512
-    lib = library("scaled_dot_product_attention, causal, T=512",
-                  [lambda c=c: tf.scaled_dot_product_attention(q[:, :, 0], c[0], c[1],
-                                                               is_causal=True, scale=1.0)
-                   for c in caches])
-    records.append(_record("flash_attention", "tokenhawk_tpu_torch/csrc/flash_attention.cu",
-                           "tokenhawk_tpu/ops/pallas/flash_attention.py:139 "
-                           "(flash_attention via attend_prefill)", cases, ("T=512 off=0", 512),
-                           bound(4 * T * Hkv * Dh * bf, 4 * Hkv * Dh * T * (T + 1) / 2), lib))
+    # -- kernels 4 and 9: causal prefill attention, bf16 and int8 caches --
+    rec4, rec9 = _prefill_records(randn, case, library)
+    records.append(rec4)
     records += _paged_kernel_records(randn, case, library, g)
     records += _int8_kernel_records(randn, case, library)
+    records.append(rec9)
     records += _paged_int8_kernel_records(randn, case, library, g)
     records.append(_decode_attend_record(randn, case))
     gqa = _gqa_cases(randn, case, g)
@@ -1305,10 +1350,122 @@ def _deq(codes, scales):
     return codes.to(torch.bfloat16) * scales[..., None].to(torch.bfloat16)
 
 
+def _prefill_label(name, tag, Hkv, rep, Dh, B, T, offs, S) -> str:
+    at = offs if B > 1 else offs[0]
+    return f"{name} {tag} Hkv={Hkv} rep={rep} Dh={Dh} B={B} T={T} offset={at} S={S}"
+
+
+def _prefill_bound(Hkv, rep, Dh, T, offs, S, q_bytes, int8) -> dict:
+    """Kernel 4's or 9's bound: q and out once, the K and V rows (and int8
+    scales) of the keys some row sees, the offsets; 4 * Dh operations a
+    visible (query head, key) pair."""
+    live = sum(min(o + T, S) for o in offs)
+    pairs = sum(min(o + t + 1, S) for o in offs for t in range(T))
+    row = Dh + 2 if int8 else 2 * Dh  # bytes of one key's K (or V) row
+    nbytes = 2 * len(offs) * Hkv * rep * T * Dh * q_bytes + 2 * live * Hkv * row + 4 * len(offs)
+    return bound(nbytes, 4 * Dh * Hkv * rep * pairs)
+
+
+def _prefill_library(q, offs, S, int8):
+    """One PyTorch call computing kernel 4's (or, after dequantizing K and V,
+    kernel 9's) function on a cache: scaled_dot_product_attention with the
+    rep query heads of a KV head as GQA heads, over the keys some row sees,
+    causal from the top left (offset 0), from the bottom right (one
+    offset), else under a boolean mask.  Returns a function of the cache."""
+    import torch
+    import torch.nn.functional as tf
+    from torch.nn.attention.bias import causal_lower_right
+
+    B, Hkv, rep, T, Dh = q.shape
+    L = min(max(offs) + T, S)
+    qh = q.reshape(B, Hkv * rep, T, Dh)
+    kw = dict(scale=1.0, enable_gqa=rep > 1)
+    if B == 1 and offs[0] == 0:
+        kw["is_causal"] = True
+    elif B == 1:
+        kw["attn_mask"] = causal_lower_right(T, L)
+    else:
+        pos = torch.tensor(offs, device=q.device)[:, None] + torch.arange(T, device=q.device)
+        kw["attn_mask"] = (torch.arange(L, device=q.device) <= pos[..., None])[:, None]
+
+    def run(c):
+        if int8:
+            k, v = _deq(c[0][:, :, :L], c[1][:, :, :L]), _deq(c[2][:, :, :L], c[3][:, :, :L])
+        else:
+            k, v = c[0][:, :, :L], c[1][:, :, :L]
+        return tf.scaled_dot_product_attention(qh, k, v, **kw)
+
+    return run
+
+
+def _prefill_records(randn, case, library) -> tuple:
+    """Kernels 4 (bf16 cache) and 9 (int8 cache) at PREFILL_CASES against
+    their plain versions, bf16 q (the tensor-core walk), then case g, float32
+    q (the CUDA-core walk), at the first case's shape.  Each case is timed
+    with its plain version, its bound and one PyTorch call's time (SDPA;
+    dequantize + SDPA for int8; none for g).  Returns the two records."""
+    import torch
+
+    from tokenhawk_tpu_torch.ops.cuda import flash_attention as fa
+    from tokenhawk_tpu_torch.ops.cuda import kv_int8 as ki
+    from tokenhawk_tpu_torch.ops.kvquant import quantize_kv_block
+
+    dev = torch.device("cuda")
+    records = []
+    for name, kernel, plain, source, replaces in (
+            ("flash_attention", fa.flash_attention, fa.flash_attention_plain,
+             "tokenhawk_tpu_torch/csrc/prefill_tc.cuh",
+             "tokenhawk_tpu/ops/pallas/flash_attention.py:139 (flash_attention via "
+             "attend_prefill)"),
+            ("flash_attention_int8", ki.flash_attention_int8, ki.flash_attention_int8_plain,
+             "tokenhawk_tpu_torch/csrc/prefill_tc.cuh",
+             "tokenhawk_tpu/ops/pallas/flash_attention_int8.py:138 (flash_attention_int8 via "
+             "attend_prefill_int8)")):
+        int8 = name.endswith("int8")
+        log(f"-- {name} (kernel {9 if int8 else 4}): causal prefill over "
+            f"{'int8' if int8 else 'bf16'} caches")
+        cases = []
+        first = PREFILL_CASES[name][0]
+        for tag, Hkv, rep, Dh, B, T, offs, S in PREFILL_CASES[name] + [("g",) + first[1:]]:
+            f32 = tag == "g"
+            if int8:
+                c = [*quantize_kv_block(randn(B, Hkv, S, Dh, dtype=torch.float32)),
+                     *quantize_kv_block(randn(B, Hkv, S, Dh, dtype=torch.float32))]
+            else:
+                c = [randn(B, Hkv, S, Dh), randn(B, Hkv, S, Dh)]
+            q = randn(B, Hkv, rep, T, Dh, scale=Dh**-0.5,
+                      dtype=torch.float32 if f32 else torch.bfloat16)
+            offsets = torch.tensor(offs, dtype=torch.int32, device=dev)
+            label = _prefill_label(name, tag, Hkv, rep, Dh, B, T, offs, S) + (", q f32" if f32
+                                                                                else "")
+            shape = label[len(name) + 1:]
+            frac = F32_KERNEL_TOL if f32 else KERNEL_TOL
+            out, ref = kernel(q, *c, offsets), plain(q, *c, offsets)
+            caches = copies(c, sum(x.nbytes for x in c))
+            case(cases, label, shape, B * T, out, ref,
+                 [lambda c=c: kernel(q, *c, offsets) for c in caches],
+                 [lambda c=c: plain(q, *c, offsets) for c in caches], frac=frac)
+            b = _prefill_bound(Hkv, rep, Dh, T, offs, S, 4 if f32 else 2, int8)
+            lib = None
+            if not f32:
+                run = _prefill_library(q, offs, S, int8)
+                lib = timed([lambda c=c: run(c) for c in caches])["ms"]
+            cases[-1].update(b, library_ms=lib)
+            log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}); library "
+                f"{'dequantize K and V + ' if int8 else ''}scaled_dot_product_attention: "
+                f"{'none' if lib is None else f'{lib:.4f} ms'}")
+            del caches
+        main = cases[0]
+        records.append(_record(name, source, replaces, cases, (main["shape"], main["rows"]),
+                               {k: main[k] for k in ("bound_ms", "bound_by")},
+                               main["library_ms"]))
+    return tuple(records)
+
+
 def _int8_kernel_records(randn, case, library) -> list:
-    """Kernels 8 and 9 over a dense int8 cache of n_ctx 2048 (the int8 Engine
-    of phase 4i): decode at ragged lengths, timed at B=1 with 2048 live
-    tokens; prefill timed at T=512 from offset 0."""
+    """Kernel 8 over a dense int8 cache of n_ctx 2048 (the int8 Engine of
+    phase 4i): decode at ragged lengths, timed at B=1 with 2048 live tokens.
+    Kernel 9 (prefill) is timed with kernel 4 (_prefill_records)."""
     import torch
     import torch.nn.functional as tf
 
@@ -1361,30 +1518,7 @@ def _int8_kernel_records(randn, case, library) -> list:
                    bound(2 * L * Hkv * Dh + 2 * L * Hkv * bf + 4 * Hkv * Dh * bf,
                          4 * L * Hkv * Dh), lib8)
 
-    cases = []
-    c = cache(1)
-    caches = copies(c, nbytes(c))
-    for T, off in ((64, 0), (16, 200), (13, 5), (512, 0), (S, 0)):
-        q = randn(1, Hkv, 1, T, Dh, scale=Dh**-0.5)
-        offsets = torch.tensor([off], dtype=torch.int32, device=dev)
-        case(cases, f"flash_attention_int8 T={T} offset={off} S={S}", f"T={T} off={off}", T,
-             ki.flash_attention_int8(q, *c, offsets), ki.flash_attention_int8_plain(q, *c, offsets),
-             [lambda c=c: ki.flash_attention_int8(q, *c, offsets) for c in caches],
-             [lambda c=c: ki.flash_attention_int8_plain(q, *c, offsets) for c in caches])
-        if T == 512:
-            q512 = q
-    T = 512
-    lib9 = library("dequantize K and V + scaled_dot_product_attention, causal, T=512 (3+ calls)",
-                   [lambda c=c: tf.scaled_dot_product_attention(
-                       q512[:, :, 0], _deq(c[0][:, :, :T], c[1][:, :, :T]),
-                       _deq(c[2][:, :, :T], c[3][:, :, :T]), is_causal=True, scale=1.0)
-                    for c in caches])
-    rec9 = _record("flash_attention_int8", "tokenhawk_tpu_torch/csrc/kv_int8.cu",
-                   "tokenhawk_tpu/ops/pallas/flash_attention_int8.py:138 "
-                   "(flash_attention_int8 via attend_prefill_int8)", cases, ("T=512 off=0", 512),
-                   bound(2 * T * Hkv * Dh * bf + 2 * T * Hkv * (Dh + bf),
-                         4 * Hkv * Dh * T * (T + 1) / 2), lib9)
-    return [rec8, rec9]
+    return [rec8]
 
 
 def _paged_int8_kernel_records(randn, case, library, g) -> list:
@@ -1816,8 +1950,8 @@ def phase_serve(kernel_mods) -> tuple:
     counts = _read_counts(kernel_mods)
     log(f"kernel launches in the serve run: {counts}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
-    _check_path(counts, ["q4_matmul", FFN_Q4_0, "flash_decode", "flash_attention"],
-                ["qk_matmul", "flash_decode_attend"])
+    _check_path(counts, ["q4_matmul", FFN_Q4_0, "flash_decode", K4],
+                ["qk_matmul", "flash_decode_attend", *CUDA_CORE_PREFILL])
     _profile_request(engines[id(greedy)], [1] + rng.integers(3, cfg.n_vocab, size=4).tolist())
     return counts, params
 
@@ -2753,8 +2887,9 @@ def phase_dense_7b(kernel_mods) -> dict:
         f"step, {gb * 1e12 / HBM_BPS:.3f} ms at the HBM rate ({HBM_BPS / (gb * 1e9):.1f} tok/s "
         f"roofline); allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB")
     counts = _engine_requests(cfg, params, kernel_mods, (5, 300),
-                              ["flash_decode_attend", "flash_attention"],
-                              ["q4_matmul", "qk_matmul", "flash_decode", *ffn.launches])
+                              ["flash_decode_attend", K4],
+                              ["q4_matmul", "qk_matmul", "flash_decode", *ffn.launches,
+                               *CUDA_CORE_PREFILL])
     del params
     torch.cuda.empty_cache()
     return counts
@@ -2869,11 +3004,13 @@ def _float32(params):
     return _map_weights(params, lambda w: w.float() if isinstance(w, torch.Tensor) else w)
 
 
-def _f32_identity_witness(params, draft, cfg, prompts) -> None:
+def _f32_identity_witness(params, draft, cfg, prompts, kernel_mods) -> None:
     """9a in float32: the same Q4_0 target with float32 activations and
     cache, drafted by the draft's first 2 layers in float32 (a draft sets
     only the speed).  The speculative stream and the verify form must match
-    the Engine's greedy decode within F32_FORMS_TOL at every step."""
+    the Engine's greedy decode within F32_FORMS_TOL at every step; the
+    verify and the prefills run kernel 4's CUDA-core walk, never its
+    tensor-core one."""
     import torch
 
     from tokenhawk_tpu_torch.config import SamplingConfig
@@ -2889,7 +3026,9 @@ def _f32_identity_witness(params, draft, cfg, prompts) -> None:
     engine = Engine(cfg, target, sampling=SamplingConfig(temperature=0.0), max_seq=S_CTX,
                     cache_dtype=torch.float32, eos_id=-1)
     for p in prompts:
+        _reset_counts(kernel_mods)
         toks, _, _ = _spec_engine_run(spec, p, "9a f32")
+        _check_path(_read_counts(kernel_mods), ["flash_attention"], [K4])
         _check_greedy_identity(f"9a f32 prompt={len(p)}", toks,
                                _decode_and_verify_forms(engine, p, len(toks), spec.gamma),
                                F32_FORMS_TOL)
@@ -2947,16 +3086,16 @@ def phase_speculation(params, kernel_mods, model_path: str, tmp: str) -> dict:
     runs = [_spec_engine_run(spec, p, "9a") for p in prompts]
     counts = _read_counts(kernel_mods)
     log(f"9a kernel launches: {counts}")
-    _check_path(counts, ["q4_matmul", FFN_Q4_0, "flash_attention", "flash_decode_attend"],
-                ["flash_decode", "qk_matmul", "flash_decode_int8", "flash_attention_int8",
-                 "paged_decode", "paged_append", "gather_pages"])
+    _check_path(counts, ["q4_matmul", FFN_Q4_0, K4, "flash_decode_attend"],
+                ["flash_decode", "qk_matmul", "flash_decode_int8", K9, "paged_decode",
+                 "paged_append", "gather_pages", *CUDA_CORE_PREFILL])
     for p, (toks, _, _) in zip(prompts, runs):
         _check_greedy_identity(f"9a prompt={len(p)}", toks,
                                _decode_and_verify_forms(engine, p, len(toks), spec.gamma))
     wall, busy = _profiled(lambda: spec.generate(prompts[0], max_new_tokens=16))
     log(f"9a profiled request (5-token prompt, 16 tokens, profiler on): wall {wall * 1e3:.1f} ms, "
         f"device busy {busy * 1e3:.1f} ms, idle share {1 - busy / wall:.1%}")
-    _f32_identity_witness(params, draft, cfg, prompts)
+    _f32_identity_witness(params, draft, cfg, prompts, kernel_mods)
 
     log("== phase 9b: self-draft, a 2-layer 7B-width Q4_0 target and its weights dequantized to "
         "float32 as the draft, f32 activations and cache, gamma 4")
@@ -2971,7 +3110,9 @@ def phase_speculation(params, kernel_mods, model_path: str, tmp: str) -> dict:
     # each round that accepted all (as the reference's rounds do), so the
     # acceptance over 64 tokens is lower.
     _, first = self_spec.generate(prompts[1], max_new_tokens=6)
+    _reset_counts(kernel_mods)
     toks, stats, _ = _spec_engine_run(self_spec, prompts[1], "9b")
+    _check_path(_read_counts(kernel_mods), ["flash_attention"], [K4])  # float32: CUDA cores
     log(f"9b first round: {first['accepted_drafts']} of 4 drafts accepted")
     if (first["rounds"], first["accepted_drafts"]) != (1, 4) or stats["acceptance_rate"] < 0.15 \
             or stats["tokens_per_round"] < 1.6:
@@ -3052,10 +3193,10 @@ def _paged_speculation(params, draft, cfg, dcfg, kernel_mods) -> None:
            or not all(0 <= t < V for t in r.output)]
     if bad:
         raise AssertionError(f"requests that did not finish cleanly: {bad}")
-    _check_path(counts, ["q4_matmul", "flash_attention", "flash_decode_attend", "paged_append",
-                         "gather_pages"],
+    _check_path(counts, ["q4_matmul", K4, "flash_decode_attend", "paged_append", "gather_pages"],
                 ["paged_decode", "flash_decode", "qk_matmul", "flash_decode_int8",
-                 "paged_decode_int8", "paged_append_int8", "gather_pages_int8"])
+                 "paged_decode_int8", "paged_append_int8", "gather_pages_int8",
+                 *CUDA_CORE_PREFILL])
     parked = set(sched._pc.values())
     if (sched.alloc.n_free + len(parked) != sched.n_pages - 1
             or any(sched.page_refs.get(p, 0) for p in parked)):
@@ -3251,6 +3392,7 @@ def phase_fused_engine(params, kernel_mods) -> dict:
                     f"launches {requests[name]}")
                 if any(len(r.tokens) != 64 for r in runs):
                     raise AssertionError(f"10a {name}: a request ended short")
+                _check_path(requests[name], [K4], CUDA_CORE_PREFILL)
             t = _decode_window(eng, prompts[1], 8, kernel_mods, profiled=False)
             w = _decode_window(eng, prompts[1], kernel_mods=kernel_mods)
             for x in (t, w):
@@ -3303,7 +3445,8 @@ def _fused_f32_witness(params, prompt, forms, kernel_mods) -> None:
             toks = eng.generate(prompt, max_new_tokens=32).tokens
         finally:
             target.fusions = Fusions()
-        _check_path(_read_counts(kernel_mods), [OWO_Q4_0 if fusions.owo else ATTN_WO], [])
+        _check_path(_read_counts(kernel_mods),
+                    [OWO_Q4_0 if fusions.owo else ATTN_WO, "flash_attention"], [K4])
         _check_greedy_identity(f"10a f32 {name} prompt={len(prompt)}", toks,
                                _fused_forms(eng, prompt, len(toks), fusions), F32_FORMS_TOL)
 
@@ -3318,8 +3461,8 @@ def phase_fused_paged(params, kernel_mods, bf16_paged, off_path) -> dict:
     params.fusions = Fusions(owo=True)
     try:
         counts, sched = phase_paged_serve(
-            params, cfg, kernel_mods, "bf16", ["q4_matmul", OWO_Q4_0, "flash_attention"]
-            + bf16_paged, [FFN_Q4_0, ATTN_WO, "flash_decode"] + off_path,
+            params, cfg, kernel_mods, "bf16", ["q4_matmul", OWO_Q4_0, K4] + bf16_paged,
+            [FFN_Q4_0, ATTN_WO, "flash_decode", *CUDA_CORE_PREFILL] + off_path,
             "phase 10b: paged serve with OWO (kernel 15), LLaMA-7B Q4_0, 32 layers")
     finally:
         params.fusions = Fusions()
@@ -3338,11 +3481,11 @@ def phase_tinyllama_paged(kernel_mods, bf16_paged, int8_paged, dense_off, tmp: s
 
     cfg = _tinyllama(22, n_ctx=2048)
     params, _ = _model(cfg, "q4_0", "phase 10c: TinyLlama widths, Q4_0, 22 layers")
-    base_off = ["qk_matmul", "flash_decode", OWO_Q4_0, ATTN_WO] + dense_off
+    base_off = ["qk_matmul", "flash_decode", OWO_Q4_0, ATTN_WO, *CUDA_CORE_PREFILL] + dense_off
     counts = {}
     for kv, on, off in (("bf16", bf16_paged, int8_paged), ("int8", int8_paged, bf16_paged)):
         counts[kv], sched = phase_paged_serve(
-            params, cfg, kernel_mods, kv, ["q4_matmul", FFN_Q4_0, "flash_attention"] + on,
+            params, cfg, kernel_mods, kv, ["q4_matmul", FFN_Q4_0, K4] + on,
             base_off + off, f"phase 10c: paged serve, TinyLlama widths (head dim 64), Q4_0, "
                             f"{cfg.n_layer} layers")
         sched.cache = None
@@ -3427,7 +3570,7 @@ def phase_cp_engine(params, kernel_mods, tmp: str) -> dict:
         counts = _read_counts(kernel_mods)
         log(f"CP kernel launches over the 3 requests: {counts}")
         _check_path(counts, ["q4_matmul", "flash_decode_stats", "flash_attention_stats"],
-                    [FFN_Q4_0, "flash_decode", "flash_attention", "flash_decode_attend"])
+                    [FFN_Q4_0, "flash_decode", K4, "flash_attention", "flash_decode_attend"])
         rates = {"cp": [], "dense": []}
         for p, r in zip(prompts, runs):
             d = dense.generate(p, max_new_tokens=32)
@@ -3538,10 +3681,10 @@ def phase_bench(kernel_mods) -> int:
     runs = {}
     for mode, argv, metric, on_path in (
             ("decode", ["--tokens", "128"], "llama7b_q4_0_decode_tokens_per_sec",
-             ["q4_matmul", FFN_Q4_0, "flash_decode", "flash_attention"]),
+             ["q4_matmul", FFN_Q4_0, "flash_decode", K4]),
             ("serve", ["--batch", "8", "--requests", "16", "--tokens", "64"],
              "llama7b_q4_0_serve_agg_tokens_per_sec_b8",
-             ["q4_matmul", FFN_Q4_0, "flash_attention", "paged_decode", "paged_append"])):
+             ["q4_matmul", FFN_Q4_0, K4, "paged_decode", "paged_append"])):
         args = bench.parse_args(["--mode", mode, *argv])
         _reset_counts(mods)
         t0 = time.perf_counter()
@@ -3697,12 +3840,12 @@ def main() -> int:
     every = mods + [paged_decode, kv_int8, paged_int8]
     counts, params = phase_serve(mods)
     bf16_paged = ["paged_decode", "paged_append", "gather_pages"]
-    int8_dense = ["flash_decode_int8", "flash_attention_int8"]
+    int8_dense = ["flash_decode_int8", K9]
     int8_paged = ["paged_decode_int8", "paged_append_int8", "gather_pages_int8"]
     cfg_2k = dataclasses.replace(_seven_b(32), n_ctx=2048)
     paged_counts, sched = phase_paged_serve(
-        params, cfg_2k, every, "bf16", ["q4_matmul", FFN_Q4_0, "flash_attention"] + bf16_paged,
-        ["qk_matmul", "flash_decode"] + int8_dense + int8_paged,
+        params, cfg_2k, every, "bf16", ["q4_matmul", FFN_Q4_0, K4] + bf16_paged,
+        ["qk_matmul", "flash_decode", *CUDA_CORE_PREFILL] + int8_dense + int8_paged,
         "phase 4b: paged serve, LLaMA-7B Q4_0, 32 layers")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "llama7b-2layer-q4_0.bin")
@@ -3715,12 +3858,12 @@ def main() -> int:
         params_i8 = dataclasses.replace(params, layers=params.layers[:INT8_LAYERS])
         int8_counts = phase_int8_serve(cfg_i8, params_i8, every,
                                        ["q4_matmul", FFN_Q4_0] + int8_dense,
-                                       ["qk_matmul", "flash_decode", "flash_attention"]
+                                       ["qk_matmul", "flash_decode", K4, *CUDA_CORE_PREFILL]
                                        + bf16_paged + int8_paged)
         int8_paged_counts, sched = phase_paged_serve(
             params_i8, cfg_i8, every, "int8",
-            ["q4_matmul", FFN_Q4_0, "flash_attention"] + int8_paged,
-            ["qk_matmul", "flash_decode"] + bf16_paged + int8_dense,
+            ["q4_matmul", FFN_Q4_0, K4] + int8_paged,
+            ["qk_matmul", "flash_decode", *CUDA_CORE_PREFILL] + bf16_paged + int8_dense,
             f"phase 4bi: paged serve, LLaMA-7B Q4_0 widths, {INT8_LAYERS} layers")
         phase_cli(path)
         sched.cache = None
@@ -3744,13 +3887,14 @@ def main() -> int:
         # Phases 6 and 6q: group-code projections (kernel 13) and the FFN over
         # them (kernel 2); kernel 1 (Q4_0) stays off.
         def engine_path(on, off):
-            return (["qk_matmul", *on, "flash_decode", "flash_attention"],
-                    ["q4_matmul", FFN_Q4_0, "flash_decode_attend", *off] + bf16_paged
-                    + int8_dense + int8_paged)
+            return (["qk_matmul", *on, "flash_decode", K4],
+                    ["q4_matmul", FFN_Q4_0, "flash_decode_attend", *off, *CUDA_CORE_PREFILL]
+                    + bf16_paged + int8_dense + int8_paged)
 
         def paged_path(on, off):
-            return (["qk_matmul", *on, "flash_attention"] + bf16_paged,
-                    ["q4_matmul", FFN_Q4_0, "flash_decode", *off] + int8_dense + int8_paged)
+            return (["qk_matmul", *on, K4] + bf16_paged,
+                    ["q4_matmul", FFN_Q4_0, "flash_decode", *off, *CUDA_CORE_PREFILL]
+                    + int8_dense + int8_paged)
 
         # Without THAWK_Q4K_SB the super-block kernels stay off.
         flat_off = ["qk_sb_matmul", *FFN_SB]
@@ -3782,7 +3926,7 @@ def main() -> int:
     # Engine for kernels 18 and 19.
     launches = {"q4_matmul": counts["q4_matmul"], "fused_ffn": counts[FFN_Q4_0],
                 "flash_decode_append": counts["flash_decode"],
-                "flash_attention": counts["flash_attention"],
+                "flash_attention": counts[K4],
                 "qk_matmul[q4_k_m]": q4km_counts["qk_matmul"],
                 "qk_matmul[q8_0]": q8_counts["qk_matmul"],
                 "fused_ffn[q4_k/q6_k]": q4km_counts[FFN_Q4_K_M[0]],
@@ -3792,7 +3936,8 @@ def main() -> int:
                 "fused_ffn[q4k_sb/q6_k]": sb_counts[FFN_SB[0]],
                 "fused_ffn[q4k_sb/q4_k]": sb_counts[FFN_SB[1]],
                 **{k: paged_counts[k] for k in bf16_paged},
-                **{k: int8_counts[k] for k in int8_dense},
+                "flash_decode_int8": int8_counts["flash_decode_int8"],
+                "flash_attention_int8": int8_counts[K9],
                 **{k: int8_paged_counts[k] for k in int8_paged},
                 "flash_decode_attend": dense_counts["flash_decode_attend"],
                 "fused_owo_ffn": fused_counts["owo"][OWO_Q4_0],
@@ -3810,5 +3955,21 @@ def main() -> int:
     return 0
 
 
+def prefill_main() -> int:
+    """`python3 chip_smoke.py --prefill`: phase 1, then phase 2's kernels 4
+    and 9 (_prefill_records) alone.  The last line is {"prefill": [...]},
+    their two records."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
+        return 1
+    phase_env()
+    log("== kernels 4 and 9 alone")
+    _, randn, case, library = _case_tools()
+    print(json.dumps({"prefill": _prefill_records(randn, case, library)}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(prefill_main() if "--prefill" in sys.argv[1:] else main())

@@ -8,7 +8,8 @@ jax) cannot load:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: bfloat16 results differ from the plain versions by about one
-output rounding (both accumulate in f32): 2^-7 of the largest |value|;
+output rounding (both accumulate in f32; the tensor-core prefill walk of
+kernels 4 and 9 also rounds P to bf16): 2^-7 of the largest |value|;
 float32 results by summation order: 1e-4 of it.  Written cache rows are
 compared exactly, and so are the int8 kernels' quantized rows and
 dequantized gathers (the codec is bit for bit; a code times a bfloat16
@@ -314,6 +315,56 @@ def test_prefill_attention_kernel_matches_plain(T, offset, rep, Dh):
     got = flash_attention.flash_attention(q, kc, vc, offsets)
     want = flash_attention.flash_attention_plain(q, kc, vc, offsets)
     assert _err(got, want) <= _tol(want, torch.bfloat16)
+
+
+# Kernels 4 and 9 at the edges of their walks: (B, Hkv, rep, T, offsets, S).
+# Ragged T (5 rows fill a one-warp block at rep 1; 13, 65 and 127 end
+# inside a 64-row tile), a cache of 100 keys (not a multiple of the 64-key
+# tile; T=127 from 0 puts rows past it), B=8 verifies with offsets spread
+# over 2048, GQA groups of 1, 4 and 8.
+VERIFY_OFFSETS = [0, 37, 300, 700, 1024, 1500, 1800, 2043]
+PREFILL_EDGES = [
+    (2, 4, 1, 5, [0, 90], 100),
+    (2, 4, 4, 13, [3, 60], 100),
+    (2, 2, 8, 65, [0, 35], 100),
+    (1, 4, 1, 127, [0], 100),
+    (8, 4, 1, 5, VERIFY_OFFSETS, 2048),
+    (8, 2, 4, 5, VERIFY_OFFSETS, 2048),
+    (1, 2, 8, 127, [1900], 2048),
+]
+
+
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
+@pytest.mark.parametrize("edge", PREFILL_EDGES,
+                         ids=[f"B{e[0]}-rep{e[2]}-T{e[3]}-S{e[5]}" for e in PREFILL_EDGES])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prefill_walks_match_plain_at_their_edges(dtype, cache, edge, Dh):
+    """Kernel 4 (bf16 cache) and kernel 9 (int8 cache) against their plain
+    versions; bf16 q runs the tensor-core walk, f32 q the CUDA-core one,
+    and each launch ticks that walk's counter alone."""
+    dev = cuda_device()
+    B, Hkv, rep, T, offs, S = edge
+    g = torch.Generator(device=dev).manual_seed(T + S + rep)
+    q = (torch.randn(B, Hkv, rep, T, Dh, generator=g, device=dev) / Dh**0.5).to(dtype)
+    offsets = torch.tensor(offs, dtype=torch.int32, device=dev)
+    if cache == "int8":
+        c = [*_int8(g, dev, B, Hkv, S, Dh), *_int8(g, dev, B, Hkv, S, Dh)]
+        mod, kernel, plain = kv_int8, kv_int8.flash_attention_int8, \
+            kv_int8.flash_attention_int8_plain
+        name = "flash_attention_int8"
+    else:
+        c = [torch.randn(B, Hkv, S, Dh, generator=g, device=dev).bfloat16() for _ in range(2)]
+        mod, kernel, plain = flash_attention, flash_attention.flash_attention, \
+            flash_attention.flash_attention_plain
+        name = "flash_attention"
+    walk = name + "_tc" if dtype == torch.bfloat16 else name
+    before = dict(mod.launches)
+    got = kernel(q, *c, offsets)
+    assert mod.launches == {**before, walk: before[walk] + 1}
+    want = plain(q, *c, offsets)
+    assert got.shape == q.shape and got.dtype == dtype
+    assert _err(got, want) <= _tol(want, dtype)
 
 
 def _close_f32(got, want):

@@ -1,5 +1,6 @@
 // Kernel 4: causal prefill flash attention against the cache, and kernel
-// 19: the same walk returning softmax partials for context parallelism.
+// 19: kernel 4's CUDA-core walk returning softmax partials for context
+// parallelism.
 //
 // Kernel 4 replaces tokenhawk_tpu/ops/pallas/flash_attention.py
 // flash_attention (_kernel), reached through attend_prefill.  q [B, Hkv,
@@ -19,17 +20,26 @@
 // TPU kernel's fully masked rows inside a partly visible tile collect
 // exp(_MASK - _MASK) = 1 per slot instead; both merge to the same result.
 //
-// A block owns 8 consecutive queries of one (b, kv head, group member),
-// one per warp.  It walks the keys in tiles of 32: all threads stage the
-// tile's K and V rows in shared memory as f32 (row stride Dh + 4 floats,
-// so the lanes' float4 reads of 32 different K rows fall in distinct
-// banks), then each lane scores one key of the tile and, for P·V, owns
-// Dh/32 of the head dims.  Tiles past the block's last query position
-// are never loaded (diagonal skip); inside a tile, keys past a query's
-// position are masked.  The work is O(T * L * Dh) on the CUDA cores; at
-// prefill lengths it is small next to the projections, and tensor-core
-// tiles are left to a later change.
+// Two walks, two entry points; the Python wrapper picks one by dtype.  With
+// bf16 q and a bf16 cache, th_flash_prefill_tc runs the tensor-core walk of
+// prefill_tc.cuh: both products through mma.sync, the rep query heads of a KV
+// head packed into 64-row tiles, K/V tiles of 64 keys by cp.async (its header
+// says what bounds it and why).  That is every bf16 prefill, verify, chunked
+// admission and eval window of the port.
+//
+// With f32 q or an f32 cache (the float32 witnesses and tiny f32 models),
+// th_flash_prefill runs the CUDA-core walk below, as kernel 19 always does: a
+// block owns 8 consecutive queries of one (b, kv head, group member), one per
+// warp.  It walks the keys in tiles of 32: all threads stage the tile's K and
+// V rows in shared memory as f32 (row stride Dh + 4 floats, so the lanes'
+// float4 reads of 32 different K rows fall in distinct banks), then each lane
+// scores one key of the tile and, for P·V, owns Dh/32 of the head dims.  Tiles
+// past the block's last query position are never loaded (diagonal skip);
+// inside a tile, keys past a query's position are masked.  Its f32 FMAs bound
+// it: at T=512 with 7B heads 2.15 GFLOP, 0.032 ms at the f32 peak; it keeps
+// f32 operands exact where the tensor cores would round them.
 #include "common.cuh"
+#include "prefill_tc.cuh"
 
 using namespace thawk;
 
@@ -183,23 +193,43 @@ void launch(const Args& a, int Dh) {
 
 }  // namespace
 
-// q, out [B, Hkv, rep, T, Dh] in q_dtype; caches [B, Hkv, S, Dh] in
-// cache_dtype; offsets [B] int32; Dh 64 or 128 (checked by the Python
-// wrapper).
+// The CUDA-core walk: q, out [B, Hkv, rep, T, Dh] in q_dtype; caches [B,
+// Hkv, S, Dh] in cache_dtype, not both bf16 (that pair is
+// th_flash_prefill_tc's); offsets [B] int32; Dh 64 or 128 (checked by the
+// Python wrapper).
 extern "C" int th_flash_prefill(const void* q, const void* kc, const void* vc,
                                 const void* offsets, void* out, int B, int Hkv, int rep, int Dh,
                                 int T, int S, int q_dtype, int cache_dtype, void* stream) {
   const Args a{q, kc, vc, static_cast<const int*>(offsets), nullptr, 1, out, nullptr, nullptr,
                B, Hkv, rep, T, S, static_cast<cudaStream_t>(stream)};
   if (q_dtype == kBF16 && cache_dtype == kBF16)
-    launch<__nv_bfloat16, __nv_bfloat16>(a, Dh);
-  else if (q_dtype == kBF16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (q_dtype == kBF16)
     launch<__nv_bfloat16, float>(a, Dh);
   else if (cache_dtype == kBF16)
     launch<float, __nv_bfloat16>(a, Dh);
   else
     launch<float, float>(a, Dh);
   return THAWK_LAUNCH_RESULT();
+}
+
+// The tensor-core walk (prefill_tc.cuh): q, out [B, Hkv, rep, T, Dh] and
+// caches [B, Hkv, S, Dh] all bf16; offsets [B] int32; Dh 64 or 128.
+extern "C" int th_flash_prefill_tc(const void* q, const void* kc, const void* vc,
+                                   const void* offsets, void* out, int B, int Hkv, int rep,
+                                   int Dh, int T, int S, void* stream) {
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(kc);
+  const auto* vb = static_cast<const __nv_bfloat16*>(vc);
+  const auto* off = static_cast<const int*>(offsets);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      Dh == 64 ? prefill_tc::launch<64>(qb, prefill_tc::Bf16Cache<64>{kb, vb}, off, ob, B, Hkv,
+                                        rep, T, S, s)
+               : prefill_tc::launch<128>(qb, prefill_tc::Bf16Cache<128>{kb, vb}, off, ob, B,
+                                         Hkv, rep, T, S, s);
+  return e != cudaSuccess ? static_cast<int>(e) : THAWK_LAUNCH_RESULT();
 }
 
 // Kernel 19.  q, o [B, Hkv, rep, T, Dh] f32 (q pre-scaled); K / V blocks

@@ -19,14 +19,21 @@
 // probability times the token's V scale.  Bound by the bytes of the live
 // codes and scales, (2*L*Dh + 2*L*2) bytes per head: half of kernel 3's.
 //
-// Kernel 9, prefill, replaces tokenhawk_tpu/ops/pallas/flash_attention_int8.py
-// flash_attention_int8 (_kernel), reached through attend_prefill_int8.  It
-// is kernel 4's structure (flash_attention.cu) over int8 tiles: a block owns
-// 8 consecutive queries of one (b, kv head, group member), stages each tile
-// of 32 keys dequantized to f32 in shared memory, skips tiles past its last
-// query and masks keys past each query's position.  Any T >= 1 (the TPU
-// kernel needs T % 8 == 0).  The work is O(T * L * Dh) on the CUDA cores.
+// Kernel 9, prefill, replaces
+// tokenhawk_tpu/ops/pallas/flash_attention_int8.py flash_attention_int8
+// (_kernel), reached through attend_prefill_int8.  With bf16 q (every int8
+// prefill of the port) th_flash_attention_int8_tc runs kernel 4's tensor-core
+// walk (prefill_tc.cuh) over int8 tiles: the codes come by cp.async at one
+// byte each, widen to bf16 in shared memory, the K scale multiplies the
+// scores and the V scale P, as the reference folds them.  The products' flops
+// bound it as they bound kernel 4, so both run on the tensor cores.  With f32
+// q th_flash_attention_int8 runs the CUDA-core walk below; it keeps kernel
+// 4's f32 structure: a block owns 8 consecutive queries of one (b, kv head,
+// group member), stages each tile of 32 keys dequantized to f32 in shared
+// memory, skips tiles past its last query and masks keys past each query's
+// position.  Any T >= 1 (the TPU kernel needs T % 8 == 0).
 #include "kv_int8.cuh"
+#include "prefill_tc.cuh"
 
 using namespace thawk;
 
@@ -330,21 +337,41 @@ extern "C" int th_flash_decode_int8(const void* q, const void* k_new, const void
   return THAWK_LAUNCH_RESULT();
 }
 
-// q, out [B, Hkv, rep, T, Dh] in q_dtype (q pre-scaled); the int8 cache as
-// above; offsets [B] int32.
+// The CUDA-core walk: q, out [B, Hkv, rep, T, Dh] f32 (q pre-scaled;
+// bf16 q is th_flash_attention_int8_tc's); the int8 cache as above;
+// offsets [B] int32.
 extern "C" int th_flash_attention_int8(const void* q, const void* kc, const void* ksc,
                                        const void* vc, const void* vsc, const void* offsets,
                                        void* out, int B, int Hkv, int rep, int Dh, int T, int S,
                                        int q_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(offsets);
-#define THAWK_PREFILL8(TQ, DH) \
-  launch_prefill<TQ, DH>(q, kc, ksc, vc, vsc, off, out, B, Hkv, rep, T, S, s)
-  if (q_dtype == kBF16) {
-    if (Dh == 64) THAWK_PREFILL8(__nv_bfloat16, 64); else THAWK_PREFILL8(__nv_bfloat16, 128);
-  } else {
-    if (Dh == 64) THAWK_PREFILL8(float, 64); else THAWK_PREFILL8(float, 128);
-  }
-#undef THAWK_PREFILL8
+  if (q_dtype != kF32) return static_cast<int>(cudaErrorInvalidValue);
+  if (Dh == 64)
+    launch_prefill<float, 64>(q, kc, ksc, vc, vsc, off, out, B, Hkv, rep, T, S, s);
+  else
+    launch_prefill<float, 128>(q, kc, ksc, vc, vsc, off, out, B, Hkv, rep, T, S, s);
   return THAWK_LAUNCH_RESULT();
+}
+
+// The tensor-core walk (prefill_tc.cuh): q, out [B, Hkv, rep, T, Dh] bf16 (q
+// pre-scaled); the int8 cache as above; offsets [B] int32.
+extern "C" int th_flash_attention_int8_tc(const void* q, const void* kc, const void* ksc,
+                                          const void* vc, const void* vsc, const void* offsets,
+                                          void* out, int B, int Hkv, int rep, int Dh, int T,
+                                          int S, void* stream) {
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* k = static_cast<const int8_t*>(kc);
+  const auto* v = static_cast<const int8_t*>(vc);
+  const auto* ks = static_cast<const __nv_bfloat16*>(ksc);
+  const auto* vs = static_cast<const __nv_bfloat16*>(vsc);
+  const auto* off = static_cast<const int*>(offsets);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      Dh == 64 ? prefill_tc::launch<64>(qb, prefill_tc::Int8Cache<64>{k, v, ks, vs}, off, ob, B,
+                                        Hkv, rep, T, S, s)
+               : prefill_tc::launch<128>(qb, prefill_tc::Int8Cache<128>{k, v, ks, vs}, off, ob,
+                                         B, Hkv, rep, T, S, s);
+  return e != cudaSuccess ? static_cast<int>(e) : THAWK_LAUNCH_RESULT();
 }

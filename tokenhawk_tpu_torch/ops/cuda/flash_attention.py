@@ -4,23 +4,29 @@ Replaces tokenhawk_tpu/ops/pallas/flash_attention.py `flash_attention`
 (_kernel), reached through `attend_prefill`.  The query at absolute
 position offsets[b] + t attends to cache slots at or before it, online
 softmax in f32, tiles past the block's diagonal skipped; head dim 64 or
-128.  On the H100 a
-prefill's attention is a small share of its FLOPs next to the
-projections; this first kernel runs on the CUDA cores with K/V tiles
-staged in shared memory, and tensor-core tiles come later.
+128.  Its two products bound it on the H100 (4 * Dh flops a visible
+query-key pair against 8 * Dh bytes a key), so with bf16 q and a bf16
+cache it runs on the tensor cores (csrc/prefill_tc.cuh: mma.sync over
+64-row query tiles, the rep heads of a KV head sharing each K/V tile of 64
+keys brought in by cp.async), counted in `launches["flash_attention_tc"]`.
+With f32 q or an f32 cache it runs the CUDA-core walk, which keeps f32
+operands exact, counted in `launches["flash_attention"]`.  The dtype picks
+the walk; neither falls back to the other.
 
 Kernel 19, `flash_attention_stats`, replaces flash_attention.py
 `flash_attention_stats` (_kernel_stats), the ring-attention step of
-context parallelism (parallel/ring.py): kernel 4's walk over a visiting
-KV block at affine positions (query t at q_start + stride*t, key j at
-k_start + stride*j), returning the unnormalised o, m and l in f32 for the
-cross-shard merge.  A row that sees no key of the block gets
+context parallelism (parallel/ring.py): kernel 4's CUDA-core walk (its q
+is f32) over a visiting KV block at affine positions (query t at
+q_start + stride*t, key j at k_start + stride*j), returning the
+unnormalised o, m and l in f32 for the cross-shard merge.  A row that sees no key of the block gets
 (0, _MASK, 0); the Pallas kernel's such rows inside a partly visible tile
 carry exp(0) = 1 per slot instead (tile-dependent), and both merge to the
 same result.  The TPU kernel's 128-lane copies of m and l are dropped.
 
-Tolerance against the plain versions: f32 in both, another summation
-order (kernel 4: one rounding to q.dtype).
+Tolerance against the plain versions: f32 scores and softmax in both,
+another summation order, one rounding to q.dtype; the tensor-core walk
+also rounds P to bf16 before P·V (the plain version and the reference
+keep it in f32).
 """
 
 from __future__ import annotations
@@ -30,10 +36,11 @@ import torch
 from tokenhawk_tpu_torch.ops.attention import attend_cache, attend_stats
 from tokenhawk_tpu_torch.ops.cuda import build
 
-launches = {"flash_attention": 0, "flash_attention_stats": 0}
+launches = {"flash_attention": 0, "flash_attention_tc": 0, "flash_attention_stats": 0}
 HEAD_DIMS = (64, 128)
 
 _ARGS = [build.P] * 5 + [build.I] * 8 + [build.P]
+_TC_ARGS = [build.P] * 5 + [build.I] * 6 + [build.P]
 # q, k, v, q_start, k_start; stride; o, m, l; B, Hkv, rep, Dh, T, S, cache dtype; stream.
 _STATS_ARGS = [build.P] * 5 + [build.I] + [build.P] * 3 + [build.I] * 7 + [build.P]
 
@@ -63,12 +70,18 @@ def flash_attention(q, k_cache, v_cache, offsets):
     q = q.contiguous()
     build.require_cuda(q, k_cache, v_cache, offsets)
     out = torch.empty_like(q)
-    fn = build.function("th_flash_prefill", _ARGS)
-    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), offsets.data_ptr(),
-            out.data_ptr(), B, Hkv, rep, Dh, T, S, build.dtype_code(q.dtype),
-            build.dtype_code(k_cache.dtype), build.stream_of(q))
-    build.check(rc, "flash_attention")
-    launches["flash_attention"] += 1
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), offsets.data_ptr(),
+            out.data_ptr(), B, Hkv, rep, Dh, T, S)
+    if q.dtype == torch.bfloat16 and k_cache.dtype == torch.bfloat16:
+        walk = "flash_attention_tc"
+        rc = build.function("th_flash_prefill_tc", _TC_ARGS)(*ptrs, build.stream_of(q))
+    else:
+        walk = "flash_attention"
+        rc = build.function("th_flash_prefill", _ARGS)(
+            *ptrs, build.dtype_code(q.dtype), build.dtype_code(k_cache.dtype),
+            build.stream_of(q))
+    build.check(rc, walk)
+    launches[walk] += 1
     return out
 
 

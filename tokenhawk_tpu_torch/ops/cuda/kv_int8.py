@@ -15,11 +15,16 @@ dequantized cache; the TPU decode kernel also quantizes the query and the
 probabilities to int8 for its matrix unit, which adds about 0.4% relative
 error (ROADMAP Queue 3).  Their plain version is `attend_cache_int8`.  On
 the H100 decode is bound by the bytes of the live codes and scales (half
-of kernel 3's), prefill by its FLOPs on the CUDA cores.
+of kernel 3's), prefill by its FLOPs: with bf16 q it runs kernel 4's
+tensor-core walk (csrc/prefill_tc.cuh) over int8 tiles, the codes copied at
+one byte each and widened to bf16 in shared memory, counted in
+`launches["flash_attention_int8_tc"]`; with f32 q the CUDA-core walk,
+counted in `launches["flash_attention_int8"]`.
 
 Tolerance against the plain versions: f32 scores and softmax in both,
-another summation order, one rounding to q.dtype.  The rows the decode
-kernel appends match `quantize_kv_block` bit for bit.
+another summation order, one rounding to q.dtype; the tensor-core prefill
+also rounds P (after the V-scale fold) to bf16 before P·V.  The rows the
+decode kernel appends match `quantize_kv_block` bit for bit.
 """
 
 from __future__ import annotations
@@ -29,12 +34,13 @@ import torch
 from tokenhawk_tpu_torch.ops.cuda import build
 from tokenhawk_tpu_torch.ops.kvquant import attend_cache_int8, quantize_kv_block
 
-launches = {"flash_decode_int8": 0, "flash_attention_int8": 0}
+launches = {"flash_decode_int8": 0, "flash_attention_int8": 0, "flash_attention_int8_tc": 0}
 HEAD_DIMS = (64, 128)
 REPS = (1, 2, 4, 8)
 
 _DECODE_ARGS = [build.P] * 9 + [build.I] * 6 + [build.P]
 _PREFILL_ARGS = [build.P] * 7 + [build.I] * 6 + [build.P]
+_PREFILL_TC_ARGS = [build.P] * 7 + [build.I] * 5 + [build.P]
 
 
 def _check_cache(k_cache, ks_cache, v_cache, vs_cache, B, Hkv, Dh):
@@ -126,10 +132,16 @@ def flash_attention_int8(q, k_cache, ks_cache, v_cache, vs_cache, offsets):
     q = q.contiguous()
     build.require_cuda(q, k_cache, ks_cache, v_cache, vs_cache, offsets)
     out = torch.empty_like(q)
-    fn = build.function("th_flash_attention_int8", _PREFILL_ARGS)
-    rc = fn(q.data_ptr(), k_cache.data_ptr(), ks_cache.data_ptr(), v_cache.data_ptr(),
-            vs_cache.data_ptr(), offsets.data_ptr(), out.data_ptr(), B, Hkv, rep, Dh, T, S,
-            build.dtype_code(q.dtype), build.stream_of(q))
-    build.check(rc, "flash_attention_int8")
-    launches["flash_attention_int8"] += 1
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), ks_cache.data_ptr(), v_cache.data_ptr(),
+            vs_cache.data_ptr(), offsets.data_ptr(), out.data_ptr(), B, Hkv, rep, Dh, T, S)
+    if q.dtype == torch.bfloat16:
+        walk = "flash_attention_int8_tc"
+        rc = build.function("th_flash_attention_int8_tc", _PREFILL_TC_ARGS)(
+            *ptrs, build.stream_of(q))
+    else:
+        walk = "flash_attention_int8"
+        rc = build.function("th_flash_attention_int8", _PREFILL_ARGS)(
+            *ptrs, build.dtype_code(q.dtype), build.stream_of(q))
+    build.check(rc, walk)
+    launches[walk] += 1
     return out
