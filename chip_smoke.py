@@ -11,7 +11,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      (max error against the stated tolerance, median CUDA-event times, the
      bound from the bytes and operations of the call, and the time of one
      PyTorch call computing the same function where there is one); the
-     paged kernels in both pool layouts;
+     paged kernels in both pool layouts; kernels 1 and 13 at 1, 8, 16, 40
+     and 512 rows, each on its path (the GEMV at most 8 rows, the
+     tensor-core GEMM above: a record each);
   3. slice check: a 2-layer LLaMA-7B-width Q4_0 model, prefill of 16
      tokens + 8 decode steps on the GPU (kernels) and on the CPU (plain
      versions, same parameters), logits compared at every step, over a
@@ -19,7 +21,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      dense one on the GPU, 8 decode steps across a page boundary, bf16
      pages against the bf16 cache and int8 pages against the int8 cache;
   4. serve: the full 32-layer 7B Q4_0 model, Engine.generate on 3 prompts,
-     and the launch count of every kernel over that run;
+     and the launch count of every kernel over that run; then the logit
+     spread of the tensor-core path's bf16 roundings against the GEMV's
+     f32 at 2 and 32 layers (a 512-token prefill);
   4b. paged serve: the same model under PagedScheduler (max_batch 8, n_ctx
      2048, 128-token pages, prefix cache, prefill chunks of 512), 12 mixed
      greedy/sampled requests, 4 sharing a 384-token prefix and one of 1500
@@ -127,6 +131,9 @@ kernels 3-12 at TinyLlama's head dim 64 (8 queries a KV head), and
 kernels 15 and 16 at the 7B's widths in Q4_0 and Q8_0, each beside the
 unfused port kernels it replaces; phase 3 also runs a 2-layer Q4_K_M
 slice.  Each phase's header line ends with the seconds since the start.
+Every path check also holds each quantized projection the model made to
+its path (a spy on ops.linear's quant_matmul): bf16 x above 8 rows over
+Q4_0 or group codes on the tensor-core GEMM, every other call on the GEMV.
 The next-to-last line is {"kernels": [...]}, the last {"ok": true, ...}.
 It needs one CUDA device and the rest of the repository beside it.
 """
@@ -153,10 +160,16 @@ S_CTX = 512
 # f32 and round the output once, so they differ by about one bfloat16
 # rounding (at most 2^-8 of an element).  The tensor-core prefill walk
 # (kernels 4 and 9 on bf16 q) also rounds the probabilities P to bfloat16
-# before P.V, as tensor-core flash attention does: each weight moves by at
-# most 2^-9 of itself, in no common direction, which adds less than one
-# output rounding.  The tolerance is 2^-7 of the largest |reference|.
+# before P.V, as tensor-core flash attention does, and the tensor-core path
+# of kernels 1 and 13 (bf16 x above 8 rows) rounds xn and each code * s to
+# bfloat16, as the reference's `_qdot` does: each term moves by at most
+# 2^-9 of itself, in no common direction, which adds less than one output
+# rounding.  The tolerance is 2^-7 of the largest |reference|.
 KERNEL_TOL = 2.0**-7
+# The rows phase 2 times kernels 1 and 13 at: decode (1) and kernel 2's
+# most (8) on the GEMV; 16, the 8-slot verify's 40 (phase 9c) and a
+# 512-token prefill on the tensor-core path.
+QMATMUL_ROWS = (1, 8, 16, 40, 512)
 # Logits of the slice after 2 layers of bfloat16 activations, kernels vs
 # plain: rounding flips of intermediate bfloat16 values propagate; 5% of
 # the largest |logit| bounds them while a wrong kernel is off by O(1).
@@ -220,6 +233,11 @@ PREFILL_CASES = {
 # float32 witnesses the reverse.
 K4, K9 = "flash_attention_tc", "flash_attention_int8_tc"
 CUDA_CORE_PREFILL = ["flash_attention", "flash_attention_int8"]
+# Kernels 1's and 13's launch counters, one a path (ops/cuda/qmatmul.py):
+# the GEMV at decode rows, the tensor-core GEMM for bf16 x above 8 rows.
+# A path run with prompts or verifies above 8 tokens asks for both.
+Q4_PATHS = ["q4_matmul", "q4_matmul_tc"]
+QK_PATHS = ["qk_matmul", "qk_matmul_tc"]
 # The card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s and
 # dense bf16 tensor-core FLOP/s.  A kernel's bound is the larger of its
 # bytes (each input read once, each output written once) over the first
@@ -425,7 +443,8 @@ def phase_kernels() -> list:
     records = []
     bf = 2  # bytes of a bfloat16 value
 
-    # -- kernel 1: every projection of the path, decode and prefill rows --
+    # -- kernel 1: every projection of the path at decode rows (the GEMV),
+    # the verify's and prefill rows (the tensor-core path above 8) --
     cases = []
     shapes = [("wqkv", 4096, 12288, True), ("wo", 4096, 4096, False),
               ("w13", 4096, 22016, True), ("w2", 11008, 4096, False),
@@ -434,31 +453,23 @@ def phase_kernels() -> list:
         w = qweight(K, N)
         ws = [QWeight(*c) for c in copies([w.qs, w.scales], w.nbytes)]
         gain = 1.0 + randn(K, scale=0.1) if norm else None
-        for rows in (1, 64, 512):
+        for rows in QMATMUL_ROWS:
             x = randn(rows, K)
+            calls = 32 if rows < 512 else 4
             case(cases, f"q4_matmul {name} K={K} N={N} rows={rows} norm={norm}", name, rows,
                  qmatmul.quant_matmul(x, w, gain), qmatmul.quant_matmul_plain(x, w, gain),
                  [lambda w=w: qmatmul.quant_matmul(x, w, gain) for w in ws],
-                 [lambda w=w: qmatmul.quant_matmul_plain(x, w, gain) for w in ws])
-            if name == "wqkv" and rows == 1:
-                lib = library("dequantize (f32 torch ops, then bf16) + torch.matmul, no norm "
-                              "(2+ calls)", [lambda w=w: x @ w.dequantize(torch.bfloat16)
-                                             for w in ws])
-            elif name == "wqkv" and rows == 512:
-                # A 512-token prefill's projection: its bound and library time.
-                b = bound(K * N * 0.625 + (rows * (K + N) + K) * bf, 2 * rows * K * N)
-                lib512 = library("dequantize + torch.matmul at 512 rows, no norm (2+ calls)",
-                                 [lambda w=w: x @ w.dequantize(torch.bfloat16) for w in ws])
-                cases[-1].update(b, library_ms=lib512)
-                log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+                 [lambda w=w: qmatmul.quant_matmul_plain(x, w, gain) for w in ws], calls=calls)
+            # A ggjt Q4_0 block holds 32 weights in 20 bytes (f32 scale), as the
+            # port's layout does: 0.625 B each; x, the gain and y once each.
+            b = bound(K * N * 0.625 + (rows * (K + N) + K * norm) * bf, 2 * rows * K * N)
+            lib = timed([lambda w=w: x @ w.dequantize(torch.bfloat16) for w in ws], calls)["ms"]
+            cases[-1].update(b, library_ms=lib)
+            log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}); dequantize (f32 torch ops, "
+                f"then bf16) + torch.matmul, no norm (2+ calls): {lib:.4f} ms")
         del w, ws
-    # The timed case: wqkv, one row, norm fused.  A ggjt Q4_0 block holds 32
-    # weights in 20 bytes (f32 scale), as the port's layout does: 0.625 B each.
-    K, N = 4096, 12288
-    records.append(_record("q4_matmul", "tokenhawk_tpu_torch/csrc/qmatmul.cu",
-                           "tokenhawk_tpu/ops/pallas/qmatmul.py:807 (q4_matmul); "
-                           "qmatmul.py:874 (q4_matmul_i4)", cases, ("wqkv", 1),
-                           bound(K * N * 0.625 + 2 * K * bf + N * bf, 2 * K * N), lib))
+    records += _path_records("q4_matmul", "", "tokenhawk_tpu/ops/pallas/qmatmul.py:807 "
+                             "(q4_matmul); qmatmul.py:874 (q4_matmul_i4)", cases, "wqkv")
 
     # -- kernel 2: the decode FFN --
     cases = []
@@ -936,13 +947,13 @@ def _weight_copies(w) -> list:
 def _group_code_kernel_records(randn, case, library, g) -> list:
     """Kernel 13 at every projection shape of phases 6 and 6q (Llama-3-8B
     in Q4_K_M: Q4_K, with Q6_K for the output and for w2 on some layers;
-    LLaMA-7B in Q8_0) at 1, 8 and 512 rows, with and without the fused
-    norm; kernel 2 over those models' FFN pairings at 1 and 8 rows.  Each
-    shape is timed in the form the path runs it (norm fused into wqkv and
-    the output), the other form only checked; each timed case gets its
-    bound and the time of the same function from PyTorch calls
-    (dequantize, then torch.matmul).  A record per model and per pairing,
-    timed at one row."""
+    LLaMA-7B in Q8_0) at QMATMUL_ROWS, with and without the fused norm;
+    kernel 2 over those models' FFN pairings at 1 and 8 rows.  Each shape
+    is timed in the form the path runs it (norm fused into wqkv and the
+    output), the other form only checked; each timed case gets its bound
+    and the time of the same function from PyTorch calls (dequantize, then
+    torch.matmul).  Two records per model, the GEMV's timed at one row and
+    the tensor-core path's at 512, and one per pairing, timed at one row."""
     import torch
 
     from tokenhawk_tpu_torch.ops.cuda import ffn, qmatmul
@@ -950,7 +961,7 @@ def _group_code_kernel_records(randn, case, library, g) -> list:
 
     dev = torch.device("cuda")
     bf = 2
-    src13, src2 = "tokenhawk_tpu_torch/csrc/qmatmul.cu", "tokenhawk_tpu_torch/csrc/ffn.cu"
+    src2 = "tokenhawk_tpu_torch/csrc/ffn.cu"
     rep13 = ("tokenhawk_tpu/ops/pallas/qmatmul.py:742 (q8_matmul); "
              "qmatmul.py:477 (qk_matmul)")
     records = []
@@ -969,7 +980,7 @@ def _group_code_kernel_records(randn, case, library, g) -> list:
             w = QWeight.random(K, N, form, g, dev)
             ws = _weight_copies(w)
             gain = 1.0 + randn(K, scale=0.1)
-            for rows in (1, 8, 512):
+            for rows in QMATMUL_ROWS:
                 x = randn(rows, K)
                 for ng in (gain, None):
                     label = (f"qk_matmul {model} {name} ({form}) K={K} N={N} rows={rows} "
@@ -995,10 +1006,8 @@ def _group_code_kernel_records(randn, case, library, g) -> list:
                         f"{b['layout_bound_ms']:.4f}); dequantize (f32 "
                         f"torch ops, then bf16) + torch.matmul, no norm (2+ calls): "
                         f"{lib_ms:.4f} ms")
-                    if name == "wqkv" and rows == 1:
-                        at, lib = b, lib_ms
             del w, ws
-        records.append(_record(f"qk_matmul[{tag}]", src13, rep13, cases, ("wqkv", 1), at, lib))
+        records += _path_records("qk_matmul", f"[{tag}]", rep13, cases, "wqkv")
 
     pairs = [("q4_k/q6_k", 14336, "q4_k", "q6_k"), ("q4_k/q4_k", 14336, "q4_k", "q4_k"),
              ("q8_0/q8_0", 11008, "q8_0", "q8_0")]
@@ -1713,6 +1722,25 @@ def _paged_kernel_records(randn, case, library, g) -> list:
     ]
 
 
+def _path_records(name, tag, replaces, cases, shape) -> list:
+    """Kernel 1's or 13's two records from its timed cases (each with its
+    bound and library time): the GEMV's (at most 8 rows; csrc/qmatmul.cu,
+    gemv.cuh), timed at `shape` and one row, and the tensor-core path's
+    (more than 8 rows; csrc/qgemm_tc.cuh, the reference kernel's bf16 dot
+    of `_qdot`), timed at `shape` and 512 rows, named name_tc."""
+    out = []
+    for tc in (False, True):
+        part = [c for c in cases if (c["rows"] > 8) == tc]
+        main = next(c for c in part if (c["shape"], c["rows"]) == (shape, 512 if tc else 1))
+        out.append(_record(
+            f"{name}{'_tc' if tc else ''}{tag}",
+            "tokenhawk_tpu_torch/csrc/qgemm_tc.cuh" if tc else "tokenhawk_tpu_torch/csrc/qmatmul.cu",
+            replaces + (" at more than 8 rows (qmatmul.py:97 _qdot's bf16 dot)" if tc else ""),
+            part, (shape, main["rows"]), {k: main[k] for k in ("bound_ms", "bound_by")},
+            main["library_ms"]))
+    return out
+
+
 def _record(name, source, replaces, cases, main_case, bound_at, library_ms) -> dict:
     """One kernel's JSON entry: worst error over its cases, times at the
     shape the main path runs most (main_case = (shape, rows)), its bound
@@ -1814,7 +1842,7 @@ def _kquant_slice() -> None:
     _dense_slice(cfg, p_gpu, p_cpu, ids, make_prefill_fn(cfg), "bf16")
     counts = _read_counts([qmatmul, ffn])
     log(f"Q4_K_M slice kernel launches on the GPU: {counts}")
-    _check_path(counts, ["qk_matmul", *FFN_Q4_K_M], ["q4_matmul"])
+    _check_path(counts, [*QK_PATHS, *FFN_Q4_K_M], Q4_PATHS)
 
 
 def _dense_slice(cfg, p_gpu, p_cpu, ids, prefill, kv) -> None:
@@ -1950,10 +1978,54 @@ def phase_serve(kernel_mods) -> tuple:
     counts = _read_counts(kernel_mods)
     log(f"kernel launches in the serve run: {counts}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
-    _check_path(counts, ["q4_matmul", FFN_Q4_0, "flash_decode", K4],
-                ["qk_matmul", "flash_decode_attend", *CUDA_CORE_PREFILL])
+    _check_path(counts, [*Q4_PATHS, FFN_Q4_0, "flash_decode", K4],
+                [*QK_PATHS, "flash_decode_attend", *CUDA_CORE_PREFILL])
     _profile_request(engines[id(greedy)], [1] + rng.integers(3, cfg.n_vocab, size=4).tolist())
+    _path_spread(cfg, params)
     return counts, params
+
+
+def _path_spread(cfg, params) -> None:
+    """The logit spread of the tensor-core path's roundings (bf16 xn and
+    code * s, as the reference's `_qdot` at more than 8 rows): a 512-token
+    prefill's last logits at 2 and at all of the model's layers, with
+    kernels 1 and 13 on their paths, then with every call held to the GEMV
+    (f32 xn and code * s; `tensor_core_path` patched here, for this
+    measurement only)."""
+    import torch
+
+    from tokenhawk_tpu_torch.models.llama import KVCache
+    from tokenhawk_tpu_torch.ops.cuda import qmatmul
+    from tokenhawk_tpu_torch.runtime.engine import make_prefill_fn
+
+    dev = torch.device("cuda")
+    ids = torch.from_numpy(np.random.default_rng(SEED + 30).integers(3, cfg.n_vocab, S_CTX))
+    ids = ids.to(dev)[None]
+    one = torch.tensor([S_CTX], dtype=torch.int32, device=dev)
+    zero = torch.tensor([0], dtype=torch.int32, device=dev)
+    for n in (2, cfg.n_layer):
+        c = dataclasses.replace(cfg, n_layer=n)
+        p = dataclasses.replace(params, layers=params.layers[:n])
+        prefill = make_prefill_fn(c)
+
+        def last_logits():
+            return prefill(p, KVCache.create(c, 1, S_CTX, torch.bfloat16, dev), ids, one,
+                           zero)[1].float()
+
+        tc = last_logits()
+        route = qmatmul.tensor_core_path
+        qmatmul.tensor_core_path = lambda *args: False
+        try:
+            gemv = last_logits()
+        finally:
+            qmatmul.tensor_core_path = route
+        spread = (tc - gemv).abs().max().item() / gemv.abs().max().item()
+        log(f"  {n} layers, a {S_CTX}-token prefill: last logits on the tensor-core path against "
+            f"the GEMV's f32 xn and code * s: max |diff| {spread:.3%} of the largest |logit|, "
+            f"argmax equal {int(tc.argmax()) == int(gemv.argmax())}")
+        if not spread < DEEP_BF16_TOL:
+            raise AssertionError(f"{n} layers: the two paths' logits {spread:.3%} apart")
+    _ROUTES.clear()  # the GEMV-held calls break the route rule on purpose
 
 
 def phase_int8_serve(cfg, params, kernel_mods, on_path, off_path) -> dict:
@@ -2143,9 +2215,58 @@ def phase_cli(path: str) -> None:
         log(f"cli {' '.join(extra)}: exit 0, decode kernel launches {counts}")
 
 
+# Every quantized projection the model makes (through ops.linear, whose
+# quant_matmul _install_route_spy wraps) since the last _reset_counts:
+# (rows, dtype, on the card, weight form, the launch counters it ticked).
+# _check_path holds each to the rule of kernels 1 and 13: bf16 x above 8
+# rows over Q4_0 or a group-code form ticks the tensor-core path's counter
+# (name_tc), every other call on the card (decode rows, float32 x, the
+# super-block form) the GEMV's, a call on the CPU none.
+_ROUTES = []
+
+
+def _install_route_spy() -> None:
+    from tokenhawk_tpu_torch.ops import linear
+    from tokenhawk_tpu_torch.ops.cuda import qmatmul
+
+    plain = linear.quant_matmul
+
+    def spy(x, w, *args, **kwargs):
+        before = dict(qmatmul.launches)
+        y = plain(x, w, *args, **kwargs)
+        ticked = [k for k, v in qmatmul.launches.items() if v != before[k]]
+        _ROUTES.append((x.numel() // x.shape[-1], x.dtype, x.is_cuda, qmatmul.form_code(w),
+                        ticked))
+        return y
+
+    linear.quant_matmul = spy
+
+
+def _check_routes() -> str:
+    """Each recorded projection on the path the rule gives it (see
+    _ROUTES); a summary of the rows each path took."""
+    import torch
+
+    from tokenhawk_tpu_torch.ops.cuda import qmatmul
+
+    rows = {"gemv": [], "tc": []}
+    for n, dtype, cuda, form, ticked in _ROUTES:
+        tc = cuda and dtype == torch.bfloat16 and n > 8 and form != qmatmul.SB
+        name = {0: "q4_matmul", qmatmul.SB: "qk_sb_matmul"}.get(form, "qk_matmul")
+        want = [name + "_tc" if tc else name] if cuda else []
+        if ticked != want:
+            raise AssertionError(f"a projection of {n} rows ({dtype}, form "
+                                 f"{qmatmul.FORM_NAMES[form]}) ticked {ticked}, not {want}")
+        if cuda:
+            rows["tc" if tc else "gemv"].append(n)
+    return "; ".join(f"{len(v)} on the {'tensor-core path' if k == 'tc' else 'GEMV'} "
+                     f"(rows {min(v)}-{max(v)})" for k, v in rows.items() if v)
+
+
 def _reset_counts(mods) -> None:
     for m in mods:
         m.launches.update(dict.fromkeys(m.launches, 0))
+    _ROUTES.clear()
 
 
 def _read_counts(mods) -> dict:
@@ -2154,12 +2275,16 @@ def _read_counts(mods) -> dict:
 
 
 def _check_path(counts: dict, on_path, off_path) -> None:
-    """Every kernel of a path launched in its run, and none of another's."""
+    """Every kernel of a path launched in its run, and none of another's;
+    every projection of the run on the path its rows and type give it."""
     missed = [k for k in on_path if counts.get(k, 0) <= 0]
     strays = [k for k in off_path if counts.get(k, 0) != 0]
     if missed or strays:
         raise AssertionError(f"kernels never launched: {missed}; kernels of another path "
                              f"launched: {strays} ({counts})")
+    routes = _check_routes()
+    if routes:
+        log(f"  projections: {routes}")
 
 
 def phase_paged_serve(params, cfg, kernel_mods, kv: str, on_path, off_path, title: str):
@@ -2581,7 +2706,7 @@ def phase_gguf(tmp: str, kernel_mods) -> str:
         if rc != 0:
             raise AssertionError(f"cli {extra} returned {rc}")
         _check_path(counts, ["qk_matmul", *FFN_Q4_K_M, "flash_decode_int8"],
-                    ["q4_matmul", "flash_decode", "qk_sb_matmul", *FFN_SB])
+                    [*Q4_PATHS, "flash_decode", "qk_sb_matmul", *FFN_SB])
         log(f"cli on the GGUF {' '.join(extra)}: exit 0, kernel launches {counts}")
 
     # The server's copy swaps the head rows of the third token and
@@ -2772,6 +2897,7 @@ def phase_gguf_sb(path: str, tmp: str) -> None:
     import torch
 
     from tokenhawk_tpu_torch.config import SamplingConfig
+    from tokenhawk_tpu_torch.ops.cuda import qmatmul
     from tokenhawk_tpu_torch.runtime import eval as th_eval
     from tokenhawk_tpu_torch.runtime.engine import Engine
     from tokenhawk_tpu_torch.runtime.loader import load_model
@@ -2830,6 +2956,10 @@ def phase_gguf_sb(path: str, tmp: str) -> None:
             f"{(time.perf_counter() - t0) / 4:.3f} s a window")
         return v
 
+    # A window's 512 rows of bfloat16 activations take kernel 13's
+    # tensor-core path (the flat forms and the Q6_K head) and kernel 17's
+    # GEMV (the super-block forms); float32 activations the GEMV alone.
+    _reset_counts([qmatmul])
     for sides in ("float32", "bfloat16"):
         got = {form: nll(_sides_as(p, getattr(torch, sides)), f"{form}, {sides} sides")
                for form, p in (("sb", params), ("flat", flat))}
@@ -2837,10 +2967,15 @@ def phase_gguf_sb(path: str, tmp: str) -> None:
             f"{got['sb'] - got['flat']:.3e}")
         if not all(np.isfinite(v) for v in got.values()):
             raise AssertionError(f"perplexity not finite: {got}")
+    _check_path(_read_counts([qmatmul]), ["qk_matmul_tc", "qk_sb_matmul"],
+                [*Q4_PATHS, "qk_matmul"])
     # float32 sides and activations: the two forms hold the same weights, so
     # their scores differ by summation order alone.
+    _reset_counts([qmatmul])
     ratio = (nll(_float32(params), "sb, float32 sides and activations")
              - nll(_float32(flat), "flat, float32 sides and activations"))
+    _check_path(_read_counts([qmatmul]), ["qk_matmul", "qk_sb_matmul"],
+                [*Q4_PATHS, "qk_matmul_tc"])
     log(f"  float32 sides and activations: log(ppl_sb / ppl_flat) = {ratio:.3e} (tolerance "
         f"{F32_FORMS_TOL:g})")
     if not abs(ratio) < F32_FORMS_TOL:
@@ -2888,7 +3023,7 @@ def phase_dense_7b(kernel_mods) -> dict:
         f"roofline); allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB")
     counts = _engine_requests(cfg, params, kernel_mods, (5, 300),
                               ["flash_decode_attend", K4],
-                              ["q4_matmul", "qk_matmul", "flash_decode", *ffn.launches,
+                              [*Q4_PATHS, *QK_PATHS, "flash_decode", *ffn.launches,
                                *CUDA_CORE_PREFILL])
     del params
     torch.cuda.empty_cache()
@@ -3086,8 +3221,8 @@ def phase_speculation(params, kernel_mods, model_path: str, tmp: str) -> dict:
     runs = [_spec_engine_run(spec, p, "9a") for p in prompts]
     counts = _read_counts(kernel_mods)
     log(f"9a kernel launches: {counts}")
-    _check_path(counts, ["q4_matmul", FFN_Q4_0, K4, "flash_decode_attend"],
-                ["flash_decode", "qk_matmul", "flash_decode_int8", K9, "paged_decode",
+    _check_path(counts, [*Q4_PATHS, FFN_Q4_0, K4, "flash_decode_attend"],
+                ["flash_decode", *QK_PATHS, "flash_decode_int8", K9, "paged_decode",
                  "paged_append", "gather_pages", *CUDA_CORE_PREFILL])
     for p, (toks, _, _) in zip(prompts, runs):
         _check_greedy_identity(f"9a prompt={len(p)}", toks,
@@ -3193,8 +3328,8 @@ def _paged_speculation(params, draft, cfg, dcfg, kernel_mods) -> None:
            or not all(0 <= t < V for t in r.output)]
     if bad:
         raise AssertionError(f"requests that did not finish cleanly: {bad}")
-    _check_path(counts, ["q4_matmul", K4, "flash_decode_attend", "paged_append", "gather_pages"],
-                ["paged_decode", "flash_decode", "qk_matmul", "flash_decode_int8",
+    _check_path(counts, [*Q4_PATHS, K4, "flash_decode_attend", "paged_append", "gather_pages"],
+                ["paged_decode", "flash_decode", *QK_PATHS, "flash_decode_int8",
                  "paged_decode_int8", "paged_append_int8", "gather_pages_int8",
                  *CUDA_CORE_PREFILL])
     parked = set(sched._pc.values())
@@ -3461,7 +3596,7 @@ def phase_fused_paged(params, kernel_mods, bf16_paged, off_path) -> dict:
     params.fusions = Fusions(owo=True)
     try:
         counts, sched = phase_paged_serve(
-            params, cfg, kernel_mods, "bf16", ["q4_matmul", OWO_Q4_0, K4] + bf16_paged,
+            params, cfg, kernel_mods, "bf16", [*Q4_PATHS, OWO_Q4_0, K4] + bf16_paged,
             [FFN_Q4_0, ATTN_WO, "flash_decode", *CUDA_CORE_PREFILL] + off_path,
             "phase 10b: paged serve with OWO (kernel 15), LLaMA-7B Q4_0, 32 layers")
     finally:
@@ -3481,11 +3616,11 @@ def phase_tinyllama_paged(kernel_mods, bf16_paged, int8_paged, dense_off, tmp: s
 
     cfg = _tinyllama(22, n_ctx=2048)
     params, _ = _model(cfg, "q4_0", "phase 10c: TinyLlama widths, Q4_0, 22 layers")
-    base_off = ["qk_matmul", "flash_decode", OWO_Q4_0, ATTN_WO, *CUDA_CORE_PREFILL] + dense_off
+    base_off = [*QK_PATHS, "flash_decode", OWO_Q4_0, ATTN_WO, *CUDA_CORE_PREFILL] + dense_off
     counts = {}
     for kv, on, off in (("bf16", bf16_paged, int8_paged), ("int8", int8_paged, bf16_paged)):
         counts[kv], sched = phase_paged_serve(
-            params, cfg, kernel_mods, kv, ["q4_matmul", FFN_Q4_0, K4] + on,
+            params, cfg, kernel_mods, kv, [*Q4_PATHS, FFN_Q4_0, K4] + on,
             base_off + off, f"phase 10c: paged serve, TinyLlama widths (head dim 64), Q4_0, "
                             f"{cfg.n_layer} layers")
         sched.cache = None
@@ -3569,7 +3704,7 @@ def phase_cp_engine(params, kernel_mods, tmp: str) -> dict:
         torch.cuda.synchronize()
         counts = _read_counts(kernel_mods)
         log(f"CP kernel launches over the 3 requests: {counts}")
-        _check_path(counts, ["q4_matmul", "flash_decode_stats", "flash_attention_stats"],
+        _check_path(counts, [*Q4_PATHS, "flash_decode_stats", "flash_attention_stats"],
                     [FFN_Q4_0, "flash_decode", K4, "flash_attention", "flash_decode_attend"])
         rates = {"cp": [], "dense": []}
         for p, r in zip(prompts, runs):
@@ -3835,6 +3970,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_env()
     records = phase_kernels()
+    _install_route_spy()
     phase_slice()
     mods = [qmatmul, ffn, flash_decode, flash_attention]
     every = mods + [paged_decode, kv_int8, paged_int8]
@@ -3844,8 +3980,8 @@ def main() -> int:
     int8_paged = ["paged_decode_int8", "paged_append_int8", "gather_pages_int8"]
     cfg_2k = dataclasses.replace(_seven_b(32), n_ctx=2048)
     paged_counts, sched = phase_paged_serve(
-        params, cfg_2k, every, "bf16", ["q4_matmul", FFN_Q4_0, K4] + bf16_paged,
-        ["qk_matmul", "flash_decode", *CUDA_CORE_PREFILL] + int8_dense + int8_paged,
+        params, cfg_2k, every, "bf16", [*Q4_PATHS, FFN_Q4_0, K4] + bf16_paged,
+        [*QK_PATHS, "flash_decode", *CUDA_CORE_PREFILL] + int8_dense + int8_paged,
         "phase 4b: paged serve, LLaMA-7B Q4_0, 32 layers")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "llama7b-2layer-q4_0.bin")
@@ -3857,13 +3993,13 @@ def main() -> int:
         cfg_i8 = dataclasses.replace(cfg_2k, n_layer=INT8_LAYERS)
         params_i8 = dataclasses.replace(params, layers=params.layers[:INT8_LAYERS])
         int8_counts = phase_int8_serve(cfg_i8, params_i8, every,
-                                       ["q4_matmul", FFN_Q4_0] + int8_dense,
-                                       ["qk_matmul", "flash_decode", K4, *CUDA_CORE_PREFILL]
+                                       [*Q4_PATHS, FFN_Q4_0] + int8_dense,
+                                       [*QK_PATHS, "flash_decode", K4, *CUDA_CORE_PREFILL]
                                        + bf16_paged + int8_paged)
         int8_paged_counts, sched = phase_paged_serve(
             params_i8, cfg_i8, every, "int8",
-            ["q4_matmul", FFN_Q4_0, K4] + int8_paged,
-            ["qk_matmul", "flash_decode", *CUDA_CORE_PREFILL] + bf16_paged + int8_dense,
+            [*Q4_PATHS, FFN_Q4_0, K4] + int8_paged,
+            [*QK_PATHS, "flash_decode", *CUDA_CORE_PREFILL] + bf16_paged + int8_dense,
             f"phase 4bi: paged serve, LLaMA-7B Q4_0 widths, {INT8_LAYERS} layers")
         phase_cli(path)
         sched.cache = None
@@ -3887,13 +4023,13 @@ def main() -> int:
         # Phases 6 and 6q: group-code projections (kernel 13) and the FFN over
         # them (kernel 2); kernel 1 (Q4_0) stays off.
         def engine_path(on, off):
-            return (["qk_matmul", *on, "flash_decode", K4],
-                    ["q4_matmul", FFN_Q4_0, "flash_decode_attend", *off, *CUDA_CORE_PREFILL]
+            return ([*QK_PATHS, *on, "flash_decode", K4],
+                    [*Q4_PATHS, FFN_Q4_0, "flash_decode_attend", *off, *CUDA_CORE_PREFILL]
                     + bf16_paged + int8_dense + int8_paged)
 
         def paged_path(on, off):
-            return (["qk_matmul", *on, K4] + bf16_paged,
-                    ["q4_matmul", FFN_Q4_0, "flash_decode", *off, *CUDA_CORE_PREFILL]
+            return ([*QK_PATHS, *on, K4] + bf16_paged,
+                    [*Q4_PATHS, FFN_Q4_0, "flash_decode", *off, *CUDA_CORE_PREFILL]
                     + int8_dense + int8_paged)
 
         # Without THAWK_Q4K_SB the super-block kernels stay off.
@@ -3924,11 +4060,14 @@ def main() -> int:
     # the dense 7B Engine's of phase 8 for kernel 14; phase 10a's requests
     # with OWO for kernel 15 and with ATTN for kernel 16; phase 12b's CP
     # Engine for kernels 18 and 19.
-    launches = {"q4_matmul": counts["q4_matmul"], "fused_ffn": counts[FFN_Q4_0],
+    launches = {"q4_matmul": counts["q4_matmul"], "q4_matmul_tc": counts["q4_matmul_tc"],
+                "fused_ffn": counts[FFN_Q4_0],
                 "flash_decode_append": counts["flash_decode"],
                 "flash_attention": counts[K4],
                 "qk_matmul[q4_k_m]": q4km_counts["qk_matmul"],
+                "qk_matmul_tc[q4_k_m]": q4km_counts["qk_matmul_tc"],
                 "qk_matmul[q8_0]": q8_counts["qk_matmul"],
+                "qk_matmul_tc[q8_0]": q8_counts["qk_matmul_tc"],
                 "fused_ffn[q4_k/q6_k]": q4km_counts[FFN_Q4_K_M[0]],
                 "fused_ffn[q4_k/q4_k]": q4km_counts[FFN_Q4_K_M[1]],
                 "fused_ffn[q8_0/q8_0]": q8_counts[FFN_Q8_0],

@@ -9,7 +9,8 @@ jax) cannot load:
 
 Tolerances: bfloat16 results differ from the plain versions by about one
 output rounding (both accumulate in f32; the tensor-core prefill walk of
-kernels 4 and 9 also rounds P to bf16): 2^-7 of the largest |value|;
+kernels 4 and 9 also rounds P to bf16, the tensor-core path of kernels 1
+and 13 xn and each code * s): 2^-7 of the largest |value|;
 float32 results by summation order: 1e-4 of it.  Written cache rows are
 compared exactly, and so are the int8 kernels' quantized rows and
 dequantized gathers (the codec is bit for bit; a code times a bfloat16
@@ -55,6 +56,12 @@ def _err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
+def _path(kernel, rows, dtype):
+    """The launch counter of kernel 1's or 13's call: the tensor-core path
+    for bf16 x above 8 rows, the GEMV otherwise."""
+    return kernel + "_tc" if dtype == torch.bfloat16 and rows > 8 else kernel
+
+
 @pytest.mark.parametrize("K,N", [(4096, 4096), (11008, 512), (704, 256)])
 @pytest.mark.parametrize("rows", [1, 3, 8, 64])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -64,10 +71,11 @@ def test_q4_matmul_kernel_matches_plain(K, N, rows, dtype):
     w = QWeight.quantize(torch.randn(K, N, generator=g, device=dev) * 0.02)
     x = torch.randn(rows, K, generator=g, device=dev).to(dtype)
     gain = (1 + 0.1 * torch.randn(K, generator=g, device=dev)).to(dtype)
+    key = _path("q4_matmul", rows, dtype)
     for ng in (None, gain):
-        before = qmatmul.launches["q4_matmul"]
+        before = qmatmul.launches[key]
         got = qmatmul.quant_matmul(x, w, ng)
-        assert qmatmul.launches["q4_matmul"] == before + 1
+        assert qmatmul.launches[key] == before + 1
         want = qmatmul.quant_matmul_plain(x, w, ng)
         assert _err(got, want) <= _tol(want, dtype)
 
@@ -113,13 +121,39 @@ def test_qk_matmul_kernel_matches_plain(K, N, form, rows, dtype):
     w = _weight(form, K, N, g, dev)
     x = torch.randn(rows, K, generator=g, device=dev).to(dtype)
     gain = (1 + 0.1 * torch.randn(K, generator=g, device=dev)).to(dtype)
+    key = _path("qk_matmul", rows, dtype)
     for ng in (None, gain):
-        before = qmatmul.launches["qk_matmul"]
+        before = qmatmul.launches[key]
         got = qmatmul.quant_matmul(x, w, ng)
-        assert qmatmul.launches["qk_matmul"] == before + 1
+        assert qmatmul.launches[key] == before + 1
         want = qmatmul.quant_matmul_plain(x, w, ng)
         assert got.shape == (rows, N) and got.dtype == dtype
         assert _err(got, want) <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("K,N", [(4096, 1024), (800, 100)])  # 800: a half last K step
+@pytest.mark.parametrize("form", ["q4_0", *QK_FORMS])
+@pytest.mark.parametrize("rows", [9, 16, 40, 512])
+def test_quant_matmul_tensor_core_path_matches_plain(K, N, form, rows):
+    """Kernels 1 and 13 on bf16 x above 8 rows run the tensor-core GEMM
+    (csrc/qgemm_tc.cuh), with and without the norm, at ragged rows and
+    columns; f32 x at the same rows keeps the GEMV."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(K + rows)
+    w = _weight(form, K, N, g, dev)
+    x = torch.randn(rows, K, generator=g, device=dev).to(torch.bfloat16)
+    gain = (1 + 0.1 * torch.randn(K, generator=g, device=dev)).to(torch.bfloat16)
+    kernel = "q4_matmul" if form == "q4_0" else "qk_matmul"
+    for ng in (None, gain):
+        before = dict(qmatmul.launches)
+        got = qmatmul.quant_matmul(x, w, ng)
+        assert qmatmul.launches == {**before, kernel + "_tc": before[kernel + "_tc"] + 1}
+        want = qmatmul.quant_matmul_plain(x, w, ng)
+        assert got.shape == (rows, N) and got.dtype == torch.bfloat16
+        assert _err(got, want) <= _tol(want, torch.bfloat16)
+    before = dict(qmatmul.launches)
+    qmatmul.quant_matmul(x.float(), w, gain)
+    assert qmatmul.launches == {**before, kernel: before[kernel] + 1}
 
 
 # w13 / w2 pairings: Q4_K_M's two, Q8_0's, and mixed ones with Q4_0.

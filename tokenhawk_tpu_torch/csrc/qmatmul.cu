@@ -1,5 +1,5 @@
-// Kernels 1, 13 and 17: dequant-matmul with fused RMSNorm, one entry point
-// for every weight form.
+// Kernels 1, 13 and 17: dequant-matmul with fused RMSNorm over every
+// weight form.
 //
 // Kernel 1 (form Q4_0) replaces tokenhawk_tpu/ops/pallas/qmatmul.py
 // q4_matmul (_q4_kernel) and q4_matmul_i4 (_q4i4_kernel); kernel 13 (the
@@ -24,7 +24,15 @@
 // code bytes (0.59 B a weight against 1.25).  The reference's RoPE
 // epilogue on q8_matmul (rope_meta, off by default) is not ported: RoPE
 // runs in torch.
+//
+// Two paths, two entry points, which the Python wrapper picks:
+// th_quant_matmul runs the GEMV above (every form, f32 or bf16 x, any row
+// count; the decode rows and kernel 17); th_quant_matmul_tc runs the
+// tensor-core GEMM of qgemm_tc.cuh for bf16 x at more than 8 rows over
+// Q4_0 and the group-code forms, where the reference's `_qdot` takes the
+// MXU's bf16 dot and the work is bound by operations, not bytes.
 #include "gemv.cuh"
+#include "qgemm_tc.cuh"
 
 using namespace thawk;
 
@@ -51,6 +59,38 @@ extern "C" int th_quant_matmul(const void* x, const void* qs, const void* scales
           ? run<__nv_bfloat16>(x, qs, scales, mins, hi, gain, y, inv, B, K, N, form, eps, s)
           : run<float>(x, qs, scales, mins, hi, gain, y, inv, B, K, N, form, eps, s);
   return known ? THAWK_LAUNCH_RESULT() : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core path: x, gain, y bf16; xn_scratch [B, K] bf16 (with a
+// gain), xsum_scratch [B, K/G] f32 (mins forms) and part_scratch [splits,
+// B, N] f32 (splits > 1) are its scratch.  Forms Q4_0, G32, G32 + mins,
+// G16, G16 + mins; kFormSb and unknown forms return an invalid-value error.
+extern "C" int th_quant_matmul_tc(const void* x, const void* qs, const void* scales,
+                                  const void* mins, const void* gain, void* y, void* xn_scratch,
+                                  void* xsum_scratch, void* part_scratch, int B, int K, int N,
+                                  int form, int splits, float eps, void* stream) {
+  const qgemm_tc::Call c{static_cast<const __nv_bfloat16*>(x),
+                         qs,
+                         scales,
+                         mins,
+                         static_cast<const __nv_bfloat16*>(gain),
+                         static_cast<__nv_bfloat16*>(y),
+                         static_cast<__nv_bfloat16*>(xn_scratch),
+                         static_cast<float*>(xsum_scratch),
+                         static_cast<float*>(part_scratch),
+                         B,
+                         K,
+                         N,
+                         splits,
+                         eps};
+  const cudaError_t rc = qgemm_tc::run(form, c, static_cast<cudaStream_t>(stream));
+  return rc != cudaSuccess ? static_cast<int>(rc) : THAWK_LAUNCH_RESULT();
+}
+
+// The K splits th_quant_matmul_tc takes at B rows, K inputs and N outputs
+// on a card of `sms` SMs: the caller sizes part_scratch by them.
+extern "C" int th_quant_matmul_tc_splits(int B, int K, int N, int sms) {
+  return qgemm_tc::splits_for(B, K, N, sms);
 }
 
 extern "C" const char* th_error_string(int code) {

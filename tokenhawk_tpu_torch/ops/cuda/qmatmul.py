@@ -1,6 +1,6 @@
 """Kernels 1, 13 and 17: dequant-matmul with fused RMSNorm (csrc/qmatmul.cu).
 
-One entry point takes every weight form (ops/qweight.py).  Over Q4_0 it
+One wrapper takes every weight form (ops/qweight.py).  Over Q4_0 it
 is kernel 1, which replaces tokenhawk_tpu/ops/pallas/qmatmul.py
 `q4_matmul` (_q4_kernel) and `q4_matmul_i4` (_q4i4_kernel); over the
 group-code kind (Q8_0, Q5_0, Q4_1, Q5_1, Q2_K..Q6_K) it is kernel 13,
@@ -8,31 +8,56 @@ which replaces `q8_matmul` (_q8_kernel) and `qk_matmul` (_qk_kernel);
 over the Q4_K super-block kind (q4k_sb, THAWK_Q4K_SB=1) it is kernel 17,
 which replaces `qk_sb_matmul` (_qk_sb_kernel): kernel 13's loop over
 codes two a byte, the group's scale and bias expanded from sc / mn and
-the super-block's d / dmin in registers.  Launches are counted per
-kernel: `launches["q4_matmul"]`, `launches["qk_matmul"]` and
-`launches["qk_sb_matmul"]`.  On the H100 the decode rows (B <= 8) are bound
-by the weight bytes and the prefill rows by f32 FMA issue.  The kernel
-reads a column's codes with 16-byte loads and converts them once for
-every row of a row tile (gemv.cuh); the row statistics of the norm come
-from a small pre-pass, so the norm is fused for every K.
+the super-block's d / dmin in registers.
+
+Two paths, picked here by `tensor_core_path` and counted apart.  The
+GEMV (gemv.cuh) takes every form at any row count and f32 x: on the H100
+the decode rows (B <= 8) are bound by the weight bytes; it reads a
+column's codes with 16-byte loads and converts them once for every row
+of a row tile, and a small pre-pass gives the norm's row statistics, so
+the norm is fused for every K.  Counted in `launches["q4_matmul"]`,
+`launches["qk_matmul"]` and `launches["qk_sb_matmul"]`.  Above 8 rows
+of bf16 x, Q4_0 and the group-code forms go to the tensor-core GEMM
+(qgemm_tc.cuh: mma.sync over 128-column tiles of codes brought in by
+cp.async and widened to bf16 in shared memory; where its tiles would
+leave SMs idle, K splits across blocks and a last pass adds the splits'
+f32 sums in order), where the work is bound by operations: counted in
+`launches["q4_matmul_tc"]` and `launches["qk_matmul_tc"]`.  Its
+roundings are the reference's at those rows (`_qdot`'s bf16 dot): xn and
+each code * s rounded to bf16, f32 sums, the mins as an f32 dot of xn's
+group sums.  Kernel 17 keeps the GEMV at every row count.  Neither path
+falls back to the other.
 
 Tolerance against the plain version: both accumulate in f32 and round
 once to the output dtype; they differ by summation order (~1e-6 relative
 in f32, of the terms, which for affine kinds includes the m * sum(x)
 term) plus that one rounding (2^-8 relative for bfloat16).  Kernel 17
-forms each group's s and b with the plain version's roundings.
+forms each group's s and b with the plain version's roundings.  The
+tensor-core path also rounds xn and code * s to bf16 (at most 2^-9 of
+each, in no common direction), which moves an output by about 2^-9 of
+the root of its summed squared terms, below one output rounding of the
+largest outputs.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from tokenhawk_tpu_torch.ops.cuda import build
 from tokenhawk_tpu_torch.ops.qweight import QWeight
 
-launches = {"q4_matmul": 0, "qk_matmul": 0, "qk_sb_matmul": 0}
+launches = {"q4_matmul": 0, "qk_matmul": 0, "qk_sb_matmul": 0, "q4_matmul_tc": 0,
+            "qk_matmul_tc": 0}
 
 _ARGS = [build.P] * 8 + [build.I] * 4 + [build.F, build.I, build.P]
+# x, qs, scales, mins, gain, y, xn, xsum and part scratch; B, K, N, form,
+# splits; eps; stream.
+_TC_ARGS = [build.P] * 9 + [build.I] * 5 + [build.F, build.P]
+# The fewest rows the tensor-core path takes: the reference's `_qdot` takes
+# its bf16 dot above 8 rows (DOT_F32 "auto").
+TC_MIN_ROWS = 9
 
 # Weight forms at the C boundary (csrc/gemv.cuh enum Form), by code.
 FORM_NAMES = ("q4_0", "g32", "g32m", "g16", "g16m", "sb")
@@ -59,6 +84,17 @@ def form_code(w: QWeight, sb: bool = True) -> int:
     build.require(w.shape[0] % (256 if form == SB else 32) == 0,
                   f"K {w.shape[0]} must be a multiple of {256 if form == SB else 32}")
     return form
+
+
+def tensor_core_path(dtype: torch.dtype, rows: int, form: int) -> bool:
+    """Whether a call runs the tensor-core GEMM: bf16 x at TC_MIN_ROWS or
+    more rows over Q4_0 or a group-code form (kernel 17 keeps the GEMV)."""
+    return dtype == torch.bfloat16 and rows >= TC_MIN_ROWS and form != SB
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def weight_args(w: QWeight, x: torch.Tensor) -> list:
@@ -91,12 +127,29 @@ def quant_matmul(x: torch.Tensor, w: QWeight, norm_gain=None, eps: float = 1e-6)
         gain = norm_gain.to(xb.dtype).contiguous()
         build.require(gain.shape == (K,), f"gain {tuple(gain.shape)} != ({K},)")
     build.require_cuda(xb, *([] if gain is None else [gain]))
-    y = torch.empty((xb.shape[0], N), dtype=xb.dtype, device=xb.device)
-    inv = torch.empty((xb.shape[0],), dtype=torch.float32, device=xb.device)
-    fn = build.function("th_quant_matmul", _ARGS)
-    rc = fn(xb.data_ptr(), *weight_args(w, xb), gain.data_ptr() if gain is not None else None,
-            y.data_ptr(), inv.data_ptr(), xb.shape[0], K, N, form, eps,
-            build.dtype_code(xb.dtype), build.stream_of(xb))
-    build.check(rc, "quant_matmul")
-    launches[_KERNEL.get(form, "qk_matmul")] += 1
+    rows = xb.shape[0]
+    y = torch.empty((rows, N), dtype=xb.dtype, device=xb.device)
+    if tensor_core_path(xb.dtype, rows, form):
+        splits = build.function("th_quant_matmul_tc_splits", [build.I] * 4)(
+            rows, K, N, _sm_count(xb.device))
+        xn = torch.empty_like(xb) if gain is not None else None
+        xsum = (torch.empty((rows, K // w.group), dtype=torch.float32, device=xb.device)
+                if w.mins is not None else None)
+        part = (torch.empty((splits, rows, N), dtype=torch.float32, device=xb.device)
+                if splits > 1 else None)
+        fn = build.function("th_quant_matmul_tc", _TC_ARGS)
+        rc = fn(xb.data_ptr(), *weight_args(w, xb)[:3],
+                gain.data_ptr() if gain is not None else None, y.data_ptr(),
+                *(t.data_ptr() if t is not None else None for t in (xn, xsum, part)), rows, K,
+                N, form, splits, eps, build.stream_of(xb))
+        name = _KERNEL.get(form, "qk_matmul") + "_tc"
+    else:
+        inv = torch.empty((rows,), dtype=torch.float32, device=xb.device)
+        fn = build.function("th_quant_matmul", _ARGS)
+        rc = fn(xb.data_ptr(), *weight_args(w, xb), gain.data_ptr() if gain is not None else None,
+                y.data_ptr(), inv.data_ptr(), rows, K, N, form, eps,
+                build.dtype_code(xb.dtype), build.stream_of(xb))
+        name = _KERNEL.get(form, "qk_matmul")
+    build.check(rc, name)
+    launches[name] += 1
     return y.reshape(*x.shape[:-1], N)
