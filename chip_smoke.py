@@ -12,8 +12,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      bound from the bytes and operations of the call, and the time of one
      PyTorch call computing the same function where there is one); the
      paged kernels in both pool layouts; kernels 1 and 13 at 1, 8, 16, 40
-     and 512 rows, each on its path (the GEMV at most 8 rows, the
-     tensor-core GEMM above: a record each);
+     and 512 rows and kernel 17 at 1, 8, 9, 16, 40 and 512, each on its
+     path (the GEMV at most 8 rows, the tensor-core GEMM above: a record
+     each); kernel 14 as the model launches it (split-S in thread-block
+     clusters where the (sequence, KV head) pairs leave SMs idle, else one
+     block a pair: a record each) beside its one-block launch and SDPA, and
+     a sweep of its split counts; then kernels 3, 16, 18 and the GEMV's
+     outputs held bit for bit to the parent tree's (PARENT_DIGESTS);
   3. slice check: a 2-layer LLaMA-7B-width Q4_0 model, prefill of 16
      tokens + 8 decode steps on the GPU (kernels) and on the CPU (plain
      versions, same parameters), logits compared at every step, over a
@@ -61,8 +66,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      weight-bytes roofline, the idle share of a profiled request;
   9. speculation: 9a SpeculativeEngine, the 7B Q4_0 target (its first 8
      layers since phase 11 was added) with a 22-layer TinyLlama-width bf16
-     draft (kernel 14 at 4 KV heads of 64, 8 queries each), gamma 4, each
-     stream held against the Engine's greedy stream; 9b a 2-layer
+     draft (kernel 14 at 4 KV heads of 64, 8 queries each, every launch on
+     its split form), gamma 4, each stream held against the Engine's greedy
+     stream, then decode tok/s with kernel 14 held to one block a pair
+     and on the split form in turns; 9b a 2-layer
      self-draft (acceptance >= 90%); 9c the PagedScheduler with the draft
      (12 requests, half sampled); 9d the CLI and `serving --paged` with
      --draft-model as subprocesses (a TinyLlama-width F16 GGUF draft).
@@ -83,9 +90,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   11. the Q4_K super-block forms (THAWK_Q4K_SB=1), after phase 7: 11a
      phase 6's model (at 16 layers since phase 12, as phase 6's), drawn in
      them, through Engine (kernel 17 and
-     kernel 2 with an sb w13 launched, kernel 13 only for the Q6_K weights
-     and the flat w2), B=1 decode windows against the flat form of the same
-     codes in turns, and phase 4b's requests through the PagedScheduler;
+     kernel 2 with an sb w13 launched, kernel 17's prompts on the
+     tensor-core GEMM, kernel 13 only for the Q6_K weights and the flat
+     w2), B=1 decode windows and a 1500-token prefill against the flat
+     form of the same codes in turns, and phase 4b's requests through the
+     PagedScheduler;
      11b phase 7's file loaded with the flag at float32 sides, its greedy
      stream held against the flat form's, the CLI and `serving --paged`
      with the flag; 11c runtime/eval.py's perplexity of that file, sb
@@ -133,7 +142,7 @@ unfused port kernels it replaces; phase 3 also runs a 2-layer Q4_K_M
 slice.  Each phase's header line ends with the seconds since the start.
 Every path check also holds each quantized projection the model made to
 its path (a spy on ops.linear's quant_matmul): bf16 x above 8 rows over
-Q4_0 or group codes on the tensor-core GEMM, every other call on the GEMV.
+any weight form on the tensor-core GEMM, every other call on the GEMV.
 The next-to-last line is {"kernels": [...]}, the last {"ok": true, ...}.
 It needs one CUDA device and the rest of the repository beside it.
 """
@@ -238,6 +247,8 @@ CUDA_CORE_PREFILL = ["flash_attention", "flash_attention_int8"]
 # A path run with prompts or verifies above 8 tokens asks for both.
 Q4_PATHS = ["q4_matmul", "q4_matmul_tc"]
 QK_PATHS = ["qk_matmul", "qk_matmul_tc"]
+# Kernel 17's two (THAWK_Q4K_SB=1's super-block forms), by the same rule.
+SB_PATHS = ["qk_sb_matmul", "qk_sb_matmul_tc"]
 # The card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s and
 # dense bf16 tensor-core FLOP/s.  A kernel's bound is the larger of its
 # bytes (each input read once, each output written once) over the first
@@ -534,7 +545,7 @@ def phase_kernels() -> list:
     records += _int8_kernel_records(randn, case, library)
     records.append(rec9)
     records += _paged_int8_kernel_records(randn, case, library, g)
-    records.append(_decode_attend_record(randn, case))
+    records += _decode_attend_records(randn, case)
     gqa = _gqa_cases(randn, case, g)
     dh64 = _head_dim_64_cases(randn, case)
     paged64 = _paged_head_dim_64_cases(randn, case, g)
@@ -546,6 +557,7 @@ def phase_kernels() -> list:
     records += _sb_kernel_records(randn, case, library, g)
     records += _fused_layer_records(randn, case, library, g)
     records += _cp_kernel_records(randn, case)
+    _check_parent_digests()
     return records
 
 
@@ -710,7 +722,8 @@ def _split_decode_cases(randn, case) -> list:
     """Kernel 18 cut into 1, 4, 8 and 16 splits of S, merged in torch, at
     TinyLlama's heads (4 KV heads of 64, 8 queries each: the draft's) over
     2048 slots, B=1 at 2048 live and B=8 ragged, each held against kernel
-    14 and timed beside it (ROADMAP.md Queue 3 open fault 2)."""
+    14 and timed beside it (kernel 14's split form merges the same ranges
+    on chip)."""
     import torch
 
     from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
@@ -1039,14 +1052,23 @@ def _group_code_kernel_records(randn, case, library, g) -> list:
     return records
 
 
+# Kernel 17's rows in phase 2: decode (1) and kernel 2's most (8) on the
+# GEMV; 9, 16, the 8-slot verify's 40 and a 512-token prefill on the
+# tensor-core GEMM.
+SB_ROWS = (1, 8, 9, 16, 40, 512)
+
+
 def _sb_kernel_records(randn, case, library, g) -> list:
     """Kernel 17 (Q4_K super-blocks, the forms of THAWK_Q4K_SB=1) at phase
     11a's projection shapes (Llama-3-8B: wqkv and w13 with the norm fused,
-    wo without; the other norm form only checked) at 1, 8 and 512 rows,
-    each timed with its bound at the GGUF blocks' 0.5625 B a weight and at
-    the layout's bytes, dequantize + torch.matmul, and kernel 13 over the
-    flat form of the same codes (flat_ms); then kernel 2 with an sb w13 over
-    a Q6_K and a flat Q4_K w2 at one row, beside kernel 2 over the flat w13."""
+    wo without; the other norm form only checked) at SB_ROWS, each timed
+    with its bound at the GGUF blocks' 0.5625 B a weight and at the
+    layout's bytes, dequantize + torch.matmul, and kernel 13 over the flat
+    form of the same codes (flat_ms: its GEMV at 8 rows and below, its
+    tensor-core path above); two records, the GEMV's (timed at wqkv, one
+    row) and the tensor-core path's (wqkv, 512 rows).  Then kernel 2 with
+    an sb w13 over a Q6_K and a flat Q4_K w2 at one row, beside kernel 2
+    over the flat w13."""
     import torch
 
     from tokenhawk_tpu_torch.ops.cuda import ffn, qmatmul
@@ -1061,10 +1083,11 @@ def _sb_kernel_records(randn, case, library, g) -> list:
         ws = _weight_copies(w)
         flats = [v.flat() for v in ws]
         gain = 1.0 + randn(K, scale=0.1)
-        for rows in (1, 8, 512):
+        for rows in SB_ROWS:
             x = randn(rows, K)
             for ng in (gain, None):
-                label = (f"qk_sb_matmul Llama-3-8B {name} K={K} N={N} rows={rows} "
+                path = "_tc" if qmatmul.tensor_core_path(x.dtype, rows) else ""
+                label = (f"qk_sb_matmul{path} Llama-3-8B {name} K={K} N={N} rows={rows} "
                          f"norm={ng is not None}")
                 out = qmatmul.quant_matmul(x, w, ng)
                 ref = qmatmul.quant_matmul_plain(x, w, ng)
@@ -1088,12 +1111,13 @@ def _sb_kernel_records(randn, case, library, g) -> list:
                     f"torch.matmul, no norm (2+ calls): {lib_ms:.4f} ms; kernel 13 over the "
                     f"flat form of the same codes ({flats[0].nbytes / 1e6:.1f} MB against "
                     f"{w.nbytes / 1e6:.1f}): {flat_ms:.4f} ms")
-                if name == "wqkv" and rows == 1:
-                    at, lib, flat_at = b, lib_ms, flat_ms
         del w, ws, flats
-    records = [_record("qk_sb_matmul", "tokenhawk_tpu_torch/csrc/qmatmul.cu",
-                       "tokenhawk_tpu/ops/pallas/qmatmul.py:637 (qk_sb_matmul)", cases,
-                       ("wqkv", 1), at, lib) | {"flat_ms": flat_at}]
+    records = _path_records("qk_sb_matmul", "", "tokenhawk_tpu/ops/pallas/qmatmul.py:637 "
+                            "(qk_sb_matmul)", cases, "wqkv")
+    for rec in records:
+        rec["flat_ms"] = next(c["flat_ms"] for c in rec["cases"]
+                              if c["shape"] == "wqkv" and c.get("flat_ms") is not None
+                              and rec["timed_at"] == f"wqkv rows={c['rows']}")
 
     D, F = 4096, 14336
     for tag, f2 in (("q4k_sb/q6_k", "q6_k"), ("q4k_sb/q4_k", "q4_k")):
@@ -1256,31 +1280,63 @@ def _sdpa_ms(q, caches, lens) -> float:
     return timed(fns)["ms"]
 
 
-def _decode_attend_record(randn, case) -> dict:
-    """Kernel 14 (decode attention, no append) at its paths' shapes:
-    LLaMA-7B's heads (32 KV heads of 128, one query each) over a 512-token
-    cache at B=1, as phase 8's dense 7B decodes, and TinyLlama's (4 KV
-    heads of 64, 8 queries each) over 2048 at B=1 and at B=8 with ragged
-    lengths, as phase 9's draft decodes.  Each case is timed, with its
-    bound and SDPA over the same live rows."""
+# Kernel 14's cases, (label, Hkv, rep, Dh, S, lengths): LLaMA-7B's heads
+# (32 KV heads of 128, one query each) at B=1 over 512, as phase 8's dense
+# 7B decodes; TinyLlama's (4 KV heads of 64, 8 queries each) over 2048 at
+# B=1 and at B=8 with ragged lengths, as phase 9's draft decodes; the 7B's
+# heads at B=8 (256 pairs fill the card: one block a pair, splits = 1);
+# short and mid live lengths at the draft's B=1 (a draft round's lengths:
+# most ranges empty, the rest at least MIN_SPLIT_TILES tiles).
+DECODE_CASES = [("7B B=1 L=512", 32, 1, 128, S_CTX, [S_CTX]),
+                ("TinyLlama B=1 L=2048", 4, 8, 64, 2048, [2048]),
+                ("TinyLlama B=8 ragged", 4, 8, 64, 2048, PAGED_LENGTHS),
+                ("7B B=8 ragged", 32, 1, 128, 2048, PAGED_LENGTHS),
+                ("TinyLlama B=1 L=37", 4, 8, 64, 2048, [37]),
+                ("TinyLlama B=1 L=300", 4, 8, 64, 2048, [300])]
+# The split counts swept at the first three cases and the last (ranges of
+# the live rows from 64 tiles down to 1, no floor), which set
+# flash_decode.MIN_SPLIT_TILES.
+SWEPT = ("7B B=1 L=512", "TinyLlama B=1 L=2048", "TinyLlama B=8 ragged", "TinyLlama B=1 L=300")
+SPLIT_SWEEP = (1, 2, 4, 8, 16)
+
+
+def _decode_attend_records(randn, case) -> list:
+    """Kernel 14 (decode attention, no append) at DECODE_CASES, each
+    against its plain version, timed as the wrapper launches it (the split
+    form where decode_splits gives more than 1) beside its one-block launch
+    (splits = 1, the launch before the split form), its bound and SDPA
+    over the same live rows; the split counts of SPLIT_SWEEP at SWEPT.
+    Two records: kernel 14 as the model calls it, timed at the 7B's
+    B=1 (phase 8's shape), and its split form alone (the cases with splits
+    > 1), timed at the draft's B=1."""
     import torch
 
+    from tokenhawk_tpu_torch.ops.cuda import build
     from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
 
+    log("-- kernel 14: split-S in thread-block clusters where the (sequence, KV head) pairs "
+        "leave SMs idle")
     dev = torch.device("cuda")
+    sms = build.sm_count(dev)
     bf = 2
     cases = []
-    for label, Hkv, rep, Dh, S, lens in (("7B B=1 L=512", 32, 1, 128, S_CTX, [S_CTX]),
-                                         ("TinyLlama B=1 L=2048", 4, 8, 64, 2048, [2048]),
-                                         ("TinyLlama B=8 ragged", 4, 8, 64, 2048, PAGED_LENGTHS)):
+    for label, Hkv, rep, Dh, S, lens in DECODE_CASES:
         B = len(lens)
+        splits = fd.decode_splits(B, Hkv, S, sms)
+        if label == "7B B=8 ragged" and splits != 1:
+            raise AssertionError(f"kernel 14 at {label} takes {splits} splits, not one block a pair")
         q = randn(B, Hkv, rep, Dh, scale=Dh**-0.5)
         kc, vc = randn(B, Hkv, S, Dh), randn(B, Hkv, S, Dh)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         caches = copies([kc, vc], 2 * kc.nbytes)
+        before = fd.launches["flash_decode_split"]
+        out = fd.flash_decode(q, kc, vc, lengths)
+        if fd.launches["flash_decode_split"] - before != (splits > 1):
+            raise AssertionError(f"kernel 14 at {label}: the split counter disagrees with "
+                                 f"{splits} splits")
+        ref = fd.flash_decode_plain(q, kc, vc, lengths)
         case(cases, f"flash_decode (kernel 14) {label} Hkv={Hkv} rep={rep} Dh={Dh} S={S} "
-                    f"lengths={lens}", label, B, fd.flash_decode(q, kc, vc, lengths),
-             fd.flash_decode_plain(q, kc, vc, lengths),
+                    f"lengths={lens}, {splits} splits", label, B, out, ref,
              [lambda c=c: fd.flash_decode(q, *c, lengths) for c in caches],
              [lambda c=c: fd.flash_decode_plain(q, *c, lengths) for c in caches])
         live = sum(min(n, S) for n in lens)
@@ -1288,17 +1344,177 @@ def _decode_attend_record(randn, case) -> dict:
         b = bound(2 * live * Hkv * Dh * bf + 2 * B * Hkv * rep * Dh * bf + 4 * B,
                   4 * live * Hkv * rep * Dh)
         lib = _sdpa_ms(q, caches, lens)
-        cases[-1].update(b, library_ms=lib)
-        log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}); library call "
-            f"scaled_dot_product_attention over the live rows: {lib:.4f} ms")
+        one = timed([lambda c=c: fd.flash_decode_at(q, *c, lengths, 1) for c in caches])["ms"]
+        cases[-1].update(b, library_ms=lib, splits=splits, one_block_ms=one)
+        log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}); one block a pair (splits 1): "
+            f"{one:.4f} ms; library call scaled_dot_product_attention over the live rows: "
+            f"{lib:.4f} ms")
+        if label in SWEPT:
+            sweep = {}
+            for n in SPLIT_SWEEP:
+                err, tol = max_err(fd.flash_decode_at(q, kc, vc, lengths, n, 1), ref)
+                if not err <= tol:
+                    raise AssertionError(f"kernel 14 at {label}, {n} splits: {err} > {tol}")
+                sweep[n] = timed([lambda c=c, n=n: fd.flash_decode_at(q, *c, lengths, n, 1)
+                                  for c in caches])["ms"]
+            cases[-1]["sweep_ms"] = sweep
+            tiles = (max(lens) + 31) // 32
+            log(f"  sweep (splits: ms, live tiles a range): " + ", ".join(
+                f"{n}: {ms:.4f} ({-(-tiles // n)})" for n, ms in sweep.items()))
         del kc, vc, caches
-    main = cases[0]
-    return _record("flash_decode_attend", "tokenhawk_tpu_torch/csrc/flash_decode.cu",
-                   "tokenhawk_tpu/ops/pallas/flash_decode_dma.py:1396 (flash_decode_dma); "
-                   "flash_decode_dma.py:1328 (flash_decode_loop); "
-                   "tokenhawk_tpu/ops/pallas/flash_decode.py:121 (flash_decode via "
-                   "attend_decode)", cases, ("7B B=1 L=512", 1),
-                   {k: main[k] for k in ("bound_ms", "bound_by")}, main["library_ms"])
+    src = "tokenhawk_tpu_torch/csrc/flash_decode.cu"
+    rep14 = ("tokenhawk_tpu/ops/pallas/flash_decode_dma.py:1396 (flash_decode_dma); "
+             "flash_decode_dma.py:1328 (flash_decode_loop); "
+             "tokenhawk_tpu/ops/pallas/flash_decode.py:121 (flash_decode via attend_decode)")
+
+    def at(label):
+        c = next(c for c in cases if c["shape"] == label)
+        return (label, 1), {k: c[k] for k in ("bound_ms", "bound_by")}, c["library_ms"]
+
+    return [_record("flash_decode_attend", src, rep14, cases, *at("7B B=1 L=512")),
+            _record("flash_decode_attend_split", src, rep14 + ", where the (sequence, KV "
+                    "head) pairs leave SMs idle: split-S in clusters, merged on chip",
+                    [c for c in cases if c["splits"] > 1], *at("TinyLlama B=1 L=2048"))]
+
+
+# sha256 of outputs of the kernels whose launches this tree keeps as its
+# parent had them (kernel 3, kernel 16, kernel 18, and the GEMV of kernels
+# 1, 13 and 17 at 1 and 8 rows of bfloat16 x and at 40 rows of float32 x),
+# on _output_digests' inputs, as the tree before kernel 14's split form and
+# kernel 17's tensor-core path computed them on an NVIDIA H100 80GB HBM3:
+# they must not move by a bit.
+PARENT_DIGESTS = {
+    'kernel 3 7B':
+        '57a79558f5c8b78a7ba69092c0d89f2eb5b8d11864d913b7b9772ca1c06bea5e',
+    'kernel 18 7B splits=1':
+        '7539b64f59d647b53c5469e926f5a250080296f6dd8bc57447b90b8e27c458d0',
+    'kernel 18 7B splits=8':
+        '057f0f10f0d5ce0058f0c8a7e358074c1cb4a366b9d9b5cb80b94a62c5be008c',
+    'kernel 18 7B shard 1 of 4':
+        '1a2441a3db0153c997a4d0088a5d6227cd540f87ec7d377d6c35d5678b3b4f28',
+    'kernel 3 dh64':
+        '81b63823d9be30c816c6a19bd5619ab21dd2553f2c3093b39e0301361082984a',
+    'kernel 18 dh64 splits=1':
+        'f91ed9900db983e2e626425e57588618e118daffd2142d7873ca09fe978a149e',
+    'kernel 18 dh64 splits=8':
+        'add3721d73f5166d2a842552f9277b24ccc4afd15211d52c0bbd119f47b043e4',
+    'kernel 18 dh64 shard 1 of 4':
+        '5f7e8f4a17f4354567d13d3f002fd25acffd3d19d39df46150e6da2c82e09ed1',
+    'kernel 16 7B Q4_0 Wo':
+        '2f9cee5a3964fb3b917e1e4ef2732076a86aaf40dc5f917f2a55ba895cbb740a',
+    'GEMV q4_0 rows=1 torch.bfloat16':
+        '8c609b94e7a66a25c035392b7728916bb805236456605b97f58bc0c5c13ffec7',
+    'GEMV q4_0 rows=8 torch.bfloat16':
+        '425a9f963f015af326932c578afecff5f533ea3ffedc430904864e5bfba73af4',
+    'GEMV q4_0 rows=40 torch.float32':
+        '24fb65013e95744abda9bd8dfd3a4e018e4a11936843b180f2d79029b564edb0',
+    'GEMV g32m rows=1 torch.bfloat16':
+        '05501a3dcf9dbd7f53695f9aabd1b6bd1ef4ebe4b7f446f6e3b17fe1243db907',
+    'GEMV g32m rows=8 torch.bfloat16':
+        '8c946573328b4d6e9e11149e75f1b4ba8e23cad3d0fab5114496333e34d6776f',
+    'GEMV g32m rows=40 torch.float32':
+        '5ce9435a216b8092b21da0f25943e24ad1740923928b471290df27f244ae3512',
+    'GEMV g16 rows=1 torch.bfloat16':
+        '9ec6360e278f0c2291bd8f0b89445867bd8ca15d0eb34eccfbffb6486006bbcd',
+    'GEMV g16 rows=8 torch.bfloat16':
+        '5a6614dcaf67bc7f3533c49ffc1379a0c6780c0e40fca04ef4df7576c9360545',
+    'GEMV g16 rows=40 torch.float32':
+        'f33717e3edae3e607dfcd841d59aef746b7fb01e9c70b2424dc2f936d2d55cc4',
+    'GEMV sb rows=1 torch.bfloat16':
+        '0ea3a0bdbca9234858c017051e14f5527cbf64e3eced5da869b401b807f1f2f8',
+    'GEMV sb rows=8 torch.bfloat16':
+        '0bb858e21c5d0174e4ec52fbf236568a129bcd4a00410f817a7e83baf67fed18',
+    'GEMV sb rows=40 torch.float32':
+        'f2f78be5b3088ebc7e25e434ea5a654c3507508dffd5d745fbb368ea2f180ada',
+}
+
+
+def _output_digests() -> dict:
+    """name -> sha256 of the outputs (and written caches) of the calls
+    PARENT_DIGESTS pins, on inputs from numpy's generator (so the digest
+    depends on the kernels alone), at phase 2's shapes."""
+    import hashlib
+
+    import torch
+
+    from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
+    from tokenhawk_tpu_torch.ops.cuda import qmatmul
+    from tokenhawk_tpu_torch.ops.qweight import QWeight
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 99)
+
+    def arr(*shape, scale=1.0, dtype=torch.bfloat16):
+        a = (rng.standard_normal(shape) * scale).astype(np.float32)
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    def ints(lo, hi, shape, dtype):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int64)).to(dev).to(dtype)
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for x in ts:
+            h.update(x.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    out = {}
+    for tag, Hkv, rep, Dh, S, lens in (("7B", 32, 1, 128, S_CTX, [1, 37, 300, S_CTX]),
+                                       ("dh64", 4, 8, 64, 2048, PAGED_LENGTHS)):
+        B = len(lens)
+        q = arr(B, Hkv, rep, Dh, scale=Dh**-0.5)
+        kn, vn = arr(B, Hkv, Dh), arr(B, Hkv, Dh)
+        kc, vc = arr(B, Hkv, S, Dh), arr(B, Hkv, S, Dh)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        o = fd.flash_decode_append(q, kn, vn, kc, vc, lengths)
+        out[f"kernel 3 {tag}"] = digest(o, kc, vc)
+        for splits in (1, 8):
+            out[f"kernel 18 {tag} splits={splits}"] = digest(
+                *fd.flash_decode_stats(q, kc, vc, lengths, splits))
+        shard = (kc[:, :, 1::4], vc[:, :, 1::4])  # a strided shard of the cache
+        out[f"kernel 18 {tag} shard 1 of 4"] = digest(*fd.flash_decode_stats(
+            q, *shard, torch.div(lengths + 2, 4, rounding_mode="floor").to(torch.int32)))
+    H, Dh, S, D = 32, 128, S_CTX, 4096
+    wo = QWeight.from_codes(ints(0, 16, (D, H * Dh), torch.uint8),
+                            arr(D, H * Dh // 32, scale=1e-3, dtype=torch.float32).abs(), dev)
+    x, q, kn, vn = arr(1, 1, D), arr(1, 1, H, Dh), arr(1, 1, H, Dh), arr(1, 1, H, Dh)
+    kc, vc = arr(1, H, S, Dh), arr(1, H, S, Dh)
+    y = fd.fused_attn_out(x, q, kn, vn, kc, vc, torch.tensor([300], dtype=torch.int32,
+                                                              device=dev), wo)
+    out["kernel 16 7B Q4_0 Wo"] = digest(y, kc, vc)
+    K, N = 4096, 6144
+    weights = {
+        "q4_0": QWeight.from_codes(ints(0, 16, (N, K), torch.uint8),
+                                   arr(N, K // 32, scale=1e-3, dtype=torch.float32).abs(), dev),
+        "g32m": QWeight.from_group_codes(ints(0, 16, (N, K), torch.int8),
+                                         arr(N, K // 32, scale=1e-3, dtype=torch.float32).abs(),
+                                         arr(N, K // 32, scale=1e-2, dtype=torch.float32), 32,
+                                         dev),
+        "g16": QWeight.from_group_codes(ints(-32, 32, (N, K), torch.int8),
+                                        arr(N, K // 16, scale=1e-3, dtype=torch.float32).abs(),
+                                        None, 16, dev),
+        "sb": QWeight.from_super_blocks(ints(0, 16, (N, K), torch.uint8),
+                                        ints(0, 64, (N, K // 32), torch.uint8),
+                                        ints(0, 64, (N, K // 32), torch.uint8),
+                                        arr(N, K // 256, scale=1e-4, dtype=torch.float32).abs(),
+                                        arr(N, K // 256, scale=1e-4, dtype=torch.float32).abs(),
+                                        dev)}
+    gain = 1.0 + arr(K, scale=0.1)
+    for form, w in weights.items():
+        for rows, dtype in ((1, torch.bfloat16), (8, torch.bfloat16), (40, torch.float32)):
+            x = arr(rows, K, dtype=dtype)
+            out[f"GEMV {form} rows={rows} {dtype}"] = digest(
+                qmatmul.quant_matmul(x, w, gain.to(dtype)), qmatmul.quant_matmul(x, w))
+    return out
+
+
+def _check_parent_digests() -> None:
+    """The pinned calls' outputs against PARENT_DIGESTS, bit for bit."""
+    got = _output_digests()
+    differ = [k for k in PARENT_DIGESTS if got.get(k) != PARENT_DIGESTS[k]]
+    log(f"kernels 3, 16, 18 and the GEMV at 1, 8 bf16 and 40 f32 rows: {len(got) - len(differ)} "
+        f"of {len(got)} outputs bit for bit the parent tree's")
+    if differ or set(got) != set(PARENT_DIGESTS):
+        raise AssertionError(f"outputs that moved from the parent tree's: {differ or got}")
 
 
 def _head_dim_64_cases(randn, case) -> dict:
@@ -2218,10 +2434,10 @@ def phase_cli(path: str) -> None:
 # Every quantized projection the model makes (through ops.linear, whose
 # quant_matmul _install_route_spy wraps) since the last _reset_counts:
 # (rows, dtype, on the card, weight form, the launch counters it ticked).
-# _check_path holds each to the rule of kernels 1 and 13: bf16 x above 8
-# rows over Q4_0 or a group-code form ticks the tensor-core path's counter
-# (name_tc), every other call on the card (decode rows, float32 x, the
-# super-block form) the GEMV's, a call on the CPU none.
+# _check_path holds each to the rule of kernels 1, 13 and 17: bf16 x above 8
+# rows over any weight form ticks the tensor-core path's counter (name_tc),
+# every other call on the card (decode rows, float32 x) the GEMV's, a call
+# on the CPU none.
 _ROUTES = []
 
 
@@ -2251,7 +2467,7 @@ def _check_routes() -> str:
 
     rows = {"gemv": [], "tc": []}
     for n, dtype, cuda, form, ticked in _ROUTES:
-        tc = cuda and dtype == torch.bfloat16 and n > 8 and form != qmatmul.SB
+        tc = cuda and dtype == torch.bfloat16 and n > 8
         name = {0: "q4_matmul", qmatmul.SB: "qk_sb_matmul"}.get(form, "qk_matmul")
         want = [name + "_tc" if tc else name] if cuda else []
         if ticked != want:
@@ -2706,7 +2922,7 @@ def phase_gguf(tmp: str, kernel_mods) -> str:
         if rc != 0:
             raise AssertionError(f"cli {extra} returned {rc}")
         _check_path(counts, ["qk_matmul", *FFN_Q4_K_M, "flash_decode_int8"],
-                    [*Q4_PATHS, "flash_decode", "qk_sb_matmul", *FFN_SB])
+                    [*Q4_PATHS, "flash_decode", *SB_PATHS, *FFN_SB])
         log(f"cli on the GGUF {' '.join(extra)}: exit 0, kernel launches {counts}")
 
     # The server's copy swaps the head rows of the third token and
@@ -2826,7 +3042,8 @@ def phase_q4k_sb(kernel_mods, engine_path, paged_path) -> tuple:
     the PagedScheduler (phase 4b's requests); kernel 13 may take only the
     Q6_K weights and the flat w2.  Between them, decode windows at B=1 on
     these weights and on the flat form of the same codes, in turns (device
-    ms a token, idle share).  Returns both runs' counts."""
+    ms a token, idle share), and a 1500-token prefill on each in turns.
+    Returns both runs' counts."""
     import torch
 
     from tokenhawk_tpu_torch.config import SamplingConfig
@@ -2873,6 +3090,20 @@ def phase_q4k_sb(kernel_mods, engine_path, paged_path) -> tuple:
     log("device ms a token at B=1, 300+ live, sb against the flat form of the same codes: "
         + ", ".join(f"{f} {[round(w['device_ms'], 4) for w in ws]}"
                     for f, ws in windows.items()))
+    # A 1500-token prefill (every projection on the tensor-core path, kernel
+    # 17's sb forms against kernel 13 on the flat form of the same codes).
+    long_prompt = [1] + np.random.default_rng(SEED + 13).integers(3, cfg.n_vocab, 1499).tolist()
+    prefill = {"sb": [], "flat": []}
+    for form in ("sb", "flat", "flat", "sb"):
+        eng = engines[form]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.prefill(eng.new_cache(1), [long_prompt])
+        torch.cuda.synchronize()
+        prefill[form].append(time.perf_counter() - t0)
+    log(f"1500-token prefill, {cfg.n_layer} layers, seconds (host clock, synchronised): "
+        + ", ".join(f"{f} {[round(v, 4) for v in vs]}" for f, vs in prefill.items())
+        + f"; sb / flat {min(prefill['sb']) / min(prefill['flat']):.2f}x")
     del engines, flat
     torch.cuda.empty_cache()
     paged, sched = phase_paged_serve(params, cfg, kernel_mods, "bf16", *paged_path,
@@ -2956,9 +3187,9 @@ def phase_gguf_sb(path: str, tmp: str) -> None:
             f"{(time.perf_counter() - t0) / 4:.3f} s a window")
         return v
 
-    # A window's 512 rows of bfloat16 activations take kernel 13's
-    # tensor-core path (the flat forms and the Q6_K head) and kernel 17's
-    # GEMV (the super-block forms); float32 activations the GEMV alone.
+    # A window's 512 rows of bfloat16 activations take the tensor-core path,
+    # kernel 13's (the flat forms and the Q6_K head) and kernel 17's (the
+    # super-block forms); float32 activations the GEMV alone.
     _reset_counts([qmatmul])
     for sides in ("float32", "bfloat16"):
         got = {form: nll(_sides_as(p, getattr(torch, sides)), f"{form}, {sides} sides")
@@ -2967,15 +3198,15 @@ def phase_gguf_sb(path: str, tmp: str) -> None:
             f"{got['sb'] - got['flat']:.3e}")
         if not all(np.isfinite(v) for v in got.values()):
             raise AssertionError(f"perplexity not finite: {got}")
-    _check_path(_read_counts([qmatmul]), ["qk_matmul_tc", "qk_sb_matmul"],
-                [*Q4_PATHS, "qk_matmul"])
+    _check_path(_read_counts([qmatmul]), ["qk_matmul_tc", "qk_sb_matmul_tc"],
+                [*Q4_PATHS, "qk_matmul", "qk_sb_matmul"])
     # float32 sides and activations: the two forms hold the same weights, so
     # their scores differ by summation order alone.
     _reset_counts([qmatmul])
     ratio = (nll(_float32(params), "sb, float32 sides and activations")
              - nll(_float32(flat), "flat, float32 sides and activations"))
-    _check_path(_read_counts([qmatmul]), ["qk_matmul", "qk_sb_matmul"],
-                [*Q4_PATHS, "qk_matmul_tc"])
+    _check_path(_read_counts([qmatmul]), ["qk_sb_matmul", "qk_matmul"],
+                [*Q4_PATHS, "qk_matmul_tc", "qk_sb_matmul_tc"])
     log(f"  float32 sides and activations: log(ppl_sb / ppl_flat) = {ratio:.3e} (tolerance "
         f"{F32_FORMS_TOL:g})")
     if not abs(ratio) < F32_FORMS_TOL:
@@ -3180,6 +3411,48 @@ def _spec_engine_run(spec, prompt, label, n_new: int = 64) -> tuple:
     return toks, stats, tps
 
 
+def _check_draft_splits(label: str, counts: dict) -> None:
+    """Every kernel-14 launch of a speculative run is the draft's (the
+    target's dense-cache decode is kernel 3, its verify kernel 4), and at
+    the draft's 4 KV heads each takes the split form."""
+    n, split = counts.get("flash_decode_attend", 0), counts.get("flash_decode_split", 0)
+    log(f"  {label}: {split} of the draft's {n} kernel-14 launches took the split form")
+    if not 0 < split == n:
+        raise AssertionError(f"{label}: {split} of {n} kernel-14 launches split")
+
+
+def _split_ab(spec, prompt) -> None:
+    """9a's request again with kernel 14 held to one block a (sequence, KV
+    head) (splits 1: the launch before the split form) and on the split
+    form, in turns (split, one, one, split): decode tok/s of each, and the
+    device time of a profiled round's kernel-14 launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
+
+    log("-- 9a: kernel 14 on the split form against one block a pair, in turns")
+    auto = fd.decode_splits
+    tps = {"split": [], "one block": []}
+    try:
+        for form in ("split", "one block", "one block", "split"):
+            fd.decode_splits = auto if form == "split" else (lambda *shape: 1)
+            _, _, t = _spec_engine_run(spec, prompt, f"9a kernel 14 {form}")
+            tps[form].append(t)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                spec.generate(prompt, max_new_tokens=8)
+                torch.cuda.synchronize()
+            k14 = [e for e in prof.key_averages() if "decode_split_kernel" in e.key
+                   or "decode_attend_kernel" in e.key]
+            us = sum(e.self_device_time_total for e in k14) / max(sum(e.count for e in k14), 1)
+            log(f"  {form}: kernel 14 {us:.2f} us a launch on the device (profiler, "
+                f"{sum(e.count for e in k14)} launches)")
+    finally:
+        fd.decode_splits = auto
+    log("9a decode tok/s, kernel 14 split against one block a pair: "
+        + ", ".join(f"{f} {[round(v, 1) for v in vs]}" for f, vs in tps.items()))
+
+
 def phase_speculation(params, kernel_mods, model_path: str, tmp: str) -> dict:
     """Phase 9: speculative decoding.  9a: SpeculativeEngine, the LLaMA-7B
     Q4_0 target (its first SPEC_LAYERS layers) with a 22-layer
@@ -3224,6 +3497,7 @@ def phase_speculation(params, kernel_mods, model_path: str, tmp: str) -> dict:
     _check_path(counts, [*Q4_PATHS, FFN_Q4_0, K4, "flash_decode_attend"],
                 ["flash_decode", *QK_PATHS, "flash_decode_int8", K9, "paged_decode",
                  "paged_append", "gather_pages", *CUDA_CORE_PREFILL])
+    _check_draft_splits("9a", counts)
     for p, (toks, _, _) in zip(prompts, runs):
         _check_greedy_identity(f"9a prompt={len(p)}", toks,
                                _decode_and_verify_forms(engine, p, len(toks), spec.gamma))
@@ -3231,6 +3505,7 @@ def phase_speculation(params, kernel_mods, model_path: str, tmp: str) -> dict:
     log(f"9a profiled request (5-token prompt, 16 tokens, profiler on): wall {wall * 1e3:.1f} ms, "
         f"device busy {busy * 1e3:.1f} ms, idle share {1 - busy / wall:.1%}")
     _f32_identity_witness(params, draft, cfg, prompts, kernel_mods)
+    _split_ab(spec, prompts[1])
 
     log("== phase 9b: self-draft, a 2-layer 7B-width Q4_0 target and its weights dequantized to "
         "float32 as the draft, f32 activations and cache, gamma 4")
@@ -3332,6 +3607,7 @@ def _paged_speculation(params, draft, cfg, dcfg, kernel_mods) -> None:
                 ["paged_decode", "flash_decode", *QK_PATHS, "flash_decode_int8",
                  "paged_decode_int8", "paged_append_int8", "gather_pages_int8",
                  *CUDA_CORE_PREFILL])
+    _check_draft_splits("9c", counts)
     parked = set(sched._pc.values())
     if (sched.alloc.n_free + len(parked) != sched.n_pages - 1
             or any(sched.page_refs.get(p, 0) for p in parked)):
@@ -4008,7 +4284,7 @@ def main() -> int:
         # Phase 8: dense weights decode through kernel 14; phase 9: speculation
         # over the Q4_0 model, its draft's decode through kernel 14 at Dh 64.
         dense_counts = phase_dense_7b(every)
-        phase_speculation(params, every, path, tmp)
+        spec_counts = phase_speculation(params, every, path, tmp)
         # Phase 10: the fused decode-layer kernels (10a Engine, 10b paged),
         # then a head-dim-64 model under the paged server (10c).
         fused_counts = phase_fused_engine(params, every)
@@ -4033,14 +4309,14 @@ def main() -> int:
                     + int8_dense + int8_paged)
 
         # Without THAWK_Q4K_SB the super-block kernels stay off.
-        flat_off = ["qk_sb_matmul", *FFN_SB]
+        flat_off = [*SB_PATHS, *FFN_SB]
         q4km_counts, _ = phase_q4_k_m(every, engine_path(FFN_Q4_K_M, flat_off),
                                       paged_path(FFN_Q4_K_M, flat_off))
         q8_counts = phase_q8_0(every, engine_path([FFN_Q8_0], flat_off))
         gguf_path = phase_gguf(tmp, every)
         # Phase 11: the Q4_K super-block forms (kernel 17, kernel 2 with an
         # sb w13); 11a on phase 6's model, 11b and 11c on phase 7's file.
-        sb_on = ["qk_sb_matmul", *FFN_SB]
+        sb_on = [*SB_PATHS, *FFN_SB]
         sb_counts, _ = phase_q4k_sb(every, engine_path(sb_on, FFN_Q4_K_M),
                                     paged_path(sb_on, FFN_Q4_K_M))
         phase_gguf_sb(gguf_path, tmp)
@@ -4072,6 +4348,7 @@ def main() -> int:
                 "fused_ffn[q4_k/q4_k]": q4km_counts[FFN_Q4_K_M[1]],
                 "fused_ffn[q8_0/q8_0]": q8_counts[FFN_Q8_0],
                 "qk_sb_matmul": sb_counts["qk_sb_matmul"],
+                "qk_sb_matmul_tc": sb_counts["qk_sb_matmul_tc"],
                 "fused_ffn[q4k_sb/q6_k]": sb_counts[FFN_SB[0]],
                 "fused_ffn[q4k_sb/q4_k]": sb_counts[FFN_SB[1]],
                 **{k: paged_counts[k] for k in bf16_paged},
@@ -4079,6 +4356,7 @@ def main() -> int:
                 "flash_attention_int8": int8_counts[K9],
                 **{k: int8_paged_counts[k] for k in int8_paged},
                 "flash_decode_attend": dense_counts["flash_decode_attend"],
+                "flash_decode_attend_split": spec_counts["flash_decode_split"],
                 "fused_owo_ffn": fused_counts["owo"][OWO_Q4_0],
                 "fused_attn_out": fused_counts["attn"][ATTN_WO],
                 "flash_decode_stats": cp_counts["flash_decode_stats"],

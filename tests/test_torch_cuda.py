@@ -190,14 +190,38 @@ def test_qk_sb_matmul_kernel_matches_plain(K, N, rows, dtype):
     w = QWeight.random(K, N, "q4k_sb", g, dev)
     x = torch.randn(rows, K, generator=g, device=dev).to(dtype)
     gain = (1 + 0.1 * torch.randn(K, generator=g, device=dev)).to(dtype)
+    key = _path("qk_sb_matmul", rows, dtype)
     for ng in (None, gain):
         before = dict(qmatmul.launches)
         got = qmatmul.quant_matmul(x, w, ng)
-        assert qmatmul.launches == {**before, "qk_sb_matmul": before["qk_sb_matmul"] + 1}
+        assert qmatmul.launches == {**before, key: before[key] + 1}
         want = qmatmul.quant_matmul_plain(x, w, ng)
         assert got.shape == (rows, N) and got.dtype == dtype
         assert _err(got, want) <= _tol(want, dtype)
         assert _err(qmatmul.quant_matmul(x, w.flat(), ng), want) <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("K,N", [(1024, 136), (4096, 1024), (14336, 256)])
+@pytest.mark.parametrize("rows", [9, 40, 512])
+def test_qk_sb_matmul_tensor_core_path_matches_plain(K, N, rows):
+    """Kernel 17 on bf16 x above 8 rows runs the tensor-core GEMM (s and
+    m expanded per group in the walk), at ragged columns and with K split
+    across blocks (a narrow N); f32 x at the same rows keeps the GEMV."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(K + rows + 17)
+    w = QWeight.random(K, N, "q4k_sb", g, dev)
+    x = torch.randn(rows, K, generator=g, device=dev).to(torch.bfloat16)
+    gain = (1 + 0.1 * torch.randn(K, generator=g, device=dev)).to(torch.bfloat16)
+    for ng in (None, gain):
+        before = dict(qmatmul.launches)
+        got = qmatmul.quant_matmul(x, w, ng)
+        assert qmatmul.launches == {**before, "qk_sb_matmul_tc": before["qk_sb_matmul_tc"] + 1}
+        want = qmatmul.quant_matmul_plain(x, w, ng)
+        assert got.shape == (rows, N) and got.dtype == torch.bfloat16
+        assert _err(got, want) <= _tol(want, torch.bfloat16)
+    before = dict(qmatmul.launches)
+    qmatmul.quant_matmul(x.float(), w, gain)
+    assert qmatmul.launches == {**before, "qk_sb_matmul": before["qk_sb_matmul"] + 1}
 
 
 @pytest.mark.parametrize("w2_form", [(16, False), (32, True)])  # Q6_K, flat Q4_K
@@ -327,12 +351,43 @@ def test_decode_attend_kernel_matches_plain(rep, dtype, Dh):
     kp, vp = kc.clone(), vc.clone()
     before = dict(flash_decode.launches)
     got = flash_decode.flash_decode(q, kc, vc, lengths)
+    split = flash_decode.decode_splits(B, Hkv, S, torch.cuda.get_device_properties(
+        dev).multi_processor_count) > 1  # 24 pairs: the split form on an H100
     assert flash_decode.launches == {**before, "flash_decode_attend":
-                                     before["flash_decode_attend"] + 1}
+                                     before["flash_decode_attend"] + 1,
+                                     "flash_decode_split": before["flash_decode_split"] + split}
     want = flash_decode.flash_decode_plain(q, kc, vc, lengths)
     assert torch.equal(kc, kp) and torch.equal(vc, vp)
     assert got.shape == q.shape and got.dtype == dtype
     assert _err(got, want) <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
+@pytest.mark.parametrize("rep", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_split_kernel_matches_plain(rep, dtype, Dh):
+    """Kernel 14's split form at every split count (a cluster of 1 to 16
+    blocks a (sequence, kv head)), ranges of at least 1 and
+    MIN_SPLIT_TILES tiles, lengths of 1 row, a tile less one, a tile, a
+    tile and one, 300 rows, S and past S: empty ranges merge as the
+    identity."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(rep + Dh + 14)
+    B, Hkv, S = 7, 4, 2048
+    lengths = torch.tensor([1, 31, 32, 33, 300, S, S + 5], dtype=torch.int32, device=dev)
+    q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).to(dtype)
+    kc = torch.randn(B, Hkv, S, Dh, generator=g, device=dev).to(dtype)
+    vc = torch.randn(B, Hkv, S, Dh, generator=g, device=dev).to(dtype)
+    want = flash_decode.flash_decode_plain(q, kc, vc, lengths)
+    for min_tiles in (1, flash_decode.MIN_SPLIT_TILES):
+        for splits in range(1, flash_decode.MAX_SPLITS + 1):
+            before = dict(flash_decode.launches)
+            got = flash_decode.flash_decode_at(q, kc, vc, lengths, splits, min_tiles)
+            torch.cuda.synchronize()
+            assert flash_decode.launches["flash_decode_split"] == (
+                before["flash_decode_split"] + (splits > 1))
+            assert got.shape == q.shape and got.dtype == dtype
+            assert _err(got, want) <= _tol(want, dtype), (splits, min_tiles)
 
 
 @pytest.mark.parametrize("Dh", HEAD_DIMS)

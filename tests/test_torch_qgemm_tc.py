@@ -1,4 +1,4 @@
-"""A CPU rehearsal of the tensor-core path of kernels 1 and 13 (csrc/qgemm_tc.cuh).
+"""A CPU rehearsal of the tensor-core path of kernels 1, 13 and 17 (csrc/qgemm_tc.cuh).
 
 `tile_walk` below repeats the walk's roundings in torch: xn is rounded
 to bf16 once (after the norm, (x * inv_rms) * gain, when there is one);
@@ -7,17 +7,21 @@ products (exact in f32) are summed in f32 one K step of 64 inputs at a
 time (a ragged last step of 32; where the kernel splits K across blocks
 it adds the splits' sums in order, another order of the same sums); a
 mins form adds the f32 dot of xn's group sums with m after each step's
-products; the output is rounded once to bf16.  The emulation lives here,
+products; the output is rounded once to bf16.  The Q4_K super-block form
+(kernel 17) first expands each group's s = d*sc and m = 8s - dmin*mn in
+f32, each product and the difference rounded, and then walks as a mins
+form over its codes less 8.  The emulation lives here,
 not in the package: the kernel cannot run on the CPU, and its plain
 version keeps f32 throughout.
 
 It is held against the reference's Pallas kernels in interpret mode
-(q4_matmul, q8_matmul and qk_matmul, reached as the model reaches them)
-on bf16 x at 9 to 256 rows, where `_qdot` takes its bf16 dot (the
-reference pads the rows to a multiple of 8 and tiles them in blocks of
-more than 8 at these counts), with and without the fused norm, over
-Q4_0, Q8_0 (G 32), Q4_K (G 32, mins), Q6_K (G 16) and Q2_K (G 16, mins)
-at ragged widths.  Both sides sum the same bf16 products in f32 and
+(q4_matmul, q8_matmul, qk_matmul and qk_sb_matmul, reached as the model
+reaches them) on bf16 x at 9 to 256 rows, where `_qdot` takes its bf16
+dot (the reference pads the rows to a multiple of 8 and tiles them in
+blocks of more than 8 at these counts), with and without the fused norm,
+over Q4_0, Q8_0 (G 32), Q4_K (G 32, mins), Q6_K (G 16), Q2_K (G 16,
+mins) and Q4_K in super-blocks (THAWK_Q4K_SB=1's form; the reference's
+kernel needs K % 1024 == 0) at ragged widths.  Both sides sum the same bf16 products in f32 and
 differ by order and by the norm's row statistics: the mean of squares,
 summed in another order, can move inv_rms by an f32 ulp and with it an xn
 across a bf16 rounding boundary.  So each output is held within one bf16
@@ -31,6 +35,8 @@ holds the kernels to.
 """
 
 import functools
+import os
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -57,7 +63,7 @@ STEP = 64  # inputs a K step of the walk
 # Q8_0's K = 800 ends in a half step; Q4_0's K a multiple of 64, as the
 # reference's packed halves need).
 KINDS = {"Q4_0": (704, 200), "Q8_0": (800, 100), "Q4_K": (512, 136), "Q6_K": (768, 100),
-         "Q2_K": (512, 72)}
+         "Q2_K": (512, 72), "Q4_K_SB": (1024, 136)}
 ROWS = [9, 40, 256]
 
 
@@ -74,13 +80,28 @@ def weights(kind):
         port_qt = TQuantizedTensor(TType.Q8_0, qt.shape, qt.qs, qt.scales, qt.mins)
         return (j_qw.from_quantized_tensor(qt, scale_dtype=jnp.float32),
                 QWeight.from_quantized_tensor(port_qt))
+    if kind == "Q4_K_SB":
+        raw = random_kquant(TType.Q4_K, (N, K), rng).raw
+        with mock.patch.dict(os.environ, {"THAWK_Q4K_SB": "1"}):
+            jw = j_qw.from_kquant_raw(JType.Q4_K, raw, (N, K), scale_dtype=jnp.float32,
+                                      use_i4=True)
+        pw = QWeight.from_kquant_raw(TType.Q4_K, raw, (N, K), sb=True)
+        assert jw.kind == pw.kind == "q4k_sb"
+        return jw, pw
     raw = random_kquant(TType[kind], (N, K), rng).raw
     return (j_qw.from_kquant_raw(JType[kind], raw, (N, K), scale_dtype=jnp.float32, use_i4=False),
             QWeight.from_kquant_raw(TType[kind], raw, (N, K)))
 
 
 def _sides(w: QWeight):
-    """codes [N, K] as the kernel reads them (Q4_0's less 8), s and m [N, K/G]."""
+    """codes [N, K] as the kernel reads them (Q4_0's and the super-blocks'
+    less 8), s and m [N, K/G]; a super-block weight's expanded per group
+    with the walk's f32 roundings."""
+    if w.kind == "q4k_sb":
+        g = w.scmn.shape[1] // 2
+        s = w.scales.repeat_interleave(8, dim=1) * w.scmn[:, :g].float()
+        m = 8.0 * s - w.mins.repeat_interleave(8, dim=1) * w.scmn[:, g:].float()
+        return w.codes().float() - 8.0, s, m
     codes = w.codes().float() - (8.0 if w.kind == "q4_0" else 0.0)
     return codes, w.scales, w.mins
 
@@ -179,14 +200,12 @@ def test_walk_matches_plain(kind, rows, norm):
 
 
 def test_the_path_is_chosen_by_dtype_rows_and_form():
-    """bf16 x above 8 rows over Q4_0 and the group-code forms; every other
-    call (decode rows, f32 x, the super-block form) keeps the GEMV."""
-    sb = qmatmul.FORM_NAMES.index("sb")
-    for form in range(len(qmatmul.FORM_NAMES)):
-        for rows in (1, 8, 9, 40, 512):
-            for dtype in (torch.bfloat16, torch.float32):
-                want = dtype == torch.bfloat16 and rows > 8 and form != sb
-                assert qmatmul.tensor_core_path(dtype, rows, form) == want
+    """bf16 x above 8 rows over every form, the super-block form (kernel
+    17) too; every other call (decode rows, f32 x) keeps the GEMV."""
+    for rows in (1, 8, 9, 40, 512):
+        for dtype in (torch.bfloat16, torch.float32):
+            want = dtype == torch.bfloat16 and rows > 8
+            assert qmatmul.tensor_core_path(dtype, rows) == want
     for kind in KINDS:  # a CPU tensor runs the plain version and counts nothing
         x, gain = _inputs(kind, 40, True)
         before = dict(qmatmul.launches)

@@ -40,6 +40,24 @@
 // writes the identity): with few (b, kv head) pairs, splits put more than
 // B*Hkv blocks on the 132 SMs.  Bound by the live rows' bytes, as kernel 14.
 //
+// Kernel 14 at few (b, kv head) pairs takes a second launch, split-S with
+// an on-chip merge (decode_split_kernel): one block per (b, kv head) leaves
+// most of the 132 SMs idle (4 blocks at B=1 over a TinyLlama-width draft's 4
+// KV heads), so where B*Hkv is below the SM count the wrapper cuts each
+// pair's live rows into `splits` tile-aligned ranges, computed here from
+// lengths as kernel 18 computes them (the host never reads lengths), none
+// shorter than `min_tiles` tiles: a short live length fills its first
+// ranges and leaves the rest empty rather than cut 1-tile ranges.  The
+// `splits` blocks of one pair form one thread-block cluster; each runs
+// kernel 18's body over its range and leaves its partials (o, m, l) in its
+// own shared memory (an empty range the merge identity (0, -inf, 0)).
+// After cluster.sync() every block merges a share of the pair's REP*DH
+// outputs from all the blocks' partials over distributed shared memory
+// (the max of m, each partial weighted by exp(m - max), the sums in
+// split order), divides once and rounds once to q's type; a second
+// cluster.sync() keeps each block's shared memory alive until the reads
+// are done.  No global scratch, one launch.
+//
 // Kernel 16 replaces tokenhawk_tpu/ops/pallas/attn_block.py fused_attn_out
 // (_attn_wo): the attention block of one decode token (B = 1, one query per
 // kv head), x' = x + attend(q, cache + new row) @ Wo, with the new K / V rows
@@ -53,6 +71,8 @@
 // The TPU kernel streams Wo through a DMA ring during the KV walk; on the
 // GPU the two launches run back to back, each bound by its own bytes (the
 // live K / V rows, then Wo's blocks).
+#include <cooperative_groups.h>
+
 #include <type_traits>
 
 #include "gemv.cuh"
@@ -235,6 +255,52 @@ __global__ void __launch_bounds__(kWarps * 32)
                                           m + row0, l + row0);
 }
 
+// Kernel 14's split form: block (split, b * Hkv + h) of a cluster of
+// gridDim.x = splits blocks attends over its range of the pair's live rows,
+// then the cluster merges (see the header).
+template <typename TQ, typename TC, int REP, int DH>
+__global__ void __launch_bounds__(kWarps * 32)
+    decode_split_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc,
+                        const TC* __restrict__ vc, const int* __restrict__ lengths,
+                        TQ* __restrict__ out, int Hkv, int S, int min_tiles) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ __align__(16) float po[REP * DH];
+  __shared__ float pm[REP], pl[REP];
+  const int split = static_cast<int>(cluster.block_rank());  // blockIdx.x
+  const int splits = static_cast<int>(cluster.num_blocks());  // gridDim.x
+  const int bh = blockIdx.y;
+  const int L = max(1, min(lengths[bh / Hkv], S));
+  const int per = max(((L + 31) / 32 + splits - 1) / splits, min_tiles) * 32;  // rows a split
+  const int begin = min(split * per, L), end = min(begin + per, L);
+  const size_t qo = static_cast<size_t>(bh) * REP * DH;
+  if (begin < end) {
+    const size_t co = static_cast<size_t>(bh) * S * DH;
+    attend_head<TQ, TC, REP, DH, float, true>(q + qo, kc + co, vc + co, begin, end, DH, po, 1.f,
+                                              pm, pl);
+  } else {  // nothing to read: the merge identity
+    for (int i = threadIdx.x; i < REP * DH; i += blockDim.x) po[i] = 0.f;
+    if (threadIdx.x < REP) {
+      pm[threadIdx.x] = -INFINITY;
+      pl[threadIdx.x] = 0.f;
+    }
+  }
+  cluster.sync();  // every block's partials written and visible to the cluster
+  for (int i = split * blockDim.x + threadIdx.x; i < REP * DH; i += splits * blockDim.x) {
+    const int r = i / DH;
+    float mx = -INFINITY;
+    for (int s = 0; s < splits; ++s) mx = fmaxf(mx, cluster.map_shared_rank(pm, s)[r]);
+    float num = 0.f, den = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float f = expf(cluster.map_shared_rank(pm, s)[r] - mx);  // 0 for an empty range
+      num += cluster.map_shared_rank(po, s)[i] * f;
+      den += cluster.map_shared_rank(pl, s)[r] * f;
+    }
+    out[qo + i] = from_f32<TQ>(num / den);
+  }
+  cluster.sync();  // no block leaves while another still reads its shared memory
+}
+
 struct Args {
   const void* q;
   const void* k_new;  // null for kernel 14
@@ -245,13 +311,42 @@ struct Args {
   void* out;
   int B, Hkv, S;
   cudaStream_t stream;
+  int splits;     // kernel 14 only: > 1 takes the split form,
+  int min_tiles;  // its ranges at least this many tiles
 };
 
+// The split form: a grid of (splits, B*Hkv) blocks in clusters of splits x
+// 1 x 1 (above 8 blocks a cluster is not portable and must be allowed,
+// once for each instance).
 template <typename TQ, typename TC, int REP, int DH>
-void launch_one(const Args& a) {
+cudaError_t launch_split(const Args& a) {
+  auto* fn = decode_split_kernel<TQ, TC, REP, DH>;
+  static const cudaError_t allowed =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (allowed != cudaSuccess) return allowed;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.splits, a.B * a.Hkv);
+  cfg.blockDim = dim3(kWarps * 32);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, fn, static_cast<const TQ*>(a.q),
+                            static_cast<const TC*>(a.kc), static_cast<const TC*>(a.vc),
+                            a.lengths, static_cast<TQ*>(a.out), a.Hkv, a.S, a.min_tiles);
+}
+
+template <typename TQ, typename TC, int REP, int DH>
+cudaError_t launch_one(const Args& a) {
   const dim3 grid(a.B * a.Hkv), block(kWarps * 32);
   const TQ* q = static_cast<const TQ*>(a.q);
   TQ* o = static_cast<TQ*>(a.out);
+  if (a.splits > 1) return launch_split<TQ, TC, REP, DH>(a);
   if (a.k_new != nullptr)
     decode_append_kernel<TQ, TC, REP, DH, TQ><<<grid, block, 0, a.stream>>>(
         q, static_cast<const TQ*>(a.k_new), static_cast<const TQ*>(a.v_new),
@@ -259,36 +354,36 @@ void launch_one(const Args& a) {
   else
     decode_attend_kernel<TQ, TC, REP, DH><<<grid, block, 0, a.stream>>>(
         q, static_cast<const TC*>(a.kc), static_cast<const TC*>(a.vc), a.lengths, o, a.Hkv, a.S);
+  return cudaSuccess;
 }
 
 template <typename TQ, typename TC, int DH>
-void launch_rep(const Args& a, int rep) {
+cudaError_t launch_rep(const Args& a, int rep) {
   switch (rep) {
-    case 1: launch_one<TQ, TC, 1, DH>(a); break;
-    case 2: launch_one<TQ, TC, 2, DH>(a); break;
-    case 4: launch_one<TQ, TC, 4, DH>(a); break;
-    default: launch_one<TQ, TC, 8, DH>(a); break;
+    case 1: return launch_one<TQ, TC, 1, DH>(a);
+    case 2: return launch_one<TQ, TC, 2, DH>(a);
+    case 4: return launch_one<TQ, TC, 4, DH>(a);
+    default: return launch_one<TQ, TC, 8, DH>(a);
   }
 }
 
 template <typename TQ, typename TC>
-void launch_dh(const Args& a, int rep, int Dh) {
-  if (Dh == 64)
-    launch_rep<TQ, TC, 64>(a, rep);
-  else
-    launch_rep<TQ, TC, 128>(a, rep);
+cudaError_t launch_dh(const Args& a, int rep, int Dh) {
+  return Dh == 64 ? launch_rep<TQ, TC, 64>(a, rep) : launch_rep<TQ, TC, 128>(a, rep);
 }
 
 int launch(const Args& a, int rep, int Dh, int q_dtype, int cache_dtype) {
+  cudaError_t e;
   if (q_dtype == kBF16 && cache_dtype == kBF16)
-    launch_dh<__nv_bfloat16, __nv_bfloat16>(a, rep, Dh);
+    e = launch_dh<__nv_bfloat16, __nv_bfloat16>(a, rep, Dh);
   else if (q_dtype == kBF16)
-    launch_dh<__nv_bfloat16, float>(a, rep, Dh);
+    e = launch_dh<__nv_bfloat16, float>(a, rep, Dh);
   else if (cache_dtype == kBF16)
-    launch_dh<float, __nv_bfloat16>(a, rep, Dh);
+    e = launch_dh<float, __nv_bfloat16>(a, rep, Dh);
   else
-    launch_dh<float, float>(a, rep, Dh);
-  return THAWK_LAUNCH_RESULT();
+    e = launch_dh<float, float>(a, rep, Dh);
+  const int last = THAWK_LAUNCH_RESULT();  // also clears a failed launch's error
+  return e != cudaSuccess ? static_cast<int>(e) : last;
 }
 
 }  // namespace
@@ -301,17 +396,22 @@ extern "C" int th_decode_append(const void* q, const void* k_new, const void* v_
                                 void* vc, const void* lengths, void* out, int B, int Hkv, int rep,
                                 int Dh, int S, int q_dtype, int cache_dtype, void* stream) {
   const Args a{q, k_new, v_new, kc, vc, static_cast<const int*>(lengths), out, B, Hkv, S,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<cudaStream_t>(stream), 1, 1};
   return launch(a, rep, Dh, q_dtype, cache_dtype);
 }
 
 // Kernel 14.  As kernel 3 without the new rows; the caches are only read.
+// splits 1 launches one block per (b, kv head); 2-16 the split form, in
+// clusters of `splits` blocks, its ranges at least min_tiles tiles
+// (checked by the Python wrapper).
 extern "C" int th_decode_attend(const void* q, const void* kc, const void* vc,
                                 const void* lengths, void* out, int B, int Hkv, int rep, int Dh,
-                                int S, int q_dtype, int cache_dtype, void* stream) {
+                                int S, int splits, int min_tiles, int q_dtype, int cache_dtype,
+                                void* stream) {
+  if (splits < 1 || splits > 16 || min_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, nullptr, nullptr, const_cast<void*>(kc), const_cast<void*>(vc),
                static_cast<const int*>(lengths), out, B, Hkv, S,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<cudaStream_t>(stream), splits, min_tiles};
   return launch(a, rep, Dh, q_dtype, cache_dtype);
 }
 

@@ -1,17 +1,22 @@
-// The tensor-core path of kernels 1 (Q4_0) and 13 (group codes): the
-// quantized matmul at more than 8 bfloat16 rows (prefill, chunked and
-// prefix-cache admissions, the speculative verify, eval windows).
+// The tensor-core path of kernels 1 (Q4_0), 13 (group codes) and 17 (Q4_K
+// super-blocks): the quantized matmul at more than 8 bfloat16 rows
+// (prefill, chunked and prefix-cache admissions, the speculative verify,
+// eval windows).
 //
 // It computes what tokenhawk_tpu/ops/pallas/qmatmul.py q4_matmul
-// (_q4_kernel), q8_matmul (_q8_kernel) and qk_matmul (_qk_kernel) compute
-// at more than 8 rows of bf16 x, where `_qdot` takes the MXU's bf16 dot:
+// (_q4_kernel), q8_matmul (_q8_kernel), qk_matmul (_qk_kernel) and
+// qk_sb_matmul (_qk_sb_kernel) compute at more than 8 rows of bf16 x, where
+// `_qdot` takes the MXU's bf16 dot:
 //   xn[b,k] = bf16((x[b,k] * inv_rms[b]) * gain[k])        (bf16(x) without a norm)
 //   y[b,n]  = bf16( sum_k xn[b,k] * bf16(code[n,k] * s[n,g(k)])     bf16 products, f32 sums
 //                 + sum_g m[n,g] * sum_{k in g} xn[b,k] )            mins forms, in f32
-// (Q4_0's code is the nibble less 8).  The roundings are the reference's:
-// `_norm_rows` rounds xn once, `_apply_scales` forms code * s in f32 and
-// `_qdot` rounds it to bf16, and KQ_BIASDOT adds the group sums of xn
-// times m as an f32 dot.
+// (Q4_0's and the super-blocks' code is the nibble less 8).  The roundings
+// are the reference's: `_norm_rows` rounds xn once, `_apply_scales` forms
+// code * s in f32 and `_qdot` rounds it to bf16, and KQ_BIASDOT adds the
+// group sums of xn times m as an f32 dot.  The super-block form expands
+// each group's s and m from its super-block's d, dmin and the group's
+// 6-bit sc, mn as `_sb_expand` does (s = d*sc, m = 8s - dmin*mn, each
+// product and the difference rounded in f32, as gemv.cuh's SbReader).
 //
 // What bounds it on the H100: the operations.  LLaMA-7B's wqkv at 512 rows
 // is 51.5 GFLOP against 31 MB of codes: 0.052 ms on the bf16 tensor cores
@@ -50,6 +55,13 @@
 //   distinct banks.
 // - With mins, each thread adds m * (group sum) for its fragment's rows and
 //   columns in f32 FMAs, after the step's products.
+// - The super-block form copies, a step and a column, its super-block's d
+//   and dmin and the 4-byte words of sc and of mn that hold the step's two
+//   groups (cp.async has no 2-byte copy; the words are 4-byte aligned as K
+//   is a multiple of 256): 4 copies a column, as many as the G 32 mins
+//   form's 2 scales and 2 mins.  The widening thread of a (column, group)
+//   expands its s for the codes and writes its m into the stage, where the
+//   mins terms of the next step read it, as they read a mins form's m.
 // - One rounding to bf16 at the end; rows past B and columns past N are not
 //   stored.
 #pragma once
@@ -68,19 +80,25 @@ constexpr int kRow = kBK + 8;  // bf16 values a shared x or W row (144 bytes)
 // The deepest cp.async ring: 4 stages at 64-row tiles and for the mins
 // forms, 6 otherwise (the fastest of 4, 5-8 at LLaMA-7B's and Llama-3-8B's
 // projections on an H100: deeper rings lost up to 12% where they won
-// nothing).
+// nothing); 3 for the super-block form above 64-row tiles (Llama-3-8B's
+// wqkv at 512 rows: 0.2216-0.2230 ms against 0.2444-0.2447 in 4; at 40
+// rows, 64-row tiles, 4 stages kept 0.0524 against 0.0534).
 constexpr int kMaxStagesSmall = 4;
 constexpr int kMaxStagesLarge = 6;
+constexpr int kMaxStagesSb = 3;
 constexpr int kSmemMax = 232448;  // dynamic shared memory a block may have on sm_90
 
 // A weight form's tile: NIB for Q4_0's packed nibbles (else int8 codes),
-// G inputs a group, MINS for the affine forms.  kBytes code bytes of a
+// G inputs a group, MINS for the affine forms, SB for Q4_K's super-blocks
+// (nibbles, G 32, the mins expanded in the walk).  kBytes code bytes of a
 // column a K step, kept kStride bytes apart in shared memory: 16 bytes of
 // padding put 8 neighbouring columns' 16-byte reads in distinct banks.
-template <bool NIB, int G, bool MINS>
+template <bool NIB, int G, bool MINS, bool SB = false>
 struct Tile {
+  static_assert(!SB || (NIB && G == 32 && MINS), "super-blocks: nibbles, G 32, mins");
   static constexpr bool kNibbles = NIB;
   static constexpr bool kMins = MINS;
+  static constexpr bool kSb = SB;
   static constexpr int kG = G;
   static constexpr int kGroups = kBK / G;  // groups a K step
   static constexpr int kBytes = NIB ? kBK / 2 : kBK;
@@ -88,31 +106,44 @@ struct Tile {
 };
 
 // A block's shared memory: kStages stages of (x rows, codes, scales, mins,
-// group sums of xn), then the two bf16 W tiles.  The ring is as deep as
-// fits, up to its cap: a step's copies have kStages - 2 steps of work to
-// arrive in.
+// group sums of xn, the super-blocks' raw sides), then the two bf16 W
+// tiles.  The super-block form keeps no scales (its s lives in registers)
+// and writes its expanded mins where a mins form's land.  The ring is as
+// deep as fits, up to its cap: a step's copies have kStages - 2 steps of
+// work to arrive in.
 template <int BM, typename F>
 struct Smem {
   static constexpr int kX = BM * kRow * 2;
   static constexpr int kCodes = kBN * F::kStride;
-  static constexpr int kScales = kBN * F::kGroups * 4;
-  static constexpr int kMins = F::kMins ? kScales : 0;
+  static constexpr int kSides = kBN * F::kGroups * 4;  // an f32 a column a group
+  static constexpr int kScales = F::kSb ? 0 : kSides;
+  static constexpr int kMins = F::kMins ? kSides : 0;
   static constexpr int kSums = F::kMins ? BM * F::kGroups * 4 : 0;
-  static constexpr int kStage = kX + kCodes + kScales + kMins + kSums;
+  static constexpr int kRaw = F::kSb ? kBN * 16 : 0;  // d, dmin, sc word, mn word
+  static constexpr int kOffScales = kX + kCodes;
+  static constexpr int kOffMins = kOffScales + kScales;
+  static constexpr int kOffSums = kOffMins + kMins;
+  static constexpr int kOffRaw = kOffSums + kSums;
+  static constexpr int kStage = kOffRaw + kRaw;
   static constexpr int kW = kBN * kRow * 2;
-  static constexpr int kCap = BM == 64 || F::kMins ? kMaxStagesSmall : kMaxStagesLarge;
+  static constexpr int kCap = BM == 64    ? kMaxStagesSmall
+                             : F::kSb    ? kMaxStagesSb
+                             : F::kMins  ? kMaxStagesSmall
+                                         : kMaxStagesLarge;
   static constexpr int kStages =
       (kSmemMax - 2 * kW) / kStage < kCap ? (kSmemMax - 2 * kW) / kStage : kCap;
   static constexpr int kBytes = kStages * kStage + 2 * kW;
   static_assert(kStages >= 3, "step j + 2 is in flight while step j is multiplied");
+  static_assert(kStage % 16 == 0, "each stage's x rows and codes 16-byte aligned");
 };
 
 struct Args {
   const __nv_bfloat16* x;  // [B, K]: xn
   const float* xsum;       // [B, K/G]: xn's group sums (mins forms)
   const uint8_t* qs;       // [N, K/2] nibbles or [N, K] int8 codes
-  const float* scales;     // [N, K/G]
-  const float* mins;       // [N, K/G] or null
+  const float* scales;     // [N, K/G]; super-blocks: d [N, K/256]
+  const float* mins;       // [N, K/G] or null; super-blocks: dmin [N, K/256]
+  const uint8_t* scmn;     // super-blocks: [N, K/16], each column's sc then mn
   __nv_bfloat16* y;        // [B, N]
   float* part;             // [splits, B, N]: the splits' f32 sums (splits > 1)
   int B, K, N;
@@ -176,16 +207,33 @@ __global__ void __launch_bounds__(kThreads, 1) qgemm_kernel(Args a) {
                                      : static_cast<size_t>(col) * K + k;
       cp_async16(cs + n * F::kStride + c * 16, ok ? a.qs + off : a.qs, ok);
     }
-    float* ss = reinterpret_cast<float*>(st + S::kX + S::kCodes);
-    for (int i = tid; i < kBN * NG; i += kThreads) {
-      const int n = i / NG, g = k0 / G + i % NG, col = col0 + n;
-      const bool ok = col < N && g < KG;
-      const size_t off = static_cast<size_t>(col) * KG + g;
-      cp_async4(ss + i, ok ? a.scales + off : a.scales, ok);
-      if constexpr (F::kMins) cp_async4(ss + kBN * NG + i, ok ? a.mins + off : a.mins, ok);
+    if constexpr (F::kSb) {  // d, dmin, then the sc and mn words of the step's groups
+      uint32_t* rw = reinterpret_cast<uint32_t*>(st + S::kOffRaw);
+      const int sb = k0 / 256, word = ((k0 / kBK) & 2) * 2;
+      for (int i = tid; i < 4 * kBN; i += kThreads) {
+        const int part = i / kBN, col = col0 + i % kBN;
+        const bool ok = col < N;
+        const void* src;
+        if (part < 2)
+          src = (part == 0 ? a.scales : a.mins) + (ok ? static_cast<size_t>(col) * (K / 256) + sb : 0);
+        else
+          src = a.scmn + (ok ? static_cast<size_t>(col) * (K / 16) + (part == 3 ? K / 32 : 0) +
+                                   sb * 8 + word
+                             : 0);
+        cp_async4(rw + i, src, ok);
+      }
+    } else {
+      float* ss = reinterpret_cast<float*>(st + S::kOffScales);
+      for (int i = tid; i < kBN * NG; i += kThreads) {
+        const int n = i / NG, g = k0 / G + i % NG, col = col0 + n;
+        const bool ok = col < N && g < KG;
+        const size_t off = static_cast<size_t>(col) * KG + g;
+        cp_async4(ss + i, ok ? a.scales + off : a.scales, ok);
+        if constexpr (F::kMins) cp_async4(ss + kBN * NG + i, ok ? a.mins + off : a.mins, ok);
+      }
     }
     if constexpr (F::kMins) {
-      float* xg = reinterpret_cast<float*>(st + S::kX + S::kCodes + S::kScales + S::kMins);
+      float* xg = reinterpret_cast<float*>(st + S::kOffSums);
       for (int i = tid; i < BM * NG; i += kThreads) {
         const int r = i / NG, g = k0 / G + i % NG, row = row0 + r;
         const bool ok = row < B && g < KG;
@@ -196,16 +244,29 @@ __global__ void __launch_bounds__(kThreads, 1) qgemm_kernel(Args a) {
 
   // -- widening: thread -> column n = tid % 128 of the W tile, inputs
   // [32h, 32h + 32) of the step, h = tid / 128.  load() reads the step's
-  // codes and scales; piece(p) turns inputs [8p, 8p + 8) of the thread's 32
-  // into bf16 code * s, one 16-byte store --
+  // codes and scales (super-blocks: expands the group's s and, with
+  // `mins`, writes its m into the step's stage); piece(p) turns inputs
+  // [8p, 8p + 8) of the thread's 32 into bf16 code * s, one 16-byte store --
   const int wn_col = tid & (kBN - 1), wh = tid >> 7;
   uint32_t words[F::kNibbles ? 4 : 8];
   float s0, s1;
-  auto load = [&](int j) {
-    const unsigned char* st = smem + (j % kStages) * S::kStage;
+  auto load = [&](int j, bool mins) {
+    unsigned char* st = smem + (j % kStages) * S::kStage;
     const unsigned char* cs = st + S::kX + wn_col * F::kStride;
-    const float* ss = reinterpret_cast<const float*>(st + S::kX + S::kCodes) + wn_col * NG;
-    if constexpr (F::kNibbles) {
+    const float* ss = reinterpret_cast<const float*>(st + S::kOffScales) + wn_col * NG;
+    if constexpr (F::kSb) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(cs + wh * 16);
+      words[0] = raw.x, words[1] = raw.y, words[2] = raw.z, words[3] = raw.w;
+      const uint32_t* rw = reinterpret_cast<const uint32_t*>(st + S::kOffRaw);
+      const float d = __uint_as_float(rw[wn_col]), dm = __uint_as_float(rw[kBN + wn_col]);
+      const int shift = (((k_first + j) * 2 + wh) & 3) * 8;  // the group's byte in the words
+      const float sc = static_cast<float>((rw[2 * kBN + wn_col] >> shift) & 0xFFu);
+      const float mn = static_cast<float>((rw[3 * kBN + wn_col] >> shift) & 0xFFu);
+      s0 = s1 = __fmul_rn(d, sc);
+      if (mins)
+        reinterpret_cast<float*>(st + S::kOffMins)[wn_col * NG + wh] =
+            __fsub_rn(__fmul_rn(8.f, s0), __fmul_rn(dm, mn));
+    } else if constexpr (F::kNibbles) {
       const uint4 raw = *reinterpret_cast<const uint4*>(cs + wh * 16);
       words[0] = raw.x, words[1] = raw.y, words[2] = raw.z, words[3] = raw.w;
       s0 = s1 = ss[wh];
@@ -253,7 +314,7 @@ __global__ void __launch_bounds__(kThreads, 1) qgemm_kernel(Args a) {
   }
   cp_async_wait<kStages - 2>();  // step 0 landed
   __syncthreads();
-  load(0);
+  load(0, true);
 #pragma unroll
   for (int p = 0; p < 4; ++p) piece(0, p);
   cp_async_wait<kStages - 3>();  // step 1 landed
@@ -264,9 +325,9 @@ __global__ void __launch_bounds__(kThreads, 1) qgemm_kernel(Args a) {
     if (j + kStages - 1 < nk) issue(j + kStages - 1);
     cp_async_commit();
     // Step j + 1's codes (at the last step, step j's again, into the W tile
-    // no one reads) widen a quarter after each k16 of step j's products, so
-    // the conversions issue between the mma's.
-    load(min(j + 1, nk - 1));
+    // no one reads, its m left alone) widen a quarter after each k16 of step
+    // j's products, so the conversions issue between the mma's.
+    load(min(j + 1, nk - 1), j + 1 < nk);
     const unsigned char* st = smem + (j % kStages) * S::kStage;
     const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(st);
     const __nv_bfloat16* w = wt + (j & 1) * kBN * kRow;
@@ -291,9 +352,8 @@ __global__ void __launch_bounds__(kThreads, 1) qgemm_kernel(Args a) {
       piece(j + 1, ks);
     }
     if constexpr (F::kMins) {  // m * (group sum of xn), in f32
-      const float* ms = reinterpret_cast<const float*>(st + S::kX + S::kCodes + S::kScales);
-      const float* xg = reinterpret_cast<const float*>(st + S::kX + S::kCodes + S::kScales +
-                                                       S::kMins);
+      const float* ms = reinterpret_cast<const float*>(st + S::kOffMins);
+      const float* xg = reinterpret_cast<const float*>(st + S::kOffSums);
       float xv[MT][2][NG];  // the group sums of this thread's rows
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -425,6 +485,7 @@ struct Call {
   const void* qs;
   const void* scales;
   const void* mins;
+  const void* scmn;
   const __nv_bfloat16* gain;
   __nv_bfloat16* y;
   __nv_bfloat16* xn;
@@ -493,7 +554,7 @@ cudaError_t run_form(const Call& c, cudaStream_t stream) {
   const int splits = (steps + split_steps - 1) / split_steps;  // none of them empty
   const Args a{c.gain != nullptr ? c.xn : c.x, c.xsum, static_cast<const uint8_t*>(c.qs),
                static_cast<const float*>(c.scales), static_cast<const float*>(c.mins),
-               c.y, c.part, c.B, c.K, c.N, split_steps};
+               static_cast<const uint8_t*>(c.scmn), c.y, c.part, c.B, c.K, c.N, split_steps};
   const int bm = tile_rows(c.B);
   const cudaError_t rc = bm == 64    ? launch_tiles<64, 2, F>(a, splits, stream)
                          : bm == 128 ? launch_tiles<128, 2, F>(a, splits, stream)
@@ -506,7 +567,7 @@ cudaError_t run_form(const Call& c, cudaStream_t stream) {
 }
 
 // The path of weight form `form` (enum Form); an invalid-value error for
-// kFormSb and unknown forms.
+// unknown forms.
 inline cudaError_t run(int form, const Call& c, cudaStream_t stream) {
   if (c.splits < 1 || (c.splits > 1 && c.part == nullptr)) return cudaErrorInvalidValue;
   switch (form) {
@@ -520,6 +581,8 @@ inline cudaError_t run(int form, const Call& c, cudaStream_t stream) {
       return run_form<Tile<false, 16, false>>(c, stream);
     case kFormG16Mins:
       return run_form<Tile<false, 16, true>>(c, stream);
+    case kFormSb:
+      return run_form<Tile<true, 32, true, true>>(c, stream);
     default:
       return cudaErrorInvalidValue;
   }

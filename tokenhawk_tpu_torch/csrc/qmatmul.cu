@@ -27,10 +27,11 @@
 //
 // Two paths, two entry points, which the Python wrapper picks:
 // th_quant_matmul runs the GEMV above (every form, f32 or bf16 x, any row
-// count; the decode rows and kernel 17); th_quant_matmul_tc runs the
-// tensor-core GEMM of qgemm_tc.cuh for bf16 x at more than 8 rows over
-// Q4_0 and the group-code forms, where the reference's `_qdot` takes the
-// MXU's bf16 dot and the work is bound by operations, not bytes.
+// count; the decode rows); th_quant_matmul_tc runs the tensor-core GEMM of
+// qgemm_tc.cuh for bf16 x at more than 8 rows over every form, kernel 17's
+// super-blocks too (s and m expanded per group in the walk), where the
+// reference's `_qdot` takes the MXU's bf16 dot and the work is bound by
+// operations, not bytes.
 #include "gemv.cuh"
 #include "qgemm_tc.cuh"
 
@@ -62,17 +63,20 @@ extern "C" int th_quant_matmul(const void* x, const void* qs, const void* scales
 }
 
 // The tensor-core path: x, gain, y bf16; xn_scratch [B, K] bf16 (with a
-// gain), xsum_scratch [B, K/G] f32 (mins forms) and part_scratch [splits,
-// B, N] f32 (splits > 1) are its scratch.  Forms Q4_0, G32, G32 + mins,
-// G16, G16 + mins; kFormSb and unknown forms return an invalid-value error.
+// gain), xsum_scratch [B, K/G] f32 (mins forms, super-blocks) and
+// part_scratch [splits, B, N] f32 (splits > 1) are its scratch.  Forms
+// Q4_0, G32, G32 + mins, G16, G16 + mins and sb (d, dmin as scales, mins;
+// scmn its sc / mn bytes, K a multiple of 256); unknown forms return an
+// invalid-value error.
 extern "C" int th_quant_matmul_tc(const void* x, const void* qs, const void* scales,
-                                  const void* mins, const void* gain, void* y, void* xn_scratch,
-                                  void* xsum_scratch, void* part_scratch, int B, int K, int N,
-                                  int form, int splits, float eps, void* stream) {
+                                  const void* mins, const void* scmn, const void* gain, void* y,
+                                  void* xn_scratch, void* xsum_scratch, void* part_scratch, int B,
+                                  int K, int N, int form, int splits, float eps, void* stream) {
   const qgemm_tc::Call c{static_cast<const __nv_bfloat16*>(x),
                          qs,
                          scales,
                          mins,
+                         scmn,
                          static_cast<const __nv_bfloat16*>(gain),
                          static_cast<__nv_bfloat16*>(y),
                          static_cast<__nv_bfloat16*>(xn_scratch),

@@ -1,11 +1,14 @@
-"""Time the quantized matmul (kernels 1 and 13) from decode to prefill rows.
+"""Time the quantized matmul (kernels 1, 13 and 17) from decode to prefill rows.
 
     python -m tokenhawk_tpu_torch.experiments.qmatmul_rows [--save FILE | --compare FILE]
+        [--case TEXT]
 
 For each case (LLaMA-7B's Q4_0 and Q8_0 wqkv 4096->12288 and Llama-3-8B's
 Q4_K wqkv 4096->6144 and Q6_K head 4096->128256, the norm fused, as the
-model calls them; the 7B's Q4_0 w2 11008->4096 without) at 1, 8, 16, 40,
-64 and 512 rows of bfloat16 x: the device ms of one call (CUDA events
+model calls them; the 7B's Q4_0 w2 11008->4096 without; Llama-3-8B's wqkv
+in Q4_K super-blocks (kernel 17, THAWK_Q4K_SB=1's form) and in the flat
+form of the same codes (kernel 13)) at 1, 8, 16, 40, 64 and 512 rows of
+bfloat16 x: the device ms of one call (CUDA events
 behind a device spin, weight copies spanning 3x the 50 MB L2), the launch
 counter it ticked, the ms of dequantize + torch.matmul, and the bound
 (the port's layout bytes at 3.35 TB/s, the operations at 989 TFLOP/s).
@@ -14,7 +17,8 @@ the same calls: run the script in each, in one process each, to put one
 path's times beside the other's.  --save FILE writes the outputs of the
 calls the GEMV keeps in either tree (1 and 8 rows of bfloat16 x, 40 rows
 of float32 x) and --compare FILE holds them bit for bit against another
-tree's.  The last line is one JSON object with every timing.
+tree's.  --case TEXT keeps the cases whose name holds TEXT.  The last
+line is one JSON object with every timing.
 """
 
 from __future__ import annotations
@@ -35,7 +39,9 @@ CASES = [("7B Q4_0 wqkv", 4096, 12288, "q4_0", True),
          ("7B Q8_0 wqkv", 4096, 12288, "q8_0", True),
          ("Llama-3-8B Q4_K wqkv", 4096, 6144, "q4_k", True),
          ("Llama-3-8B Q6_K head", 4096, 128256, "q6_k", True),
-         ("7B Q4_0 w2", 11008, 4096, "q4_0", False)]
+         ("7B Q4_0 w2", 11008, 4096, "q4_0", False),
+         ("Llama-3-8B Q4_K sb wqkv", 4096, 6144, "q4k_sb", True),
+         ("Llama-3-8B Q4_K sb wqkv, flat form", 4096, 6144, "q4k_sb flat", True)]
 HBM_BPS, PEAK_FLOPS = 3.35e12, 989e12
 
 
@@ -68,6 +74,9 @@ def device_ms(fns, calls: int) -> float:
 def weight(K, N, form, g, dev) -> QWeight:
     if form == "q4_0":
         return QWeight.quantize(torch.randn(K, N, generator=g, device=dev) * 0.02)
+    if form.startswith("q4k_sb"):  # both super-block cases draw the same codes
+        w = QWeight.random(K, N, "q4k_sb", torch.Generator(device=dev).manual_seed(SEED), dev)
+        return w.flat() if form.endswith("flat") else w
     return QWeight.random(K, N, form, g, dev)
 
 
@@ -75,6 +84,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--save", help="write the GEMV-kept calls' outputs to this file")
     ap.add_argument("--compare", help="hold the GEMV-kept calls' outputs to this file's")
+    ap.add_argument("--case", default="", help="only the cases whose name holds this text")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("qmatmul_rows: needs a CUDA device")
@@ -83,6 +93,8 @@ def main() -> int:
     g.manual_seed(SEED)
     saved, rows_out = {}, []
     for name, K, N, form, norm in CASES:
+        if args.case not in name:
+            continue
         w = weight(K, N, form, g, dev)
         n_copies = min(16, max(1, -(-150_000_000 // w.nbytes)))
         ws = [w] + [QWeight(*(t.clone() if isinstance(t, torch.Tensor) else t for t in (

@@ -14,6 +14,7 @@ cudaGetLastError(); `check` turns a non-zero code into an exception.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -108,6 +109,12 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = library().th_error_string(code).decode()
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {code} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (a host query, no sync)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

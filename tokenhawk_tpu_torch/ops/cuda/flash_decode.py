@@ -21,6 +21,19 @@ a barrier orders the two.  Head dim 64 or 128; 1, 2, 4 or 8 query heads
 per kv head.  Launches are counted per kernel: `launches["flash_decode"]`
 (kernel 3) and `launches["flash_decode_attend"]` (kernel 14).
 
+Kernel 14 where the (sequence, kv head) pairs leave most SMs idle (a
+TinyLlama-width draft's 4 KV heads at B=1 run 4 blocks on 132 SMs) cuts
+each pair's live rows into `decode_splits` tile-aligned ranges, one block
+each in a thread-block cluster of the pair's blocks: kernel 18's body over
+each range, then the cluster merges the partials over distributed shared
+memory and rounds once (csrc/flash_decode.cu decode_split_kernel).  The
+split count comes from the shapes the host knows (B, Hkv, S and the SM
+count), never from `lengths`, so the decode path stays free of host
+syncs; the ranges are computed on the device from `lengths`, none
+shorter than MIN_SPLIT_TILES tiles (a short live length fills the first
+ranges and leaves the rest empty).  Those launches also count in
+`launches["flash_decode_split"]`.
+
 Kernel 18, `flash_decode_stats`, replaces flash_decode_dma.py
 `flash_decode_stats` (_kernel_vec_stats), one shard's half of
 context-parallel decode (parallel/ring.py decode_attend_cp): kernel 14's
@@ -42,8 +55,9 @@ epilogue.  Off by default, as in the reference: the model takes it where
 Counted as `launches["attn_wo"]`.
 
 Tolerance against the plain versions: f32 scores and softmax in both;
-the kernel's online softmax sums in another order (~1e-6 relative) and
-both round once to q.dtype (kernel 16: once to x.dtype, after the Wo
+the kernel's online softmax sums in another order (~1e-6 relative; the
+split form also merges its ranges' partials in split order) and both
+round once to q.dtype (kernel 16: once to x.dtype, after the Wo
 product).
 """
 
@@ -56,13 +70,24 @@ from tokenhawk_tpu_torch.ops.cuda import build
 from tokenhawk_tpu_torch.ops.cuda.qmatmul import form_code, weight_args
 from tokenhawk_tpu_torch.ops.qweight import QWeight
 
-launches = {"flash_decode": 0, "flash_decode_attend": 0, "flash_decode_stats": 0,
-            "attn_wo": 0}
+launches = {"flash_decode": 0, "flash_decode_attend": 0, "flash_decode_split": 0,
+            "flash_decode_stats": 0, "attn_wo": 0}
 HEAD_DIMS = (64, 128)
 REPS = (1, 2, 4, 8)
+# Kernel 14's split form: at most 16 blocks a cluster (above 8 the
+# cluster is not portable; the launch allows it), each range at least
+# MIN_SPLIT_TILES tiles of 32 rows (of S on the host, of the live rows on
+# the card), and at most BLOCKS_PER_SM blocks
+# an SM in all (two of its 256-thread blocks, at most 128 registers a
+# thread, fit an SM at once).  From a sweep on an H100 (chip_smoke.py phase 2):
+# ranges of 4 tiles run as fast as ranges of 8 (2 and 1 tiles slower), and
+# the draft's 8 slots ran 22% faster in 8 splits (256 blocks) than in 4.
+MAX_SPLITS = 16
+MIN_SPLIT_TILES = 4
+BLOCKS_PER_SM = 2
 
 _APPEND_ARGS = [build.P] * 7 + [build.I] * 7 + [build.P]
-_ATTEND_ARGS = [build.P] * 5 + [build.I] * 7 + [build.P]
+_ATTEND_ARGS = [build.P] * 5 + [build.I] * 9 + [build.P]
 # q, k, v, lengths, o, m, l; B, Hkv, rep, Dh, S, splits; strides; dtype; stream.
 _STATS_ARGS = [build.P] * 7 + [build.I] * 6 + [build.LL] * 3 + [build.I, build.P]
 # q, k_new, v_new, kc, vc, lengths, x; wo (qs, scales, mins, hi, form); ctx,
@@ -110,22 +135,52 @@ def _check(q, k_cache, v_cache, lengths):
     return B, Hkv, rep, Dh, S
 
 
+def decode_splits(B: int, Hkv: int, S: int, sm_count: int) -> int:
+    """Kernel 14's split count from the host's shapes alone (never from
+    lengths, which live on the card): 1 where the B*Hkv pairs already fill
+    the SMs (one block a pair); else as many as the card holds at once
+    (BLOCKS_PER_SM an SM), at most MAX_SPLITS, and no range shorter than
+    MIN_SPLIT_TILES tiles of S."""
+    if not all(type(v) is int for v in (B, Hkv, S, sm_count)):
+        raise TypeError("decode_splits takes the host's shape integers, not tensors")
+    pairs = B * Hkv
+    if pairs >= sm_count:
+        return 1
+    return max(1, min(BLOCKS_PER_SM * sm_count // pairs, (S + 31) // 32 // MIN_SPLIT_TILES,
+                      MAX_SPLITS))
+
+
 def flash_decode(q, k_cache, v_cache, lengths):
     """Kernel 14.  q [B, Hkv, rep, Dh] (pre-scaled), caches [B, Hkv, S, Dh]
     (read only), lengths [B] int32 live tokens (clamped to [1, S]) ->
     out [B, Hkv, rep, Dh] in q.dtype."""
     if not q.is_cuda:
         return flash_decode_plain(q, k_cache, v_cache, lengths)
+    B, Hkv, _, _, S = _check(q, k_cache, v_cache, lengths)
+    return flash_decode_at(q, k_cache, v_cache, lengths,
+                           decode_splits(B, Hkv, S, build.sm_count(q.device)))
+
+
+def flash_decode_at(q, k_cache, v_cache, lengths, splits: int,
+                    min_tiles: int = MIN_SPLIT_TILES):
+    """Kernel 14 at a given split count (1 to MAX_SPLITS), its ranges at
+    least min_tiles tiles: what flash_decode launches with decode_splits'
+    count; chip_smoke.py sweeps the count with it at min_tiles 1.  CUDA
+    tensors only."""
     B, Hkv, rep, Dh, S = _check(q, k_cache, v_cache, lengths)
+    build.require(1 <= splits <= MAX_SPLITS, f"splits {splits} not in 1..{MAX_SPLITS}")
+    build.require(min_tiles >= 1, f"min_tiles must be positive, got {min_tiles}")
     q = q.contiguous()
     build.require_cuda(q, k_cache, v_cache, lengths)
     out = torch.empty_like(q)
     fn = build.function("th_decode_attend", _ATTEND_ARGS)
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), B, Hkv, rep, Dh, S, build.dtype_code(q.dtype),
+            out.data_ptr(), B, Hkv, rep, Dh, S, splits, min_tiles, build.dtype_code(q.dtype),
             build.dtype_code(k_cache.dtype), build.stream_of(q))
     build.check(rc, "flash_decode")
     launches["flash_decode_attend"] += 1
+    if splits > 1:
+        launches["flash_decode_split"] += 1
     return out
 
 
@@ -155,20 +210,29 @@ def flash_decode_append(q, k_new, v_new, k_cache, v_cache, lengths):
 # -- kernel 18: one shard's softmax partials ------------------------------------
 
 
-def _split_ranges(lengths, S: int, splits: int):
+def _split_ranges(lengths, S: int, splits: int, min_tiles: int = 1):
     """[splits, B] row ranges [begin, end) of each sequence's live rows,
-    cut at whole 32-row tiles, as kernel 18's blocks take them."""
+    cut at whole 32-row tiles, as kernel 18's blocks take them (and kernel
+    14's split form, whose ranges are at least min_tiles tiles)."""
     L = lengths.long().clamp(0, S)
-    per = ((L + 31) // 32 + splits - 1) // splits * 32
+    per = (((L + 31) // 32 + splits - 1) // splits).clamp(min=min_tiles) * 32
     begin = torch.minimum(torch.arange(splits, device=L.device)[:, None] * per, L)
     return begin, torch.minimum(begin + per, L)
 
 
 def flash_decode_stats_plain(q, k_cache, v_cache, lengths, splits: int = 1):
     """Kernel 18's function in plain PyTorch."""
+    S = k_cache.shape[2]
+    return range_stats(q, k_cache, v_cache, *_split_ranges(lengths.to(q.device), S, splits))
+
+
+def range_stats(q, k_cache, v_cache, begin, end):
+    """Softmax partials (o, m, l) of q over each [begin, end) row range
+    ([splits, B]) of each sequence's cache, as flash_decode_stats returns
+    them; an empty range gives (0, -inf, 0)."""
     B, Hkv, rep, Dh = q.shape
     S = k_cache.shape[2]
-    begin, end = _split_ranges(lengths.to(q.device), S, splits)
+    splits = begin.shape[0]
     slot = torch.arange(S, device=q.device)
     mask = (slot >= begin[..., None]) & (slot < end[..., None])  # [splits, B, S]
     qs = q[:, :, :, None].expand(B, Hkv, rep, splits, Dh)  # one query row per split

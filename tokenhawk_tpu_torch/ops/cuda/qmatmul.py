@@ -17,16 +17,18 @@ column's codes with 16-byte loads and converts them once for every row
 of a row tile, and a small pre-pass gives the norm's row statistics, so
 the norm is fused for every K.  Counted in `launches["q4_matmul"]`,
 `launches["qk_matmul"]` and `launches["qk_sb_matmul"]`.  Above 8 rows
-of bf16 x, Q4_0 and the group-code forms go to the tensor-core GEMM
-(qgemm_tc.cuh: mma.sync over 128-column tiles of codes brought in by
-cp.async and widened to bf16 in shared memory; where its tiles would
-leave SMs idle, K splits across blocks and a last pass adds the splits'
-f32 sums in order), where the work is bound by operations: counted in
-`launches["q4_matmul_tc"]` and `launches["qk_matmul_tc"]`.  Its
-roundings are the reference's at those rows (`_qdot`'s bf16 dot): xn and
-each code * s rounded to bf16, f32 sums, the mins as an f32 dot of xn's
-group sums.  Kernel 17 keeps the GEMV at every row count.  Neither path
-falls back to the other.
+of bf16 x every form goes to the tensor-core GEMM (qgemm_tc.cuh:
+mma.sync over 128-column tiles of codes brought in by cp.async and
+widened to bf16 in shared memory; where its tiles would leave SMs idle,
+K splits across blocks and a last pass adds the splits' f32 sums in
+order), where the work is bound by operations: counted in
+`launches["q4_matmul_tc"]`, `launches["qk_matmul_tc"]` and
+`launches["qk_sb_matmul_tc"]`.  Its roundings are the reference's at
+those rows (`_qdot`'s bf16 dot): xn and each code * s rounded to bf16,
+f32 sums, the mins as an f32 dot of xn's group sums; kernel 17's s and
+its bias m = 8s - dmin*mn are expanded per group in the walk with the
+GEMV's f32 roundings (`_sb_expand`'s), m riding the mins path.  Neither
+path falls back to the other.
 
 Tolerance against the plain version: both accumulate in f32 and round
 once to the output dtype; they differ by summation order (~1e-6 relative
@@ -41,20 +43,18 @@ largest outputs.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from tokenhawk_tpu_torch.ops.cuda import build
 from tokenhawk_tpu_torch.ops.qweight import QWeight
 
 launches = {"q4_matmul": 0, "qk_matmul": 0, "qk_sb_matmul": 0, "q4_matmul_tc": 0,
-            "qk_matmul_tc": 0}
+            "qk_matmul_tc": 0, "qk_sb_matmul_tc": 0}
 
 _ARGS = [build.P] * 8 + [build.I] * 4 + [build.F, build.I, build.P]
-# x, qs, scales, mins, gain, y, xn, xsum and part scratch; B, K, N, form,
-# splits; eps; stream.
-_TC_ARGS = [build.P] * 9 + [build.I] * 5 + [build.F, build.P]
+# x, qs, scales, mins, scmn, gain, y, xn, xsum and part scratch; B, K, N,
+# form, splits; eps; stream.
+_TC_ARGS = [build.P] * 10 + [build.I] * 5 + [build.F, build.P]
 # The fewest rows the tensor-core path takes: the reference's `_qdot` takes
 # its bf16 dot above 8 rows (DOT_F32 "auto").
 TC_MIN_ROWS = 9
@@ -86,15 +86,10 @@ def form_code(w: QWeight, sb: bool = True) -> int:
     return form
 
 
-def tensor_core_path(dtype: torch.dtype, rows: int, form: int) -> bool:
+def tensor_core_path(dtype: torch.dtype, rows: int) -> bool:
     """Whether a call runs the tensor-core GEMM: bf16 x at TC_MIN_ROWS or
-    more rows over Q4_0 or a group-code form (kernel 17 keeps the GEMV)."""
-    return dtype == torch.bfloat16 and rows >= TC_MIN_ROWS and form != SB
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    more rows, over every weight form."""
+    return dtype == torch.bfloat16 and rows >= TC_MIN_ROWS
 
 
 def weight_args(w: QWeight, x: torch.Tensor) -> list:
@@ -129,16 +124,16 @@ def quant_matmul(x: torch.Tensor, w: QWeight, norm_gain=None, eps: float = 1e-6)
     build.require_cuda(xb, *([] if gain is None else [gain]))
     rows = xb.shape[0]
     y = torch.empty((rows, N), dtype=xb.dtype, device=xb.device)
-    if tensor_core_path(xb.dtype, rows, form):
+    if tensor_core_path(xb.dtype, rows):
         splits = build.function("th_quant_matmul_tc_splits", [build.I] * 4)(
-            rows, K, N, _sm_count(xb.device))
+            rows, K, N, build.sm_count(xb.device))
         xn = torch.empty_like(xb) if gain is not None else None
         xsum = (torch.empty((rows, K // w.group), dtype=torch.float32, device=xb.device)
                 if w.mins is not None else None)
         part = (torch.empty((splits, rows, N), dtype=torch.float32, device=xb.device)
                 if splits > 1 else None)
         fn = build.function("th_quant_matmul_tc", _TC_ARGS)
-        rc = fn(xb.data_ptr(), *weight_args(w, xb)[:3],
+        rc = fn(xb.data_ptr(), *weight_args(w, xb),
                 gain.data_ptr() if gain is not None else None, y.data_ptr(),
                 *(t.data_ptr() if t is not None else None for t in (xn, xsum, part)), rows, K,
                 N, form, splits, eps, build.stream_of(xb))
