@@ -14,11 +14,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      paged kernels in both pool layouts; kernels 1 and 13 at 1, 8, 16, 40
      and 512 rows and kernel 17 at 1, 8, 9, 16, 40 and 512, each on its
      path (the GEMV at most 8 rows, the tensor-core GEMM above: a record
-     each); kernel 14 as the model launches it (split-S in thread-block
+     each); kernels 3 (B=4 ragged, B=1 at 37, 300, 512 and 2048 live rows,
+     B=8 ragged) and 14 as the model launches them (split-S in thread-block
      clusters where the (sequence, KV head) pairs leave SMs idle, else one
-     block a pair: a record each) beside its one-block launch and SDPA, and
-     a sweep of its split counts; then kernels 3, 16, 18 and the GEMV's
-     outputs held bit for bit to the parent tree's (PARENT_DIGESTS);
+     block a pair: a record each) beside their one-block launch and SDPA,
+     and sweeps of their split counts; then kernels 16, 18 and the GEMV's
+     outputs held bit for bit to the parent tree's and kernel 3's to its
+     redesign's (PARENT_DIGESTS);
   3. slice check: a 2-layer LLaMA-7B-width Q4_0 model, prefill of 16
      tokens + 8 decode steps on the GPU (kernels) and on the CPU (plain
      versions, same parameters), logits compared at every step, over a
@@ -101,9 +103,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      against flat, at float32 and bfloat16 sides.
   12. context parallelism (parallel/): 12a, after phase 2, kernels 18
      (decode partials) and 19 (ring-attention step) against their plain
-     versions at the 7B's heads, kernel 19 at T=512 on one shard and over
-     2 and 4 cyclic shards (every query shard against every KV shard,
-     merged), kernel 18 at B=1 over 512, 2048 and 3 live tokens on one
+     versions at the 7B's heads, kernel 19 at T=512 on one shard (its
+     tensor-core walk on bf16 K/V and its CUDA-core walk on f32 K/V, each
+     timed) and over 2 and 4 cyclic shards (every query shard against every
+     KV shard, merged), kernel 18 at B=1 over 512, 2048 and 3 live tokens on one
      shard and on 4 cyclic shards (strided views of the cache; at 3 tokens
      one shard is empty), each merged result held against kernel 4 or 14
      on the unsplit cache; then kernel 18 cut into 1, 4, 8 and 16 splits
@@ -111,7 +114,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      12b, after phase 10, the 32-layer 7B Q4_0 model through
      Engine(parallel="cp") over a world-1 NCCL group at n_ctx 2048
      (prompts of 5, 300 and 1500 tokens, 32 greedy tokens each): kernels
-     1, 18 and 19 launched, 2, 3, 4 and 14 not; each stream held against
+     1, 18 and 19 (its tensor-core walk) launched, 2, 3, 4, 14 and kernel
+     19's CUDA-core walk not; each stream held against
      the dense Engine's up to near-ties; tok/s beside the dense Engine's,
      the idle share of a profiled request.  One H100 runs CP at one
      rank only; the shard merges of 12a stand in for more.
@@ -434,11 +438,9 @@ def _case_tools(seed: int = SEED) -> tuple:
 
 def phase_kernels() -> list:
     import torch
-    import torch.nn.functional as tf
 
     from tokenhawk_tpu_torch.ops.cuda import (
         ffn,
-        flash_decode,
         paged_decode,
         qmatmul,
     )
@@ -504,39 +506,8 @@ def phase_kernels() -> list:
                            cases, ("ffn", 1),
                            bound(3 * D * F * 0.625 + 3 * D * bf, 6 * D * F), lib))
 
-    # -- kernel 3: decode append + attend; lengths in one batch, then timed at B=1 --
-    cases = []
-    Hkv, Dh = 32, 128
-    for lens in ([1, 37, 300, 512], [37], [512]):
-        B = len(lens)
-        q = randn(B, Hkv, 1, Dh, scale=Dh**-0.5)
-        kn, vn = randn(B, Hkv, Dh), randn(B, Hkv, Dh)
-        kc, vc = randn(B, Hkv, S_CTX, Dh), randn(B, Hkv, S_CTX, Dh)
-        kp, vp = kc.clone(), vc.clone()
-        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-        out = flash_decode.flash_decode_append(q, kn, vn, kc, vc, lengths)
-        ref = flash_decode.flash_decode_append_plain(q, kn, vn, kp, vp, lengths)
-        if not (torch.equal(kc, kp) and torch.equal(vc, vp)):
-            raise AssertionError(f"flash_decode_append {lens}: caches differ from the plain's")
-        caches = copies([kc, vc], 2 * kc.nbytes)
-        case(cases, f"flash_decode_append B={B} lengths={lens} S={S_CTX} (caches identical)",
-             f"B={B} L={lens[-1]}", B, out, ref,
-             [lambda c=c: flash_decode.flash_decode_append(q, kn, vn, *c, lengths)
-              for c in caches],
-             [lambda c=c: flash_decode.flash_decode_append_plain(q, kn, vn, *c, lengths)
-              for c in caches])
-    # The timed case is the last (B=1, 512 live tokens); the library call
-    # attends over the same live rows (without the append).
-    L = S_CTX
-    lib = library("scaled_dot_product_attention, B=1, 512 keys",
-                  [lambda c=c: tf.scaled_dot_product_attention(
-                      q, c[0][:, :, :L], c[1][:, :, :L], scale=1.0)
-                   for c in caches])
-    records.append(_record("flash_decode_append", "tokenhawk_tpu_torch/csrc/flash_decode.cu",
-                           "tokenhawk_tpu/ops/pallas/flash_decode_dma.py:1112 "
-                           "(flash_decode_append_walk); flash_decode_dma.py:1218 "
-                           "(flash_decode_append)", cases, ("B=1 L=512", 1),
-                           bound((2 * L + 6) * Hkv * Dh * bf, 4 * L * Hkv * Dh), lib))
+    # -- kernel 3: decode append + attend at the 7B's heads, both forms --
+    records += _decode_append_records(randn, case)
 
     # -- kernels 4 and 9: causal prefill attention, bf16 and int8 caches --
     rec4, rec9 = _prefill_records(randn, case, library)
@@ -623,23 +594,46 @@ def _cp_kernel_records(randn, case) -> list:
     q = randn(1, Hkv, 1, T, Dh, scale=Dh**-0.5, dtype=torch.float32)
     kc, vc = randn(1, Hkv, T, Dh), randn(1, Hkv, T, Dh)
     zero = i32(0)
-    got = fa.flash_attention_stats(q, kc, vc, zero, zero, 1)
-    _partials_err("flash_attention_stats T=512", got,
-                  fa.flash_attention_stats_plain(q, kc, vc, zero, zero, 1))
+
+    def one_walk(kv, walk):
+        """Kernel 19 on kv, checked to have launched `walk` alone."""
+        before = dict(fa.launches)
+        got = fa.flash_attention_stats(q, *kv, zero, zero, 1)
+        if fa.launches != {**before, walk: before[walk] + 1}:
+            raise AssertionError(f"kernel 19 on {kv[0].dtype} K/V did not run {walk} alone")
+        _partials_err(f"flash_attention_stats T=512 {walk}", got,
+                      fa.flash_attention_stats_plain(q, *kv, zero, zero, 1))
+        return got
+
+    got = one_walk((kc, vc), "flash_attention_stats_tc")
     caches = copies([kc, vc], 2 * kc.nbytes)
     case(cases, f"flash_attention_stats (kernel 19) one shard T={T} Hkv={Hkv} Dh={Dh}, q f32, "
-                f"K/V bf16", f"T={T} shards=1", T, got[0],
-         fa.flash_attention_stats_plain(q, kc, vc, zero, zero, 1)[0],
+                f"K/V bf16 (the tensor-core walk, q and P in 3 bf16 parts)", f"T={T} shards=1",
+         T, got[0], fa.flash_attention_stats_plain(q, kc, vc, zero, zero, 1)[0],
          [lambda c=c: fa.flash_attention_stats(q, *c, zero, zero, 1) for c in caches],
          [lambda c=c: fa.flash_attention_stats_plain(q, *c, zero, zero, 1) for c in caches],
          frac=PARTIALS_TOL)
     b19 = bound(2 * f4 * T * Hkv * Dh + 2 * bf * T * Hkv * Dh + 2 * f4 * T * Hkv + 8,
                 4 * Hkv * Dh * T * (T + 1) / 2)
+    cases[-1].update(b19)
     kf, vf = kc.float(), vc.float()
+    # The CUDA-core walk, which f32 K/V blocks keep, on the same values.
+    got32 = one_walk((kf, vf), "flash_attention_stats")
+    fcaches = copies([kf, vf], 2 * kf.nbytes)
+    case(cases, f"flash_attention_stats (kernel 19) one shard T={T}, q f32, K/V f32 (the "
+                f"CUDA-core walk)", f"T={T} shards=1 K/V f32", T, got32[0],
+         fa.flash_attention_stats_plain(q, kf, vf, zero, zero, 1)[0],
+         [lambda c=c: fa.flash_attention_stats(q, *c, zero, zero, 1) for c in fcaches],
+         [lambda c=c: fa.flash_attention_stats_plain(q, *c, zero, zero, 1) for c in fcaches],
+         frac=PARTIALS_TOL)
+    cases[-1].update(bound(4 * f4 * T * Hkv * Dh + 2 * f4 * T * Hkv + 8,
+                           4 * Hkv * Dh * T * (T + 1) / 2))
+    del fcaches
     lib_out = eff(q[:, :, 0], kf, vf, None, True, is_causal=True, scale=1.0)
     err = (lib_out[0] - got[0][:, :, 0] / got[2][:, :, 0, :, None]).abs().max().item()
     lib19 = timed([lambda c=c: eff(q[:, :, 0], c[0], c[1], None, True, is_causal=True, scale=1.0)
                    for c in copies([kf, vf], 2 * kf.nbytes)])["ms"]
+    cases[0]["library_ms"] = lib19
     log(f"  bound {b19['bound_ms']:.4f} ms ({b19['bound_by']}); library call "
         f"_scaled_dot_product_efficient_attention(compute_log_sumexp, causal), f32 K/V: "
         f"{lib19:.4f} ms (its output against o / l: {err:.3e})")
@@ -663,7 +657,7 @@ def _cp_kernel_records(randn, case) -> list:
              full, frac=PARTIALS_TOL)
         log(f"  partials of the {n * n} shard pairs against the plain version: max_abs_err "
             f"{worst:.3e}")
-    records = [_record("flash_attention_stats", "tokenhawk_tpu_torch/csrc/flash_attention.cu",
+    records = [_record("flash_attention_stats", "tokenhawk_tpu_torch/csrc/prefill_tc.cuh",
                        "tokenhawk_tpu/ops/pallas/flash_attention.py:298 (flash_attention_stats, "
                        "_kernel_stats)", cases, (f"T={T} shards=1", T), b19, lib19)]
     del kc, vc, kf, vf, caches
@@ -1377,15 +1371,125 @@ def _decode_attend_records(randn, case) -> list:
                     [c for c in cases if c["splits"] > 1], *at("TinyLlama B=1 L=2048"))]
 
 
+# Kernel 3's cases at the 7B's heads (32 KV heads of 128, one query each),
+# (label, lengths, S): B=4 ragged; B=1 at 37, 300 and 512 live rows of 512
+# (phase 4's Engine decodes there: the split form) and 2048 of 2048; B=8
+# ragged over 2048 (the dense Scheduler's 8 slots: 256 pairs fill the card,
+# one block a pair).
+APPEND_CASES = [("B=4 ragged", [1, 37, 300, S_CTX], S_CTX),
+                ("B=1 L=37", [37], S_CTX),
+                ("B=1 L=300", [300], S_CTX),
+                ("B=1 L=512", [S_CTX], S_CTX),
+                ("B=1 L=2048", [2048], 2048),
+                ("B=8 ragged", PAGED_LENGTHS, 2048)]
+# The split counts swept at these (ranges of the live rows, no floor).
+APPEND_SWEPT = ("B=1 L=300", "B=1 L=512", "B=1 L=2048")
+
+
+def _decode_append_records(randn, case) -> list:
+    """Kernel 3 (decode append + attend) at APPEND_CASES, each against its
+    plain version with the caches written bit for bit as the plain's, timed
+    as the wrapper launches it (the split form where decode_splits gives
+    more than 1) beside its one-block launch (splits = 1, also checked and
+    its caches compared), its bound and SDPA over the same live rows (no
+    append).  Two records: kernel 3 as the model calls it, timed at B=1 over
+    512 (phase 4's shape), and its split form alone, timed at B=1 over
+    2048."""
+    import torch
+
+    from tokenhawk_tpu_torch.ops.cuda import build
+    from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
+
+    log("-- kernel 3: decode append + attend, its tile walk in clusters where the (sequence, "
+        "KV head) pairs leave SMs idle, else one block a pair")
+    dev = torch.device("cuda")
+    sms = build.sm_count(dev)
+    Hkv, Dh, bf = 32, 128, 2
+    cases = []
+    for label, lens, S in APPEND_CASES:
+        B = len(lens)
+        splits = fd.decode_splits(B, Hkv, S, sms, fd.APPEND_MIN_TILES)
+        if (B * Hkv < sms) != (splits > 1):
+            raise AssertionError(f"kernel 3 at {label}: {splits} splits for {B * Hkv} pairs")
+        q = randn(B, Hkv, 1, Dh, scale=Dh**-0.5)
+        kn, vn = randn(B, Hkv, Dh), randn(B, Hkv, Dh)
+        kc, vc = randn(B, Hkv, S, Dh), randn(B, Hkv, S, Dh)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kp, vp = kc.clone(), vc.clone()
+        ref = fd.flash_decode_append_plain(q, kn, vn, kp, vp, lengths)
+        forms = {}
+        for n in sorted({splits, 1}, reverse=True):  # as the wrapper picks, then one block
+            k1, v1 = kc.clone(), vc.clone()
+            before = fd.launches["flash_decode_append_split"]
+            forms[n] = (fd.flash_decode_append(q, kn, vn, k1, v1, lengths) if n == splits
+                        else fd.flash_decode_append_at(q, kn, vn, k1, v1, lengths, n))
+            if fd.launches["flash_decode_append_split"] - before != (n > 1):
+                raise AssertionError(f"kernel 3 at {label}: the split counter disagrees with "
+                                     f"{n} splits")
+            if not (torch.equal(k1, kp) and torch.equal(v1, vp)):
+                raise AssertionError(f"kernel 3 at {label}, {n} splits: caches differ from the "
+                                     f"plain's")
+        err1, tol1 = max_err(forms[1], ref)
+        if not err1 <= tol1:
+            raise AssertionError(f"kernel 3 at {label}, one block a pair: {err1} > {tol1}")
+        caches = copies([kc, vc], 2 * kc.nbytes)
+        case(cases, f"flash_decode_append (kernel 3) {label} Hkv={Hkv} Dh={Dh} S={S} "
+                    f"lengths={lens}, {splits} splits (caches identical)", label, B,
+             forms[splits], ref,
+             [lambda c=c: fd.flash_decode_append(q, kn, vn, *c, lengths) for c in caches],
+             [lambda c=c: fd.flash_decode_append_plain(q, kn, vn, *c, lengths) for c in caches])
+        live = sum(min(n, S) for n in lens)
+        # K and V rows of the live tokens, q, k_new, v_new and out, the two
+        # rows written, the lengths.
+        b = bound((2 * live + 6 * B) * Hkv * Dh * bf + 4 * B, 4 * live * Hkv * Dh)
+        lib = _sdpa_ms(q, caches, lens)
+        one = timed([lambda c=c: fd.flash_decode_append_at(q, kn, vn, *c, lengths, 1)
+                     for c in caches])["ms"]
+        cases[-1].update(b, library_ms=lib, splits=splits, one_block_ms=one,
+                         one_block_max_abs_err=err1)
+        log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}); one block a pair (splits 1): "
+            f"{one:.4f} ms (max_abs_err {err1:.3e}); library call scaled_dot_product_attention "
+            f"over the live rows (no append): {lib:.4f} ms")
+        if label in APPEND_SWEPT:
+            sweep = {}
+            for n in SPLIT_SWEEP:
+                err, tol = max_err(fd.flash_decode_append_at(q, kn, vn, kc.clone(), vc.clone(),
+                                                             lengths, n, 1), ref)
+                if not err <= tol:
+                    raise AssertionError(f"kernel 3 at {label}, {n} splits: {err} > {tol}")
+                sweep[n] = timed([lambda c=c, n=n: fd.flash_decode_append_at(
+                    q, kn, vn, *c, lengths, n, 1) for c in caches])["ms"]
+            cases[-1]["sweep_ms"] = sweep
+            tiles = (max(lens) + 31) // 32
+            log(f"  sweep (splits: ms, live tiles a range): " + ", ".join(
+                f"{n}: {ms:.4f} ({-(-tiles // n)})" for n, ms in sweep.items()))
+        del kc, vc, kp, vp, caches
+    src = "tokenhawk_tpu_torch/csrc/decode_append.cu"
+    rep3 = ("tokenhawk_tpu/ops/pallas/flash_decode_dma.py:1112 (flash_decode_append_walk); "
+            "flash_decode_dma.py:1218 (flash_decode_append)")
+
+    def at(label):
+        c = next(c for c in cases if c["shape"] == label)
+        return (label, len(next(x[1] for x in APPEND_CASES if x[0] == label))), \
+            {k: c[k] for k in ("bound_ms", "bound_by")}, c["library_ms"]
+
+    return [_record("flash_decode_append", src, rep3, cases, *at("B=1 L=512")),
+            _record("flash_decode_append_split", src, rep3 + ", where the (sequence, KV "
+                    "head) pairs leave SMs idle: split-S in clusters, merged on chip",
+                    [c for c in cases if c["splits"] > 1], *at("B=1 L=2048"))]
+
+
 # sha256 of outputs of the kernels whose launches this tree keeps as its
-# parent had them (kernel 3, kernel 16, kernel 18, and the GEMV of kernels
-# 1, 13 and 17 at 1 and 8 rows of bfloat16 x and at 40 rows of float32 x),
-# on _output_digests' inputs, as the tree before kernel 14's split form and
+# parent had them (kernel 16, kernel 18, and the GEMV of kernels 1, 13 and
+# 17 at 1 and 8 rows of bfloat16 x and at 40 rows of float32 x), on
+# _output_digests' inputs, as the tree before kernel 14's split form and
 # kernel 17's tensor-core path computed them on an NVIDIA H100 80GB HBM3:
-# they must not move by a bit.
+# they must not move by a bit.  Kernel 3 was redesigned in PR 13 (its tile
+# walk and split form sum in another order): its two entries are that
+# tree's outputs, its written caches as before.
 PARENT_DIGESTS = {
     'kernel 3 7B':
-        '57a79558f5c8b78a7ba69092c0d89f2eb5b8d11864d913b7b9772ca1c06bea5e',
+        '0b730923adc93bb96be8a17ca537594d8a6b6dcfbc80b92751aafae0e157b96d',
     'kernel 18 7B splits=1':
         '7539b64f59d647b53c5469e926f5a250080296f6dd8bc57447b90b8e27c458d0',
     'kernel 18 7B splits=8':
@@ -1393,7 +1497,7 @@ PARENT_DIGESTS = {
     'kernel 18 7B shard 1 of 4':
         '1a2441a3db0153c997a4d0088a5d6227cd540f87ec7d377d6c35d5678b3b4f28',
     'kernel 3 dh64':
-        '81b63823d9be30c816c6a19bd5619ab21dd2553f2c3093b39e0301361082984a',
+        '7f8e4039744d8a97e2ce2cd32e429d679cda7ffe83821d0114994174cd133991',
     'kernel 18 dh64 splits=1':
         'f91ed9900db983e2e626425e57588618e118daffd2142d7873ca09fe978a149e',
     'kernel 18 dh64 splits=8':
@@ -1514,7 +1618,8 @@ def _check_parent_digests() -> None:
     log(f"kernels 3, 16, 18 and the GEMV at 1, 8 bf16 and 40 f32 rows: {len(got) - len(differ)} "
         f"of {len(got)} outputs bit for bit the parent tree's")
     if differ or set(got) != set(PARENT_DIGESTS):
-        raise AssertionError(f"outputs that moved from the parent tree's: {differ or got}")
+        raise AssertionError("outputs that moved from the parent tree's: "
+                             + ", ".join(f"{k!r}: {got.get(k)!r}" for k in differ or got))
 
 
 def _head_dim_64_cases(randn, case) -> dict:
@@ -2194,7 +2299,7 @@ def phase_serve(kernel_mods) -> tuple:
     counts = _read_counts(kernel_mods)
     log(f"kernel launches in the serve run: {counts}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
-    _check_path(counts, [*Q4_PATHS, FFN_Q4_0, "flash_decode", K4],
+    _check_path(counts, [*Q4_PATHS, FFN_Q4_0, "flash_decode", "flash_decode_append_split", K4],
                 [*QK_PATHS, "flash_decode_attend", *CUDA_CORE_PREFILL])
     _profile_request(engines[id(greedy)], [1] + rng.integers(3, cfg.n_vocab, size=4).tolist())
     _path_spread(cfg, params)
@@ -3783,9 +3888,11 @@ def phase_fused_engine(params, kernel_mods) -> dict:
     prompts = [[1] + rng.integers(3, cfg.n_vocab, n - 1).tolist() for n in (5, 300)]
     forms = {"neither": Fusions(), "owo": Fusions(owo=True), "attn": Fusions(attn=True),
              "both": Fusions(owo=True, attn=True)}
-    # Launches per decode token: wqkv and the head are kernel 1 in every form.
-    per_token = {"neither": {"q4_matmul": 2 * L + 1, "flash_decode": L, FFN_Q4_0: L},
-                 "owo": {"q4_matmul": L + 1, "flash_decode": L, OWO_Q4_0: L},
+    # Launches per decode token: wqkv and the head are kernel 1 in every form;
+    # kernel 3 at B=1 over the 7B's 32 KV heads takes its split form.
+    k3 = {"flash_decode": L, "flash_decode_append_split": L}
+    per_token = {"neither": {"q4_matmul": 2 * L + 1, **k3, FFN_Q4_0: L},
+                 "owo": {"q4_matmul": L + 1, **k3, OWO_Q4_0: L},
                  "attn": {"q4_matmul": L + 1, ATTN_WO: L, FFN_Q4_0: L},
                  "both": {"q4_matmul": L + 1, ATTN_WO: L, FFN_Q4_0: L}}
     streams, requests, windows = {}, {}, {k: [] for k in forms}
@@ -3980,8 +4087,9 @@ def phase_cp_engine(params, kernel_mods, tmp: str) -> dict:
         torch.cuda.synchronize()
         counts = _read_counts(kernel_mods)
         log(f"CP kernel launches over the 3 requests: {counts}")
-        _check_path(counts, [*Q4_PATHS, "flash_decode_stats", "flash_attention_stats"],
-                    [FFN_Q4_0, "flash_decode", K4, "flash_attention", "flash_decode_attend"])
+        _check_path(counts, [*Q4_PATHS, "flash_decode_stats", "flash_attention_stats_tc"],
+                    [FFN_Q4_0, "flash_decode", K4, "flash_attention", "flash_decode_attend",
+                     "flash_attention_stats"])
         rates = {"cp": [], "dense": []}
         for p, r in zip(prompts, runs):
             d = dense.generate(p, max_new_tokens=32)
@@ -4335,10 +4443,12 @@ def main() -> int:
     # with an sb w13;
     # the dense 7B Engine's of phase 8 for kernel 14; phase 10a's requests
     # with OWO for kernel 15 and with ATTN for kernel 16; phase 12b's CP
-    # Engine for kernels 18 and 19.
+    # Engine for kernels 18 and 19 (kernel 19's tensor-core walk: its bf16
+    # K/V).
     launches = {"q4_matmul": counts["q4_matmul"], "q4_matmul_tc": counts["q4_matmul_tc"],
                 "fused_ffn": counts[FFN_Q4_0],
                 "flash_decode_append": counts["flash_decode"],
+                "flash_decode_append_split": counts["flash_decode_append_split"],
                 "flash_attention": counts[K4],
                 "qk_matmul[q4_k_m]": q4km_counts["qk_matmul"],
                 "qk_matmul_tc[q4_k_m]": q4km_counts["qk_matmul_tc"],
@@ -4360,7 +4470,7 @@ def main() -> int:
                 "fused_owo_ffn": fused_counts["owo"][OWO_Q4_0],
                 "fused_attn_out": fused_counts["attn"][ATTN_WO],
                 "flash_decode_stats": cp_counts["flash_decode_stats"],
-                "flash_attention_stats": cp_counts["flash_attention_stats"]}
+                "flash_attention_stats": cp_counts["flash_attention_stats_tc"]}
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     records += bench_records  # kernels 20-22, launches on their own paths

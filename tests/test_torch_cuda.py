@@ -36,6 +36,7 @@ from tokenhawk_tpu_torch.ops.cuda import (
 )
 from tokenhawk_tpu_torch.ops.kvquant import quantize_kv_block
 from tokenhawk_tpu_torch.ops.qweight import QWeight
+from tokenhawk_tpu_torch.parallel.ring import _MASK
 from tokenhawk_tpu_torch.runtime.engine import make_prefill_fn
 from tokenhawk_tpu_torch.runtime.loader import load_model
 
@@ -329,10 +330,54 @@ def test_append_attend_kernel_matches_plain(rep, cache_dtype, Dh):
     kc = torch.randn(B, Hkv, S, Dh, generator=g, device=dev).to(cache_dtype)
     vc = torch.randn(B, Hkv, S, Dh, generator=g, device=dev).to(cache_dtype)
     kp, vp = kc.clone(), vc.clone()
+    before = dict(flash_decode.launches)
     got = flash_decode.flash_decode_append(q, kn, vn, kc, vc, lengths)
+    split = flash_decode.decode_splits(B, Hkv, S, torch.cuda.get_device_properties(
+        dev).multi_processor_count, flash_decode.APPEND_MIN_TILES) > 1  # 16 pairs: split
+    assert flash_decode.launches == {**before, "flash_decode": before["flash_decode"] + 1,
+                                     "flash_decode_append_split":
+                                     before["flash_decode_append_split"] + split}
     want = flash_decode.flash_decode_append_plain(q, kn, vn, kp, vp, lengths)
     assert torch.equal(kc, kp) and torch.equal(vc, vp)
     assert _err(got, want) <= _tol(want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
+@pytest.mark.parametrize("rep", [1, 8])
+@pytest.mark.parametrize("dtype,cache_dtype", [(torch.bfloat16, torch.bfloat16),
+                                               (torch.float32, torch.float32),
+                                               (torch.bfloat16, torch.float32)])
+def test_append_split_kernel_matches_plain(rep, dtype, cache_dtype, Dh):
+    """Kernel 3 in both forms: one block a pair (splits 1) and clusters of 2
+    to 16 blocks, ranges of at least 1, 2 and 4 tiles, lengths of
+    1 row, a tile less one, a tile, a tile and one, 37, 300 rows, S and past
+    S; the caches written bit for bit as the plain version writes them (the
+    new row lands in one block's range, at the end of a chunk or alone in
+    it), and the counters name the form."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(rep + Dh + 3)
+    B, Hkv, S = 8, 2, 2048
+    lengths = torch.tensor([1, 31, 32, 33, 37, 300, S, S + 5], dtype=torch.int32, device=dev)
+    q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).to(dtype)
+    kn = torch.randn(B, Hkv, Dh, generator=g, device=dev).to(dtype)
+    vn = torch.randn(B, Hkv, Dh, generator=g, device=dev).to(dtype)
+    kc0 = torch.randn(B, Hkv, S, Dh, generator=g, device=dev).to(cache_dtype)
+    vc0 = torch.randn(B, Hkv, S, Dh, generator=g, device=dev).to(cache_dtype)
+    kp, vp = kc0.clone(), vc0.clone()
+    want = flash_decode.flash_decode_append_plain(q, kn, vn, kp, vp, lengths)
+    for min_tiles in (1, flash_decode.APPEND_MIN_TILES, flash_decode.MIN_SPLIT_TILES):
+        for splits in range(1, flash_decode.MAX_SPLITS + 1):
+            kc, vc = kc0.clone(), vc0.clone()
+            before = dict(flash_decode.launches)
+            got = flash_decode.flash_decode_append_at(q, kn, vn, kc, vc, lengths, splits,
+                                                      min_tiles)
+            torch.cuda.synchronize()
+            assert flash_decode.launches["flash_decode"] == before["flash_decode"] + 1
+            assert flash_decode.launches["flash_decode_append_split"] == (
+                before["flash_decode_append_split"] + (splits > 1))
+            assert torch.equal(kc, kp) and torch.equal(vc, vp), (splits, min_tiles)
+            assert got.shape == q.shape and got.dtype == dtype
+            assert _err(got, want) <= _tol(want, dtype), (splits, min_tiles)
 
 
 @pytest.mark.parametrize("Dh", HEAD_DIMS)
@@ -477,13 +522,56 @@ def test_attention_stats_kernel_matches_plain(stride, q_start, k_start, cache_dt
     kc = torch.randn(B, Hkv, S, Dh, generator=g, device=dev).to(cache_dtype)
     vc = torch.randn(B, Hkv, S, Dh, generator=g, device=dev).to(cache_dtype)
     qs, ks = (torch.tensor(x, dtype=torch.int32, device=dev) for x in (q_start, k_start))
-    before = flash_attention.launches["flash_attention_stats"]
+    walk = ("flash_attention_stats_tc" if cache_dtype == torch.bfloat16
+            else "flash_attention_stats")
+    before = dict(flash_attention.launches)
     got = flash_attention.flash_attention_stats(q, kc, vc, qs, ks, stride)
-    assert flash_attention.launches["flash_attention_stats"] == before + 1
+    assert flash_attention.launches == {**before, walk: before[walk] + 1}
     want = flash_attention.flash_attention_stats_plain(q, kc, vc, qs, ks, stride)
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == torch.float32
         _close_f32(a, b)
+
+
+# Kernel 19's tensor-core walk: (stride, Dh, rep, T, q_start [B], k_start
+# [B], S), tests/test_torch_prefill_tc.py's STATS_CASES: offsets of both
+# signs and 0, T * rep at most 16 (the SPLIT form) and above, blocks that
+# see no key at all.
+STATS_TC_CASES = [
+    (1, 64, 1, 13, [0, 5], [0, 40], 128),
+    (2, 128, 4, 33, [3, 0], [0, 9], 128),
+    (4, 64, 2, 8, [7, 1], [2, 130], 128),
+    (4, 128, 1, 70, [1, 300], [2, 0], 128),
+    (1, 128, 2, 40, [0, 10], [0, 100], 64),
+    (2, 64, 8, 2, [100, 0], [0, 1], 64),
+    (1, 128, 1, 512, [0, 0], [0, 0], 512),
+]
+
+
+@pytest.mark.parametrize("stride,Dh_,rep,T,q_start,k_start,S", STATS_TC_CASES)
+def test_attention_stats_tc_walk_matches_plain(stride, Dh_, rep, T, q_start, k_start, S):
+    """Kernel 19 on bf16 K/V runs the tensor-core walk (its counter, not
+    the CUDA-core walk's), within 1e-4 of the plain version; rows that see
+    no key are exactly (0, _MASK, 0)."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(stride + T + rep)
+    B, Hkv = 2, 4
+    q = torch.randn(B, Hkv, rep, T, Dh_, generator=g, device=dev) / Dh_**0.5
+    kc = torch.randn(B, Hkv, S, Dh_, generator=g, device=dev).bfloat16()
+    vc = torch.randn(B, Hkv, S, Dh_, generator=g, device=dev).bfloat16()
+    qs, ks = (torch.tensor(x, dtype=torch.int32, device=dev) for x in (q_start, k_start))
+    before = dict(flash_attention.launches)
+    o, m, l = flash_attention.flash_attention_stats(q, kc, vc, qs, ks, stride)
+    assert flash_attention.launches == {**before, "flash_attention_stats_tc":
+                                        before["flash_attention_stats_tc"] + 1}
+    want = flash_attention.flash_attention_stats_plain(q, kc, vc, qs, ks, stride)
+    for a, b in zip((o, m, l), want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        _close_f32(a, b)
+    qpos = qs[:, None] + stride * torch.arange(T, device=dev)
+    unseen = (ks[:, None] > qpos)[:, None, None].expand(m.shape)  # key 0 not visible
+    assert torch.all(o[unseen] == 0) and torch.all(m[unseen] == _MASK)
+    assert torch.all(l[unseen] == 0)
 
 
 @pytest.mark.parametrize("splits", [1, 5])

@@ -16,6 +16,15 @@ heads of 64, 8 queries each) and at 2 KV heads of 128, one query each:
 f32, one function summed in other orders, within atol 3e-5 and rtol 1e-4
 (the reference's own decode tolerance).
 
+Kernel 3's split form (csrc/decode_append.cu decode_append_tiles_kernel
+with SPLIT) appends the new row, then takes the same ranges and merge:
+`append_split_merge` writes k_new / v_new at row clamp(lengths, 1, S) - 1
+as the block whose range holds that row does, then runs `split_merge`.
+It is held against the reference's `flash_decode_append_walk` in Pallas
+interpret mode at 1 to 8 splits, lengths 1, 37, 300 and S, at the 7B's
+heads (one query a KV head, head dim 128) and the draft's: the caches
+bit for bit, the output within the same tolerance.
+
 `decode_splits`, which picks the split count on the host, is held to its
 rules: 1 where B*Hkv fills the SMs, more at the draft's B=1 shape, no
 range of S under MIN_SPLIT_TILES tiles, no more blocks than the card
@@ -27,7 +36,7 @@ import numpy as np
 import pytest
 import torch
 
-from tokenhawk_tpu.ops.pallas.flash_decode_dma import flash_decode_dma
+from tokenhawk_tpu.ops.pallas.flash_decode_dma import flash_decode_append_walk, flash_decode_dma
 from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
 
 from torch_helpers import t
@@ -56,6 +65,43 @@ def split_merge(q, k_cache, v_cache, lengths, splits: int, min_tiles: int):
         num = num + o[s] * f[..., None]
         den = den + l[s] * f
     return (num / den[..., None]).to(q.dtype)
+
+
+def append_split_merge(q, k_new, v_new, k_cache, v_cache, lengths, splits: int,
+                       min_tiles: int):
+    """Kernel 3's split form in torch: the append (caches updated in
+    place), then split_merge over the live rows."""
+    S = k_cache.shape[2]
+    L = lengths.long().clamp(1, S)
+    bi = torch.arange(q.shape[0])
+    k_cache[bi, :, L - 1] = k_new.to(k_cache.dtype)
+    v_cache[bi, :, L - 1] = v_new.to(v_cache.dtype)
+    return split_merge(q, k_cache, v_cache, lengths, splits, min_tiles)
+
+
+APPEND_S = 512
+APPEND_LENGTHS = [1, 37, 300, APPEND_S]
+
+
+@pytest.mark.parametrize("heads", [(2, 1, 128), (4, 8, 64)],
+                         ids=lambda h: f"hkv{h[0]}-rep{h[1]}-dh{h[2]}")
+def test_append_split_merge_matches_the_reference(heads):
+    Hkv, rep, Dh = heads
+    rng = np.random.default_rng(Hkv * 100 + rep)
+    B = len(APPEND_LENGTHS)
+    q = (rng.standard_normal((B, Hkv, rep, Dh)) / Dh**0.5).astype(np.float32)
+    kn, vn = (rng.standard_normal((B, Hkv, Dh)).astype(np.float32) for _ in range(2))
+    kc, vc = (rng.standard_normal((B, Hkv, APPEND_S, Dh)).astype(np.float32) for _ in range(2))
+    lengths = np.asarray(APPEND_LENGTHS, np.int32)
+    want, jk, jv = (np.asarray(a) for a in flash_decode_append_walk(
+        *(jnp.asarray(a) for a in (q, kn, vn, kc, vc, lengths)), interpret=True))
+    for splits in range(1, 9):
+        for min_tiles in (1, fd.APPEND_MIN_TILES, fd.MIN_SPLIT_TILES):
+            k_t, v_t = t(kc), t(vc)
+            got = append_split_merge(t(q), t(kn), t(vn), k_t, v_t, t(lengths), splits, min_tiles)
+            msg = f"splits={splits} min_tiles={min_tiles}"
+            assert np.array_equal(k_t.numpy(), jk) and np.array_equal(v_t.numpy(), jv), msg
+            np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=1e-4, err_msg=msg)
 
 
 @pytest.mark.parametrize("heads", HEADS, ids=lambda h: f"hkv{h[0]}-rep{h[1]}-dh{h[2]}")
@@ -106,6 +152,17 @@ def test_the_ranges_cover_the_live_rows_in_whole_tiles(min_tiles):
 ])
 def test_decode_splits(B, Hkv, S_, want):
     assert fd.decode_splits(B, Hkv, S_, H100_SMS) == want
+
+
+@pytest.mark.parametrize("B, Hkv, S_, want", [
+    (1, 32, 512, 8),    # kernel 3 at the 7B's heads, B=1: ranges of 2 tiles
+    (1, 32, 2048, 8),   # as many as the card holds (2 blocks an SM)
+    (4, 32, 512, 2),
+    (8, 32, 2048, 1),   # 256 pairs: one block a pair
+    (1, 32, 32, 1),     # one tile
+])
+def test_decode_splits_with_kernel_3s_floor(B, Hkv, S_, want):
+    assert fd.decode_splits(B, Hkv, S_, H100_SMS, fd.APPEND_MIN_TILES) == want
 
 
 def test_decode_splits_rules():

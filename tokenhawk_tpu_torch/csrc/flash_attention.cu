@@ -1,6 +1,5 @@
 // Kernel 4: causal prefill flash attention against the cache, and kernel
-// 19: kernel 4's CUDA-core walk returning softmax partials for context
-// parallelism.
+// 19: kernel 4's walks returning softmax partials for context parallelism.
 //
 // Kernel 4 replaces tokenhawk_tpu/ops/pallas/flash_attention.py
 // flash_attention (_kernel), reached through attend_prefill.  q [B, Hkv,
@@ -19,6 +18,12 @@
 // such partials merge without NaN and vanish against any real one.  The
 // TPU kernel's fully masked rows inside a partly visible tile collect
 // exp(_MASK - _MASK) = 1 per slot instead; both merge to the same result.
+// With bf16 K/V blocks (every CP prefill of the port: the cache's type),
+// th_flash_attention_stats_tc runs the tensor-core walk of prefill_tc.cuh
+// in its STATS form: q and P each split into two bf16 parts, so both
+// products run on the tensor cores and the partials keep about 2^-16 of
+// f32 (its header).  With f32 K/V it runs the CUDA-core walk below
+// (th_flash_attention_stats).  The dtype picks the walk.
 //
 // Two walks, two entry points; the Python wrapper picks one by dtype.  With
 // bf16 q and a bf16 cache, th_flash_prefill_tc runs the tensor-core walk of
@@ -28,7 +33,7 @@
 // admission and eval window of the port.
 //
 // With f32 q or an f32 cache (the float32 witnesses and tiny f32 models),
-// th_flash_prefill runs the CUDA-core walk below, as kernel 19 always does: a
+// th_flash_prefill runs the CUDA-core walk below, as kernel 19 does over f32 K/V: a
 // block owns 8 consecutive queries of one (b, kv head, group member), one per
 // warp.  It walks the keys in tiles of 32: all threads stage the tile's K and
 // V rows in shared memory as f32 (row stride Dh + 4 floats, so the lanes'
@@ -232,19 +237,41 @@ extern "C" int th_flash_prefill_tc(const void* q, const void* kc, const void* vc
   return e != cudaSuccess ? static_cast<int>(e) : THAWK_LAUNCH_RESULT();
 }
 
-// Kernel 19.  q, o [B, Hkv, rep, T, Dh] f32 (q pre-scaled); K / V blocks
-// [B, Hkv, S, Dh] in cache_dtype; q_starts, k_starts [B] int32; stride >= 1;
-// m, l [B, Hkv, rep, T] f32; Dh 64 or 128 (checked by the Python wrapper).
+// Kernel 19's CUDA-core walk.  q, o [B, Hkv, rep, T, Dh] f32 (q
+// pre-scaled); K / V blocks [B, Hkv, S, Dh] f32 (bf16 blocks are
+// th_flash_attention_stats_tc's); q_starts, k_starts [B] int32; stride >=
+// 1; m, l [B, Hkv, rep, T] f32; Dh 64 or 128 (checked by the Python
+// wrapper).
 extern "C" int th_flash_attention_stats(const void* q, const void* kc, const void* vc,
                                         const void* q_starts, const void* k_starts, int stride,
                                         void* o, void* m, void* l, int B, int Hkv, int rep,
                                         int Dh, int T, int S, int cache_dtype, void* stream) {
+  if (cache_dtype != kF32) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, kc, vc, static_cast<const int*>(q_starts), static_cast<const int*>(k_starts),
                stride, o, static_cast<float*>(m), static_cast<float*>(l), B, Hkv, rep, T, S,
                static_cast<cudaStream_t>(stream)};
-  if (cache_dtype == kBF16)
-    launch<float, __nv_bfloat16, true>(a, Dh);
-  else
-    launch<float, float, true>(a, Dh);
+  launch<float, float, true>(a, Dh);
   return THAWK_LAUNCH_RESULT();
+}
+
+// Kernel 19's tensor-core walk (prefill_tc.cuh, STATS): as above with bf16
+// K / V blocks.
+extern "C" int th_flash_attention_stats_tc(const void* q, const void* kc, const void* vc,
+                                           const void* q_starts, const void* k_starts,
+                                           int stride, void* o, void* m, void* l, int B, int Hkv,
+                                           int rep, int Dh, int T, int S, void* stream) {
+  if (stride < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const prefill_tc::Io<true> io{static_cast<const float*>(q), static_cast<const int*>(q_starts),
+                                static_cast<const int*>(k_starts), stride,
+                                static_cast<float*>(o), static_cast<float*>(m),
+                                static_cast<float*>(l)};
+  const auto* kb = static_cast<const __nv_bfloat16*>(kc);
+  const auto* vb = static_cast<const __nv_bfloat16*>(vc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      Dh == 64 ? prefill_tc::launch_io<64>(io, prefill_tc::Bf16Cache<64>{kb, vb}, B, Hkv, rep, T,
+                                           S, s)
+               : prefill_tc::launch_io<128>(io, prefill_tc::Bf16Cache<128>{kb, vb}, B, Hkv, rep,
+                                            T, S, s);
+  return e != cudaSuccess ? static_cast<int>(e) : THAWK_LAUNCH_RESULT();
 }

@@ -1,32 +1,23 @@
-// Kernels 3, 14 and 18: decode attention over the dense bf16/f32 KV cache.
+// Kernels 14, 16 and 18: decode attention over the dense bf16/f32 KV cache
+// (kernel 3, the same attention after an append, is decode_append.cu).
 //
-// Kernel 3 replaces tokenhawk_tpu/ops/pallas/flash_decode_dma.py
-// flash_decode_append_walk (_kernel_walk_append) and its grid form
-// flash_decode_append (_kernel_vec_append): for each (b, kv head) it
-// writes k_new / v_new at slot lengths[b]-1 in place, then attends the rep
-// query heads of that kv head over lengths[b] tokens.
-//
-// Kernel 14 replaces flash_decode_dma (_kernel, _kernel_vec),
-// flash_decode_loop (_kernel_loop) and ops/pallas/flash_decode.py
-// flash_decode (_kernel, reached through attend_decode): the same
-// attention with no write.  It serves
+// Kernel 14 replaces tokenhawk_tpu/ops/pallas/flash_decode_dma.py
+// flash_decode_dma (_kernel, _kernel_vec), flash_decode_loop (_kernel_loop)
+// and ops/pallas/flash_decode.py flash_decode (_kernel, reached through
+// attend_decode): kernel 3's attention with no write.  It serves
 // dense-weight models, whose decode writes the cache with an index copy
 // first, as the reference does.
 //
-// Both run one body (attend_head): one block per (b, kv head), q
-// pre-scaled by 1/sqrt(Dh), an online softmax in f32.  The 8 warps split
-// the live tokens in tiles of 32; a lane scores one token of a tile
-// against every query head of the group (16-byte loads of the K row),
-// then owns Dh/32 of the head dims (4 at Dh 128, 2 at Dh 64) for P·V.
-// The warps' (max, sum, acc) states merge through shared memory at the
-// end.  Only the live tiles are read: both are bound by the cache bytes of
-// the live tokens, 2*L*Dh*sizeof(cache) per head.
-//
-// Kernel 3: the block that writes a head's row is the block that reads
-// it, and the barrier after q is staged orders the write before every
-// read (its cache is read with plain loads, never through the
-// non-coherent read-only path).  Kernel 14 writes nothing: its cache
-// pointers are const __restrict__, so loads may take the read-only path.
+// Kernel 14 runs attend_head: one block per (b, kv head), q pre-scaled by
+// 1/sqrt(Dh), an online softmax in f32.  The 8 warps split the live tokens
+// in tiles of 32; a lane scores one token of a tile against every query
+// head of the group (16-byte loads of the K row), then owns Dh/32 of the
+// head dims (4 at Dh 128, 2 at Dh 64) for P·V, one V row a step.  The
+// warps' (max, sum, acc) states merge through shared memory at the end.
+// Only the live tiles are read: it is bound by the cache bytes of the live
+// tokens, 2*L*Dh*sizeof(cache) per head.  Kernel 14 writes nothing: its
+// cache pointers are const __restrict__, so loads may take the read-only
+// path.
 //
 // Kernel 18 replaces flash_decode_dma.py flash_decode_stats
 // (_kernel_vec_stats), the per-shard half of context-parallel decode
@@ -62,10 +53,11 @@
 // (_attn_wo): the attention block of one decode token (B = 1, one query per
 // kv head), x' = x + attend(q, cache + new row) @ Wo, with the new K / V rows
 // written in place.  Two launches on one stream:
-//   1. kernel 3's body, q pre-scaled in the block by 1/sqrt(Dh) and
-//      rounded to q's type (the scale itself in q's type, as the
-//      reference's wrapper has it), the context written as f32 into a
-//      [H*Dh] scratch, never rounded;
+//   1. decode_append_kernel (the append, then attend_head, one block a
+//      head), q pre-scaled in the block by 1/sqrt(Dh) and rounded to q's
+//      type (the scale itself in q's type, as the reference's wrapper has
+//      it), the context written as f32 into a [H*Dh] scratch, never
+//      rounded;
 //   2. the Wo GEMV (gemv.cuh, one row) over that f32 context, x added in
 //      its epilogue and y rounded once.
 // The TPU kernel streams Wo through a DMA ring during the KV walk; on the
@@ -86,7 +78,7 @@ constexpr int kWarps = 8;
 // Attention of one block's REP query rows q [REP, DH] (f32 math) over rows
 // [begin, L) of one head's cache kh, vh (rows `row` elements apart) -> out
 // [REP, DH] in TO.  q_scale multiplies q first, rounded back to TQ (1 for
-// kernels 3, 14 and 18, where that is exact).  STATS (kernel 18, TO =
+// kernels 14 and 18, where that is exact).  STATS (kernel 18, TO =
 // float) writes the unnormalised out and each row's m_out, l_out [REP].
 template <typename TQ, typename TC, int REP, int DH, typename TO, bool STATS = false>
 __device__ __forceinline__ void attend_head(const TQ* __restrict__ q, const TC* kh,
@@ -102,7 +94,7 @@ __device__ __forceinline__ void attend_head(const TQ* __restrict__ q, const TC* 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int i = tid; i < REP * DH; i += blockDim.x)
     qsm[i / DH][i % DH] = to_f32(from_f32<TQ>(to_f32(q[i]) * q_scale));
-  __syncthreads();  // q staged (and kernel 3's appended row visible to the block)
+  __syncthreads();  // q staged (and kernel 16's appended row visible to the block)
 
   float m[REP], l[REP], acc[REP][kPer];
 #pragma unroll
@@ -191,8 +183,8 @@ __device__ __forceinline__ void attend_head(const TQ* __restrict__ q, const TC* 
   }
 }
 
-// Kernel 3 (TO = TQ, q_scale 1) and kernel 16's first phase (B = 1, REP 1,
-// TO = float): append the new row at lengths-1, then attend.
+// Kernel 16's first phase (B = 1, REP 1, TO = float): append the new row at
+// lengths-1, then attend.
 template <typename TQ, typename TC, int REP, int DH, typename TO>
 __global__ void __launch_bounds__(kWarps * 32)
     decode_append_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
@@ -303,15 +295,13 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 struct Args {
   const void* q;
-  const void* k_new;  // null for kernel 14
-  const void* v_new;
-  void* kc;
-  void* vc;
+  const void* kc;
+  const void* vc;
   const int* lengths;
   void* out;
   int B, Hkv, S;
   cudaStream_t stream;
-  int splits;     // kernel 14 only: > 1 takes the split form,
+  int splits;     // > 1 takes the split form,
   int min_tiles;  // its ranges at least this many tiles
 };
 
@@ -343,17 +333,10 @@ cudaError_t launch_split(const Args& a) {
 
 template <typename TQ, typename TC, int REP, int DH>
 cudaError_t launch_one(const Args& a) {
-  const dim3 grid(a.B * a.Hkv), block(kWarps * 32);
-  const TQ* q = static_cast<const TQ*>(a.q);
-  TQ* o = static_cast<TQ*>(a.out);
   if (a.splits > 1) return launch_split<TQ, TC, REP, DH>(a);
-  if (a.k_new != nullptr)
-    decode_append_kernel<TQ, TC, REP, DH, TQ><<<grid, block, 0, a.stream>>>(
-        q, static_cast<const TQ*>(a.k_new), static_cast<const TQ*>(a.v_new),
-        static_cast<TC*>(a.kc), static_cast<TC*>(a.vc), a.lengths, o, a.Hkv, a.S, 1.f);
-  else
-    decode_attend_kernel<TQ, TC, REP, DH><<<grid, block, 0, a.stream>>>(
-        q, static_cast<const TC*>(a.kc), static_cast<const TC*>(a.vc), a.lengths, o, a.Hkv, a.S);
+  decode_attend_kernel<TQ, TC, REP, DH><<<a.B * a.Hkv, kWarps * 32, 0, a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TC*>(a.kc), static_cast<const TC*>(a.vc),
+      a.lengths, static_cast<TQ*>(a.out), a.Hkv, a.S);
   return cudaSuccess;
 }
 
@@ -388,19 +371,8 @@ int launch(const Args& a, int rep, int Dh, int q_dtype, int cache_dtype) {
 
 }  // namespace
 
-// Kernel 3.  q, out [B, Hkv, rep, Dh] and k_new, v_new [B, Hkv, Dh] in
-// q_dtype; caches [B, Hkv, S, Dh] in cache_dtype, updated in place;
-// lengths [B] int32.  rep is 1, 2, 4 or 8 and Dh 64 or 128 (checked by
-// the Python wrapper).
-extern "C" int th_decode_append(const void* q, const void* k_new, const void* v_new, void* kc,
-                                void* vc, const void* lengths, void* out, int B, int Hkv, int rep,
-                                int Dh, int S, int q_dtype, int cache_dtype, void* stream) {
-  const Args a{q, k_new, v_new, kc, vc, static_cast<const int*>(lengths), out, B, Hkv, S,
-               static_cast<cudaStream_t>(stream), 1, 1};
-  return launch(a, rep, Dh, q_dtype, cache_dtype);
-}
-
-// Kernel 14.  As kernel 3 without the new rows; the caches are only read.
+// Kernel 14.  As kernel 3 (decode_append.cu) without the new rows; the
+// caches are only read.
 // splits 1 launches one block per (b, kv head); 2-16 the split form, in
 // clusters of `splits` blocks, its ranges at least min_tiles tiles
 // (checked by the Python wrapper).
@@ -409,8 +381,7 @@ extern "C" int th_decode_attend(const void* q, const void* kc, const void* vc,
                                 int S, int splits, int min_tiles, int q_dtype, int cache_dtype,
                                 void* stream) {
   if (splits < 1 || splits > 16 || min_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, nullptr, nullptr, const_cast<void*>(kc), const_cast<void*>(vc),
-               static_cast<const int*>(lengths), out, B, Hkv, S,
+  const Args a{q, kc, vc, static_cast<const int*>(lengths), out, B, Hkv, S,
                static_cast<cudaStream_t>(stream), splits, min_tiles};
   return launch(a, rep, Dh, q_dtype, cache_dtype);
 }

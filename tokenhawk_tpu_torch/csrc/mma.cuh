@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy helpers of the mma.sync kernels: the
-// tensor-core prefill walk (prefill_tc.cuh, kernels 4 and 9) and the
-// tensor-core quantized GEMM (qgemm_tc.cuh, kernels 1 and 13 above 8 rows).
+// tensor-core prefill walk (prefill_tc.cuh, kernels 4, 9 and 19) and the
+// tensor-core quantized GEMM (qgemm_tc.cuh, kernels 1 and 13 above 8 rows);
+// kernel 3's walk (decode_append.cu) takes its cp.async.
 #pragma once
 
 #include "common.cuh"

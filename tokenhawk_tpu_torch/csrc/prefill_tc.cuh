@@ -1,6 +1,7 @@
 // The tensor-core walk of causal prefill attention, shared by kernel 4
 // (bf16 caches, flash_attention.cu) and kernel 9 (int8 caches, kv_int8.cu)
-// when q is bfloat16.
+// when q is bfloat16, and by kernel 19 (the ring step, flash_attention.cu)
+// over bf16 K/V blocks with its f32 q (STATS, at the end of this header).
 //
 // It computes what tokenhawk_tpu/ops/pallas/flash_attention.py _kernel and
 // flash_attention_int8.py _kernel compute: q [B, Hkv, rep, T, Dh] (bf16,
@@ -58,6 +59,27 @@
 // the mma, as the reference folds ks_row into score space
 // (flash_attention_int8.py:87); the V scale multiplies P before its bf16
 // rounding, as the reference computes p * vs_row (:100).
+//
+// STATS (kernel 19, flash_attention.py _kernel_stats): q is float32 and the
+// partials are held to f32's accuracy (1e-5 of each value in the tests), so
+// neither q nor P may be rounded to bf16.  Each is split in three bf16
+// parts, hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), which
+// carry x to about 2^-24 of itself (two parts, 2^-16, left partials 3x
+// past that bound): S = q_hi.K^T + (q_mid.K^T + q_lo.K^T) in two
+// accumulator chains, summed after the k-steps, and O += P_hi.V + P_mid.V
+// + P_lo.V, with K and V exact as bf16 operands; l sums the unsplit p.
+// q_hi is held in registers as kernel 4 holds q (its fragments built from
+// f32 q in device memory); q_mid and q_lo are staged side by side in shared
+// memory and read by ldmatrix at each k-step, so that two blocks still fit
+// an SM.  The mask is kernel 4's with a per-sequence offset: key j is
+// visible to query t iff k_start + stride*j <= q_start + stride*t, that is
+// j <= t + off with off = floor((q_start - k_start) / stride), computed in
+// the block from the two starts.  off may be negative (a query shard before
+// the visiting block): a block whose last row sees no key loads nothing and
+// writes every row's identity; a row that sees no key keeps m = -inf and
+// p = 0 through the walk and is written as (0, _MASK, 0), as the CUDA-core
+// walk writes it.  The outputs are the unnormalised o, m and l in f32, in
+// kernel 19's layout ([B, Hkv, rep, T, Dh] and [B, Hkv, rep, T]).
 #pragma once
 
 #include "mma.cuh"
@@ -68,6 +90,9 @@ namespace prefill_tc {
 constexpr int kKeys = 64;  // keys a tile
 constexpr int kPad = 8;    // bf16 values of padding a shared row (16 bytes)
 constexpr float kLog2e = 1.4426950408889634f;
+// parallel/ring.py _MASK, rounded to f32 as the Python float is: the m of a
+// row that sees no key (STATS).
+constexpr float kMask = static_cast<float>(-0.7 * 3.4028234663852886e38);
 
 // 2^x by the special-function unit (a row's exponents are at most 0 here;
 // a result below 2^-126 is 0, as is 2^-inf).
@@ -132,43 +157,87 @@ struct Int8Cache {
 
 constexpr int kWarps = 4;
 
-// A block's shared memory: its Q rows, then the K/V tiles.  SPLIT's merge
-// reuses the tiles' space for each warp's o [16, DH + 8], m and l [16] in f32.
-template <int DH, bool SPLIT, typename Cache>
+// What a walk reads and writes besides the cache: kernels 4 and 9 take
+// bf16 q and write out = O / l in bf16; kernel 19 (STATS) takes f32 q and
+// writes the partials.
+template <bool STATS>
+struct Io;
+template <>
+struct Io<false> {
+  using Q = __nv_bfloat16;
+  const __nv_bfloat16* q;  // [B, Hkv, rep, T, DH]
+  const int* offsets;      // [B]
+  __nv_bfloat16* out;      // [B, Hkv, rep, T, DH]
+  __device__ int offset(int b) const { return offsets[b]; }
+};
+template <>
+struct Io<true> {
+  using Q = float;
+  const float* q;         // [B, Hkv, rep, T, DH]
+  const int* q_starts;    // [B]
+  const int* k_starts;    // [B]
+  int stride;             // >= 1
+  float* o;               // [B, Hkv, rep, T, DH]
+  float* m;               // [B, Hkv, rep, T]
+  float* l;
+  // floor((q_start - k_start) / stride): key j is visible to query t iff j <= t + off.
+  __device__ int offset(int b) const {
+    const int d = q_starts[b] - k_starts[b];
+    return d >= 0 ? d / stride : -((stride - 1 - d) / stride);
+  }
+};
+
+// A block's shared memory: its Q rows (STATS: q's mid rows, then its lo
+// rows), then the K/V tiles.  SPLIT's merge reuses the tiles' space for each
+// warp's o [16, DH + 8], m and l [16] in f32.
+template <int DH, bool SPLIT, typename Cache, bool STATS = false>
 struct Smem {
   static constexpr int kRows = SPLIT ? 16 : 16 * kWarps;  // query rows a block
-  static constexpr int kQBytes = kRows * (DH + kPad) * 2;
+  static constexpr int kQBytes = (STATS ? 2 : 1) * kRows * (DH + kPad) * 2;
   static constexpr int kBytes = kQBytes + Cache::kBytes;
   static_assert(!SPLIT || Cache::kBytes >= kWarps * 16 * (DH + 8 + 2) * 4, "merge space");
 };
 
+// Two f32 as three bf16x2 that sum to them: the bf16 of each (hi), of what
+// hi leaves (mid), and of what both leave (lo).
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& mid,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 fh = __bfloat1622float2(h);
+  const float ra = a - fh.x, rb = b - fh.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
+  const float2 fm = __bfloat1622float2(m);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = pack_bf16(ra - fm.x, rb - fm.y);
+}
+
 // One block: query rows [i0, i0 + 64) of (b, kv head) blockIdx.y, 16 a warp;
 // or, SPLIT, rows [0, 16) for all 4 warps, warp w taking keys [16w, 16w + 16)
 // of every tile.
-template <int DH, bool SPLIT, typename Cache>
+template <int DH, bool SPLIT, typename Cache, bool STATS>
 __global__ void __launch_bounds__(kWarps * 32)
-    prefill_tc_kernel(const __nv_bfloat16* __restrict__ q, Cache cache,
-                      const int* __restrict__ offsets, __nv_bfloat16* __restrict__ out, int Hkv,
-                      int rep, int T, int S) {
+    prefill_tc_kernel(const Io<STATS> io, Cache cache, int Hkv, int rep, int T, int S) {
+  static_assert(!(STATS && Cache::kInt8), "kernel 19 reads bf16 K/V blocks");
   constexpr int NT = kWarps * 32;
-  constexpr int BM = Smem<DH, SPLIT, Cache>::kRows;
+  constexpr int BM = Smem<DH, SPLIT, Cache, STATS>::kRows;
   constexpr int WK = SPLIT ? kKeys / kWarps : kKeys;  // keys of a tile a warp takes
   constexpr int kRow = DH + kPad;
   constexpr int kChunks = DH / 8;  // 16-byte chunks of a bf16 row
   constexpr int KS = DH / 16;      // k-steps of Q.K^T
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  unsigned char* cs = smem + Smem<DH, SPLIT, Cache>::kQBytes;
+  __nv_bfloat16* qs_lo = qs + BM * kRow;  // STATS: q's lo parts (qs: its mid parts)
+  unsigned char* cs = smem + Smem<DH, SPLIT, Cache, STATS>::kQBytes;
 
   const int bh = blockIdx.y;
   const int b = bh / Hkv;
   const int N = T * rep;  // rows of this (b, kv head)
   const int i0 = (gridDim.x - 1 - blockIdx.x) * BM;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int off = offsets[b];
+  const int off = io.offset(b);
   const int last_row = min(i0 + BM, N) - 1;
   const int block_last = min(off + last_row / rep, S - 1);  // the block's last visible key
-  const int n_tiles = block_last / kKeys + 1;
   const size_t qhead = static_cast<size_t>(bh) * rep;  // (b, h, r=0) in [B*Hkv*rep]
   const Cache head = cache.at(bh, S);
 
@@ -176,13 +245,56 @@ __global__ void __launch_bounds__(kWarps * 32)
   auto row_ptr = [&](auto* base, int i) {
     return base + ((qhead + i % rep) * T + i / rep) * DH;
   };
+  auto row_index = [&](int i) { return (qhead + i % rep) * T + i / rep; };
+
+  if constexpr (STATS) {
+    if (block_last < 0) {  // no row of the block sees a key: the identity, nothing loaded
+      for (int i = tid; i < BM * DH; i += NT) {
+        const int r = i / DH;
+        if (i0 + r < N) row_ptr(io.o, i0 + r)[i % DH] = 0.f;
+      }
+      for (int r = tid; r < BM; r += NT) {
+        if (i0 + r < N) {
+          io.m[row_index(i0 + r)] = kMask;
+          io.l[row_index(i0 + r)] = 0.f;
+        }
+      }
+      return;
+    }
+  }
+  const int n_tiles = block_last / kKeys + 1;
 
   // -- the copies: Q once (with tile 0), each K/V tile into a ring stage;
   // rows past N and keys past block_last are zero-filled --
-  for (int i = tid; i < BM * kChunks; i += NT) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool ok = i0 + r < N;
-    cp_async16(qs + r * kRow + c, ok ? row_ptr(q, i0 + r) + c : q, ok);
+  if constexpr (STATS) {
+    // f32 q, split here into its mid and lo bf16 rows (visible after tile
+    // 0's barrier; hi goes to registers below).
+    for (int i = tid; i < BM * kChunks; i += NT) {
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      float x[8];
+      if (i0 + r < N) {
+        const float4* src = reinterpret_cast<const float4*>(row_ptr(io.q, i0 + r) + c);
+        const float4 a = src[0], b4 = src[1];
+        x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+        x[4] = b4.x; x[5] = b4.y; x[6] = b4.z; x[7] = b4.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) x[e] = 0.f;
+      }
+      uint4 hi, mid, lo;
+      split_bf16(x[0], x[1], hi.x, mid.x, lo.x);
+      split_bf16(x[2], x[3], hi.y, mid.y, lo.y);
+      split_bf16(x[4], x[5], hi.z, mid.z, lo.z);
+      split_bf16(x[6], x[7], hi.w, mid.w, lo.w);
+      *reinterpret_cast<uint4*>(qs + r * kRow + c) = mid;
+      *reinterpret_cast<uint4*>(qs_lo + r * kRow + c) = lo;
+    }
+  } else {
+    for (int i = tid; i < BM * kChunks; i += NT) {
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      const bool ok = i0 + r < N;
+      cp_async16(qs + r * kRow + c, ok ? row_ptr(io.q, i0 + r) + c : io.q, ok);
+    }
   }
   // Per thread, the scales of the int8 tile in flight (keys tid, tid + NT, ...).
   constexpr int kScalesPer = (kKeys + NT - 1) / NT;
@@ -232,6 +344,26 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int warp_last = off + min(wrow + 15, N - 1) / rep;
 
   uint32_t qf[KS][4];
+  if constexpr (STATS) {
+    // q_hi's A fragments from f32 q: rows g and g + 8 of the warp's 16,
+    // columns c2, c2 + 1 and c2 + 8, c2 + 9 of each k-step (ldmatrix's
+    // layout); rows past N are zeros.
+    const float* r0 = wrow + g < N ? row_ptr(io.q, wrow + g) : nullptr;
+    const float* r1 = wrow + g + 8 < N ? row_ptr(io.q, wrow + g + 8) : nullptr;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const int c = ks * 16 + c2;
+      const float2 z = make_float2(0.f, 0.f);
+      const float2 a0 = r0 ? *reinterpret_cast<const float2*>(r0 + c) : z;
+      const float2 a1 = r1 ? *reinterpret_cast<const float2*>(r1 + c) : z;
+      const float2 a2 = r0 ? *reinterpret_cast<const float2*>(r0 + c + 8) : z;
+      const float2 a3 = r1 ? *reinterpret_cast<const float2*>(r1 + c + 8) : z;
+      qf[ks][0] = pack_bf16(a0.x, a0.y);
+      qf[ks][1] = pack_bf16(a1.x, a1.y);
+      qf[ks][2] = pack_bf16(a2.x, a2.y);
+      qf[ks][3] = pack_bf16(a3.x, a3.y);
+    }
+  }
   float o[DH / 8][4];
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -303,7 +435,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       kt = reinterpret_cast<const __nv_bfloat16*>(cs) + (tile & 1) * 2 * kKeys * kRow;
       vt = kt + kKeys * kRow;
     }
-    if (tile == 0 && warp_live) {
+    if (!STATS && tile == 0 && warp_live) {
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
         ldmatrix_x4(qf[ks], qs + (wq + (lane & 15)) * kRow + ks * 16 + (lane >> 4) * 8);
@@ -312,7 +444,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     if (warp_live && key0 + wkey <= warp_last) {
       // S = Q.K^T over the warp's WK keys of the tile: n-tiles of 8 keys.
       // SPLIT's two n-tiles accumulate even and odd k-steps apart, so that
-      // two chains of mma run where one would wait on the other.
+      // two chains of mma run where one would wait on the other.  STATS:
+      // q's hi parts into s, its mid and lo parts into s2.
       float s[WK / 8][4], s2[WK / 8][4];
 #pragma unroll
       for (int n = 0; n < WK / 8; ++n)
@@ -320,17 +453,32 @@ __global__ void __launch_bounds__(kWarps * 32)
         for (int e = 0; e < 4; ++e) s[n][e] = s2[n][e] = 0.f;
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
+        uint32_t qm[4], ql[4];
+        if constexpr (STATS) {
+          const int at = (wq + (lane & 15)) * kRow + ks * 16 + (lane >> 4) * 8;
+          ldmatrix_x4(qm, qs + at);
+          ldmatrix_x4(ql, qs_lo + at);
+        }
 #pragma unroll
         for (int np = 0; np < WK / 16; ++np) {
           uint32_t kb[4];
           ldmatrix_x4(kb, kt + (wkey + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * kRow +
                               ks * 16 + ((lane >> 3) & 1) * 8);
-          float(&acc)[WK / 8][4] = SPLIT && (ks & 1) ? s2 : s;
-          mma(acc[2 * np], qf[ks], kb[0], kb[1]);
-          mma(acc[2 * np + 1], qf[ks], kb[2], kb[3]);
+          if constexpr (STATS) {
+            mma(s[2 * np], qf[ks], kb[0], kb[1]);
+            mma(s[2 * np + 1], qf[ks], kb[2], kb[3]);
+            mma(s2[2 * np], qm, kb[0], kb[1]);
+            mma(s2[2 * np + 1], qm, kb[2], kb[3]);
+            mma(s2[2 * np], ql, kb[0], kb[1]);
+            mma(s2[2 * np + 1], ql, kb[2], kb[3]);
+          } else {
+            float(&acc)[WK / 8][4] = SPLIT && (ks & 1) ? s2 : s;
+            mma(acc[2 * np], qf[ks], kb[0], kb[1]);
+            mma(acc[2 * np + 1], qf[ks], kb[2], kb[3]);
+          }
         }
       }
-      if constexpr (SPLIT) {
+      if constexpr (SPLIT || STATS) {
 #pragma unroll
         for (int n = 0; n < WK / 8; ++n)
 #pragma unroll
@@ -406,12 +554,21 @@ __global__ void __launch_bounds__(kWarps * 32)
         }
       }
       // O += P.V, 16 keys a k-step; P's accumulator layout is the A operand's.
+      // STATS: O += P_hi.V + P_mid.V + P_lo.V.
 #pragma unroll
       for (int kk = 0; kk < WK / 16; ++kk) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        uint32_t pa[4], pmid[4], plo[4];
+        if constexpr (STATS) {
+          split_bf16(s[2 * kk][0], s[2 * kk][1], pa[0], pmid[0], plo[0]);
+          split_bf16(s[2 * kk][2], s[2 * kk][3], pa[1], pmid[1], plo[1]);
+          split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], pa[2], pmid[2], plo[2]);
+          split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], pa[3], pmid[3], plo[3]);
+        } else {
+          pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+          pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+          pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+          pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        }
 #pragma unroll
         for (int dp = 0; dp < DH / 16; ++dp) {
           uint32_t vb[4];
@@ -419,6 +576,12 @@ __global__ void __launch_bounds__(kWarps * 32)
                                     dp * 16 + (lane >> 4) * 8);
           mma(o[2 * dp], pa, vb[0], vb[1]);
           mma(o[2 * dp + 1], pa, vb[2], vb[3]);
+          if constexpr (STATS) {
+            mma(o[2 * dp], pmid, vb[0], vb[1]);
+            mma(o[2 * dp + 1], pmid, vb[2], vb[3]);
+            mma(o[2 * dp], plo, vb[0], vb[1]);
+            mma(o[2 * dp + 1], plo, vb[2], vb[3]);
+          }
         }
       }
     }
@@ -435,7 +598,9 @@ __global__ void __launch_bounds__(kWarps * 32)
     // Merge the 4 warps' partials of the same rows in the tiles' space: a
     // thread a row turns each warp's m into its weight exp(m_w - max) / the
     // weighted sum of l (0 for a warp that saw no key of the row), then
-    // every thread sums two columns of o.
+    // every thread sums two columns of o.  STATS keeps the weights
+    // exp(m_w - max) undivided and writes max and the weighted sum of l; a
+    // row no warp saw (max -inf) gets weights 0 and (0, _MASK, 0).
     constexpr int kORow = DH + 8;  // f32 a partial row, padded against bank conflicts
     if constexpr (Cache::kInt8) __syncthreads();  // every warp is done with the tiles
     float* po = reinterpret_cast<float*>(cs);  // [warp][16][kORow]
@@ -461,12 +626,21 @@ __global__ void __launch_bounds__(kWarps * 32)
       for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, pm[w * 16 + tid]);
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) {
-        f[w] = exp2_approx((pm[w * 16 + tid] - mx) * kLog2e);
+        f[w] = STATS && mx == -INFINITY ? 0.f : exp2_approx((pm[w * 16 + tid] - mx) * kLog2e);
         den += pl[w * 16 + tid] * f[w];
       }
-      const float inv = den > 0.f ? 1.f / den : 1.f;
+      if constexpr (STATS) {
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) pm[w * 16 + tid] = f[w] * inv;
+        for (int w = 0; w < kWarps; ++w) pm[w * 16 + tid] = f[w];
+        if (tid < N) {
+          io.m[row_index(tid)] = mx == -INFINITY ? kMask : mx;
+          io.l[row_index(tid)] = den;
+        }
+      } else {
+        const float inv = den > 0.f ? 1.f / den : 1.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) pm[w * 16 + tid] = f[w] * inv;
+      }
     }
     __syncthreads();
     for (int i = tid; i < 16 * (DH / 2); i += NT) {
@@ -480,34 +654,62 @@ __global__ void __launch_bounds__(kWarps * 32)
         x += v.x * f;
         y += v.y * f;
       }
-      *reinterpret_cast<uint32_t*>(row_ptr(out, r) + d) = pack_bf16(x, y);
+      if constexpr (STATS)
+        *reinterpret_cast<float2*>(row_ptr(io.o, r) + d) = make_float2(x, y);
+      else
+        *reinterpret_cast<uint32_t*>(row_ptr(io.out, r) + d) = pack_bf16(x, y);
     }
     return;
   }
-  const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 1.f;
-  const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 1.f;
   const int r_lo = wrow + g, r_hi = r_lo + 8;
-  if (r_lo < N) {
-    __nv_bfloat16* dst = row_ptr(out, r_lo) + c2;
+  if constexpr (STATS) {
+    // The partials as they stand; a row that saw no key: (0, _MASK, 0).
+    if (r_lo < N) {
+      float* dst = row_ptr(io.o, r_lo) + c2;
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dst + n * 8) = pack_bf16(o[n][0] * inv_lo, o[n][1] * inv_lo);
-  }
-  if (r_hi < N) {
-    __nv_bfloat16* dst = row_ptr(out, r_hi) + c2;
+      for (int n = 0; n < DH / 8; ++n)
+        *reinterpret_cast<float2*>(dst + n * 8) = make_float2(o[n][0], o[n][1]);
+      if ((lane & 3) == 0) {
+        io.m[row_index(r_lo)] = m_lo == -INFINITY ? kMask : m_lo;
+        io.l[row_index(r_lo)] = l_lo;
+      }
+    }
+    if (r_hi < N) {
+      float* dst = row_ptr(io.o, r_hi) + c2;
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dst + n * 8) = pack_bf16(o[n][2] * inv_hi, o[n][3] * inv_hi);
+      for (int n = 0; n < DH / 8; ++n)
+        *reinterpret_cast<float2*>(dst + n * 8) = make_float2(o[n][2], o[n][3]);
+      if ((lane & 3) == 0) {
+        io.m[row_index(r_hi)] = m_hi == -INFINITY ? kMask : m_hi;
+        io.l[row_index(r_hi)] = l_hi;
+      }
+    }
+  } else {
+    const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 1.f;
+    const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 1.f;
+    if (r_lo < N) {
+      __nv_bfloat16* dst = row_ptr(io.out, r_lo) + c2;
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n)
+        *reinterpret_cast<uint32_t*>(dst + n * 8) =
+            pack_bf16(o[n][0] * inv_lo, o[n][1] * inv_lo);
+    }
+    if (r_hi < N) {
+      __nv_bfloat16* dst = row_ptr(io.out, r_hi) + c2;
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n)
+        *reinterpret_cast<uint32_t*>(dst + n * 8) =
+            pack_bf16(o[n][2] * inv_hi, o[n][3] * inv_hi);
+    }
   }
 }
 
-template <int DH, bool SPLIT, typename Cache>
-cudaError_t launch_walk(const __nv_bfloat16* q, const Cache& cache, const int* offsets,
-                        __nv_bfloat16* out, int B, int Hkv, int rep, int T, int S,
-                        cudaStream_t stream) {
-  constexpr int BM = Smem<DH, SPLIT, Cache>::kRows;
-  constexpr int kSmem = Smem<DH, SPLIT, Cache>::kBytes;
-  auto* fn = prefill_tc_kernel<DH, SPLIT, Cache>;
+template <int DH, bool SPLIT, typename Cache, bool STATS>
+cudaError_t launch_walk(const Io<STATS>& io, const Cache& cache, int B, int Hkv, int rep, int T,
+                        int S, cudaStream_t stream) {
+  constexpr int BM = Smem<DH, SPLIT, Cache, STATS>::kRows;
+  constexpr int kSmem = Smem<DH, SPLIT, Cache, STATS>::kBytes;
+  auto* fn = prefill_tc_kernel<DH, SPLIT, Cache, STATS>;
   // Above 48 KB a kernel must be allowed its dynamic shared memory: once an
   // instantiation (a process of the port launches on one device), not at
   // every launch, where it would add a CUDA API call to each.
@@ -515,20 +717,27 @@ cudaError_t launch_walk(const __nv_bfloat16* q, const Cache& cache, const int* o
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (allowed != cudaSuccess) return allowed;
   const dim3 grid((T * rep + BM - 1) / BM, B * Hkv);
-  fn<<<grid, kWarps * 32, kSmem, stream>>>(q, cache, offsets, out, Hkv, rep, T, S);
+  fn<<<grid, kWarps * 32, kSmem, stream>>>(io, cache, Hkv, rep, T, S);
   return cudaSuccess;
 }
 
 // The walk at this head dim over `cache` (whole [B, Hkv, S, DH] arrays);
-// SPLIT when a (b, kv head) has at most 16 rows.
+// SPLIT when a (b, kv head) has at most 16 rows.  Kernel 19 calls it with
+// Io<true> over a Bf16Cache.
+template <int DH, typename Cache, bool STATS>
+cudaError_t launch_io(const Io<STATS>& io, const Cache& cache, int B, int Hkv, int rep, int T,
+                      int S, cudaStream_t stream) {
+  if (B * Hkv == 0 || T * rep == 0) return cudaSuccess;
+  if (T * rep <= 16) return launch_walk<DH, true>(io, cache, B, Hkv, rep, T, S, stream);
+  return launch_walk<DH, false>(io, cache, B, Hkv, rep, T, S, stream);
+}
+
+// Kernels 4 and 9: bf16 q, out = O / l in bf16.
 template <int DH, typename Cache>
 cudaError_t launch(const __nv_bfloat16* q, const Cache& cache, const int* offsets,
                    __nv_bfloat16* out, int B, int Hkv, int rep, int T, int S,
                    cudaStream_t stream) {
-  if (B * Hkv == 0 || T * rep == 0) return cudaSuccess;
-  if (T * rep <= 16)
-    return launch_walk<DH, true>(q, cache, offsets, out, B, Hkv, rep, T, S, stream);
-  return launch_walk<DH, false>(q, cache, offsets, out, B, Hkv, rep, T, S, stream);
+  return launch_io<DH>(Io<false>{q, offsets, out}, cache, B, Hkv, rep, T, S, stream);
 }
 
 }  // namespace prefill_tc

@@ -15,18 +15,27 @@ the walk; neither falls back to the other.
 
 Kernel 19, `flash_attention_stats`, replaces flash_attention.py
 `flash_attention_stats` (_kernel_stats), the ring-attention step of
-context parallelism (parallel/ring.py): kernel 4's CUDA-core walk (its q
-is f32) over a visiting KV block at affine positions (query t at
-q_start + stride*t, key j at k_start + stride*j), returning the
-unnormalised o, m and l in f32 for the cross-shard merge.  A row that sees no key of the block gets
-(0, _MASK, 0); the Pallas kernel's such rows inside a partly visible tile
+context parallelism (parallel/ring.py): kernel 4's walk (its q is f32)
+over a visiting KV block at affine positions (query t at q_start +
+stride*t, key j at k_start + stride*j), returning the unnormalised o, m
+and l in f32 for the cross-shard merge.  With bf16 K/V (the port's CP
+prefill) it runs the tensor-core walk in its STATS form, counted in
+`launches["flash_attention_stats_tc"]`: kernel 4's mask with the offset
+floor((q_start - k_start) / stride), computed on the card, and q and P
+each split into a bf16 part and the bf16 of its remainder, so that both
+products run on the tensor cores and keep about 2^-16 of f32.  With f32
+K/V it runs the CUDA-core walk, counted in
+`launches["flash_attention_stats"]`.  The dtype picks the walk; neither
+falls back to the other.  A row that sees no key of the block gets (0,
+_MASK, 0); the Pallas kernel's such rows inside a partly visible tile
 carry exp(0) = 1 per slot instead (tile-dependent), and both merge to the
 same result.  The TPU kernel's 128-lane copies of m and l are dropped.
 
 Tolerance against the plain versions: f32 scores and softmax in both,
 another summation order, one rounding to q.dtype; the tensor-core walk
-also rounds P to bf16 before P·V (the plain version and the reference
-keep it in f32).
+of kernel 4 also rounds P to bf16 before P·V (the plain version and the
+reference keep it in f32); kernel 19's split parts leave q and P about
+2^-16 of themselves from f32.
 """
 
 from __future__ import annotations
@@ -36,13 +45,15 @@ import torch
 from tokenhawk_tpu_torch.ops.attention import attend_cache, attend_stats
 from tokenhawk_tpu_torch.ops.cuda import build
 
-launches = {"flash_attention": 0, "flash_attention_tc": 0, "flash_attention_stats": 0}
+launches = {"flash_attention": 0, "flash_attention_tc": 0, "flash_attention_stats": 0,
+            "flash_attention_stats_tc": 0}
 HEAD_DIMS = (64, 128)
 
 _ARGS = [build.P] * 5 + [build.I] * 8 + [build.P]
 _TC_ARGS = [build.P] * 5 + [build.I] * 6 + [build.P]
 # q, k, v, q_start, k_start; stride; o, m, l; B, Hkv, rep, Dh, T, S, cache dtype; stream.
 _STATS_ARGS = [build.P] * 5 + [build.I] + [build.P] * 3 + [build.I] * 7 + [build.P]
+_STATS_TC_ARGS = [build.P] * 5 + [build.I] + [build.P] * 3 + [build.I] * 6 + [build.P]
 
 
 def flash_attention_plain(q, k_cache, v_cache, offsets):
@@ -116,10 +127,17 @@ def flash_attention_stats(q, k_block, v_block, q_start, k_start, stride: int = 1
     o = torch.empty_like(q)
     m = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    fn = build.function("th_flash_attention_stats", _STATS_ARGS)
-    rc = fn(q.data_ptr(), k_block.data_ptr(), v_block.data_ptr(), q_start.data_ptr(),
+    ptrs = (q.data_ptr(), k_block.data_ptr(), v_block.data_ptr(), q_start.data_ptr(),
             k_start.data_ptr(), stride, o.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hkv, rep,
-            Dh, T, S, build.dtype_code(k_block.dtype), build.stream_of(q))
-    build.check(rc, "flash_attention_stats")
-    launches["flash_attention_stats"] += 1
+            Dh, T, S)
+    if k_block.dtype == torch.bfloat16:
+        walk = "flash_attention_stats_tc"
+        rc = build.function("th_flash_attention_stats_tc", _STATS_TC_ARGS)(
+            *ptrs, build.stream_of(q))
+    else:
+        walk = "flash_attention_stats"
+        rc = build.function("th_flash_attention_stats", _STATS_ARGS)(
+            *ptrs, build.dtype_code(k_block.dtype), build.stream_of(q))
+    build.check(rc, walk)
+    launches[walk] += 1
     return o, m, l

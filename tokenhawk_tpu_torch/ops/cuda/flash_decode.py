@@ -1,4 +1,5 @@
-"""Kernels 3, 14 and 18: decode attention over the dense KV cache (csrc/flash_decode.cu).
+"""Kernels 3, 14 and 18: decode attention over the dense KV cache (csrc/decode_append.cu,
+csrc/flash_decode.cu).
 
   flash_decode_append  kernel 3, replaces tokenhawk_tpu/ops/pallas/
                        flash_decode_dma.py `flash_decode_append_walk`
@@ -14,25 +15,33 @@
                        index copy of the new row (models/llama.py
                        _attend_and_update).
 
-Both run one kernel body: one block per (sequence, kv head) reads only
-the live 32-token tiles, so on the H100 they are bound by the bytes of
-the live cache rows.  Kernel 3's block writes the row it then reads, and
-a barrier orders the two.  Head dim 64 or 128; 1, 2, 4 or 8 query heads
-per kv head.  Launches are counted per kernel: `launches["flash_decode"]`
-(kernel 3) and `launches["flash_decode_attend"]` (kernel 14).
+Both read only the live 32-token tiles, so on the H100 they are bound by
+the bytes of the live cache rows.  Kernel 14's block walks its tiles one
+V row a step from device memory; kernel 3's walk (csrc/decode_append.cu
+decode_append_tiles_kernel) brings its block's whole range of K/V rows
+into shared memory by asynchronous copies before any arithmetic, then
+computes from there with all 8 warps; the block whose range holds the
+new row writes it to the cache and takes it into its tile from k_new /
+v_new.  Head dim 64 or 128; 1, 2, 4 or 8 query heads per kv head.
+Launches are counted per kernel: `launches["flash_decode"]` (kernel 3)
+and `launches["flash_decode_attend"]` (kernel 14).
 
-Kernel 14 where the (sequence, kv head) pairs leave most SMs idle (a
-TinyLlama-width draft's 4 KV heads at B=1 run 4 blocks on 132 SMs) cuts
+Kernels 3 and 14 where the (sequence, kv head) pairs leave most SMs idle
+(a TinyLlama-width draft's 4 KV heads at B=1 run 4 blocks on 132 SMs, the
+7B's 32 at B=1 32 blocks) cut
 each pair's live rows into `decode_splits` tile-aligned ranges, one block
 each in a thread-block cluster of the pair's blocks: kernel 18's body over
-each range, then the cluster merges the partials over distributed shared
-memory and rounds once (csrc/flash_decode.cu decode_split_kernel).  The
+each range (kernel 3: its own walk), then the cluster merges the
+partials over distributed shared memory and rounds once
+(csrc/flash_decode.cu decode_split_kernel; kernel 3 pushes each block's
+partials into block 0 of the cluster, csrc/decode_append.cu).  The
 split count comes from the shapes the host knows (B, Hkv, S and the SM
 count), never from `lengths`, so the decode path stays free of host
 syncs; the ranges are computed on the device from `lengths`, none
-shorter than MIN_SPLIT_TILES tiles (a short live length fills the first
-ranges and leaves the rest empty).  Those launches also count in
-`launches["flash_decode_split"]`.
+shorter than MIN_SPLIT_TILES tiles (kernel 3: APPEND_MIN_TILES) (a short
+live length fills the first ranges and leaves the rest empty).  Those launches also count in
+`launches["flash_decode_split"]` (kernel 14) and
+`launches["flash_decode_append_split"]` (kernel 3).
 
 Kernel 18, `flash_decode_stats`, replaces flash_decode_dma.py
 `flash_decode_stats` (_kernel_vec_stats), one shard's half of
@@ -56,7 +65,7 @@ Counted as `launches["attn_wo"]`.
 
 Tolerance against the plain versions: f32 scores and softmax in both;
 the kernel's online softmax sums in another order (~1e-6 relative; the
-split form also merges its ranges' partials in split order) and both
+split forms also merge their ranges' partials in split order) and both
 round once to q.dtype (kernel 16: once to x.dtype, after the Wo
 product).
 """
@@ -70,8 +79,8 @@ from tokenhawk_tpu_torch.ops.cuda import build
 from tokenhawk_tpu_torch.ops.cuda.qmatmul import form_code, weight_args
 from tokenhawk_tpu_torch.ops.qweight import QWeight
 
-launches = {"flash_decode": 0, "flash_decode_attend": 0, "flash_decode_split": 0,
-            "flash_decode_stats": 0, "attn_wo": 0}
+launches = {"flash_decode": 0, "flash_decode_append_split": 0, "flash_decode_attend": 0,
+            "flash_decode_split": 0, "flash_decode_stats": 0, "attn_wo": 0}
 HEAD_DIMS = (64, 128)
 REPS = (1, 2, 4, 8)
 # Kernel 14's split form: at most 16 blocks a cluster (above 8 the
@@ -85,8 +94,13 @@ REPS = (1, 2, 4, 8)
 MAX_SPLITS = 16
 MIN_SPLIT_TILES = 4
 BLOCKS_PER_SM = 2
+# Kernel 3's ranges: at least 2 tiles (one 64-row chunk of its walk).  Its
+# sweep on an H100 (chip_smoke.py phase 2, the 7B's heads at B=1): ranges
+# of 2 tiles ran 5-6% faster than 4 at 300 and 512 live rows, 1 tile
+# slower.
+APPEND_MIN_TILES = 2
 
-_APPEND_ARGS = [build.P] * 7 + [build.I] * 7 + [build.P]
+_APPEND_ARGS = [build.P] * 7 + [build.I] * 9 + [build.P]
 _ATTEND_ARGS = [build.P] * 5 + [build.I] * 9 + [build.P]
 # q, k, v, lengths, o, m, l; B, Hkv, rep, Dh, S, splits; strides; dtype; stream.
 _STATS_ARGS = [build.P] * 7 + [build.I] * 6 + [build.LL] * 3 + [build.I, build.P]
@@ -135,18 +149,19 @@ def _check(q, k_cache, v_cache, lengths):
     return B, Hkv, rep, Dh, S
 
 
-def decode_splits(B: int, Hkv: int, S: int, sm_count: int) -> int:
-    """Kernel 14's split count from the host's shapes alone (never from
-    lengths, which live on the card): 1 where the B*Hkv pairs already fill
-    the SMs (one block a pair); else as many as the card holds at once
+def decode_splits(B: int, Hkv: int, S: int, sm_count: int,
+                  min_tiles: int = MIN_SPLIT_TILES) -> int:
+    """Kernels 3's and 14's split count from the host's shapes alone (never
+    from lengths, which live on the card): 1 where the B*Hkv pairs already
+    fill the SMs (one block a pair); else as many as the card holds at once
     (BLOCKS_PER_SM an SM), at most MAX_SPLITS, and no range shorter than
-    MIN_SPLIT_TILES tiles of S."""
-    if not all(type(v) is int for v in (B, Hkv, S, sm_count)):
+    min_tiles tiles of S."""
+    if not all(type(v) is int for v in (B, Hkv, S, sm_count, min_tiles)):
         raise TypeError("decode_splits takes the host's shape integers, not tensors")
     pairs = B * Hkv
     if pairs >= sm_count:
         return 1
-    return max(1, min(BLOCKS_PER_SM * sm_count // pairs, (S + 31) // 32 // MIN_SPLIT_TILES,
+    return max(1, min(BLOCKS_PER_SM * sm_count // pairs, (S + 31) // 32 // min_tiles,
                       MAX_SPLITS))
 
 
@@ -190,9 +205,23 @@ def flash_decode_append(q, k_new, v_new, k_cache, v_cache, lengths):
     tokens including the new one -> out [B, Hkv, rep, Dh] in q.dtype."""
     if not q.is_cuda:
         return flash_decode_append_plain(q, k_new, v_new, k_cache, v_cache, lengths)
+    B, Hkv, _, _, S = _check(q, k_cache, v_cache, lengths)
+    return flash_decode_append_at(
+        q, k_new, v_new, k_cache, v_cache, lengths,
+        decode_splits(B, Hkv, S, build.sm_count(q.device), APPEND_MIN_TILES))
+
+
+def flash_decode_append_at(q, k_new, v_new, k_cache, v_cache, lengths, splits: int,
+                           min_tiles: int = APPEND_MIN_TILES):
+    """Kernel 3 at a given split count (1 to MAX_SPLITS), its ranges at
+    least min_tiles tiles: what flash_decode_append launches with
+    decode_splits' count; chip_smoke.py times splits = 1 beside it.  CUDA
+    tensors only."""
     B, Hkv, rep, Dh, S = _check(q, k_cache, v_cache, lengths)
     build.require(k_new.shape == (B, Hkv, Dh) and v_new.shape == (B, Hkv, Dh),
                   f"new rows {tuple(k_new.shape)} do not match q {tuple(q.shape)}")
+    build.require(1 <= splits <= MAX_SPLITS, f"splits {splits} not in 1..{MAX_SPLITS}")
+    build.require(min_tiles >= 1, f"min_tiles must be positive, got {min_tiles}")
     q = q.contiguous()
     k_new = k_new.to(q.dtype).contiguous()
     v_new = v_new.to(q.dtype).contiguous()
@@ -200,10 +229,13 @@ def flash_decode_append(q, k_new, v_new, k_cache, v_cache, lengths):
     out = torch.empty_like(q)
     fn = build.function("th_decode_append", _APPEND_ARGS)
     rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, Hkv, rep, Dh, S,
-            build.dtype_code(q.dtype), build.dtype_code(k_cache.dtype), build.stream_of(q))
+            v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, Hkv, rep, Dh, S, splits,
+            min_tiles, build.dtype_code(q.dtype), build.dtype_code(k_cache.dtype),
+            build.stream_of(q))
     build.check(rc, "flash_decode_append")
     launches["flash_decode"] += 1
+    if splits > 1:
+        launches["flash_decode_append_split"] += 1
     return out
 
 
