@@ -11,16 +11,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      (max error against the stated tolerance, median CUDA-event times, the
      bound from the bytes and operations of the call, and the time of one
      PyTorch call computing the same function where there is one); the
-     paged kernels in both pool layouts; kernels 1 and 13 at 1, 8, 16, 40
+     paged kernels in both pool layouts (kernel 5 also at B=1 over 512 and
+     2048 live rows and in 1, 2, 4 and 8 splits at 8 slots, ragged and all
+     at 2048); kernels 1 and 13 at 1, 8, 16, 40
      and 512 rows and kernel 17 at 1, 8, 9, 16, 40 and 512, each on its
      path (the GEMV at most 8 rows, the tensor-core GEMM above: a record
      each); kernels 3 (B=4 ragged, B=1 at 37, 300, 512 and 2048 live rows,
      B=8 ragged) and 14 as the model launches them (split-S in thread-block
      clusters where the (sequence, KV head) pairs leave SMs idle, else one
      block a pair: a record each) beside their one-block launch and SDPA,
-     and sweeps of their split counts; then kernels 16, 18 and the GEMV's
-     outputs held bit for bit to the parent tree's and kernel 3's to its
-     redesign's (PARENT_DIGESTS);
+     and sweeps of their split counts; then kernel 16's and the GEMV's
+     outputs held bit for bit to the parent tree's and kernels 3, 5 and
+     18's to their redesigns' (PARENT_DIGESTS);
   3. slice check: a 2-layer LLaMA-7B-width Q4_0 model, prefill of 16
      tokens + 8 decode steps on the GPU (kernels) and on the CPU (plain
      versions, same parameters), logits compared at every step, over a
@@ -34,8 +36,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   4b. paged serve: the same model under PagedScheduler (max_batch 8, n_ctx
      2048, 128-token pages, prefix cache, prefill chunks of 512), 12 mixed
      greedy/sampled requests, 4 sharing a 384-token prefix and one of 1500
-     tokens; launch counts of every kernel, page accounting, decode tok/s,
-     and the device's idle share under the profiler;
+     tokens; launch counts of every kernel (kernel 5 on its split form),
+     page accounting, decode tok/s, and the device's idle share under the
+     profiler;
   4c. HTTP: serve() over that scheduler, 4 concurrent SSE streams and one
      /v1/completions, then `python -m tokenhawk_tpu_torch.serving`, dense,
      --paged and --paged --kv int8, on the 2-layer file of phase 5
@@ -108,14 +111,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      timed) and over 2 and 4 cyclic shards (every query shard against every
      KV shard, merged), kernel 18 at B=1 over 512, 2048 and 3 live tokens on one
      shard and on 4 cyclic shards (strided views of the cache; at 3 tokens
-     one shard is empty), each merged result held against kernel 4 or 14
-     on the unsplit cache; then kernel 18 cut into 1, 4, 8 and 16 splits
-     at TinyLlama's heads beside kernel 14 (B=1 at 2048, B=8 ragged);
+     one shard is empty), as CP decode calls it (a cluster a (sequence, KV
+     head), merged on chip) and at one block a pair, each merged result
+     held against kernel 4 or 14 on the unsplit cache, one strided shard's
+     call timed, 4 empty shards giving (0, -inf, 0) exactly; then kernel 18
+     cut into 1, 4, 8 and 16 splits at TinyLlama's heads beside kernel 14
+     (B=1 at 2048, B=8 ragged);
      12b, after phase 10, the 32-layer 7B Q4_0 model through
      Engine(parallel="cp") over a world-1 NCCL group at n_ctx 2048
      (prompts of 5, 300 and 1500 tokens, 32 greedy tokens each): kernels
-     1, 18 and 19 (its tensor-core walk) launched, 2, 3, 4, 14 and kernel
-     19's CUDA-core walk not; each stream held against
+     1, 18 (its cluster form) and 19 (its tensor-core walk) launched, 2, 3,
+     4, 14 and kernel 19's CUDA-core walk not; each stream held against
      the dense Engine's up to near-ties; tok/s beside the dense Engine's,
      the idle share of a profiled request.  One H100 runs CP at one
      rank only; the shard merges of 12a stand in for more.
@@ -575,6 +581,7 @@ def _cp_kernel_records(randn, case) -> list:
     log-sum-exp (o = out * l, log l = lse - m)."""
     import torch
 
+    from tokenhawk_tpu_torch.ops.cuda import build
     from tokenhawk_tpu_torch.ops.cuda import flash_attention as fa
     from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
     from tokenhawk_tpu_torch.parallel.cp import _shard_count
@@ -663,50 +670,87 @@ def _cp_kernel_records(randn, case) -> list:
     del kc, vc, kf, vf, caches
 
     # -- kernel 18: B=1 at 512, 2048 and 3 live tokens, one shard and 4 cyclic --
+    # As CP decode calls it (splits 1): its 32 (sequence, KV head) pairs
+    # leave SMs idle, so the one range of each runs over a cluster, merged
+    # on chip into one partial; its one-block launch checked and timed beside.
     cases = []
     S = 2048
     q = randn(1, Hkv, 1, Dh, scale=Dh**-0.5)
     kc, vc = randn(1, Hkv, S, Dh), randn(1, Hkv, S, Dh)
     caches = copies([kc, vc], 2 * kc.nbytes)
+    cluster = fd.decode_splits(1, Hkv, S, build.sm_count(dev), fd.APPEND_MIN_TILES)
     lib18 = b18 = None
+
+    def b18_at(L):  # the live K/V rows, q, o, m and l, the length
+        return bound(2 * L * Hkv * Dh * bf + Hkv * Dh * bf + Hkv * Dh * f4 + 2 * Hkv * f4 + 4,
+                     4 * L * Hkv * Dh)
+
+    def stats(kv, lengths, label):
+        """Kernel 18 as the wrapper launches it (checked to take the
+        cluster), and at one block a pair, each against the plain version."""
+        before = fd.launches["flash_decode_stats_split"]
+        got = fd.flash_decode_stats(q, *kv, lengths)
+        if fd.launches["flash_decode_stats_split"] - before != (cluster > 1):
+            raise AssertionError(f"kernel 18 at {label}: the split counter disagrees with a "
+                                 f"cluster of {cluster}")
+        plain = fd.flash_decode_stats_plain(q, *kv, lengths)
+        _partials_err(f"flash_decode_stats {label}, a cluster of {cluster}", got, plain)
+        _partials_err(f"flash_decode_stats {label}, one block a pair",
+                      fd.flash_decode_stats_at(q, *kv, lengths, 1, 1), plain)
+        return got
+
     for L in (512, 2048, 3):
         lengths = i32(L)
         ref = fd.flash_decode(q, kc, vc, lengths)  # kernel 14
-        got = fd.flash_decode_stats(q, kc, vc, lengths)
-        _partials_err(f"flash_decode_stats L={L}", got,
-                      fd.flash_decode_stats_plain(q, kc, vc, lengths))
-        one = _merge_partials(*got).reshape(ref.shape)
-        if L == S:
-            case(cases, f"flash_decode_stats (kernel 18) B=1 L={L} S={S} Hkv={Hkv} Dh={Dh}, one "
-                        f"shard, o / l against kernel 14", f"B=1 L={L} shards=1", 1, one, ref,
+        one = _merge_partials(*stats((kc, vc), lengths, f"L={L}")).reshape(ref.shape)
+        label = (f"flash_decode_stats (kernel 18) B=1 L={L} S={S} Hkv={Hkv} Dh={Dh}, one shard, "
+                 f"a cluster of {cluster}, o / l against kernel 14")
+        if L == 3:
+            case(cases, label, f"B=1 L={L} shards=1", 1, one, ref)
+        else:
+            case(cases, label, f"B=1 L={L} shards=1", 1, one, ref,
                  [lambda c=c: fd.flash_decode_stats(q, *c, lengths) for c in caches],
                  [lambda c=c: fd.flash_decode_stats_plain(q, *c, lengths) for c in caches])
-            b18 = bound(2 * L * Hkv * Dh * bf + Hkv * Dh * bf + Hkv * Dh * f4 + 2 * Hkv * f4 + 4,
-                        4 * L * Hkv * Dh)
+            b = b18_at(L)
             qe = q.reshape(1, Hkv, 1, Dh)
-            lib18 = timed([lambda c=c: eff(qe, c[0][:, :, :L], c[1][:, :, :L], None, True,
-                                           scale=1.0) for c in caches])["ms"]
-            log(f"  bound {b18['bound_ms']:.4f} ms ({b18['bound_by']}); library call "
-                f"_scaled_dot_product_efficient_attention(compute_log_sumexp) over the live "
-                f"rows: {lib18:.4f} ms")
-        else:
-            case(cases, f"flash_decode_stats B=1 L={L} one shard, o / l against kernel 14",
-                 f"B=1 L={L} shards=1", 1, one, ref)
+            lib = timed([lambda c=c: eff(qe, c[0][:, :, :L], c[1][:, :, :L], None, True,
+                                         scale=1.0) for c in caches])["ms"]
+            one_ms = timed([lambda c=c: fd.flash_decode_stats_at(q, *c, lengths, 1, 1)
+                            for c in caches])["ms"]
+            cases[-1].update(b, library_ms=lib, cluster=cluster, one_block_ms=one_ms)
+            log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}); one block a pair: "
+                f"{one_ms:.4f} ms; library call _scaled_dot_product_efficient_attention("
+                f"compute_log_sumexp) over the live rows: {lib:.4f} ms")
+            if L == S:
+                b18, lib18 = b, lib
         parts = []
         for i in range(4):
             sl = _shard_count(lengths, i, 4).to(torch.int32)
             kv = (kc[:, :, i::4], vc[:, :, i::4])  # strided views
-            part = fd.flash_decode_stats(q, *kv, sl)
-            _partials_err(f"flash_decode_stats shard {i} of 4 (L={int(sl[0])})", part,
-                          fd.flash_decode_stats_plain(q, *kv, sl))
-            parts.append([x[0] for x in part])
+            parts.append([x[0] for x in stats(kv, sl, f"shard {i} of 4 (L={int(sl[0])})")])
         merged = _merge_partials(*(torch.stack(x) for x in zip(*parts))).reshape(ref.shape)
         case(cases, f"flash_decode_stats B=1 L={L} over 4 cyclic shards (lengths "
                     f"{[int(_shard_count(lengths, i, 4)[0]) for i in range(4)]}), merged, "
                     f"against kernel 14", f"B=1 L={L} shards=4", 1, merged, ref)
+        if L == S:  # one shard's call, as a 4-rank CP decode makes it
+            sl = _shard_count(lengths, 1, 4).to(torch.int32)
+            views = [[x[:, :, 1::4] for x in c] for c in caches]
+            case(cases, f"flash_decode_stats B=1 shard 1 of 4 (a strided view, L={int(sl[0])})",
+                 f"B=1 L={int(sl[0])} shard 1 of 4", 1, parts[1][0], fd.flash_decode_stats_plain(
+                     q, *views[0], sl)[0][0], [lambda c=c: fd.flash_decode_stats(q, *c, sl)
+                                               for c in views],
+                 [lambda c=c: fd.flash_decode_stats_plain(q, *c, sl) for c in views],
+                 frac=PARTIALS_TOL)
+            cases[-1].update(b18_at(int(sl[0])))
+    # A shard that holds no row yet: every length 0, the merge identity exactly.
+    for i in range(4):
+        o, m, l = fd.flash_decode_stats(q, kc[:, :, i::4], vc[:, :, i::4], i32(0))
+        if not (bool((o == 0).all()) and bool((m == -torch.inf).all()) and bool((l == 0).all())):
+            raise AssertionError(f"kernel 18 on an empty shard {i} of 4: not (0, -inf, 0)")
+    log("flash_decode_stats on 4 empty shards (lengths 0): (0, -inf, 0) exactly")
     del kc, vc, caches
     cases += _split_decode_cases(randn, case)
-    records.append(_record("flash_decode_stats", "tokenhawk_tpu_torch/csrc/flash_decode.cu",
+    records.append(_record("flash_decode_stats", "tokenhawk_tpu_torch/csrc/decode_stats.cu",
                            "tokenhawk_tpu/ops/pallas/flash_decode_dma.py:761 (flash_decode_stats, "
                            "_kernel_vec_stats)", cases, (f"B=1 L={S} shards=1", 1), b18, lib18))
     return records
@@ -1480,30 +1524,33 @@ def _decode_append_records(randn, case) -> list:
 
 
 # sha256 of outputs of the kernels whose launches this tree keeps as its
-# parent had them (kernel 16, kernel 18, and the GEMV of kernels 1, 13 and
-# 17 at 1 and 8 rows of bfloat16 x and at 40 rows of float32 x), on
-# _output_digests' inputs, as the tree before kernel 14's split form and
-# kernel 17's tensor-core path computed them on an NVIDIA H100 80GB HBM3:
-# they must not move by a bit.  Kernel 3 was redesigned in PR 13 (its tile
-# walk and split form sum in another order): its two entries are that
-# tree's outputs, its written caches as before.
+# parent had them (kernel 16 and the GEMV of kernels 1, 13 and 17 at 1 and
+# 8 rows of bfloat16 x and at 40 rows of float32 x), on _output_digests'
+# inputs, as the tree before kernel 14's split form and kernel 17's
+# tensor-core path computed them on an NVIDIA H100 80GB HBM3: they must not
+# move by a bit.  Kernel 3 was then redesigned (its tile walk and split
+# form sum in another order): its two entries are that tree's outputs, its
+# written caches as before; moving its walk into decode_tiles.cuh moved
+# none of them.  Kernels 18 and 5 then took that walk (another summation
+# order; kernel 18's splits=1 a cluster's merge): their entries are that
+# tree's.
 PARENT_DIGESTS = {
     'kernel 3 7B':
         '0b730923adc93bb96be8a17ca537594d8a6b6dcfbc80b92751aafae0e157b96d',
     'kernel 18 7B splits=1':
-        '7539b64f59d647b53c5469e926f5a250080296f6dd8bc57447b90b8e27c458d0',
+        '780d66d8ff7f301502128a0400bc56f1c747e507a3abe3c53acb852cc516a47a',
     'kernel 18 7B splits=8':
-        '057f0f10f0d5ce0058f0c8a7e358074c1cb4a366b9d9b5cb80b94a62c5be008c',
+        '789c7e304a807b05b31b885c2ede6b8da965d06a1c449a52c500c405558e50af',
     'kernel 18 7B shard 1 of 4':
-        '1a2441a3db0153c997a4d0088a5d6227cd540f87ec7d377d6c35d5678b3b4f28',
+        'b849ae0e3ca99ec681204146256c0b0385978b360068d69631f725e6cae1acbd',
     'kernel 3 dh64':
         '7f8e4039744d8a97e2ce2cd32e429d679cda7ffe83821d0114994174cd133991',
     'kernel 18 dh64 splits=1':
-        'f91ed9900db983e2e626425e57588618e118daffd2142d7873ca09fe978a149e',
+        '0c6c35d96420b476ebeda935745408602024796e5716d658e0a252601d8bf9a7',
     'kernel 18 dh64 splits=8':
-        'add3721d73f5166d2a842552f9277b24ccc4afd15211d52c0bbd119f47b043e4',
+        '6ea5ab6b0132539c6dfff1e4f377f1d33f262834ecce4cfc5a5c288f72710062',
     'kernel 18 dh64 shard 1 of 4':
-        '5f7e8f4a17f4354567d13d3f002fd25acffd3d19d39df46150e6da2c82e09ed1',
+        '7077e624eb17b3fc6d42321bee5c4c6ce1795f6fff0064030f284be9c76b8c90',
     'kernel 16 7B Q4_0 Wo':
         '2f9cee5a3964fb3b917e1e4ef2732076a86aaf40dc5f917f2a55ba895cbb740a',
     'GEMV q4_0 rows=1 torch.bfloat16':
@@ -1530,6 +1577,10 @@ PARENT_DIGESTS = {
         '0bb858e21c5d0174e4ec52fbf236568a129bcd4a00410f817a7e83baf67fed18',
     'GEMV sb rows=40 torch.float32':
         'f2f78be5b3088ebc7e25e434ea5a654c3507508dffd5d745fbb368ea2f180ada',
+    'kernel 5 7B':
+        '1e68e3aa11881b5c68ea5328a16e7236c178fa89b6daa7448b7e2d055e411c4a',
+    'kernel 5 dh64':
+        '95b7197dc3f0f2eac4a898b3f14ce1c42fdb746bf6843a5037a36ec5cbad7333',
 }
 
 
@@ -1542,6 +1593,7 @@ def _output_digests() -> dict:
     import torch
 
     from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
+    from tokenhawk_tpu_torch.ops.cuda import paged_decode as pd
     from tokenhawk_tpu_torch.ops.cuda import qmatmul
     from tokenhawk_tpu_torch.ops.qweight import QWeight
 
@@ -1608,6 +1660,17 @@ def _output_digests() -> dict:
             x = arr(rows, K, dtype=dtype)
             out[f"GEMV {form} rows={rows} {dtype}"] = digest(
                 qmatmul.quant_matmul(x, w, gain.to(dtype)), qmatmul.quant_matmul(x, w))
+    # Kernel 5 on its own generator, so the pins above keep their inputs.
+    rng = np.random.default_rng(SEED + 105)
+    for tag, Hkv, rep, Dh, lens in (("7B", 32, 1, 128, [1, 37, 300, S_CTX]),
+                                    ("dh64", 4, 8, 64, PAGED_LENGTHS)):
+        B, mp = len(lens), max(lens) // PAGED_PS
+        q = arr(B, Hkv, rep, Dh, scale=Dh**-0.5)
+        kp, vp = arr(B * mp + 1, Hkv, PAGED_PS, Dh), arr(B * mp + 1, Hkv, PAGED_PS, Dh)
+        table = torch.from_numpy(rng.permutation(B * mp + 1)[:B * mp].reshape(B, mp)
+                                 .astype(np.int32)).to(dev)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out[f"kernel 5 {tag}"] = digest(pd.paged_decode(q, kp, vp, table, lengths, "contig"))
     return out
 
 
@@ -1615,7 +1678,7 @@ def _check_parent_digests() -> None:
     """The pinned calls' outputs against PARENT_DIGESTS, bit for bit."""
     got = _output_digests()
     differ = [k for k in PARENT_DIGESTS if got.get(k) != PARENT_DIGESTS[k]]
-    log(f"kernels 3, 16, 18 and the GEMV at 1, 8 bf16 and 40 f32 rows: {len(got) - len(differ)} "
+    log(f"kernels 3, 5, 16, 18 and the GEMV at 1, 8 bf16 and 40 f32 rows: {len(got) - len(differ)} "
         f"of {len(got)} outputs bit for bit the parent tree's")
     if differ or set(got) != set(PARENT_DIGESTS):
         raise AssertionError("outputs that moved from the parent tree's: "
@@ -1953,13 +2016,56 @@ def _paged_int8_kernel_records(randn, case, library, g) -> list:
     ]
 
 
+# Kernel 5's split counts, swept in the contig layout where the (sequence,
+# kv head) pairs fill the SMs (paged_decode.FULL_SPLITS' range, 132-264 of
+# LLaMA-7B's pairs): at 8 slots (256 pairs) and at 5 (160, the range's low
+# end), each at ragged lengths (the longest pair sets the time) and all at
+# 2048 rows.
+PAGED_SWEEP = (1, 2, 4, 8)
+PAGED_SWEEP_SLOTS = (8, 5)
+
+
+def _paged_sweep(pd, q, kp, vp, table, layout, rows) -> dict:
+    """Kernel 5 at each of PAGED_SWEEP's split counts on the first n of
+    PAGED_SWEEP_SLOTS slots, at the last n of PAGED_LENGTHS and all at
+    `rows`: each count checked against the plain version (and the split
+    counter) and timed."""
+    import torch
+
+    out = {}
+    for n in PAGED_SWEEP_SLOTS:
+        for lens in (PAGED_LENGTHS[-n:], [rows] * n):
+            lengths = torch.tensor(lens, dtype=torch.int32, device=q.device)
+            qn, tab = q[:n], table[:n]
+            ref = pd.paged_decode_plain(qn, kp, vp, tab, lengths, layout)
+            sweep = {}
+            for splits in PAGED_SWEEP:
+                before = pd.launches["paged_decode_split"]
+                err, tol = max_err(pd.paged_decode_at(qn, kp, vp, tab, lengths, layout, splits),
+                                   ref)
+                if not err <= tol or pd.launches["paged_decode_split"] - before != (splits > 1):
+                    raise AssertionError(f"kernel 5 at {n} slots {lens}, {splits} splits: {err} "
+                                         f"> {tol}, or the split counter disagrees")
+                sweep[splits] = timed([lambda s=splits: pd.paged_decode_at(
+                    qn, kp, vp, tab, lengths, layout, s)])["ms"]
+            key = f"{n} slots " + ("ragged" if lens == PAGED_LENGTHS[-n:] else f"x {rows}")
+            out[key] = sweep
+            log(f"  sweep at {n} slots, lengths {lens} (splits: ms): "
+                + ", ".join(f"{k}: {ms:.4f}" for k, ms in sweep.items()))
+    return out
+
+
 def _paged_kernel_records(randn, case, library, g) -> list:
     """Kernels 5-7 at a serve batch of 8 (PAGED_LENGTHS) over a 140-page
-    pool with a shuffled table, in both layouts; timed in the default
-    (contig) layout."""
+    pool with a shuffled table, in both layouts, timed in the default
+    (contig) layout; kernel 5 also at PAGED_SWEEP's split counts there
+    (8 and 5 slots, ragged and all at 2048 rows), and
+    at B=1 over 512 and 2048 live rows (its split form: 32 pairs), each
+    with its bound and the library call."""
     import torch
     import torch.nn.functional as tf
 
+    from tokenhawk_tpu_torch.ops.cuda import build
     from tokenhawk_tpu_torch.ops.cuda import paged_decode as pd
 
     dev = torch.device("cuda")
@@ -1978,17 +2084,40 @@ def _paged_kernel_records(randn, case, library, g) -> list:
     page[-2:], slot[-2:] = trash, 5
     pl, sl = page.long(), slot.long()
     keep = torch.arange(n_pool, device=dev) != trash
+    row = Hkv * Dh * bf
+    sms = build.sm_count(dev)
+
+    def b5(n, tokens):  # the live K/V rows, q and out, the table rows and lengths
+        return bound(2 * tokens * row + 2 * n * row + n * (mp + 1) * 4, 4 * tokens * Hkv * Dh)
+
+    def gathered_sdpa(q, kp, vp, tab, lens):
+        """The library call: the table's pages, then SDPA with a length mask."""
+        n, tabl = tab.shape[0], tab.long()
+        mask = (torch.arange(mp * ps, device=dev)[None, :] < lens[:, None])[:, None, None]
+
+        def dense(x):
+            return x[tabl].transpose(1, 2).reshape(n, Hkv, mp * ps, Dh)
+
+        return [lambda: tf.scaled_dot_product_attention(q, dense(kp), dense(vp), attn_mask=mask,
+                                                        scale=1.0)]
+
     dec, app, gat, lib = [], [], [], {}
     for layout in ("contig", "head"):
         shape = (n_pool, Hkv, ps, Dh) if layout == "contig" else (Hkv, n_pool, ps, Dh)
         kp, vp = randn(*shape), randn(*shape)
         q = randn(B, Hkv, 1, Dh, scale=Dh**-0.5)
-        case(dec, f"paged_decode {layout} B={B} lengths={PAGED_LENGTHS} ps={ps}", layout, B,
-             pd.paged_decode(q, kp, vp, table, lengths, layout),
-             pd.paged_decode_plain(q, kp, vp, table, lengths, layout),
-             [lambda: pd.paged_decode(q, kp, vp, table, lengths, layout)],
-             [lambda: pd.paged_decode_plain(q, kp, vp, table, lengths, layout)])
-
+        splits = pd.paged_splits(B, Hkv, mp * ps, sms)
+        label = f"paged_decode {layout} B={B} lengths={PAGED_LENGTHS} ps={ps}, {splits} splits"
+        out, ref = (pd.paged_decode(q, kp, vp, table, lengths, layout),
+                    pd.paged_decode_plain(q, kp, vp, table, lengths, layout))
+        if layout == "contig":
+            case(dec, label, layout, B, out, ref,
+                 [lambda: pd.paged_decode(q, kp, vp, table, lengths, layout)],
+                 [lambda: pd.paged_decode_plain(q, kp, vp, table, lengths, layout)])
+            dec[-1].update(b5(B, live), splits=splits,
+                           sweep_ms=_paged_sweep(pd, q, kp, vp, table, layout, mp * ps))
+        else:
+            case(dec, label, layout, B, out, ref)
         kn, vn = randn(B, Hkv, Dh), randn(B, Hkv, Dh)
         ka, va, kb, vb = kp.clone(), vp.clone(), kp.clone(), vp.clone()
         pd.paged_append(ka, va, kn, vn, page, slot, layout)
@@ -2012,28 +2141,41 @@ def _paged_kernel_records(randn, case, library, g) -> list:
              [lambda: pd.gather_pages_plain(kp, vp, table, layout)], frac=0.0)
         del gk, gv, pk, pv
         if layout == "contig":
-            mask = (torch.arange(mp * ps, device=dev)[None, :] < lengths[:, None])[:, None, None]
-
-            def dense(x):
-                return x[tl].transpose(1, 2).reshape(B, Hkv, mp * ps, Dh)
-
             lib["decode"] = library(
                 "gather K and V + scaled_dot_product_attention with a length mask (6+ calls)",
-                [lambda: tf.scaled_dot_product_attention(q, dense(kp), dense(vp), attn_mask=mask,
-                                                         scale=1.0)])
+                gathered_sdpa(q, kp, vp, table, lengths))
+            dec[0]["library_ms"] = lib["decode"]
+            # A paged server with one live request: 32 pairs, the split form.
+            for L in (512, 2048):
+                tab1, len1 = table[-1:], torch.tensor([L], dtype=torch.int32, device=dev)
+                q1 = randn(1, Hkv, 1, Dh, scale=Dh**-0.5)
+                n1 = pd.paged_splits(1, Hkv, mp * ps, sms)
+                before = pd.launches["paged_decode_split"]
+                out1 = pd.paged_decode(q1, kp, vp, tab1, len1, layout)
+                if pd.launches["paged_decode_split"] - before != (n1 > 1):
+                    raise AssertionError(f"kernel 5 at B=1 L={L}: the split counter disagrees "
+                                         f"with {n1} splits")
+                case(dec, f"paged_decode {layout} B=1 L={L} ps={ps}, {n1} splits",
+                     f"{layout} B=1 L={L}", 1, out1,
+                     pd.paged_decode_plain(q1, kp, vp, tab1, len1, layout),
+                     [lambda: pd.paged_decode(q1, kp, vp, tab1, len1, layout)],
+                     [lambda: pd.paged_decode_plain(q1, kp, vp, tab1, len1, layout)])
+                one = timed([lambda: pd.paged_decode_at(q1, kp, vp, tab1, len1, layout, 1)])["ms"]
+                lib1 = timed(gathered_sdpa(q1, kp, vp, tab1, len1))["ms"]
+                dec[-1].update(b5(1, L), splits=n1, one_block_ms=one, library_ms=lib1)
+                log(f"  bound {dec[-1]['bound_ms']:.4f} ms; one block a pair {one:.4f} ms; "
+                    f"library call (gather + SDPA) {lib1:.4f} ms")
             lib["append"] = library("index_put_ of the new K and V rows (2 calls)", [
                 lambda: (ka.__setitem__((pl, slice(None), sl), kn),
                          va.__setitem__((pl, slice(None), sl), vn))])
             lib["gather"] = library("pages[table] with its permute, K and V (2 x 2 calls)", [
-                lambda: [dense(x) for x in (kp, vp)]])
+                lambda: [x[tl].transpose(1, 2).reshape(B, Hkv, mp * ps, Dh) for x in (kp, vp)]])
         del kp, vp, ka, va, kb, vb
     src = "tokenhawk_tpu_torch/csrc/paged_decode.cu"
-    row = Hkv * Dh * bf
     return [
         _record("paged_decode", src, "tokenhawk_tpu/ops/pallas/paged_decode.py:683 "
                 "(paged_flash_decode_walk); paged_decode.py:497 (paged_flash_decode)",
-                dec, ("contig", B), bound(2 * live * row + 2 * B * row + B * (mp + 1) * 4,
-                                          4 * live * Hkv * Dh), lib["decode"]),
+                dec, ("contig", B), b5(B, live), lib["decode"]),
         _record("paged_append", src, "tokenhawk_tpu/ops/pallas/paged_decode.py:205 "
                 "(paged_append_rows)", app, ("contig", B),
                 bound(4 * B * row + 2 * B * 4, 0), lib["append"]),
@@ -2719,7 +2861,7 @@ def _profile_paged(sched, rng, V) -> None:
     for e in avgs[:8]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {_kernel_name(e.key)}")
     for e in avgs:
-        m = re.search(r"paged_decode(_int8)?_kernel|paged_append(_int8)?_kernel|"
+        m = re.search(r"paged_decode(_int8|_tiles)?_kernel|paged_append(_int8)?_kernel|"
                       r"gather_pages(_int8)?_kernel", e.key)
         if m:
             log(f"  {m.group(0)}: {e.self_device_time_total / 1e3:.3f} ms over {e.count} "
@@ -4087,7 +4229,8 @@ def phase_cp_engine(params, kernel_mods, tmp: str) -> dict:
         torch.cuda.synchronize()
         counts = _read_counts(kernel_mods)
         log(f"CP kernel launches over the 3 requests: {counts}")
-        _check_path(counts, [*Q4_PATHS, "flash_decode_stats", "flash_attention_stats_tc"],
+        _check_path(counts, [*Q4_PATHS, "flash_decode_stats", "flash_decode_stats_split",
+                             "flash_attention_stats_tc"],
                     [FFN_Q4_0, "flash_decode", K4, "flash_attention", "flash_decode_attend",
                      "flash_attention_stats"])
         rates = {"cp": [], "dense": []}
@@ -4364,7 +4507,8 @@ def main() -> int:
     int8_paged = ["paged_decode_int8", "paged_append_int8", "gather_pages_int8"]
     cfg_2k = dataclasses.replace(_seven_b(32), n_ctx=2048)
     paged_counts, sched = phase_paged_serve(
-        params, cfg_2k, every, "bf16", [*Q4_PATHS, FFN_Q4_0, K4] + bf16_paged,
+        params, cfg_2k, every, "bf16",
+        [*Q4_PATHS, FFN_Q4_0, K4, "paged_decode_split"] + bf16_paged,
         [*QK_PATHS, "flash_decode", *CUDA_CORE_PREFILL] + int8_dense + int8_paged,
         "phase 4b: paged serve, LLaMA-7B Q4_0, 32 layers")
     with tempfile.TemporaryDirectory() as tmp:

@@ -580,7 +580,9 @@ def test_attention_stats_tc_walk_matches_plain(stride, Dh_, rep, T, q_start, k_s
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_stats_kernel_matches_plain(rep, dtype, Dh, splits):
     """Kernel 18 over a strided view (every other row of a larger cache),
-    lengths 0 .. S and one past S; empty ranges give (0, -inf, 0) exactly."""
+    lengths 0 .. S and one past S; empty ranges give (0, -inf, 0) exactly.
+    With splits 1 its 24 (sequence, kv head) pairs take the cluster form
+    on an H100 (one partial, merged on chip)."""
     dev = cuda_device()
     g = torch.Generator(device=dev).manual_seed(rep + Dh + splits)
     B, Hkv, S = 6, 4, 512
@@ -588,14 +590,54 @@ def test_decode_stats_kernel_matches_plain(rep, dtype, Dh, splits):
     q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).to(dtype)
     big = [torch.randn(B, Hkv, 2 * S, Dh, generator=g, device=dev).to(dtype) for _ in range(2)]
     kc, vc = (c[:, :, 1::2] for c in big)
-    before = flash_decode.launches["flash_decode_stats"]
+    before = dict(flash_decode.launches)
     got = flash_decode.flash_decode_stats(q, kc, vc, lengths, splits)
-    assert flash_decode.launches["flash_decode_stats"] == before + 1
+    cluster = splits == 1 and flash_decode.decode_splits(
+        B, Hkv, S, torch.cuda.get_device_properties(dev).multi_processor_count,
+        flash_decode.APPEND_MIN_TILES) > 1
+    assert flash_decode.launches["flash_decode_stats"] == before["flash_decode_stats"] + 1
+    assert flash_decode.launches["flash_decode_stats_split"] == (
+        before["flash_decode_stats_split"] + cluster)
     want = flash_decode.flash_decode_stats_plain(q, kc, vc, lengths, splits)
     assert torch.all(got[0][:, 0] == 0) and torch.all(got[1][:, 0] == -torch.inf)
+    assert torch.all(got[2][:, 0] == 0)
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == torch.float32
         _close_f32(a, b)
+
+
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
+@pytest.mark.parametrize("rep", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_stats_cluster_matches_plain(rep, dtype, Dh):
+    """Kernel 18's one range over a cluster of 1 to 16 blocks, ranges of at
+    least 1, 2 and 4 tiles, on a cyclic shard (every fourth row): lengths
+    0, 1, a tile less one, a tile, a tile and one, 300, S and past S merge
+    into one partial within 1e-4 of the plain version's; a length 0, and a
+    shard where every length is 0, give (0, -inf, 0) exactly."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(rep + Dh + 18)
+    B, Hkv, S = 8, 2, 512
+    lengths = torch.tensor([0, 1, 31, 32, 33, 300, S, S + 5], dtype=torch.int32, device=dev)
+    q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).to(dtype)
+    big = [torch.randn(B, Hkv, 4 * S, Dh, generator=g, device=dev).to(dtype) for _ in range(2)]
+    kc, vc = (c[:, :, 2::4] for c in big)
+    want = flash_decode.flash_decode_stats_plain(q, kc, vc, lengths)
+    empty = torch.zeros_like(lengths)
+    for min_tiles in (1, flash_decode.APPEND_MIN_TILES, flash_decode.MIN_SPLIT_TILES):
+        for cluster in range(1, flash_decode.MAX_SPLITS + 1):
+            before = dict(flash_decode.launches)
+            got = flash_decode.flash_decode_stats_at(q, kc, vc, lengths, 1, cluster, min_tiles)
+            torch.cuda.synchronize()
+            assert flash_decode.launches["flash_decode_stats_split"] == (
+                before["flash_decode_stats_split"] + (cluster > 1))
+            assert torch.all(got[0][:, 0] == 0) and torch.all(got[1][:, 0] == -torch.inf)
+            assert torch.all(got[2][:, 0] == 0)
+            for a, b in zip(got, want):
+                assert a.shape == b.shape and a.dtype == torch.float32
+                _close_f32(a, b)
+            o, m, l = flash_decode.flash_decode_stats_at(q, kc, vc, empty, 1, cluster, min_tiles)
+            assert torch.all(o == 0) and torch.all(m == -torch.inf) and torch.all(l == 0)
 
 
 def test_stats_kernels_refuse_bad_input():
@@ -718,7 +760,8 @@ def _pools(g, dev, layout, Hkv, n_pages, ps, dtype, Dh=Dh):
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_paged_decode_kernel_matches_plain(layout, rep, dtype, Dh):
-    """4 KV heads: at Dh 64 and rep 8, TinyLlama's heads."""
+    """4 KV heads: at Dh 64 and rep 8, TinyLlama's heads.  Its 20
+    (sequence, kv head) pairs take the split form on an H100."""
     dev = cuda_device()
     g = torch.Generator(device=dev).manual_seed(rep)
     B, Hkv, ps, mp, n_pages = 5, 4, 128, 4, 24
@@ -726,10 +769,53 @@ def test_paged_decode_kernel_matches_plain(layout, rep, dtype, Dh):
     table = torch.randperm(n_pages, generator=g, device=dev)[:B * mp].reshape(B, mp).int()
     lengths = torch.tensor([1, 37, 128, 129, 0], dtype=torch.int32, device=dev)
     q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).to(dtype)
+    before = dict(paged_decode.launches)
     got = paged_decode.paged_decode(q, kp, vp, table, lengths, layout)
+    split = paged_decode.paged_splits(B, Hkv, mp * ps, torch.cuda.get_device_properties(
+        dev).multi_processor_count) > 1
+    assert paged_decode.launches["paged_decode"] == before["paged_decode"] + 1
+    assert paged_decode.launches["paged_decode_split"] == before["paged_decode_split"] + split
     want = paged_decode.paged_decode_plain(q, kp, vp, table, lengths, layout)
     assert torch.equal(got[4], torch.zeros_like(got[4]))  # length 0 -> zeros, not NaN
     assert _err(got, want) <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
+@pytest.mark.parametrize("layout", ["contig", "head"])
+@pytest.mark.parametrize("ps", [16, 48, 64])
+@pytest.mark.parametrize("q_dtype,pool_dtype", [(torch.bfloat16, torch.bfloat16),
+                                                (torch.float32, torch.float32),
+                                                (torch.bfloat16, torch.float32)])
+def test_paged_decode_split_kernel_matches_plain(layout, ps, q_dtype, pool_dtype, Dh):
+    """Kernel 5 in both forms, one block a pair and clusters of 2 to 16
+    blocks with ranges of at least 1 and 2 tiles, over pages of 16, 48 and
+    64 rows (a 64-row chunk of the walk spans pages, or starts inside one):
+    lengths 0, 1, ps - 1, ps, ps + 1, 300 and the table's full rows; a
+    length 0 gives zeros, every length 0 all zeros."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(ps + Dh + 5)
+    Hkv, rep, mp = 2, 4, 512 // ps + 1
+    lens = [0, 1, ps - 1, ps, ps + 1, 300, mp * ps]
+    B, n_pages = len(lens), len(lens) * mp + 3
+    kp, vp = _pools(g, dev, layout, Hkv, n_pages, ps, pool_dtype, Dh)
+    table = torch.randperm(n_pages, generator=g, device=dev)[:B * mp].reshape(B, mp).int()
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).to(q_dtype)
+    want = paged_decode.paged_decode_plain(q, kp, vp, table, lengths, layout)
+    for min_tiles in (1, flash_decode.APPEND_MIN_TILES):
+        for splits in range(1, flash_decode.MAX_SPLITS + 1):
+            before = dict(paged_decode.launches)
+            got = paged_decode.paged_decode_at(q, kp, vp, table, lengths, layout, splits,
+                                               min_tiles)
+            torch.cuda.synchronize()
+            assert paged_decode.launches["paged_decode_split"] == (
+                before["paged_decode_split"] + (splits > 1))
+            assert got.shape == q.shape and got.dtype == q_dtype
+            assert torch.equal(got[0], torch.zeros_like(got[0]))
+            assert _err(got, want) <= _tol(want, q_dtype), (splits, min_tiles)
+            none = paged_decode.paged_decode_at(q, kp, vp, table, torch.zeros_like(lengths),
+                                                layout, splits, min_tiles)
+            assert torch.equal(none, torch.zeros_like(none))
 
 
 @pytest.mark.parametrize("Dh", HEAD_DIMS)

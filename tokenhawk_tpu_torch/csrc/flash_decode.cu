@@ -1,5 +1,7 @@
-// Kernels 14, 16 and 18: decode attention over the dense bf16/f32 KV cache
-// (kernel 3, the same attention after an append, is decode_append.cu).
+// Kernels 14 and 16: decode attention over the dense bf16/f32 KV cache
+// (kernels 3 and 18, the same attention after an append and as one shard's
+// partials, run the tile walk of decode_tiles.cuh: decode_append.cu,
+// decode_stats.cu).
 //
 // Kernel 14 replaces tokenhawk_tpu/ops/pallas/flash_decode_dma.py
 // flash_decode_dma (_kernel, _kernel_vec), flash_decode_loop (_kernel_loop)
@@ -19,29 +21,21 @@
 // cache pointers are const __restrict__, so loads may take the read-only
 // path.
 //
-// Kernel 18 replaces flash_decode_dma.py flash_decode_stats
-// (_kernel_vec_stats), the per-shard half of context-parallel decode
-// (parallel/ring.py decode_attend_cp): the same body without the final
-// normalisation, writing the unnormalised o in f32 and each query row's
-// max m and sum l.  A sequence of length 0 writes the merge identity
-// (0, -inf, 0) before any read.  Its cache may be a strided view (one
-// shard of a larger cache: batch, head and row strides come from the
-// wrapper), and its live rows may be cut into `splits` tile-aligned
-// ranges, one block each, whose partials the caller merges (an empty range
-// writes the identity): with few (b, kv head) pairs, splits put more than
-// B*Hkv blocks on the 132 SMs.  Bound by the live rows' bytes, as kernel 14.
+// Kernel 18 (one shard's softmax partials) runs kernel 3's tile walk,
+// decode_stats.cu; attend_head's STATS form, the unnormalised o and each
+// query row's m and l, serves kernel 14's split form here.
 //
 // Kernel 14 at few (b, kv head) pairs takes a second launch, split-S with
 // an on-chip merge (decode_split_kernel): one block per (b, kv head) leaves
 // most of the 132 SMs idle (4 blocks at B=1 over a TinyLlama-width draft's 4
 // KV heads), so where B*Hkv is below the SM count the wrapper cuts each
 // pair's live rows into `splits` tile-aligned ranges, computed here from
-// lengths as kernel 18 computes them (the host never reads lengths), none
-// shorter than `min_tiles` tiles: a short live length fills its first
-// ranges and leaves the rest empty rather than cut 1-tile ranges.  The
-// `splits` blocks of one pair form one thread-block cluster; each runs
-// kernel 18's body over its range and leaves its partials (o, m, l) in its
-// own shared memory (an empty range the merge identity (0, -inf, 0)).
+// lengths (the host never reads lengths), none shorter than `min_tiles`
+// tiles: a short live length fills its first ranges and leaves the rest
+// empty rather than cut 1-tile ranges.  The `splits` blocks of one pair
+// form one thread-block cluster; each runs attend_head's STATS form over
+// its range and leaves its partials (o, m, l) in its own shared memory (an
+// empty range the merge identity (0, -inf, 0)).
 // After cluster.sync() every block merges a share of the pair's REP*DH
 // outputs from all the blocks' partials over distributed shared memory
 // (the max of m, each partial weighted by exp(m - max), the sums in
@@ -78,7 +72,7 @@ constexpr int kWarps = 8;
 // Attention of one block's REP query rows q [REP, DH] (f32 math) over rows
 // [begin, L) of one head's cache kh, vh (rows `row` elements apart) -> out
 // [REP, DH] in TO.  q_scale multiplies q first, rounded back to TQ (1 for
-// kernels 14 and 18, where that is exact).  STATS (kernel 18, TO =
+// kernel 14, where that is exact).  STATS (kernel 14's split form, TO =
 // float) writes the unnormalised out and each row's m_out, l_out [REP].
 template <typename TQ, typename TC, int REP, int DH, typename TO, bool STATS = false>
 __device__ __forceinline__ void attend_head(const TQ* __restrict__ q, const TC* kh,
@@ -219,34 +213,6 @@ __global__ void __launch_bounds__(kWarps * 32)
   attend_head<TQ, TC, REP, DH, TQ>(q + qo, kc + co, vc + co, 0, L, DH, out + qo, 1.f);
 }
 
-// Kernel 18: block (b * Hkv + h, split) writes the partials of its range of
-// the live rows; o [splits, B, Hkv, REP, DH], m, l [splits, B, Hkv * REP].
-template <typename T, int REP, int DH>
-__global__ void __launch_bounds__(kWarps * 32)
-    decode_stats_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                        const T* __restrict__ vc, const int* __restrict__ lengths,
-                        float* __restrict__ o, float* __restrict__ m, float* __restrict__ l,
-                        int B, int Hkv, int S, long long sb, long long sh, long long sr) {
-  const int bh = blockIdx.x, split = blockIdx.y;
-  const int b = bh / Hkv, h = bh % Hkv;
-  const int L = min(max(lengths[b], 0), S);
-  const int per = ((L + 31) / 32 + gridDim.y - 1) / gridDim.y * 32;  // rows of a split
-  const int begin = min(split * per, L), end = min(begin + per, L);
-  const size_t row0 = (static_cast<size_t>(split) * B * Hkv + bh) * REP;  // (split, b, h, 0)
-  if (begin == end) {  // nothing to read: the merge identity
-    for (int i = threadIdx.x; i < REP * DH; i += blockDim.x) o[row0 * DH + i] = 0.f;
-    if (threadIdx.x < REP) {
-      m[row0 + threadIdx.x] = -INFINITY;
-      l[row0 + threadIdx.x] = 0.f;
-    }
-    return;
-  }
-  const size_t co = b * sb + h * sh;
-  attend_head<T, T, REP, DH, float, true>(q + static_cast<size_t>(bh) * REP * DH, kc + co,
-                                          vc + co, begin, end, sr, o + row0 * DH, 1.f,
-                                          m + row0, l + row0);
-}
-
 // Kernel 14's split form: block (split, b * Hkv + h) of a cluster of
 // gridDim.x = splits blocks attends over its range of the pair's live rows,
 // then the cluster merges (see the header).
@@ -384,66 +350,6 @@ extern "C" int th_decode_attend(const void* q, const void* kc, const void* vc,
   const Args a{q, kc, vc, static_cast<const int*>(lengths), out, B, Hkv, S,
                static_cast<cudaStream_t>(stream), splits, min_tiles};
   return launch(a, rep, Dh, q_dtype, cache_dtype);
-}
-
-namespace {
-
-struct StatsArgs {
-  const void* q;
-  const void* kc;
-  const void* vc;
-  const int* lengths;
-  float *o, *m, *l;
-  int B, Hkv, S, splits;
-  long long sb, sh, sr;
-  cudaStream_t stream;
-};
-
-template <typename T, int REP, int DH>
-void launch_stats(const StatsArgs& a) {
-  decode_stats_kernel<T, REP, DH><<<dim3(a.B * a.Hkv, a.splits), kWarps * 32, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.kc), static_cast<const T*>(a.vc),
-      a.lengths, a.o, a.m, a.l, a.B, a.Hkv, a.S, a.sb, a.sh, a.sr);
-}
-
-template <typename T, int DH>
-void launch_stats_rep(const StatsArgs& a, int rep) {
-  switch (rep) {
-    case 1: launch_stats<T, 1, DH>(a); break;
-    case 2: launch_stats<T, 2, DH>(a); break;
-    case 4: launch_stats<T, 4, DH>(a); break;
-    default: launch_stats<T, 8, DH>(a); break;
-  }
-}
-
-template <typename T>
-void launch_stats_dh(const StatsArgs& a, int rep, int Dh) {
-  if (Dh == 64)
-    launch_stats_rep<T, 64>(a, rep);
-  else
-    launch_stats_rep<T, 128>(a, rep);
-}
-
-}  // namespace
-
-// Kernel 18.  q [B, Hkv, rep, Dh] in dtype (pre-scaled); caches of
-// [B, Hkv, S, Dh] shape in dtype, element strides sb, sh, sr between
-// sequences, heads and rows (the last dim contiguous); lengths [B] int32
-// (clamped to [0, S]); o [splits, B, Hkv, rep, Dh], m, l [splits, B,
-// Hkv*rep] f32.  rep is 1, 2, 4 or 8, Dh 64 or 128, splits >= 1 (checked
-// by the Python wrapper).
-extern "C" int th_flash_decode_stats(const void* q, const void* kc, const void* vc,
-                                     const void* lengths, void* o, void* m, void* l, int B,
-                                     int Hkv, int rep, int Dh, int S, int splits, long long sb,
-                                     long long sh, long long sr, int dtype, void* stream) {
-  const StatsArgs a{q, kc, vc, static_cast<const int*>(lengths), static_cast<float*>(o),
-                    static_cast<float*>(m), static_cast<float*>(l), B, Hkv, S, splits, sb, sh,
-                    sr, static_cast<cudaStream_t>(stream)};
-  if (dtype == kBF16)
-    launch_stats_dh<__nv_bfloat16>(a, rep, Dh);
-  else
-    launch_stats_dh<float>(a, rep, Dh);
-  return THAWK_LAUNCH_RESULT();
 }
 
 namespace {

@@ -8,14 +8,17 @@
 //
 // Kernel 5, paged decode, replaces tokenhawk_tpu/ops/pallas/paged_decode.py
 // paged_flash_decode_walk (_kernel_walk) and its grid form paged_flash_decode
-// (_kernel_vec).  One block per (sequence, kv head) walks the live tokens of
-// its own page table in tiles of 32 and keeps an f32 online softmax for the
-// rep query heads of that kv head, as kernel 3 does over a dense cache
-// (flash_decode.cu): a lane scores one token against every query head, then
-// owns Dh/32 of the head dims for P·V (4 at Dh 128, 2 at Dh 64); the 8
-// warps' states merge through shared memory.  Bound by the bytes of the live K and V rows; at B=1 the
-// grid is only Hkv blocks (32 of 132 SMs at 7B), the known limit of this
-// first version.  A row of length 0 writes zeros.
+// (_kernel_vec): attention of the rep query heads of each (sequence, kv
+// head) over its min(lengths[b], max_pages * ps) live rows, read through
+// its own page table, an f32 online softmax.  Bound by the bytes of the
+// live K and V rows.  It runs kernel 3's shared-memory tile walk
+// (decode_tiles.cuh) with rows addressed through the table: each 16-byte
+// cp.async of a row reads table[b, t / ps] * page_stride + h * head_stride
+// + (t % ps) * Dh, so a 64-row chunk may span pages (pages of fewer than 64
+// rows, or not a multiple of 64).  One block a (sequence, kv head), or, where
+// the wrapper asks for `splits` > 1, each pair's live rows cut on the card
+// into ranges of at least min_tiles tiles over a thread-block cluster and
+// merged on chip, as kernel 3's split form.  A row of length 0 writes zeros.
 //
 // Kernel 6, paged append, replaces paged_append_rows (_append_kernel): one
 // block per sequence copies its new K and V rows [Hkv, Dh] into (page, slot)
@@ -29,161 +32,71 @@
 //
 // Kernels 6 and 7 copy rows and pages as bytes, whatever the head dim;
 // kernel 5 is built for head dims 64 (TinyLlama's) and 128 (LLaMA's).
-#include "common.cuh"
+#include "decode_tiles.cuh"
 
 using namespace thawk;
 
 namespace {
 
-constexpr int kWarps = 8;
-
-template <typename TQ, typename TC, int REP, int DH>
-__global__ void __launch_bounds__(kWarps * 32)
-    paged_decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ kp,
-                        const TC* __restrict__ vp, const int* __restrict__ table,
-                        const int* __restrict__ lengths, TQ* __restrict__ out, int Hkv, int ps,
-                        int max_pages, long long page_stride, long long head_stride) {
-  constexpr int kPer = DH / 32;  // head dims a lane owns for P·V
-  __shared__ __align__(16) float qsm[REP][DH];
-  __shared__ float red_m[kWarps][REP];
-  __shared__ float red_l[kWarps][REP];
-  __shared__ __align__(16) float red_acc[kWarps][REP][DH];
-
-  const int bh = blockIdx.x;
+// Kernel 5: block (split, b * Hkv + h) of a cluster of `splits` (SPLIT) or
+// block b * Hkv + h runs the walk over the pair's live rows through the
+// sequence's row of the table.
+template <typename TQ, typename TC, int REP, int DH, bool SPLIT>
+__global__ void __launch_bounds__(tiles::kThreads)
+    paged_decode_tiles_kernel(const TQ* __restrict__ q, const TC* kp, const TC* vp,
+                              const int* __restrict__ table, const int* __restrict__ lengths,
+                              TQ* __restrict__ out, int Hkv, int ps, int max_pages,
+                              long long page_stride, long long head_stride, int min_tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bh = SPLIT ? blockIdx.y : blockIdx.x;
   const int b = bh / Hkv, h = bh % Hkv;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int L = min(lengths[b], max_pages * ps);
-  TQ* o = out + static_cast<size_t>(bh) * REP * DH;
-  if (L <= 0) {
-    for (int i = tid; i < REP * DH; i += blockDim.x) o[i] = from_f32<TQ>(0.f);
-    return;
-  }
-  const int* row_pages = table + static_cast<size_t>(b) * max_pages;
-  const TC* kh = kp + static_cast<size_t>(h) * head_stride;
-  const TC* vh = vp + static_cast<size_t>(h) * head_stride;
-  // Row of token t in this head's pages.
-  auto row = [&](const TC* base, int t) {
-    return base + static_cast<size_t>(row_pages[t / ps]) * page_stride +
-           static_cast<size_t>(t % ps) * DH;
-  };
-
-  for (int i = tid; i < REP * DH; i += blockDim.x)
-    qsm[i / DH][i % DH] = to_f32(q[static_cast<size_t>(bh) * REP * DH + i]);
-  __syncthreads();
-
-  float m[REP], l[REP], acc[REP][kPer];
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) acc[r][i] = 0.f;
-  }
-
-  const int n_tiles = (L + 31) / 32;
-  for (int t = warp; t < n_tiles; t += kWarps) {
-    const int tok = t * 32 + lane;
-    const bool valid = tok < L;
-    float s[REP];
-#pragma unroll
-    for (int r = 0; r < REP; ++r) s[r] = 0.f;
-    if (valid) {
-      const TC* krow = row(kh, tok);
-#pragma unroll 4
-      for (int i = 0; i < DH; i += 8) {
-        float kv[8];
-        load8(krow + i, kv);
-#pragma unroll
-        for (int r = 0; r < REP; ++r)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) s[r] += qsm[r][i + j] * kv[j];
-      }
-    }
-    float p[REP];
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      const float sr = valid ? s[r] : -INFINITY;
-      const float m_new = fmaxf(m[r], warp_max(sr));  // lane 0 of a tile is always live
-      const float alpha = expf(m[r] - m_new);
-      p[r] = valid ? expf(sr - m_new) : 0.f;
-      l[r] = l[r] * alpha + warp_sum(p[r]);
-      m[r] = m_new;
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) acc[r][i] *= alpha;
-    }
-    const int n_live = min(32, L - t * 32);
-    for (int j = 0; j < n_live; ++j) {
-      float v[kPer];
-      load_n<kPer>(row(vh, t * 32 + j) + lane * kPer, v);
-#pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        const float pj = __shfl_sync(0xffffffffu, p[r], j);
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) acc[r][i] += pj * v[i];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    if (lane == 0) {
-      red_m[warp][r] = m[r];
-      red_l[warp][r] = l[r];
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) red_acc[warp][r][lane * kPer + i] = acc[r][i];
-  }
-  __syncthreads();
-  for (int i = tid; i < REP * DH; i += blockDim.x) {
-    const int r = i / DH, d = i % DH;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red_m[w][r]);
-    float num = 0.f, den = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(red_m[w][r] - mx);  // 0 for a warp that had no tile
-      num += red_acc[w][r][d] * f;
-      den += red_l[w][r] * f;
-    }
-    o[i] = from_f32<TQ>(num / den);
-  }
+  const size_t qo = static_cast<size_t>(bh) * REP * DH;
+  const size_t ho = static_cast<size_t>(h) * head_stride;
+  tiles::walk<TQ, TC, REP, DH, SPLIT ? tiles::kCluster : tiles::kOne, false>(
+      smem, q + qo,
+      tiles::PagedRows<TC, DH>{kp + ho, vp + ho, table + static_cast<size_t>(b) * max_pages, ps,
+                               page_stride},
+      static_cast<const TQ*>(nullptr), static_cast<const TQ*>(nullptr),
+      max(0, min(lengths[b], max_pages * ps)), SPLIT ? static_cast<int>(blockIdx.x) : 0,
+      SPLIT ? static_cast<int>(gridDim.x) : 1, min_tiles, tiles::Normalised<TQ>{out + qo});
 }
 
-template <typename TQ, typename TC, int DH>
-void launch_decode(const void* q, const void* kp, const void* vp, const int* table,
-                   const int* lengths, void* out, int B, int Hkv, int rep, int ps, int max_pages,
-                   long long page_stride, long long head_stride, cudaStream_t stream) {
-  const dim3 grid(B * Hkv), block(kWarps * 32);
-  const TQ* qt = static_cast<const TQ*>(q);
-  const TC* kt = static_cast<const TC*>(kp);
-  const TC* vt = static_cast<const TC*>(vp);
-  TQ* o = static_cast<TQ*>(out);
-#define THAWK_PAGED(R)                                                                      \
-  paged_decode_kernel<TQ, TC, R, DH><<<grid, block, 0, stream>>>(qt, kt, vt, table, lengths, o, \
-                                                                 Hkv, ps, max_pages,           \
-                                                                 page_stride, head_stride)
-  switch (rep) {
-    case 1: THAWK_PAGED(1); break;
-    case 2: THAWK_PAGED(2); break;
-    case 4: THAWK_PAGED(4); break;
-    default: THAWK_PAGED(8); break;
-  }
-#undef THAWK_PAGED
+struct DecodeArgs {
+  const void* q;
+  const void* kp;
+  const void* vp;
+  const int* table;
+  const int* lengths;
+  void* out;
+  int B, Hkv, ps, max_pages;
+  long long page_stride, head_stride;
+  int splits, min_tiles;
+  cudaStream_t stream;
+};
+
+template <typename TQ, typename TC, int REP, int DH, bool SPLIT>
+cudaError_t launch_decode(const DecodeArgs& a) {
+  using A = tiles::Tiles<TC, REP, DH>;
+  auto* fn = paged_decode_tiles_kernel<TQ, TC, REP, DH, SPLIT>;
+  static const cudaError_t allowed = tiles::allow(fn, SPLIT ? A::kMaxBytes : A::kBytes, SPLIT);
+  if (allowed != cudaSuccess) return allowed;
+  const int cluster = SPLIT ? a.splits : 1;
+  return tiles::launch(fn, SPLIT ? dim3(a.splits, a.B * a.Hkv) : dim3(a.B * a.Hkv), cluster,
+                       tiles::smem_bytes<TC, REP, DH>(cluster), a.stream,
+                       static_cast<const TQ*>(a.q), static_cast<const TC*>(a.kp),
+                       static_cast<const TC*>(a.vp), a.table, a.lengths,
+                       static_cast<TQ*>(a.out), a.Hkv, a.ps, a.max_pages, a.page_stride,
+                       a.head_stride, a.min_tiles);
 }
 
-template <typename TQ, typename TC>
-void launch_decode_dh(int Dh, const void* q, const void* kp, const void* vp, const int* table,
-                      const int* lengths, void* out, int B, int Hkv, int rep, int ps,
-                      int max_pages, long long page_stride, long long head_stride,
-                      cudaStream_t stream) {
-  if (Dh == 64)
-    launch_decode<TQ, TC, 64>(q, kp, vp, table, lengths, out, B, Hkv, rep, ps, max_pages,
-                              page_stride, head_stride, stream);
-  else
-    launch_decode<TQ, TC, 128>(q, kp, vp, table, lengths, out, B, Hkv, rep, ps, max_pages,
-                               page_stride, head_stride, stream);
-}
+// Kernel 5's launch at one instance.
+template <typename TQ, typename TC, int REP, int DH>
+struct LaunchDecode {
+  static cudaError_t run(const DecodeArgs& a) {
+    return a.splits > 1 ? launch_decode<TQ, TC, REP, DH, true>(a)
+                        : launch_decode<TQ, TC, REP, DH, false>(a);
+  }
+};
 
 // One block per sequence: Hkv rows of row_vecs 16-byte vectors each, for K
 // and for V.
@@ -228,27 +141,22 @@ __global__ void gather_pages_kernel(const uint4* __restrict__ kp, const uint4* _
 // q, out [B, Hkv, rep, Dh] in q_dtype (q pre-scaled); k_pages, v_pages one
 // layer's pools in pool_dtype (strides in elements); table [B, max_pages]
 // and lengths [B] int32.  rep must be 1, 2, 4 or 8 and Dh 64 or 128
-// (checked by the wrapper).
+// (checked by the wrapper).  splits 1 launches one block per (b, kv head);
+// 2-16 the split form, in clusters of `splits` blocks, its ranges at least
+// min_tiles tiles.
 extern "C" int th_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                                const void* table, const void* lengths, void* out, int B, int Hkv,
                                int rep, int Dh, int ps, int max_pages, long long page_stride,
-                               long long head_stride, int q_dtype, int pool_dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* tb = static_cast<const int*>(table);
-  const int* len = static_cast<const int*>(lengths);
-#define THAWK_DECODE(TQ, TC)                                                                   \
-  launch_decode_dh<TQ, TC>(Dh, q, k_pages, v_pages, tb, len, out, B, Hkv, rep, ps, max_pages, \
-                           page_stride, head_stride, s)
-  if (q_dtype == kBF16 && pool_dtype == kBF16)
-    THAWK_DECODE(__nv_bfloat16, __nv_bfloat16);
-  else if (q_dtype == kBF16)
-    THAWK_DECODE(__nv_bfloat16, float);
-  else if (pool_dtype == kBF16)
-    THAWK_DECODE(float, __nv_bfloat16);
-  else
-    THAWK_DECODE(float, float);
-#undef THAWK_DECODE
-  return THAWK_LAUNCH_RESULT();
+                               long long head_stride, int splits, int min_tiles, int q_dtype,
+                               int pool_dtype, void* stream) {
+  if (splits < 1 || splits > tiles::kMaxSplits || min_tiles < 1 || ps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DecodeArgs a{q, k_pages, v_pages, static_cast<const int*>(table),
+                     static_cast<const int*>(lengths), out, B, Hkv, ps, max_pages, page_stride,
+                     head_stride, splits, min_tiles, static_cast<cudaStream_t>(stream)};
+  const cudaError_t e = tiles::dispatch<LaunchDecode, true>(a, q_dtype, pool_dtype, rep, Dh);
+  const int last = THAWK_LAUNCH_RESULT();  // also clears a failed launch's error
+  return e != cudaSuccess ? static_cast<int>(e) : last;
 }
 
 // k_new, v_new [B, Hkv, row] in the pools' type, row = row_bytes bytes;

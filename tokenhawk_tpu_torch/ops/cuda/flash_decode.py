@@ -1,5 +1,5 @@
 """Kernels 3, 14 and 18: decode attention over the dense KV cache (csrc/decode_append.cu,
-csrc/flash_decode.cu).
+csrc/flash_decode.cu, csrc/decode_stats.cu).
 
   flash_decode_append  kernel 3, replaces tokenhawk_tpu/ops/pallas/
                        flash_decode_dma.py `flash_decode_append_walk`
@@ -17,8 +17,8 @@ csrc/flash_decode.cu).
 
 Both read only the live 32-token tiles, so on the H100 they are bound by
 the bytes of the live cache rows.  Kernel 14's block walks its tiles one
-V row a step from device memory; kernel 3's walk (csrc/decode_append.cu
-decode_append_tiles_kernel) brings its block's whole range of K/V rows
+V row a step from device memory; kernel 3's walk (csrc/decode_tiles.cuh,
+shared with kernels 18 and 5) brings its block's whole range of K/V rows
 into shared memory by asynchronous copies before any arithmetic, then
 computes from there with all 8 warps; the block whose range holds the
 new row writes it to the cache and takes it into its tile from k_new /
@@ -30,11 +30,11 @@ Kernels 3 and 14 where the (sequence, kv head) pairs leave most SMs idle
 (a TinyLlama-width draft's 4 KV heads at B=1 run 4 blocks on 132 SMs, the
 7B's 32 at B=1 32 blocks) cut
 each pair's live rows into `decode_splits` tile-aligned ranges, one block
-each in a thread-block cluster of the pair's blocks: kernel 18's body over
-each range (kernel 3: its own walk), then the cluster merges the
+each in a thread-block cluster of the pair's blocks: kernel 14's body over
+each range (kernel 3: its tile walk), then the cluster merges the
 partials over distributed shared memory and rounds once
 (csrc/flash_decode.cu decode_split_kernel; kernel 3 pushes each block's
-partials into block 0 of the cluster, csrc/decode_append.cu).  The
+partials into block 0 of the cluster, csrc/decode_tiles.cuh).  The
 split count comes from the shapes the host knows (B, Hkv, S and the SM
 count), never from `lengths`, so the decode path stays free of host
 syncs; the ranges are computed on the device from `lengths`, none
@@ -45,13 +45,19 @@ live length fills the first ranges and leaves the rest empty).  Those launches a
 
 Kernel 18, `flash_decode_stats`, replaces flash_decode_dma.py
 `flash_decode_stats` (_kernel_vec_stats), one shard's half of
-context-parallel decode (parallel/ring.py decode_attend_cp): kernel 14's
-body without the final normalisation, returning the unnormalised o, m and
-l in f32; a sequence of length 0 gives the merge identity (0, -inf, 0)
-exactly.  The cache may be a strided view (one cyclic shard of a larger
-cache), and `splits` cuts each sequence's live rows into that many
-tile-aligned ranges, one block each, for the caller to merge: more blocks
-than (sequence, kv head) pairs.  Counted as `launches["flash_decode_stats"]`.
+context-parallel decode (parallel/ring.py decode_attend_cp): the same
+attention without the final normalisation, returning the unnormalised o,
+m and l in f32; a sequence of length 0 gives the merge identity
+(0, -inf, 0) exactly.  The cache may be a strided view (one cyclic shard of
+a larger cache).  It runs kernel 3's tile walk (csrc/decode_stats.cu over
+csrc/decode_tiles.cuh).  `splits` > 1 cuts each sequence's live rows into
+that many tile-aligned ranges, one block each, for the caller to merge;
+with `splits` 1 where the (sequence, kv head) pairs leave SMs idle (CP
+decode at B=1) the one range is cut over a thread-block cluster of
+`decode_splits(..., APPEND_MIN_TILES)` blocks, ranges cut on the card as
+kernel 3's, and merged on chip into one unnormalised partial.  Counted as
+`launches["flash_decode_stats"]`, the cluster form also in
+`["flash_decode_stats_split"]`.
 
 Kernel 16, `fused_attn_out`, replaces tokenhawk_tpu/ops/pallas/
 attn_block.py `fused_attn_out` (_attn_wo): the attention block of one
@@ -80,7 +86,8 @@ from tokenhawk_tpu_torch.ops.cuda.qmatmul import form_code, weight_args
 from tokenhawk_tpu_torch.ops.qweight import QWeight
 
 launches = {"flash_decode": 0, "flash_decode_append_split": 0, "flash_decode_attend": 0,
-            "flash_decode_split": 0, "flash_decode_stats": 0, "attn_wo": 0}
+            "flash_decode_split": 0, "flash_decode_stats": 0, "flash_decode_stats_split": 0,
+            "attn_wo": 0}
 HEAD_DIMS = (64, 128)
 REPS = (1, 2, 4, 8)
 # Kernel 14's split form: at most 16 blocks a cluster (above 8 the
@@ -94,16 +101,17 @@ REPS = (1, 2, 4, 8)
 MAX_SPLITS = 16
 MIN_SPLIT_TILES = 4
 BLOCKS_PER_SM = 2
-# Kernel 3's ranges: at least 2 tiles (one 64-row chunk of its walk).  Its
-# sweep on an H100 (chip_smoke.py phase 2, the 7B's heads at B=1): ranges
-# of 2 tiles ran 5-6% faster than 4 at 300 and 512 live rows, 1 tile
-# slower.
+# The tile walk's ranges (kernels 3, 18 and 5): at least 2 tiles (one
+# 64-row chunk of the walk).  Kernel 3's sweep on an H100 (chip_smoke.py
+# phase 2, the 7B's heads at B=1): ranges of 2 tiles ran 5-6% faster than
+# 4 at 300 and 512 live rows, 1 tile slower.
 APPEND_MIN_TILES = 2
 
 _APPEND_ARGS = [build.P] * 7 + [build.I] * 9 + [build.P]
 _ATTEND_ARGS = [build.P] * 5 + [build.I] * 9 + [build.P]
-# q, k, v, lengths, o, m, l; B, Hkv, rep, Dh, S, splits; strides; dtype; stream.
-_STATS_ARGS = [build.P] * 7 + [build.I] * 6 + [build.LL] * 3 + [build.I, build.P]
+# q, k, v, lengths, o, m, l; B, Hkv, rep, Dh, S, splits; strides; cluster,
+# min_tiles, dtype; stream.
+_STATS_ARGS = [build.P] * 7 + [build.I] * 6 + [build.LL] * 3 + [build.I] * 3 + [build.P]
 # q, k_new, v_new, kc, vc, lengths, x; wo (qs, scales, mins, hi, form); ctx,
 # y; H, Dh, S, D; q_scale; q and cache dtypes; stream.
 _ATTN_WO_ARGS = [build.P] * 11 + [build.I] + [build.P] * 2 + [build.I] * 4 + [
@@ -244,8 +252,8 @@ def flash_decode_append_at(q, k_new, v_new, k_cache, v_cache, lengths, splits: i
 
 def _split_ranges(lengths, S: int, splits: int, min_tiles: int = 1):
     """[splits, B] row ranges [begin, end) of each sequence's live rows,
-    cut at whole 32-row tiles, as kernel 18's blocks take them (and kernel
-    14's split form, whose ranges are at least min_tiles tiles)."""
+    cut at whole 32-row tiles, as kernel 18's blocks take them (and the
+    split forms, whose ranges are at least min_tiles tiles)."""
     L = lengths.long().clamp(0, S)
     per = (((L + 31) // 32 + splits - 1) // splits).clamp(min=min_tiles) * 32
     begin = torch.minimum(torch.arange(splits, device=L.device)[:, None] * per, L)
@@ -280,12 +288,30 @@ def flash_decode_stats(q, k_cache, v_cache, lengths, splits: int = 1):
     v alike); lengths [B] int32 live rows (clamped to [0, S]) -> partials
     of `splits` ranges of them: (o [splits, B, Hkv, rep, Dh], m [splits, B,
     Hkv*rep], l [splits, B, Hkv*rep]) f32; an empty range gives
-    (0, -inf, 0)."""
+    (0, -inf, 0).  With splits 1 the launch takes a cluster where the
+    pairs leave SMs idle (decode_splits, from shapes only)."""
     if not q.is_cuda:
         return flash_decode_stats_plain(q, k_cache, v_cache, lengths, splits)
+    B, Hkv, _, _, S = _check(q, k_cache, v_cache, lengths)
+    cluster = (decode_splits(B, Hkv, S, build.sm_count(q.device), APPEND_MIN_TILES)
+               if splits == 1 else 1)
+    return flash_decode_stats_at(q, k_cache, v_cache, lengths, splits, cluster)
+
+
+def flash_decode_stats_at(q, k_cache, v_cache, lengths, splits: int = 1, cluster: int = 1,
+                          min_tiles: int = APPEND_MIN_TILES):
+    """Kernel 18 at a given launch: `splits` ranges one block each (as
+    _split_ranges cuts them, no floor), or with splits 1 the one range over
+    a cluster of `cluster` blocks (1 to MAX_SPLITS; ranges of at least
+    min_tiles tiles) merged on chip into one partial; what
+    flash_decode_stats launches, and chip_smoke.py times cluster 1 beside
+    it.  CUDA tensors only."""
     B, Hkv, rep, Dh, S = _check(q, k_cache, v_cache, lengths)
     build.require(q.dtype == k_cache.dtype, f"q {q.dtype} and caches {k_cache.dtype} differ")
     build.require(splits >= 1, f"splits must be positive, got {splits}")
+    build.require(1 <= cluster <= MAX_SPLITS and (cluster == 1 or splits == 1),
+                  f"cluster {cluster} not in 1..{MAX_SPLITS}, or beside splits {splits}")
+    build.require(min_tiles >= 1, f"min_tiles must be positive, got {min_tiles}")
     build.require(k_cache.stride() == v_cache.stride() and k_cache.stride(-1) == 1,
                   f"caches need one set of strides with contiguous rows, got "
                   f"{k_cache.stride()} and {v_cache.stride()}")
@@ -303,9 +329,12 @@ def flash_decode_stats(q, k_cache, v_cache, lengths, splits: int = 1):
     fn = build.function("th_flash_decode_stats", _STATS_ARGS)
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
             o.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hkv, rep, Dh, S, splits,
-            *k_cache.stride()[:3], build.dtype_code(q.dtype), build.stream_of(q))
+            *k_cache.stride()[:3], cluster, min_tiles, build.dtype_code(q.dtype),
+            build.stream_of(q))
     build.check(rc, "flash_decode_stats")
     launches["flash_decode_stats"] += 1
+    if cluster > 1:
+        launches["flash_decode_stats_split"] += 1
     return o, m, l
 
 

@@ -3,7 +3,9 @@
   paged_decode   replaces tokenhawk_tpu/ops/pallas/paged_decode.py
                  `paged_flash_decode_walk` (_kernel_walk) and its grid form
                  `paged_flash_decode` (_kernel_vec): decode attention
-                 through per-sequence page tables;
+                 through per-sequence page tables, on kernel 3's
+                 shared-memory tile walk (csrc/decode_tiles.cuh) with each
+                 row's address read from the table;
   paged_append   replaces `paged_append_rows` (_append_kernel): one K and
                  one V row per sequence into (page, slot), in place;
   gather_pages   replaces `gather_pages_dense` (_gather_kernel): each
@@ -16,8 +18,16 @@ Head dim 64 or 128.  All three are bound by bytes on the H100.  The kernels trus
 ids; the plain versions raise on one out of range.  A wrapper runs its
 plain version only for CPU tensors.
 
+paged_decode takes one block a (sequence, kv head), or where
+`paged_splits` (from the host's shapes: B, Hkv, the table's rows and the
+SM count, never the lengths) gives more than 1, each pair's live rows cut
+on the card into tile-aligned ranges over a thread-block cluster, merged
+on chip (kernel 3's split form).  Counted as `launches["paged_decode"]`,
+the split form also in `["paged_decode_split"]`.
+
 Tolerance of paged_decode against its plain version: f32 scores and
-softmax in both, another summation order, one rounding to q.dtype.
+softmax in both, another summation order (the split form also merges its
+ranges in split order), one rounding to q.dtype.
 paged_append and gather_pages copy bytes: they match exactly.
 """
 
@@ -26,13 +36,32 @@ from __future__ import annotations
 import torch
 
 from tokenhawk_tpu_torch.ops.cuda import build
-from tokenhawk_tpu_torch.ops.cuda.flash_decode import HEAD_DIMS, REPS
+from tokenhawk_tpu_torch.ops.cuda.flash_decode import (
+    APPEND_MIN_TILES,
+    BLOCKS_PER_SM,
+    HEAD_DIMS,
+    MAX_SPLITS,
+    REPS,
+    decode_splits,
+)
 
 LAYOUTS = ("contig", "head")
-launches = {"paged_decode": 0, "paged_append": 0, "gather_pages": 0}
+launches = {"paged_decode": 0, "paged_decode_split": 0, "paged_append": 0, "gather_pages": 0}
+# Kernel 5's splits where the (sequence, kv head) pairs fill the SMs (see
+# paged_splits): a paged server's ragged lengths leave its longest pair
+# setting the time.  Its sweep on an H100 at 700 W (chip_smoke.py phase 2,
+# LLaMA-7B's heads, ms at 1, 2, 4 and 8 splits): 8 slots (256 pairs) at
+# lengths 1-2048 0.0603, 0.0441, 0.0444, 0.0469, all at 2048 0.0978,
+# 0.1150, 0.1010, 0.1022; 5 slots (160 pairs) at lengths 129-2048 0.0703,
+# 0.0413, 0.0400, 0.0433, all at 2048 0.0758, 0.0737, 0.0676, 0.0690.  4
+# keeps the ragged gain at both and loses 3% at 8 equal lengths, where 2
+# loses 18%.
+FULL_SPLITS = 4
 
 _LL = build.LL
-_DECODE_ARGS = [build.P] * 6 + [build.I] * 6 + [_LL, _LL] + [build.I] * 2 + [build.P]
+# q, k, v, table, lengths, out; B, Hkv, rep, Dh, ps, max_pages; strides;
+# splits, min_tiles, q and pool dtypes; stream.
+_DECODE_ARGS = [build.P] * 6 + [build.I] * 6 + [_LL, _LL] + [build.I] * 4 + [build.P]
 _APPEND_ARGS = [build.P] * 6 + [build.I] * 3 + [_LL, _LL, build.P]
 _GATHER_ARGS = [build.P] * 5 + [build.I] * 4 + [_LL, _LL, build.P]
 
@@ -97,12 +126,39 @@ def paged_decode_plain(q, k_pages, v_pages, page_table, lengths, layout):
                            gather_pool_payload(v_pages, page_table, layout), lengths)
 
 
+def paged_splits(B: int, Hkv: int, max_rows: int, sm_count: int) -> int:
+    """Kernel 5's split count from the host's shapes alone (never from
+    lengths), over the table's max_rows = max_pages * ps rows, ranges of at
+    least APPEND_MIN_TILES tiles: kernel 3's rule where the (sequence, kv
+    head) pairs leave SMs idle; FULL_SPLITS where one block a pair would
+    fill the SMs at most BLOCKS_PER_SM deep (132-264 pairs on an H100), so
+    that the longest pair's walk sets the time; 1 above.  FULL_SPLITS was
+    swept at 160 and 256 pairs only (see its note); the rest of that range
+    takes it unmeasured."""
+    splits = decode_splits(B, Hkv, max_rows, sm_count, APPEND_MIN_TILES)
+    if sm_count <= B * Hkv <= BLOCKS_PER_SM * sm_count:
+        return max(1, min(FULL_SPLITS, (max_rows + 31) // 32 // APPEND_MIN_TILES))
+    return splits
+
+
 def paged_decode(q, k_pages, v_pages, page_table, lengths, layout):
     """q [B, Hkv, rep, Dh] (pre-scaled), one layer's k/v pools in `layout`,
     page_table [B, max_pages] int32, lengths [B] int32 live tokens ->
     out [B, Hkv, rep, Dh] in q.dtype."""
     if not q.is_cuda:
         return paged_decode_plain(q, k_pages, v_pages, page_table, lengths, layout)
+    B, Hkv = q.shape[:2]
+    ps = pool_dims(k_pages, layout)[2]
+    return paged_decode_at(q, k_pages, v_pages, page_table, lengths, layout,
+                           paged_splits(B, Hkv, page_table.shape[1] * ps,
+                                        build.sm_count(q.device)))
+
+
+def paged_decode_at(q, k_pages, v_pages, page_table, lengths, layout, splits: int,
+                    min_tiles: int = APPEND_MIN_TILES):
+    """Kernel 5 at a given split count (1 to MAX_SPLITS), its ranges at
+    least min_tiles tiles: what paged_decode launches with paged_splits'
+    count; chip_smoke.py sweeps the count with it.  CUDA tensors only."""
     B, Hkv, rep, Dh = q.shape
     n_pages, pHkv, ps, pDh = pool_dims(k_pages, layout)
     build.require(Dh in HEAD_DIMS and pDh == Dh,
@@ -115,6 +171,8 @@ def paged_decode(q, k_pages, v_pages, page_table, lengths, layout):
                   and page_table.shape[0] == B, "page_table must be int32 [B, max_pages]")
     build.require(lengths.dtype == torch.int32 and lengths.shape == (B,),
                   "lengths must be int32 [B]")
+    build.require(1 <= splits <= MAX_SPLITS, f"splits {splits} not in 1..{MAX_SPLITS}")
+    build.require(min_tiles >= 1, f"min_tiles must be positive, got {min_tiles}")
     q = q.contiguous()
     page_table = page_table.contiguous()
     build.require_cuda(q, k_pages, v_pages, page_table, lengths)
@@ -123,10 +181,12 @@ def paged_decode(q, k_pages, v_pages, page_table, lengths, layout):
     fn = build.function("th_paged_decode", _DECODE_ARGS)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), B, Hkv, rep, Dh, ps, page_table.shape[1],
-            page_stride, head_stride, build.dtype_code(q.dtype),
+            page_stride, head_stride, splits, min_tiles, build.dtype_code(q.dtype),
             build.dtype_code(k_pages.dtype), build.stream_of(q))
     build.check(rc, "paged_decode")
     launches["paged_decode"] += 1
+    if splits > 1:
+        launches["paged_decode_split"] += 1
     return out
 
 
