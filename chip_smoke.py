@@ -15,14 +15,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      2048 live rows and in 1, 2, 4 and 8 splits at 8 slots, ragged and all
      at 2048); kernels 1 and 13 at 1, 8, 16, 40
      and 512 rows and kernel 17 at 1, 8, 9, 16, 40 and 512, each on its
-     path (the GEMV at most 8 rows, the tensor-core GEMM above: a record
-     each); kernels 3 (B=4 ragged, B=1 at 37, 300, 512 and 2048 live rows,
+     path (at most 8 rows kernel 13's decode-row walk, kernels 1 and 17's
+     GEMV; the tensor-core GEMM above: a record each), kernels 13 and 2 at
+     1 and 8 rows also on float32 x; kernels 3 (B=4 ragged, B=1 at 37, 300, 512 and 2048 live rows,
      B=8 ragged) and 14 as the model launches them (split-S in thread-block
      clusters where the (sequence, KV head) pairs leave SMs idle, else one
      block a pair: a record each) beside their one-block launch and SDPA,
      and sweeps of their split counts; then kernel 16's and the GEMV's
-     outputs held bit for bit to the parent tree's and kernels 3, 5 and
-     18's to their redesigns' (PARENT_DIGESTS);
+     outputs held bit for bit to the parent tree's and kernels 2, 3, 5, 13
+     and 18's to their redesigns' (PARENT_DIGESTS);
   3. slice check: a 2-layer LLaMA-7B-width Q4_0 model, prefill of 16
      tokens + 8 decode steps on the GPU (kernels) and on the CPU (plain
      versions, same parameters), logits compared at every step, over a
@@ -152,7 +153,8 @@ unfused port kernels it replaces; phase 3 also runs a 2-layer Q4_K_M
 slice.  Each phase's header line ends with the seconds since the start.
 Every path check also holds each quantized projection the model made to
 its path (a spy on ops.linear's quant_matmul): bf16 x above 8 rows over
-any weight form on the tensor-core GEMM, every other call on the GEMV.
+any weight form on the tensor-core GEMM, the group codes at 1-8 rows on
+the decode-row walk, every other call on the GEMV.
 The next-to-last line is {"kernels": [...]}, the last {"ok": true, ...}.
 It needs one CUDA device and the rest of the repository beside it.
 """
@@ -186,8 +188,9 @@ S_CTX = 512
 # rounding.  The tolerance is 2^-7 of the largest |reference|.
 KERNEL_TOL = 2.0**-7
 # The rows phase 2 times kernels 1 and 13 at: decode (1) and kernel 2's
-# most (8) on the GEMV; 16, the 8-slot verify's 40 (phase 9c) and a
-# 512-token prefill on the tensor-core path.
+# most (8) on the GEMV (kernel 1) and the decode-row walk (kernel 13); 16,
+# the 8-slot verify's 40 (phase 9c) and a 512-token prefill on the
+# tensor-core path.
 QMATMUL_ROWS = (1, 8, 16, 40, 512)
 # Logits of the slice after 2 layers of bfloat16 activations, kernels vs
 # plain: rounding flips of intermediate bfloat16 values propagate; 5% of
@@ -253,10 +256,14 @@ PREFILL_CASES = {
 K4, K9 = "flash_attention_tc", "flash_attention_int8_tc"
 CUDA_CORE_PREFILL = ["flash_attention", "flash_attention_int8"]
 # Kernels 1's and 13's launch counters, one a path (ops/cuda/qmatmul.py):
-# the GEMV at decode rows, the tensor-core GEMM for bf16 x above 8 rows.
-# A path run with prompts or verifies above 8 tokens asks for both.
+# kernel 1 the GEMV at decode rows, kernel 13 the decode-row walk
+# (gemv_stream.cuh) there, both the tensor-core GEMM for bf16 x above 8
+# rows.  A path run with prompts or verifies above 8 tokens asks for both.
+# Kernel 13's GEMV (QK_GEMV) takes only f32 x above 8 rows: the bf16 paths
+# forbid it.
 Q4_PATHS = ["q4_matmul", "q4_matmul_tc"]
-QK_PATHS = ["qk_matmul", "qk_matmul_tc"]
+QK_PATHS = ["qk_matmul_stream", "qk_matmul_tc"]
+QK_GEMV = "qk_matmul"
 # Kernel 17's two (THAWK_Q4K_SB=1's super-block forms), by the same rule.
 SB_PATHS = ["qk_sb_matmul", "qk_sb_matmul_tc"]
 # The card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s and
@@ -292,6 +299,9 @@ FFN_Q4_K_M = ["ffn[g32m/g16]", "ffn[g32m/g32m]"]
 FFN_Q8_0 = "ffn[g32/g32]"
 # The same two with a Q4_K super-block w13 (THAWK_Q4K_SB=1's forms).
 FFN_SB = ["ffn[sb/g16]", "ffn[sb/g32m]"]
+# Kernel 2's source: the decode-row walk that its C entry (csrc/ffn.cu
+# th_ffn) launches twice.
+SRC2 = "tokenhawk_tpu_torch/csrc/gemv_stream.cuh"
 
 
 _T0 = time.perf_counter()
@@ -367,6 +377,14 @@ def bound(nbytes: float, flops: float, layout_nbytes: float | None = None,
     if layout_nbytes is not None:
         out["layout_bound_ms"] = max(layout_nbytes / HBM_BPS * 1e3, t_ops)
     return out
+
+
+def _peak(rows: int) -> float:
+    """The peak of the quantized matmul's operations at `rows` rows of bf16
+    x: f32 FMAs on the CUDA cores at decode rows (the GEMV and the
+    decode-row walk, as the reference's `_qdot` keeps f32 there), the bf16
+    tensor cores above 8."""
+    return F32_FLOPS if rows <= 8 else PEAK_FLOPS
 
 
 def _ggml_bytes(kind: str, k: int, n: int) -> int:
@@ -481,7 +499,8 @@ def phase_kernels() -> list:
                  [lambda w=w: qmatmul.quant_matmul_plain(x, w, gain) for w in ws], calls=calls)
             # A ggjt Q4_0 block holds 32 weights in 20 bytes (f32 scale), as the
             # port's layout does: 0.625 B each; x, the gain and y once each.
-            b = bound(K * N * 0.625 + (rows * (K + N) + K * norm) * bf, 2 * rows * K * N)
+            b = bound(K * N * 0.625 + (rows * (K + N) + K * norm) * bf, 2 * rows * K * N,
+                      peak=_peak(rows))
             lib = timed([lambda w=w: x @ w.dequantize(torch.bfloat16) for w in ws], calls)["ms"]
             cases[-1].update(b, library_ms=lib)
             log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}); dequantize (f32 torch ops, "
@@ -499,18 +518,24 @@ def phase_kernels() -> list:
     gain = 1.0 + randn(D, scale=0.1)
     for rows in (1, 8):
         x = randn(rows, D)
+        case(cases, f"fused_ffn D={D} F={F} rows={rows} f32", "ffn f32", rows,
+             ffn.fused_ffn(x.float(), w13, w2, gain.float()),
+             ffn.fused_ffn_plain(x.float(), w13, w2, gain.float()), frac=F32_KERNEL_TOL)
         case(cases, f"fused_ffn D={D} F={F} rows={rows}", "ffn", rows,
              ffn.fused_ffn(x, w13, w2, gain), ffn.fused_ffn_plain(x, w13, w2, gain),
              [lambda s=s: ffn.fused_ffn(x, *s, gain) for s in sets],
              [lambda s=s: ffn.fused_ffn_plain(x, *s, gain) for s in sets])
+        lib = library("rms_norm + dequantize w13 and w2 + 2 torch.matmul + silu, bf16 "
+                      "(10+ calls)", [lambda s=s: _ffn_library(x, *s, gain) for s in sets])
+        b = bound(3 * D * F * 0.625 + (2 * rows + 1) * D * bf, 6 * rows * D * F, peak=F32_FLOPS)
+        cases[-1].update(b, library_ms=lib)
+        log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
         if rows == 1:
-            lib = library("rms_norm + dequantize w13 and w2 + 2 torch.matmul + silu, bf16 "
-                          "(10+ calls)", [lambda s=s: _ffn_library(x, *s, gain) for s in sets])
+            at, lib1 = b, lib
     del w13, w2, sets
-    records.append(_record("fused_ffn", "tokenhawk_tpu_torch/csrc/ffn.cu",
+    records.append(_record("fused_ffn", SRC2,
                            "tokenhawk_tpu/ops/pallas/ffn.py:270 (_fused_ffn via fused_ffn)",
-                           cases, ("ffn", 1),
-                           bound(3 * D * F * 0.625 + 3 * D * bf, 6 * D * F), lib))
+                           cases, ("ffn", 1), at, lib1))
 
     # -- kernel 3: decode append + attend at the 7B's heads, both forms --
     records += _decode_append_records(randn, case)
@@ -1003,8 +1028,9 @@ def _group_code_kernel_records(randn, case, library, g) -> list:
     is timed in the form the path runs it (norm fused into wqkv and the
     output), the other form only checked; each timed case gets its bound
     and the time of the same function from PyTorch calls (dequantize, then
-    torch.matmul).  Two records per model, the GEMV's timed at one row and
-    the tensor-core path's at 512, and one per pairing, timed at one row."""
+    torch.matmul); at 1 and 8 rows float32 x is checked too.  Two records
+    per model, the decode-row walk's timed at one row and the tensor-core
+    path's at 512, and one per pairing, timed at one row."""
     import torch
 
     from tokenhawk_tpu_torch.ops.cuda import ffn, qmatmul
@@ -1012,7 +1038,7 @@ def _group_code_kernel_records(randn, case, library, g) -> list:
 
     dev = torch.device("cuda")
     bf = 2
-    src2 = "tokenhawk_tpu_torch/csrc/ffn.cu"
+    src2 = SRC2
     rep13 = ("tokenhawk_tpu/ops/pallas/qmatmul.py:742 (q8_matmul); "
              "qmatmul.py:477 (qk_matmul)")
     records = []
@@ -1042,6 +1068,11 @@ def _group_code_kernel_records(randn, case, library, g) -> list:
                         case(cases, label, f"{name} norm={ng is not None}", rows, out, ref)
                         continue
                     calls = 32 if rows < 512 else 4
+                    if rows <= 8:  # the decode-row walk on f32 x too
+                        xf, gf = x.float(), None if ng is None else ng.float()
+                        case(cases, label + " f32", f"{name} f32", rows,
+                             qmatmul.quant_matmul(xf, w, gf), qmatmul.quant_matmul_plain(xf, w, gf),
+                             frac=F32_KERNEL_TOL)
                     case(cases, label, name, rows, out, ref,
                          [lambda w=w: qmatmul.quant_matmul(x, w, ng) for w in ws],
                          [lambda w=w: qmatmul.quant_matmul_plain(x, w, ng) for w in ws],
@@ -1049,7 +1080,8 @@ def _group_code_kernel_records(randn, case, library, g) -> list:
                     # x, the gain and y once each, beside the weight's GGUF
                     # blocks (its bytes in the port's layout as layout_bound_ms).
                     io = (rows * (K + N) + K * norm) * bf
-                    b = bound(_ggml_bytes(form, K, N) + io, 2 * rows * K * N, w.nbytes + io)
+                    b = bound(_ggml_bytes(form, K, N) + io, 2 * rows * K * N, w.nbytes + io,
+                              peak=_peak(rows))
                     lib_ms = timed([lambda w=w: x @ w.dequantize(torch.bfloat16) for w in ws],
                                    calls)["ms"]
                     cases[-1].update(b, library_ms=lib_ms)
@@ -1058,7 +1090,7 @@ def _group_code_kernel_records(randn, case, library, g) -> list:
                         f"torch ops, then bf16) + torch.matmul, no norm (2+ calls): "
                         f"{lib_ms:.4f} ms")
             del w, ws
-        records += _path_records("qk_matmul", f"[{tag}]", rep13, cases, "wqkv")
+        records += _path_records("qk_matmul", f"[{tag}]", rep13, cases, "wqkv", stream=True)
 
     pairs = [("q4_k/q6_k", 14336, "q4_k", "q6_k"), ("q4_k/q4_k", 14336, "q4_k", "q4_k"),
              ("q8_0/q8_0", 11008, "q8_0", "q8_0")]
@@ -1070,13 +1102,17 @@ def _group_code_kernel_records(randn, case, library, g) -> list:
         cases = []
         for rows in (1, 8):
             x = randn(rows, D)
+            xf, gf = x.float(), gain.float()
+            case(cases, f"fused_ffn {tag} D={D} F={F} rows={rows} f32", "ffn f32", rows,
+                 ffn.fused_ffn(xf, w13, w2, gf), ffn.fused_ffn_plain(xf, w13, w2, gf),
+                 frac=F32_KERNEL_TOL)
             case(cases, f"fused_ffn {tag} D={D} F={F} rows={rows}", "ffn", rows,
                  ffn.fused_ffn(x, w13, w2, gain), ffn.fused_ffn_plain(x, w13, w2, gain),
                  [lambda s=s: ffn.fused_ffn(x, *s, gain) for s in sets],
                  [lambda s=s: ffn.fused_ffn_plain(x, *s, gain) for s in sets])
             io = (2 * rows + 1) * D * bf
             b = bound(_ggml_bytes(f13, D, 2 * F) + _ggml_bytes(f2, F, D) + io, 6 * rows * D * F,
-                      w13.nbytes + w2.nbytes + io)
+                      w13.nbytes + w2.nbytes + io, peak=F32_FLOPS)
             lib_ms = library("rms_norm + dequantize w13 and w2 + 2 torch.matmul + silu, bf16 "
                              "(10+ calls)", [lambda s=s: _ffn_library(x, *s, gain) for s in sets])
             cases[-1].update(b, library_ms=lib_ms)
@@ -1138,7 +1174,8 @@ def _sb_kernel_records(randn, case, library, g) -> list:
                      [lambda w=w: qmatmul.quant_matmul_plain(x, w, ng) for w in ws],
                      calls=calls)
                 io = (rows * (K + N) + K * norm) * bf
-                b = bound(_ggml_bytes("q4_k", K, N) + io, 2 * rows * K * N, w.nbytes + io)
+                b = bound(_ggml_bytes("q4_k", K, N) + io, 2 * rows * K * N, w.nbytes + io,
+                          peak=_peak(rows))
                 lib_ms = timed([lambda w=w: x @ w.dequantize(torch.bfloat16) for w in ws],
                                calls)["ms"]
                 flat_ms = timed([lambda f=f: qmatmul.quant_matmul(x, f, ng) for f in flats],
@@ -1163,26 +1200,29 @@ def _sb_kernel_records(randn, case, library, g) -> list:
         sets = list(zip(_weight_copies(w13), _weight_copies(w2)))
         flat_sets = [(a.flat(), b) for a, b in sets]
         gain = 1.0 + randn(D, scale=0.1)
-        x = randn(1, D)
         cases = []
-        case(cases, f"fused_ffn {tag} D={D} F={F} rows=1", "ffn", 1,
-             ffn.fused_ffn(x, w13, w2, gain), ffn.fused_ffn_plain(x, w13, w2, gain),
-             [lambda s=s: ffn.fused_ffn(x, *s, gain) for s in sets],
-             [lambda s=s: ffn.fused_ffn_plain(x, *s, gain) for s in sets])
-        io = 3 * D * bf
-        b = bound(_ggml_bytes("q4_k", D, 2 * F) + _ggml_bytes(f2, F, D) + io, 6 * D * F,
-                  w13.nbytes + w2.nbytes + io)
-        lib_ms = library("rms_norm + dequantize w13 and w2 + 2 torch.matmul + silu, bf16 "
-                         "(10+ calls)", [lambda s=s: _ffn_library(x, *s, gain) for s in sets])
-        flat_ms = timed([lambda s=s: ffn.fused_ffn(x, *s, gain) for s in flat_sets])["ms"]
-        cases[-1].update(b, library_ms=lib_ms, flat_ms=flat_ms)
-        log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}; in the port's layout "
-            f"{b['layout_bound_ms']:.4f}); kernel 2 over the flat w13 of the same codes: "
-            f"{flat_ms:.4f} ms")
-        records.append(_record(f"fused_ffn[{tag}]", "tokenhawk_tpu_torch/csrc/ffn.cu",
+        for rows in (1, 8):
+            x = randn(rows, D)
+            case(cases, f"fused_ffn {tag} D={D} F={F} rows={rows}", "ffn", rows,
+                 ffn.fused_ffn(x, w13, w2, gain), ffn.fused_ffn_plain(x, w13, w2, gain),
+                 [lambda s=s: ffn.fused_ffn(x, *s, gain) for s in sets],
+                 [lambda s=s: ffn.fused_ffn_plain(x, *s, gain) for s in sets])
+            io = (2 * rows + 1) * D * bf
+            b = bound(_ggml_bytes("q4_k", D, 2 * F) + _ggml_bytes(f2, F, D) + io,
+                      6 * rows * D * F, w13.nbytes + w2.nbytes + io, peak=F32_FLOPS)
+            lib_ms = library("rms_norm + dequantize w13 and w2 + 2 torch.matmul + silu, bf16 "
+                             "(10+ calls)", [lambda s=s: _ffn_library(x, *s, gain) for s in sets])
+            flat_ms = timed([lambda s=s: ffn.fused_ffn(x, *s, gain) for s in flat_sets])["ms"]
+            cases[-1].update(b, library_ms=lib_ms, flat_ms=flat_ms)
+            log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}; in the port's layout "
+                f"{b['layout_bound_ms']:.4f}); kernel 2 over the flat w13 of the same codes: "
+                f"{flat_ms:.4f} ms")
+            if rows == 1:
+                at, lib1, flat1 = b, lib_ms, flat_ms
+        records.append(_record(f"fused_ffn[{tag}]", SRC2,
                                "tokenhawk_tpu/ops/pallas/ffn.py:270 (_fused_ffn via fused_ffn, "
-                               "sb w13: ffn.py:195-197)", cases, ("ffn", 1), b, lib_ms)
-                       | {"flat_ms": flat_ms})
+                               "sb w13: ffn.py:195-197)", cases, ("ffn", 1), at, lib1)
+                       | {"flat_ms": flat1})
         del w13, w2, sets, flat_sets
     return records
 
@@ -1533,7 +1573,12 @@ def _decode_append_records(randn, case) -> list:
 # written caches as before; moving its walk into decode_tiles.cuh moved
 # none of them.  Kernels 18 and 5 then took that walk (another summation
 # order; kernel 18's splits=1 a cluster's merge): their entries are that
-# tree's.
+# tree's.  Kernel 13's group codes at 1 and 8 rows of bfloat16 x (the g32m
+# and g16 entries) and kernel 2 then took the decode-row walk
+# (gemv_stream.cuh: the group sums of a slot as before, the slots summed
+# over the lanes of a warp, K's segments in order): those entries, and
+# kernel 2's at one row, are that tree's; the q4_0, sb and float32 40-row
+# entries stay on the GEMV, bit for bit.
 PARENT_DIGESTS = {
     'kernel 3 7B':
         '0b730923adc93bb96be8a17ca537594d8a6b6dcfbc80b92751aafae0e157b96d',
@@ -1560,15 +1605,15 @@ PARENT_DIGESTS = {
     'GEMV q4_0 rows=40 torch.float32':
         '24fb65013e95744abda9bd8dfd3a4e018e4a11936843b180f2d79029b564edb0',
     'GEMV g32m rows=1 torch.bfloat16':
-        '05501a3dcf9dbd7f53695f9aabd1b6bd1ef4ebe4b7f446f6e3b17fe1243db907',
+        '644613dd645a9aa1bebe480575bcfa0bd542aad4c5a30623fc8a7a13a3be6b8f',
     'GEMV g32m rows=8 torch.bfloat16':
-        '8c946573328b4d6e9e11149e75f1b4ba8e23cad3d0fab5114496333e34d6776f',
+        'fe46a37eacea429ecbc664b811a58f2992f587e1d57746b91b012d4c4ac84143',
     'GEMV g32m rows=40 torch.float32':
         '5ce9435a216b8092b21da0f25943e24ad1740923928b471290df27f244ae3512',
     'GEMV g16 rows=1 torch.bfloat16':
-        '9ec6360e278f0c2291bd8f0b89445867bd8ca15d0eb34eccfbffb6486006bbcd',
+        'eb6bee15099e68a088f2ca9a15e9c5a00a3ba2db30ed9b44907783d2a533e515',
     'GEMV g16 rows=8 torch.bfloat16':
-        '5a6614dcaf67bc7f3533c49ffc1379a0c6780c0e40fca04ef4df7576c9360545',
+        '978de823f4fe11727f26bb2cd03792461948dbdd8ba9922ce958fc3ead39363f',
     'GEMV g16 rows=40 torch.float32':
         'f33717e3edae3e607dfcd841d59aef746b7fb01e9c70b2424dc2f936d2d55cc4',
     'GEMV sb rows=1 torch.bfloat16':
@@ -1581,6 +1626,10 @@ PARENT_DIGESTS = {
         '1e68e3aa11881b5c68ea5328a16e7236c178fa89b6daa7448b7e2d055e411c4a',
     'kernel 5 dh64':
         '95b7197dc3f0f2eac4a898b3f14ce1c42fdb746bf6843a5037a36ec5cbad7333',
+    'kernel 2 q4_0/q4_0 rows=1 torch.bfloat16':
+        '7cd4e6ba24952cb765f6dd5a11ac806401f6bff3d0e23ee1a6a98fbde447c795',
+    'kernel 2 g32m/g16 rows=1 torch.bfloat16':
+        'a7605c204fe76c61ea9a959755b11349adbe0a65cf9cefe66195b9e916a94b29',
 }
 
 
@@ -1592,6 +1641,7 @@ def _output_digests() -> dict:
 
     import torch
 
+    from tokenhawk_tpu_torch.ops.cuda import ffn
     from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
     from tokenhawk_tpu_torch.ops.cuda import paged_decode as pd
     from tokenhawk_tpu_torch.ops.cuda import qmatmul
@@ -1671,6 +1721,31 @@ def _output_digests() -> dict:
                                  .astype(np.int32)).to(dev)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         out[f"kernel 5 {tag}"] = digest(pd.paged_decode(q, kp, vp, table, lengths, "contig"))
+    # Kernel 2 at one row, the 7B's Q4_0 pair and Llama-3-8B's Q4_K / Q6_K
+    # forms (G 32 with mins over G 16), on a generator of its own.
+    rng = np.random.default_rng(SEED + 110)
+
+    def codes(lo, hi, n, k, dtype):
+        return torch.from_numpy(rng.integers(lo, hi, (n, k), dtype=np.int16)).to(dev).to(dtype)
+
+    D = 4096
+    for tag, F, forms in (("q4_0/q4_0", 11008, ("q4_0", "q4_0")),
+                          ("g32m/g16", 14336, ("g32m", "g16"))):
+        ws = []
+        for form, (k, n) in zip(forms, ((D, 2 * F), (F, D))):
+            if form == "q4_0":
+                ws.append(QWeight.from_codes(codes(0, 16, n, k, torch.uint8),
+                                             arr(n, k // 32, scale=1e-3, dtype=torch.float32)
+                                             .abs(), dev))
+            else:
+                G = 32 if form == "g32m" else 16
+                ws.append(QWeight.from_group_codes(
+                    codes(-32, 32, n, k, torch.int8),
+                    arr(n, k // G, scale=1e-3, dtype=torch.float32).abs(),
+                    arr(n, k // G, scale=1e-2, dtype=torch.float32) if form == "g32m" else None,
+                    G, dev))
+        x, g = arr(1, D), 1.0 + arr(D, scale=0.1)
+        out[f"kernel 2 {tag} rows=1 torch.bfloat16"] = digest(ffn.fused_ffn(x, *ws, g))
     return out
 
 
@@ -1678,8 +1753,8 @@ def _check_parent_digests() -> None:
     """The pinned calls' outputs against PARENT_DIGESTS, bit for bit."""
     got = _output_digests()
     differ = [k for k in PARENT_DIGESTS if got.get(k) != PARENT_DIGESTS[k]]
-    log(f"kernels 3, 5, 16, 18 and the GEMV at 1, 8 bf16 and 40 f32 rows: {len(got) - len(differ)} "
-        f"of {len(got)} outputs bit for bit the parent tree's")
+    log(f"kernels 2, 3, 5, 16, 18 and the GEMV at 1, 8 bf16 and 40 f32 rows: "
+        f"{len(got) - len(differ)} of {len(got)} outputs bit for bit the parent tree's")
     if differ or set(got) != set(PARENT_DIGESTS):
         raise AssertionError("outputs that moved from the parent tree's: "
                              + ", ".join(f"{k!r}: {got.get(k)!r}" for k in differ or got))
@@ -2185,19 +2260,22 @@ def _paged_kernel_records(randn, case, library, g) -> list:
     ]
 
 
-def _path_records(name, tag, replaces, cases, shape) -> list:
-    """Kernel 1's or 13's two records from its timed cases (each with its
-    bound and library time): the GEMV's (at most 8 rows; csrc/qmatmul.cu,
-    gemv.cuh), timed at `shape` and one row, and the tensor-core path's
-    (more than 8 rows; csrc/qgemm_tc.cuh, the reference kernel's bf16 dot
-    of `_qdot`), timed at `shape` and 512 rows, named name_tc."""
+def _path_records(name, tag, replaces, cases, shape, stream: bool = False) -> list:
+    """Kernel 1's, 13's or 17's two records from its timed cases (each with
+    its bound and library time): the decode rows' (at most 8 rows), timed
+    at `shape` and one row, on the GEMV (csrc/qmatmul.cu, gemv.cuh) or,
+    with `stream` (kernel 13), on the decode-row walk (csrc/gemv_stream.cuh,
+    named name_stream), and the tensor-core path's (more than 8 rows;
+    csrc/qgemm_tc.cuh, the reference kernel's bf16 dot of `_qdot`), timed
+    at `shape` and 512 rows, named name_tc."""
     out = []
     for tc in (False, True):
         part = [c for c in cases if (c["rows"] > 8) == tc]
         main = next(c for c in part if (c["shape"], c["rows"]) == (shape, 512 if tc else 1))
+        src = ("qgemm_tc.cuh" if tc else "gemv_stream.cuh" if stream else "qmatmul.cu")
         out.append(_record(
-            f"{name}{'_tc' if tc else ''}{tag}",
-            "tokenhawk_tpu_torch/csrc/qgemm_tc.cuh" if tc else "tokenhawk_tpu_torch/csrc/qmatmul.cu",
+            f"{name}{'_tc' if tc else '_stream' if stream else ''}{tag}",
+            f"tokenhawk_tpu_torch/csrc/{src}",
             replaces + (" at more than 8 rows (qmatmul.py:97 _qdot's bf16 dot)" if tc else ""),
             part, (shape, main["rows"]), {k: main[k] for k in ("bound_ms", "bound_by")},
             main["library_ms"]))
@@ -2305,7 +2383,7 @@ def _kquant_slice() -> None:
     _dense_slice(cfg, p_gpu, p_cpu, ids, make_prefill_fn(cfg), "bf16")
     counts = _read_counts([qmatmul, ffn])
     log(f"Q4_K_M slice kernel launches on the GPU: {counts}")
-    _check_path(counts, [*QK_PATHS, *FFN_Q4_K_M], Q4_PATHS)
+    _check_path(counts, [*QK_PATHS, *FFN_Q4_K_M], [*Q4_PATHS, QK_GEMV])
 
 
 def _dense_slice(cfg, p_gpu, p_cpu, ids, prefill, kv) -> None:
@@ -2442,7 +2520,7 @@ def phase_serve(kernel_mods) -> tuple:
     log(f"kernel launches in the serve run: {counts}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     _check_path(counts, [*Q4_PATHS, FFN_Q4_0, "flash_decode", "flash_decode_append_split", K4],
-                [*QK_PATHS, "flash_decode_attend", *CUDA_CORE_PREFILL])
+                [*QK_PATHS, QK_GEMV, "flash_decode_attend", *CUDA_CORE_PREFILL])
     _profile_request(engines[id(greedy)], [1] + rng.integers(3, cfg.n_vocab, size=4).tolist())
     _path_spread(cfg, params)
     return counts, params
@@ -2712,18 +2790,19 @@ def _check_routes() -> str:
 
     from tokenhawk_tpu_torch.ops.cuda import qmatmul
 
-    rows = {"gemv": [], "tc": []}
+    rows = {"GEMV": [], "decode-row walk": [], "tensor-core path": []}
     for n, dtype, cuda, form, ticked in _ROUTES:
-        tc = cuda and dtype == torch.bfloat16 and n > 8
+        tc = cuda and qmatmul.tensor_core_path(dtype, n)
+        stream = cuda and not tc and qmatmul.stream_path(form, n)
         name = {0: "q4_matmul", qmatmul.SB: "qk_sb_matmul"}.get(form, "qk_matmul")
-        want = [name + "_tc" if tc else name] if cuda else []
+        want = [name + "_tc" if tc else "qk_matmul_stream" if stream else name] if cuda else []
         if ticked != want:
             raise AssertionError(f"a projection of {n} rows ({dtype}, form "
                                  f"{qmatmul.FORM_NAMES[form]}) ticked {ticked}, not {want}")
         if cuda:
-            rows["tc" if tc else "gemv"].append(n)
-    return "; ".join(f"{len(v)} on the {'tensor-core path' if k == 'tc' else 'GEMV'} "
-                     f"(rows {min(v)}-{max(v)})" for k, v in rows.items() if v)
+            rows["tensor-core path" if tc else "decode-row walk" if stream else "GEMV"].append(n)
+    return "; ".join(f"{len(v)} on the {k} (rows {min(v)}-{max(v)})"
+                     for k, v in rows.items() if v)
 
 
 def _reset_counts(mods) -> None:
@@ -3168,8 +3247,8 @@ def phase_gguf(tmp: str, kernel_mods) -> str:
         counts = _read_counts(kernel_mods)
         if rc != 0:
             raise AssertionError(f"cli {extra} returned {rc}")
-        _check_path(counts, ["qk_matmul", *FFN_Q4_K_M, "flash_decode_int8"],
-                    [*Q4_PATHS, "flash_decode", *SB_PATHS, *FFN_SB])
+        _check_path(counts, ["qk_matmul_stream", *FFN_Q4_K_M, "flash_decode_int8"],
+                    [*Q4_PATHS, QK_GEMV, "flash_decode", *SB_PATHS, *FFN_SB])
         log(f"cli on the GGUF {' '.join(extra)}: exit 0, kernel launches {counts}")
 
     # The server's copy swaps the head rows of the third token and
@@ -3446,7 +3525,7 @@ def phase_gguf_sb(path: str, tmp: str) -> None:
         if not all(np.isfinite(v) for v in got.values()):
             raise AssertionError(f"perplexity not finite: {got}")
     _check_path(_read_counts([qmatmul]), ["qk_matmul_tc", "qk_sb_matmul_tc"],
-                [*Q4_PATHS, "qk_matmul", "qk_sb_matmul"])
+                [*Q4_PATHS, QK_GEMV, "qk_matmul_stream", "qk_sb_matmul"])
     # float32 sides and activations: the two forms hold the same weights, so
     # their scores differ by summation order alone.
     _reset_counts([qmatmul])
@@ -3501,7 +3580,7 @@ def phase_dense_7b(kernel_mods) -> dict:
         f"roofline); allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB")
     counts = _engine_requests(cfg, params, kernel_mods, (5, 300),
                               ["flash_decode_attend", K4],
-                              [*Q4_PATHS, *QK_PATHS, "flash_decode", *ffn.launches,
+                              [*Q4_PATHS, *QK_PATHS, QK_GEMV, "flash_decode", *ffn.launches,
                                *CUDA_CORE_PREFILL])
     del params
     torch.cuda.empty_cache()
@@ -3742,7 +3821,7 @@ def phase_speculation(params, kernel_mods, model_path: str, tmp: str) -> dict:
     counts = _read_counts(kernel_mods)
     log(f"9a kernel launches: {counts}")
     _check_path(counts, [*Q4_PATHS, FFN_Q4_0, K4, "flash_decode_attend"],
-                ["flash_decode", *QK_PATHS, "flash_decode_int8", K9, "paged_decode",
+                ["flash_decode", *QK_PATHS, QK_GEMV, "flash_decode_int8", K9, "paged_decode",
                  "paged_append", "gather_pages", *CUDA_CORE_PREFILL])
     _check_draft_splits("9a", counts)
     for p, (toks, _, _) in zip(prompts, runs):
@@ -3851,7 +3930,7 @@ def _paged_speculation(params, draft, cfg, dcfg, kernel_mods) -> None:
     if bad:
         raise AssertionError(f"requests that did not finish cleanly: {bad}")
     _check_path(counts, [*Q4_PATHS, K4, "flash_decode_attend", "paged_append", "gather_pages"],
-                ["paged_decode", "flash_decode", *QK_PATHS, "flash_decode_int8",
+                ["paged_decode", "flash_decode", *QK_PATHS, QK_GEMV, "flash_decode_int8",
                  "paged_decode_int8", "paged_append_int8", "gather_pages_int8",
                  *CUDA_CORE_PREFILL])
     _check_draft_splits("9c", counts)
@@ -4141,7 +4220,8 @@ def phase_tinyllama_paged(kernel_mods, bf16_paged, int8_paged, dense_off, tmp: s
 
     cfg = _tinyllama(22, n_ctx=2048)
     params, _ = _model(cfg, "q4_0", "phase 10c: TinyLlama widths, Q4_0, 22 layers")
-    base_off = [*QK_PATHS, "flash_decode", OWO_Q4_0, ATTN_WO, *CUDA_CORE_PREFILL] + dense_off
+    base_off = ([*QK_PATHS, QK_GEMV, "flash_decode", OWO_Q4_0, ATTN_WO, *CUDA_CORE_PREFILL]
+                + dense_off)
     counts = {}
     for kv, on, off in (("bf16", bf16_paged, int8_paged), ("int8", int8_paged, bf16_paged)):
         counts[kv], sched = phase_paged_serve(
@@ -4509,7 +4589,7 @@ def main() -> int:
     paged_counts, sched = phase_paged_serve(
         params, cfg_2k, every, "bf16",
         [*Q4_PATHS, FFN_Q4_0, K4, "paged_decode_split"] + bf16_paged,
-        [*QK_PATHS, "flash_decode", *CUDA_CORE_PREFILL] + int8_dense + int8_paged,
+        [*QK_PATHS, QK_GEMV, "flash_decode", *CUDA_CORE_PREFILL] + int8_dense + int8_paged,
         "phase 4b: paged serve, LLaMA-7B Q4_0, 32 layers")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "llama7b-2layer-q4_0.bin")
@@ -4522,12 +4602,12 @@ def main() -> int:
         params_i8 = dataclasses.replace(params, layers=params.layers[:INT8_LAYERS])
         int8_counts = phase_int8_serve(cfg_i8, params_i8, every,
                                        [*Q4_PATHS, FFN_Q4_0] + int8_dense,
-                                       [*QK_PATHS, "flash_decode", K4, *CUDA_CORE_PREFILL]
+                                       [*QK_PATHS, QK_GEMV, "flash_decode", K4, *CUDA_CORE_PREFILL]
                                        + bf16_paged + int8_paged)
         int8_paged_counts, sched = phase_paged_serve(
             params_i8, cfg_i8, every, "int8",
             [*Q4_PATHS, FFN_Q4_0, K4] + int8_paged,
-            [*QK_PATHS, "flash_decode", *CUDA_CORE_PREFILL] + bf16_paged + int8_dense,
+            [*QK_PATHS, QK_GEMV, "flash_decode", *CUDA_CORE_PREFILL] + bf16_paged + int8_dense,
             f"phase 4bi: paged serve, LLaMA-7B Q4_0 widths, {INT8_LAYERS} layers")
         phase_cli(path)
         sched.cache = None
@@ -4552,12 +4632,12 @@ def main() -> int:
         # them (kernel 2); kernel 1 (Q4_0) stays off.
         def engine_path(on, off):
             return ([*QK_PATHS, *on, "flash_decode", K4],
-                    [*Q4_PATHS, FFN_Q4_0, "flash_decode_attend", *off, *CUDA_CORE_PREFILL]
-                    + bf16_paged + int8_dense + int8_paged)
+                    [*Q4_PATHS, QK_GEMV, FFN_Q4_0, "flash_decode_attend", *off,
+                     *CUDA_CORE_PREFILL] + bf16_paged + int8_dense + int8_paged)
 
         def paged_path(on, off):
             return ([*QK_PATHS, *on, K4] + bf16_paged,
-                    [*Q4_PATHS, FFN_Q4_0, "flash_decode", *off, *CUDA_CORE_PREFILL]
+                    [*Q4_PATHS, QK_GEMV, FFN_Q4_0, "flash_decode", *off, *CUDA_CORE_PREFILL]
                     + int8_dense + int8_paged)
 
         # Without THAWK_Q4K_SB the super-block kernels stay off.
@@ -4594,9 +4674,9 @@ def main() -> int:
                 "flash_decode_append": counts["flash_decode"],
                 "flash_decode_append_split": counts["flash_decode_append_split"],
                 "flash_attention": counts[K4],
-                "qk_matmul[q4_k_m]": q4km_counts["qk_matmul"],
+                "qk_matmul_stream[q4_k_m]": q4km_counts["qk_matmul_stream"],
                 "qk_matmul_tc[q4_k_m]": q4km_counts["qk_matmul_tc"],
-                "qk_matmul[q8_0]": q8_counts["qk_matmul"],
+                "qk_matmul_stream[q8_0]": q8_counts["qk_matmul_stream"],
                 "qk_matmul_tc[q8_0]": q8_counts["qk_matmul_tc"],
                 "fused_ffn[q4_k/q6_k]": q4km_counts[FFN_Q4_K_M[0]],
                 "fused_ffn[q4_k/q4_k]": q4km_counts[FFN_Q4_K_M[1]],

@@ -59,8 +59,11 @@ def _err(a, b):
 
 def _path(kernel, rows, dtype):
     """The launch counter of kernel 1's or 13's call: the tensor-core path
-    for bf16 x above 8 rows, the GEMV otherwise."""
-    return kernel + "_tc" if dtype == torch.bfloat16 and rows > 8 else kernel
+    for bf16 x above 8 rows, kernel 13's decode-row walk at 1 to 8 rows,
+    the GEMV otherwise."""
+    if dtype == torch.bfloat16 and rows > 8:
+        return kernel + "_tc"
+    return "qk_matmul_stream" if kernel == "qk_matmul" and rows <= 8 else kernel
 
 
 @pytest.mark.parametrize("K,N", [(4096, 4096), (11008, 512), (704, 256)])
@@ -178,6 +181,117 @@ def test_fused_ffn_kernel_matches_plain_over_every_form(pair, rows, dtype):
     assert ffn.launches == {**before, key: before[key] + 1}
     want = ffn.fused_ffn_plain(x, w13, w2, gain)
     assert _err(got, want) <= _tol(want, dtype)
+
+
+# The decode-row walk (csrc/gemv_stream.cuh): K 4096 (4 whole stages), 800
+# (25 slots: a ragged stage, scale rows only 4-byte aligned) and 11008 (344
+# slots), N ragged against a column pair and fewer pairs than warps.
+STREAM_SHAPES = [(4096, 137), (800, 100), (11008, 72)]
+
+
+def _plans(form, rows, K, N, swiglu=False):
+    """The rule's plan (None) and every (splits, stages) of 1-4 segments and
+    2, 3 or 6 stages that fits."""
+    blocks = qmatmul.stream_blocks(N, qmatmul.build.sm_count(cuda_device()), swiglu)
+    return [None] + [(n, r) for n in range(1, 5) for r in (2, 3, 6)
+                     if qmatmul.stream_fits(form, rows, K, N, n, r, blocks, swiglu)]
+
+
+@pytest.mark.parametrize("form", QK_FORMS)
+@pytest.mark.parametrize("rows", range(1, 9))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stream_matmul_matches_plain_at_every_plan(form, rows, dtype):
+    """Kernel 13 on the decode-row walk at 1-8 rows, with and without the
+    norm, at the rule's plan and at every plan of 1-4 K segments that fits;
+    each call one launch of the walk's counter."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(rows + 100)
+    for K, N in STREAM_SHAPES:
+        w = _weight(form, K, N, g, dev)
+        x = torch.randn(rows, K, generator=g, device=dev).to(dtype)
+        gain = (1 + 0.1 * torch.randn(K, generator=g, device=dev)).to(dtype)
+        for ng in (None, gain):
+            want = qmatmul.quant_matmul_plain(x, w, ng)
+            for plan in _plans(qmatmul.form_code(w), rows, K, N):
+                before = dict(qmatmul.launches)
+                got = qmatmul.quant_matmul_at(x, w, ng, **dict(zip(("splits", "stages"),
+                                                                   plan or ())))
+                assert qmatmul.launches == {**before, "qk_matmul_stream":
+                                            before["qk_matmul_stream"] + 1}
+                assert got.shape == (rows, N) and got.dtype == dtype
+                assert _err(got, want) <= _tol(want, dtype), (K, N, plan, ng is None)
+
+
+# Every (w13, w2) form pairing kernel 2 takes: w13 in any form, the sb too;
+# w2 in any but sb.
+FFN_FORMS = ["q4_0", *QK_FORMS]
+ALL_FFN_PAIRS = [(a, b) for a in FFN_FORMS + ["sb"] for b in FFN_FORMS]
+
+
+@pytest.mark.parametrize("pair", ALL_FFN_PAIRS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stream_ffn_matches_plain_over_every_pairing(pair, dtype):
+    """Kernel 2 (both launches on the decode-row walk) at rows 1-8 over
+    every form pairing, at D 1024 and F 1376 (43 slots: a ragged stage,
+    side rows 4- and 8-byte aligned), the rule's plans."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(len(str(pair)))
+    D, F = 1024, 1376
+    w13 = (QWeight.random(D, 2 * F, "q4k_sb", g, dev) if pair[0] == "sb"
+           else _weight(pair[0], D, 2 * F, g, dev))
+    w2 = _weight(pair[1], F, D, g, dev)
+    key = "ffn[{}/{}]".format(*(qmatmul.FORM_NAMES[qmatmul.form_code(w)] for w in (w13, w2)))
+    for rows in range(1, 9):
+        x = torch.randn(rows, D, generator=g, device=dev).to(dtype)
+        gain = (1 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype)
+        before = dict(ffn.launches)
+        got = ffn.fused_ffn(x, w13, w2, gain)
+        assert ffn.launches == {**before, key: before[key] + 1}
+        want = ffn.fused_ffn_plain(x, w13, w2, gain)
+        assert got.shape == x.shape and got.dtype == dtype
+        assert _err(got, want) <= _tol(want, dtype), rows
+
+
+@pytest.mark.parametrize("pair", [("q4_0", "q4_0"), ((32, True), (16, False)),
+                                  ("sb", (32, True))])
+@pytest.mark.parametrize("rows", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stream_ffn_matches_plain_at_every_plan(pair, rows, dtype):
+    """Kernel 2 with each launch's plan forced through every plan of 1-4 K
+    segments that fits (the other at the rule's), at Llama-3-8B's F 14336."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(rows + 7)
+    D, F = 4096, 14336
+    w13 = (QWeight.random(D, 2 * F, "q4k_sb", g, dev) if pair[0] == "sb"
+           else _weight(pair[0], D, 2 * F, g, dev))
+    w2 = _weight(pair[1], F, D, g, dev)
+    x = torch.randn(rows, D, generator=g, device=dev).to(dtype)
+    gain = (1 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype)
+    want = ffn.fused_ffn_plain(x, w13, w2, gain)
+    runs = [(p, None) for p in _plans(qmatmul.form_code(w13), rows, D, 2 * F, swiglu=True)]
+    runs += [(None, p) for p in _plans(qmatmul.form_code(w2), rows, F, D)[1:]]
+    for plans in runs:
+        assert _err(ffn.fused_ffn_at(x, w13, w2, gain, plans=plans), want) <= _tol(
+            want, dtype), plans
+
+
+def test_stream_refuses_what_it_does_not_take():
+    """A forced plan the walk cannot take, or one forced on another path,
+    raises."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(3)
+    w = _weight((32, True), 4096, 64, g, dev)
+    x = torch.randn(1, 4096, device=dev)
+    for plan in ({"splits": 0}, {"stages": 1}, {"stages": 7}):
+        with pytest.raises(ValueError):
+            qmatmul.quant_matmul_at(x, w, **plan)
+    with pytest.raises(ValueError):  # 800 inputs: 25 slots hold 4 segments of 8, not 5
+        qmatmul.quant_matmul_at(torch.randn(1, 800, device=dev),
+                                _weight((32, True), 800, 64, g, dev), splits=5)
+    with pytest.raises(ValueError):  # Q4_0 keeps the GEMV
+        qmatmul.quant_matmul_at(x, _weight("q4_0", 4096, 64, g, dev), splits=1)
+    with pytest.raises(ValueError):  # 9 rows are not decode rows
+        qmatmul.quant_matmul_at(torch.randn(9, 4096, device=dev), w, splits=1)
 
 
 @pytest.mark.parametrize("K,N", [(1024, 768), (4096, 1024)])

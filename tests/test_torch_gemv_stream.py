@@ -1,0 +1,333 @@
+"""The decode-row walk of kernels 2 and 13 (csrc/gemv_stream.cuh), on the CPU.
+
+A CUDA kernel cannot run here, so this file repeats the walk's order of
+arithmetic in torch (`walk`), f32 throughout, and holds it to the JAX
+package:
+  - the host's rule (`qmatmul.stream_plan`: blocks, K segments, ring
+    depth) and its segments as host integers, and its constants against
+    the CUDA source's;
+  - the walk's order: K in the plan's segments (slots of 32 inputs, a
+    multiple of 8 each), each segment's groups' dots of the codes scaled
+    once, the mins as m times the group's input sum, the segments' sums
+    added in order; the norm from the whole row's sum of squares, x
+    normalised as (x * inv) * gain: against the reference's `matmul`
+    under the pallas_interpret backend (its Pallas q8_matmul / qk_matmul
+    in interpret mode) over Q8_0, Q4_K, Q5_K, Q6_K and Q2_K at rows 1, 3
+    and 8, with and without the norm, at every segment count the walk
+    takes at K 2048; and kernel 2's two launches (gate/up with the norm and
+    SwiGLU into f32 h, down with the residual) against the reference's
+    fused FFN in interpret mode over group-code pairings and `_ffn_block`
+    over Q4_0, at every pair of segment counts.  f32 on both sides, so
+    summation order only: atol 1e-5 and rtol 1e-4;
+  - a CPU tensor runs the plain versions, whatever the split, and counts
+    nothing.
+"""
+
+import functools
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tokenhawk_tpu.config import LlamaConfig
+from tokenhawk_tpu.ggml.format import GGMLType as JType
+from tokenhawk_tpu.ggml.quants import quantize as j_quantize
+from tokenhawk_tpu.models.llama import LayerParams, _ffn_block
+from tokenhawk_tpu.ops import dispatch
+from tokenhawk_tpu.ops import qweight as j_qw
+from tokenhawk_tpu.ops.linear import matmul as j_matmul
+from tokenhawk_tpu.ops.pallas.ffn import fused_ffn as j_fused_ffn
+from tokenhawk_tpu_torch.ggml.format import GGMLType as TType
+from tokenhawk_tpu_torch.ggml.quants import QuantizedTensor as TQuantizedTensor
+from tokenhawk_tpu_torch.ggml.synth import random_kquant
+from tokenhawk_tpu_torch.ops.cuda import ffn, qmatmul
+from tokenhawk_tpu_torch.ops.qweight import QWeight
+
+from torch_helpers import jax_q4, t
+
+K, N = 2048, 128
+KINDS = ["Q8_0", "Q4_K", "Q5_K", "Q6_K", "Q2_K"]
+EPS = 1e-6
+H100_SMS = 132
+
+
+def _splits(K):
+    """Every count of K segments the walk takes at K, up to 8 (none empty)."""
+    return [n for n in range(1, 9) if (n - 1) * qmatmul.stream_segment(K, n) < K // 32]
+
+
+def _ranges(K, splits):
+    """The segments' slot ranges [lo, hi), in order (gemv_stream.cuh)."""
+    slots, per = K // 32, qmatmul.stream_segment(K, splits)
+    return [(min(slots, r * per), min(slots, r * per + per)) for r in range(splits)]
+
+
+def _sides(w: QWeight):
+    """Code values [N, K] (q - 8 for the 4-bit forms), each group's scale
+    and its m (None without), as the walk reads them: the super-blocks' s
+    and m = 8s - dmin * mn rounded once each (SbReader's order)."""
+    c = w.codes().float()
+    if w.kind == "qk":
+        return c, w.group, w.scales, w.mins
+    if w.kind == "q4_0":
+        return c - 8.0, 32, w.scales, None
+    g = c.shape[1] // 32
+    s = w.scales.repeat_interleave(8, dim=1) * w.scmn[:, :g].float()
+    m = w.mins.repeat_interleave(8, dim=1) * w.scmn[:, g:].float()
+    return c - 8.0, 32, s, 8.0 * s - m
+
+
+def walk(x, w: QWeight, splits, gain=None, eps=EPS, residual=None, swiglu=False):
+    """The walk's arithmetic in torch, f32: x [B, K] over w [K, N] in
+    `splits` K segments; with a gain x normalised as (x * inv) * gain from
+    the whole row's sum of squares; each segment's groups' dots scaled once
+    (and the mins on the group sums), the segments' sums added in order;
+    then the epilogue (SwiGLU into f32, or the residual added)."""
+    x = x.float()
+    Kw = x.shape[1]
+    ranges = _ranges(Kw, splits)
+    if gain is not None:
+        x = (x * torch.rsqrt((x * x).sum(-1) / Kw + eps)[:, None]) * gain.float()
+    q, G, s, m = _sides(w)
+    acc = torch.zeros(x.shape[0], q.shape[0])
+    for lo, hi in ranges:
+        if hi <= lo:
+            continue
+        a, b = lo * 32 // G, hi * 32 // G  # the range's groups
+        xg = x[:, lo * 32:hi * 32].reshape(x.shape[0], b - a, G)
+        qg = q[:, lo * 32:hi * 32].reshape(q.shape[0], b - a, G)
+        part = torch.einsum("bgk,ngk->bng", xg, qg) * s[None, :, a:b]
+        if m is not None:
+            part = part + xg.sum(-1)[:, None, :] * m[None, :, a:b]
+        acc = acc + part.sum(-1)
+    if swiglu:
+        F = acc.shape[1] // 2
+        return torch.nn.functional.silu(acc[:, :F]) * acc[:, F:]
+    return acc if residual is None else residual.float() + acc
+
+
+def kernel2(x, w13, w2, gain, splits):
+    """Kernel 2's two launches: gate/up (norm, SwiGLU into f32 h), then down
+    with x's residual, each at its split."""
+    h = walk(x, w13, splits[0], gain=gain, swiglu=True)
+    return walk(h, w2, splits[1], residual=x)
+
+
+# -- the rule as host integers ------------------------------------------------
+
+
+def test_stream_constants_are_the_sources():
+    """The host's mirror of gemv_stream.cuh: its layout constants and each
+    form's kBytes (codes, then scales and mins of 32 slots; sb: sc, mn, d,
+    dmin)."""
+    src = (Path(qmatmul.__file__).parents[2] / "csrc" / "gemv_stream.cuh").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert (consts["kWarps"], consts["kSlots"], consts["kSlotFloats"], consts["kAlign"],
+            consts["kMaxStages"], consts["kRedBytes"], consts["kMaxSmem"]) == (
+        qmatmul.STREAM_WARPS, 32, qmatmul.STREAM_SLOT_FLOATS, qmatmul.STREAM_ALIGN,
+        qmatmul.STREAM_MAX_STAGES, qmatmul.STREAM_RED, qmatmul.STREAM_MAX_SMEM)
+    assert "kBytes = kSlots * 16 + kSlots * 4;" in src  # Q4Stream
+    assert "kBytes = kSlots * 16 + 2 * kSlots + 2 * (kSlots / 8) * 4;" in src  # SbStream
+    assert "kBytes = kSlots * 32 + kSlots * kSub * 4 * (MINS ? 2 : 1);" in src  # QkStream
+    assert qmatmul.STREAM_STAGE_BYTES == {0: 32 * 16 + 32 * 4, 1: 32 * 32 + 32 * 4,
+                                          2: 32 * 32 + 2 * 32 * 4, 3: 32 * 32 + 32 * 2 * 4,
+                                          4: 32 * 32 + 2 * 32 * 2 * 4,
+                                          qmatmul.SB: 32 * 16 + 2 * 32 + 2 * 4 * 4}
+
+
+@pytest.mark.parametrize("K_", [800, 2048, 4096, 11008, 14336])
+def test_ranges_cover_k_once_in_multiples_of_8(K_):
+    slots = K_ // 32
+    for s in _splits(K_):
+        ranges = _ranges(K_, s)
+        assert ranges[0][0] == 0 and ranges[-1][1] == slots
+        assert all(hi > lo and lo % 8 == 0 for lo, hi in ranges)  # no empty range
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert 5 not in _splits(800)  # 25 slots: ranges of 8 give 4 blocks, not 5
+
+
+# (rows, K, N, form, swiglu) -> the plan (splits, stages, blocks) on an
+# H100's 132 SMs, at the shapes of the model paths: Llama-3-8B Q4_K wqkv,
+# wo, Q6_K w2 and head; 7B Q8_0 wqkv; kernel 2's gate/up (N = 2F) and down
+# launches over the 7B's Q4_0 and Llama-3-8B's Q4_K / Q6_K.
+PLANS = {(1, 4096, 6144, "g32m", False): (1, 3, 132),
+         (1, 4096, 4096, "g32m", False): (1, 3, 128),
+         (1, 14336, 4096, "g16", False): (1, 3, 128),
+         (1, 4096, 128256, "g16", False): (1, 3, 132),
+         (1, 4096, 12288, "g32", False): (1, 3, 132),
+         (1, 4096, 2 * 11008, "q4_0", True): (1, 3, 132),
+         (1, 11008, 4096, "q4_0", False): (1, 3, 128),
+         (1, 4096, 2 * 14336, "g32m", True): (1, 3, 132),
+         (8, 4096, 6144, "g32m", False): (1, 2, 132),
+         (8, 4096, 2 * 11008, "q4_0", True): (1, 2, 132),
+         (8, 11008, 4096, "q4_0", False): (3, 2, 128),
+         (8, 14336, 4096, "g16", False): (4, 2, 128)}
+
+
+@pytest.mark.parametrize("case", sorted(PLANS))
+def test_plan_at_the_paths_shapes(case):
+    rows, K_, N_, form, swiglu = case
+    f = qmatmul.FORM_NAMES.index(form)
+    plan = qmatmul.stream_plan(rows, K_, N_, f, H100_SMS, swiglu)
+    assert plan == PLANS[case]
+    splits, stages, blocks = plan
+    assert blocks * qmatmul.STREAM_WARPS <= max(qmatmul.stream_tasks(N_, swiglu),
+                                                H100_SMS * qmatmul.STREAM_WARPS)
+    assert qmatmul.stream_fits(f, rows, K_, N_, splits, stages, blocks, swiglu)
+    # No fewer segments fit, and no deeper ring up to the cap beside them.
+    cap = qmatmul.STREAM_STAGES[qmatmul.stream_rows(rows)]
+    assert not any(qmatmul.stream_fits(f, rows, K_, N_, n, r, blocks, swiglu)
+                   for n in range(1, splits) for r in range(2, cap + 1))
+    assert not any(qmatmul.stream_fits(f, rows, K_, N_, splits, r, blocks, swiglu)
+                   for r in range(stages + 1, cap + 1))
+
+
+def test_plan_refuses_what_does_not_fit():
+    g32m = qmatmul.FORM_NAMES.index("g32m")
+    for kw in ({"splits": 0}, {"stages": 1}, {"stages": 7}, {"splits": 5, "stages": 2}):
+        with pytest.raises(ValueError):
+            qmatmul.stream_plan(1, 800 if "splits" in kw else 4096, 64, g32m, H100_SMS, **kw)
+    # Six stages of the widest form's stage beside 14336 inputs of one row
+    # exceed a block's shared memory; four segments of eight rows fit.
+    g16m = qmatmul.FORM_NAMES.index("g16m")
+    with pytest.raises(ValueError):
+        qmatmul.stream_plan(1, 14336, 4096, g16m, H100_SMS, splits=1, stages=6)
+    assert qmatmul.stream_plan(8, 14336, 4096, g16m, H100_SMS, splits=4) == (4, 2, 128)
+    # Few columns: fewer blocks than SMs, each warp a pair.
+    assert qmatmul.stream_blocks(100, H100_SMS) == 4 and qmatmul.stream_blocks(
+        200, H100_SMS, swiglu=True) == 7
+
+
+# -- kernel 13 ------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _weights(kind):
+    """The reference's QWeight and the port's, logical [K, N], from one GGML
+    tensor (float32 sides, use_i4=False: the forms the port keeps)."""
+    rng = np.random.default_rng(KINDS.index(kind) + 40)
+    if kind == "Q8_0":
+        qt = j_quantize((rng.standard_normal((N, K)) * 0.05).astype(np.float32), JType.Q8_0)
+        return (j_qw.from_quantized_tensor(qt, scale_dtype=jnp.float32),
+                QWeight.from_quantized_tensor(TQuantizedTensor(TType.Q8_0, qt.shape, qt.qs,
+                                                               qt.scales, qt.mins)))
+    raw = random_kquant(TType[kind], (N, K), rng).raw
+    return (j_qw.from_kquant_raw(JType[kind], raw, (N, K), scale_dtype=jnp.float32,
+                                 use_i4=False),
+            QWeight.from_kquant_raw(TType[kind], raw, (N, K)))
+
+
+def _interpret(fn):
+    old = dispatch.get_backend()
+    dispatch.set_backend("pallas_interpret")
+    try:
+        return np.asarray(fn())
+    finally:
+        dispatch.set_backend(old)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("rows", [1, 3, 8])
+@pytest.mark.parametrize("norm", [False, True])
+def test_walk_matches_the_pallas_matmul_at_every_split(kind, rows, norm):
+    rng = np.random.default_rng(rows * 10 + norm)
+    x = rng.standard_normal((rows, K)).astype(np.float32)
+    g = (1.0 + 0.1 * rng.standard_normal(K)).astype(np.float32) if norm else None
+    jw, pw = _weights(kind)
+    want = _interpret(lambda: j_matmul(jnp.asarray(x), jw, None if g is None else jnp.asarray(g)))
+    for s in _splits(K):
+        got = walk(t(x), pw, s, None if g is None else t(g)).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=f"splits {s}")
+
+
+# -- kernel 2 -------------------------------------------------------------------
+
+# Weights of std 0.02 (LLaMA's), so kernel 2's outputs stay of order 1 and
+# atol 1e-5 measures f32 summation order: at 0.05 and these widths they
+# reach ~100 and the plain version itself sits 1e-4 from the reference.
+D, F, STD = 1024, 2048, 0.02
+CFG = LlamaConfig.tiny(n_embd=D, n_ff=F)
+
+
+def _group_code(kind, out_dim, in_dim, rng):
+    if kind == "Q8_0":
+        qt = j_quantize((rng.standard_normal((out_dim, in_dim)) * STD).astype(np.float32),
+                        JType.Q8_0)
+        return (j_qw.from_quantized_tensor(qt, scale_dtype=jnp.float32),
+                QWeight.from_quantized_tensor(TQuantizedTensor(TType.Q8_0, qt.shape, qt.qs,
+                                                               qt.scales, qt.mins)))
+    raw = random_kquant(TType[kind], (out_dim, in_dim), rng, std=STD).raw
+    return (j_qw.from_kquant_raw(JType[kind], raw, (out_dim, in_dim), scale_dtype=jnp.float32,
+                                 use_i4=False),
+            QWeight.from_kquant_raw(TType[kind], raw, (out_dim, in_dim)))
+
+
+def _every_split_pair():
+    return [(a, b) for a in _splits(D) for b in _splits(F)]
+
+
+@pytest.mark.parametrize("kinds", [("Q8_0", "Q8_0"), ("Q4_K", "Q6_K"), ("Q4_K", "Q4_K")])
+@pytest.mark.parametrize("rows", [1, 3, 8])
+def test_kernel2_walk_matches_the_pallas_fused_ffn(kinds, rows):
+    rng = np.random.default_rng(rows + 5)
+    x = rng.standard_normal((rows, D)).astype(np.float32)
+    gain = (1.0 + 0.1 * rng.standard_normal(D)).astype(np.float32)
+    j13, p13 = _group_code(kinds[0], 2 * F, D, rng)
+    j2, p2 = _group_code(kinds[1], D, F, rng)
+    want = np.asarray(j_fused_ffn(jnp.asarray(x), j13, j2, jnp.asarray(gain),
+                                  eps=CFG.rms_norm_eps, interpret=True))
+    for splits in _every_split_pair():
+        got = kernel2(t(x), p13, p2, t(gain), splits).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=f"splits {splits}")
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8])
+def test_kernel2_walk_matches_the_ffn_block_over_q4_0(rows):
+    rng = np.random.default_rng(rows + 9)
+    x = rng.standard_normal((rows, D)).astype(np.float32)
+    q13, p13 = jax_q4((rng.standard_normal((D, 2 * F)) * STD).astype(np.float32))
+    q2, p2 = jax_q4((rng.standard_normal((F, D)) * STD).astype(np.float32))
+    gain = (1.0 + 0.1 * rng.standard_normal(D)).astype(np.float32)
+    lp = LayerParams(wq=None, wk=None, wv=None, wo=None, w1=None, w2=q2, w3=None,
+                     attn_norm=None, ffn_norm=jnp.asarray(gain), w13=q13)
+    want = _interpret(lambda: _ffn_block(CFG, jnp.asarray(x), lp))
+    for splits in _every_split_pair():
+        got = kernel2(t(x), p13, p2, t(gain), splits).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=f"splits {splits}")
+
+
+def test_kernel2_walk_over_super_blocks_is_the_plain_versions():
+    """An sb w13 (SbReader's s and m): the walk against the plain version
+    (the reference's sb dequantization, tests/test_torch_q4k_sb.py)."""
+    g = torch.Generator().manual_seed(4)
+    w13, w2 = QWeight.random(D, 2 * F, "q4k_sb", g), QWeight.random(F, D, "q4_k", g)
+    x = torch.randn(3, D, generator=g)
+    gain = 1.0 + 0.1 * torch.randn(D, generator=g)
+    want = ffn.fused_ffn_plain(x, w13, w2, gain)
+    for splits in _every_split_pair():
+        torch.testing.assert_close(kernel2(x, w13, w2, gain, splits), want, rtol=1e-4,
+                                   atol=1e-5)
+
+
+# -- CPU tensors -----------------------------------------------------------------
+
+
+def test_cpu_tensors_run_the_plain_versions_and_count_nothing():
+    _, w = _weights("Q4_K")
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(3, K, generator=g)
+    gain = 1.0 + 0.1 * torch.randn(K, generator=g)
+    w13, w2 = QWeight.random(D, 2 * F, "q4_k", g), QWeight.random(F, D, "q6_k", g)
+    xf = torch.randn(2, D, generator=g)
+    gf = 1.0 + 0.1 * torch.randn(D, generator=g)
+    before = (dict(qmatmul.launches), dict(ffn.launches))
+    for s in (None, 1, 3):
+        assert torch.equal(qmatmul.quant_matmul_at(x, w, gain, splits=s, stages=s),
+                           qmatmul.quant_matmul_plain(x, w, gain))
+        plans = None if s is None else ((s, 2), (s, 3))
+        assert torch.equal(ffn.fused_ffn_at(xf, w13, w2, gf, plans=plans),
+                           ffn.fused_ffn_plain(xf, w13, w2, gf))
+    assert (qmatmul.launches, ffn.launches) == before

@@ -4,19 +4,22 @@
 //   y = x + (silu(xn @ W1) * (xn @ W3)) @ W2,   xn = rmsnorm(x) * g.
 // The TPU kernel walks F in tiles and carries the W2 partial sums across
 // its sequential grid.  Blocks on the GPU run in no order and carry
-// nothing, so the port runs two phases:
-//   A: gate/up GEMV over w13 [D, 2F]; each warp owns gate column f and up
-//      column F+f, and its epilogue writes h = silu(g) * u as f32 into a
-//      scratch of B*F*4 bytes (459 KB at B=8, F=14336: it stays in L2);
-//   B: down GEMV over w2 [F, D] reading h in f32, with the residual add in
-//      its epilogue.
-// w13 and w2 each take their own weight form (gemv.cuh Form: Q4_0, or
-// group codes of G 16 / 32 with or without mins), as the reference's gate
-// allows: a Q4_K_M file pairs a Q4_K w13 with a Q6_K or Q4_K w2.  w13 may
-// also be a Q4_K super-block weight (sb, under THAWK_Q4K_SB=1; kernel 17's
-// reader), w2 never, as in the reference (ffn.py can_fuse_ffn).  The
-// [B, F] intermediate is never written in a narrower type.  Both phases
-// stream their weights once; they are bound by weight bytes.
+// nothing, so the port runs two launches of the decode-row walk
+// (gemv_stream.cuh), each bound by its weight bytes:
+//   A: gate/up over w13 [D, 2F], the norm inside the launch; each warp owns
+//      gate column f and up column F+f, and the epilogue writes
+//      h = silu(g) * u as f32 into a scratch of B*F*4 bytes (459 KB at B=8,
+//      F=14336: it stays in L2);
+//   B: down over w2 [F, D] reading h in f32, with the residual add in its
+//      epilogue.
+// Each launch runs persistent blocks, one an SM, on the plan the host's
+// rule gives it (ops/cuda/qmatmul.py stream_plan).  w13 and w2 each take
+// their own weight form (gemv.cuh Form: Q4_0, or group codes of G 16 / 32
+// with or without mins), as the reference's gate allows: a Q4_K_M file
+// pairs a Q4_K w13 with a Q6_K or Q4_K w2.  w13 may also be a Q4_K
+// super-block weight (sb, under THAWK_Q4K_SB=1; kernel 17's expansion), w2
+// never, as in the reference (ffn.py can_fuse_ffn).  The [B, F]
+// intermediate is never written in a narrower type.
 //
 // Kernel 15: the post-attention half of a decode layer, Wo + residual +
 // RMSNorm + SwiGLU FFN + residual, for B <= 8 rows.  Replaces
@@ -24,11 +27,12 @@
 //   x' = x + ctx @ Wo                     (f32, never rounded)
 //   y  = x' + (silu(n @ W1) * (n @ W3)) @ W2,   n = rmsnorm(x') * g,
 // y rounded once to x's type.  The TPU kernel keeps x' in VMEM slabs across
-// its sequential grid; here four launches on one stream carry it through
-// an f32 scratch of B*D*4 bytes (128 KB at B=8, D=4096: it stays in L2):
+// its sequential grid; here four launches of gemv.cuh's GEMV on one stream
+// carry it through an f32 scratch of B*D*4 bytes (128 KB at B=8, D=4096:
+// it stays in L2):
 //   1. the Wo GEMV over ctx, x added in its epilogue -> x' (f32);
 //   2. row_inv_rms over x';
-//   3. kernel 2's gate/up GEMV over x' normalised -> h (f32);
+//   3. the gate/up GEMV over x' normalised -> h (f32);
 //   4. the down GEMV over h, x' added in its epilogue -> y (x's type).
 // Wo, w13 and w2 each take their own weight form but sb, which the gate
 // refuses as the reference's does (Wo has mins); the reference's kernel
@@ -36,44 +40,41 @@
 // readers take each form as it is.  Bound by the bytes of the three
 // weights; the scratch round trips are L2 traffic of a few hundred KB.
 #include "gemv.cuh"
+#include "gemv_stream.cuh"
 
 using namespace thawk;
 
 template <typename T>
-static bool run(const void* x, const void* w13_qs, const void* w13_s, const void* w13_m,
-                const void* w13_hi, int w13_form, const void* w2_qs, const void* w2_s,
-                const void* w2_m, const void* w2_hi, int w2_form, const void* gain, float* h,
-                float* inv, void* y, int B, int D, int F, float eps, cudaStream_t stream) {
+static cudaError_t run(const void* x, const stream::Weights& w13, const stream::Weights& w2,
+                       const void* gain, float* h, void* y, int B, int D, int F, float eps,
+                       const stream::Plan& pa, const stream::Plan& pb, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
-  row_inv_rms_kernel<T><<<B, 256, 0, stream>>>(xt, inv, D, eps);
-  const bool a = with_reader<true>(w13_form, w13_qs, w13_s, w13_m, w13_hi, [&](const auto& wr) {
-    launch_gemv<T, float, kSwiGLU>(xt, B, D, wr, 2 * F, static_cast<const T*>(gain), inv,
-                                   nullptr, h, stream);
-  });
-  const bool b = with_reader<false>(w2_form, w2_qs, w2_s, w2_m, w2_hi, [&](const auto& wr) {
-    launch_gemv<float, T, kResidual>(h, B, F, wr, D, nullptr, nullptr, xt, static_cast<T*>(y),
-                                     stream);
-  });
-  return a && b;
+  const cudaError_t rc =
+      stream::gate_up(xt, B, D, w13, 2 * F, static_cast<const T*>(gain), eps, h, pa, s);
+  return rc != cudaSuccess ? rc : stream::down(h, B, F, w2, D, xt, static_cast<T*>(y), pb, s);
 }
 
+// Kernel 2.  x, y [B, D] and gain [D] in dtype; each weight as (qs, scales,
+// mins, hi, form), hi the sb form's scmn; h [B, F] f32 scratch; each
+// launch's plan (K segments, ring stages, blocks: ops/cuda/qmatmul.py
+// stream_plan) as three ints, the gate/up launch's then the down
+// launch's.  An unknown form or a shape or plan the walk does not take
+// returns an invalid-value error.
 extern "C" int th_ffn(const void* x, const void* w13_qs, const void* w13_s, const void* w13_m,
                       const void* w13_hi, int w13_form, const void* w2_qs, const void* w2_s,
                       const void* w2_m, const void* w2_hi, int w2_form, const void* gain,
-                      void* h_scratch, void* inv_scratch, void* y, int B, int D, int F, float eps,
-                      int dtype, void* stream) {
+                      void* h_scratch, void* y, int B, int D, int F, float eps, int dtype,
+                      int splits_a, int stages_a, int blocks_a, int splits_b, int stages_b,
+                      int blocks_b, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* h = static_cast<float*>(h_scratch);
-  float* inv = static_cast<float*>(inv_scratch);
-  if (w13_form < kFormQ4 || w13_form > kFormSb || w2_form < kFormQ4 || w2_form > kFormG16Mins)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool known =
-      dtype == kBF16
-          ? run<__nv_bfloat16>(x, w13_qs, w13_s, w13_m, w13_hi, w13_form, w2_qs, w2_s, w2_m,
-                               w2_hi, w2_form, gain, h, inv, y, B, D, F, eps, s)
-          : run<float>(x, w13_qs, w13_s, w13_m, w13_hi, w13_form, w2_qs, w2_s, w2_m, w2_hi,
-                       w2_form, gain, h, inv, y, B, D, F, eps, s);
-  return known ? THAWK_LAUNCH_RESULT() : static_cast<int>(cudaErrorInvalidValue);
+  const stream::Weights w13{w13_qs, w13_s, w13_m, w13_hi, w13_form};
+  const stream::Weights w2{w2_qs, w2_s, w2_m, w2_hi, w2_form};
+  const stream::Plan pa{splits_a, stages_a, blocks_a}, pb{splits_b, stages_b, blocks_b};
+  const cudaError_t rc =
+      dtype == kBF16 ? run<__nv_bfloat16>(x, w13, w2, gain, h, y, B, D, F, eps, pa, pb, s)
+                     : run<float>(x, w13, w2, gain, h, y, B, D, F, eps, pa, pb, s);
+  return rc != cudaSuccess ? static_cast<int>(rc) : THAWK_LAUNCH_RESULT();
 }
 
 template <typename T>

@@ -25,14 +25,19 @@
 // epilogue on q8_matmul (rope_meta, off by default) is not ported: RoPE
 // runs in torch.
 //
-// Two paths, two entry points, which the Python wrapper picks:
-// th_quant_matmul runs the GEMV above (every form, f32 or bf16 x, any row
-// count; the decode rows); th_quant_matmul_tc runs the tensor-core GEMM of
-// qgemm_tc.cuh for bf16 x at more than 8 rows over every form, kernel 17's
-// super-blocks too (s and m expanded per group in the walk), where the
-// reference's `_qdot` takes the MXU's bf16 dot and the work is bound by
-// operations, not bytes.
+// Three paths, three entry points, which the Python wrapper picks:
+// th_quant_matmul_stream runs the decode-row walk of gemv_stream.cuh for
+// the group-code forms at 1 to 8 rows (f32 or bf16 x): persistent blocks,
+// the weight stream kept in flight through a shared-memory ring a warp,
+// the norm inside the launch; th_quant_matmul runs the GEMV above (Q4_0
+// and sb at any row count, the group codes with f32 x above 8 rows);
+// th_quant_matmul_tc runs
+// the tensor-core GEMM of qgemm_tc.cuh for bf16 x at more than 8 rows over
+// every form, kernel 17's super-blocks too (s and m expanded per group in
+// the walk), where the reference's `_qdot` takes the MXU's bf16 dot and
+// the work is bound by operations, not bytes.
 #include "gemv.cuh"
+#include "gemv_stream.cuh"
 #include "qgemm_tc.cuh"
 
 using namespace thawk;
@@ -60,6 +65,28 @@ extern "C" int th_quant_matmul(const void* x, const void* qs, const void* scales
           ? run<__nv_bfloat16>(x, qs, scales, mins, hi, gain, y, inv, B, K, N, form, eps, s)
           : run<float>(x, qs, scales, mins, hi, gain, y, inv, B, K, N, form, eps, s);
   return known ? THAWK_LAUNCH_RESULT() : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The decode-row walk: x [B, K], gain [K] (or null) and y [B, N] in dtype,
+// B 1 to 8; the group-code forms (G32, G32 + mins, G16, G16 + mins), K a
+// multiple of 32; its plan (ops/cuda/qmatmul.py stream_plan): K walked in
+// `splits` segments, rings of `stages` stages, `blocks` persistent blocks.
+// Other forms, shapes and plans return an invalid-value error.
+extern "C" int th_quant_matmul_stream(const void* x, const void* qs, const void* scales,
+                                      const void* mins, const void* gain, void* y, int B, int K,
+                                      int N, int form, int splits, int stages, int blocks,
+                                      float eps, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const stream::Weights w{qs, scales, mins, nullptr, form};
+  const stream::Plan p{splits, stages, blocks};
+  const cudaError_t rc =
+      dtype == kBF16
+          ? stream::matmul(static_cast<const __nv_bfloat16*>(x), B, K, w, N,
+                           static_cast<const __nv_bfloat16*>(gain), eps,
+                           static_cast<__nv_bfloat16*>(y), p, s)
+          : stream::matmul(static_cast<const float*>(x), B, K, w, N,
+                           static_cast<const float*>(gain), eps, static_cast<float*>(y), p, s);
+  return rc != cudaSuccess ? static_cast<int>(rc) : THAWK_LAUNCH_RESULT();
 }
 
 // The tensor-core path: x, gain, y bf16; xn_scratch [B, K] bf16 (with a

@@ -8,16 +8,21 @@ pairing: the reference's gate lets "w13 and w2 differ in kind".  w13 may
 also be a Q4_K super-block weight (q4k_sb, kernel 17's reader), w2 not,
 as the reference's `can_fuse_ffn` has it (`can_fuse_ffn` here).  Bound by
 the weight bytes on the H100.  The TPU kernel carries the W2 sums across a
-sequential grid; GPU blocks cannot, so the kernel runs two phases (the
-gate/up GEMV with a SiLU epilogue into an f32 scratch of B*F*4 bytes that
-stays in L2, then the down GEMV with the residual in its epilogue).  The
-[B, F] intermediate stays f32.
+sequential grid; GPU blocks cannot, so the kernel runs two launches of the
+decode-row walk that kernel 13 shares (csrc/gemv_stream.cuh: persistent
+blocks, each warp's weight stream kept in flight through a ring of
+shared-memory stages, x staged once a block, on `qmatmul.stream_plan`'s
+plan): the gate/up launch, with the norm's row statistics summed inside
+it and a SiLU epilogue into an f32 scratch of B*F*4 bytes that stays in
+L2, then the down launch with the residual in its epilogue.  The [B, F]
+intermediate stays f32.  Counted per (w13 form, w2 form) pairing, each
+count one call of two launches; `fused_ffn_at` forces the two plans.
 
 Kernel 15, `fused_owo_ffn`, replaces tokenhawk_tpu/ops/pallas/ffn.py
 `fused_owo_ffn` (_fused_owo_ffn): the whole post-attention half of a
 decode layer, x' = x + ctx @ Wo kept in f32, then x' + SwiGLU-MLP(
-rms_norm(x') * g), rounded once.  It runs four launches of the same GEMV
-core (csrc/ffn.cu th_owo_ffn): Wo with x in its epilogue into an f32 x'
+rms_norm(x') * g), rounded once.  It runs four launches of gemv.cuh's GEMV
+(csrc/ffn.cu th_owo_ffn): Wo with x in its epilogue into an f32 x'
 scratch, the row norm, the gate/up GEMV, the down GEMV with x' in its
 epilogue.  It is off by default, as in the reference: the model takes it
 where `can_fuse_owo_ffn` passes and the model's fusions ask for it
@@ -34,7 +39,7 @@ from __future__ import annotations
 import torch
 
 from tokenhawk_tpu_torch.ops.cuda import build
-from tokenhawk_tpu_torch.ops.cuda.qmatmul import FORM_NAMES, form_code, weight_args
+from tokenhawk_tpu_torch.ops.cuda.qmatmul import FORM_NAMES, form_code, stream_plan, weight_args
 from tokenhawk_tpu_torch.ops.qweight import QWeight
 
 # Launches per (w13 form, w2 form) pairing, e.g. "ffn[g32m/g16]" for a
@@ -48,10 +53,10 @@ MAX_ROWS = 8
 # conditions so that both packages fuse the same layers.
 BLOCK_F, BLOCK_NW = 256, 512
 
-# x; (qs, scales, mins, scmn, form) of w13 and of w2; gain, h, inv, y; B, D,
-# F; eps; dtype; stream.
-_ARGS = [build.P] + ([build.P] * 4 + [build.I]) * 2 + [build.P] * 4 + [build.I] * 3 + [
-    build.F, build.I, build.P]
+# x; (qs, scales, mins, scmn, form) of w13 and of w2; gain, h, y; B, D, F;
+# eps; dtype, the two launches' plans (splits, stages, blocks); stream.
+_ARGS = [build.P] + ([build.P] * 4 + [build.I]) * 2 + [build.P] * 3 + [build.I] * 3 + [
+    build.F] + [build.I] * 7 + [build.P]
 # ctx, x; (qs, scales, mins, scmn, form) of wo, w13 and w2; gain, xp, h, inv,
 # y; B, Dq, D, F; eps; dtype; stream.
 _OWO_ARGS = [build.P] * 2 + ([build.P] * 4 + [build.I]) * 3 + [build.P] * 5 + [build.I] * 4 + [
@@ -80,6 +85,28 @@ def fused_ffn_plain(x, w13: QWeight, w2: QWeight, norm_gain, eps: float = 1e-6):
 
 def fused_ffn(x, w13: QWeight, w2: QWeight, norm_gain, eps: float = 1e-6):
     """x [..., D] -> x + SwiGLU-MLP(rms_norm(x) * gain); at most 8 rows."""
+    return fused_ffn_at(x, w13, w2, norm_gain, eps)
+
+
+def ffn_plans(rows: int, w13: QWeight, w2: QWeight, sms: int, forced=None) -> tuple:
+    """The plans (splits, stages, blocks) of kernel 2's two launches
+    (`qmatmul.stream_plan`): the gate/up launch over w13 [D, 2F], the down
+    launch over w2 [F, D].  `forced` gives a (splits, stages) pair for each,
+    None or a None entry for the rule's."""
+    (D, F2), (F, _) = w13.shape, w2.shape
+    fa, fb = forced or (None, None)
+    return (stream_plan(rows, D, F2, form_code(w13), sms, swiglu=True, **_forced(fa)),
+            stream_plan(rows, F, D, form_code(w2, sb=False), sms, **_forced(fb)))
+
+
+def _forced(pair) -> dict:
+    return {} if pair is None else {"splits": pair[0], "stages": pair[1]}
+
+
+def fused_ffn_at(x, w13: QWeight, w2: QWeight, norm_gain, eps: float = 1e-6, plans=None):
+    """fused_ffn with the two launches' (splits, stages) forced by `plans`
+    (tests and sweeps; None: `ffn_plans`'s).  A CPU tensor runs the plain
+    version whatever the plans."""
     if not x.is_cuda:
         return fused_ffn_plain(x, w13, w2, norm_gain, eps)
     D, F2 = w13.shape
@@ -94,14 +121,13 @@ def fused_ffn(x, w13: QWeight, w2: QWeight, norm_gain, eps: float = 1e-6):
     build.require(gain.shape == (D,), f"gain {tuple(gain.shape)} != ({D},)")
     build.require_cuda(xb, gain)
     f13, f2 = form_code(w13), form_code(w2, sb=False)
+    pa, pb = ffn_plans(B, w13, w2, build.sm_count(xb.device), plans)
     code = build.dtype_code(xb.dtype)
     h = torch.empty((B, F), dtype=torch.float32, device=xb.device)
-    inv = torch.empty((B,), dtype=torch.float32, device=xb.device)
     y = torch.empty_like(xb)
     fn = build.function("th_ffn", _ARGS)
     rc = fn(xb.data_ptr(), *weight_args(w13, xb), f13, *weight_args(w2, xb), f2, gain.data_ptr(),
-            h.data_ptr(), inv.data_ptr(), y.data_ptr(), B, D, F, eps, code,
-            build.stream_of(xb))
+            h.data_ptr(), y.data_ptr(), B, D, F, eps, code, *pa, *pb, build.stream_of(xb))
     build.check(rc, "fused_ffn")
     launches[f"ffn[{FORM_NAMES[f13]}/{FORM_NAMES[f2]}]"] += 1
     return y.reshape(*lead, D)

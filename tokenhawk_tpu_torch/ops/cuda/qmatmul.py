@@ -10,12 +10,20 @@ which replaces `qk_sb_matmul` (_qk_sb_kernel): kernel 13's loop over
 codes two a byte, the group's scale and bias expanded from sc / mn and
 the super-block's d / dmin in registers.
 
-Two paths, picked here by `tensor_core_path` and counted apart.  The
-GEMV (gemv.cuh) takes every form at any row count and f32 x: on the H100
-the decode rows (B <= 8) are bound by the weight bytes; it reads a
-column's codes with 16-byte loads and converts them once for every row
-of a row tile, and a small pre-pass gives the norm's row statistics, so
-the norm is fused for every K.  Counted in `launches["q4_matmul"]`,
+Three paths, picked here (`stream_path`, `tensor_core_path`) and counted
+apart.  The group-code forms at 1 to 8 rows (f32 or bf16 x) run the
+decode-row walk (gemv_stream.cuh), which kernel 2 shares: on the H100 those
+rows are bound by the weight bytes, so persistent blocks (one an SM) give
+each warp a run of column pairs whose codes, scales and mins it keeps in
+flight through a ring of shared-memory stages filled by cp.async, x is
+staged once a block and the norm's row statistics are summed inside the
+launch (`stream_plan`: the blocks, K's segments and the ring's depth from
+the rows, K, N, the form and the SM count).  Counted in
+`launches["qk_matmul_stream"]`.  The GEMV (gemv.cuh) takes
+Q4_0 and the super-blocks at decode rows and every form with f32 x
+above 8 rows: it reads a column's codes with 16-byte loads and converts
+them once for every row of a row tile, and a small pre-pass gives the
+norm's row statistics.  Counted in `launches["q4_matmul"]`,
 `launches["qk_matmul"]` and `launches["qk_sb_matmul"]`.  Above 8 rows
 of bf16 x every form goes to the tensor-core GEMM (qgemm_tc.cuh:
 mma.sync over 128-column tiles of codes brought in by cp.async and
@@ -27,8 +35,8 @@ order), where the work is bound by operations: counted in
 those rows (`_qdot`'s bf16 dot): xn and each code * s rounded to bf16,
 f32 sums, the mins as an f32 dot of xn's group sums; kernel 17's s and
 its bias m = 8s - dmin*mn are expanded per group in the walk with the
-GEMV's f32 roundings (`_sb_expand`'s), m riding the mins path.  Neither
-path falls back to the other.
+GEMV's f32 roundings (`_sb_expand`'s), m riding the mins path.  No path
+falls back to another.
 
 Tolerance against the plain version: both accumulate in f32 and round
 once to the output dtype; they differ by summation order (~1e-6 relative
@@ -49,12 +57,15 @@ from tokenhawk_tpu_torch.ops.cuda import build
 from tokenhawk_tpu_torch.ops.qweight import QWeight
 
 launches = {"q4_matmul": 0, "qk_matmul": 0, "qk_sb_matmul": 0, "q4_matmul_tc": 0,
-            "qk_matmul_tc": 0, "qk_sb_matmul_tc": 0}
+            "qk_matmul_tc": 0, "qk_sb_matmul_tc": 0, "qk_matmul_stream": 0}
 
 _ARGS = [build.P] * 8 + [build.I] * 4 + [build.F, build.I, build.P]
 # x, qs, scales, mins, scmn, gain, y, xn, xsum and part scratch; B, K, N,
 # form, splits; eps; stream.
 _TC_ARGS = [build.P] * 10 + [build.I] * 5 + [build.F, build.P]
+# x, qs, scales, mins, gain, y; B, K, N, form, splits, stages, blocks; eps;
+# dtype; stream.
+_STREAM_ARGS = [build.P] * 6 + [build.I] * 7 + [build.F, build.I, build.P]
 # The fewest rows the tensor-core path takes: the reference's `_qdot` takes
 # its bf16 dot above 8 rows (DOT_F32 "auto").
 TC_MIN_ROWS = 9
@@ -66,6 +77,99 @@ _FORMS = {("q4_0", 32, False): 0, ("qk", 32, False): 1, ("qk", 32, True): 2,
           ("qk", 16, False): 3, ("qk", 16, True): 4, ("q4k_sb", 32, True): SB}
 # The launch counter of each form's kernel (the group codes': qk_matmul).
 _KERNEL = {0: "q4_matmul", SB: "qk_sb_matmul"}
+
+# -- the decode-row walk (csrc/gemv_stream.cuh) -------------------------------
+# The most rows it takes (kernel 2's MAX_ROWS; the reference's `_qdot` keeps
+# f32 up to 8 rows), the forms kernel 13 runs on it (the group codes).
+STREAM_MAX_ROWS = 8
+STREAM_FORMS = (1, 2, 3, 4)
+# Its constants (gemv_stream.cuh): warps a block, floats of a staged slot,
+# slots a segment is a multiple of, the deepest ring, shared memory a block
+# may use, the norm's bytes, the mbarriers'.
+STREAM_WARPS, STREAM_SLOT_FLOATS, STREAM_ALIGN, STREAM_MAX_STAGES = 16, 36, 8, 6
+STREAM_MAX_SMEM, STREAM_RED = 232448, 1024
+STREAM_BARS = STREAM_WARPS * STREAM_MAX_STAGES * 8  # the stages' mbarriers
+# By form code: the bytes of one column's stage (32 slots of codes, scales
+# and mins: kBytes of Q4Stream, QkStream<G, MINS>, SbStream).
+STREAM_STAGE_BYTES = {0: 640, 1: 1152, 2: 1280, 3: 1280, 4: 1536, SB: 608}
+# The ring's depth the rule takes at most, by row tile: 3 stages ran within
+# 2.4% of the best of 2 to 6 at each one-row shape swept (PERF.md);
+# at eight rows x's segment wants the room.
+STREAM_STAGES = {1: 3, 2: 3, 4: 3, 8: 2}
+
+
+def stream_path(form: int, rows: int) -> bool:
+    """Whether kernel 13 takes the decode-row walk: a group-code form at 1
+    to 8 rows (f32 or bf16 x; bf16 above 8 rows is the tensor-core path)."""
+    return form in STREAM_FORMS and 1 <= rows <= STREAM_MAX_ROWS
+
+
+def stream_rows(rows: int) -> int:
+    """The walk's row tile for `rows` rows: 1, 2, 4 or 8."""
+    return next(r for r in (1, 2, 4, 8) if rows <= r)
+
+
+def stream_tasks(N: int, swiglu: bool = False) -> int:
+    """Column pairs of a launch over N outputs (gate/up pairs, N = 2F, for
+    kernel 2's first launch)."""
+    return N // 2 if swiglu else -(-N // 2)
+
+
+def stream_blocks(N: int, sms: int, swiglu: bool = False) -> int:
+    """Persistent blocks of a launch: one an SM, fewer where the column
+    pairs leave a block's 16 warps without one each."""
+    return min(sms, -(-stream_tasks(N, swiglu) // STREAM_WARPS))
+
+
+def stream_segment(K: int, splits: int) -> int:
+    """Slots (32 inputs) of each of K's `splits` segments: ceil(K/32 /
+    splits) rounded up to a multiple of 8."""
+    per = -(-(K // 32) // splits)
+    return -(-per // STREAM_ALIGN) * STREAM_ALIGN
+
+
+def stream_smem(form: int, rows: int, K: int, N: int, splits: int, stages: int, blocks: int,
+                swiglu: bool = False) -> int:
+    """Dynamic shared memory of one block (gemv_stream.cuh smem_bytes): one
+    segment of x's row tile in f32, the warps' rings, the norm's sums and,
+    over more than one segment, the warps' running sums."""
+    tile = stream_rows(rows)
+    tasks = -(-stream_tasks(N, swiglu) // (blocks * STREAM_WARPS))
+    return (tile * stream_segment(K, splits) * STREAM_SLOT_FLOATS * 4
+            + STREAM_WARPS * stages * 2 * STREAM_STAGE_BYTES[form] + STREAM_RED + STREAM_BARS
+            + (STREAM_WARPS * tasks * 2 * tile * 4 if splits > 1 else 0))
+
+
+def stream_fits(form: int, rows: int, K: int, N: int, splits: int, stages: int, blocks: int,
+                swiglu: bool = False) -> bool:
+    """Whether the walk takes the plan: no empty segment, 2 to 6 stages,
+    and the shared memory of a block within the card's."""
+    return (splits >= 1 and (splits - 1) * stream_segment(K, splits) < K // 32
+            and 2 <= stages <= STREAM_MAX_STAGES and blocks >= 1
+            and stream_smem(form, rows, K, N, splits, stages, blocks, swiglu) <= STREAM_MAX_SMEM)
+
+
+def stream_plan(rows: int, K: int, N: int, form: int, sms: int, swiglu: bool = False,
+                splits: int | None = None, stages: int | None = None) -> tuple:
+    """The walk's plan (splits, stages, blocks) at `rows` rows, K inputs and
+    N outputs (2F for kernel 2's gate/up launch, swiglu=True) of weight
+    form `form` on a card of `sms` SMs: `stream_blocks` persistent blocks,
+    K in the fewest segments that fit, the deepest ring up to
+    STREAM_STAGES that fits beside them.  `splits` or `stages` force a
+    value (tests and sweeps); a plan that does not fit raises.  Swept on an
+    NVIDIA H100 80GB HBM3 at 700 W by `experiments/gemv_rows.py --sweep` at
+    kernels 13's and 2's shapes of the model paths (PERF.md): one
+    segment ran within 1% of the fastest plan and 3 stages within 2.4% of
+    the best depth at every one-row shape; the block count was not swept
+    (one 16-warp block an SM)."""
+    blocks = stream_blocks(N, sms, swiglu)
+    cap = STREAM_STAGES[stream_rows(rows)] if stages is None else stages
+    for n in ([splits] if splits is not None else range(1, K // 32 // STREAM_ALIGN + 2)):
+        for r in ([stages] if stages is not None else range(cap, 1, -1)):
+            if stream_fits(form, rows, K, N, n, r, blocks, swiglu):
+                return n, r, blocks
+    raise ValueError(f"the decode-row walk takes no plan of {splits} splits, {stages} stages "
+                     f"at K {K}, N {N}, {rows} rows")
 
 
 def form_code(w: QWeight, sb: bool = True) -> int:
@@ -110,6 +214,14 @@ def quant_matmul_plain(x: torch.Tensor, w: QWeight, norm_gain=None, eps: float =
 def quant_matmul(x: torch.Tensor, w: QWeight, norm_gain=None, eps: float = 1e-6):
     """x [..., K] @ W [K, N] -> [..., N] in x.dtype for a quantized W;
     rms_norm(x)*gain first when `norm_gain` is given."""
+    return quant_matmul_at(x, w, norm_gain, eps)
+
+
+def quant_matmul_at(x: torch.Tensor, w: QWeight, norm_gain=None, eps: float = 1e-6,
+                    splits: int | None = None, stages: int | None = None):
+    """quant_matmul with the decode-row walk's K segments or ring depth
+    forced (tests and sweeps; None: `stream_plan`'s).  A CPU tensor runs
+    the plain version whatever the plan."""
     if not x.is_cuda:
         return quant_matmul_plain(x, w, norm_gain, eps)
     form = form_code(w)
@@ -124,6 +236,10 @@ def quant_matmul(x: torch.Tensor, w: QWeight, norm_gain=None, eps: float = 1e-6)
     build.require_cuda(xb, *([] if gain is None else [gain]))
     rows = xb.shape[0]
     y = torch.empty((rows, N), dtype=xb.dtype, device=xb.device)
+    gp = gain.data_ptr() if gain is not None else None
+    stream = not tensor_core_path(xb.dtype, rows) and stream_path(form, rows)
+    build.require((splits is None and stages is None) or stream,
+                  "a plan is forced only on the decode-row walk (group codes, 1-8 rows)")
     if tensor_core_path(xb.dtype, rows):
         splits = build.function("th_quant_matmul_tc_splits", [build.I] * 4)(
             rows, K, N, build.sm_count(xb.device))
@@ -133,17 +249,23 @@ def quant_matmul(x: torch.Tensor, w: QWeight, norm_gain=None, eps: float = 1e-6)
         part = (torch.empty((splits, rows, N), dtype=torch.float32, device=xb.device)
                 if splits > 1 else None)
         fn = build.function("th_quant_matmul_tc", _TC_ARGS)
-        rc = fn(xb.data_ptr(), *weight_args(w, xb),
-                gain.data_ptr() if gain is not None else None, y.data_ptr(),
+        rc = fn(xb.data_ptr(), *weight_args(w, xb), gp, y.data_ptr(),
                 *(t.data_ptr() if t is not None else None for t in (xn, xsum, part)), rows, K,
                 N, form, splits, eps, build.stream_of(xb))
         name = _KERNEL.get(form, "qk_matmul") + "_tc"
+    elif stream:
+        plan = stream_plan(rows, K, N, form, build.sm_count(xb.device), splits=splits,
+                           stages=stages)
+        qs, sc, mn, _ = weight_args(w, xb)
+        fn = build.function("th_quant_matmul_stream", _STREAM_ARGS)
+        rc = fn(xb.data_ptr(), qs, sc, mn, gp, y.data_ptr(), rows, K, N, form, *plan, eps,
+                build.dtype_code(xb.dtype), build.stream_of(xb))
+        name = "qk_matmul_stream"
     else:
         inv = torch.empty((rows,), dtype=torch.float32, device=xb.device)
         fn = build.function("th_quant_matmul", _ARGS)
-        rc = fn(xb.data_ptr(), *weight_args(w, xb), gain.data_ptr() if gain is not None else None,
-                y.data_ptr(), inv.data_ptr(), rows, K, N, form, eps,
-                build.dtype_code(xb.dtype), build.stream_of(xb))
+        rc = fn(xb.data_ptr(), *weight_args(w, xb), gp, y.data_ptr(), inv.data_ptr(), rows, K, N,
+                form, eps, build.dtype_code(xb.dtype), build.stream_of(xb))
         name = _KERNEL.get(form, "qk_matmul")
     build.check(rc, name)
     launches[name] += 1
