@@ -103,8 +103,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      PagedScheduler;
      11b phase 7's file loaded with the flag at float32 sides, its greedy
      stream held against the flat form's, the CLI and `serving --paged`
-     with the flag; 11c runtime/eval.py's perplexity of that file, sb
-     against flat, at float32 and bfloat16 sides.
+     with the flag; 11c runtime/eval.py's perplexity of that file over 2
+     windows, sb against flat, at float32 and bfloat16 sides.
   12. context parallelism (parallel/): 12a, after phase 2, kernels 18
      (decode partials) and 19 (ring-attention step) against their plain
      versions at the 7B's heads, kernel 19 at T=512 on one shard (its
@@ -118,7 +118,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      call timed, 4 empty shards giving (0, -inf, 0) exactly; then kernel 18
      cut into 1, 4, 8 and 16 splits at TinyLlama's heads beside kernel 14
      (B=1 at 2048, B=8 ragged);
-     12b, after phase 10, the 32-layer 7B Q4_0 model through
+     12b, after phase 10, the 7B Q4_0 model's first 16 layers through
      Engine(parallel="cp") over a world-1 NCCL group at n_ctx 2048
      (prompts of 5, 300 and 1500 tokens, 32 greedy tokens each): kernels
      1, 18 (its cluster form) and 19 (its tensor-core walk) launched, 2, 3,
@@ -188,7 +188,7 @@ S_CTX = 512
 # rounding.  The tolerance is 2^-7 of the largest |reference|.
 KERNEL_TOL = 2.0**-7
 # The rows phase 2 times kernels 1 and 13 at: decode (1) and kernel 2's
-# most (8) on the GEMV (kernel 1) and the decode-row walk (kernel 13); 16,
+# most (8) on the decode-row walk; 16,
 # the 8-slot verify's 40 (phase 9c) and a 512-token prefill on the
 # tensor-core path.
 QMATMUL_ROWS = (1, 8, 16, 40, 512)
@@ -256,16 +256,17 @@ PREFILL_CASES = {
 K4, K9 = "flash_attention_tc", "flash_attention_int8_tc"
 CUDA_CORE_PREFILL = ["flash_attention", "flash_attention_int8"]
 # Kernels 1's and 13's launch counters, one a path (ops/cuda/qmatmul.py):
-# kernel 1 the GEMV at decode rows, kernel 13 the decode-row walk
-# (gemv_stream.cuh) there, both the tensor-core GEMM for bf16 x above 8
-# rows.  A path run with prompts or verifies above 8 tokens asks for both.
-# Kernel 13's GEMV (QK_GEMV) takes only f32 x above 8 rows: the bf16 paths
-# forbid it.
-Q4_PATHS = ["q4_matmul", "q4_matmul_tc"]
+# the decode-row walk (gemv_stream.cuh) at decode rows, the tensor-core
+# GEMM for bf16 x above 8 rows.  A path run with prompts or verifies above
+# 8 tokens asks for both.  Their GEMV (Q4_GEMV, QK_GEMV) takes only f32 x
+# above 8 rows: the bf16 paths forbid it.
+Q4_PATHS = ["q4_matmul_stream", "q4_matmul_tc"]
+Q4_GEMV = "q4_matmul"
 QK_PATHS = ["qk_matmul_stream", "qk_matmul_tc"]
 QK_GEMV = "qk_matmul"
 # Kernel 17's two (THAWK_Q4K_SB=1's super-block forms), by the same rule.
-SB_PATHS = ["qk_sb_matmul", "qk_sb_matmul_tc"]
+SB_PATHS = ["qk_sb_matmul_stream", "qk_sb_matmul_tc"]
+SB_GEMV = "qk_sb_matmul"
 # The card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s and
 # dense bf16 tensor-core FLOP/s.  A kernel's bound is the larger of its
 # bytes (each input read once, each output written once) over the first
@@ -288,6 +289,14 @@ INT8_LAYERS = 8
 # its time.
 SPEC_LAYERS = 8
 FUSED_LAYERS = 8
+# Phase 9a's float32 witness holds the target's first 4 of those layers,
+# its kernel-14 A/B decodes 32 tokens a run, phase 12b runs CP on the 7B's
+# first 16 layers and phase 11c scores 2 windows (8, 64, 32 and 4 before a
+# slow host took the script past its time).
+WITNESS_LAYERS = 4
+SPLIT_AB_TOKENS = 32
+CP_LAYERS = 16
+EVAL_WINDOWS = 2
 # Phases 6 and 11a run 16 of the Q4_K_M model's 32 layers (11a all 32
 # before phase 12), its flat form included in 11a's decode windows.
 Q4KM_LAYERS = 16
@@ -480,7 +489,7 @@ def phase_kernels() -> list:
     records = []
     bf = 2  # bytes of a bfloat16 value
 
-    # -- kernel 1: every projection of the path at decode rows (the GEMV),
+    # -- kernel 1: every projection of the path at decode rows (the walk),
     # the verify's and prefill rows (the tensor-core path above 8) --
     cases = []
     shapes = [("wqkv", 4096, 12288, True), ("wo", 4096, 4096, False),
@@ -507,7 +516,8 @@ def phase_kernels() -> list:
                 f"then bf16) + torch.matmul, no norm (2+ calls): {lib:.4f} ms")
         del w, ws
     records += _path_records("q4_matmul", "", "tokenhawk_tpu/ops/pallas/qmatmul.py:807 "
-                             "(q4_matmul); qmatmul.py:874 (q4_matmul_i4)", cases, "wqkv")
+                             "(q4_matmul); qmatmul.py:874 (q4_matmul_i4)", cases, "wqkv",
+                             stream=True)
 
     # -- kernel 2: the decode FFN --
     cases = []
@@ -1188,7 +1198,7 @@ def _sb_kernel_records(randn, case, library, g) -> list:
                     f"{w.nbytes / 1e6:.1f}): {flat_ms:.4f} ms")
         del w, ws, flats
     records = _path_records("qk_sb_matmul", "", "tokenhawk_tpu/ops/pallas/qmatmul.py:637 "
-                            "(qk_sb_matmul)", cases, "wqkv")
+                            "(qk_sb_matmul)", cases, "wqkv", stream=True)
     for rec in records:
         rec["flat_ms"] = next(c["flat_ms"] for c in rec["cases"]
                               if c["shape"] == "wqkv" and c.get("flat_ms") is not None
@@ -1577,8 +1587,15 @@ def _decode_append_records(randn, case) -> list:
 # and g16 entries) and kernel 2 then took the decode-row walk
 # (gemv_stream.cuh: the group sums of a slot as before, the slots summed
 # over the lanes of a warp, K's segments in order): those entries, and
-# kernel 2's at one row, are that tree's; the q4_0, sb and float32 40-row
-# entries stay on the GEMV, bit for bit.
+# kernel 2's at one row, were that tree's.  Kernels 1 and 17 (the q4_0 and
+# sb entries at 1 and 8 rows) then took the walk too, and the walk split
+# each column pair's K over two warps where the pairs leave a last wave
+# (N 6144 here; kernel 2's F 11008): the parts' sums add in order after
+# each part's butterfly.  So the q4_0 entries at 1 and 8 rows, sb at 8 and
+# the g32m at 8 and g16 at 1 and 8 moved and are this tree's; g32m and sb
+# at one row and kernel 2's q4_0 pair kept their bfloat16 outputs bit for
+# bit (a change of a few f32 ulps seldom moves a bfloat16 rounding).  The
+# float32 40-row entries stay on the GEMV, bit for bit.
 PARENT_DIGESTS = {
     'kernel 3 7B':
         '0b730923adc93bb96be8a17ca537594d8a6b6dcfbc80b92751aafae0e157b96d',
@@ -1599,27 +1616,27 @@ PARENT_DIGESTS = {
     'kernel 16 7B Q4_0 Wo':
         '2f9cee5a3964fb3b917e1e4ef2732076a86aaf40dc5f917f2a55ba895cbb740a',
     'GEMV q4_0 rows=1 torch.bfloat16':
-        '8c609b94e7a66a25c035392b7728916bb805236456605b97f58bc0c5c13ffec7',
+        '4935f01b3b8210d2742abb875aabc7a3c876de1fb0a1c1a4fff68d2a2ff6460b',
     'GEMV q4_0 rows=8 torch.bfloat16':
-        '425a9f963f015af326932c578afecff5f533ea3ffedc430904864e5bfba73af4',
+        'ee1d7aa3492448d4fd9932211249ed61efe2ccec0020e6293975267b88bdfe45',
     'GEMV q4_0 rows=40 torch.float32':
         '24fb65013e95744abda9bd8dfd3a4e018e4a11936843b180f2d79029b564edb0',
     'GEMV g32m rows=1 torch.bfloat16':
         '644613dd645a9aa1bebe480575bcfa0bd542aad4c5a30623fc8a7a13a3be6b8f',
     'GEMV g32m rows=8 torch.bfloat16':
-        'fe46a37eacea429ecbc664b811a58f2992f587e1d57746b91b012d4c4ac84143',
+        'e1b3da538edd2766a27f84821049e9461c0eeb1cca9213ce879a5a0cc8eb77e3',
     'GEMV g32m rows=40 torch.float32':
         '5ce9435a216b8092b21da0f25943e24ad1740923928b471290df27f244ae3512',
     'GEMV g16 rows=1 torch.bfloat16':
-        'eb6bee15099e68a088f2ca9a15e9c5a00a3ba2db30ed9b44907783d2a533e515',
+        'a76f33223b786ca5129f43d481fda1f6e32bac0022895f85f3f2f31328ac5fa3',
     'GEMV g16 rows=8 torch.bfloat16':
-        '978de823f4fe11727f26bb2cd03792461948dbdd8ba9922ce958fc3ead39363f',
+        'a4aef11de6bfa16e49227fd4fdb3d2c69e164638c3d22dfad22fbd5dfd71497e',
     'GEMV g16 rows=40 torch.float32':
         'f33717e3edae3e607dfcd841d59aef746b7fb01e9c70b2424dc2f936d2d55cc4',
     'GEMV sb rows=1 torch.bfloat16':
         '0ea3a0bdbca9234858c017051e14f5527cbf64e3eced5da869b401b807f1f2f8',
     'GEMV sb rows=8 torch.bfloat16':
-        '0bb858e21c5d0174e4ec52fbf236568a129bcd4a00410f817a7e83baf67fed18',
+        '07b1e61e561f0c71bdc10c3782276df60d0641cb9ce207f5281e31a479101c9d',
     'GEMV sb rows=40 torch.float32':
         'f2f78be5b3088ebc7e25e434ea5a654c3507508dffd5d745fbb368ea2f180ada',
     'kernel 5 7B':
@@ -2264,8 +2281,8 @@ def _path_records(name, tag, replaces, cases, shape, stream: bool = False) -> li
     """Kernel 1's, 13's or 17's two records from its timed cases (each with
     its bound and library time): the decode rows' (at most 8 rows), timed
     at `shape` and one row, on the GEMV (csrc/qmatmul.cu, gemv.cuh) or,
-    with `stream` (kernel 13), on the decode-row walk (csrc/gemv_stream.cuh,
-    named name_stream), and the tensor-core path's (more than 8 rows;
+    with `stream`, on the decode-row walk (csrc/gemv_stream.cuh, named
+    name_stream), and the tensor-core path's (more than 8 rows;
     csrc/qgemm_tc.cuh, the reference kernel's bf16 dot of `_qdot`), timed
     at `shape` and 512 rows, named name_tc."""
     out = []
@@ -2383,7 +2400,7 @@ def _kquant_slice() -> None:
     _dense_slice(cfg, p_gpu, p_cpu, ids, make_prefill_fn(cfg), "bf16")
     counts = _read_counts([qmatmul, ffn])
     log(f"Q4_K_M slice kernel launches on the GPU: {counts}")
-    _check_path(counts, [*QK_PATHS, *FFN_Q4_K_M], [*Q4_PATHS, QK_GEMV])
+    _check_path(counts, [*QK_PATHS, *FFN_Q4_K_M], [*Q4_PATHS, Q4_GEMV, QK_GEMV])
 
 
 def _dense_slice(cfg, p_gpu, p_cpu, ids, prefill, kv) -> None:
@@ -2520,7 +2537,7 @@ def phase_serve(kernel_mods) -> tuple:
     log(f"kernel launches in the serve run: {counts}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     _check_path(counts, [*Q4_PATHS, FFN_Q4_0, "flash_decode", "flash_decode_append_split", K4],
-                [*QK_PATHS, QK_GEMV, "flash_decode_attend", *CUDA_CORE_PREFILL])
+                [*QK_PATHS, QK_GEMV, Q4_GEMV, "flash_decode_attend", *CUDA_CORE_PREFILL])
     _profile_request(engines[id(greedy)], [1] + rng.integers(3, cfg.n_vocab, size=4).tolist())
     _path_spread(cfg, params)
     return counts, params
@@ -2795,7 +2812,7 @@ def _check_routes() -> str:
         tc = cuda and qmatmul.tensor_core_path(dtype, n)
         stream = cuda and not tc and qmatmul.stream_path(form, n)
         name = {0: "q4_matmul", qmatmul.SB: "qk_sb_matmul"}.get(form, "qk_matmul")
-        want = [name + "_tc" if tc else "qk_matmul_stream" if stream else name] if cuda else []
+        want = [name + ("_tc" if tc else "_stream" if stream else "")] if cuda else []
         if ticked != want:
             raise AssertionError(f"a projection of {n} rows ({dtype}, form "
                                  f"{qmatmul.FORM_NAMES[form]}) ticked {ticked}, not {want}")
@@ -3248,7 +3265,8 @@ def phase_gguf(tmp: str, kernel_mods) -> str:
         if rc != 0:
             raise AssertionError(f"cli {extra} returned {rc}")
         _check_path(counts, ["qk_matmul_stream", *FFN_Q4_K_M, "flash_decode_int8"],
-                    [*Q4_PATHS, QK_GEMV, "flash_decode", *SB_PATHS, *FFN_SB])
+                    [*Q4_PATHS, Q4_GEMV, QK_GEMV, "flash_decode", *SB_PATHS, SB_GEMV,
+                     *FFN_SB])
         log(f"cli on the GGUF {' '.join(extra)}: exit 0, kernel launches {counts}")
 
     # The server's copy swaps the head rows of the third token and
@@ -3411,7 +3429,8 @@ def phase_q4k_sb(kernel_mods, engine_path, paged_path) -> tuple:
         log(f"  {form}: {w['device_ms']:.4f} device ms a token, idle {w['idle']:.1%}, "
             f"{w['tok_s']:.1f} tok/s (profiled)")
     sb_counts, flat_counts = windows["sb"][0]["counts"], windows["flat"][0]["counts"]
-    if not sb_counts.get("qk_sb_matmul") or flat_counts.get("qk_sb_matmul"):
+    if (not sb_counts.get("qk_sb_matmul_stream") or flat_counts.get("qk_sb_matmul_stream")
+            or sb_counts.get(SB_GEMV)):
         raise AssertionError(f"decode windows: sb {sb_counts}, flat {flat_counts}")
     log("device ms a token at B=1, 300+ live, sb against the flat form of the same codes: "
         + ", ".join(f"{f} {[round(w['device_ms'], 4) for w in ws]}"
@@ -3501,8 +3520,9 @@ def phase_gguf_sb(path: str, tmp: str) -> None:
                           prompt, len(stream))
     _check_greedy_identity("11b sb stream against the flat form's", stream, forms)
 
-    log("== phase 11c: runtime/eval.perplexity, sb against flat, 4 windows of 512 tokens")
-    toks = np.random.default_rng(SEED + 12).integers(0, cfg.n_vocab, 4 * 512).tolist()
+    log(f"== phase 11c: runtime/eval.perplexity, sb against flat, {EVAL_WINDOWS} windows of 512 "
+        "tokens")
+    toks = np.random.default_rng(SEED + 12).integers(0, cfg.n_vocab, EVAL_WINDOWS * 512).tolist()
 
     def nll(p, label):
         torch.cuda.synchronize()
@@ -3510,7 +3530,7 @@ def phase_gguf_sb(path: str, tmp: str) -> None:
         v = th_eval.mean_nll(cfg, p, toks, window=512)
         torch.cuda.synchronize()
         log(f"  {label}: perplexity {np.exp(v):.4f} (mean nll {v:.6f}), "
-            f"{(time.perf_counter() - t0) / 4:.3f} s a window")
+            f"{(time.perf_counter() - t0) / EVAL_WINDOWS:.3f} s a window")
         return v
 
     # A window's 512 rows of bfloat16 activations take the tensor-core path,
@@ -3525,7 +3545,8 @@ def phase_gguf_sb(path: str, tmp: str) -> None:
         if not all(np.isfinite(v) for v in got.values()):
             raise AssertionError(f"perplexity not finite: {got}")
     _check_path(_read_counts([qmatmul]), ["qk_matmul_tc", "qk_sb_matmul_tc"],
-                [*Q4_PATHS, QK_GEMV, "qk_matmul_stream", "qk_sb_matmul"])
+                [*Q4_PATHS, Q4_GEMV, QK_GEMV, "qk_matmul_stream", "qk_sb_matmul_stream",
+                 SB_GEMV])
     # float32 sides and activations: the two forms hold the same weights, so
     # their scores differ by summation order alone.
     _reset_counts([qmatmul])
@@ -3580,7 +3601,8 @@ def phase_dense_7b(kernel_mods) -> dict:
         f"roofline); allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB")
     counts = _engine_requests(cfg, params, kernel_mods, (5, 300),
                               ["flash_decode_attend", K4],
-                              [*Q4_PATHS, *QK_PATHS, QK_GEMV, "flash_decode", *ffn.launches,
+                              [*Q4_PATHS, Q4_GEMV, *QK_PATHS, QK_GEMV, "flash_decode",
+                               *ffn.launches,
                                *CUDA_CORE_PREFILL])
     del params
     torch.cuda.empty_cache()
@@ -3709,8 +3731,8 @@ def _f32_identity_witness(params, draft, cfg, prompts, kernel_mods) -> None:
     from tokenhawk_tpu_torch.runtime.engine import Engine
     from tokenhawk_tpu_torch.runtime.speculative import SpeculativeEngine
 
-    log("== phase 9a, float32 witness: the 9a target with float32 activations and cache, the "
-        "draft's first 2 layers in float32, gamma 4")
+    log(f"== phase 9a, float32 witness: the 9a target's first {cfg.n_layer} layers with float32 "
+        "activations and cache, the draft's first 2 layers in float32, gamma 4")
     target = _float32(params)
     spec = SpeculativeEngine(cfg, target, _tinyllama(2),
                              _float32(dataclasses.replace(draft, layers=draft.layers[:2])),
@@ -3763,7 +3785,7 @@ def _split_ab(spec, prompt) -> None:
     try:
         for form in ("split", "one block", "one block", "split"):
             fd.decode_splits = auto if form == "split" else (lambda *shape: 1)
-            _, _, t = _spec_engine_run(spec, prompt, f"9a kernel 14 {form}")
+            _, _, t = _spec_engine_run(spec, prompt, f"9a kernel 14 {form}", SPLIT_AB_TOKENS)
             tps[form].append(t)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 spec.generate(prompt, max_new_tokens=8)
@@ -3821,8 +3843,8 @@ def phase_speculation(params, kernel_mods, model_path: str, tmp: str) -> dict:
     counts = _read_counts(kernel_mods)
     log(f"9a kernel launches: {counts}")
     _check_path(counts, [*Q4_PATHS, FFN_Q4_0, K4, "flash_decode_attend"],
-                ["flash_decode", *QK_PATHS, QK_GEMV, "flash_decode_int8", K9, "paged_decode",
-                 "paged_append", "gather_pages", *CUDA_CORE_PREFILL])
+                ["flash_decode", Q4_GEMV, *QK_PATHS, QK_GEMV, "flash_decode_int8", K9,
+                 "paged_decode", "paged_append", "gather_pages", *CUDA_CORE_PREFILL])
     _check_draft_splits("9a", counts)
     for p, (toks, _, _) in zip(prompts, runs):
         _check_greedy_identity(f"9a prompt={len(p)}", toks,
@@ -3830,7 +3852,8 @@ def phase_speculation(params, kernel_mods, model_path: str, tmp: str) -> dict:
     wall, busy = _profiled(lambda: spec.generate(prompts[0], max_new_tokens=16))
     log(f"9a profiled request (5-token prompt, 16 tokens, profiler on): wall {wall * 1e3:.1f} ms, "
         f"device busy {busy * 1e3:.1f} ms, idle share {1 - busy / wall:.1%}")
-    _f32_identity_witness(params, draft, cfg, prompts, kernel_mods)
+    _f32_identity_witness(dataclasses.replace(params, layers=params.layers[:WITNESS_LAYERS]),
+                          draft, _seven_b(WITNESS_LAYERS), prompts, kernel_mods)
     _split_ab(spec, prompts[1])
 
     log("== phase 9b: self-draft, a 2-layer 7B-width Q4_0 target and its weights dequantized to "
@@ -3930,8 +3953,8 @@ def _paged_speculation(params, draft, cfg, dcfg, kernel_mods) -> None:
     if bad:
         raise AssertionError(f"requests that did not finish cleanly: {bad}")
     _check_path(counts, [*Q4_PATHS, K4, "flash_decode_attend", "paged_append", "gather_pages"],
-                ["paged_decode", "flash_decode", *QK_PATHS, QK_GEMV, "flash_decode_int8",
-                 "paged_decode_int8", "paged_append_int8", "gather_pages_int8",
+                ["paged_decode", "flash_decode", Q4_GEMV, *QK_PATHS, QK_GEMV,
+                 "flash_decode_int8", "paged_decode_int8", "paged_append_int8", "gather_pages_int8",
                  *CUDA_CORE_PREFILL])
     _check_draft_splits("9c", counts)
     parked = set(sched._pc.values())
@@ -4112,10 +4135,11 @@ def phase_fused_engine(params, kernel_mods) -> dict:
     # Launches per decode token: wqkv and the head are kernel 1 in every form;
     # kernel 3 at B=1 over the 7B's 32 KV heads takes its split form.
     k3 = {"flash_decode": L, "flash_decode_append_split": L}
-    per_token = {"neither": {"q4_matmul": 2 * L + 1, **k3, FFN_Q4_0: L},
-                 "owo": {"q4_matmul": L + 1, **k3, OWO_Q4_0: L},
-                 "attn": {"q4_matmul": L + 1, ATTN_WO: L, FFN_Q4_0: L},
-                 "both": {"q4_matmul": L + 1, ATTN_WO: L, FFN_Q4_0: L}}
+    k1 = Q4_PATHS[0]
+    per_token = {"neither": {k1: 2 * L + 1, **k3, FFN_Q4_0: L},
+                 "owo": {k1: L + 1, **k3, OWO_Q4_0: L},
+                 "attn": {k1: L + 1, ATTN_WO: L, FFN_Q4_0: L},
+                 "both": {k1: L + 1, ATTN_WO: L, FFN_Q4_0: L}}
     streams, requests, windows = {}, {}, {k: [] for k in forms}
     order = ["neither", "owo", "attn", "both"]
     try:
@@ -4201,7 +4225,7 @@ def phase_fused_paged(params, kernel_mods, bf16_paged, off_path) -> dict:
     try:
         counts, sched = phase_paged_serve(
             params, cfg, kernel_mods, "bf16", [*Q4_PATHS, OWO_Q4_0, K4] + bf16_paged,
-            [FFN_Q4_0, ATTN_WO, "flash_decode", *CUDA_CORE_PREFILL] + off_path,
+            [FFN_Q4_0, ATTN_WO, "flash_decode", Q4_GEMV, *CUDA_CORE_PREFILL] + off_path,
             "phase 10b: paged serve with OWO (kernel 15), LLaMA-7B Q4_0, 32 layers")
     finally:
         params.fusions = Fusions()
@@ -4220,7 +4244,8 @@ def phase_tinyllama_paged(kernel_mods, bf16_paged, int8_paged, dense_off, tmp: s
 
     cfg = _tinyllama(22, n_ctx=2048)
     params, _ = _model(cfg, "q4_0", "phase 10c: TinyLlama widths, Q4_0, 22 layers")
-    base_off = ([*QK_PATHS, QK_GEMV, "flash_decode", OWO_Q4_0, ATTN_WO, *CUDA_CORE_PREFILL]
+    base_off = ([Q4_GEMV, *QK_PATHS, QK_GEMV, "flash_decode", OWO_Q4_0, ATTN_WO,
+                 *CUDA_CORE_PREFILL]
                 + dense_off)
     counts = {}
     for kv, on, off in (("bf16", bf16_paged, int8_paged), ("int8", int8_paged, bf16_paged)):
@@ -4274,8 +4299,9 @@ def _cp_forms(dense, cp, prompt, n: int) -> tuple:
 
 
 def phase_cp_engine(params, kernel_mods, tmp: str) -> dict:
-    """Phase 12b: the 32-layer 7B Q4_0 model through Engine(parallel="cp")
-    at n_ctx 2048 over a NCCL group of one rank (one H100): prompts of 5,
+    """Phase 12b: the 7B Q4_0 model's first CP_LAYERS layers through
+    Engine(parallel="cp") at n_ctx 2048 over a NCCL group of one rank (one
+    H100): prompts of 5,
     300 and 1500 tokens, 32 greedy tokens each.  Kernels 1, 18 and 19
     launch; kernels 2, 3, 4 and 14 do not.  Each stream is held against
     the dense Engine's (near-ties apart: kernel 19 takes the scaled q in
@@ -4290,9 +4316,10 @@ def phase_cp_engine(params, kernel_mods, tmp: str) -> dict:
     from tokenhawk_tpu_torch.runtime.engine import Engine
     from tokenhawk_tpu_torch.tokenizer import byte_fallback_vocab
 
-    log("== phase 12b: Engine(parallel='cp'), NCCL group of 1 rank, LLaMA-7B Q4_0, 32 layers, "
-        "bf16 KV, n_ctx 2048")
-    cfg = dataclasses.replace(_seven_b(32), n_ctx=2048)
+    log(f"== phase 12b: Engine(parallel='cp'), NCCL group of 1 rank, LLaMA-7B Q4_0, {CP_LAYERS} "
+        "layers, bf16 KV, n_ctx 2048")
+    cfg = dataclasses.replace(_seven_b(CP_LAYERS), n_ctx=2048)
+    params = dataclasses.replace(params, layers=params.layers[:CP_LAYERS])
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store", rank=0,
                             world_size=1)
@@ -4311,8 +4338,8 @@ def phase_cp_engine(params, kernel_mods, tmp: str) -> dict:
         log(f"CP kernel launches over the 3 requests: {counts}")
         _check_path(counts, [*Q4_PATHS, "flash_decode_stats", "flash_decode_stats_split",
                              "flash_attention_stats_tc"],
-                    [FFN_Q4_0, "flash_decode", K4, "flash_attention", "flash_decode_attend",
-                     "flash_attention_stats"])
+                    [FFN_Q4_0, Q4_GEMV, "flash_decode", K4, "flash_attention",
+                     "flash_decode_attend", "flash_attention_stats"])
         rates = {"cp": [], "dense": []}
         for p, r in zip(prompts, runs):
             d = dense.generate(p, max_new_tokens=32)
@@ -4423,10 +4450,10 @@ def phase_bench(kernel_mods) -> int:
     runs = {}
     for mode, argv, metric, on_path in (
             ("decode", ["--tokens", "128"], "llama7b_q4_0_decode_tokens_per_sec",
-             ["q4_matmul", FFN_Q4_0, "flash_decode", K4]),
+             [Q4_PATHS[0], FFN_Q4_0, "flash_decode", K4]),
             ("serve", ["--batch", "8", "--requests", "16", "--tokens", "64"],
              "llama7b_q4_0_serve_agg_tokens_per_sec_b8",
-             ["q4_matmul", FFN_Q4_0, K4, "paged_decode", "paged_append"])):
+             [Q4_PATHS[0], FFN_Q4_0, K4, "paged_decode", "paged_append"])):
         args = bench.parse_args(["--mode", mode, *argv])
         _reset_counts(mods)
         t0 = time.perf_counter()
@@ -4589,7 +4616,8 @@ def main() -> int:
     paged_counts, sched = phase_paged_serve(
         params, cfg_2k, every, "bf16",
         [*Q4_PATHS, FFN_Q4_0, K4, "paged_decode_split"] + bf16_paged,
-        [*QK_PATHS, QK_GEMV, "flash_decode", *CUDA_CORE_PREFILL] + int8_dense + int8_paged,
+        [Q4_GEMV, *QK_PATHS, QK_GEMV, "flash_decode", *CUDA_CORE_PREFILL] + int8_dense
+        + int8_paged,
         "phase 4b: paged serve, LLaMA-7B Q4_0, 32 layers")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "llama7b-2layer-q4_0.bin")
@@ -4602,12 +4630,14 @@ def main() -> int:
         params_i8 = dataclasses.replace(params, layers=params.layers[:INT8_LAYERS])
         int8_counts = phase_int8_serve(cfg_i8, params_i8, every,
                                        [*Q4_PATHS, FFN_Q4_0] + int8_dense,
-                                       [*QK_PATHS, QK_GEMV, "flash_decode", K4, *CUDA_CORE_PREFILL]
+                                       [Q4_GEMV, *QK_PATHS, QK_GEMV, "flash_decode", K4,
+                                        *CUDA_CORE_PREFILL]
                                        + bf16_paged + int8_paged)
         int8_paged_counts, sched = phase_paged_serve(
             params_i8, cfg_i8, every, "int8",
             [*Q4_PATHS, FFN_Q4_0, K4] + int8_paged,
-            [*QK_PATHS, QK_GEMV, "flash_decode", *CUDA_CORE_PREFILL] + bf16_paged + int8_dense,
+            [Q4_GEMV, *QK_PATHS, QK_GEMV, "flash_decode", *CUDA_CORE_PREFILL] + bf16_paged
+            + int8_dense,
             f"phase 4bi: paged serve, LLaMA-7B Q4_0 widths, {INT8_LAYERS} layers")
         phase_cli(path)
         sched.cache = None
@@ -4632,16 +4662,17 @@ def main() -> int:
         # them (kernel 2); kernel 1 (Q4_0) stays off.
         def engine_path(on, off):
             return ([*QK_PATHS, *on, "flash_decode", K4],
-                    [*Q4_PATHS, QK_GEMV, FFN_Q4_0, "flash_decode_attend", *off,
+                    [*Q4_PATHS, Q4_GEMV, QK_GEMV, FFN_Q4_0, "flash_decode_attend", *off,
                      *CUDA_CORE_PREFILL] + bf16_paged + int8_dense + int8_paged)
 
         def paged_path(on, off):
             return ([*QK_PATHS, *on, K4] + bf16_paged,
-                    [*Q4_PATHS, QK_GEMV, FFN_Q4_0, "flash_decode", *off, *CUDA_CORE_PREFILL]
+                    [*Q4_PATHS, Q4_GEMV, QK_GEMV, FFN_Q4_0, "flash_decode", *off,
+                     *CUDA_CORE_PREFILL]
                     + int8_dense + int8_paged)
 
         # Without THAWK_Q4K_SB the super-block kernels stay off.
-        flat_off = [*SB_PATHS, *FFN_SB]
+        flat_off = [*SB_PATHS, SB_GEMV, *FFN_SB]
         q4km_counts, _ = phase_q4_k_m(every, engine_path(FFN_Q4_K_M, flat_off),
                                       paged_path(FFN_Q4_K_M, flat_off))
         q8_counts = phase_q8_0(every, engine_path([FFN_Q8_0], flat_off))
@@ -4649,8 +4680,8 @@ def main() -> int:
         # Phase 11: the Q4_K super-block forms (kernel 17, kernel 2 with an
         # sb w13); 11a on phase 6's model, 11b and 11c on phase 7's file.
         sb_on = [*SB_PATHS, *FFN_SB]
-        sb_counts, _ = phase_q4k_sb(every, engine_path(sb_on, FFN_Q4_K_M),
-                                    paged_path(sb_on, FFN_Q4_K_M))
+        sb_counts, _ = phase_q4k_sb(every, engine_path(sb_on, [*FFN_Q4_K_M, SB_GEMV]),
+                                    paged_path(sb_on, [*FFN_Q4_K_M, SB_GEMV]))
         phase_gguf_sb(gguf_path, tmp)
     # Phase 13: the bench (kernel 20 on its path) and the experiment kernels
     # 21 and 22, after every earlier phase's model is gone.
@@ -4669,7 +4700,8 @@ def main() -> int:
     # with OWO for kernel 15 and with ATTN for kernel 16; phase 12b's CP
     # Engine for kernels 18 and 19 (kernel 19's tensor-core walk: its bf16
     # K/V).
-    launches = {"q4_matmul": counts["q4_matmul"], "q4_matmul_tc": counts["q4_matmul_tc"],
+    launches = {"q4_matmul_stream": counts["q4_matmul_stream"],
+                "q4_matmul_tc": counts["q4_matmul_tc"],
                 "fused_ffn": counts[FFN_Q4_0],
                 "flash_decode_append": counts["flash_decode"],
                 "flash_decode_append_split": counts["flash_decode_append_split"],
@@ -4681,7 +4713,7 @@ def main() -> int:
                 "fused_ffn[q4_k/q6_k]": q4km_counts[FFN_Q4_K_M[0]],
                 "fused_ffn[q4_k/q4_k]": q4km_counts[FFN_Q4_K_M[1]],
                 "fused_ffn[q8_0/q8_0]": q8_counts[FFN_Q8_0],
-                "qk_sb_matmul": sb_counts["qk_sb_matmul"],
+                "qk_sb_matmul_stream": sb_counts["qk_sb_matmul_stream"],
                 "qk_sb_matmul_tc": sb_counts["qk_sb_matmul_tc"],
                 "fused_ffn[q4k_sb/q6_k]": sb_counts[FFN_SB[0]],
                 "fused_ffn[q4k_sb/q4_k]": sb_counts[FFN_SB[1]],

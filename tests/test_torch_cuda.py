@@ -58,12 +58,12 @@ def _err(a, b):
 
 
 def _path(kernel, rows, dtype):
-    """The launch counter of kernel 1's or 13's call: the tensor-core path
-    for bf16 x above 8 rows, kernel 13's decode-row walk at 1 to 8 rows,
-    the GEMV otherwise."""
-    if dtype == torch.bfloat16 and rows > 8:
-        return kernel + "_tc"
-    return "qk_matmul_stream" if kernel == "qk_matmul" and rows <= 8 else kernel
+    """The launch counter of kernel 1's, 13's or 17's call: the decode-row
+    walk at 1 to 8 rows, the tensor-core path for bf16 x above 8 rows, the
+    GEMV for f32 x above 8."""
+    if rows <= 8:
+        return kernel + "_stream"
+    return kernel + "_tc" if dtype == torch.bfloat16 else kernel
 
 
 @pytest.mark.parametrize("K,N", [(4096, 4096), (11008, 512), (704, 256)])
@@ -105,9 +105,12 @@ QK_FORMS = [(32, False), (32, True), (16, False), (16, True)]
 
 
 def _weight(form, K, N, g, dev):
-    """A random [K, N] QWeight of `form`: "q4_0" or a (G, mins) pair."""
+    """A random [K, N] QWeight of `form`: "q4_0", "sb" (Q4_K super-blocks)
+    or a (G, mins) pair."""
     if form == "q4_0":
         return QWeight.quantize(torch.randn(K, N, generator=g, device=dev) * 0.02)
+    if form == "sb":
+        return QWeight.random(K, N, "q4k_sb", g, dev)
     group, mins = form
     codes = torch.randint(-32, 32, (N, K), generator=g, device=dev, dtype=torch.int8)
     s = (0.5 + torch.rand(N, K // group, generator=g, device=dev)) * 1e-3
@@ -190,34 +193,43 @@ STREAM_SHAPES = [(4096, 137), (800, 100), (11008, 72)]
 
 
 def _plans(form, rows, K, N, swiglu=False):
-    """The rule's plan (None) and every (splits, stages) of 1-4 segments and
-    2, 3 or 6 stages that fits."""
-    blocks = qmatmul.stream_blocks(N, qmatmul.build.sm_count(cuda_device()), swiglu)
+    """The rule's plan (None), every (splits, stages) of 1-4 segments and 2,
+    3 or 6 stages that fits, and every (1, stages, parts) of 2 or 4 parts
+    that fits."""
+    sms = qmatmul.build.sm_count(cuda_device())
+    blocks = qmatmul.stream_blocks(N, sms, swiglu)
     return [None] + [(n, r) for n in range(1, 5) for r in (2, 3, 6)
-                     if qmatmul.stream_fits(form, rows, K, N, n, r, blocks, swiglu)]
+                     if qmatmul.stream_fits(form, rows, K, N, n, r, blocks, swiglu)] + [
+        (1, r, p) for p in (2, 4) for r in (2, 3)
+        if qmatmul.stream_fits(form, rows, K, N, 1, r, qmatmul.stream_blocks(N, sms, swiglu, p),
+                               swiglu, p)]
 
 
-@pytest.mark.parametrize("form", QK_FORMS)
+@pytest.mark.parametrize("form", ["q4_0", *QK_FORMS, "sb"])
 @pytest.mark.parametrize("rows", range(1, 9))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_stream_matmul_matches_plain_at_every_plan(form, rows, dtype):
-    """Kernel 13 on the decode-row walk at 1-8 rows, with and without the
-    norm, at the rule's plan and at every plan of 1-4 K segments that fits;
-    each call one launch of the walk's counter."""
+    """Kernels 1, 13 and 17 on the decode-row walk at 1-8 rows, with and
+    without the norm, at the rule's plan and at every plan of 1-4 K
+    segments or 2 and 4 parts that fits; each call one launch of its
+    kernel's walk counter."""
     dev = cuda_device()
     g = torch.Generator(device=dev).manual_seed(rows + 100)
     for K, N in STREAM_SHAPES:
+        if form == "sb" and K % 256:
+            continue
         w = _weight(form, K, N, g, dev)
+        key = _path({"q4_0": "q4_matmul", "sb": "qk_sb_matmul"}.get(form, "qk_matmul"), rows,
+                    dtype)
         x = torch.randn(rows, K, generator=g, device=dev).to(dtype)
         gain = (1 + 0.1 * torch.randn(K, generator=g, device=dev)).to(dtype)
         for ng in (None, gain):
             want = qmatmul.quant_matmul_plain(x, w, ng)
             for plan in _plans(qmatmul.form_code(w), rows, K, N):
                 before = dict(qmatmul.launches)
-                got = qmatmul.quant_matmul_at(x, w, ng, **dict(zip(("splits", "stages"),
+                got = qmatmul.quant_matmul_at(x, w, ng, **dict(zip(("splits", "stages", "parts"),
                                                                    plan or ())))
-                assert qmatmul.launches == {**before, "qk_matmul_stream":
-                                            before["qk_matmul_stream"] + 1}
+                assert qmatmul.launches == {**before, key: before[key] + 1}
                 assert got.shape == (rows, N) and got.dtype == dtype
                 assert _err(got, want) <= _tol(want, dtype), (K, N, plan, ng is None)
 
@@ -275,6 +287,37 @@ def test_stream_ffn_matches_plain_at_every_plan(pair, rows, dtype):
             want, dtype), plans
 
 
+def test_stream_launches_replay_under_graph_capture():
+    """The walk's launches (programmatic dependents of the kernel before
+    them) captured into a CUDA graph: kernels 1, 17 and 2 back to back, the
+    replays equal to the eager calls bit for bit."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(21)
+    w1 = _weight("q4_0", 4096, 4096, g, dev)
+    w17 = _weight("sb", 4096, 6144, g, dev)
+    w13, w2 = _weight("q4_0", 4096, 2 * 2752, g, dev), _weight((16, False), 2752, 4096, g, dev)
+    gain = (1 + 0.1 * torch.randn(4096, generator=g, device=dev)).to(torch.bfloat16)
+    x = torch.randn(1, 4096, generator=g, device=dev).to(torch.bfloat16)
+
+    def step(v):
+        h = ffn.fused_ffn(qmatmul.quant_matmul(v, w1), w13, w2, gain)
+        return qmatmul.quant_matmul(h, w17, gain)
+
+    eager = step(x)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step(x)  # warm-up off the capture stream, as torch.cuda.graphs asks
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step(x)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize(dev)
+    assert torch.equal(out, eager)
+
+
 def test_stream_refuses_what_it_does_not_take():
     """A forced plan the walk cannot take, or one forced on another path,
     raises."""
@@ -282,14 +325,13 @@ def test_stream_refuses_what_it_does_not_take():
     g = torch.Generator(device=dev).manual_seed(3)
     w = _weight((32, True), 4096, 64, g, dev)
     x = torch.randn(1, 4096, device=dev)
-    for plan in ({"splits": 0}, {"stages": 1}, {"stages": 7}):
+    for plan in ({"splits": 0}, {"stages": 1}, {"stages": 7}, {"parts": 3},
+                 {"splits": 2, "parts": 2}):
         with pytest.raises(ValueError):
             qmatmul.quant_matmul_at(x, w, **plan)
     with pytest.raises(ValueError):  # 800 inputs: 25 slots hold 4 segments of 8, not 5
         qmatmul.quant_matmul_at(torch.randn(1, 800, device=dev),
                                 _weight((32, True), 800, 64, g, dev), splits=5)
-    with pytest.raises(ValueError):  # Q4_0 keeps the GEMV
-        qmatmul.quant_matmul_at(x, _weight("q4_0", 4096, 64, g, dev), splits=1)
     with pytest.raises(ValueError):  # 9 rows are not decode rows
         qmatmul.quant_matmul_at(torch.randn(9, 4096, device=dev), w, splits=1)
 

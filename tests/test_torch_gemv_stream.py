@@ -1,20 +1,24 @@
-"""The decode-row walk of kernels 2 and 13 (csrc/gemv_stream.cuh), on the CPU.
+"""The decode-row walk of kernels 1, 2, 13 and 17 (csrc/gemv_stream.cuh), on the CPU.
 
 A CUDA kernel cannot run here, so this file repeats the walk's order of
 arithmetic in torch (`walk`), f32 throughout, and holds it to the JAX
 package:
   - the host's rule (`qmatmul.stream_plan`: blocks, K segments, ring
-    depth) and its segments as host integers, and its constants against
-    the CUDA source's;
+    depth, parts) and its segments as host integers, its tail rule (each
+    column pair's K split over 1, 2 or 4 warps so that the most tasks a
+    warp takes is within 1.1x the mean) at the model paths' shapes, and
+    its constants against the CUDA source's;
   - the walk's order: K in the plan's segments (slots of 32 inputs, a
-    multiple of 8 each), each segment's groups' dots of the codes scaled
-    once, the mins as m times the group's input sum, the segments' sums
-    added in order; the norm from the whole row's sum of squares, x
-    normalised as (x * inv) * gain: against the reference's `matmul`
-    under the pallas_interpret backend (its Pallas q8_matmul / qk_matmul
-    in interpret mode) over Q8_0, Q4_K, Q5_K, Q6_K and Q2_K at rows 1, 3
-    and 8, with and without the norm, at every segment count the walk
-    takes at K 2048; and kernel 2's two launches (gate/up with the norm and
+    multiple of 8 each), or one segment in the plan's parts, each run's
+    groups' dots of the codes scaled once, the mins as m times the group's
+    input sum, the runs' sums added in order; the norm from the whole
+    row's sum of squares, x normalised as (x * inv) * gain: against the
+    reference's `matmul` under the pallas_interpret backend (its Pallas
+    q4_matmul / q8_matmul / qk_matmul in interpret mode) over Q4_0, Q8_0,
+    Q4_K, Q5_K, Q6_K and Q2_K, and its Pallas qk_sb_matmul in interpret
+    mode over the Q4_K super-blocks, at rows 1, 3 and 8, with and without
+    the norm, at every segment count and every part count the walk takes
+    at K 2048; and kernel 2's two launches (gate/up with the norm and
     SwiGLU into f32 h, down with the residual) against the reference's
     fused FFN in interpret mode over group-code pairings and `_ffn_block`
     over Q4_0, at every pair of segment counts.  f32 on both sides, so
@@ -40,6 +44,7 @@ from tokenhawk_tpu.ops import dispatch
 from tokenhawk_tpu.ops import qweight as j_qw
 from tokenhawk_tpu.ops.linear import matmul as j_matmul
 from tokenhawk_tpu.ops.pallas.ffn import fused_ffn as j_fused_ffn
+from tokenhawk_tpu.ops.pallas.qmatmul import quant_matmul as j_quant_matmul
 from tokenhawk_tpu_torch.ggml.format import GGMLType as TType
 from tokenhawk_tpu_torch.ggml.quants import QuantizedTensor as TQuantizedTensor
 from tokenhawk_tpu_torch.ggml.synth import random_kquant
@@ -49,7 +54,7 @@ from tokenhawk_tpu_torch.ops.qweight import QWeight
 from torch_helpers import jax_q4, t
 
 K, N = 2048, 128
-KINDS = ["Q8_0", "Q4_K", "Q5_K", "Q6_K", "Q2_K"]
+KINDS = ["Q4_0", "Q8_0", "Q4_K", "Q5_K", "Q6_K", "Q2_K", "Q4_K sb"]
 EPS = 1e-6
 H100_SMS = 132
 
@@ -60,9 +65,15 @@ def _splits(K):
 
 
 def _ranges(K, splits):
-    """The segments' slot ranges [lo, hi), in order (gemv_stream.cuh)."""
+    """The segments' (or one segment's parts') slot ranges [lo, hi), in
+    order (gemv_stream.cuh)."""
     slots, per = K // 32, qmatmul.stream_segment(K, splits)
     return [(min(slots, r * per), min(slots, r * per + per)) for r in range(splits)]
+
+
+def _parts(K):
+    """Every count of parts the walk takes at K in one segment."""
+    return [p for p in qmatmul.STREAM_PARTS if (p - 1) * qmatmul.stream_segment(K, p) < K // 32]
 
 
 def _sides(w: QWeight):
@@ -80,15 +91,17 @@ def _sides(w: QWeight):
     return c - 8.0, 32, s, 8.0 * s - m
 
 
-def walk(x, w: QWeight, splits, gain=None, eps=EPS, residual=None, swiglu=False):
+def walk(x, w: QWeight, splits, gain=None, eps=EPS, residual=None, swiglu=False, parts=1):
     """The walk's arithmetic in torch, f32: x [B, K] over w [K, N] in
-    `splits` K segments; with a gain x normalised as (x * inv) * gain from
-    the whole row's sum of squares; each segment's groups' dots scaled once
-    (and the mins on the group sums), the segments' sums added in order;
-    then the epilogue (SwiGLU into f32, or the residual added)."""
+    `splits` K segments, or in one segment split over `parts` warps; with a
+    gain x normalised as (x * inv) * gain from the whole row's sum of
+    squares; each segment's (or part's) groups' dots scaled once (and the
+    mins on the group sums), their sums added in order (part 0's, then
+    1's, ...); then the epilogue (SwiGLU into f32, or the residual added)."""
+    assert parts == 1 or splits == 1
     x = x.float()
     Kw = x.shape[1]
-    ranges = _ranges(Kw, splits)
+    ranges = _ranges(Kw, max(splits, parts))
     if gain is not None:
         x = (x * torch.rsqrt((x * x).sum(-1) / Kw + eps)[:, None]) * gain.float()
     q, G, s, m = _sides(w)
@@ -109,11 +122,12 @@ def walk(x, w: QWeight, splits, gain=None, eps=EPS, residual=None, swiglu=False)
     return acc if residual is None else residual.float() + acc
 
 
-def kernel2(x, w13, w2, gain, splits):
+def kernel2(x, w13, w2, gain, plans):
     """Kernel 2's two launches: gate/up (norm, SwiGLU into f32 h), then down
-    with x's residual, each at its split."""
-    h = walk(x, w13, splits[0], gain=gain, swiglu=True)
-    return walk(h, w2, splits[1], residual=x)
+    with x's residual, each at its (splits, parts)."""
+    (sa, pa), (sb, pb) = plans
+    h = walk(x, w13, sa, gain=gain, swiglu=True, parts=pa)
+    return walk(h, w2, sb, residual=x, parts=pb)
 
 
 # -- the rule as host integers ------------------------------------------------
@@ -121,21 +135,24 @@ def kernel2(x, w13, w2, gain, splits):
 
 def test_stream_constants_are_the_sources():
     """The host's mirror of gemv_stream.cuh: its layout constants and each
-    form's kBytes (codes, then scales and mins of 32 slots; sb: sc, mn, d,
-    dmin)."""
+    form's stage (64 slots of the 4-bit forms, 32 of the group codes) and
+    kBytes (codes, then scales and mins; sb: sc, mn, d, dmin)."""
     src = (Path(qmatmul.__file__).parents[2] / "csrc" / "gemv_stream.cuh").read_text()
     consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     assert (consts["kWarps"], consts["kSlots"], consts["kSlotFloats"], consts["kAlign"],
             consts["kMaxStages"], consts["kRedBytes"], consts["kMaxSmem"]) == (
         qmatmul.STREAM_WARPS, 32, qmatmul.STREAM_SLOT_FLOATS, qmatmul.STREAM_ALIGN,
         qmatmul.STREAM_MAX_STAGES, qmatmul.STREAM_RED, qmatmul.STREAM_MAX_SMEM)
-    assert "kBytes = kSlots * 16 + kSlots * 4;" in src  # Q4Stream
-    assert "kBytes = kSlots * 16 + 2 * kSlots + 2 * (kSlots / 8) * 4;" in src  # SbStream
-    assert "kBytes = kSlots * 32 + kSlots * kSub * 4 * (MINS ? 2 : 1);" in src  # QkStream
-    assert qmatmul.STREAM_STAGE_BYTES == {0: 32 * 16 + 32 * 4, 1: 32 * 32 + 32 * 4,
+    assert consts["kNibbleStage"] == 64
+    assert src.count("static constexpr int kStage = kNibbleStage;") == 2  # Q4Stream, SbStream
+    assert "static constexpr int kStage = kSlots;" in src  # QkStream
+    assert "kBytes = kStage * 16 + kStage * 4;" in src  # Q4Stream
+    assert "kBytes = kStage * 16 + 2 * kStage + 2 * (kStage / 8) * 4;" in src  # SbStream
+    assert "kBytes = kStage * 32 + kStage * kSub * 4 * (MINS ? 2 : 1);" in src  # QkStream
+    assert qmatmul.STREAM_STAGE_BYTES == {0: 64 * 16 + 64 * 4, 1: 32 * 32 + 32 * 4,
                                           2: 32 * 32 + 2 * 32 * 4, 3: 32 * 32 + 32 * 2 * 4,
                                           4: 32 * 32 + 2 * 32 * 2 * 4,
-                                          qmatmul.SB: 32 * 16 + 2 * 32 + 2 * 4 * 4}
+                                          qmatmul.SB: 64 * 16 + 2 * 64 + 2 * 8 * 4}
 
 
 @pytest.mark.parametrize("K_", [800, 2048, 4096, 11008, 14336])
@@ -149,22 +166,36 @@ def test_ranges_cover_k_once_in_multiples_of_8(K_):
     assert 5 not in _splits(800)  # 25 slots: ranges of 8 give 4 blocks, not 5
 
 
-# (rows, K, N, form, swiglu) -> the plan (splits, stages, blocks) on an
-# H100's 132 SMs, at the shapes of the model paths: Llama-3-8B Q4_K wqkv,
-# wo, Q6_K w2 and head; 7B Q8_0 wqkv; kernel 2's gate/up (N = 2F) and down
-# launches over the 7B's Q4_0 and Llama-3-8B's Q4_K / Q6_K.
-PLANS = {(1, 4096, 6144, "g32m", False): (1, 3, 132),
-         (1, 4096, 4096, "g32m", False): (1, 3, 128),
-         (1, 14336, 4096, "g16", False): (1, 3, 128),
-         (1, 4096, 128256, "g16", False): (1, 3, 132),
-         (1, 4096, 12288, "g32", False): (1, 3, 132),
-         (1, 4096, 2 * 11008, "q4_0", True): (1, 3, 132),
-         (1, 11008, 4096, "q4_0", False): (1, 3, 128),
-         (1, 4096, 2 * 14336, "g32m", True): (1, 3, 132),
-         (8, 4096, 6144, "g32m", False): (1, 2, 132),
-         (8, 4096, 2 * 11008, "q4_0", True): (1, 2, 132),
-         (8, 11008, 4096, "q4_0", False): (3, 2, 128),
-         (8, 14336, 4096, "g16", False): (4, 2, 128)}
+# (rows, K, N, form, swiglu) -> the plan (splits, stages, blocks, parts) on
+# an H100's 132 SMs, at the shapes of the model paths: kernel 13 over
+# Llama-3-8B's Q4_K wqkv, wo, Q6_K w2 and head and the 7B's Q8_0 wqkv;
+# kernel 1 over the 7B's Q4_0 wqkv, wo and output; kernel 17 over
+# Llama-3-8B's super-block wqkv and wo; kernel 2's gate/up (N = 2F) and
+# down launches over the 7B's Q4_0 and Llama-3-8B's Q4_K / Q6_K.  Their
+# 6144 columns (3072 pairs over 2112 warps) and the 7B's F 11008 take two
+# parts a pair.
+PLANS = {(1, 4096, 6144, "g32m", False): (1, 3, 132, 2),
+         (1, 4096, 4096, "g32m", False): (1, 3, 128, 1),
+         (1, 14336, 4096, "g16", False): (1, 3, 128, 1),
+         (1, 4096, 128256, "g16", False): (1, 3, 132, 1),
+         (1, 4096, 12288, "g32", False): (1, 3, 132, 1),
+         (1, 4096, 12288, "q4_0", False): (1, 3, 132, 1),
+         (1, 4096, 4096, "q4_0", False): (1, 3, 128, 1),
+         (1, 4096, 32000, "q4_0", False): (1, 3, 132, 1),
+         (1, 4096, 6144, "sb", False): (1, 3, 132, 2),
+         (1, 4096, 4096, "sb", False): (1, 3, 128, 1),
+         (1, 4096, 2 * 11008, "q4_0", True): (1, 3, 132, 2),
+         (1, 11008, 4096, "q4_0", False): (1, 3, 128, 1),
+         (1, 4096, 2 * 14336, "g32m", True): (1, 3, 132, 1),
+         (8, 4096, 6144, "g32m", False): (1, 2, 132, 2),
+         (8, 4096, 12288, "q4_0", False): (1, 2, 132, 1),
+         (8, 4096, 4096, "q4_0", False): (1, 2, 128, 1),
+         (8, 4096, 32000, "q4_0", False): (1, 2, 132, 1),
+         (8, 4096, 6144, "sb", False): (1, 2, 132, 2),
+         (8, 4096, 4096, "sb", False): (1, 2, 128, 1),
+         (8, 4096, 2 * 11008, "q4_0", True): (1, 2, 132, 2),
+         (8, 11008, 4096, "q4_0", False): (3, 2, 128, 1),
+         (8, 14336, 4096, "g16", False): (4, 2, 128, 1)}
 
 
 @pytest.mark.parametrize("case", sorted(PLANS))
@@ -173,21 +204,62 @@ def test_plan_at_the_paths_shapes(case):
     f = qmatmul.FORM_NAMES.index(form)
     plan = qmatmul.stream_plan(rows, K_, N_, f, H100_SMS, swiglu)
     assert plan == PLANS[case]
-    splits, stages, blocks = plan
-    assert blocks * qmatmul.STREAM_WARPS <= max(qmatmul.stream_tasks(N_, swiglu),
+    splits, stages, blocks, parts = plan
+    assert blocks == qmatmul.stream_blocks(N_, H100_SMS, swiglu, parts)
+    assert blocks * qmatmul.STREAM_WARPS <= max(qmatmul.stream_tasks(N_, swiglu) * parts,
                                                 H100_SMS * qmatmul.STREAM_WARPS)
-    assert qmatmul.stream_fits(f, rows, K_, N_, splits, stages, blocks, swiglu)
+    assert qmatmul.stream_fits(f, rows, K_, N_, splits, stages, blocks, swiglu, parts)
     # No fewer segments fit, and no deeper ring up to the cap beside them.
     cap = qmatmul.STREAM_STAGES[qmatmul.stream_rows(rows)]
     assert not any(qmatmul.stream_fits(f, rows, K_, N_, n, r, blocks, swiglu)
                    for n in range(1, splits) for r in range(2, cap + 1))
-    assert not any(qmatmul.stream_fits(f, rows, K_, N_, splits, r, blocks, swiglu)
+    assert not any(qmatmul.stream_fits(f, rows, K_, N_, splits, r, blocks, swiglu, parts)
                    for r in range(stages + 1, cap + 1))
+    # The tail rule: within 1.1x of the mean, and no fewer parts are.
+    assert qmatmul.stream_tail(N_, H100_SMS, swiglu, parts) <= qmatmul.STREAM_TAIL
+    assert all(qmatmul.stream_tail(N_, H100_SMS, swiglu, p) > qmatmul.STREAM_TAIL
+               for p in qmatmul.STREAM_PARTS if p < parts)
+
+
+# (N, swiglu) at the model paths' widths -> (parts, the most tasks a warp
+# takes, tasks, warps) over 132 SMs x 16 warps: the 7B's wqkv, wo and
+# output and its FFN (F 11008); Llama-3-8B's wqkv, Q6_K head and FFN (F
+# 14336); TinyLlama's wqkv, output and FFN (F 5632), the draft's and the
+# 22-layer Q4_0 target's.
+TAILS = {(12288, False): (1, 3, 6144, 2112), (4096, False): (1, 1, 2048, 2048),
+         (32000, False): (1, 8, 16000, 2112), (22016, True): (2, 11, 22016, 2112),
+         (6144, False): (2, 3, 6144, 2112), (128256, False): (1, 31, 64128, 2112),
+         (28672, True): (1, 7, 14336, 2112), (2560, False): (1, 1, 1280, 1280),
+         (11264, True): (4, 11, 22528, 2112)}
+
+
+@pytest.mark.parametrize("case", sorted(TAILS))
+def test_tail_rule_splits_the_pairs_as_host_integers(case):
+    N_, swiglu = case
+    parts, most, tasks, warps = TAILS[case]
+    assert qmatmul.stream_parts(4096, N_, H100_SMS, swiglu) == parts
+    assert qmatmul.stream_tasks(N_, swiglu) * parts == tasks
+    assert qmatmul.stream_blocks(N_, H100_SMS, swiglu, parts) * qmatmul.STREAM_WARPS == warps
+    assert -(-tasks // warps) == most
+    assert most / (tasks / warps) <= qmatmul.STREAM_TAIL
+    # Over more than one segment a pair is never split.
+    assert qmatmul.stream_parts(4096, N_, H100_SMS, swiglu, splits=2) == 1
+
+
+def test_stream_path_takes_all_six_forms_at_decode_rows():
+    """Kernels 1 (q4_0), 13 (the group codes) and 17 (sb) all take the walk
+    at 1 to 8 rows; above that the tensor-core path or the GEMV."""
+    assert qmatmul.STREAM_FORMS == tuple(range(len(qmatmul.FORM_NAMES))) == (0, 1, 2, 3, 4, 5)
+    for f in range(6):
+        assert all(qmatmul.stream_path(f, r) for r in range(1, 9))
+        assert not qmatmul.stream_path(f, 0) and not qmatmul.stream_path(f, 9)
+    assert not qmatmul.stream_path(6, 1)
 
 
 def test_plan_refuses_what_does_not_fit():
     g32m = qmatmul.FORM_NAMES.index("g32m")
-    for kw in ({"splits": 0}, {"stages": 1}, {"stages": 7}, {"splits": 5, "stages": 2}):
+    for kw in ({"splits": 0}, {"stages": 1}, {"stages": 7}, {"splits": 5, "stages": 2},
+               {"parts": 3}, {"splits": 2, "parts": 2}):
         with pytest.raises(ValueError):
             qmatmul.stream_plan(1, 800 if "splits" in kw else 4096, 64, g32m, H100_SMS, **kw)
     # Six stages of the widest form's stage beside 14336 inputs of one row
@@ -195,7 +267,7 @@ def test_plan_refuses_what_does_not_fit():
     g16m = qmatmul.FORM_NAMES.index("g16m")
     with pytest.raises(ValueError):
         qmatmul.stream_plan(1, 14336, 4096, g16m, H100_SMS, splits=1, stages=6)
-    assert qmatmul.stream_plan(8, 14336, 4096, g16m, H100_SMS, splits=4) == (4, 2, 128)
+    assert qmatmul.stream_plan(8, 14336, 4096, g16m, H100_SMS, splits=4) == (4, 2, 128, 1)
     # Few columns: fewer blocks than SMs, each warp a pair.
     assert qmatmul.stream_blocks(100, H100_SMS) == 4 and qmatmul.stream_blocks(
         200, H100_SMS, swiglu=True) == 7
@@ -207,8 +279,21 @@ def test_plan_refuses_what_does_not_fit():
 @functools.lru_cache(maxsize=None)
 def _weights(kind):
     """The reference's QWeight and the port's, logical [K, N], from one GGML
-    tensor (float32 sides, use_i4=False: the forms the port keeps)."""
+    tensor (float32 sides; use_i4=False, the forms the port keeps, but for
+    the super-blocks, which the reference builds with use_i4 under
+    THAWK_Q4K_SB=1)."""
     rng = np.random.default_rng(KINDS.index(kind) + 40)
+    if kind == "Q4_0":
+        return jax_q4((rng.standard_normal((K, N)) * 0.05).astype(np.float32))
+    if kind == "Q4_K sb":
+        raw = random_kquant(TType.Q4_K, (N, K), rng).raw
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("THAWK_Q4K_SB", "1")
+            jw = j_qw.from_kquant_raw(JType.Q4_K, raw, (N, K), scale_dtype=jnp.float32,
+                                      use_i4=True, sb_ok=True)
+        pw = QWeight.from_kquant_raw(TType.Q4_K, raw, (N, K), sb=True, sb_ok=True)
+        assert jw.kind == pw.kind == "q4k_sb"
+        return jw, pw
     if kind == "Q8_0":
         qt = j_quantize((rng.standard_normal((N, K)) * 0.05).astype(np.float32), JType.Q8_0)
         return (j_qw.from_quantized_tensor(qt, scale_dtype=jnp.float32),
@@ -233,14 +318,21 @@ def _interpret(fn):
 @pytest.mark.parametrize("rows", [1, 3, 8])
 @pytest.mark.parametrize("norm", [False, True])
 def test_walk_matches_the_pallas_matmul_at_every_split(kind, rows, norm):
+    """Every form at every segment count and every part count (one segment)."""
     rng = np.random.default_rng(rows * 10 + norm)
     x = rng.standard_normal((rows, K)).astype(np.float32)
     g = (1.0 + 0.1 * rng.standard_normal(K)).astype(np.float32) if norm else None
     jw, pw = _weights(kind)
-    want = _interpret(lambda: j_matmul(jnp.asarray(x), jw, None if g is None else jnp.asarray(g)))
-    for s in _splits(K):
-        got = walk(t(x), pw, s, None if g is None else t(g)).numpy()
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=f"splits {s}")
+    jg = None if g is None else jnp.asarray(g)
+    if kind == "Q4_K sb":  # the reference's XLA path cannot run the sb kind
+        want = np.asarray(j_quant_matmul(jnp.asarray(x), jw, jg, interpret=True))
+    else:
+        want = _interpret(lambda: j_matmul(jnp.asarray(x), jw, jg))
+    plans = [(s, 1) for s in _splits(K)] + [(1, p) for p in _parts(K) if p > 1]
+    for s, p in plans:
+        got = walk(t(x), pw, s, None if g is None else t(g), parts=p).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5,
+                                   err_msg=f"splits {s}, parts {p}")
 
 
 # -- kernel 2 -------------------------------------------------------------------
@@ -266,7 +358,11 @@ def _group_code(kind, out_dim, in_dim, rng):
 
 
 def _every_split_pair():
-    return [(a, b) for a in _splits(D) for b in _splits(F)]
+    """Every pair of the two launches' (splits, parts) the walk takes."""
+    def plans(k):
+        return [(s, 1) for s in _splits(k)] + [(1, p) for p in _parts(k) if p > 1]
+
+    return [(a, b) for a in plans(D) for b in plans(F)]
 
 
 @pytest.mark.parametrize("kinds", [("Q8_0", "Q8_0"), ("Q4_K", "Q6_K"), ("Q4_K", "Q4_K")])
@@ -281,7 +377,7 @@ def test_kernel2_walk_matches_the_pallas_fused_ffn(kinds, rows):
                                   eps=CFG.rms_norm_eps, interpret=True))
     for splits in _every_split_pair():
         got = kernel2(t(x), p13, p2, t(gain), splits).numpy()
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=f"splits {splits}")
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=f"plans {splits}")
 
 
 @pytest.mark.parametrize("rows", [1, 3, 8])
@@ -296,7 +392,7 @@ def test_kernel2_walk_matches_the_ffn_block_over_q4_0(rows):
     want = _interpret(lambda: _ffn_block(CFG, jnp.asarray(x), lp))
     for splits in _every_split_pair():
         got = kernel2(t(x), p13, p2, t(gain), splits).numpy()
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=f"splits {splits}")
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=f"plans {splits}")
 
 
 def test_kernel2_walk_over_super_blocks_is_the_plain_versions():
@@ -331,3 +427,26 @@ def test_cpu_tensors_run_the_plain_versions_and_count_nothing():
         assert torch.equal(ffn.fused_ffn_at(xf, w13, w2, gf, plans=plans),
                            ffn.fused_ffn_plain(xf, w13, w2, gf))
     assert (qmatmul.launches, ffn.launches) == before
+
+
+# -- the measurement copies (experiments/gemv_variants.py) ----------------------
+
+
+@pytest.mark.parametrize("kind", ["stamps", "noarith", "nopdl", "s32", "bulk512", "sb-sides",
+                                  "sb-nomins", "sb-noside"])
+def test_measurement_variants_patch_this_tree(kind, tmp_path):
+    """Each variant the chip runs timed applies to this tree's walk: every
+    anchor it rewrites is found once, and the tree itself is untouched."""
+    from tokenhawk_tpu_torch.experiments import gemv_variants as gv
+
+    root = Path(qmatmul.__file__).parents[3]
+    files = (gv.CUH, gv.STAMPS_TU, gv.ROWS_PY, gv.QMATMUL_PY)
+    for f in files:
+        (tmp_path / f).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / f).write_text((root / f).read_text())
+    gv.patch(tmp_path, kind)
+    changed = [f for f in files if (tmp_path / f).read_text() != (root / f).read_text()]
+    assert gv.CUH in changed
+    if kind == "stamps":
+        assert (tmp_path / gv.CUH).read_text().count("= gtimer();") == 5
+        assert "th_stamps_read" in (tmp_path / gv.STAMPS_TU).read_text()

@@ -13,7 +13,9 @@
 //   B: down over w2 [F, D] reading h in f32, with the residual add in its
 //      epilogue.
 // Each launch runs persistent blocks, one an SM, on the plan the host's
-// rule gives it (ops/cuda/qmatmul.py stream_plan).  w13 and w2 each take
+// rule gives it (ops/cuda/qmatmul.py stream_plan), as a programmatic
+// dependent of the kernel before it (the down launch's weight copies start
+// while the gate/up launch's last blocks run).  w13 and w2 each take
 // their own weight form (gemv.cuh Form: Q4_0, or group codes of G 16 / 32
 // with or without mins), as the reference's gate allows: a Q4_K_M file
 // pairs a Q4_K w13 with a Q6_K or Q4_K w2.  w13 may also be a Q4_K
@@ -56,21 +58,22 @@ static cudaError_t run(const void* x, const stream::Weights& w13, const stream::
 
 // Kernel 2.  x, y [B, D] and gain [D] in dtype; each weight as (qs, scales,
 // mins, hi, form), hi the sb form's scmn; h [B, F] f32 scratch; each
-// launch's plan (K segments, ring stages, blocks: ops/cuda/qmatmul.py
-// stream_plan) as three ints, the gate/up launch's then the down
-// launch's.  An unknown form or a shape or plan the walk does not take
+// launch's plan (K segments, ring stages, blocks, parts:
+// ops/cuda/qmatmul.py stream_plan) as four ints, the gate/up launch's then
+// the down launch's.  An unknown form or a shape or plan the walk does not take
 // returns an invalid-value error.
 extern "C" int th_ffn(const void* x, const void* w13_qs, const void* w13_s, const void* w13_m,
                       const void* w13_hi, int w13_form, const void* w2_qs, const void* w2_s,
                       const void* w2_m, const void* w2_hi, int w2_form, const void* gain,
                       void* h_scratch, void* y, int B, int D, int F, float eps, int dtype,
-                      int splits_a, int stages_a, int blocks_a, int splits_b, int stages_b,
-                      int blocks_b, void* stream) {
+                      int splits_a, int stages_a, int blocks_a, int parts_a, int splits_b,
+                      int stages_b, int blocks_b, int parts_b, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* h = static_cast<float*>(h_scratch);
   const stream::Weights w13{w13_qs, w13_s, w13_m, w13_hi, w13_form};
   const stream::Weights w2{w2_qs, w2_s, w2_m, w2_hi, w2_form};
-  const stream::Plan pa{splits_a, stages_a, blocks_a}, pb{splits_b, stages_b, blocks_b};
+  const stream::Plan pa{splits_a, stages_a, blocks_a, parts_a},
+      pb{splits_b, stages_b, blocks_b, parts_b};
   const cudaError_t rc =
       dtype == kBF16 ? run<__nv_bfloat16>(x, w13, w2, gain, h, y, B, D, F, eps, pa, pb, s)
                      : run<float>(x, w13, w2, gain, h, y, B, D, F, eps, pa, pb, s);

@@ -1,4 +1,4 @@
-// Kernel 13 on the decode-row walk (gemv_stream.cuh), bfloat16 x.
+// Kernels 1, 13 and 17 on the decode-row walk (gemv_stream.cuh), bfloat16 x.
 // One translation unit a launch and type, so that the walk's instances
 // compile in parallel.
 #include "gemv_stream.cuh"

@@ -13,26 +13,23 @@
 // m = 8s - dmin*mn expanded per group from the 6-bit sc / mn and the
 // per-256 d / dmin (gemv.cuh SbReader).  f32 accumulation, one rounding to x's
 // type.  The norm is optional and, unlike the reference (fused only when K
-// fits one tile), always runs here: a pre-pass writes inv_rms[B] and the
-// GEMV scales each staged x chunk by it, for any K (K = 11008 included).
-// At decode rows the kernel is bound by the weight bytes; it reads a
-// column's codes of one 32-input slot with 16-byte loads and converts each
-// once for every row of the tile (gemv.cuh).  The TPU's sb kernel expands
-// d / dmin to per-32 rows with an MXU dot for its sublane rules; here one
-// lane's slot is one group, so the expansion is two multiplies and a
-// subtract in registers, and kernel 17 is kernel 13's loop over half the
-// code bytes (0.59 B a weight against 1.25).  The reference's RoPE
-// epilogue on q8_matmul (rope_meta, off by default) is not ported: RoPE
-// runs in torch.
+// fits one tile), always runs here, for any K (K = 11008 included): inside
+// the launch on the decode-row walk, as a pre-pass writing inv_rms[B] on
+// the GEMV and the tensor-core path.  At decode rows the kernel is bound by
+// the weight bytes (gemv_stream.cuh).  The TPU's sb kernel expands d / dmin
+// to per-32 rows with an MXU dot for its sublane rules; here one lane's
+// slot is one group, so the expansion is two multiplies and a subtract in
+// registers, and kernel 17 is kernel 13's loop over half the code bytes
+// (0.59 B a weight against 1.25).  The reference's RoPE epilogue on
+// q8_matmul (rope_meta, off by default) is not ported: RoPE runs in torch.
 //
 // Three paths, three entry points, which the Python wrapper picks:
 // th_quant_matmul_stream runs the decode-row walk of gemv_stream.cuh for
-// the group-code forms at 1 to 8 rows (f32 or bf16 x): persistent blocks,
-// the weight stream kept in flight through a shared-memory ring a warp,
-// the norm inside the launch; th_quant_matmul runs the GEMV above (Q4_0
-// and sb at any row count, the group codes with f32 x above 8 rows);
-// th_quant_matmul_tc runs
-// the tensor-core GEMM of qgemm_tc.cuh for bf16 x at more than 8 rows over
+// every form at 1 to 8 rows (f32 or bf16 x): persistent blocks, the weight
+// stream kept in flight through a shared-memory ring a warp, the norm
+// inside the launch; th_quant_matmul runs gemv.cuh's GEMV (16-byte code
+// loads converted once for every row of a row tile) for f32 x above 8 rows
+// only (every form); th_quant_matmul_tc runs the tensor-core GEMM of qgemm_tc.cuh for bf16 x at more than 8 rows over
 // every form, kernel 17's super-blocks too (s and m expanded per group in
 // the walk), where the reference's `_qdot` takes the MXU's bf16 dot and
 // the work is bound by operations, not bytes.
@@ -68,17 +65,20 @@ extern "C" int th_quant_matmul(const void* x, const void* qs, const void* scales
 }
 
 // The decode-row walk: x [B, K], gain [K] (or null) and y [B, N] in dtype,
-// B 1 to 8; the group-code forms (G32, G32 + mins, G16, G16 + mins), K a
-// multiple of 32; its plan (ops/cuda/qmatmul.py stream_plan): K walked in
-// `splits` segments, rings of `stages` stages, `blocks` persistent blocks.
+// B 1 to 8; every form (Q4_0, G32, G32 + mins, G16, G16 + mins, and sb
+// with d, dmin as scales, mins and scmn its sc / mn bytes), K a multiple
+// of 32 (of 256 for sb); its plan (ops/cuda/qmatmul.py stream_plan): K walked in
+// `splits` segments, rings of `stages` stages, `blocks` persistent blocks,
+// each column pair's K split over `parts` warps.
 // Other forms, shapes and plans return an invalid-value error.
 extern "C" int th_quant_matmul_stream(const void* x, const void* qs, const void* scales,
-                                      const void* mins, const void* gain, void* y, int B, int K,
+                                      const void* mins, const void* scmn, const void* gain,
+                                      void* y, int B, int K,
                                       int N, int form, int splits, int stages, int blocks,
-                                      float eps, int dtype, void* stream) {
+                                      int parts, float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const stream::Weights w{qs, scales, mins, nullptr, form};
-  const stream::Plan p{splits, stages, blocks};
+  const stream::Weights w{qs, scales, mins, scmn, form};
+  const stream::Plan p{splits, stages, blocks, parts};
   const cudaError_t rc =
       dtype == kBF16
           ? stream::matmul(static_cast<const __nv_bfloat16*>(x), B, K, w, N,

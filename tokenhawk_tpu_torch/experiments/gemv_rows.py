@@ -1,13 +1,15 @@
-"""Time kernel 13 (group codes) and kernel 2 (the fused FFN) at decode rows.
+"""Time kernels 1, 13 and 17 (the quantized matmul) and kernel 2 (the fused
+FFN) at decode rows, on the decode-row walk.
 
     python -m tokenhawk_tpu_torch.experiments.gemv_rows [--sweep] [--case TEXT]
-        [--rows 1,8]
+        [--rows 1,8] [--ramp] [--isolated]
 
-For each case, at the shapes of the model paths that run them (Llama-3-8B
-in Q4_K_M: wqkv, wo, the Q6_K w2 and head; LLaMA-7B in Q8_0: wqkv and
-head; kernel 2 over the 7B's Q4_0 and Q8_0 pairs and Llama-3-8B's Q4_K /
-Q6_K, Q4_K / Q4_K and super-block w13 pairs; kernel 1's Q4_0 wqkv beside
-them), at 1 and 8 rows of bfloat16 x with the norm as the model fuses it:
+For each case, at the shapes of the model paths that run them (kernel 13
+over Llama-3-8B in Q4_K_M: wqkv, wo, the Q6_K w2 and head, and LLaMA-7B in
+Q8_0: wqkv and head; kernel 1 over the 7B's Q4_0 wqkv, wo and output;
+kernel 17 over Llama-3-8B's super-block wqkv and wo; kernel 2 over the
+7B's Q4_0 and Q8_0 pairs and Llama-3-8B's Q4_K / Q6_K, Q4_K / Q4_K and
+super-block w13 pairs), at 1 and 8 rows of bfloat16 x with the norm as the model fuses it:
 the error against the plain version (2^-7 of the largest |reference|),
 the device ms of one call (CUDA events behind a device spin, weight
 copies spanning 3x the 50 MB L2), the launch counter it ticked, and the
@@ -19,8 +21,16 @@ plan of 1-4 K segments and 2-6 ring stages that fits (kernel 2: each
 launch's plan swept with the other at the rule's).  The weights and inputs
 come from a seed, so two trees of the port give the same calls: copy the
 script into a `git archive` of another tree and run it there, in turns
-with this one, to put the two beside each other.  The last line is one
-JSON object with every timing.
+with this one, to put the two beside each other.  With --ramp, the
+one-row time of one launch at K 4096 over N = 264 * 2^i outputs (i = 0..7;
+from N 4224 on every warp of 132 SMs x 16 takes the same number of column
+pairs) for Q4_0, Q4_K and its super-block form, and a least-squares line
+through the full-wave points: its slope the stream's rate, its intercept
+the fixed cost of a launch (the ramp and the gap between launches).  With
+--isolated, each call is timed alone instead (`isolated_ms`: the device
+idle before it, as in an eager decode step whose host is slower than its
+kernels), not back to back.  The last line is one JSON object with every
+timing.
 """
 
 from __future__ import annotations
@@ -46,7 +56,14 @@ MATMULS = [("Llama-3-8B Q4_K wqkv", 4096, 6144, "q4_k", True),
            ("Llama-3-8B Q6_K head", 4096, 128256, "q6_k", True),
            ("7B Q8_0 wqkv", 4096, 12288, "q8_0", True),
            ("7B Q8_0 head", 4096, 32000, "q8_0", True),
-           ("7B Q4_0 wqkv (kernel 1)", 4096, 12288, "q4_0", True)]
+           ("7B Q4_0 wqkv (kernel 1)", 4096, 12288, "q4_0", True),
+           ("7B Q4_0 wo (kernel 1)", 4096, 4096, "q4_0", False),
+           ("7B Q4_0 output (kernel 1)", 4096, 32000, "q4_0", True),
+           ("Llama-3-8B sb wqkv (kernel 17)", 4096, 6144, "q4k_sb", True),
+           ("Llama-3-8B sb wo (kernel 17)", 4096, 4096, "q4k_sb", False)]
+# The ramp sweep: K, the outputs N = RAMP_N0 * 2^i, the forms.
+RAMP_K, RAMP_N0, RAMP_STEPS = 4096, 264, 8
+RAMP_KINDS = ("q4_0", "q4_k", "q4k_sb")
 # Kernel 2: (name, D, F, w13 kind, w2 kind).
 FFNS = [("7B Q4_0/Q4_0", 4096, 11008, "q4_0", "q4_0"),
         ("Llama-3-8B Q4_K/Q6_K", 4096, 14336, "q4_k", "q6_k"),
@@ -79,6 +96,26 @@ def device_ms(fns, calls: int = 32) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / calls)
+    return float(np.median(times))
+
+
+def isolated_ms(fns, trials: int = 21) -> float:
+    """Median device ms of one call that finds the device idle: each call
+    between two events, queued behind a device spin (so the host's launch
+    cost stays outside the events) that follows the last call's end,
+    cycling through fns."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for i in range(trials):
+        torch.cuda._sleep(400_000)
+        a.record()
+        fns[i % len(fns)]()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
     return float(np.median(times))
 
 
@@ -131,12 +168,46 @@ def plans(form, rows, K, N, sms, swiglu=False) -> list:
             if qmatmul.stream_fits(form, rows, K, N, n, r, blocks, swiglu)]
 
 
+def ramp(g, dev) -> list:
+    """One-row times over N at K RAMP_K, norm on, for each of RAMP_KINDS,
+    and each form's line through its full-wave points (N >= 16 * RAMP_N0)."""
+    out = []
+    K = RAMP_K
+    for kind in RAMP_KINDS:
+        points = []
+        for i in range(RAMP_STEPS):
+            N = RAMP_N0 * 2**i
+            w = weight(K, N, kind, g, dev)
+            sets = copies((w,))
+            # x and the gain after the weights: the walk's weight copies start
+            # before it waits on the kernel just before it (qmatmul.py).
+            gain = (1.0 + 0.1 * torch.randn(K, generator=g, device=dev)).to(torch.bfloat16)
+            x = torch.randn(1, K, generator=g, device=dev).to(torch.bfloat16)
+            y, path = counted(lambda: qmatmul.quant_matmul(x, w, gain))
+            check(f"ramp {kind} N={N}", y, qmatmul.quant_matmul_plain(x, w, gain))
+            ms = device_ms([lambda s=s: qmatmul.quant_matmul(x, s[0], gain) for s in sets])
+            points.append(dict(N=N, bytes=w.nbytes, ms=ms, path=path))
+            print(json.dumps(dict(ramp=kind, **points[-1])), flush=True)
+            del w, sets
+            torch.cuda.empty_cache()
+        full = [p for p in points if p["N"] >= 16 * RAMP_N0]
+        slope, icpt = np.polyfit([p["bytes"] for p in full], [p["ms"] for p in full], 1)
+        rec = dict(ramp=kind, K=K, points=points, fit_points=len(full),
+                   intercept_ms=float(icpt), stream_tbps=float(1e-9 / slope))
+        print(json.dumps(rec), flush=True)
+        out.append(rec)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sweep", action="store_true", help="time every plan that fits")
     ap.add_argument("--case", default="", help="only the cases whose name holds this text")
     ap.add_argument("--rows", default="1,8", help="row counts, comma-separated")
+    ap.add_argument("--ramp", action="store_true", help="the N sweep at one row alone")
+    ap.add_argument("--isolated", action="store_true", help="time each call alone")
     args = ap.parse_args()
+    timer = isolated_ms if args.isolated else device_ms
     if not torch.cuda.is_available():
         raise SystemExit("gemv_rows: needs a CUDA device")
     sweep = args.sweep and hasattr(ffn, "fused_ffn_at") and hasattr(qmatmul, "quant_matmul_at")
@@ -145,6 +216,9 @@ def main() -> int:
     rows_list = [int(r) for r in args.rows.split(",")]
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
+    if args.ramp:
+        print(json.dumps({"gemv_ramp": ramp(g, dev), "device": torch.cuda.get_device_name(0)}))
+        return 0
     out = []
     for name, K, N, kind, norm in MATMULS:
         if args.case not in name:
@@ -157,9 +231,10 @@ def main() -> int:
             x = torch.randn(rows, K, generator=g, device=dev).to(torch.bfloat16)
             y, path = counted(lambda: qmatmul.quant_matmul(x, w, ng))
             err = check(name, y, qmatmul.quant_matmul_plain(x, w, ng))
-            ms = device_ms([lambda s=s: qmatmul.quant_matmul(x, s[0], ng) for s in sets])
+            ms = timer([lambda s=s: qmatmul.quant_matmul(x, s[0], ng) for s in sets])
             io = 2 * rows * (K + N) + 2 * K * norm
             rec = dict(case=name, rows=rows, path=path, max_abs_err=err, ms=ms,
+                       isolated=args.isolated,
                        **bound(gguf_bytes(kind, K, N), w.nbytes, io, 2 * rows * K * N))
             if sweep and qmatmul.stream_path(qmatmul.form_code(w), rows):
                 form = qmatmul.form_code(w)
@@ -182,9 +257,10 @@ def main() -> int:
             x = torch.randn(rows, D, generator=g, device=dev).to(torch.bfloat16)
             y, path = counted(lambda: ffn.fused_ffn(x, w13, w2, gain))
             err = check(name, y, ffn.fused_ffn_plain(x, w13, w2, gain))
-            ms = device_ms([lambda s=s: ffn.fused_ffn(x, *s, gain) for s in sets])
+            ms = timer([lambda s=s: ffn.fused_ffn(x, *s, gain) for s in sets])
             io = 2 * (2 * rows + 1) * D
             rec = dict(case=name, rows=rows, path=path, max_abs_err=err, ms=ms,
+                       isolated=args.isolated,
                        **bound(gguf_bytes(k13, D, 2 * F) + gguf_bytes(k2, F, D),
                                w13.nbytes + w2.nbytes, io, 6 * rows * D * F))
             if sweep:

@@ -9,12 +9,15 @@ also be a Q4_K super-block weight (q4k_sb, kernel 17's reader), w2 not,
 as the reference's `can_fuse_ffn` has it (`can_fuse_ffn` here).  Bound by
 the weight bytes on the H100.  The TPU kernel carries the W2 sums across a
 sequential grid; GPU blocks cannot, so the kernel runs two launches of the
-decode-row walk that kernel 13 shares (csrc/gemv_stream.cuh: persistent
-blocks, each warp's weight stream kept in flight through a ring of
-shared-memory stages, x staged once a block, on `qmatmul.stream_plan`'s
-plan): the gate/up launch, with the norm's row statistics summed inside
-it and a SiLU epilogue into an f32 scratch of B*F*4 bytes that stays in
-L2, then the down launch with the residual in its epilogue.  The [B, F]
+decode-row walk that kernels 1, 13 and 17 share (csrc/gemv_stream.cuh:
+persistent blocks, each warp's weight stream kept in flight through a
+ring of shared-memory stages, x staged once a block, on
+`qmatmul.stream_plan`'s plan): the gate/up launch, with the norm's row
+statistics summed inside it and a SiLU epilogue into an f32 scratch of
+B*F*4 bytes that stays in L2, then the down launch with the residual in
+its epilogue.  As kernel 1's, the launches' weight copies start before
+they wait on the kernel before them: w13 and w2 must not be written by
+the kernel launched just before the call.  The [B, F]
 intermediate stays f32.  Counted per (w13 form, w2 form) pairing, each
 count one call of two launches; `fused_ffn_at` forces the two plans.
 
@@ -54,9 +57,9 @@ MAX_ROWS = 8
 BLOCK_F, BLOCK_NW = 256, 512
 
 # x; (qs, scales, mins, scmn, form) of w13 and of w2; gain, h, y; B, D, F;
-# eps; dtype, the two launches' plans (splits, stages, blocks); stream.
+# eps; dtype, the two launches' plans (splits, stages, blocks, parts); stream.
 _ARGS = [build.P] + ([build.P] * 4 + [build.I]) * 2 + [build.P] * 3 + [build.I] * 3 + [
-    build.F] + [build.I] * 7 + [build.P]
+    build.F] + [build.I] * 9 + [build.P]
 # ctx, x; (qs, scales, mins, scmn, form) of wo, w13 and w2; gain, xp, h, inv,
 # y; B, Dq, D, F; eps; dtype; stream.
 _OWO_ARGS = [build.P] * 2 + ([build.P] * 4 + [build.I]) * 3 + [build.P] * 5 + [build.I] * 4 + [
@@ -89,18 +92,18 @@ def fused_ffn(x, w13: QWeight, w2: QWeight, norm_gain, eps: float = 1e-6):
 
 
 def ffn_plans(rows: int, w13: QWeight, w2: QWeight, sms: int, forced=None) -> tuple:
-    """The plans (splits, stages, blocks) of kernel 2's two launches
+    """The plans (splits, stages, blocks, parts) of kernel 2's two launches
     (`qmatmul.stream_plan`): the gate/up launch over w13 [D, 2F], the down
-    launch over w2 [F, D].  `forced` gives a (splits, stages) pair for each,
-    None or a None entry for the rule's."""
+    launch over w2 [F, D].  `forced` gives a (splits, stages) or (splits,
+    stages, parts) tuple for each, None or a None entry for the rule's."""
     (D, F2), (F, _) = w13.shape, w2.shape
     fa, fb = forced or (None, None)
     return (stream_plan(rows, D, F2, form_code(w13), sms, swiglu=True, **_forced(fa)),
             stream_plan(rows, F, D, form_code(w2, sb=False), sms, **_forced(fb)))
 
 
-def _forced(pair) -> dict:
-    return {} if pair is None else {"splits": pair[0], "stages": pair[1]}
+def _forced(plan) -> dict:
+    return {} if plan is None else dict(zip(("splits", "stages", "parts"), plan))
 
 
 def fused_ffn_at(x, w13: QWeight, w2: QWeight, norm_gain, eps: float = 1e-6, plans=None):

@@ -11,26 +11,30 @@ codes two a byte, the group's scale and bias expanded from sc / mn and
 the super-block's d / dmin in registers.
 
 Three paths, picked here (`stream_path`, `tensor_core_path`) and counted
-apart.  The group-code forms at 1 to 8 rows (f32 or bf16 x) run the
-decode-row walk (gemv_stream.cuh), which kernel 2 shares: on the H100 those
-rows are bound by the weight bytes, so persistent blocks (one an SM) give
-each warp a run of column pairs whose codes, scales and mins it keeps in
-flight through a ring of shared-memory stages filled by cp.async, x is
-staged once a block and the norm's row statistics are summed inside the
-launch (`stream_plan`: the blocks, K's segments and the ring's depth from
-the rows, K, N, the form and the SM count).  Counted in
-`launches["qk_matmul_stream"]`.  The GEMV (gemv.cuh) takes
-Q4_0 and the super-blocks at decode rows and every form with f32 x
-above 8 rows: it reads a column's codes with 16-byte loads and converts
-them once for every row of a row tile, and a small pre-pass gives the
-norm's row statistics.  Counted in `launches["q4_matmul"]`,
-`launches["qk_matmul"]` and `launches["qk_sb_matmul"]`.  Above 8 rows
-of bf16 x every form goes to the tensor-core GEMM (qgemm_tc.cuh:
-mma.sync over 128-column tiles of codes brought in by cp.async and
-widened to bf16 in shared memory; where its tiles would leave SMs idle,
-K splits across blocks and a last pass adds the splits' f32 sums in
-order), where the work is bound by operations: counted in
-`launches["q4_matmul_tc"]`, `launches["qk_matmul_tc"]` and
+apart.  Every form at 1 to 8 rows (f32 or bf16 x) runs the decode-row
+walk (gemv_stream.cuh), which kernel 2 shares: on the H100 those rows are
+bound by the weight bytes, so persistent blocks (one an SM) give each warp
+a run of column pairs (or of one part of a pair's K, where the pairs leave
+a last wave) whose codes, scales and mins it keeps in flight through a
+ring of shared-memory stages filled by bulk copies, x is staged once a
+block and read once, and the norm's row statistics are summed inside the
+launch (`stream_plan`: the blocks, K's segments, the ring's depth and the
+parts from the rows, K, N, the form and the SM count).  Counted in
+`launches["q4_matmul_stream"]`, `launches["qk_matmul_stream"]` and
+`launches["qk_sb_matmul_stream"]`.  The walk launches as a programmatic
+dependent of the kernel before it, and its weight copies start before it
+waits on that kernel: a weight must not be written by the kernel launched
+just before the call (build the input after the weights).  The GEMV
+(gemv.cuh) takes f32 x above 8 rows: it reads a column's codes with
+16-byte loads and converts them once for every row of a row tile, and a
+small pre-pass gives the norm's row statistics.  Counted in
+`launches["q4_matmul"]`, `launches["qk_matmul"]` and
+`launches["qk_sb_matmul"]`.  Above 8 rows of bf16 x every form goes to the
+tensor-core GEMM (qgemm_tc.cuh: mma.sync over 128-column tiles of codes
+brought in by cp.async and widened to bf16 in shared memory; where its
+tiles would leave SMs idle, K splits across blocks and a last pass adds
+the splits' f32 sums in order), where the work is bound by operations:
+counted in `launches["q4_matmul_tc"]`, `launches["qk_matmul_tc"]` and
 `launches["qk_sb_matmul_tc"]`.  Its roundings are the reference's at
 those rows (`_qdot`'s bf16 dot): xn and each code * s rounded to bf16,
 f32 sums, the mins as an f32 dot of xn's group sums; kernel 17's s and
@@ -57,15 +61,16 @@ from tokenhawk_tpu_torch.ops.cuda import build
 from tokenhawk_tpu_torch.ops.qweight import QWeight
 
 launches = {"q4_matmul": 0, "qk_matmul": 0, "qk_sb_matmul": 0, "q4_matmul_tc": 0,
-            "qk_matmul_tc": 0, "qk_sb_matmul_tc": 0, "qk_matmul_stream": 0}
+            "qk_matmul_tc": 0, "qk_sb_matmul_tc": 0, "q4_matmul_stream": 0,
+            "qk_matmul_stream": 0, "qk_sb_matmul_stream": 0}
 
 _ARGS = [build.P] * 8 + [build.I] * 4 + [build.F, build.I, build.P]
 # x, qs, scales, mins, scmn, gain, y, xn, xsum and part scratch; B, K, N,
 # form, splits; eps; stream.
 _TC_ARGS = [build.P] * 10 + [build.I] * 5 + [build.F, build.P]
-# x, qs, scales, mins, gain, y; B, K, N, form, splits, stages, blocks; eps;
-# dtype; stream.
-_STREAM_ARGS = [build.P] * 6 + [build.I] * 7 + [build.F, build.I, build.P]
+# x, qs, scales, mins, scmn, gain, y; B, K, N, form, splits, stages, blocks,
+# parts; eps; dtype; stream.
+_STREAM_ARGS = [build.P] * 7 + [build.I] * 8 + [build.F, build.I, build.P]
 # The fewest rows the tensor-core path takes: the reference's `_qdot` takes
 # its bf16 dot above 8 rows (DOT_F32 "auto").
 TC_MIN_ROWS = 9
@@ -80,26 +85,30 @@ _KERNEL = {0: "q4_matmul", SB: "qk_sb_matmul"}
 
 # -- the decode-row walk (csrc/gemv_stream.cuh) -------------------------------
 # The most rows it takes (kernel 2's MAX_ROWS; the reference's `_qdot` keeps
-# f32 up to 8 rows), the forms kernel 13 runs on it (the group codes).
+# f32 up to 8 rows), the forms kernels 1, 13 and 17 run on it (all six).
 STREAM_MAX_ROWS = 8
-STREAM_FORMS = (1, 2, 3, 4)
+STREAM_FORMS = tuple(range(len(FORM_NAMES)))
 # Its constants (gemv_stream.cuh): warps a block, floats of a staged slot,
 # slots a segment is a multiple of, the deepest ring, shared memory a block
-# may use, the norm's bytes, the mbarriers'.
+# may use, the norm's bytes (then the parts' exchange), the mbarriers'.
 STREAM_WARPS, STREAM_SLOT_FLOATS, STREAM_ALIGN, STREAM_MAX_STAGES = 16, 36, 8, 6
-STREAM_MAX_SMEM, STREAM_RED = 232448, 1024
+STREAM_MAX_SMEM, STREAM_RED = 232448, 2048
 STREAM_BARS = STREAM_WARPS * STREAM_MAX_STAGES * 8  # the stages' mbarriers
-# By form code: the bytes of one column's stage (32 slots of codes, scales
-# and mins: kBytes of Q4Stream, QkStream<G, MINS>, SbStream).
-STREAM_STAGE_BYTES = {0: 640, 1: 1152, 2: 1280, 3: 1280, 4: 1536, SB: 608}
+# By form code: the bytes of one column's stage (kBytes of Q4Stream,
+# QkStream<G, MINS>, SbStream: 64 slots of codes and sides for the 4-bit
+# forms, so that their codes go by 1 KB bulk copies; 32 for the group codes).
+STREAM_STAGE_BYTES = {0: 1280, 1: 1152, 2: 1280, 3: 1280, 4: 1536, SB: 1216}
 # The ring's depth the rule takes at most, by row tile: 3 stages ran within
 # 2.4% of the best of 2 to 6 at each one-row shape swept (PERF.md);
 # at eight rows x's segment wants the room.
 STREAM_STAGES = {1: 3, 2: 3, 4: 3, 8: 2}
+# The counts of warps a column pair's K may be split over, and the tail the
+# rule allows: the most tasks a warp takes over the mean.
+STREAM_PARTS, STREAM_TAIL = (1, 2, 4), 1.1
 
 
 def stream_path(form: int, rows: int) -> bool:
-    """Whether kernel 13 takes the decode-row walk: a group-code form at 1
+    """Whether kernels 1, 13 and 17 take the decode-row walk: any form at 1
     to 8 rows (f32 or bf16 x; bf16 above 8 rows is the tensor-core path)."""
     return form in STREAM_FORMS and 1 <= rows <= STREAM_MAX_ROWS
 
@@ -115,15 +124,24 @@ def stream_tasks(N: int, swiglu: bool = False) -> int:
     return N // 2 if swiglu else -(-N // 2)
 
 
-def stream_blocks(N: int, sms: int, swiglu: bool = False) -> int:
-    """Persistent blocks of a launch: one an SM, fewer where the column
-    pairs leave a block's 16 warps without one each."""
-    return min(sms, -(-stream_tasks(N, swiglu) // STREAM_WARPS))
+def stream_blocks(N: int, sms: int, swiglu: bool = False, parts: int = 1) -> int:
+    """Persistent blocks of a launch: one an SM, fewer where the tasks (a
+    column pair's K in `parts` parts) leave a block's 16 warps without one
+    each."""
+    return min(sms, -(-stream_tasks(N, swiglu) * parts // STREAM_WARPS))
+
+
+def stream_tail(N: int, sms: int, swiglu: bool = False, parts: int = 1) -> float:
+    """The most tasks a warp takes over the mean, each column pair's K in
+    `parts` parts: the launch's last wave."""
+    tasks = stream_tasks(N, swiglu) * parts
+    warps = stream_blocks(N, sms, swiglu, parts) * STREAM_WARPS
+    return -(-tasks // warps) / (tasks / warps)
 
 
 def stream_segment(K: int, splits: int) -> int:
-    """Slots (32 inputs) of each of K's `splits` segments: ceil(K/32 /
-    splits) rounded up to a multiple of 8."""
+    """Slots (32 inputs) of each of K's `splits` segments (or of one
+    segment's parts): ceil(K/32 / splits) rounded up to a multiple of 8."""
     per = -(-(K // 32) // splits)
     return -(-per // STREAM_ALIGN) * STREAM_ALIGN
 
@@ -131,8 +149,9 @@ def stream_segment(K: int, splits: int) -> int:
 def stream_smem(form: int, rows: int, K: int, N: int, splits: int, stages: int, blocks: int,
                 swiglu: bool = False) -> int:
     """Dynamic shared memory of one block (gemv_stream.cuh smem_bytes): one
-    segment of x's row tile in f32, the warps' rings, the norm's sums and,
-    over more than one segment, the warps' running sums."""
+    segment of x's row tile in f32, the warps' rings, the norm's sums (then
+    the parts' exchange) and, over more than one segment, the warps'
+    running sums."""
     tile = stream_rows(rows)
     tasks = -(-stream_tasks(N, swiglu) // (blocks * STREAM_WARPS))
     return (tile * stream_segment(K, splits) * STREAM_SLOT_FLOATS * 4
@@ -141,35 +160,51 @@ def stream_smem(form: int, rows: int, K: int, N: int, splits: int, stages: int, 
 
 
 def stream_fits(form: int, rows: int, K: int, N: int, splits: int, stages: int, blocks: int,
-                swiglu: bool = False) -> bool:
-    """Whether the walk takes the plan: no empty segment, 2 to 6 stages,
-    and the shared memory of a block within the card's."""
+                swiglu: bool = False, parts: int = 1) -> bool:
+    """Whether the walk takes the plan: no empty segment or part, 2 to 6
+    stages, parts 1, 2 or 4 (more than one in one segment only), and the
+    shared memory of a block within the card's."""
     return (splits >= 1 and (splits - 1) * stream_segment(K, splits) < K // 32
             and 2 <= stages <= STREAM_MAX_STAGES and blocks >= 1
+            and parts in STREAM_PARTS and (parts == 1 or splits == 1)
+            and (parts - 1) * stream_segment(K, parts) < K // 32
             and stream_smem(form, rows, K, N, splits, stages, blocks, swiglu) <= STREAM_MAX_SMEM)
 
 
+def stream_parts(K: int, N: int, sms: int, swiglu: bool = False, splits: int = 1) -> int:
+    """The tail rule: the fewest parts of STREAM_PARTS whose last wave is
+    within STREAM_TAIL of the mean (the least tail where none is), in one
+    K segment; 1 over more."""
+    fit = [p for p in STREAM_PARTS
+           if p == 1 or (splits == 1 and (p - 1) * stream_segment(K, p) < K // 32)]
+    ok = [p for p in fit if stream_tail(N, sms, swiglu, p) <= STREAM_TAIL]
+    return ok[0] if ok else min(fit, key=lambda p: stream_tail(N, sms, swiglu, p))
+
+
 def stream_plan(rows: int, K: int, N: int, form: int, sms: int, swiglu: bool = False,
-                splits: int | None = None, stages: int | None = None) -> tuple:
-    """The walk's plan (splits, stages, blocks) at `rows` rows, K inputs and
-    N outputs (2F for kernel 2's gate/up launch, swiglu=True) of weight
-    form `form` on a card of `sms` SMs: `stream_blocks` persistent blocks,
-    K in the fewest segments that fit, the deepest ring up to
-    STREAM_STAGES that fits beside them.  `splits` or `stages` force a
-    value (tests and sweeps); a plan that does not fit raises.  Swept on an
-    NVIDIA H100 80GB HBM3 at 700 W by `experiments/gemv_rows.py --sweep` at
-    kernels 13's and 2's shapes of the model paths (PERF.md): one
-    segment ran within 1% of the fastest plan and 3 stages within 2.4% of
-    the best depth at every one-row shape; the block count was not swept
-    (one 16-warp block an SM)."""
-    blocks = stream_blocks(N, sms, swiglu)
+                splits: int | None = None, stages: int | None = None,
+                parts: int | None = None) -> tuple:
+    """The walk's plan (splits, stages, blocks, parts) at `rows` rows, K
+    inputs and N outputs (2F for kernel 2's gate/up launch, swiglu=True) of
+    weight form `form` on a card of `sms` SMs: K in the fewest segments
+    that fit, the deepest ring up to STREAM_STAGES that fits beside them,
+    the tail rule's parts (`stream_parts`) and `stream_blocks` persistent
+    blocks.  `splits`, `stages` or `parts` force a value (tests and sweeps);
+    a plan that does not fit raises.  Swept on an NVIDIA H100 80GB HBM3 at
+    700 W by `experiments/gemv_rows.py --sweep` at kernels 13's and 2's
+    shapes of the model paths (PERF.md): one segment ran within 1% of the
+    fastest plan and 3 stages within 2.4% of the best depth at every
+    one-row shape; the block count was not swept (one 16-warp block an
+    SM)."""
     cap = STREAM_STAGES[stream_rows(rows)] if stages is None else stages
     for n in ([splits] if splits is not None else range(1, K // 32 // STREAM_ALIGN + 2)):
+        p = stream_parts(K, N, sms, swiglu, n) if parts is None else parts
+        blocks = stream_blocks(N, sms, swiglu, p)
         for r in ([stages] if stages is not None else range(cap, 1, -1)):
-            if stream_fits(form, rows, K, N, n, r, blocks, swiglu):
-                return n, r, blocks
-    raise ValueError(f"the decode-row walk takes no plan of {splits} splits, {stages} stages "
-                     f"at K {K}, N {N}, {rows} rows")
+            if stream_fits(form, rows, K, N, n, r, blocks, swiglu, p):
+                return n, r, blocks, p
+    raise ValueError(f"the decode-row walk takes no plan of {splits} splits, {stages} stages, "
+                     f"{parts} parts at K {K}, N {N}, {rows} rows")
 
 
 def form_code(w: QWeight, sb: bool = True) -> int:
@@ -218,10 +253,11 @@ def quant_matmul(x: torch.Tensor, w: QWeight, norm_gain=None, eps: float = 1e-6)
 
 
 def quant_matmul_at(x: torch.Tensor, w: QWeight, norm_gain=None, eps: float = 1e-6,
-                    splits: int | None = None, stages: int | None = None):
-    """quant_matmul with the decode-row walk's K segments or ring depth
-    forced (tests and sweeps; None: `stream_plan`'s).  A CPU tensor runs
-    the plain version whatever the plan."""
+                    splits: int | None = None, stages: int | None = None,
+                    parts: int | None = None):
+    """quant_matmul with the decode-row walk's K segments, ring depth or
+    parts forced (tests and sweeps; None: `stream_plan`'s).  A CPU tensor
+    runs the plain version whatever the plan."""
     if not x.is_cuda:
         return quant_matmul_plain(x, w, norm_gain, eps)
     form = form_code(w)
@@ -238,8 +274,8 @@ def quant_matmul_at(x: torch.Tensor, w: QWeight, norm_gain=None, eps: float = 1e
     y = torch.empty((rows, N), dtype=xb.dtype, device=xb.device)
     gp = gain.data_ptr() if gain is not None else None
     stream = not tensor_core_path(xb.dtype, rows) and stream_path(form, rows)
-    build.require((splits is None and stages is None) or stream,
-                  "a plan is forced only on the decode-row walk (group codes, 1-8 rows)")
+    build.require((splits is None and stages is None and parts is None) or stream,
+                  "a plan is forced only on the decode-row walk (1-8 rows)")
     if tensor_core_path(xb.dtype, rows):
         splits = build.function("th_quant_matmul_tc_splits", [build.I] * 4)(
             rows, K, N, build.sm_count(xb.device))
@@ -255,12 +291,11 @@ def quant_matmul_at(x: torch.Tensor, w: QWeight, norm_gain=None, eps: float = 1e
         name = _KERNEL.get(form, "qk_matmul") + "_tc"
     elif stream:
         plan = stream_plan(rows, K, N, form, build.sm_count(xb.device), splits=splits,
-                           stages=stages)
-        qs, sc, mn, _ = weight_args(w, xb)
+                           stages=stages, parts=parts)
         fn = build.function("th_quant_matmul_stream", _STREAM_ARGS)
-        rc = fn(xb.data_ptr(), qs, sc, mn, gp, y.data_ptr(), rows, K, N, form, *plan, eps,
-                build.dtype_code(xb.dtype), build.stream_of(xb))
-        name = "qk_matmul_stream"
+        rc = fn(xb.data_ptr(), *weight_args(w, xb), gp, y.data_ptr(), rows, K, N, form, *plan,
+                eps, build.dtype_code(xb.dtype), build.stream_of(xb))
+        name = _KERNEL.get(form, "qk_matmul") + "_stream"
     else:
         inv = torch.empty((rows,), dtype=torch.float32, device=xb.device)
         fn = build.function("th_quant_matmul", _ARGS)
