@@ -103,8 +103,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      PagedScheduler;
      11b phase 7's file loaded with the flag at float32 sides, its greedy
      stream held against the flat form's, the CLI and `serving --paged`
-     with the flag; 11c runtime/eval.py's perplexity of that file over 2
-     windows, sb against flat, at float32 and bfloat16 sides.
+     with the flag; 11c runtime/eval.py's perplexity of that file, sb
+     against flat, at float32 and bfloat16 sides.
   12. context parallelism (parallel/): 12a, after phase 2, kernels 18
      (decode partials) and 19 (ring-attention step) against their plain
      versions at the 7B's heads, kernel 19 at T=512 on one shard (its
@@ -118,7 +118,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      call timed, 4 empty shards giving (0, -inf, 0) exactly; then kernel 18
      cut into 1, 4, 8 and 16 splits at TinyLlama's heads beside kernel 14
      (B=1 at 2048, B=8 ragged);
-     12b, after phase 10, the 7B Q4_0 model's first 16 layers through
+     12b, after phase 10, the 32-layer 7B Q4_0 model through
      Engine(parallel="cp") over a world-1 NCCL group at n_ctx 2048
      (prompts of 5, 300 and 1500 tokens, 32 greedy tokens each): kernels
      1, 18 (its cluster form) and 19 (its tensor-core walk) launched, 2, 3,
@@ -289,14 +289,6 @@ INT8_LAYERS = 8
 # its time.
 SPEC_LAYERS = 8
 FUSED_LAYERS = 8
-# Phase 9a's float32 witness holds the target's first 4 of those layers,
-# its kernel-14 A/B decodes 32 tokens a run, phase 12b runs CP on the 7B's
-# first 16 layers and phase 11c scores 2 windows (8, 64, 32 and 4 before a
-# slow host took the script past its time).
-WITNESS_LAYERS = 4
-SPLIT_AB_TOKENS = 32
-CP_LAYERS = 16
-EVAL_WINDOWS = 2
 # Phases 6 and 11a run 16 of the Q4_K_M model's 32 layers (11a all 32
 # before phase 12), its flat form included in 11a's decode windows.
 Q4KM_LAYERS = 16
@@ -354,13 +346,37 @@ def cuda_ms(fns, calls: int = 32, trials: int = 5, sleep_ms: float = 0.0) -> flo
     return float(np.median(times))
 
 
-def timed(fns, calls: int = 32) -> dict:
+def timed(fns, calls: int = 32, call_trials: int = 5) -> dict:
     """ms: device time of one call (sleep-fronted events); call_ms: the
-    time of one call as the host issues it back to back."""
-    call = cuda_ms(fns, calls)
+    time of one call as the host issues it back to back, the median of
+    call_trials trials (1 where only ms is wanted: it sizes the spin)."""
+    call = cuda_ms(fns, calls, trials=call_trials)
     # The host issues a call in well under 0.5 ms; spin twice that per call.
     return {"ms": cuda_ms(fns, calls, sleep_ms=2 * calls * min(call, 0.5) + 2),
             "call_ms": call}
+
+
+def isolated_ms(fns, trials: int = 21) -> float:
+    """Median device ms of one call that finds the device idle, as in an
+    eager decode step whose host is slower than its kernels: each call
+    between two events, queued behind a device spin that follows the last
+    call's end (so the host's launch cost stays outside the events),
+    cycling through fns."""
+    import torch
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for i in range(trials):
+        torch.cuda._sleep(400_000)
+        a.record()
+        fns[i % len(fns)]()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
 
 
 def copies(tensors, nbytes: int) -> list:
@@ -442,9 +458,10 @@ def _case_tools(seed: int = SEED) -> tuple:
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
     def case(cases, label, shape, rows, out, ref, kernel_fns=None, plain_fns=None,
-             frac=KERNEL_TOL, calls=32):
+             frac=KERNEL_TOL, calls=32, alone=False):
         """Check one shape against the tolerance, time both versions
-        (given no functions to time, only check)."""
+        (given no functions to time, only check); with `alone`, also the
+        kernel's call alone (isolated_ms)."""
         err, tol = max_err(out, ref, frac)
         if kernel_fns is None:
             log(f"{label}: max_abs_err {err:.3e} (tol {tol:.3e})")
@@ -452,17 +469,20 @@ def _case_tools(seed: int = SEED) -> tuple:
                 raise AssertionError(f"{label}: {err} > {tol}")
             cases.append(dict(shape=shape, rows=rows, max_abs_err=err, tol=tol))
             return
-        kt, pt = timed(kernel_fns, calls), timed(plain_fns, calls)
+        kt, pt = timed(kernel_fns, calls), timed(plain_fns, calls, call_trials=1)
+        alone_ms = isolated_ms(kernel_fns) if alone else None
         log(f"{label}: max_abs_err {err:.3e} (tol {tol:.3e})  kernel {kt['ms']:.4f} ms "
-            f"[per call {kt['call_ms']:.4f}]  plain {pt['ms']:.4f} ms [per call {pt['call_ms']:.4f}]")
+            f"[per call {kt['call_ms']:.4f}"
+            + (f", alone {alone_ms:.4f}" if alone else "")
+            + f"]  plain {pt['ms']:.4f} ms [per call {pt['call_ms']:.4f}]")
         if not err <= tol:
             raise AssertionError(f"{label}: {err} > {tol}")
         cases.append(dict(shape=shape, rows=rows, max_abs_err=err, tol=tol, ms=kt["ms"],
                           plain_ms=pt["ms"], call_ms=kt["call_ms"],
-                          plain_call_ms=pt["call_ms"]))
+                          plain_call_ms=pt["call_ms"], isolated_ms=alone_ms))
 
     def library(label, fns) -> float:
-        ms = timed(fns)["ms"]
+        ms = timed(fns, call_trials=1)["ms"]
         log(f"  library call {label}: {ms:.4f} ms")
         return ms
 
@@ -505,7 +525,8 @@ def phase_kernels() -> list:
             case(cases, f"q4_matmul {name} K={K} N={N} rows={rows} norm={norm}", name, rows,
                  qmatmul.quant_matmul(x, w, gain), qmatmul.quant_matmul_plain(x, w, gain),
                  [lambda w=w: qmatmul.quant_matmul(x, w, gain) for w in ws],
-                 [lambda w=w: qmatmul.quant_matmul_plain(x, w, gain) for w in ws], calls=calls)
+                 [lambda w=w: qmatmul.quant_matmul_plain(x, w, gain) for w in ws], calls=calls,
+                 alone=rows <= 8)
             # A ggjt Q4_0 block holds 32 weights in 20 bytes (f32 scale), as the
             # port's layout does: 0.625 B each; x, the gain and y once each.
             b = bound(K * N * 0.625 + (rows * (K + N) + K * norm) * bf, 2 * rows * K * N,
@@ -534,7 +555,7 @@ def phase_kernels() -> list:
         case(cases, f"fused_ffn D={D} F={F} rows={rows}", "ffn", rows,
              ffn.fused_ffn(x, w13, w2, gain), ffn.fused_ffn_plain(x, w13, w2, gain),
              [lambda s=s: ffn.fused_ffn(x, *s, gain) for s in sets],
-             [lambda s=s: ffn.fused_ffn_plain(x, *s, gain) for s in sets])
+             [lambda s=s: ffn.fused_ffn_plain(x, *s, gain) for s in sets], alone=True)
         lib = library("rms_norm + dequantize w13 and w2 + 2 torch.matmul + silu, bf16 "
                       "(10+ calls)", [lambda s=s: _ffn_library(x, *s, gain) for s in sets])
         b = bound(3 * D * F * 0.625 + (2 * rows + 1) * D * bf, 6 * rows * D * F, peak=F32_FLOPS)
@@ -1086,7 +1107,7 @@ def _group_code_kernel_records(randn, case, library, g) -> list:
                     case(cases, label, name, rows, out, ref,
                          [lambda w=w: qmatmul.quant_matmul(x, w, ng) for w in ws],
                          [lambda w=w: qmatmul.quant_matmul_plain(x, w, ng) for w in ws],
-                         calls=calls)
+                         calls=calls, alone=rows <= 8)
                     # x, the gain and y once each, beside the weight's GGUF
                     # blocks (its bytes in the port's layout as layout_bound_ms).
                     io = (rows * (K + N) + K * norm) * bf
@@ -1119,7 +1140,7 @@ def _group_code_kernel_records(randn, case, library, g) -> list:
             case(cases, f"fused_ffn {tag} D={D} F={F} rows={rows}", "ffn", rows,
                  ffn.fused_ffn(x, w13, w2, gain), ffn.fused_ffn_plain(x, w13, w2, gain),
                  [lambda s=s: ffn.fused_ffn(x, *s, gain) for s in sets],
-                 [lambda s=s: ffn.fused_ffn_plain(x, *s, gain) for s in sets])
+                 [lambda s=s: ffn.fused_ffn_plain(x, *s, gain) for s in sets], alone=True)
             io = (2 * rows + 1) * D * bf
             b = bound(_ggml_bytes(f13, D, 2 * F) + _ggml_bytes(f2, F, D) + io, 6 * rows * D * F,
                       w13.nbytes + w2.nbytes + io, peak=F32_FLOPS)
@@ -1182,7 +1203,7 @@ def _sb_kernel_records(randn, case, library, g) -> list:
                 case(cases, label, name, rows, out, ref,
                      [lambda w=w: qmatmul.quant_matmul(x, w, ng) for w in ws],
                      [lambda w=w: qmatmul.quant_matmul_plain(x, w, ng) for w in ws],
-                     calls=calls)
+                     calls=calls, alone=rows <= 8)
                 io = (rows * (K + N) + K * norm) * bf
                 b = bound(_ggml_bytes("q4_k", K, N) + io, 2 * rows * K * N, w.nbytes + io,
                           peak=_peak(rows))
@@ -1216,7 +1237,7 @@ def _sb_kernel_records(randn, case, library, g) -> list:
             case(cases, f"fused_ffn {tag} D={D} F={F} rows={rows}", "ffn", rows,
                  ffn.fused_ffn(x, w13, w2, gain), ffn.fused_ffn_plain(x, w13, w2, gain),
                  [lambda s=s: ffn.fused_ffn(x, *s, gain) for s in sets],
-                 [lambda s=s: ffn.fused_ffn_plain(x, *s, gain) for s in sets])
+                 [lambda s=s: ffn.fused_ffn_plain(x, *s, gain) for s in sets], alone=True)
             io = (2 * rows + 1) * D * bf
             b = bound(_ggml_bytes("q4_k", D, 2 * F) + _ggml_bytes(f2, F, D) + io,
                       6 * rows * D * F, w13.nbytes + w2.nbytes + io, peak=F32_FLOPS)
@@ -2303,14 +2324,18 @@ def _record(name, source, replaces, cases, main_case, bound_at, library_ms) -> d
     """One kernel's JSON entry: worst error over its cases, times at the
     shape the main path runs most (main_case = (shape, rows)), its bound
     there and the library call's time (None where no one PyTorch call
-    computes the same function)."""
+    computes the same function).  isolated_ms: the kernel's call alone
+    there, where the case timed one (the decode-row walk)."""
     main = next(c for c in cases if (c["shape"], c["rows"]) == main_case)
-    log(f"{name}: {main['ms']:.4f} ms against a bound of {bound_at['bound_ms']:.4f} ms "
+    alone = main.get("isolated_ms")
+    log(f"{name}: {main['ms']:.4f} ms"
+        + (f" ({alone:.4f} alone)" if alone is not None else "")
+        + f" against a bound of {bound_at['bound_ms']:.4f} ms "
         f"({bound_at['bound_by']}) at {main['shape']} rows={main['rows']}")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": 0, "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"], **bound_at,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "isolated_ms": alone,
             "timed_at": f"{main['shape']} rows={main['rows']}", "cases": cases}
 
 
@@ -3520,9 +3545,8 @@ def phase_gguf_sb(path: str, tmp: str) -> None:
                           prompt, len(stream))
     _check_greedy_identity("11b sb stream against the flat form's", stream, forms)
 
-    log(f"== phase 11c: runtime/eval.perplexity, sb against flat, {EVAL_WINDOWS} windows of 512 "
-        "tokens")
-    toks = np.random.default_rng(SEED + 12).integers(0, cfg.n_vocab, EVAL_WINDOWS * 512).tolist()
+    log("== phase 11c: runtime/eval.perplexity, sb against flat, 4 windows of 512 tokens")
+    toks = np.random.default_rng(SEED + 12).integers(0, cfg.n_vocab, 4 * 512).tolist()
 
     def nll(p, label):
         torch.cuda.synchronize()
@@ -3530,7 +3554,7 @@ def phase_gguf_sb(path: str, tmp: str) -> None:
         v = th_eval.mean_nll(cfg, p, toks, window=512)
         torch.cuda.synchronize()
         log(f"  {label}: perplexity {np.exp(v):.4f} (mean nll {v:.6f}), "
-            f"{(time.perf_counter() - t0) / EVAL_WINDOWS:.3f} s a window")
+            f"{(time.perf_counter() - t0) / 4:.3f} s a window")
         return v
 
     # A window's 512 rows of bfloat16 activations take the tensor-core path,
@@ -3731,8 +3755,8 @@ def _f32_identity_witness(params, draft, cfg, prompts, kernel_mods) -> None:
     from tokenhawk_tpu_torch.runtime.engine import Engine
     from tokenhawk_tpu_torch.runtime.speculative import SpeculativeEngine
 
-    log(f"== phase 9a, float32 witness: the 9a target's first {cfg.n_layer} layers with float32 "
-        "activations and cache, the draft's first 2 layers in float32, gamma 4")
+    log("== phase 9a, float32 witness: the 9a target with float32 activations and cache, the "
+        "draft's first 2 layers in float32, gamma 4")
     target = _float32(params)
     spec = SpeculativeEngine(cfg, target, _tinyllama(2),
                              _float32(dataclasses.replace(draft, layers=draft.layers[:2])),
@@ -3785,7 +3809,7 @@ def _split_ab(spec, prompt) -> None:
     try:
         for form in ("split", "one block", "one block", "split"):
             fd.decode_splits = auto if form == "split" else (lambda *shape: 1)
-            _, _, t = _spec_engine_run(spec, prompt, f"9a kernel 14 {form}", SPLIT_AB_TOKENS)
+            _, _, t = _spec_engine_run(spec, prompt, f"9a kernel 14 {form}")
             tps[form].append(t)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 spec.generate(prompt, max_new_tokens=8)
@@ -3852,8 +3876,7 @@ def phase_speculation(params, kernel_mods, model_path: str, tmp: str) -> dict:
     wall, busy = _profiled(lambda: spec.generate(prompts[0], max_new_tokens=16))
     log(f"9a profiled request (5-token prompt, 16 tokens, profiler on): wall {wall * 1e3:.1f} ms, "
         f"device busy {busy * 1e3:.1f} ms, idle share {1 - busy / wall:.1%}")
-    _f32_identity_witness(dataclasses.replace(params, layers=params.layers[:WITNESS_LAYERS]),
-                          draft, _seven_b(WITNESS_LAYERS), prompts, kernel_mods)
+    _f32_identity_witness(params, draft, cfg, prompts, kernel_mods)
     _split_ab(spec, prompts[1])
 
     log("== phase 9b: self-draft, a 2-layer 7B-width Q4_0 target and its weights dequantized to "
@@ -4299,9 +4322,8 @@ def _cp_forms(dense, cp, prompt, n: int) -> tuple:
 
 
 def phase_cp_engine(params, kernel_mods, tmp: str) -> dict:
-    """Phase 12b: the 7B Q4_0 model's first CP_LAYERS layers through
-    Engine(parallel="cp") at n_ctx 2048 over a NCCL group of one rank (one
-    H100): prompts of 5,
+    """Phase 12b: the 32-layer 7B Q4_0 model through Engine(parallel="cp")
+    at n_ctx 2048 over a NCCL group of one rank (one H100): prompts of 5,
     300 and 1500 tokens, 32 greedy tokens each.  Kernels 1, 18 and 19
     launch; kernels 2, 3, 4 and 14 do not.  Each stream is held against
     the dense Engine's (near-ties apart: kernel 19 takes the scaled q in
@@ -4316,10 +4338,9 @@ def phase_cp_engine(params, kernel_mods, tmp: str) -> dict:
     from tokenhawk_tpu_torch.runtime.engine import Engine
     from tokenhawk_tpu_torch.tokenizer import byte_fallback_vocab
 
-    log(f"== phase 12b: Engine(parallel='cp'), NCCL group of 1 rank, LLaMA-7B Q4_0, {CP_LAYERS} "
-        "layers, bf16 KV, n_ctx 2048")
-    cfg = dataclasses.replace(_seven_b(CP_LAYERS), n_ctx=2048)
-    params = dataclasses.replace(params, layers=params.layers[:CP_LAYERS])
+    log("== phase 12b: Engine(parallel='cp'), NCCL group of 1 rank, LLaMA-7B Q4_0, 32 layers, "
+        "bf16 KV, n_ctx 2048")
+    cfg = dataclasses.replace(_seven_b(32), n_ctx=2048)
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store", rank=0,
                             world_size=1)

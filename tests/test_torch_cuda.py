@@ -288,9 +288,9 @@ def test_stream_ffn_matches_plain_at_every_plan(pair, rows, dtype):
 
 
 def test_stream_launches_replay_under_graph_capture():
-    """The walk's launches (programmatic dependents of the kernel before
-    them) captured into a CUDA graph: kernels 1, 17 and 2 back to back, the
-    replays equal to the eager calls bit for bit."""
+    """The walk's launches (kernel 2's down launch a programmatic dependent
+    of its gate/up launch) captured into a CUDA graph: kernels 1, 17 and 2
+    back to back, the replays equal to the eager calls bit for bit."""
     dev = cuda_device()
     g = torch.Generator(device=dev).manual_seed(21)
     w1 = _weight("q4_0", 4096, 4096, g, dev)

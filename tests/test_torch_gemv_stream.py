@@ -427,26 +427,3 @@ def test_cpu_tensors_run_the_plain_versions_and_count_nothing():
         assert torch.equal(ffn.fused_ffn_at(xf, w13, w2, gf, plans=plans),
                            ffn.fused_ffn_plain(xf, w13, w2, gf))
     assert (qmatmul.launches, ffn.launches) == before
-
-
-# -- the measurement copies (experiments/gemv_variants.py) ----------------------
-
-
-@pytest.mark.parametrize("kind", ["stamps", "noarith", "nopdl", "s32", "bulk512", "sb-sides",
-                                  "sb-nomins", "sb-noside"])
-def test_measurement_variants_patch_this_tree(kind, tmp_path):
-    """Each variant the chip runs timed applies to this tree's walk: every
-    anchor it rewrites is found once, and the tree itself is untouched."""
-    from tokenhawk_tpu_torch.experiments import gemv_variants as gv
-
-    root = Path(qmatmul.__file__).parents[3]
-    files = (gv.CUH, gv.STAMPS_TU, gv.ROWS_PY, gv.QMATMUL_PY)
-    for f in files:
-        (tmp_path / f).parent.mkdir(parents=True, exist_ok=True)
-        (tmp_path / f).write_text((root / f).read_text())
-    gv.patch(tmp_path, kind)
-    changed = [f for f in files if (tmp_path / f).read_text() != (root / f).read_text()]
-    assert gv.CUH in changed
-    if kind == "stamps":
-        assert (tmp_path / gv.CUH).read_text().count("= gtimer();") == 5
-        assert "th_stamps_read" in (tmp_path / gv.STAMPS_TU).read_text()

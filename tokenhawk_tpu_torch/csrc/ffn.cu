@@ -13,15 +13,14 @@
 //   B: down over w2 [F, D] reading h in f32, with the residual add in its
 //      epilogue.
 // Each launch runs persistent blocks, one an SM, on the plan the host's
-// rule gives it (ops/cuda/qmatmul.py stream_plan), as a programmatic
-// dependent of the kernel before it (the down launch's weight copies start
-// while the gate/up launch's last blocks run).  w13 and w2 each take
-// their own weight form (gemv.cuh Form: Q4_0, or group codes of G 16 / 32
-// with or without mins), as the reference's gate allows: a Q4_K_M file
-// pairs a Q4_K w13 with a Q6_K or Q4_K w2.  w13 may also be a Q4_K
-// super-block weight (sb, under THAWK_Q4K_SB=1; kernel 17's expansion), w2
-// never, as in the reference (ffn.py can_fuse_ffn).  The [B, F]
-// intermediate is never written in a narrower type.
+// rule gives it (ops/cuda/qmatmul.py stream_plan), B as a programmatic
+// dependent of A (its copies of w2 start while A's last blocks run).  w13
+// and w2 each take their own weight form (gemv.cuh Form: Q4_0, or group
+// codes of G 16 / 32 with or without mins), as the reference's gate
+// allows: a Q4_K_M file pairs a Q4_K w13 with a Q6_K or Q4_K w2.  w13 may
+// also be a Q4_K super-block weight (sb, under THAWK_Q4K_SB=1; kernel 17's
+// expansion), w2 never, as in the reference (ffn.py can_fuse_ffn).  The
+// [B, F] intermediate is never written in a narrower type.
 //
 // Kernel 15: the post-attention half of a decode layer, Wo + residual +
 // RMSNorm + SwiGLU FFN + residual, for B <= 8 rows.  Replaces

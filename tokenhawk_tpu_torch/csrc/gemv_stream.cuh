@@ -32,16 +32,20 @@
 //     near 2.0 TB/s, bulk copies reach 3.0; the 4-bit forms' 64-slot
 //     stages make their codes 1 KB spans); a span whose address or size
 //     is not a multiple of 16 bytes goes by the lanes' cp.async.  The
-//     warp issues its whole ring before it reads x, then waits on its
-//     oldest stage (its mbarrier's phase, cp.async.wait_group, a warp
-//     barrier), takes its slots into registers, refills the stage at once
-//     and computes.  The ring runs on across tasks and segments, and no
-//     block barrier stands between a stage's copy and its use;
-//   - a launch is a programmatic dependent of the kernel before it
-//     (cudaLaunchKernelEx): its blocks start, and issue their weight
-//     copies, while that kernel's last blocks run, and griddepcontrol.wait
-//     stands before the first read of x and the first write of y.  The
-//     weights must not be written by the kernel launched just before;
+//     warp issues the ring's first two stages before it reads x (kernel
+//     2's launches the whole ring), the rest once x is staged, then waits
+//     on its oldest stage (its mbarrier's phase, cp.async.wait_group, a
+//     warp barrier), takes its slots into registers, refills the stage at
+//     once and computes.  The ring runs on across tasks and segments, and
+//     no block barrier stands between a stage's copy and its use;
+//   - kernel 2's down launch is a programmatic dependent of its own
+//     gate/up launch, the kernel launched just before it
+//     (cudaLaunchKernelEx): its blocks start, and issue their copies of
+//     w2, which the gate/up launch does not write, while the gate/up
+//     launch's last blocks run;
+//     griddepcontrol.wait stands before the first read of h, the residual
+//     and the gain and the first write of y.  Every other launch is an
+//     ordinary one, which finds the kernel before it finished;
 //   - a lane converts its slot's codes four at a time (a byte permute and
 //     a subtract each: 2^23 + code, exactly) and sums each group in one
 //     FMA chain a column and row;
@@ -111,7 +115,10 @@ struct Plan {
 //   matmul (kernels 1, 13, 17):  y[B, N] = xn @ W, every form;
 //   gate_up (kernel 2):  h[B, F] = silu(xn @ W1) * (xn @ W3), w13 [D, 2F]
 //                        in any form, the norm always given;
-//   down (kernel 2):     y[B, D] = residual + h @ W2, any form but sb.
+//   down (kernel 2):     y[B, D] = residual + h @ W2, any form but sb;
+//                        launched only right after the gate_up launch
+//                        that writes h, on the same stream (ffn.cu run):
+//                        it is that launch's programmatic dependent.
 cudaError_t matmul(const __nv_bfloat16* x, int B, int K, const Weights& w, int N,
                    const __nv_bfloat16* gain, float eps, __nv_bfloat16* y, const Plan& p,
                    cudaStream_t stream);
@@ -446,9 +453,10 @@ __device__ __forceinline__ void wait_stages(int stages) {
 }
 
 // Programmatic dependent launch (Hopper): launch_dependents lets the next
-// kernel on the stream launched with the attribute start (its blocks take
-// the SMs this grid frees); wait blocks until the kernel before this one
-// has completed and its writes are visible.
+// kernel on the stream, where it was launched with the attribute, start (its
+// blocks take the SMs this grid frees); wait blocks until the kernel before
+// this one has completed and its writes are visible.  In a launch without
+// the attribute the kernel before has completed already, and wait returns.
 __device__ __forceinline__ void grid_launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
@@ -553,13 +561,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (ls < splits) start_task();
     }
   };
-  // The whole ring in flight before any other work: the weights are
-  // read-only, so their copies start before the wait on the kernel before
-  // this one; every read of x, the gain and the residual and every write
-  // of y come after it (the allocator may hand y a buffer that kernel still
-  // reads).  Those four pointers are not __restrict__, so that no read of
-  // them moves above the wait.
-  for (int k = 0; k < R; ++k) {
+  // The ring's first E stages in flight before any other work, the rest
+  // once x is staged: x's loads queue behind what is issued before them, so
+  // kernels 1, 13 and 17 issue two stages first; kernel 2's launches issue
+  // the whole ring.  The weights are read-only, so their copies start
+  // before the wait on the kernel before this one (kernel 2's down launch:
+  // its gate/up launch); every read of x, the gain and the residual and
+  // every write of y come after it.  Those four pointers are not
+  // __restrict__, so that no read of them moves above the wait.
+  const int E = EPI == kStore ? min(R, 2) : R;
+  for (int k = 0; k < E; ++k) {
     issue_next(k);
     cp_async_commit();
   }
@@ -689,6 +700,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     __syncthreads();  // x staged (red is free: the parts' exchange below)
+    if (s == 0)
+      for (int k = E; k < R; ++k) {
+        issue_next(k);
+        cp_async_commit();
+      }
 
     const int w0 = first_slot(s), wn = end_slot(s) - w0;  // this warp's slots
     const int n_chunks = (wn + STAGE - 1) / STAGE;
@@ -840,21 +856,26 @@ cudaError_t launch_rows(const TX* x, int B, int K, const Form& form, int N, cons
   static const cudaError_t allowed =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (allowed != cudaSuccess) return allowed;
-  // Launched as a programmatic dependent of the kernel before it on the
-  // stream: the blocks start, and issue their weight copies, while that
-  // kernel's last blocks run.
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.blocks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, fn, x, B, K, form, N, gain, eps, residual, y, p.splits,
-                            p.stages, p.parts);
+  if constexpr (EPI != kResidual) {
+    fn<<<p.blocks, kThreads, smem, stream>>>(x, B, K, form, N, gain, eps, residual, y,
+                                             p.splits, p.stages, p.parts);
+    return cudaGetLastError();
+  } else {
+    // Kernel 2's down launch (stream::down), launched right after its own
+    // gate/up launch on the same stream: a programmatic dependent of it.
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(p.blocks);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelEx(&cfg, fn, x, B, K, form, N, gain, eps, residual, y, p.splits,
+                              p.stages, p.parts);
+  }
 }
 
 template <typename TX, typename TY, int EPI, typename TG, typename TR, typename Form>

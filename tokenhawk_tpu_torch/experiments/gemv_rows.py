@@ -2,18 +2,20 @@
 FFN) at decode rows, on the decode-row walk.
 
     python -m tokenhawk_tpu_torch.experiments.gemv_rows [--sweep] [--case TEXT]
-        [--rows 1,8] [--ramp] [--isolated]
+        [--rows 1,8] [--ramp]
 
 For each case, at the shapes of the model paths that run them (kernel 13
 over Llama-3-8B in Q4_K_M: wqkv, wo, the Q6_K w2 and head, and LLaMA-7B in
 Q8_0: wqkv and head; kernel 1 over the 7B's Q4_0 wqkv, wo and output;
 kernel 17 over Llama-3-8B's super-block wqkv and wo; kernel 2 over the
 7B's Q4_0 and Q8_0 pairs and Llama-3-8B's Q4_K / Q6_K, Q4_K / Q4_K and
-super-block w13 pairs), at 1 and 8 rows of bfloat16 x with the norm as the model fuses it:
-the error against the plain version (2^-7 of the largest |reference|),
-the device ms of one call (CUDA events behind a device spin, weight
-copies spanning 3x the 50 MB L2), the launch counter it ticked, and the
-bound (the weights' GGUF bytes, and the port's layout bytes, at 3.35 TB/s;
+super-block w13 pairs), at 1 and 8 rows of bfloat16 x with the norm as
+the model fuses it: the error against the plain version (2^-7 of the
+largest |reference|), the device ms of one call back to back (`ms`: CUDA
+events behind a device spin, weight copies spanning 3x the 50 MB L2) and
+alone (`isolated_ms`: the device idle before it, as in an eager decode
+step whose host is slower than its kernels), the launch counter it
+ticked, and the bound (the weights' GGUF bytes, and the port's layout bytes, at 3.35 TB/s;
 the operations at the card's 67 TFLOP/s of f32 FMAs, the arithmetic at
 these rows).  With --sweep, in a tree whose wrappers force the decode-row
 walk's plan (`quant_matmul_at`, `fused_ffn_at`), each case also at every
@@ -24,13 +26,11 @@ script into a `git archive` of another tree and run it there, in turns
 with this one, to put the two beside each other.  With --ramp, the
 one-row time of one launch at K 4096 over N = 264 * 2^i outputs (i = 0..7;
 from N 4224 on every warp of 132 SMs x 16 takes the same number of column
-pairs) for Q4_0, Q4_K and its super-block form, and a least-squares line
-through the full-wave points: its slope the stream's rate, its intercept
-the fixed cost of a launch (the ramp and the gap between launches).  With
---isolated, each call is timed alone instead (`isolated_ms`: the device
-idle before it, as in an eager decode step whose host is slower than its
-kernels), not back to back.  The last line is one JSON object with every
-timing.
+pairs) for Q4_0, Q4_K and its super-block form, back to back and alone,
+and a least-squares line through the full-wave points of each: its slope
+the stream's rate, its intercept the fixed cost of a launch (the ramp,
+and back to back the gap between launches).  The last line is one JSON
+object with every timing.
 """
 
 from __future__ import annotations
@@ -179,21 +179,22 @@ def ramp(g, dev) -> list:
             N = RAMP_N0 * 2**i
             w = weight(K, N, kind, g, dev)
             sets = copies((w,))
-            # x and the gain after the weights: the walk's weight copies start
-            # before it waits on the kernel just before it (qmatmul.py).
             gain = (1.0 + 0.1 * torch.randn(K, generator=g, device=dev)).to(torch.bfloat16)
             x = torch.randn(1, K, generator=g, device=dev).to(torch.bfloat16)
             y, path = counted(lambda: qmatmul.quant_matmul(x, w, gain))
             check(f"ramp {kind} N={N}", y, qmatmul.quant_matmul_plain(x, w, gain))
-            ms = device_ms([lambda s=s: qmatmul.quant_matmul(x, s[0], gain) for s in sets])
-            points.append(dict(N=N, bytes=w.nbytes, ms=ms, path=path))
+            fns = [lambda s=s: qmatmul.quant_matmul(x, s[0], gain) for s in sets]
+            points.append(dict(N=N, bytes=w.nbytes, ms=device_ms(fns),
+                               isolated_ms=isolated_ms(fns), path=path))
             print(json.dumps(dict(ramp=kind, **points[-1])), flush=True)
             del w, sets
             torch.cuda.empty_cache()
         full = [p for p in points if p["N"] >= 16 * RAMP_N0]
-        slope, icpt = np.polyfit([p["bytes"] for p in full], [p["ms"] for p in full], 1)
-        rec = dict(ramp=kind, K=K, points=points, fit_points=len(full),
-                   intercept_ms=float(icpt), stream_tbps=float(1e-9 / slope))
+        rec = dict(ramp=kind, K=K, points=points, fit_points=len(full))
+        for key, tag in (("ms", ""), ("isolated_ms", "isolated_")):
+            slope, icpt = np.polyfit([p["bytes"] for p in full], [p[key] for p in full], 1)
+            rec[tag + "intercept_ms"] = float(icpt)
+            rec[tag + "stream_tbps"] = float(1e-9 / slope)
         print(json.dumps(rec), flush=True)
         out.append(rec)
     return out
@@ -205,9 +206,7 @@ def main() -> int:
     ap.add_argument("--case", default="", help="only the cases whose name holds this text")
     ap.add_argument("--rows", default="1,8", help="row counts, comma-separated")
     ap.add_argument("--ramp", action="store_true", help="the N sweep at one row alone")
-    ap.add_argument("--isolated", action="store_true", help="time each call alone")
     args = ap.parse_args()
-    timer = isolated_ms if args.isolated else device_ms
     if not torch.cuda.is_available():
         raise SystemExit("gemv_rows: needs a CUDA device")
     sweep = args.sweep and hasattr(ffn, "fused_ffn_at") and hasattr(qmatmul, "quant_matmul_at")
@@ -231,10 +230,10 @@ def main() -> int:
             x = torch.randn(rows, K, generator=g, device=dev).to(torch.bfloat16)
             y, path = counted(lambda: qmatmul.quant_matmul(x, w, ng))
             err = check(name, y, qmatmul.quant_matmul_plain(x, w, ng))
-            ms = timer([lambda s=s: qmatmul.quant_matmul(x, s[0], ng) for s in sets])
+            fns = [lambda s=s: qmatmul.quant_matmul(x, s[0], ng) for s in sets]
             io = 2 * rows * (K + N) + 2 * K * norm
-            rec = dict(case=name, rows=rows, path=path, max_abs_err=err, ms=ms,
-                       isolated=args.isolated,
+            rec = dict(case=name, rows=rows, path=path, max_abs_err=err, ms=device_ms(fns),
+                       isolated_ms=isolated_ms(fns),
                        **bound(gguf_bytes(kind, K, N), w.nbytes, io, 2 * rows * K * N))
             if sweep and qmatmul.stream_path(qmatmul.form_code(w), rows):
                 form = qmatmul.form_code(w)
@@ -257,10 +256,10 @@ def main() -> int:
             x = torch.randn(rows, D, generator=g, device=dev).to(torch.bfloat16)
             y, path = counted(lambda: ffn.fused_ffn(x, w13, w2, gain))
             err = check(name, y, ffn.fused_ffn_plain(x, w13, w2, gain))
-            ms = timer([lambda s=s: ffn.fused_ffn(x, *s, gain) for s in sets])
+            fns = [lambda s=s: ffn.fused_ffn(x, *s, gain) for s in sets]
             io = 2 * (2 * rows + 1) * D
-            rec = dict(case=name, rows=rows, path=path, max_abs_err=err, ms=ms,
-                       isolated=args.isolated,
+            rec = dict(case=name, rows=rows, path=path, max_abs_err=err, ms=device_ms(fns),
+                       isolated_ms=isolated_ms(fns),
                        **bound(gguf_bytes(k13, D, 2 * F) + gguf_bytes(k2, F, D),
                                w13.nbytes + w2.nbytes, io, 6 * rows * D * F))
             if sweep:

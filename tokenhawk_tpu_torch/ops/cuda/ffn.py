@@ -15,11 +15,10 @@ ring of shared-memory stages, x staged once a block, on
 `qmatmul.stream_plan`'s plan): the gate/up launch, with the norm's row
 statistics summed inside it and a SiLU epilogue into an f32 scratch of
 B*F*4 bytes that stays in L2, then the down launch with the residual in
-its epilogue.  As kernel 1's, the launches' weight copies start before
-they wait on the kernel before them: w13 and w2 must not be written by
-the kernel launched just before the call.  The [B, F]
-intermediate stays f32.  Counted per (w13 form, w2 form) pairing, each
-count one call of two launches; `fused_ffn_at` forces the two plans.
+its epilogue, launched as a programmatic dependent of the gate/up launch
+(its copies of w2 start while the gate/up launch's last blocks run).  The
+[B, F] intermediate stays f32.  Counted per (w13 form, w2 form) pairing,
+each count one call of two launches; `fused_ffn_at` forces the two plans.
 
 Kernel 15, `fused_owo_ffn`, replaces tokenhawk_tpu/ops/pallas/ffn.py
 `fused_owo_ffn` (_fused_owo_ffn): the whole post-attention half of a

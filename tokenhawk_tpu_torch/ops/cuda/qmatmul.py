@@ -21,10 +21,7 @@ block and read once, and the norm's row statistics are summed inside the
 launch (`stream_plan`: the blocks, K's segments, the ring's depth and the
 parts from the rows, K, N, the form and the SM count).  Counted in
 `launches["q4_matmul_stream"]`, `launches["qk_matmul_stream"]` and
-`launches["qk_sb_matmul_stream"]`.  The walk launches as a programmatic
-dependent of the kernel before it, and its weight copies start before it
-waits on that kernel: a weight must not be written by the kernel launched
-just before the call (build the input after the weights).  The GEMV
+`launches["qk_sb_matmul_stream"]`.  The GEMV
 (gemv.cuh) takes f32 x above 8 rows: it reads a column's codes with
 16-byte loads and converts them once for every row of a row tile, and a
 small pre-pass gives the norm's row statistics.  Counted in
