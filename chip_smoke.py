@@ -1616,7 +1616,12 @@ def _decode_append_records(randn, case) -> list:
 # the g32m at 8 and g16 at 1 and 8 moved and are this tree's; g32m and sb
 # at one row and kernel 2's q4_0 pair kept their bfloat16 outputs bit for
 # bit (a change of a few f32 ulps seldom moves a bfloat16 rounding).  The
-# float32 40-row entries stay on the GEMV, bit for bit.
+# float32 40-row entries stay on the GEMV, bit for bit.  Kernels 8 and 10
+# then took the tile walk over int8 rows (codes and scales copied together,
+# code x scale widened in f32 where used, kernel 3's summation order and
+# split forms): their entries (the output, and kernel 8's written cache)
+# are that tree's, at their split rules (kernel 8 at one block an SM,
+# kernel 10 in 2 where the pairs fill the SMs).
 PARENT_DIGESTS = {
     'kernel 3 7B':
         '0b730923adc93bb96be8a17ca537594d8a6b6dcfbc80b92751aafae0e157b96d',
@@ -1668,6 +1673,14 @@ PARENT_DIGESTS = {
         '7cd4e6ba24952cb765f6dd5a11ac806401f6bff3d0e23ee1a6a98fbde447c795',
     'kernel 2 g32m/g16 rows=1 torch.bfloat16':
         'a7605c204fe76c61ea9a959755b11349adbe0a65cf9cefe66195b9e916a94b29',
+    'kernel 8 7B':
+        '72f84c842ac59cda39e5c9e6757ca7737694cd235f47ac6c89b4d03665d953c7',
+    'kernel 8 dh64':
+        '8f73e15ccf5466f9abe8fc291d4cffefdd3e188e957e13013703dcd9ffda66e2',
+    'kernel 10 7B':
+        '031e62ea20ec7c4d22589ca3d58107ef7683ba42f7bb2c3323812879bac98168',
+    'kernel 10 dh64':
+        '1c6d4aa3ca0b7cbc44bf2b3a7792764cec1e16dd9920add9be486afa4e375318',
 }
 
 
@@ -1681,8 +1694,11 @@ def _output_digests() -> dict:
 
     from tokenhawk_tpu_torch.ops.cuda import ffn
     from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
+    from tokenhawk_tpu_torch.ops.cuda import kv_int8 as ki
     from tokenhawk_tpu_torch.ops.cuda import paged_decode as pd
+    from tokenhawk_tpu_torch.ops.cuda import paged_int8 as pi
     from tokenhawk_tpu_torch.ops.cuda import qmatmul
+    from tokenhawk_tpu_torch.ops.kvquant import quantize_kv_block
     from tokenhawk_tpu_torch.ops.qweight import QWeight
 
     dev = torch.device("cuda")
@@ -1784,6 +1800,32 @@ def _output_digests() -> dict:
                     G, dev))
         x, g = arr(1, D), 1.0 + arr(D, scale=0.1)
         out[f"kernel 2 {tag} rows=1 torch.bfloat16"] = digest(ffn.fused_ffn(x, *ws, g))
+    # Kernels 8 and 10 on a generator of their own, in their split forms:
+    # the 7B's heads at B=2 (64 pairs: 2 splits for kernel 8, 4 for kernel
+    # 10) and TinyLlama's at B=9, a length of 0 among them (36 pairs: 3 and
+    # 7 splits).
+    rng = np.random.default_rng(SEED + 115)
+
+    def int8_rows(*shape, pool=False):
+        codes, scales = quantize_kv_block(arr(*shape, dtype=torch.float32))
+        return [codes, scales.float() if pool else scales]
+
+    for tag, Hkv, rep, Dh, S, lens in (("7B", 32, 1, 128, S_CTX, [37, S_CTX]),
+                                       ("dh64", 4, 8, 64, 2048, PAGED_LENGTHS + [0])):
+        B, mp = len(lens), max(lens) // PAGED_PS
+        q = arr(B, Hkv, rep, Dh, scale=Dh**-0.5)
+        kn, vn = arr(B, Hkv, Dh), arr(B, Hkv, Dh)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        cache = int8_rows(B, Hkv, S, Dh) + int8_rows(B, Hkv, S, Dh)
+        o = ki.flash_decode_int8(q, kn, vn, *cache, lengths)
+        out[f"kernel 8 {tag}"] = digest(o, *cache)
+        n_pages = B * mp + 1
+        pool = (int8_rows(n_pages, Hkv, PAGED_PS, Dh, pool=True)
+                + int8_rows(n_pages, Hkv, PAGED_PS, Dh, pool=True))
+        table = torch.from_numpy(rng.permutation(n_pages)[:B * mp].reshape(B, mp)
+                                 .astype(np.int32)).to(dev)
+        out[f"kernel 10 {tag}"] = digest(pi.paged_decode_int8(q, *pool, table, lengths,
+                                                              "contig"))
     return out
 
 
@@ -1791,7 +1833,7 @@ def _check_parent_digests() -> None:
     """The pinned calls' outputs against PARENT_DIGESTS, bit for bit."""
     got = _output_digests()
     differ = [k for k in PARENT_DIGESTS if got.get(k) != PARENT_DIGESTS[k]]
-    log(f"kernels 2, 3, 5, 16, 18 and the GEMV at 1, 8 bf16 and 40 f32 rows: "
+    log(f"kernels 2, 3, 5, 8, 10, 16, 18 and the GEMV at 1, 8 bf16 and 40 f32 rows: "
         f"{len(got) - len(differ)} of {len(got)} outputs bit for bit the parent tree's")
     if differ or set(got) != set(PARENT_DIGESTS):
         raise AssertionError("outputs that moved from the parent tree's: "
@@ -1968,17 +2010,36 @@ def _prefill_records(randn, case, library) -> tuple:
     return tuple(records)
 
 
+# Kernel 8's cases, each over a dense int8 cache of INT8_CTX rows at the
+# 7B's heads: B=5 ragged with a length of 0 (160 pairs: one block a pair),
+# then B=1 (32 pairs: the split form) at 37, 300 and 2048 live rows, the
+# last phase 4i's decode at its longest (experiments/decode_rows.py
+# sweeps their split counts).
+INT8_CASES = [[1, 37, 300, INT8_CTX, 0], [37], [300], [INT8_CTX]]
+
+
 def _int8_kernel_records(randn, case, library) -> list:
     """Kernel 8 over a dense int8 cache of n_ctx 2048 (the int8 Engine of
-    phase 4i): decode at ragged lengths, timed at B=1 with 2048 live tokens.
-    Kernel 9 (prefill) is timed with kernel 4 (_prefill_records)."""
+    phase 4i) at INT8_CASES, each against its plain version with the
+    appended codes and scales equal to the plain's, timed as the wrapper
+    launches it (the split form where decode_int8_splits gives more than 1),
+    back to back and alone, beside kernel 3 over a bf16 cache of the same
+    shape (back to back and alone), its bound and, at B=1, dequantize +
+    SDPA over the live rows.  The record is timed at B=1 over
+    2048 live rows.  Kernel 9 (prefill) is timed with kernel 4
+    (_prefill_records)."""
     import torch
     import torch.nn.functional as tf
 
+    from tokenhawk_tpu_torch.ops.cuda import build
+    from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
     from tokenhawk_tpu_torch.ops.cuda import kv_int8 as ki
     from tokenhawk_tpu_torch.ops.kvquant import quantize_kv_block
 
+    log("-- kernel 8: int8 decode + quantizing append on kernel 3's tile walk, in clusters "
+        "where the (sequence, KV head) pairs leave SMs idle; kernel 3 on bf16 beside it")
     dev = torch.device("cuda")
+    sms = build.sm_count(dev)
     Hkv, Dh, S, bf = 32, 128, INT8_CTX, 2
 
     def cache(B):
@@ -1986,58 +2047,77 @@ def _int8_kernel_records(randn, case, library) -> list:
         v, vs = quantize_kv_block(randn(B, Hkv, S, Dh, dtype=torch.float32))
         return [k, ks, v, vs]
 
-    def nbytes(c):
-        return sum(x.nbytes for x in c)
-
-    cases = []
-    for lens in ([1, 37, 300, S, 0], [300], [S]):
+    cases, main = [], None
+    for lens in INT8_CASES:
         B = len(lens)
+        splits = ki.decode_int8_splits(B, Hkv, S, sms)
         q = randn(B, Hkv, 1, Dh, scale=Dh**-0.5)
         kn, vn = randn(B, Hkv, Dh), randn(B, Hkv, Dh)
         c = cache(B)
         p = [x.clone() for x in c]
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        before = ki.launches["flash_decode_int8_split"]
         out = ki.flash_decode_int8(q, kn, vn, *c, lengths)
+        if ki.launches["flash_decode_int8_split"] - before != (splits > 1):
+            raise AssertionError(f"kernel 8 at {lens}: the split counter disagrees with {splits} "
+                                 f"splits")
         ref = ki.flash_decode_int8_plain(q, kn, vn, *p, lengths)
         if not all(torch.equal(a, b) for a, b in zip(c, p)):
             raise AssertionError(f"flash_decode_int8 {lens}: appended rows differ from the plain's")
-        caches = copies(c, nbytes(c))
-        case(cases, f"flash_decode_int8 B={B} lengths={lens} S={S} (appended codes and scales "
-                    f"identical)", f"B={B} L={lens[-1]}", B, out, ref,
+        caches = copies(c, sum(x.nbytes for x in c))
+        case(cases, f"flash_decode_int8 (kernel 8) B={B} lengths={lens} S={S}, {splits} splits "
+                    f"(appended codes and scales identical)", f"B={B} L={lens[-1]}", B, out, ref,
              [lambda c=c: ki.flash_decode_int8(q, kn, vn, *c, lengths) for c in caches],
-             [lambda c=c: ki.flash_decode_int8_plain(q, kn, vn, *c, lengths) for c in caches])
-    L = S
-    # Kernel 3 on a bf16 cache of the same length: what --kv auto trades.
-    from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
-
-    bc = copies([randn(1, Hkv, S, Dh), randn(1, Hkv, S, Dh)], 2 * Hkv * S * Dh * bf)
-    k3 = timed([lambda c=c: fd.flash_decode_append(q, kn, vn, *c, lengths) for c in bc])["ms"]
-    log(f"  for comparison, kernel 3 over a bf16 cache, B=1 L={L} S={S}: {k3:.4f} ms")
-    del bc
-    lib8 = library("dequantize K and V + scaled_dot_product_attention, B=1, 2048 keys (3+ calls)",
-                   [lambda c=c: tf.scaled_dot_product_attention(q, _deq(c[0], c[1]),
-                                                                _deq(c[2], c[3]), scale=1.0)
-                    for c in caches])
-    rec8 = _record("flash_decode_int8", "tokenhawk_tpu_torch/csrc/kv_int8.cu",
+             [lambda c=c: ki.flash_decode_int8_plain(q, kn, vn, *c, lengths) for c in caches],
+             alone=True)
+        live = sum(min(n, S) for n in lens if n > 0)
+        # The live codes and bf16 scales of K and V, q, k_new, v_new and out,
+        # the two rows written, the lengths.
+        b = bound(2 * live * Hkv * (Dh + bf) + 4 * B * Hkv * Dh * bf + 2 * B * Hkv * (Dh + bf)
+                  + 4 * B, 4 * live * Hkv * Dh)
+        lib = None
+        if B == 1:
+            L = lens[0]
+            lib = timed([lambda c=c: tf.scaled_dot_product_attention(
+                q, _deq(c[0][:, :, :L], c[1][:, :, :L]), _deq(c[2][:, :, :L], c[3][:, :, :L]),
+                scale=1.0) for c in caches])["ms"]
+        bc = copies([randn(B, Hkv, S, Dh), randn(B, Hkv, S, Dh)], 2 * B * Hkv * S * Dh * bf)
+        k3 = [lambda c=c: fd.flash_decode_append(q, kn, vn, *c, lengths) for c in bc]
+        k3_ms, k3_alone = timed(k3)["ms"], isolated_ms(k3)
+        cases[-1].update(b, library_ms=lib, splits=splits, kernel3_ms=k3_ms,
+                         kernel3_isolated_ms=k3_alone)
+        log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}); kernel 3 on a bf16 cache of the "
+            f"same shape {k3_ms:.4f} ms (alone {k3_alone:.4f})"
+            + (f"; library call dequantize + scaled_dot_product_attention over the live rows "
+               f"(3+ calls): {lib:.4f} ms" if lib is not None else ""))
+        del bc, k3
+        if lens == [S]:
+            main = (b, lib)
+        del c, p, caches
+    rec8 = _record("flash_decode_int8", "tokenhawk_tpu_torch/csrc/decode_tiles.cuh",
                    "tokenhawk_tpu/ops/pallas/flash_decode_int8.py:254 (flash_decode_int8)",
-                   cases, (f"B=1 L={L}", 1),
-                   bound(2 * L * Hkv * Dh + 2 * L * Hkv * bf + 4 * Hkv * Dh * bf,
-                         4 * L * Hkv * Dh), lib8)
-
+                   cases, (f"B=1 L={S}", 1), *main)
     return [rec8]
 
 
 def _paged_int8_kernel_records(randn, case, library, g) -> list:
     """Kernels 10-12 at phase 2's paged shapes (B=8, PAGED_LENGTHS, a
     140-page pool, shuffled table, two appends on the trash page), on int8
-    pages in both layouts; timed in the default (contig) layout."""
+    pages in both layouts; timed in the default (contig) layout, kernel 10
+    back to back and alone, beside kernel 5 on bf16 pages of the same
+    shape (back to back and alone)."""
     import torch
     import torch.nn.functional as tf
 
+    from tokenhawk_tpu_torch.ops.cuda import build
+    from tokenhawk_tpu_torch.ops.cuda import paged_decode as pd
     from tokenhawk_tpu_torch.ops.cuda import paged_int8 as pi
     from tokenhawk_tpu_torch.ops.kvquant import quantize_kv_block
 
+    log("-- kernels 10-12: int8 pages; kernel 10 on kernel 5's tile walk, kernel 5 on bf16 "
+        "pages beside it")
     dev = torch.device("cuda")
+    sms = build.sm_count(dev)
     Hkv, Dh, ps, n_pool, bf = 32, 128, PAGED_PS, PAGED_POOL, 2
     B, mp, live = len(PAGED_LENGTHS), max(PAGED_LENGTHS) // ps, sum(PAGED_LENGTHS)
     lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
@@ -2059,11 +2139,26 @@ def _paged_int8_kernel_records(randn, case, library, g) -> list:
             codes, scales = quantize_kv_block(randn(*shape, dtype=torch.float32))
             pool += [codes, scales.float()]
         q = randn(B, Hkv, 1, Dh, scale=Dh**-0.5)
-        case(dec, f"paged_decode_int8 {layout} B={B} lengths={PAGED_LENGTHS} ps={ps}", layout, B,
-             pi.paged_decode_int8(q, *pool, table, lengths, layout),
+        splits = pi.paged_int8_splits(B, Hkv, mp * ps, sms)
+        before = pi.launches["paged_decode_int8_split"]
+        out = pi.paged_decode_int8(q, *pool, table, lengths, layout)
+        if pi.launches["paged_decode_int8_split"] - before != (splits > 1):
+            raise AssertionError(f"kernel 10 {layout}: the split counter disagrees with {splits} "
+                                 f"splits")
+        case(dec, f"paged_decode_int8 (kernel 10) {layout} B={B} lengths={PAGED_LENGTHS} ps={ps}, "
+                  f"{splits} splits", layout, B, out,
              pi.paged_decode_int8_plain(q, *pool, table, lengths, layout),
              [lambda: pi.paged_decode_int8(q, *pool, table, lengths, layout)],
-             [lambda: pi.paged_decode_int8_plain(q, *pool, table, lengths, layout)])
+             [lambda: pi.paged_decode_int8_plain(q, *pool, table, lengths, layout)],
+             alone=layout == "contig")
+        if layout == "contig":
+            kb, vb = randn(*shape), randn(*shape)
+            k5 = [lambda: pd.paged_decode(q, kb, vb, table, lengths, layout)]
+            k5_ms, k5_alone = timed(k5)["ms"], isolated_ms(k5)
+            del kb, vb, k5
+            dec[-1].update(splits=splits, kernel5_ms=k5_ms, kernel5_isolated_ms=k5_alone)
+            log(f"  kernel 5 on bf16 pages of the same shape {k5_ms:.4f} ms (alone "
+                f"{k5_alone:.4f})")
 
         kn, vn = randn(B, Hkv, Dh), randn(B, Hkv, Dh)
         pa, pb = [x.clone() for x in pool], [x.clone() for x in pool]
@@ -2113,7 +2208,8 @@ def _paged_int8_kernel_records(randn, case, library, g) -> list:
     src = "tokenhawk_tpu_torch/csrc/paged_int8.cu"
     row = Hkv * Dh  # bytes of one token's int8 codes across the kv heads
     return [
-        _record("paged_decode_int8", src, "tokenhawk_tpu/ops/pallas/paged_decode_int8.py:450 "
+        _record("paged_decode_int8", "tokenhawk_tpu_torch/csrc/decode_tiles.cuh",
+                "tokenhawk_tpu/ops/pallas/paged_decode_int8.py:450 "
                 "(paged_flash_decode_int8_walk); paged_decode_int8.py:216 "
                 "(paged_flash_decode_int8)", dec, ("contig", B),
                 bound(2 * live * (row + Hkv * 4) + 2 * B * row * bf + B * (mp + 1) * 4,
@@ -2694,7 +2790,7 @@ def _decode_window(engine, prompt, chunks: int = 4, kernel_mods=(),
         return {"tok_s": n / wall, "tokens": n, "counts": counts}
     avgs = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in avgs) / 1e6
-    attn = [e for e in avgs if "decode_int8_kernel" in e.key or "decode_append_kernel" in e.key]
+    attn = [e for e in avgs if "decode_int8_tiles" in e.key or "decode_append_tiles" in e.key]
     log(f"decode window, {engine.cache_dtype} cache, {len(prompt)}+ live tokens, {n} tokens "
         f"(profiler on): wall {wall * 1e3:.1f} ms ({n / wall:.1f} tok/s), device busy "
         f"{busy * 1e3:.1f} ms ({n / busy:.1f} tok/s), idle share {1 - busy / wall:.1%}; "
@@ -3794,10 +3890,12 @@ def _check_draft_splits(label: str, counts: dict) -> None:
 
 
 def _split_ab(spec, prompt) -> None:
-    """9a's request again with kernel 14 held to one block a (sequence, KV
-    head) (splits 1: the launch before the split form) and on the split
-    form, in turns (split, one, one, split): decode tok/s of each, and the
-    device time of a profiled round's kernel-14 launches."""
+    """9a's request again, 16 new tokens a turn (the host sets their tok/s;
+    the profiled round gives kernel 14's device time), with kernel 14 held
+    to one block a (sequence, KV head) (splits 1: the launch before the
+    split form) and on the split form, in turns (split, one, one, split):
+    decode tok/s of each, and the device time of a profiled round's
+    kernel-14 launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3809,7 +3907,7 @@ def _split_ab(spec, prompt) -> None:
     try:
         for form in ("split", "one block", "one block", "split"):
             fd.decode_splits = auto if form == "split" else (lambda *shape: 1)
-            _, _, t = _spec_engine_run(spec, prompt, f"9a kernel 14 {form}")
+            _, _, t = _spec_engine_run(spec, prompt, f"9a kernel 14 {form}", n_new=16)
             tps[form].append(t)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 spec.generate(prompt, max_new_tokens=8)
@@ -4650,13 +4748,14 @@ def main() -> int:
         cfg_i8 = dataclasses.replace(cfg_2k, n_layer=INT8_LAYERS)
         params_i8 = dataclasses.replace(params, layers=params.layers[:INT8_LAYERS])
         int8_counts = phase_int8_serve(cfg_i8, params_i8, every,
-                                       [*Q4_PATHS, FFN_Q4_0] + int8_dense,
+                                       [*Q4_PATHS, FFN_Q4_0, "flash_decode_int8_split"]
+                                       + int8_dense,
                                        [Q4_GEMV, *QK_PATHS, QK_GEMV, "flash_decode", K4,
                                         *CUDA_CORE_PREFILL]
                                        + bf16_paged + int8_paged)
         int8_paged_counts, sched = phase_paged_serve(
             params_i8, cfg_i8, every, "int8",
-            [*Q4_PATHS, FFN_Q4_0, K4] + int8_paged,
+            [*Q4_PATHS, FFN_Q4_0, K4, "paged_decode_int8_split"] + int8_paged,
             [Q4_GEMV, *QK_PATHS, QK_GEMV, "flash_decode", *CUDA_CORE_PREFILL] + bf16_paged
             + int8_dense,
             f"phase 4bi: paged serve, LLaMA-7B Q4_0 widths, {INT8_LAYERS} layers")

@@ -1074,7 +1074,8 @@ def test_int8_codec_on_the_card_is_the_cpus(dtype, Dh):
 def test_decode_int8_kernel_matches_plain(rep, dtype, Dh):
     """Kernel 8: the appended codes and scales exactly, the output within
     one output rounding; a row of length 0 gives zeros and appends
-    nothing; the last length clamps to S."""
+    nothing; the last length clamps to S.  Its 20 (sequence, kv head) pairs
+    take the split form on an H100, and the counters say so."""
     dev = cuda_device()
     g = torch.Generator(device=dev).manual_seed(rep)
     B, Hkv, S = 5, 4, 512
@@ -1086,14 +1087,62 @@ def test_decode_int8_kernel_matches_plain(rep, dtype, Dh):
     q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).to(dtype)
     kn = torch.randn(B, Hkv, Dh, generator=g, device=dev).to(dtype)
     vn = torch.randn(B, Hkv, Dh, generator=g, device=dev).to(dtype)
-    before = kv_int8.launches["flash_decode_int8"]
+    before = dict(kv_int8.launches)
     got = kv_int8.flash_decode_int8(q, kn, vn, *cache, lengths)
-    assert kv_int8.launches["flash_decode_int8"] == before + 1
+    split = kv_int8.decode_int8_splits(B, Hkv, S, torch.cuda.get_device_properties(
+        dev).multi_processor_count) > 1
+    assert kv_int8.launches == {**before, "flash_decode_int8": before["flash_decode_int8"] + 1,
+                                "flash_decode_int8_split":
+                                before["flash_decode_int8_split"] + split}
     want = kv_int8.flash_decode_int8_plain(q, kn, vn, *plain, lengths)
     for a, b in zip(cache, plain):
         assert torch.equal(a, b)
     assert torch.equal(got[4], torch.zeros_like(got[4]))
     assert _err(got, want) <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [2048, 1001])
+def test_decode_int8_split_kernel_matches_plain(S, dtype, rep, Dh):
+    """Kernel 8 on the tile walk in both forms: one block a pair (splits 1)
+    and clusters of 2 to 16 blocks with ranges of at least 1, 2 and 4
+    tiles; lengths 0, 1 row, a tile less one, a tile, a tile and one, a
+    128-row chunk less one, a chunk, a chunk and one, 300, S and past S.
+    The written codes and scales equal the plain version's (the new row
+    lands in one block's range, at a chunk's end or alone in it), a length
+    of 0 gives zeros and writes nothing, and the counters name the form.
+    S 1001 leaves most heads' scale rows off 16 bytes: their scales come
+    one load a row."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(rep + Dh + S)
+    Hkv = 2
+    lens = [0, 1, 31, 32, 33, 127, 128, 129, 300, S, S + 5]
+    B = len(lens)
+    k, ks = _int8(g, dev, B, Hkv, S, Dh)
+    v, vs = _int8(g, dev, B, Hkv, S, Dh)
+    cache0 = [k, ks, v, vs]
+    plain = [c.clone() for c in cache0]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).to(dtype)
+    kn = torch.randn(B, Hkv, Dh, generator=g, device=dev).to(dtype)
+    vn = torch.randn(B, Hkv, Dh, generator=g, device=dev).to(dtype)
+    want = kv_int8.flash_decode_int8_plain(q, kn, vn, *plain, lengths)
+    for min_tiles in (1, flash_decode.APPEND_MIN_TILES, flash_decode.MIN_SPLIT_TILES):
+        for splits in range(1, flash_decode.MAX_SPLITS + 1):
+            cache = [c.clone() for c in cache0]
+            before = dict(kv_int8.launches)
+            got = kv_int8.flash_decode_int8_at(q, kn, vn, *cache, lengths, splits, min_tiles)
+            torch.cuda.synchronize()
+            assert kv_int8.launches["flash_decode_int8"] == before["flash_decode_int8"] + 1
+            assert kv_int8.launches["flash_decode_int8_split"] == (
+                before["flash_decode_int8_split"] + (splits > 1))
+            for a, b in zip(cache, plain):
+                assert torch.equal(a, b), (splits, min_tiles)
+            assert got.shape == q.shape and got.dtype == dtype
+            assert torch.equal(got[0], torch.zeros_like(got[0]))
+            assert _err(got, want) <= _tol(want, dtype), (splits, min_tiles)
 
 
 @pytest.mark.parametrize("Dh", HEAD_DIMS)
@@ -1126,7 +1175,8 @@ def _int8_pools(g, dev, layout, Hkv, n_pages, ps, Dh=Dh):
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_paged_decode_int8_kernel_matches_plain(layout, rep, dtype, Dh):
-    """4 KV heads: at Dh 64 and rep 8, TinyLlama's heads."""
+    """4 KV heads: at Dh 64 and rep 8, TinyLlama's heads.  Its 20
+    (sequence, kv head) pairs take the split form on an H100."""
     dev = cuda_device()
     g = torch.Generator(device=dev).manual_seed(rep)
     B, Hkv, ps, mp, n_pages = 5, 4, 128, 4, 24
@@ -1134,10 +1184,54 @@ def test_paged_decode_int8_kernel_matches_plain(layout, rep, dtype, Dh):
     table = torch.randperm(n_pages, generator=g, device=dev)[:B * mp].reshape(B, mp).int()
     lengths = torch.tensor([1, 37, 128, 129, 0], dtype=torch.int32, device=dev)
     q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).to(dtype)
+    before = dict(paged_int8.launches)
     got = paged_int8.paged_decode_int8(q, *pool, table, lengths, layout)
+    split = paged_int8.paged_int8_splits(B, Hkv, mp * ps, torch.cuda.get_device_properties(
+        dev).multi_processor_count) > 1
+    assert paged_int8.launches == {**before, "paged_decode_int8":
+                                   before["paged_decode_int8"] + 1, "paged_decode_int8_split":
+                                   before["paged_decode_int8_split"] + split}
     want = paged_int8.paged_decode_int8_plain(q, *pool, table, lengths, layout)
     assert torch.equal(got[4], torch.zeros_like(got[4]))
     assert _err(got, want) <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
+@pytest.mark.parametrize("layout", ["contig", "head"])
+@pytest.mark.parametrize("ps", [16, 48, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_int8_split_kernel_matches_plain(dtype, rep, ps, layout, Dh):
+    """Kernel 10 on the tile walk in both forms, one block a pair and
+    clusters of 2 to 16 blocks with ranges of at least 1 and 2 tiles, over
+    pages of 16, 48 and 128 rows (a 128-row chunk of codes and its scales
+    span pages, or start inside one): lengths 0, 1, ps - 1, ps, ps + 1,
+    300 and the table's full rows; a length 0 gives zeros, every length 0
+    all zeros."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(ps + Dh + rep)
+    Hkv, mp = 2, 512 // ps + 1
+    lens = [0, 1, ps - 1, ps, ps + 1, 300, mp * ps]
+    B, n_pages = len(lens), len(lens) * mp + 3
+    pool = _int8_pools(g, dev, layout, Hkv, n_pages, ps, Dh)
+    table = torch.randperm(n_pages, generator=g, device=dev)[:B * mp].reshape(B, mp).int()
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).to(dtype)
+    want = paged_int8.paged_decode_int8_plain(q, *pool, table, lengths, layout)
+    for min_tiles in (1, flash_decode.APPEND_MIN_TILES):
+        for splits in range(1, flash_decode.MAX_SPLITS + 1):
+            before = dict(paged_int8.launches)
+            got = paged_int8.paged_decode_int8_at(q, *pool, table, lengths, layout, splits,
+                                                  min_tiles)
+            torch.cuda.synchronize()
+            assert paged_int8.launches["paged_decode_int8_split"] == (
+                before["paged_decode_int8_split"] + (splits > 1))
+            assert got.shape == q.shape and got.dtype == dtype
+            assert torch.equal(got[0], torch.zeros_like(got[0]))
+            assert _err(got, want) <= _tol(want, dtype), (splits, min_tiles)
+            none = paged_int8.paged_decode_int8_at(q, *pool, table, torch.zeros_like(lengths),
+                                                   layout, splits, min_tiles)
+            assert torch.equal(none, torch.zeros_like(none))
 
 
 @pytest.mark.parametrize("Dh", HEAD_DIMS)

@@ -1,12 +1,16 @@
 // The shared-memory tile walk of decode attention, one instance a kernel:
 // kernel 3 (decode_append.cu: append + attend over the dense cache),
 // kernel 18 (decode_stats.cu: one shard's softmax partials over a strided
-// dense cache) and kernel 5 (paged_decode.cu: attend through a page table).
+// dense cache), kernel 5 (paged_decode.cu: attend through a page table),
+// and over int8 codes with a scale a row, kernel 8 (kv_int8.cu: quantize
+// and append, then attend over the dense int8 cache) and kernel 10
+// (paged_int8.cu: attend through a page table over int8 pages).
 //
 // What bounds them on the H100: the bytes of the live K/V rows,
-// 2*L*Dh*sizeof(cache) a head.  Decode has few (sequence, kv head) pairs (32
-// at B=1 over LLaMA-7B's heads) for 132 SMs, and each block's loads must be
-// in flight together to reach the card's rate.  So each block brings its
+// 2*L*Dh*sizeof(cache) a head (int8: 2*L*(Dh + the scale's bytes)).
+// Decode has few (sequence, kv head) pairs (32 at B=1 over LLaMA-7B's
+// heads) for 132 SMs, and each block's loads must be in flight together to
+// reach the card's rate.  So each block brings its
 // range of K/V rows into shared memory by cp.async before any arithmetic,
 // and where B*Hkv is below the SM count the pair's live rows are cut over a
 // thread-block cluster (ranges cut on the card from lengths), the partials
@@ -14,26 +18,43 @@
 //
 // The walk: the block's rows [begin, end) of one head come into shared
 // memory by 16-byte cp.async, a chunk of CR rows (64 of a 2-byte cache, 32
-// of a 4-byte one) at a time into a two-chunk ring, all of a chunk's copies
-// issued before any arithmetic and the next chunk's in flight while this
-// one is computed; rows are padded by 16 bytes.  Per chunk, with all 8
-// warps busy:
+// of a 4-byte one, 128 of int8 codes: 16 KB of K at head dim 128) at a time
+// into a two-chunk ring, all of a chunk's copies issued before any
+// arithmetic and the next chunk's in flight while this one is computed;
+// rows are padded by 16 bytes (int8: 32, so that a quarter warp's 16-byte
+// score loads, two lanes a row, meet each bank once).  Int8 rows: the
+// chunk's K and V scales come into shared memory in the same commit group
+// (a row policy's copy_scales: the dense cache's bfloat16 scales in
+// 16-byte pieces of 8, the pool's f32 scales one 4-byte copy a row, since
+// a chunk may span pages; zeros past the range), and each code is widened
+// to f32 times its row's scale where it is used (kv_int8.cuh widen4 /
+// widen2: exact), so the walk's arithmetic is the 2-byte walk's over the
+// dequantized values.  Per chunk, with all 8 warps busy:
 //   - scores: a warp takes RW = CR / 8 rows, PARTS = 32 / RW lanes a row,
 //     each lane the row's 16-byte pieces part, part + PARTS, ... against q
-//     (f32, in shared memory), summed over the row's lanes by shuffles;
+//     (f32, in shared memory), summed over the row's lanes by shuffles
+//     (int8: a piece is 16 codes, each times the row's K scale);
 //   - the chunk's max per query row from the warps' maxima (one barrier);
 //     p = exp(s - m) written to shared memory by one lane a row (another);
 //   - P·V: thread t owns head dims 2 (t % (DH/2)) and +1 over the rows
 //     g, g + G, ... (g = t / (DH/2), G = 256 / (DH/2)), the loop unrolled
-//     over the chunk, V read from shared memory; each thread rescales its
-//     sums by exp(m_old - m) and adds up its rows' p for l.
+//     over the chunk, V read from shared memory (int8: a pair of codes,
+//     each times the row's V scale, which stays out of p: l sums p); each
+//     thread rescales its sums by exp(m_old - m) and adds up its rows' p
+//     for l.
 // At the end the G groups' sums add up through shared memory (the ring's
 // space).  Rows: a policy gives the element offset of row r in the head's
 // K and V (DenseRows: r times a row stride; PagedRows: through the
-// sequence's page table, so a chunk may span pages).  APPEND (kernel 3):
-// the block whose range holds row L-1 writes k_new / v_new there in the
-// cache and puts the same values into its own tile in place of a copy, so
-// no block reads that row back from device memory.
+// sequence's page table, so a chunk may span pages; DenseRows8 and
+// PagedRows8 the same over int8 codes, each with its scales).  APPEND
+// (kernels 3 and 8): the block whose range holds row L-1 writes k_new /
+// v_new there in the cache and puts the same values into its own tile in
+// place of a copy, so no block reads that row back from device memory.
+// Kernel 8's is a quantization: warp 0 quantizes k_new, warp 1 v_new
+// (kv_int8.cuh quantize_row) while the first chunks are in flight, writes
+// the codes and the bfloat16-rounded scale at row L-1, and puts the same
+// codes and rounded scale into the tile of the chunk that holds the row
+// (which its copies zero-filled) between that chunk's barrier and one more.
 //
 // Modes:
 //   kOne: one block a pair takes [0, L);
@@ -53,14 +74,18 @@
 // Epilogues: Normalised divides once and rounds to the output type
 // (kernels 3 and 5); Partials writes the unnormalised o, m and l in f32
 // (kernel 18: a cluster's merge gives one partial, never divided).  A pair
-// with no live row (L = 0: kernel 5's length 0, kernel 18's empty shard or
-// range) writes the epilogue's empty value, zeros or the merge identity
-// (0, -inf, 0), and reads nothing; the merge only ever takes ranges that
-// hold rows, so it never meets exp(-inf - -inf).
+// with no live row (L = 0: kernels 5's, 8's and 10's length 0, kernel 18's
+// empty shard or range) writes the epilogue's empty value, zeros or the
+// merge identity (0, -inf, 0), and reads nothing (kernel 8 appends
+// nothing); the merge only ever takes ranges that hold rows, so it never
+// meets exp(-inf - -inf).
 #pragma once
 
 #include <cooperative_groups.h>
 
+#include <type_traits>
+
+#include "kv_int8.cuh"
 #include "mma.cuh"
 
 namespace thawk {
@@ -83,11 +108,19 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// 16 bytes global -> shared of which the first `bytes` (0 to 16) are read,
+// the rest zero-filled; src 16-byte aligned.
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
 template <typename TC, int REP, int DH>
 struct Tiles {
   static constexpr int kElt = sizeof(TC);
-  static constexpr int kRow = DH + 16 / kElt;  // a shared row, padded by 16 bytes
-  static constexpr int CR = kElt == 2 ? 64 : 32;
+  // A shared row, padded by 16 bytes (int8 codes: 32).
+  static constexpr int kRow = DH + (kElt == 1 ? 32 : 16) / kElt;
+  static constexpr int CR = kElt == 1 ? 128 : kElt == 2 ? 64 : 32;
   static constexpr int RW = CR / kWarps;
   static constexpr int PARTS = 32 / RW;
   static constexpr int EPP = 16 / kElt;  // elements a 16-byte piece
@@ -96,8 +129,11 @@ struct Tiles {
   static constexpr int G = kWarps * 32 / (DH / 2);
   static constexpr int RG = CR / G;  // rows a thread takes in P·V
   static constexpr int kRingBytes = 2 * 2 * CR * kRow * kElt;  // chunks x (K, V)
+  // int8 codes: the chunks' scales [2][K, V][CR], at most 4 bytes each.
+  static constexpr int kScaleBytes = kElt == 1 ? 2 * 2 * CR * 4 : 0;
   // q [REP][DH], p [REP][CR], the warps' maxima [kWarps][REP], all f32.
-  static constexpr int kBytes = kRingBytes + (REP * DH + REP * CR + kWarps * REP) * 4;
+  static constexpr int kBytes =
+      kRingBytes + kScaleBytes + (REP * DH + REP * CR + kWarps * REP) * 4;
   // kCluster: block 0's slots, o [REP * DH], m [REP] and l [REP] for each split.
   static constexpr int kSlot = REP * DH + 2 * REP;
   static constexpr int kMaxBytes = kBytes + kMaxSplits * kSlot * 4;
@@ -137,6 +173,80 @@ struct PagedRows {
   }
 };
 
+// Row r of a dense int8 head (kernel 8): codes at r * DH, its bfloat16
+// scale at r (the head's bases applied).
+template <int DH>
+struct DenseRows8 {
+  using Scale = __nv_bfloat16;
+  int8_t* k;
+  int8_t* v;
+  Scale* ks;
+  Scale* vs;
+  __device__ __forceinline__ size_t at(int r) const { return static_cast<size_t>(r) * DH; }
+  __device__ __forceinline__ size_t scale_at(int r) const { return r; }
+  // The scales of rows [row0, row0 + CR) below `end` into kss / vss, zeros
+  // past it: 16-byte pieces of 8 (row0 is a multiple of 32, so a piece is
+  // aligned wherever the head's scale row is), else one load a row.
+  template <int CR>
+  __device__ __forceinline__ void copy_scales(Scale* kss, Scale* vss, int row0, int end,
+                                              int tid) const {
+    if (((reinterpret_cast<uintptr_t>(ks) | reinterpret_cast<uintptr_t>(vs)) & 15) == 0) {
+      constexpr int kPieces = CR / 8;
+      if (tid < 2 * kPieces) {
+        const int p = tid % kPieces, r = row0 + 8 * p;
+        const int n = min(max(end - r, 0), 8);
+        const Scale* src = tid < kPieces ? ks : vs;
+        cp_async16_n((tid < kPieces ? kss : vss) + 8 * p, src + (n > 0 ? r : 0), 2 * n);
+      }
+    } else if (tid < 2 * CR) {
+      const int j = tid % CR, r = row0 + j;
+      const Scale* src = tid < CR ? ks : vs;
+      (tid < CR ? kss : vss)[j] = r < end ? src[r] : from_f32<Scale>(0.f);
+    }
+  }
+};
+
+// Row r of a paged int8 head (kernel 10): slot r % ps of page
+// pages[r / ps], codes at a page stride and f32 scales at theirs, the
+// head's bases applied.
+template <int DH>
+struct PagedRows8 {
+  using Scale = float;
+  const int8_t* k;
+  const int8_t* v;
+  const Scale* ks;
+  const Scale* vs;
+  const int* pages;  // the sequence's row of the page table
+  int ps;
+  long long page_stride, spage_stride;
+  __device__ __forceinline__ size_t at(int r) const {
+    return static_cast<size_t>(pages[r / ps]) * page_stride + static_cast<size_t>(r % ps) * DH;
+  }
+  __device__ __forceinline__ size_t scale_at(int r) const {
+    return static_cast<size_t>(pages[r / ps]) * spage_stride + r % ps;
+  }
+  // One 4-byte copy a row (a chunk may span pages), zeros past `end`.
+  template <int CR>
+  __device__ __forceinline__ void copy_scales(Scale* kss, Scale* vss, int row0, int end,
+                                              int tid) const {
+    if (tid < 2 * CR) {
+      const int j = tid % CR, r = row0 + j;
+      const bool ok = r < end;
+      cp_async4((tid < CR ? kss : vss) + j, (tid < CR ? ks : vs) + (ok ? scale_at(r) : 0), ok);
+    }
+  }
+};
+
+// A row policy's scale type: its Scale, or float for rows without scales.
+template <typename Rows, typename = void>
+struct ScaleOf {
+  using type = float;
+};
+template <typename Rows>
+struct ScaleOf<Rows, std::void_t<typename Rows::Scale>> {
+  using type = typename Rows::Scale;
+};
+
 // out[REP * DH] = num / den rounded to TO; zeros for a pair with no row.
 template <typename TO>
 struct Normalised {
@@ -169,6 +279,16 @@ struct Partials {
   }
 };
 
+// N int8 codes packed in a word (byte 0 first) stored at p (N = 2 or 4,
+// p aligned to N bytes).
+template <int N>
+__device__ __forceinline__ void put_codes(int8_t* p, uint32_t codes) {
+  if constexpr (N == 4)
+    *reinterpret_cast<uint32_t*>(p) = codes;
+  else
+    *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(codes);
+}
+
 // One block's walk over its range of one (sequence, kv head) pair's L live
 // rows (see the header): q, k_new, v_new and the epilogue already at the
 // pair (and, kGrid, the split); `split` of `splits` from the grid.
@@ -179,10 +299,14 @@ __device__ __forceinline__ void walk(unsigned char* smem, const TQ* __restrict__
                                      int split, int splits, int min_tiles, Ep ep) {
   namespace cg = cooperative_groups;
   using A = Tiles<TC, REP, DH>;
+  using Scale = typename ScaleOf<Rows>::type;
   constexpr int NT = kThreads;
   constexpr int CR = A::CR, kRow = A::kRow, PARTS = A::PARTS, EPP = A::EPP;
+  constexpr bool SCALED = A::kElt == 1;  // int8 codes, a scale a row
+  constexpr int NQ = DH / 32;            // kernel 8's append: values a lane quantizes
   TC* ring = reinterpret_cast<TC*>(smem);
-  float* qsm = reinterpret_cast<float*>(smem + A::kRingBytes);  // [REP][DH]
+  Scale* scl = reinterpret_cast<Scale*>(smem + A::kRingBytes);  // SCALED: [2][K, V][CR]
+  float* qsm = reinterpret_cast<float*>(smem + A::kRingBytes + A::kScaleBytes);  // [REP][DH]
   float* psm = qsm + REP * DH;                                   // [REP][CR]
   float* wmx = psm + REP * CR;                                   // [kWarps][REP]
   float* slots = wmx + kWarps * REP;  // kCluster: [splits][A::kSlot] in block 0
@@ -205,7 +329,7 @@ __device__ __forceinline__ void walk(unsigned char* smem, const TQ* __restrict__
   if (merge) cluster_arrive_relaxed();  // this block runs
 
   if (begin < end) {
-    if constexpr (APPEND) {
+    if constexpr (APPEND && !SCALED) {
       if (end == L && tid < DH) {  // this range holds row L-1: append it
         const size_t dst = rows.at(L - 1) + tid;
         rows.k[dst] = from_f32<TC>(to_f32(kn[tid]));
@@ -213,6 +337,10 @@ __device__ __forceinline__ void walk(unsigned char* smem, const TQ* __restrict__
       }
     }
     const int n_chunks = (end - begin + CR - 1) / CR;
+    // Kernel 8's block that appends: its copies zero-fill row L-1, whose
+    // codes and scale come from the quantization below.
+    const bool app = APPEND && SCALED && end == L;
+    const int copy_end = app ? end - 1 : end;
     // Chunk c's K and V rows into ring half c & 1; rows past end are
     // zero-filled (APPEND: row L-1 comes from k_new / v_new).
     auto issue = [&](int c) {
@@ -221,8 +349,8 @@ __device__ __forceinline__ void walk(unsigned char* smem, const TQ* __restrict__
       const int row0 = begin + c * CR;
       for (int i = tid; i < CR * A::PIECES; i += NT) {
         const int j = i / A::PIECES, e = (i % A::PIECES) * EPP, row = row0 + j;
-        const bool ok = row < end;
-        if constexpr (APPEND) {
+        const bool ok = row < copy_end;
+        if constexpr (APPEND && !SCALED) {
           if (ok && row == L - 1) {
 #pragma unroll
             for (int x = 0; x < EPP; ++x) {
@@ -236,6 +364,10 @@ __device__ __forceinline__ void walk(unsigned char* smem, const TQ* __restrict__
         cp_async16(kt + j * kRow + e, rows.k + src, ok);
         cp_async16(vt + j * kRow + e, rows.v + src, ok);
       }
+      if constexpr (SCALED) {
+        Scale* ss = scl + (c & 1) * 2 * CR;
+        rows.template copy_scales<CR>(ss, ss + CR, row0, copy_end, tid);
+      }
     };
     issue(0);
     cp_async_commit();
@@ -244,6 +376,25 @@ __device__ __forceinline__ void walk(unsigned char* smem, const TQ* __restrict__
       cp_async_commit();
     }
     for (int i = tid; i < REP * DH; i += NT) qsm[i] = to_f32(q[i]);
+    // Kernel 8's append: warp 0 quantizes k_new, warp 1 v_new, writes the
+    // codes and the bfloat16-rounded scale at row L-1 and keeps both for
+    // the tile (a lane's NQ codes packed in a word).
+    uint32_t app_codes = 0;
+    Scale app_scale = from_f32<Scale>(0.f);
+    if constexpr (APPEND && SCALED) {
+      if (app && warp < 2) {
+        float x[NQ];
+        load_n<NQ>((warp == 0 ? kn : vn) + lane * NQ, x);
+        signed char codes[NQ];
+        const float scale = quantize_row<NQ>(x, codes);
+        app_scale = from_f32<Scale>(__bfloat162float(__float2bfloat16_rn(scale)));
+#pragma unroll
+        for (int i = 0; i < NQ; ++i)
+          app_codes |= static_cast<uint32_t>(static_cast<uint8_t>(codes[i])) << (8 * i);
+        put_codes<NQ>((warp == 0 ? rows.k : rows.v) + rows.at(L - 1) + lane * NQ, app_codes);
+        if (lane == 0) (warp == 0 ? rows.ks : rows.vs)[rows.scale_at(L - 1)] = app_scale;
+      }
+    }
 
     const int lrow = lane / PARTS, part = lane % PARTS;
     const int j = warp * A::RW + lrow;  // the row this lane scores, in the chunk
@@ -262,16 +413,37 @@ __device__ __forceinline__ void walk(unsigned char* smem, const TQ* __restrict__
       __syncthreads();  // chunk c (and q, on the first) landed for every thread
       const TC* kt = ring + (c & 1) * 2 * CR * kRow;
       const TC* vt = kt + CR * kRow;
+      const Scale* kss = scl + (c & 1) * 2 * CR;  // SCALED: the chunk's scales
+      const Scale* vss = kss + CR;
+      if constexpr (APPEND && SCALED) {
+        if (app && c == n_chunks - 1) {  // the chunk of row L-1: that row from the append
+          const int ja = L - 1 - (begin + c * CR);
+          if (warp < 2) {
+            put_codes<NQ>(ring + (c & 1) * 2 * CR * kRow + (warp * CR + ja) * kRow + lane * NQ,
+                          app_codes);
+            if (lane == 0) scl[(c & 1) * 2 * CR + warp * CR + ja] = app_scale;
+          }
+          __syncthreads();
+        }
+      }
 
       // Scores of row j against the REP query rows.
       float s[REP];
 #pragma unroll
       for (int r = 0; r < REP; ++r) s[r] = 0.f;
+      float k_scale = 0.f;
+      if constexpr (SCALED) k_scale = to_f32(kss[j]);
 #pragma unroll
       for (int pi = 0; pi < A::PPL; ++pi) {
         const int e = (pi * PARTS + part) * EPP;
-        float kv[8];
-        if constexpr (EPP == 8) {
+        float kv[EPP > 8 ? EPP : 8];
+        if constexpr (SCALED) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(kt + j * kRow + e);
+          widen4(raw.x, k_scale, kv);
+          widen4(raw.y, k_scale, kv + 4);
+          widen4(raw.z, k_scale, kv + 8);
+          widen4(raw.w, k_scale, kv + 12);
+        } else if constexpr (EPP == 8) {
           load8(kt + j * kRow + e, kv);
         } else {
           const float4 v4 = *reinterpret_cast<const float4*>(kt + j * kRow + e);
@@ -318,7 +490,11 @@ __device__ __forceinline__ void walk(unsigned char* smem, const TQ* __restrict__
 #pragma unroll
       for (int i = 0; i < A::RG; ++i) {
         const int jj = g + i * A::G;
-        const float2 v = load2(vt + jj * kRow + 2 * dp);
+        float2 v;
+        if constexpr (SCALED)
+          v = widen2(*reinterpret_cast<const uint16_t*>(vt + jj * kRow + 2 * dp), to_f32(vss[jj]));
+        else
+          v = load2(vt + jj * kRow + 2 * dp);
 #pragma unroll
         for (int r = 0; r < REP; ++r) {
           const float p = psm[r * CR + jj];
@@ -453,6 +629,14 @@ template <template <typename, typename, int, int> class Launch, typename TQ, typ
 cudaError_t dispatch_dh(const Args& a, int rep, int Dh) {
   return Dh == 64 ? dispatch_rep<Launch, TQ, TC, 64>(a, rep)
                   : dispatch_rep<Launch, TQ, TC, 128>(a, rep);
+}
+
+// The int8 walks' dispatch (kernels 8 and 10): q's type, rep and head
+// dim; the cache is int8.
+template <template <typename, typename, int, int> class Launch, typename Args>
+cudaError_t dispatch_int8(const Args& a, int q_dtype, int rep, int Dh) {
+  return q_dtype == kBF16 ? dispatch_dh<Launch, __nv_bfloat16, int8_t>(a, rep, Dh)
+                          : dispatch_dh<Launch, float, int8_t>(a, rep, Dh);
 }
 
 template <template <typename, typename, int, int> class Launch, bool MIXED, typename Args>

@@ -2,22 +2,27 @@
 //
 // The cache holds int8 codes [B, Hkv, S, Dh] and one bfloat16 scale per
 // (sequence, head, token) [B, Hkv, S] for K and for V (kv_int8.cuh has the
-// codec); Dh is 64 or 128.  Both kernels compute exact attention over the dequantized cache,
-// code x scale in f32, with an online softmax in f32.  (The TPU decode
-// kernel also quantizes the query and the probabilities to int8 to feed its
-// matrix unit; the port does not.)
+// codec); Dh is 64 or 128.  Both kernels compute exact attention over the
+// dequantized cache, code x scale in f32, with an online softmax in f32.
+// (The TPU decode kernel also quantizes the query and the probabilities to
+// int8 to feed its matrix unit; the port does not.)
 //
 // Kernel 8, decode, replaces tokenhawk_tpu/ops/pallas/flash_decode_int8.py
 // flash_decode_int8 (_kernel) together with the update_kv_cache_int8 before
 // it: for each (b, kv head) it quantizes the new K and V rows and writes
 // them at slot lengths[b]-1, then attends the rep query heads of that kv
-// head over lengths[b] tokens; a row of length 0 writes zeros and appends
-// nothing.  One block per (b, kv head), as kernel 3: the block that writes a
-// head's row reads it after a barrier.  The 8 warps split the live tokens in
-// tiles of 32; a lane scores one token (its Dh codes in 16-byte loads,
-// times the token's K scale), then owns Dh/32 head dims for P·V with the
-// probability times the token's V scale.  Bound by the bytes of the live
-// codes and scales, (2*L*Dh + 2*L*2) bytes per head: half of kernel 3's.
+// head over min(lengths[b], S) tokens; a row of length 0 writes zeros and
+// appends nothing.  Bound by the bytes of the live codes and scales,
+// 2*L*(Dh + 2) bytes a head: about half of kernel 3's.  It runs kernel 3's
+// shared-memory tile walk (decode_tiles.cuh) over int8 rows: each block's
+// codes come into a ring of 128-row chunks by 16-byte cp.async, the chunk's
+// bfloat16 scales in 16-byte pieces in the same commit group, and each code
+// is widened to f32 times its row's scale where the scores and P·V use it;
+// where B*Hkv is below the SM count each pair's live rows are cut over a
+// thread-block cluster (kernel 3's ranges, cut on the card from lengths)
+// and merged on chip.  The block whose range holds row L-1 quantizes the
+// new rows (a warp each for K and V), writes them to the cache and puts
+// the same codes and rounded scales into its own tile.
 //
 // Kernel 9, prefill, replaces
 // tokenhawk_tpu/ops/pallas/flash_attention_int8.py flash_attention_int8
@@ -32,6 +37,7 @@
 // group member), stages each tile of 32 keys dequantized to f32 in shared
 // memory, skips tiles past its last query and masks keys past each query's
 // position.  Any T >= 1 (the TPU kernel needs T % 8 == 0).
+#include "decode_tiles.cuh"
 #include "kv_int8.cuh"
 #include "prefill_tc.cuh"
 
@@ -39,139 +45,65 @@ using namespace thawk;
 
 namespace {
 
-constexpr int kWarps = 8;
 constexpr int kQueries = 8;  // kernel 9: warps per block, one query each
 constexpr int kKeys = 32;
 
-template <typename TQ, int REP, int kDh>
-__global__ void __launch_bounds__(kWarps * 32)
-    decode_int8_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
-                       const TQ* __restrict__ v_new, int8_t* kc, __nv_bfloat16* ksc,
-                       int8_t* vc, __nv_bfloat16* vsc, const int* __restrict__ lengths,
-                       TQ* __restrict__ out, int Hkv, int S) {
-  constexpr int kPer = kDh / 32;  // head dims a lane owns
-  __shared__ __align__(16) float qsm[REP][kDh];
-  __shared__ float red_m[kWarps][REP];
-  __shared__ float red_l[kWarps][REP];
-  __shared__ __align__(16) float red_acc[kWarps][REP][kDh];
-
-  const int bh = blockIdx.x;
-  const int b = bh / Hkv;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int L = min(lengths[b], S);
-  TQ* o = out + static_cast<size_t>(bh) * REP * kDh;
-  if (L <= 0) {
-    for (int i = tid; i < REP * kDh; i += blockDim.x) o[i] = from_f32<TQ>(0.f);
-    return;
-  }
-  int8_t* kh = kc + static_cast<size_t>(bh) * S * kDh;
-  int8_t* vh = vc + static_cast<size_t>(bh) * S * kDh;
-  __nv_bfloat16* ksh = ksc + static_cast<size_t>(bh) * S;
-  __nv_bfloat16* vsh = vsc + static_cast<size_t>(bh) * S;
-
-  if (warp < 2) {  // warp 0 appends the K row, warp 1 the V row
-    const TQ* src = (warp == 0 ? k_new : v_new) + static_cast<size_t>(bh) * kDh + lane * kPer;
-    float x[kPer];
-    load_n<kPer>(src, x);
-    signed char codes[kPer];
-    const float scale = quantize_row<kPer>(x, codes);
-    int8_t* dst = (warp == 0 ? kh : vh) + static_cast<size_t>(L - 1) * kDh + lane * kPer;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) dst[i] = codes[i];
-    if (lane == 0) (warp == 0 ? ksh : vsh)[L - 1] = __float2bfloat16_rn(scale);
-  }
-  for (int i = tid; i < REP * kDh; i += blockDim.x)
-    qsm[i / kDh][i % kDh] = to_f32(q[static_cast<size_t>(bh) * REP * kDh + i]);
-  __syncthreads();  // the appended rows are visible to the whole block
-
-  float m[REP], l[REP], acc[REP][kPer];
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) acc[r][i] = 0.f;
-  }
-
-  const int n_tiles = (L + 31) / 32;
-  for (int t = warp; t < n_tiles; t += kWarps) {
-    const int tok = t * 32 + lane;
-    const bool valid = tok < L;
-    float s[REP];
-#pragma unroll
-    for (int r = 0; r < REP; ++r) s[r] = 0.f;
-    float v_scale = 0.f;
-    if (valid) {
-      const int8_t* krow = kh + static_cast<size_t>(tok) * kDh;
-#pragma unroll 2
-      for (int i = 0; i < kDh; i += 16) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(krow + i);
-        float kv[16];
-        unpack4(raw.x, kv);
-        unpack4(raw.y, kv + 4);
-        unpack4(raw.z, kv + 8);
-        unpack4(raw.w, kv + 12);
-#pragma unroll
-        for (int r = 0; r < REP; ++r)
-#pragma unroll
-          for (int j = 0; j < 16; ++j) s[r] += qsm[r][i + j] * kv[j];
-      }
-      const float k_scale = to_f32(ksh[tok]);
-#pragma unroll
-      for (int r = 0; r < REP; ++r) s[r] *= k_scale;
-      v_scale = to_f32(vsh[tok]);
-    }
-    float pv[REP];
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      const float sr = valid ? s[r] : -INFINITY;
-      const float m_new = fmaxf(m[r], warp_max(sr));  // lane 0 of a tile is always live
-      const float alpha = expf(m[r] - m_new);
-      const float p = valid ? expf(sr - m_new) : 0.f;
-      l[r] = l[r] * alpha + warp_sum(p);
-      m[r] = m_new;
-      pv[r] = p * v_scale;
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) acc[r][i] *= alpha;
-    }
-    const int n_live = min(32, L - t * 32);
-    for (int j = 0; j < n_live; ++j) {
-      float v[kPer];
-      load_codes<kPer>(vh + static_cast<size_t>(t * 32 + j) * kDh + lane * kPer, v);
-#pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        const float pj = __shfl_sync(0xffffffffu, pv[r], j);
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) acc[r][i] += pj * v[i];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    if (lane == 0) {
-      red_m[warp][r] = m[r];
-      red_l[warp][r] = l[r];
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) red_acc[warp][r][lane * kPer + i] = acc[r][i];
-  }
-  __syncthreads();
-  for (int i = tid; i < REP * kDh; i += blockDim.x) {
-    const int r = i / kDh, d = i % kDh;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red_m[w][r]);
-    float num = 0.f, den = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(red_m[w][r] - mx);  // 0 for a warp that had no tile
-      num += red_acc[w][r][d] * f;
-      den += red_l[w][r] * f;
-    }
-    o[i] = from_f32<TQ>(num / den);
-  }
+// Kernel 8: block (split, b * Hkv + h) of a cluster of `splits` blocks
+// (one block a pair where splits is 1: its range holds every row, so the
+// cluster form takes kOne's path) runs the walk over the pair's
+// min(lengths[b], S) rows (none for a length of 0), quantizing and
+// appending the new row first.
+template <typename TQ, typename TC, int REP, int DH>
+__global__ void __launch_bounds__(tiles::kThreads)
+    decode_int8_tiles_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
+                             const TQ* __restrict__ v_new, TC* kc, __nv_bfloat16* ksc, TC* vc,
+                             __nv_bfloat16* vsc, const int* __restrict__ lengths,
+                             TQ* __restrict__ out, int Hkv, int S, int min_tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bh = blockIdx.y;
+  const size_t qo = static_cast<size_t>(bh) * REP * DH;
+  const size_t co = static_cast<size_t>(bh) * S * DH;
+  const size_t so = static_cast<size_t>(bh) * S;
+  tiles::walk<TQ, TC, REP, DH, tiles::kCluster, true>(
+      smem, q + qo, tiles::DenseRows8<DH>{kc + co, vc + co, ksc + so, vsc + so},
+      k_new + static_cast<size_t>(bh) * DH, v_new + static_cast<size_t>(bh) * DH,
+      max(0, min(lengths[bh / Hkv], S)), blockIdx.x, gridDim.x, min_tiles,
+      tiles::Normalised<TQ>{out + qo});
 }
+
+struct DecodeArgs {
+  const void* q;
+  const void* k_new;
+  const void* v_new;
+  void* kc;
+  void* ksc;
+  void* vc;
+  void* vsc;
+  const int* lengths;
+  void* out;
+  int B, Hkv, S;
+  int splits, min_tiles;
+  cudaStream_t stream;
+};
+
+// Kernel 8's launch at one instance: splits x (B * Hkv) blocks in clusters
+// of `splits`, the shared memory allowed once.
+template <typename TQ, typename TC, int REP, int DH>
+struct LaunchDecode {
+  static cudaError_t run(const DecodeArgs& a) {
+    using A = tiles::Tiles<TC, REP, DH>;
+    auto* fn = decode_int8_tiles_kernel<TQ, TC, REP, DH>;
+    static const cudaError_t allowed = tiles::allow(fn, A::kMaxBytes, true);
+    if (allowed != cudaSuccess) return allowed;
+    return tiles::launch(fn, dim3(a.splits, a.B * a.Hkv), a.splits,
+                         tiles::smem_bytes<TC, REP, DH>(a.splits), a.stream,
+                         static_cast<const TQ*>(a.q), static_cast<const TQ*>(a.k_new),
+                         static_cast<const TQ*>(a.v_new), static_cast<TC*>(a.kc),
+                         static_cast<__nv_bfloat16*>(a.ksc), static_cast<TC*>(a.vc),
+                         static_cast<__nv_bfloat16*>(a.vsc), a.lengths,
+                         static_cast<TQ*>(a.out), a.Hkv, a.S, a.min_tiles);
+  }
+};
 
 template <typename TQ, int kDh>
 __global__ void __launch_bounds__(kQueries * 32)
@@ -280,30 +212,6 @@ __global__ void __launch_bounds__(kQueries * 32)
 }
 
 template <typename TQ, int kDh>
-void launch_decode(const void* q, const void* k_new, const void* v_new, void* kc, void* ksc,
-                   void* vc, void* vsc, const int* lengths, void* out, int B, int Hkv, int rep,
-                   int S, cudaStream_t stream) {
-  const dim3 grid(B * Hkv), block(kWarps * 32);
-  const TQ* qt = static_cast<const TQ*>(q);
-  const TQ* kn = static_cast<const TQ*>(k_new);
-  const TQ* vn = static_cast<const TQ*>(v_new);
-  int8_t* kq = static_cast<int8_t*>(kc);
-  int8_t* vq = static_cast<int8_t*>(vc);
-  __nv_bfloat16* ks = static_cast<__nv_bfloat16*>(ksc);
-  __nv_bfloat16* vs = static_cast<__nv_bfloat16*>(vsc);
-  TQ* o = static_cast<TQ*>(out);
-#define THAWK_DECODE8(R) \
-  decode_int8_kernel<TQ, R, kDh><<<grid, block, 0, stream>>>(qt, kn, vn, kq, ks, vq, vs, lengths, o, Hkv, S)
-  switch (rep) {
-    case 1: THAWK_DECODE8(1); break;
-    case 2: THAWK_DECODE8(2); break;
-    case 4: THAWK_DECODE8(4); break;
-    default: THAWK_DECODE8(8); break;
-  }
-#undef THAWK_DECODE8
-}
-
-template <typename TQ, int kDh>
 void launch_prefill(const void* q, const void* kc, const void* ksc, const void* vc,
                     const void* vsc, const int* offsets, void* out, int B, int Hkv, int rep,
                     int T, int S, cudaStream_t stream) {
@@ -316,25 +224,25 @@ void launch_prefill(const void* q, const void* kc, const void* ksc, const void* 
 
 }  // namespace
 
-// q, out [B, Hkv, rep, Dh] and k_new, v_new [B, Hkv, Dh] in q_dtype (q
-// pre-scaled); kc, vc int8 [B, Hkv, S, Dh] and ksc, vsc bfloat16 [B, Hkv, S],
-// written in place; lengths [B] int32.  rep is 1, 2, 4 or 8 and Dh 64 or 128
-// (checked by the Python wrapper).
+// Kernel 8.  q, out [B, Hkv, rep, Dh] and k_new, v_new [B, Hkv, Dh] in
+// q_dtype (q pre-scaled); kc, vc int8 [B, Hkv, S, Dh] and ksc, vsc bfloat16
+// [B, Hkv, S], written in place; lengths [B] int32.  rep is 1, 2, 4 or 8
+// and Dh 64 or 128 (checked by the Python wrapper).  splits 1 launches one
+// block per (b, kv head); 2-16 the split form, in clusters of `splits`
+// blocks, its ranges at least min_tiles tiles (kernel 3's ranges); one
+// instance serves both.
 extern "C" int th_flash_decode_int8(const void* q, const void* k_new, const void* v_new,
                                     void* kc, void* ksc, void* vc, void* vsc,
                                     const void* lengths, void* out, int B, int Hkv, int rep,
-                                    int Dh, int S, int q_dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* len = static_cast<const int*>(lengths);
-#define THAWK_DECODE8(TQ, DH) \
-  launch_decode<TQ, DH>(q, k_new, v_new, kc, ksc, vc, vsc, len, out, B, Hkv, rep, S, s)
-  if (q_dtype == kBF16) {
-    if (Dh == 64) THAWK_DECODE8(__nv_bfloat16, 64); else THAWK_DECODE8(__nv_bfloat16, 128);
-  } else {
-    if (Dh == 64) THAWK_DECODE8(float, 64); else THAWK_DECODE8(float, 128);
-  }
-#undef THAWK_DECODE8
-  return THAWK_LAUNCH_RESULT();
+                                    int Dh, int S, int splits, int min_tiles, int q_dtype,
+                                    void* stream) {
+  if (splits < 1 || splits > tiles::kMaxSplits || min_tiles < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DecodeArgs a{q, k_new, v_new, kc, ksc, vc, vsc, static_cast<const int*>(lengths), out,
+                     B, Hkv, S, splits, min_tiles, static_cast<cudaStream_t>(stream)};
+  const cudaError_t e = tiles::dispatch_int8<LaunchDecode>(a, q_dtype, rep, Dh);
+  const int last = THAWK_LAUNCH_RESULT();  // also clears a failed launch's error
+  return e != cudaSuccess ? static_cast<int>(e) : last;
 }
 
 // The CUDA-core walk: q, out [B, Hkv, rep, T, Dh] f32 (q pre-scaled;

@@ -1,4 +1,4 @@
-// The int8 KV codec and int8 unpacking, shared by kernels 8-12.
+// The int8 KV codec and int8 widening, shared by kernels 8-12.
 //
 // A K or V row of Dh values quantizes to Dh int8 codes and one scale,
 // bit for bit as tokenhawk_tpu/ops/kvquant.py quantize_kv_block does:
@@ -32,13 +32,6 @@ __device__ __forceinline__ float quantize_row(const float* x, signed char* q) {
   return scale;
 }
 
-// Two int8 codes in the low 16 bits of a word (byte 0 first) as f32.
-static __device__ __forceinline__ void unpack2(uint32_t w, float* o) {
-  const int s = static_cast<int>(w);
-  o[0] = static_cast<float>((s << 24) >> 24);
-  o[1] = static_cast<float>((s << 16) >> 24);
-}
-
 // Four int8 codes packed in a 32-bit word (byte 0 first) as f32.
 static __device__ __forceinline__ void unpack4(uint32_t w, float* o) {
   const int s = static_cast<int>(w);
@@ -48,14 +41,31 @@ static __device__ __forceinline__ void unpack4(uint32_t w, float* o) {
   o[3] = static_cast<float>(s >> 24);
 }
 
-// The N int8 codes a lane owns for P·V (N = 2 or 4) as f32.
-template <int N>
-__device__ __forceinline__ void load_codes(const int8_t* p, float* o) {
-  static_assert(N == 2 || N == 4, "a lane owns 2 or 4 head dims");
-  if constexpr (N == 4)
-    unpack4(*reinterpret_cast<const uint32_t*>(p), o);
-  else
-    unpack2(*reinterpret_cast<const uint16_t*>(p), o);
+// An int8 code widened to f32 and multiplied by s: code k of u, a word of
+// codes with their sign bits flipped (code + 128 in each byte), is put in
+// the low byte of 2^23's mantissa by a byte permute, and 2^23 + 128 taken
+// off: a permute and an add, which issue at 4 and 8 times the rate of an
+// int-to-float conversion on sm_90.  The product is exact in f32: a code
+// has at most 8 significant bits, and s, a bfloat16 value (the codec's
+// stored scale), 8 more.
+template <int K>
+__device__ __forceinline__ float widen1(uint32_t u, float s) {
+  return (__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440u + K)) - 8388736.f) * s;
+}
+
+// Four int8 codes packed in a word (byte 0 first), each times s.
+__device__ __forceinline__ void widen4(uint32_t w, float s, float* o) {
+  const uint32_t u = w ^ 0x80808080u;
+  o[0] = widen1<0>(u, s);
+  o[1] = widen1<1>(u, s);
+  o[2] = widen1<2>(u, s);
+  o[3] = widen1<3>(u, s);
+}
+
+// Two int8 codes in the low 16 bits of a word (byte 0 first), each times s.
+__device__ __forceinline__ float2 widen2(uint32_t w, float s) {
+  const uint32_t u = w ^ 0x8080u;
+  return make_float2(widen1<0>(u, s), widen1<1>(u, s));
 }
 
 // Eight f32 values stored in T (16-byte aligned for bfloat16, 32 for float).

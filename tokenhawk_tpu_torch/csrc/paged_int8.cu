@@ -12,14 +12,21 @@
 //
 // Kernel 10, paged decode, replaces tokenhawk_tpu/ops/pallas/paged_decode_int8.py
 // paged_flash_decode_int8_walk (_kernel_walk) and its grid form
-// paged_flash_decode_int8 (_kernel_vec).  Kernel 5's walk (paged_decode.cu)
-// over int8 pages: one block per (sequence, kv head), tiles of 32 tokens
-// across 8 warps, a lane scoring one token (16-byte code loads, times the
-// token's K scale) and owning Dh/32 head dims for P·V (probability times the
-// token's V scale); f32 online softmax, exact attention over the dequantized
-// pages (the TPU kernel also quantizes the query and the probabilities).
-// Bound by the bytes of the live codes and scales.  A row of length 0
-// writes zeros.
+// paged_flash_decode_int8 (_kernel_vec): attention of the rep query heads
+// of each (sequence, kv head) over its min(lengths[b], max_pages * ps) live
+// rows, read through its own page table, f32 online softmax, exact
+// attention over the dequantized pages (the TPU kernel also quantizes the
+// query and the probabilities).  Bound by the bytes of the live codes and
+// scales.  It runs kernel 5's form of the shared-memory tile walk
+// (decode_tiles.cuh, PagedRows8) over int8 rows: each 16-byte cp.async of
+// a row's codes reads table[b, t / ps] * page_stride + h * head_stride +
+// (t % ps) * Dh, so a 128-row chunk may span pages; the chunk's f32 scales
+// come one 4-byte cp.async a row in the same commit group, and each code
+// is widened to f32 times its row's scale where the scores and P·V use it.
+// One block a (sequence, kv head), or, where the wrapper asks for
+// `splits` > 1 (kernel 5's rule), each pair's live rows cut on the card
+// into ranges of at least min_tiles tiles over a thread-block cluster and
+// merged on chip.  A row of length 0 writes zeros.
 //
 // Kernel 11, paged append, replaces paged_append_rows on int8 payloads
 // together with paged_append_scales (tokenhawk_tpu/ops/pallas/paged_decode.py):
@@ -35,6 +42,7 @@
 // head) reads that page's ps x Dh codes of K and of V and its scales and
 // writes the dequantized rows, code x scale rounded once to the output type,
 // into dense [B, Hkv, mp*ps, Dh] outputs.  Bound by bytes.
+#include "decode_tiles.cuh"
 #include "kv_int8.cuh"
 
 using namespace thawk;
@@ -48,134 +56,63 @@ struct PoolStrides {
   long long spage, shead;  // scales, in elements
 };
 
-template <typename TQ, int REP, int kDh>
-__global__ void __launch_bounds__(kWarps * 32)
-    paged_decode_int8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ kp,
-                             const float* __restrict__ ksp, const int8_t* __restrict__ vp,
-                             const float* __restrict__ vsp, const int* __restrict__ table,
-                             const int* __restrict__ lengths, TQ* __restrict__ out, int Hkv,
-                             int ps, int max_pages, PoolStrides st) {
-  constexpr int kPer = kDh / 32;  // head dims a lane owns for P·V
-  __shared__ __align__(16) float qsm[REP][kDh];
-  __shared__ float red_m[kWarps][REP];
-  __shared__ float red_l[kWarps][REP];
-  __shared__ __align__(16) float red_acc[kWarps][REP][kDh];
-
-  const int bh = blockIdx.x;
+// Kernel 10: block (split, b * Hkv + h) of a cluster of `splits` blocks
+// (one block a pair where splits is 1) runs the walk over the pair's live
+// rows through the sequence's row of the table.
+template <typename TQ, typename TC, int REP, int DH>
+__global__ void __launch_bounds__(tiles::kThreads)
+    paged_decode_int8_tiles_kernel(const TQ* __restrict__ q, const TC* kp, const float* ksp,
+                                   const TC* vp, const float* vsp, const int* __restrict__ table,
+                                   const int* __restrict__ lengths, TQ* __restrict__ out,
+                                   int Hkv, int ps, int max_pages, PoolStrides st,
+                                   int min_tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bh = blockIdx.y;
   const int b = bh / Hkv, h = bh % Hkv;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int L = min(lengths[b], max_pages * ps);
-  TQ* o = out + static_cast<size_t>(bh) * REP * kDh;
-  if (L <= 0) {
-    for (int i = tid; i < REP * kDh; i += blockDim.x) o[i] = from_f32<TQ>(0.f);
-    return;
-  }
-  const int* row_pages = table + static_cast<size_t>(b) * max_pages;
-  const int8_t* kh = kp + static_cast<size_t>(h) * st.head;
-  const int8_t* vh = vp + static_cast<size_t>(h) * st.head;
-  const float* ksh = ksp + static_cast<size_t>(h) * st.shead;
-  const float* vsh = vsp + static_cast<size_t>(h) * st.shead;
-  // Codes and scale of token t in this head's pages.
-  auto row = [&](const int8_t* base, int t) {
-    return base + static_cast<size_t>(row_pages[t / ps]) * st.page +
-           static_cast<size_t>(t % ps) * kDh;
-  };
-  auto scale = [&](const float* base, int t) {
-    return base[static_cast<size_t>(row_pages[t / ps]) * st.spage + t % ps];
-  };
-
-  for (int i = tid; i < REP * kDh; i += blockDim.x)
-    qsm[i / kDh][i % kDh] = to_f32(q[static_cast<size_t>(bh) * REP * kDh + i]);
-  __syncthreads();
-
-  float m[REP], l[REP], acc[REP][kPer];
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) acc[r][i] = 0.f;
-  }
-
-  const int n_tiles = (L + 31) / 32;
-  for (int t = warp; t < n_tiles; t += kWarps) {
-    const int tok = t * 32 + lane;
-    const bool valid = tok < L;
-    float s[REP];
-#pragma unroll
-    for (int r = 0; r < REP; ++r) s[r] = 0.f;
-    float v_scale = 0.f;
-    if (valid) {
-      const int8_t* krow = row(kh, tok);
-#pragma unroll 2
-      for (int i = 0; i < kDh; i += 16) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(krow + i);
-        float kv[16];
-        unpack4(raw.x, kv);
-        unpack4(raw.y, kv + 4);
-        unpack4(raw.z, kv + 8);
-        unpack4(raw.w, kv + 12);
-#pragma unroll
-        for (int r = 0; r < REP; ++r)
-#pragma unroll
-          for (int j = 0; j < 16; ++j) s[r] += qsm[r][i + j] * kv[j];
-      }
-      const float k_scale = scale(ksh, tok);
-#pragma unroll
-      for (int r = 0; r < REP; ++r) s[r] *= k_scale;
-      v_scale = scale(vsh, tok);
-    }
-    float pv[REP];
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      const float sr = valid ? s[r] : -INFINITY;
-      const float m_new = fmaxf(m[r], warp_max(sr));  // lane 0 of a tile is always live
-      const float alpha = expf(m[r] - m_new);
-      const float p = valid ? expf(sr - m_new) : 0.f;
-      l[r] = l[r] * alpha + warp_sum(p);
-      m[r] = m_new;
-      pv[r] = p * v_scale;
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) acc[r][i] *= alpha;
-    }
-    const int n_live = min(32, L - t * 32);
-    for (int j = 0; j < n_live; ++j) {
-      float v[kPer];
-      load_codes<kPer>(row(vh, t * 32 + j) + lane * kPer, v);
-#pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        const float pj = __shfl_sync(0xffffffffu, pv[r], j);
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) acc[r][i] += pj * v[i];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    if (lane == 0) {
-      red_m[warp][r] = m[r];
-      red_l[warp][r] = l[r];
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) red_acc[warp][r][lane * kPer + i] = acc[r][i];
-  }
-  __syncthreads();
-  for (int i = tid; i < REP * kDh; i += blockDim.x) {
-    const int r = i / kDh, d = i % kDh;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red_m[w][r]);
-    float num = 0.f, den = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(red_m[w][r] - mx);  // 0 for a warp that had no tile
-      num += red_acc[w][r][d] * f;
-      den += red_l[w][r] * f;
-    }
-    o[i] = from_f32<TQ>(num / den);
-  }
+  const size_t qo = static_cast<size_t>(bh) * REP * DH;
+  const size_t ho = static_cast<size_t>(h) * st.head, so = static_cast<size_t>(h) * st.shead;
+  tiles::walk<TQ, TC, REP, DH, tiles::kCluster, false>(
+      smem, q + qo,
+      tiles::PagedRows8<DH>{kp + ho, vp + ho, ksp + so, vsp + so,
+                            table + static_cast<size_t>(b) * max_pages, ps, st.page, st.spage},
+      static_cast<const TQ*>(nullptr), static_cast<const TQ*>(nullptr),
+      max(0, min(lengths[b], max_pages * ps)), blockIdx.x, gridDim.x, min_tiles,
+      tiles::Normalised<TQ>{out + qo});
 }
+
+struct DecodeArgs {
+  const void* q;
+  const void* kp;
+  const void* ksp;
+  const void* vp;
+  const void* vsp;
+  const int* table;
+  const int* lengths;
+  void* out;
+  int B, Hkv, ps, max_pages;
+  PoolStrides st;
+  int splits, min_tiles;
+  cudaStream_t stream;
+};
+
+// Kernel 10's launch at one instance: splits x (B * Hkv) blocks in
+// clusters of `splits`, the shared memory allowed once.
+template <typename TQ, typename TC, int REP, int DH>
+struct LaunchDecode {
+  static cudaError_t run(const DecodeArgs& a) {
+    using A = tiles::Tiles<TC, REP, DH>;
+    auto* fn = paged_decode_int8_tiles_kernel<TQ, TC, REP, DH>;
+    static const cudaError_t allowed = tiles::allow(fn, A::kMaxBytes, true);
+    if (allowed != cudaSuccess) return allowed;
+    return tiles::launch(fn, dim3(a.splits, a.B * a.Hkv), a.splits,
+                         tiles::smem_bytes<TC, REP, DH>(a.splits), a.stream,
+                         static_cast<const TQ*>(a.q), static_cast<const TC*>(a.kp),
+                         static_cast<const float*>(a.ksp), static_cast<const TC*>(a.vp),
+                         static_cast<const float*>(a.vsp), a.table, a.lengths,
+                         static_cast<TQ*>(a.out), a.Hkv, a.ps, a.max_pages, a.st,
+                         a.min_tiles);
+  }
+};
 
 // Block (b, y): warp w quantizes row 8y + w of sequence b's 2*Hkv rows (K
 // heads, then V heads), kDh/32 values a lane.
@@ -246,29 +183,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename TQ, int kDh>
-void launch_decode(const void* q, const void* kp, const void* ksp, const void* vp,
-                   const void* vsp, const int* table, const int* lengths, void* out, int B,
-                   int Hkv, int rep, int ps, int max_pages, PoolStrides st, cudaStream_t stream) {
-  const dim3 grid(B * Hkv), block(kWarps * 32);
-  const TQ* qt = static_cast<const TQ*>(q);
-  const int8_t* kc = static_cast<const int8_t*>(kp);
-  const int8_t* vc = static_cast<const int8_t*>(vp);
-  const float* ks = static_cast<const float*>(ksp);
-  const float* vs = static_cast<const float*>(vsp);
-  TQ* o = static_cast<TQ*>(out);
-#define THAWK_PAGED8(R)                                                                 \
-  paged_decode_int8_kernel<TQ, R, kDh><<<grid, block, 0, stream>>>(                     \
-      qt, kc, ks, vc, vs, table, lengths, o, Hkv, ps, max_pages, st)
-  switch (rep) {
-    case 1: THAWK_PAGED8(1); break;
-    case 2: THAWK_PAGED8(2); break;
-    case 4: THAWK_PAGED8(4); break;
-    default: THAWK_PAGED8(8); break;
-  }
-#undef THAWK_PAGED8
-}
-
 template <typename TN, int kDh>
 void launch_append(void* k_pages, void* ks_pages, void* v_pages, void* vs_pages,
                    const void* k_new, const void* v_new, const int* page, const int* slot, int B,
@@ -306,22 +220,28 @@ void launch_gather(const void* k_pages, const void* ks_pages, const void* v_page
     }                                                                       \
   } while (0)
 
-// q, out [B, Hkv, rep, Dh] in q_dtype (q pre-scaled); k_pages, v_pages one
-// layer's int8 codes and ks_pages, vs_pages its f32 scales; table
-// [B, max_pages] and lengths [B] int32; strides in elements.  rep is 1, 2,
-// 4 or 8 (checked by the wrapper).
+// Kernel 10.  q, out [B, Hkv, rep, Dh] in q_dtype (q pre-scaled); k_pages,
+// v_pages one layer's int8 codes and ks_pages, vs_pages its f32 scales;
+// table [B, max_pages] and lengths [B] int32; strides in elements.  rep is
+// 1, 2, 4 or 8 (checked by the wrapper).  splits 1 launches one block per
+// (b, kv head); 2-16 the split form, in clusters of `splits` blocks, its
+// ranges at least min_tiles tiles; one instance serves both.
 extern "C" int th_paged_decode_int8(const void* q, const void* k_pages, const void* ks_pages,
                                     const void* v_pages, const void* vs_pages,
                                     const void* table, const void* lengths, void* out, int B,
                                     int Hkv, int rep, int Dh, int ps, int max_pages,
                                     long long page_stride, long long head_stride,
-                                    long long spage_stride, long long shead_stride, int q_dtype,
-                                    void* stream) {
-  const PoolStrides st{page_stride, head_stride, spage_stride, shead_stride};
-  THAWK_DISPATCH(q_dtype, launch_decode, q, k_pages, ks_pages, v_pages, vs_pages,
-                 static_cast<const int*>(table), static_cast<const int*>(lengths), out, B, Hkv,
-                 rep, ps, max_pages, st, static_cast<cudaStream_t>(stream));
-  return THAWK_LAUNCH_RESULT();
+                                    long long spage_stride, long long shead_stride, int splits,
+                                    int min_tiles, int q_dtype, void* stream) {
+  if (splits < 1 || splits > tiles::kMaxSplits || min_tiles < 1 || ps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DecodeArgs a{q, k_pages, ks_pages, v_pages, vs_pages, static_cast<const int*>(table),
+                     static_cast<const int*>(lengths), out, B, Hkv, ps, max_pages,
+                     PoolStrides{page_stride, head_stride, spage_stride, shead_stride}, splits,
+                     min_tiles, static_cast<cudaStream_t>(stream)};
+  const cudaError_t e = tiles::dispatch_int8<LaunchDecode>(a, q_dtype, rep, Dh);
+  const int last = THAWK_LAUNCH_RESULT();  // also clears a failed launch's error
+  return e != cudaSuccess ? static_cast<int>(e) : last;
 }
 
 // k_new, v_new [B, Hkv, Dh] in new_dtype; page, slot [B] int32; the pools

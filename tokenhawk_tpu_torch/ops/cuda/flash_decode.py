@@ -157,19 +157,19 @@ def _check(q, k_cache, v_cache, lengths):
     return B, Hkv, rep, Dh, S
 
 
-def decode_splits(B: int, Hkv: int, S: int, sm_count: int,
-                  min_tiles: int = MIN_SPLIT_TILES) -> int:
+def decode_splits(B: int, Hkv: int, S: int, sm_count: int, min_tiles: int = MIN_SPLIT_TILES,
+                  blocks_per_sm: int = BLOCKS_PER_SM) -> int:
     """Kernels 3's and 14's split count from the host's shapes alone (never
     from lengths, which live on the card): 1 where the B*Hkv pairs already
     fill the SMs (one block a pair); else as many as the card holds at once
-    (BLOCKS_PER_SM an SM), at most MAX_SPLITS, and no range shorter than
+    (blocks_per_sm an SM), at most MAX_SPLITS, and no range shorter than
     min_tiles tiles of S."""
-    if not all(type(v) is int for v in (B, Hkv, S, sm_count, min_tiles)):
+    if not all(type(v) is int for v in (B, Hkv, S, sm_count, min_tiles, blocks_per_sm)):
         raise TypeError("decode_splits takes the host's shape integers, not tensors")
     pairs = B * Hkv
     if pairs >= sm_count:
         return 1
-    return max(1, min(BLOCKS_PER_SM * sm_count // pairs, (S + 31) // 32 // min_tiles,
+    return max(1, min(blocks_per_sm * sm_count // pairs, (S + 31) // 32 // min_tiles,
                       MAX_SPLITS))
 
 

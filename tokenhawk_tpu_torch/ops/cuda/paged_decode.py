@@ -126,18 +126,20 @@ def paged_decode_plain(q, k_pages, v_pages, page_table, lengths, layout):
                            gather_pool_payload(v_pages, page_table, layout), lengths)
 
 
-def paged_splits(B: int, Hkv: int, max_rows: int, sm_count: int) -> int:
+def paged_splits(B: int, Hkv: int, max_rows: int, sm_count: int,
+                 full_splits: int = FULL_SPLITS) -> int:
     """Kernel 5's split count from the host's shapes alone (never from
     lengths), over the table's max_rows = max_pages * ps rows, ranges of at
     least APPEND_MIN_TILES tiles: kernel 3's rule where the (sequence, kv
-    head) pairs leave SMs idle; FULL_SPLITS where one block a pair would
-    fill the SMs at most BLOCKS_PER_SM deep (132-264 pairs on an H100), so
-    that the longest pair's walk sets the time; 1 above.  FULL_SPLITS was
-    swept at 160 and 256 pairs only (see its note); the rest of that range
-    takes it unmeasured."""
+    head) pairs leave SMs idle; full_splits (FULL_SPLITS; kernel 10's int8
+    pages take 2) where one block a pair would fill the SMs at most
+    BLOCKS_PER_SM deep (132-264 pairs on an H100), so that the longest
+    pair's walk sets the time; 1 above.  FULL_SPLITS was swept at 160 and
+    256 pairs only (see its note); the rest of that range takes it
+    unmeasured."""
     splits = decode_splits(B, Hkv, max_rows, sm_count, APPEND_MIN_TILES)
     if sm_count <= B * Hkv <= BLOCKS_PER_SM * sm_count:
-        return max(1, min(FULL_SPLITS, (max_rows + 31) // 32 // APPEND_MIN_TILES))
+        return max(1, min(full_splits, (max_rows + 31) // 32 // APPEND_MIN_TILES))
     return splits
 
 

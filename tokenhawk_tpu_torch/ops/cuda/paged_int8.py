@@ -3,7 +3,10 @@
   paged_decode_int8  replaces tokenhawk_tpu/ops/pallas/paged_decode_int8.py
                      `paged_flash_decode_int8_walk` (_kernel_walk) and its
                      grid form `paged_flash_decode_int8` (_kernel_vec):
-                     decode attention through page tables over int8 pages;
+                     decode attention through page tables over int8 pages,
+                     on kernel 3's shared-memory tile walk
+                     (csrc/decode_tiles.cuh) as kernel 5 runs it, each
+                     row's codes and scale read through the table;
   paged_append_int8  replaces `paged_append_rows` on int8 payloads and
                      `paged_append_scales` (ops/pallas/paged_decode.py):
                      quantizes one K and one V row per sequence and writes
@@ -20,11 +23,22 @@ bfloat16-rounded scale (ops/kvquant.py) held as f32, as the reference
 stores it.  The kernels trust the page ids; the plain versions raise on
 one out of range.  A wrapper runs its plain version only for CPU tensors.
 
+paged_decode_int8 copies each chunk's codes and scales into shared memory
+together and widens each code to f32 times its row's scale where it is
+used.  It takes kernel 5's split rule (`paged_splits`, from the host's
+shapes only), with 2 splits where kernel 5 takes FULL_SPLITS
+(`paged_int8_splits`): one block a (sequence, kv head), or each pair's
+live rows cut on the card into tile-aligned ranges over a thread-block
+cluster, merged on chip.  Counted as `launches["paged_decode_int8"]`, the
+split form also in `["paged_decode_int8_split"]`.
+
 Tolerance of paged_decode_int8 against its plain version: exact attention
-over the dequantized pages in f32 in both, another summation order, one
-rounding to q.dtype.  paged_append_int8 matches bit for bit (outside the
-trash page), and so does gather_pages_int8: a code times a bfloat16 scale
-is exact in f32 and rounds once to the output type on both sides.
+over the dequantized pages in f32 in both (a code times a bfloat16 scale
+is exact in f32), another summation order (the split form also merges its
+ranges in split order), one rounding to q.dtype.  paged_append_int8
+matches bit for bit (outside the trash page), and so does
+gather_pages_int8: a code times a bfloat16 scale is exact in f32 and
+rounds once to the output type on both sides.
 """
 
 from __future__ import annotations
@@ -32,6 +46,7 @@ from __future__ import annotations
 import torch
 
 from tokenhawk_tpu_torch.ops.cuda import build
+from tokenhawk_tpu_torch.ops.cuda.flash_decode import APPEND_MIN_TILES, MAX_SPLITS
 from tokenhawk_tpu_torch.ops.cuda.paged_decode import (
     HEAD_DIMS,
     REPS,
@@ -39,14 +54,24 @@ from tokenhawk_tpu_torch.ops.cuda.paged_decode import (
     _strides,
     attend_gathered,
     gather_pool_payload,
+    paged_splits,
     pool_dims,
 )
 from tokenhawk_tpu_torch.ops.kvquant import quantize_kv_block
 
-launches = {"paged_decode_int8": 0, "paged_append_int8": 0, "gather_pages_int8": 0}
+launches = {"paged_decode_int8": 0, "paged_decode_int8_split": 0, "paged_append_int8": 0,
+            "gather_pages_int8": 0}
+# Kernel 10's splits where one block a pair would fill the SMs at most two
+# deep (kernel 5's FULL_SPLITS): at LLaMA-7B's heads over 8 slots on an
+# H100 at 700 W (experiments/decode_rows.py --sweep, ms at 1, 2, 4 splits),
+# lengths 1-2048 0.0437, 0.0360, 0.0394 and all at 2048 0.0617, 0.0672,
+# 0.0794: 2 keeps the ragged gain and loses 9% where every slot is full.
+INT8_FULL_SPLITS = 2
 
 _LL = build.LL
-_DECODE_ARGS = [build.P] * 8 + [build.I] * 6 + [_LL] * 4 + [build.I, build.P]
+# q, the pools (4), table, lengths, out; B, Hkv, rep, Dh, ps, max_pages;
+# strides; splits, min_tiles, q dtype; stream.
+_DECODE_ARGS = [build.P] * 8 + [build.I] * 6 + [_LL] * 4 + [build.I] * 3 + [build.P]
 _APPEND_ARGS = [build.P] * 8 + [build.I] * 3 + [_LL] * 4 + [build.I, build.P]
 _GATHER_ARGS = [build.P] * 7 + [build.I] * 5 + [_LL] * 4 + [build.I, build.P]
 
@@ -100,6 +125,26 @@ def paged_decode_int8(q, k_pages, ks_pages, v_pages, vs_pages, page_table, lengt
     if not q.is_cuda:
         return paged_decode_int8_plain(q, k_pages, ks_pages, v_pages, vs_pages, page_table,
                                        lengths, layout)
+    B, Hkv = q.shape[:2]
+    ps = pool_dims(k_pages, layout)[2]
+    return paged_decode_int8_at(q, k_pages, ks_pages, v_pages, vs_pages, page_table, lengths,
+                                layout, paged_int8_splits(B, Hkv, page_table.shape[1] * ps,
+                                                          build.sm_count(q.device)))
+
+
+def paged_int8_splits(B: int, Hkv: int, max_rows: int, sm_count: int) -> int:
+    """Kernel 10's split count: kernel 5's rule (paged_splits, from the
+    host's shapes alone) with INT8_FULL_SPLITS where the pairs fill the
+    SMs at most two deep."""
+    return paged_splits(B, Hkv, max_rows, sm_count, INT8_FULL_SPLITS)
+
+
+def paged_decode_int8_at(q, k_pages, ks_pages, v_pages, vs_pages, page_table, lengths, layout,
+                         splits: int, min_tiles: int = APPEND_MIN_TILES):
+    """Kernel 10 at a given split count (1 to MAX_SPLITS), its ranges at
+    least min_tiles tiles: what paged_decode_int8 launches with
+    paged_int8_splits' count; chip_smoke.py times splits = 1 beside it.
+    CUDA tensors only."""
     B, Hkv, rep, Dh = q.shape
     n_pages, pHkv, ps, pDh = _check_pool(k_pages, ks_pages, v_pages, vs_pages, layout)
     build.require(Dh == pDh and pHkv == Hkv,
@@ -109,6 +154,8 @@ def paged_decode_int8(q, k_pages, ks_pages, v_pages, vs_pages, page_table, lengt
                   and page_table.shape[0] == B, "page_table must be int32 [B, max_pages]")
     build.require(lengths.dtype == torch.int32 and lengths.shape == (B,),
                   "lengths must be int32 [B]")
+    build.require(1 <= splits <= MAX_SPLITS, f"splits {splits} not in 1..{MAX_SPLITS}")
+    build.require(min_tiles >= 1, f"min_tiles must be positive, got {min_tiles}")
     q = q.contiguous()
     page_table = page_table.contiguous()
     build.require_cuda(q, k_pages, ks_pages, v_pages, vs_pages, page_table, lengths)
@@ -116,10 +163,12 @@ def paged_decode_int8(q, k_pages, ks_pages, v_pages, vs_pages, page_table, lengt
     fn = build.function("th_paged_decode_int8", _DECODE_ARGS)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), ks_pages.data_ptr(), v_pages.data_ptr(),
             vs_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, Hkv, rep, Dh, ps, page_table.shape[1], *_all_strides(k_pages, layout),
-            build.dtype_code(q.dtype), build.stream_of(q))
+            B, Hkv, rep, Dh, ps, page_table.shape[1], *_all_strides(k_pages, layout), splits,
+            min_tiles, build.dtype_code(q.dtype), build.stream_of(q))
     build.check(rc, "paged_decode_int8")
     launches["paged_decode_int8"] += 1
+    if splits > 1:
+        launches["paged_decode_int8_split"] += 1
     return out
 
 
