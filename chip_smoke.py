@@ -22,8 +22,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      clusters where the (sequence, KV head) pairs leave SMs idle, else one
      block a pair: a record each) beside their one-block launch and SDPA,
      and sweeps of their split counts; then kernel 16's and the GEMV's
-     outputs held bit for bit to the parent tree's and kernels 2, 3, 5, 13
-     and 18's to their redesigns' (PARENT_DIGESTS);
+     outputs held bit for bit to the parent tree's and kernels 2, 3, 5, 8,
+     10, 13, 15 and 18's to their redesigns' (PARENT_DIGESTS);
   3. slice check: a 2-layer LLaMA-7B-width Q4_0 model, prefill of 16
      tokens + 8 decode steps on the GPU (kernels) and on the CPU (plain
      versions, same parameters), logits compared at every step, over a
@@ -71,7 +71,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      and kernel 4 launched, kernels 1, 2 and 3 not; tok/s against the
      weight-bytes roofline, the idle share of a profiled request;
   9. speculation: 9a SpeculativeEngine, the 7B Q4_0 target (its first 8
-     layers since phase 11 was added) with a 22-layer TinyLlama-width bf16
+     layers since phase 11 was added) with an 11-layer TinyLlama-width bf16
      draft (kernel 14 at 4 KV heads of 64, 8 queries each, every launch on
      its split form), gamma 4, each stream held against the Engine's greedy
      stream, then decode tok/s with kernel 14 held to one block a pair
@@ -86,9 +86,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      added, 8 since phase 12) with neither, OWO (kernel 15),
      ATTN (kernel 16) and both, in turns: exact launches per decode token
      (kernel 3 and Wo's kernel-1 launches gone under ATTN, kernel 2 under
-     OWO alone), tok/s and the idle share of each, each fused greedy
-     stream held to the unfused one up to near-ties and in float32; 10b
-     phase 4b's paged server with OWO (kernel 15 at 8 rows); 10c a
+     OWO alone; three walk launches a kernel-15 call, a tile-walk and a
+     walk launch a kernel-16 call), tok/s and the idle share of each,
+     each fused greedy stream held to the unfused one up to near-ties and
+     in float32; 10b phase 4b's paged server with OWO (kernel 15 at 8
+     rows, three walk launches a call); 10c a
      TinyLlama-width Q4_0 model (22 layers, head dim 64) under the
      PagedScheduler on bf16 and int8 pages (kernels 5-7 and 10-12 at Dh
      64), then `serving --paged` (bf16, int8 pages) on phase 9d's F16 GGUF
@@ -118,7 +120,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      call timed, 4 empty shards giving (0, -inf, 0) exactly; then kernel 18
      cut into 1, 4, 8 and 16 splits at TinyLlama's heads beside kernel 14
      (B=1 at 2048, B=8 ragged);
-     12b, after phase 10, the 32-layer 7B Q4_0 model through
+     12b, after phase 10, the 7B Q4_0 model's first 8 layers through
      Engine(parallel="cp") over a world-1 NCCL group at n_ctx 2048
      (prompts of 5, 300 and 1500 tokens, 32 greedy tokens each): kernels
      1, 18 (its cluster form) and 19 (its tensor-core walk) launched, 2, 3,
@@ -148,8 +150,9 @@ flat form of the same codes, kernel 2 with an sb w13, kernel 13
 GGUF kinds at those models' shapes, kernels 3-12 at Llama-3-8B's 8 KV
 heads of 4 queries each, kernel 14 at the 7B's and TinyLlama's heads,
 kernels 3-12 at TinyLlama's head dim 64 (8 queries a KV head), and
-kernels 15 and 16 at the 7B's widths in Q4_0 and Q8_0, each beside the
-unfused port kernels it replaces; phase 3 also runs a 2-layer Q4_K_M
+kernels 15 and 16 at the 7B's widths in Q4_0 and Q8_0, each timed back
+to back and alone beside the unfused port kernels it replaces, timed the
+same two ways; phase 3 also runs a 2-layer Q4_K_M
 slice.  Each phase's header line ends with the seconds since the start.
 Every path check also holds each quantized projection the model made to
 its path (a spy on ops.linear's quant_matmul): bf16 x above 8 rows over
@@ -289,6 +292,13 @@ INT8_LAYERS = 8
 # its time.
 SPEC_LAYERS = 8
 FUSED_LAYERS = 8
+# Phase 12b runs the 7B's first 8 layers (32 before kernel 15's and 16's
+# walk instances lengthened the build), to keep the script's run inside
+# its time on a slow host.
+CP_LAYERS = 8
+# Phase 9's draft takes 11 of TinyLlama's 22 layers (its widths: kernel 14
+# at 4 KV heads of 64, 8 queries each), for the same reason.
+DRAFT_LAYERS = 11
 # Phases 6 and 11a run 16 of the Q4_K_M model's 32 layers (11a all 32
 # before phase 12), its flat form included in 11a's decode windows.
 Q4KM_LAYERS = 16
@@ -359,9 +369,10 @@ def timed(fns, calls: int = 32, call_trials: int = 5) -> dict:
 def isolated_ms(fns, trials: int = 21) -> float:
     """Median device ms of one call that finds the device idle, as in an
     eager decode step whose host is slower than its kernels: each call
-    between two events, queued behind a device spin that follows the last
-    call's end (so the host's launch cost stays outside the events),
-    cycling through fns."""
+    between two events, queued behind a device spin of about 1 ms that
+    follows the last call's end (so the host's launch cost, a multi-launch
+    call's wrappers included, stays outside the events), cycling through
+    fns."""
     import torch
 
     for f in fns:
@@ -370,7 +381,7 @@ def isolated_ms(fns, trials: int = 21) -> float:
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     times = []
     for i in range(trials):
-        torch.cuda._sleep(400_000)
+        torch.cuda._sleep(2_000_000)
         a.record()
         fns[i % len(fns)]()
         b.record()
@@ -874,9 +885,11 @@ def _weight_sets(ws) -> list:
 def _fused_layer_records(randn, case, library, g) -> list:
     """Kernels 15 and 16 (the reference's env-gated fused decode-layer
     kernels) at LLaMA-7B's widths, Q4_0 and Q8_0, against their plain
-    versions; each timed beside the unfused port kernels it replaces on the
-    model's path (kernel 1's Wo + add + kernel 2; the q scale + kernel 3 +
-    kernel 1's Wo + add) and the PyTorch calls that compute the same."""
+    versions; each timed back to back and alone (isolated_ms) beside the
+    unfused port kernels it replaces on the model's path, timed both ways
+    at the same shapes (kernel 1's Wo + add + kernel 2 at 1 and 8 rows; the
+    q scale + kernel 3 + kernel 1's Wo + add at 1, 37 and 512 live rows),
+    and the PyTorch calls that compute the same."""
     import torch
     import torch.nn.functional as tf
 
@@ -893,13 +906,13 @@ def _fused_layer_records(randn, case, library, g) -> list:
             return QWeight.quantize(randn(k, n, scale=0.02, dtype=torch.float32))
         return QWeight.random(k, n, "q8_0", g, dev)
 
-    def unfused_ms(fns) -> float:
-        ms = timed(fns)["ms"]
-        log(f"  unfused port kernels: {ms:.4f} ms")
-        return ms
+    def unfused(fns) -> dict:
+        out = {"ms": timed(fns)["ms"], "isolated_ms": isolated_ms(fns)}
+        log(f"  unfused port kernels: {out['ms']:.4f} ms, alone {out['isolated_ms']:.4f}")
+        return out
 
     # -- kernel 15 --
-    cases, extra = [], {}
+    cases, lib = [], {}
     for quant in ("q4_0", "q8_0"):
         ws = [weight(quant, D, D), weight(quant, D, 2 * F), weight(quant, F, D)]
         sets = _weight_sets(ws)
@@ -909,23 +922,25 @@ def _fused_layer_records(randn, case, library, g) -> list:
             case(cases, f"fused_owo_ffn {quant} Dq=D={D} F={F} rows={rows}", quant, rows,
                  ffn.fused_owo_ffn(ctx, x, *ws, gain), ffn.fused_owo_ffn_plain(ctx, x, *ws, gain),
                  [lambda s=s: ffn.fused_owo_ffn(ctx, x, *s, gain) for s in sets],
-                 [lambda s=s: ffn.fused_owo_ffn_plain(ctx, x, *s, gain) for s in sets])
-            if quant == "q4_0" and rows == 1:
-                extra["owo_unfused"] = unfused_ms(
+                 [lambda s=s: ffn.fused_owo_ffn_plain(ctx, x, *s, gain) for s in sets],
+                 alone=True)
+            if quant == "q4_0":
+                cases[-1]["unfused"] = unfused(
                     [lambda s=s: ffn.fused_ffn(x + qmatmul.quant_matmul(ctx, s[0]), s[1], s[2],
                                                gain) for s in sets])
-                extra["owo_lib"] = library(
+            if quant == "q4_0" and rows == 1:
+                lib["owo"] = library(
                     "dequantize Wo + matmul + add, then rms_norm + dequantize w13 and w2 + 2 "
                     "matmul + silu, bf16 (14+ calls)",
                     [lambda s=s: _ffn_library(x + ctx @ s[0].dequantize(torch.bfloat16), s[1],
                                               s[2], gain) for s in sets])
         del ws, sets
-    owo = _record("fused_owo_ffn", "tokenhawk_tpu_torch/csrc/ffn.cu",
+    owo = _record("fused_owo_ffn", SRC2,
                   "tokenhawk_tpu/ops/pallas/ffn.py:431 (_fused_owo_ffn via fused_owo_ffn)",
                   cases, ("q4_0", 1),
                   bound((D * D + 3 * D * F) * 0.625 + 4 * D * bf, 2 * (D * D + 3 * D * F)),
-                  extra["owo_lib"])
-    owo["unfused_ms"] = extra["owo_unfused"]
+                  lib["owo"])
+    owo["unfused_ms"] = cases[0]["unfused"]["ms"]
 
     # -- kernel 16: B=1, one query per kv head, n_ctx 512 --
     cases = []
@@ -950,13 +965,15 @@ def _fused_layer_records(randn, case, library, g) -> list:
                  [lambda c=c: flash_decode.fused_attn_out(x, q, kn, vn, *c[:2], lengths, c[2])
                   for c in sets],
                  [lambda c=c: flash_decode.fused_attn_out_plain(x, q, kn, vn, *c[:2], lengths,
-                                                                c[2]) for c in sets])
-            if quant == "q4_0" and L == S:
-                extra["attn_unfused"] = unfused_ms([lambda c=c: x + qmatmul.quant_matmul(
+                                                                c[2]) for c in sets],
+                 alone=True)
+            if quant == "q4_0":
+                cases[-1]["unfused"] = unfused([lambda c=c: x + qmatmul.quant_matmul(
                     flash_decode.flash_decode_append(
                         (q[:, 0] * scale).reshape(1, H, 1, Dh), kn[:, 0], vn[:, 0], *c[:2],
                         lengths).reshape(1, 1, D), c[2]) for c in sets])
-                extra["attn_lib"] = library(
+            if quant == "q4_0" and L == S:
+                lib["attn"] = library(
                     "scaled_dot_product_attention over the live rows (no append) + dequantize "
                     "Wo + matmul + add (4+ calls)",
                     [lambda c=c: x + tf.scaled_dot_product_attention(
@@ -964,12 +981,21 @@ def _fused_layer_records(randn, case, library, g) -> list:
                      @ c[2].dequantize(torch.bfloat16) for c in sets])
             del kc, vc, kp, vp, sets
         del wo
-    attn = _record("fused_attn_out", "tokenhawk_tpu_torch/csrc/flash_decode.cu",
+    attn = _record("fused_attn_out", "tokenhawk_tpu_torch/csrc/attn_wo.cu",
                    "tokenhawk_tpu/ops/pallas/attn_block.py:303 (_attn_wo via fused_attn_out)",
                    cases, (f"q4_0 L={S}", 1),
                    bound(D * D * 0.625 + (2 * S + 5) * H * Dh * bf + 2 * D * bf,
-                         2 * D * D + 4 * S * H * Dh), extra["attn_lib"])
-    attn["unfused_ms"] = extra["attn_unfused"]
+                         2 * D * D + 4 * S * H * Dh), lib["attn"])
+    attn["unfused_ms"] = cases[2]["unfused"]["ms"]
+    log("kernels 15 and 16 against the unfused port kernels (ms back to back / alone):")
+    for rec in (owo, attn):
+        for c in rec["cases"]:
+            if "unfused" in c:
+                u = c["unfused"]
+                faster = c["ms"] < u["ms"] and c["isolated_ms"] < u["isolated_ms"]
+                log(f"  {rec['name']} {c['shape']} rows={c['rows']}: {c['ms']:.4f} / "
+                    f"{c['isolated_ms']:.4f} against {u['ms']:.4f} / {u['isolated_ms']:.4f} "
+                    f"({'faster' if faster else 'NOT faster'} both ways)")
     return [owo, attn]
 
 
@@ -1621,7 +1647,11 @@ def _decode_append_records(randn, case) -> list:
 # code x scale widened in f32 where used, kernel 3's summation order and
 # split forms): their entries (the output, and kernel 8's written cache)
 # are that tree's, at their split rules (kernel 8 at one block an SM,
-# kernel 10 in 2 where the pairs fill the SMs).
+# kernel 10 in 2 where the pairs fill the SMs).  Kernels 15 and 16 then
+# took the walks (kernel 16's attention the tile walk at kernel 3's split
+# rule, its Wo and kernel 15's three launches the decode-row walk at the
+# rule's plans): kernel 15's entries are that tree's; kernel 16's output
+# and written caches came out bit for bit as before.
 PARENT_DIGESTS = {
     'kernel 3 7B':
         '0b730923adc93bb96be8a17ca537594d8a6b6dcfbc80b92751aafae0e157b96d',
@@ -1681,6 +1711,10 @@ PARENT_DIGESTS = {
         '031e62ea20ec7c4d22589ca3d58107ef7683ba42f7bb2c3323812879bac98168',
     'kernel 10 dh64':
         '1c6d4aa3ca0b7cbc44bf2b3a7792764cec1e16dd9920add9be486afa4e375318',
+    'kernel 15 q4_0/q4_0 rows=1 torch.bfloat16':
+        'b934ad1c859d6acdf8f01c1affac55b9ae4ec9adde4cbc609602aa63e568517b',
+    'kernel 15 q4_0/q4_0 rows=8 torch.bfloat16':
+        '0741a0d6e95321098f1bd34f442bb7e0007feee31aaff07913f1795da91f5526',
 }
 
 
@@ -1826,6 +1860,18 @@ def _output_digests() -> dict:
                                  .astype(np.int32)).to(dev)
         out[f"kernel 10 {tag}"] = digest(pi.paged_decode_int8(q, *pool, table, lengths,
                                                               "contig"))
+    # Kernel 15 at 1 and 8 rows of the 7B's Q4_0 widths, on a generator of
+    # its own.
+    rng = np.random.default_rng(SEED + 120)
+    D, F = 4096, 11008
+    wo, w13, w2 = (QWeight.from_codes(codes(0, 16, n, k, torch.uint8),
+                                      arr(n, k // 32, scale=1e-3, dtype=torch.float32).abs(), dev)
+                   for k, n in ((D, D), (D, 2 * F), (F, D)))
+    g = 1.0 + arr(D, scale=0.1)
+    for rows in (1, 8):
+        ctx, x = arr(rows, D), arr(rows, D)
+        out[f"kernel 15 q4_0/q4_0 rows={rows} torch.bfloat16"] = digest(
+            ffn.fused_owo_ffn(ctx, x, wo, w13, w2, g))
     return out
 
 
@@ -1833,7 +1879,7 @@ def _check_parent_digests() -> None:
     """The pinned calls' outputs against PARENT_DIGESTS, bit for bit."""
     got = _output_digests()
     differ = [k for k in PARENT_DIGESTS if got.get(k) != PARENT_DIGESTS[k]]
-    log(f"kernels 2, 3, 5, 8, 10, 16, 18 and the GEMV at 1, 8 bf16 and 40 f32 rows: "
+    log(f"kernels 2, 3, 5, 8, 10, 15, 16, 18 and the GEMV at 1, 8 bf16 and 40 f32 rows: "
         f"{len(got) - len(differ)} of {len(got)} outputs bit for bit the parent tree's")
     if differ or set(got) != set(PARENT_DIGESTS):
         raise AssertionError("outputs that moved from the parent tree's: "
@@ -2752,14 +2798,32 @@ def phase_int8_serve(cfg, params, kernel_mods, on_path, off_path) -> dict:
     return counts
 
 
+def _busy_seconds(prof) -> float:
+    """The device's busy time in a profile: the union of its kernel and
+    copy intervals.  A programmatic dependent launch's blocks may start,
+    and wait, while the launch before still runs, so the kernels' summed
+    times count that overlap twice."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e6
+
+
 def _decode_window(engine, prompt, chunks: int = 4, kernel_mods=(),
                    profiled: bool = True) -> dict:
     """Device busy time against wall time over `chunks` greedy decode
     chunks after the prompt's prefill (outside the window), the host
     reading each chunk's ids as Engine.generate does.  Returns the
     window's tok/s, tokens and the launches of kernel_mods' kernels in it,
-    and, profiled, its idle share and device ms per token.  Unprofiled,
-    the wall time carries no profiler cost per launch."""
+    and, profiled, its idle share and device ms per token (the busy time:
+    the union of the kernels' intervals, _busy_seconds).  Unprofiled, the
+    wall time carries no profiler cost per launch."""
     import contextlib
 
     import torch
@@ -2789,11 +2853,13 @@ def _decode_window(engine, prompt, chunks: int = 4, kernel_mods=(),
     if not profiled:
         return {"tok_s": n / wall, "tokens": n, "counts": counts}
     avgs = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in avgs) / 1e6
+    summed = sum(e.self_device_time_total for e in avgs) / 1e6
+    busy = _busy_seconds(prof)
     attn = [e for e in avgs if "decode_int8_tiles" in e.key or "decode_append_tiles" in e.key]
     log(f"decode window, {engine.cache_dtype} cache, {len(prompt)}+ live tokens, {n} tokens "
         f"(profiler on): wall {wall * 1e3:.1f} ms ({n / wall:.1f} tok/s), device busy "
-        f"{busy * 1e3:.1f} ms ({n / busy:.1f} tok/s), idle share {1 - busy / wall:.1%}; "
+        f"{busy * 1e3:.1f} ms ({n / busy:.1f} tok/s; kernels summed {summed * 1e3:.1f} ms), "
+        f"idle share {1 - busy / wall:.1%}; "
         + ", ".join(f"{_kernel_name(e.key)} {e.self_device_time_total / max(e.count, 1):.2f} us "
                     f"x {e.count}" for e in attn))
     return {"tok_s": n / wall, "idle": 1 - busy / wall, "tokens": n, "counts": counts,
@@ -3925,7 +3991,7 @@ def _split_ab(spec, prompt) -> None:
 
 def phase_speculation(params, kernel_mods, model_path: str, tmp: str) -> dict:
     """Phase 9: speculative decoding.  9a: SpeculativeEngine, the LLaMA-7B
-    Q4_0 target (its first SPEC_LAYERS layers) with a 22-layer
+    Q4_0 target (its first SPEC_LAYERS layers) with a DRAFT_LAYERS-layer
     TinyLlama-width bf16 draft, gamma
     4, prompts of 5 and 300 tokens, 64 new tokens, each stream held
     against the Engine's greedy stream, then again with float32
@@ -3946,7 +4012,7 @@ def phase_speculation(params, kernel_mods, model_path: str, tmp: str) -> dict:
     dev = torch.device("cuda")
     cfg = _seven_b(SPEC_LAYERS)
     params = dataclasses.replace(params, layers=params.layers[:SPEC_LAYERS])
-    dcfg = _tinyllama(22)
+    dcfg = _tinyllama(DRAFT_LAYERS)
     log(f"== phase 9a: SpeculativeEngine, LLaMA-7B Q4_0 target ({SPEC_LAYERS} layers), "
         f"TinyLlama-width draft "
         f"({dcfg.n_layer} layers, dense bf16, {dcfg.n_kv_head} KV heads of {dcfg.head_dim}), "
@@ -4149,9 +4215,15 @@ def _speculation_subprocesses(model_path: str, tmp: str) -> None:
                                                           draft_path, "--gamma", "4"]))
 
 
-# Kernel 15's and kernel 16's launch keys (ops/cuda/ffn.py, flash_decode.py).
+# Kernel 15's and kernel 16's launch keys (ops/cuda/ffn.py, flash_decode.py):
+# their calls, kernel 15's walk launches (three a call), and kernel 16's
+# tile-walk launches in a cluster and its Wo walk launches (one each a call
+# at the 7B's B=1).
 OWO_Q4_0 = "owo_ffn[q4_0/q4_0]"
+OWO_STREAM = "owo_ffn_stream"
 ATTN_WO = "attn_wo"
+ATTN_SPLIT = "attn_wo_split"
+ATTN_STREAM = "attn_wo_stream"
 
 
 def _stream_forms(dev, forms, prompt, n: int) -> tuple:
@@ -4231,7 +4303,9 @@ def phase_fused_engine(params, kernel_mods) -> dict:
     tokens: tok/s) and one under the profiler (32 tokens: idle share,
     device ms a token), whose launches per token must be exactly the
     form's: kernel 3 and Wo's kernel-1 launches gone under ATTN, kernel 2
-    gone under OWO alone.  Each fused stream is held to the unfused one up
+    gone under OWO alone; three walk launches a kernel-15 call, one
+    tile-walk launch (a cluster a head) and one walk launch a kernel-16
+    call.  Each fused stream is held to the unfused one up
     to near-ties, as phase 9a holds its streams, and in float32 (at B=1
     "both" decodes as ATTN does, kernel 16 then kernel 2, so a "both"
     stream equal to ATTN's needs no second check).  Returns each form's
@@ -4257,10 +4331,12 @@ def phase_fused_engine(params, kernel_mods) -> dict:
     # kernel 3 at B=1 over the 7B's 32 KV heads takes its split form.
     k3 = {"flash_decode": L, "flash_decode_append_split": L}
     k1 = Q4_PATHS[0]
+    owo = {OWO_Q4_0: L, OWO_STREAM: 3 * L}
+    attn = {ATTN_WO: L, ATTN_SPLIT: L, ATTN_STREAM: L}
     per_token = {"neither": {k1: 2 * L + 1, **k3, FFN_Q4_0: L},
-                 "owo": {k1: L + 1, **k3, OWO_Q4_0: L},
-                 "attn": {k1: L + 1, ATTN_WO: L, FFN_Q4_0: L},
-                 "both": {k1: L + 1, ATTN_WO: L, FFN_Q4_0: L}}
+                 "owo": {k1: L + 1, **k3, **owo},
+                 "attn": {k1: L + 1, **attn, FFN_Q4_0: L},
+                 "both": {k1: L + 1, **attn, FFN_Q4_0: L}}
     streams, requests, windows = {}, {}, {k: [] for k in forms}
     order = ["neither", "owo", "attn", "both"]
     try:
@@ -4337,8 +4413,8 @@ def _fused_f32_witness(params, prompt, forms, kernel_mods) -> None:
 
 def phase_fused_paged(params, kernel_mods, bf16_paged, off_path) -> dict:
     """Phase 10b: phase 4b's paged server (LLaMA-7B Q4_0, 8 slots) with OWO
-    on: kernel 15 at up to 8 decode rows, kernel 2 never.  Returns the
-    run's launches."""
+    on: kernel 15 at up to 8 decode rows (three walk launches a call),
+    kernel 2 never.  Returns the run's launches."""
     from tokenhawk_tpu_torch.models.llama import Fusions
 
     cfg = dataclasses.replace(_seven_b(32), n_ctx=2048)
@@ -4351,6 +4427,10 @@ def phase_fused_paged(params, kernel_mods, bf16_paged, off_path) -> dict:
     finally:
         params.fusions = Fusions()
     sched.cache = None
+    if counts.get(OWO_STREAM) != 3 * counts[OWO_Q4_0]:
+        raise AssertionError(f"10b: {counts.get(OWO_STREAM)} walk launches for "
+                             f"{counts[OWO_Q4_0]} kernel-15 calls, not three a call")
+    log(f"10b: {counts[OWO_Q4_0]} kernel-15 calls, {counts[OWO_STREAM]} walk launches")
     return counts
 
 
@@ -4420,8 +4500,9 @@ def _cp_forms(dense, cp, prompt, n: int) -> tuple:
 
 
 def phase_cp_engine(params, kernel_mods, tmp: str) -> dict:
-    """Phase 12b: the 32-layer 7B Q4_0 model through Engine(parallel="cp")
-    at n_ctx 2048 over a NCCL group of one rank (one H100): prompts of 5,
+    """Phase 12b: the 7B Q4_0 model (its first CP_LAYERS layers) through
+    Engine(parallel="cp") at n_ctx 2048 over a NCCL group of one rank (one
+    H100): prompts of 5,
     300 and 1500 tokens, 32 greedy tokens each.  Kernels 1, 18 and 19
     launch; kernels 2, 3, 4 and 14 do not.  Each stream is held against
     the dense Engine's (near-ties apart: kernel 19 takes the scaled q in
@@ -4436,9 +4517,10 @@ def phase_cp_engine(params, kernel_mods, tmp: str) -> dict:
     from tokenhawk_tpu_torch.runtime.engine import Engine
     from tokenhawk_tpu_torch.tokenizer import byte_fallback_vocab
 
-    log("== phase 12b: Engine(parallel='cp'), NCCL group of 1 rank, LLaMA-7B Q4_0, 32 layers, "
-        "bf16 KV, n_ctx 2048")
-    cfg = dataclasses.replace(_seven_b(32), n_ctx=2048)
+    log(f"== phase 12b: Engine(parallel='cp'), NCCL group of 1 rank, LLaMA-7B Q4_0, "
+        f"{CP_LAYERS} layers, bf16 KV, n_ctx 2048")
+    cfg = dataclasses.replace(_seven_b(CP_LAYERS), n_ctx=2048)
+    params = dataclasses.replace(params, layers=params.layers[:CP_LAYERS])
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store", rank=0,
                             world_size=1)

@@ -423,25 +423,62 @@ def test_owo_ffn_kernel_matches_plain(form, rows, dtype):
     key = f"owo_ffn[{name}/{name}]"
     before = dict(ffn.launches)
     got = ffn.fused_owo_ffn(ctx, x, wo, w13, w2, gain)
-    assert ffn.launches == {**before, key: before[key] + 1}
+    assert ffn.launches == {**before, key: before[key] + 1,
+                            "owo_ffn_stream": before["owo_ffn_stream"] + ffn.OWO_LAUNCHES}
     want = ffn.fused_owo_ffn_plain(ctx, x, wo, w13, w2, gain)
     assert got.shape == (rows, D) and got.dtype == dtype
     assert _err(got, want) <= _tol(want, dtype)
 
 
-@pytest.mark.parametrize("pair", FFN_PAIRS)
-def test_owo_ffn_kernel_matches_plain_over_every_form(pair):
-    """Kernel 15 over every weight form (Wo in w13's form), 5 rows."""
+# Kernel 15's (Wo and w13, w2) forms: Wo and w13 in one form without mins
+# (the gate's), w2 in any of kernel 2's w2 forms.
+OWO_PAIRS = [(a, b) for a in ("q4_0", (32, False), (16, False)) for b in FFN_FORMS]
+
+
+@pytest.mark.parametrize("pair", OWO_PAIRS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_owo_ffn_kernel_matches_plain_over_every_form(pair, dtype):
+    """Kernel 15 over every form pairing its gate admits (Wo in w13's
+    form), rows 1-8; a Wo or w13 with mins raises."""
     dev = cuda_device()
     g = torch.Generator(device=dev).manual_seed(5)
     D, F = 1024, 2048
     wo, w13 = _weight(pair[0], D, D, g, dev), _weight(pair[0], D, 2 * F, g, dev)
     w2 = _weight(pair[1], F, D, g, dev)
-    ctx, x = (torch.randn(5, D, generator=g, device=dev).bfloat16() for _ in range(2))
-    gain = (1 + 0.1 * torch.randn(D, generator=g, device=dev)).bfloat16()
-    got = ffn.fused_owo_ffn(ctx, x, wo, w13, w2, gain)
+    for rows in range(1, 9):
+        ctx, x = (torch.randn(rows, D, generator=g, device=dev).to(dtype) for _ in range(2))
+        gain = (1 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype)
+        got = ffn.fused_owo_ffn(ctx, x, wo, w13, w2, gain)
+        want = ffn.fused_owo_ffn_plain(ctx, x, wo, w13, w2, gain)
+        assert _err(got, want) <= _tol(want, dtype), rows
+    mins = _weight((pair[0][0] if pair[0] != "q4_0" else 32, True), D, D, g, dev)
+    with pytest.raises(ValueError):
+        ffn.fused_owo_ffn(ctx, x, mins, w13, w2, gain)
+
+
+@pytest.mark.parametrize("form", ["q4_0", (32, False)])  # Q4_0 and Q8_0
+@pytest.mark.parametrize("rows", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_owo_ffn_kernel_matches_plain_at_every_plan(form, rows, dtype):
+    """Kernel 15 with each of its three launches' plans forced through
+    every plan of 1-4 K segments or 2 and 4 parts that fits (the others at
+    the rule's), at LLaMA-7B's D 4096 and F 11008."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(rows + 11)
+    D, F = 4096, 11008
+    wo, w13, w2 = (_weight(form, k, n, g, dev) for k, n in ((D, D), (D, 2 * F), (F, D)))
+    ctx, x = (torch.randn(rows, D, generator=g, device=dev).to(dtype) for _ in range(2))
+    gain = (1 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype)
     want = ffn.fused_owo_ffn_plain(ctx, x, wo, w13, w2, gain)
-    assert _err(got, want) <= _tol(want, torch.bfloat16)
+    f = qmatmul.form_code(wo)
+    launches = [_plans(f, rows, D, D), _plans(f, rows, D, 2 * F, swiglu=True),
+                _plans(f, rows, F, D)]
+    for i, plans in enumerate(launches):
+        for plan in plans[1:]:
+            forced = [None, None, None]
+            forced[i] = plan
+            got = ffn.fused_owo_ffn_at(ctx, x, wo, w13, w2, gain, plans=forced)
+            assert _err(got, want) <= _tol(want, dtype), forced
 
 
 @pytest.mark.parametrize("Dh", HEAD_DIMS)
@@ -463,13 +500,84 @@ def test_attn_wo_kernel_matches_plain(form, length, cache_dtype, Dh):
               for _ in range(2))
     kp, vp = kc.clone(), vc.clone()
     lengths = torch.tensor([length], dtype=torch.int32, device=dev)
-    before = flash_decode.launches["attn_wo"]
+    before = dict(flash_decode.launches)
     got = flash_decode.fused_attn_out(x, q, kn, vn, kc, vc, lengths, wo)
-    assert flash_decode.launches["attn_wo"] == before + 1
+    split = int(flash_decode.decode_splits(1, H, S, qmatmul.build.sm_count(dev),
+                                           flash_decode.APPEND_MIN_TILES) > 1)
+    assert flash_decode.launches == {**before, **{k: before[k] + n for k, n in (
+        ("attn_wo", 1), ("attn_wo_split", split), ("attn_wo_stream", 1))}}
     want = flash_decode.fused_attn_out_plain(x, q, kn, vn, kp, vp, lengths, wo)
     assert torch.equal(kc, kp) and torch.equal(vc, vp)
     assert got.shape == (1, 1, D) and got.dtype == torch.bfloat16
     assert _err(got, want) <= _tol(want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("form", ["q4_0", (32, False)])  # Q4_0 and Q8_0
+@pytest.mark.parametrize("dtype,cache_dtype", [(torch.bfloat16, torch.bfloat16),
+                                               (torch.float32, torch.float32)])
+def test_attn_wo_kernel_matches_plain_at_every_split(form, dtype, cache_dtype):
+    """Kernel 16 at LLaMA-7B's heads, n_ctx 512, lengths 1, 37, 300 and
+    512: the attention in 1 to 16 blocks a head (ranges of at least 1 and
+    2 tiles), then Wo's plan forced through every plan of 1-4 K segments or
+    2 and 4 parts that fits; the appended rows exactly."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(13)
+    H, Dh, S, D = 32, 128, 512, 4096
+    wo = _weight(form, D, D, g, dev)
+    wo_plans = _plans(qmatmul.form_code(wo), 1, D, D)
+    q, kn, vn = (torch.randn(1, 1, H, Dh, generator=g, device=dev).to(dtype) for _ in range(3))
+    x = torch.randn(1, 1, D, generator=g, device=dev).to(dtype)
+    for length in (1, 37, 300, S):
+        kc, vc = (torch.randn(1, H, S, Dh, generator=g, device=dev).to(cache_dtype)
+                  for _ in range(2))
+        lengths = torch.tensor([length], dtype=torch.int32, device=dev)
+        kp, vp = kc.clone(), vc.clone()
+        want = flash_decode.fused_attn_out_plain(x, q, kn, vn, kp, vp, lengths, wo)
+        runs = [(s, t, None) for s in range(1, flash_decode.MAX_SPLITS + 1) for t in (1, 2)]
+        runs += [(8, 2, p) for p in wo_plans[1:]]
+        for splits, min_tiles, plan in runs:
+            k2, v2 = kc.clone(), vc.clone()
+            got = flash_decode.fused_attn_out_at(x, q, kn, vn, k2, v2, lengths, wo, splits,
+                                                 min_tiles, plan)
+            assert torch.equal(k2, kp) and torch.equal(v2, vp), (length, splits)
+            assert _err(got, want) <= _tol(want, dtype), (length, splits, min_tiles, plan)
+
+
+def test_fused_layer_launches_replay_under_graph_capture():
+    """Kernels 15 and 16 (each call's walk launches chained as programmatic
+    dependents) captured into a CUDA graph back to back: the replays equal
+    to the eager calls bit for bit, the cache written as the eager call
+    wrote it."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(23)
+    H, Dh, S, D, F = 32, 128, 512, 4096, 11008
+    wo, w13, w2 = (_weight("q4_0", k, n, g, dev) for k, n in ((D, D), (D, 2 * F), (F, D)))
+    gain = (1 + 0.1 * torch.randn(D, generator=g, device=dev)).bfloat16()
+    q, kn, vn = (torch.randn(1, 1, H, Dh, generator=g, device=dev).bfloat16() for _ in range(3))
+    x = torch.randn(1, 1, D, generator=g, device=dev).bfloat16()
+    kc, vc = (torch.randn(1, H, S, Dh, generator=g, device=dev).bfloat16() for _ in range(2))
+    lengths = torch.tensor([300], dtype=torch.int32, device=dev)
+
+    def step(k, v):
+        y = flash_decode.fused_attn_out(x, q, kn, vn, k, v, lengths, wo)
+        return ffn.fused_owo_ffn(y, x, wo, w13, w2, gain)
+
+    caches = [c.clone() for c in (kc, vc)]
+    eager = step(*caches)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step(kc.clone(), vc.clone())  # warm-up off the capture stream
+    torch.cuda.current_stream(dev).wait_stream(side)
+    k2, v2 = kc.clone(), vc.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step(k2, v2)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize(dev)
+    assert torch.equal(out, eager)
+    assert torch.equal(k2, caches[0]) and torch.equal(v2, caches[1])
 
 
 @pytest.mark.parametrize("Dh", HEAD_DIMS)

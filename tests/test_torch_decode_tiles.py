@@ -1,7 +1,7 @@
-"""The split forms of kernels 18 and 5 on kernel 3's tile walk, on the CPU.
+"""The split forms of kernels 18 and 5 and kernel 16 on kernel 3's tile walk, on the CPU.
 
-The kernels (csrc/decode_tiles.cuh, instanced by csrc/decode_stats.cu and
-csrc/paged_decode.cu) cannot run here, so their functions are repeated in
+The kernels (csrc/decode_tiles.cuh, instanced by csrc/decode_stats.cu,
+csrc/paged_decode.cu and csrc/attn_wo.cu) cannot run here, so their functions are repeated in
 torch and held to the reference's Pallas kernels in interpret mode:
 
   - kernel 18's cluster form (`cluster_partials`): the one range of a
@@ -23,8 +23,18 @@ torch and held to the reference's Pallas kernels in interpret mode:
     rows, lengths 0 (against zeros), 1, ps - 1, ps, ps + 1 and the table's
     full rows, at 1 to 8 splits and floors of 1 and 2 tiles.
 
-Tolerance: atol 3e-5, rtol 1e-4 in f32 (the reference's decode tolerance);
-the merge identity and the zeros exactly.  `paged_splits`, kernel 5's
+  - kernel 16's two launches (`kernel16`): the tile walk as kernel 3 runs it
+    (the new row appended at clamp(lengths, 1, S) - 1, kernel 3's ranges of
+    the live rows and block 0's merge) with q scaled by 1/sqrt(Dh) in q's
+    type and the context divided once into f32, never rounded; then Wo's
+    decode-row walk at one row over that context (each group's dot of the
+    codes scaled once, the groups summed), x added, y rounded once.  Held
+    against the reference's `fused_attn_out` in interpret mode over Q4_0
+    and Q8_0 Wo at len_old 0, 37, 255 and 511, at 1 to 8 splits: the
+    caches bit for bit, y within atol 1e-5 and rtol 1e-4.
+
+Tolerance: atol 3e-5, rtol 1e-4 in f32 (the reference's decode tolerance;
+kernel 16's 1e-5 and 1e-4); the merge identity and the zeros exactly.  `paged_splits`, kernel 5's
 split count, is held to its rules: host integers only; kernel 3's count
 where the (sequence, kv head) pairs leave SMs idle, FULL_SPLITS where one
 block a pair would fill the SMs at most BLOCKS_PER_SM deep, 1 above.
@@ -35,13 +45,16 @@ import numpy as np
 import pytest
 import torch
 
+from tokenhawk_tpu.ops import qweight as j_qw
+from tokenhawk_tpu.ops.pallas.attn_block import fused_attn_out as j_fused_attn_out
 from tokenhawk_tpu.ops.pallas.flash_decode_dma import flash_decode_stats as j_fd_stats
 from tokenhawk_tpu.ops.pallas.paged_decode import paged_flash_decode_walk
 from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
 from tokenhawk_tpu_torch.ops.cuda import paged_decode as pd
+from tokenhawk_tpu_torch.ops.qweight import QWeight
 from tokenhawk_tpu_torch.parallel.cp import _shard_count
 
-from torch_helpers import t
+from torch_helpers import jax_q4, t
 
 TOL = dict(atol=3e-5, rtol=1e-4)
 # (Hkv, rep, Dh): the draft's heads, then few wide ones.
@@ -183,6 +196,61 @@ def test_paged_split_matches_the_reference(layout, ps, heads):
             np.testing.assert_allclose(got[live], want[live], **TOL, err_msg=msg)
             np.testing.assert_allclose(got, plain, **TOL, err_msg=msg)
             assert np.all(got[~live] == 0), msg
+
+
+def wo_walk(ctx, wo: QWeight, x):
+    """Kernel 16's Wo launch in torch: the decode-row walk at one row over
+    the f32 context [1, K], each G 32 group's dot of the codes scaled once
+    and the groups summed (the gate's forms: Q4_0, Q8_0), x added, y
+    rounded once to x's type."""
+    codes = wo.codes().float() - (8.0 if wo.kind == "q4_0" else 0.0)  # [N, K]
+    N, K = codes.shape
+    dots = torch.einsum("gk,ngk->ng", ctx.reshape(K // 32, 32), codes.reshape(N, K // 32, 32))
+    return (x.float() + (dots * wo.scales).sum(-1)).to(x.dtype)
+
+
+def kernel16(x, q, k_new, v_new, k_cache, v_cache, lengths, wo: QWeight, splits: int,
+             min_tiles: int = fd.APPEND_MIN_TILES):
+    """Kernel 16's two launches in torch (caches updated in place): the tile
+    walk with q scaled in q's type into an f32 context, then Wo's walk."""
+    H, Dh = q.shape[2:]
+    S = k_cache.shape[2]
+    L = lengths.long().clamp(1, S)
+    k_cache[0, :, L[0] - 1] = k_new[0, 0].to(k_cache.dtype)
+    v_cache[0, :, L[0] - 1] = v_new[0, 0].to(v_cache.dtype)
+    qs = (q[0, 0] * fd._q_scale(q)).float().reshape(1, H, 1, Dh)
+    begin, end = fd._split_ranges(L, S, splits, min_tiles)
+    o, m, l = fd.range_stats(qs, k_cache.float(), v_cache.float(), begin, end)
+    num, _, den = _merge_live(o, m, l, begin < end)
+    ctx = num / den[..., None]
+    return wo_walk(ctx.reshape(1, H * Dh), wo, x.reshape(1, -1)).reshape(x.shape)
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q8_0"])
+@pytest.mark.parametrize("len_old", [0, 37, 255, 511])
+def test_kernel16_walks_match_the_pallas_attn_out(len_old, kind):
+    rng = np.random.default_rng(len_old + 50)
+    H, Dh, S, D = 2, 128, 512, 256
+    w = (rng.standard_normal((H * Dh, D)) * 0.05).astype(np.float32)
+    if kind == "q4_0":
+        jwo, pwo = jax_q4(w)
+        jwo = j_qw.q4_packed_to_i4(jwo)
+    else:
+        jwo = j_qw.quantize_array(w, "q8_0")
+        pwo = QWeight.from_jax("q8_0", np.asarray(jwo.qs), np.asarray(jwo.scales), None)
+    x, q, kn, vn = (rng.standard_normal(s).astype(np.float32)
+                    for s in ((1, 1, D), (1, 1, H, Dh), (1, 1, H, Dh), (1, 1, H, Dh)))
+    kc, vc = (rng.standard_normal((1, H, S, Dh)).astype(np.float32) for _ in range(2))
+    lengths = np.array([len_old + 1], np.int32)
+    want, jk, jv = (np.asarray(a) for a in j_fused_attn_out(
+        *(jnp.asarray(a) for a in (x, q, kn, vn, kc, vc, lengths)), jwo, interpret=True))
+    assert fd.decode_splits(1, H, S, H100_SMS, fd.APPEND_MIN_TILES) == 8
+    for splits in range(1, 9):
+        tk, tv = t(kc), t(vc)
+        got = kernel16(t(x), t(q), t(kn), t(vn), tk, tv, t(lengths), pwo, splits).numpy()
+        np.testing.assert_array_equal(tk.numpy(), jk)
+        np.testing.assert_array_equal(tv.numpy(), jv)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=f"splits={splits}")
 
 
 @pytest.mark.parametrize("B, Hkv, rows, want", [

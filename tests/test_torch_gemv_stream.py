@@ -21,8 +21,14 @@ package:
     at K 2048; and kernel 2's two launches (gate/up with the norm and
     SwiGLU into f32 h, down with the residual) against the reference's
     fused FFN in interpret mode over group-code pairings and `_ffn_block`
-    over Q4_0, at every pair of segment counts.  f32 on both sides, so
-    summation order only: atol 1e-5 and rtol 1e-4;
+    over Q4_0, at every pair of segment counts; and kernel 15's three
+    launches (Wo with x's residual into an f32 x', then kernel 2's two over
+    x', y rounded once) against the reference's fused_owo_ffn in interpret
+    mode over Q4_0 and Q8_0 at 1, 2 and 8 rows, and against a float64 numpy
+    oracle over the forms the reference's kernel 15 misreads (Wo and w13 of
+    G 16, a w2 with mins), at every triple of the launches' segment and
+    part counts.  f32 on both sides, so summation order only: atol 1e-5
+    and rtol 1e-4;
   - a CPU tensor runs the plain versions, whatever the split, and counts
     nothing.
 """
@@ -44,6 +50,7 @@ from tokenhawk_tpu.ops import dispatch
 from tokenhawk_tpu.ops import qweight as j_qw
 from tokenhawk_tpu.ops.linear import matmul as j_matmul
 from tokenhawk_tpu.ops.pallas.ffn import fused_ffn as j_fused_ffn
+from tokenhawk_tpu.ops.pallas.ffn import fused_owo_ffn as j_fused_owo_ffn
 from tokenhawk_tpu.ops.pallas.qmatmul import quant_matmul as j_quant_matmul
 from tokenhawk_tpu_torch.ggml.format import GGMLType as TType
 from tokenhawk_tpu_torch.ggml.quants import QuantizedTensor as TQuantizedTensor
@@ -406,6 +413,77 @@ def test_kernel2_walk_over_super_blocks_is_the_plain_versions():
     for splits in _every_split_pair():
         torch.testing.assert_close(kernel2(x, w13, w2, gain, splits), want, rtol=1e-4,
                                    atol=1e-5)
+
+
+# -- kernel 15 ------------------------------------------------------------------
+
+# The widths of the reference's kernel 15 tiles (D in 512, F in 256): Dq = D
+# = F = 512, 16 slots, which the walk takes in 1 or 2 segments or 2 parts.
+DO, FO = 512, 512
+
+
+def kernel15(ctx, x, wo, w13, w2, gain, plans):
+    """Kernel 15's three launches, each at its (splits, parts): Wo with x's
+    residual into an f32 x', then kernel 2's gate/up (the norm from x''s
+    f32 rows, SwiGLU into f32 h) and down with x' as the residual; y
+    rounded once to x's type."""
+    (so, po), *rest = plans
+    xp = walk(ctx, wo, so, residual=x, parts=po)
+    return kernel2(xp, w13, w2, gain, rest).to(x.dtype)
+
+
+def _owo_plans():
+    """Every triple of the three launches' (splits, parts) the walk takes."""
+    def plans(k):
+        return [(s, 1) for s in _splits(k)] + [(1, p) for p in _parts(k) if p > 1]
+
+    return [(a, b, c) for a in plans(DO) for b in plans(DO) for c in plans(FO)]
+
+
+def _owo_weight(kind, k, n, rng):
+    """(the reference's QWeight, the port's) of a [k, n] weight: Q4_0 (the
+    reference's i4 form, which its kernel 15 takes), Q8_0 or a k-quant."""
+    if kind == "Q4_0":
+        jw, pw = jax_q4((rng.standard_normal((k, n)) * STD).astype(np.float32))
+        return j_qw.q4_packed_to_i4(jw), pw
+    return _group_code(kind, n, k, rng)
+
+
+@pytest.mark.parametrize("kind", ["Q4_0", "Q8_0"])
+@pytest.mark.parametrize("rows", [1, 2, 8])
+def test_kernel15_walks_match_the_pallas_owo_ffn(kind, rows):
+    rng = np.random.default_rng(rows + 20)
+    (jwo, pwo), (j13, p13), (j2, p2) = (_owo_weight(kind, k, n, rng)
+                                        for k, n in ((DO, DO), (DO, 2 * FO), (FO, DO)))
+    ctx, x = (rng.standard_normal((rows, DO)).astype(np.float32) for _ in range(2))
+    gain = (1.0 + 0.1 * rng.standard_normal(DO)).astype(np.float32)
+    want = np.asarray(j_fused_owo_ffn(jnp.asarray(ctx), jnp.asarray(x), jwo, j13, j2,
+                                      jnp.asarray(gain), eps=EPS, interpret=True))
+    for plans in _owo_plans():
+        got = kernel15(t(ctx), t(x), pwo, p13, p2, t(gain), plans).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=f"plans {plans}")
+
+
+@pytest.mark.parametrize("kinds", [("Q6_K", "Q6_K", "Q6_K"), ("Q8_0", "Q8_0", "Q4_K")],
+                         ids=["g16-wo-w13", "w2-with-mins"])
+def test_kernel15_walks_match_the_oracle_where_the_reference_misreads(kinds):
+    """Forms the reference's kernel 15 misreads (it reads every scale as
+    one of a G 32 block and drops w2's mins): the walks against kernel 15's
+    function in float64 numpy over the port's dequantized weights."""
+    rng = np.random.default_rng(len(kinds[0]) + 30)
+    ws = [_owo_weight(k, kk, n, rng)[1] for k, (kk, n) in
+          zip(kinds, ((DO, DO), (DO, 2 * FO), (FO, DO)))]
+    wo, w13, w2 = (w.dequantize(torch.float32).double().numpy() for w in ws)
+    ctx, x = (rng.standard_normal((2, DO)) for _ in range(2))
+    gain = 1.0 + 0.1 * rng.standard_normal(DO)
+    xp = x + ctx @ wo
+    gu = xp / np.sqrt((xp * xp).mean(-1, keepdims=True) + EPS) * gain @ w13
+    g, u = gu[:, :FO], gu[:, FO:]
+    want = xp + (g / (1 + np.exp(-g)) * u) @ w2
+    args = [t(a.astype(np.float32)) for a in (ctx, x)]
+    for plans in _owo_plans():
+        got = kernel15(*args, *ws, t(gain.astype(np.float32)), plans).double().numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=f"plans {plans}")
 
 
 # -- CPU tensors -----------------------------------------------------------------

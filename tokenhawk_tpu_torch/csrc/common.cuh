@@ -90,6 +90,18 @@ static __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out)
   }
 }
 
+// Programmatic dependent launch (Hopper): launch_dependents lets the next
+// kernel on the stream, where it was launched as a programmatic dependent
+// of this one, start (its blocks take the SMs this grid frees) once every
+// block of this grid has issued it or exited; wait blocks until the kernel
+// before this one has completed and its writes are visible.  In a launch
+// that is not a programmatic dependent the kernel before has completed
+// already, and wait returns.
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
 }  // namespace thawk
 
 // What every extern "C" launcher returns: 0, or the cudaError_t of a

@@ -1,7 +1,8 @@
 // The shared-memory tile walk of decode attention, one instance a kernel:
 // kernel 3 (decode_append.cu: append + attend over the dense cache),
-// kernel 18 (decode_stats.cu: one shard's softmax partials over a strided
-// dense cache), kernel 5 (paged_decode.cu: attend through a page table),
+// kernel 16's attention (attn_wo.cu: the same with q scaled in the block,
+// into an f32 context), kernel 18 (decode_stats.cu: one shard's softmax
+// partials over a strided dense cache), kernel 5 (paged_decode.cu: attend through a page table),
 // and over int8 codes with a scale a row, kernel 8 (kv_int8.cu: quantize
 // and append, then attend over the dense int8 cache) and kernel 10
 // (paged_int8.cu: attend through a page table over int8 pages).
@@ -47,8 +48,8 @@
 // K and V (DenseRows: r times a row stride; PagedRows: through the
 // sequence's page table, so a chunk may span pages; DenseRows8 and
 // PagedRows8 the same over int8 codes, each with its scales).  APPEND
-// (kernels 3 and 8): the block whose range holds row L-1 writes k_new /
-// v_new there in the cache and puts the same values into its own tile in
+// (kernels 3, 8 and 16): the block whose range holds row L-1 writes k_new
+// / v_new there in the cache and puts the same values into its own tile in
 // place of a copy, so no block reads that row back from device memory.
 // Kernel 8's is a quantization: warp 0 quantizes k_new, warp 1 v_new
 // (kv_int8.cuh quantize_row) while the first chunks are in flight, writes
@@ -72,8 +73,9 @@
 //     holds every live row (a short length), its block writes as kOne does
 //     and the others leave at once: no merge, no cluster barrier.
 // Epilogues: Normalised divides once and rounds to the output type
-// (kernels 3 and 5); Partials writes the unnormalised o, m and l in f32
-// (kernel 18: a cluster's merge gives one partial, never divided).  A pair
+// (kernels 3 and 5; kernel 16's f32 context is not rounded); Partials
+// writes the unnormalised o, m and l in f32 (kernel 18: a cluster's merge
+// gives one partial, never divided).  A pair
 // with no live row (L = 0: kernels 5's, 8's and 10's length 0, kernel 18's
 // empty shard or range) writes the epilogue's empty value, zeros or the
 // merge identity (0, -inf, 0), and reads nothing (kernel 8 appends
@@ -291,12 +293,18 @@ __device__ __forceinline__ void put_codes(int8_t* p, uint32_t codes) {
 
 // One block's walk over its range of one (sequence, kv head) pair's L live
 // rows (see the header): q, k_new, v_new and the epilogue already at the
-// pair (and, kGrid, the split); `split` of `splits` from the grid.
+// pair (and, kGrid, the split); `split` of `splits` from the grid.  q is
+// staged as q * q_scale rounded to q's type (kernel 16's 1/sqrt(Dh); every
+// other kernel takes q pre-scaled and passes 1, which is exact); with
+// `trigger` each block lets the kernel launched after this one as its
+// programmatic dependent start once it has issued its first copies (kernel
+// 16's Wo).
 template <typename TQ, typename TC, int REP, int DH, Mode MODE, bool APPEND, typename Rows,
           typename Ep>
 __device__ __forceinline__ void walk(unsigned char* smem, const TQ* __restrict__ q, Rows rows,
                                      const TQ* __restrict__ kn, const TQ* __restrict__ vn, int L,
-                                     int split, int splits, int min_tiles, Ep ep) {
+                                     int split, int splits, int min_tiles, Ep ep,
+                                     float q_scale = 1.f, bool trigger = false) {
   namespace cg = cooperative_groups;
   using A = Tiles<TC, REP, DH>;
   using Scale = typename ScaleOf<Rows>::type;
@@ -375,7 +383,9 @@ __device__ __forceinline__ void walk(unsigned char* smem, const TQ* __restrict__
       issue(1);
       cp_async_commit();
     }
-    for (int i = tid; i < REP * DH; i += NT) qsm[i] = to_f32(q[i]);
+    if (trigger) grid_launch_dependents();
+    for (int i = tid; i < REP * DH; i += NT)
+      qsm[i] = to_f32(from_f32<TQ>(to_f32(q[i]) * q_scale));
     // Kernel 8's append: warp 0 quantizes k_new, warp 1 v_new, writes the
     // codes and the bfloat16-rounded scale at row L-1 and keeps both for
     // the tile (a lane's NQ codes packed in a word).

@@ -1,7 +1,7 @@
-// Kernels 14 and 16: decode attention over the dense bf16/f32 KV cache
-// (kernels 3 and 18, the same attention after an append and as one shard's
-// partials, run the tile walk of decode_tiles.cuh: decode_append.cu,
-// decode_stats.cu).
+// Kernel 14: decode attention over the dense bf16/f32 KV cache (kernels
+// 3, 16 and 18, the same attention after an append, under Wo and as one
+// shard's partials, run the tile walk of decode_tiles.cuh: decode_append.cu,
+// attn_wo.cu, decode_stats.cu).
 //
 // Kernel 14 replaces tokenhawk_tpu/ops/pallas/flash_decode_dma.py
 // flash_decode_dma (_kernel, _kernel_vec), flash_decode_loop (_kernel_loop)
@@ -42,26 +42,9 @@
 // split order), divides once and rounds once to q's type; a second
 // cluster.sync() keeps each block's shared memory alive until the reads
 // are done.  No global scratch, one launch.
-//
-// Kernel 16 replaces tokenhawk_tpu/ops/pallas/attn_block.py fused_attn_out
-// (_attn_wo): the attention block of one decode token (B = 1, one query per
-// kv head), x' = x + attend(q, cache + new row) @ Wo, with the new K / V rows
-// written in place.  Two launches on one stream:
-//   1. decode_append_kernel (the append, then attend_head, one block a
-//      head), q pre-scaled in the block by 1/sqrt(Dh) and rounded to q's
-//      type (the scale itself in q's type, as the reference's wrapper has
-//      it), the context written as f32 into a [H*Dh] scratch, never
-//      rounded;
-//   2. the Wo GEMV (gemv.cuh, one row) over that f32 context, x added in
-//      its epilogue and y rounded once.
-// The TPU kernel streams Wo through a DMA ring during the KV walk; on the
-// GPU the two launches run back to back, each bound by its own bytes (the
-// live K / V rows, then Wo's blocks).
 #include <cooperative_groups.h>
 
-#include <type_traits>
-
-#include "gemv.cuh"
+#include "common.cuh"
 
 using namespace thawk;
 
@@ -71,14 +54,13 @@ constexpr int kWarps = 8;
 
 // Attention of one block's REP query rows q [REP, DH] (f32 math) over rows
 // [begin, L) of one head's cache kh, vh (rows `row` elements apart) -> out
-// [REP, DH] in TO.  q_scale multiplies q first, rounded back to TQ (1 for
-// kernel 14, where that is exact).  STATS (kernel 14's split form, TO =
-// float) writes the unnormalised out and each row's m_out, l_out [REP].
+// [REP, DH] in TO.  STATS (kernel 14's split form, TO = float) writes the
+// unnormalised out and each row's m_out, l_out [REP].
 template <typename TQ, typename TC, int REP, int DH, typename TO, bool STATS = false>
 __device__ __forceinline__ void attend_head(const TQ* __restrict__ q, const TC* kh,
                                             const TC* vh, int begin, int L, size_t row,
-                                            TO* __restrict__ out, float q_scale,
-                                            float* m_out = nullptr, float* l_out = nullptr) {
+                                            TO* __restrict__ out, float* m_out = nullptr,
+                                            float* l_out = nullptr) {
   constexpr int kPer = DH / 32;  // head dims a lane owns for P·V
   __shared__ __align__(16) float qsm[REP][DH];
   __shared__ float red_m[kWarps][REP];
@@ -86,9 +68,8 @@ __device__ __forceinline__ void attend_head(const TQ* __restrict__ q, const TC* 
   __shared__ __align__(16) float red_acc[kWarps][REP][DH];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < REP * DH; i += blockDim.x)
-    qsm[i / DH][i % DH] = to_f32(from_f32<TQ>(to_f32(q[i]) * q_scale));
-  __syncthreads();  // q staged (and kernel 16's appended row visible to the block)
+  for (int i = tid; i < REP * DH; i += blockDim.x) qsm[i / DH][i % DH] = to_f32(q[i]);
+  __syncthreads();  // q staged
 
   float m[REP], l[REP], acc[REP][kPer];
 #pragma unroll
@@ -177,29 +158,6 @@ __device__ __forceinline__ void attend_head(const TQ* __restrict__ q, const TC* 
   }
 }
 
-// Kernel 16's first phase (B = 1, REP 1, TO = float): append the new row at
-// lengths-1, then attend.
-template <typename TQ, typename TC, int REP, int DH, typename TO>
-__global__ void __launch_bounds__(kWarps * 32)
-    decode_append_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
-                         const TQ* __restrict__ v_new, TC* kc, TC* vc,
-                         const int* __restrict__ lengths, TO* __restrict__ out, int Hkv, int S,
-                         float q_scale) {
-  const int bh = blockIdx.x;
-  const int L = max(1, min(lengths[bh / Hkv], S));
-  TC* kh = kc + static_cast<size_t>(bh) * S * DH;
-  TC* vh = vc + static_cast<size_t>(bh) * S * DH;
-  const int tid = threadIdx.x;
-  if (tid < DH) {
-    const size_t src = static_cast<size_t>(bh) * DH + tid;
-    const size_t dst = static_cast<size_t>(L - 1) * DH + tid;
-    kh[dst] = from_f32<TC>(to_f32(k_new[src]));
-    vh[dst] = from_f32<TC>(to_f32(v_new[src]));
-  }
-  const size_t qo = static_cast<size_t>(bh) * REP * DH;
-  attend_head<TQ, TC, REP, DH, TO>(q + qo, kh, vh, 0, L, DH, out + qo, q_scale);
-}
-
 // Kernel 14: attend only.
 template <typename TQ, typename TC, int REP, int DH>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -210,7 +168,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int L = max(1, min(lengths[bh / Hkv], S));
   const size_t qo = static_cast<size_t>(bh) * REP * DH;
   const size_t co = static_cast<size_t>(bh) * S * DH;
-  attend_head<TQ, TC, REP, DH, TQ>(q + qo, kc + co, vc + co, 0, L, DH, out + qo, 1.f);
+  attend_head<TQ, TC, REP, DH, TQ>(q + qo, kc + co, vc + co, 0, L, DH, out + qo);
 }
 
 // Kernel 14's split form: block (split, b * Hkv + h) of a cluster of
@@ -234,8 +192,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   const size_t qo = static_cast<size_t>(bh) * REP * DH;
   if (begin < end) {
     const size_t co = static_cast<size_t>(bh) * S * DH;
-    attend_head<TQ, TC, REP, DH, float, true>(q + qo, kc + co, vc + co, begin, end, DH, po, 1.f,
-                                              pm, pl);
+    attend_head<TQ, TC, REP, DH, float, true>(q + qo, kc + co, vc + co, begin, end, DH, po, pm,
+                                              pl);
   } else {  // nothing to read: the merge identity
     for (int i = threadIdx.x; i < REP * DH; i += blockDim.x) po[i] = 0.f;
     if (threadIdx.x < REP) {
@@ -350,71 +308,4 @@ extern "C" int th_decode_attend(const void* q, const void* kc, const void* vc,
   const Args a{q, kc, vc, static_cast<const int*>(lengths), out, B, Hkv, S,
                static_cast<cudaStream_t>(stream), splits, min_tiles};
   return launch(a, rep, Dh, q_dtype, cache_dtype);
-}
-
-namespace {
-
-struct AttnWoArgs {
-  const void* q;  // [H, Dh], not yet scaled
-  const void* k_new;
-  const void* v_new;
-  void* kc;  // [H, S, Dh]
-  void* vc;
-  const int* lengths;  // [1]
-  const void* x;       // [D]
-  const void *wo_qs, *wo_s, *wo_m;
-  int wo_form;
-  float* ctx;  // [H*Dh] f32 scratch
-  void* y;     // [D]
-  int H, S, D;
-  float q_scale;
-  cudaStream_t stream;
-};
-
-template <typename TQ, typename TC, int DH>
-bool launch_attn_wo(const AttnWoArgs& a) {
-  decode_append_kernel<TQ, TC, 1, DH, float><<<a.H, kWarps * 32, 0, a.stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TQ*>(a.k_new),
-      static_cast<const TQ*>(a.v_new), static_cast<TC*>(a.kc), static_cast<TC*>(a.vc),
-      a.lengths, a.ctx, a.H, a.S, a.q_scale);
-  return with_reader<false>(a.wo_form, a.wo_qs, a.wo_s, a.wo_m, nullptr, [&](const auto& wr) {
-    using Reader = std::decay_t<decltype(wr)>;
-    gemv_kernel<float, TQ, 1, kResidual, Reader, float, TQ>
-        <<<dim3(1, gemv_col_blocks(kResidual, a.D)), kGemvThreads, 0, a.stream>>>(
-            a.ctx, 1, a.H * DH, wr, a.D, nullptr, nullptr, static_cast<const TQ*>(a.x),
-            static_cast<TQ*>(a.y));
-  });
-}
-
-template <typename TQ, typename TC>
-bool launch_attn_wo_dh(const AttnWoArgs& a, int Dh) {
-  return Dh == 64 ? launch_attn_wo<TQ, TC, 64>(a) : launch_attn_wo<TQ, TC, 128>(a);
-}
-
-}  // namespace
-
-// Kernel 16.  q, k_new, v_new [H, Dh] in q_dtype (q unscaled); caches
-// [H, S, Dh] in cache_dtype, written in place; lengths [1] int32 (tokens
-// including the new one); x, y [D] in q_dtype; Wo [H*Dh, D] as (qs, scales,
-// mins, hi, form), hi unused (no sb form); ctx [H*Dh] f32 scratch.  Dh is
-// 64 or 128 (checked by the Python wrapper).
-extern "C" int th_attn_wo(const void* q, const void* k_new, const void* v_new, void* kc,
-                          void* vc, const void* lengths, const void* x, const void* wo_qs,
-                          const void* wo_s, const void* wo_m, const void*, int wo_form,
-                          void* ctx, void* y, int H, int Dh, int S, int D, float q_scale,
-                          int q_dtype, int cache_dtype, void* stream) {
-  if (wo_form < kFormQ4 || wo_form > kFormG16Mins) return static_cast<int>(cudaErrorInvalidValue);
-  const AttnWoArgs a{q, k_new, v_new, kc, vc, static_cast<const int*>(lengths), x, wo_qs, wo_s,
-                     wo_m, wo_form, static_cast<float*>(ctx), y, H, S, D, q_scale,
-                     static_cast<cudaStream_t>(stream)};
-  bool known;
-  if (q_dtype == kBF16 && cache_dtype == kBF16)
-    known = launch_attn_wo_dh<__nv_bfloat16, __nv_bfloat16>(a, Dh);
-  else if (q_dtype == kBF16)
-    known = launch_attn_wo_dh<__nv_bfloat16, float>(a, Dh);
-  else if (cache_dtype == kBF16)
-    known = launch_attn_wo_dh<float, __nv_bfloat16>(a, Dh);
-  else
-    known = launch_attn_wo_dh<float, float>(a, Dh);
-  return known ? THAWK_LAUNCH_RESULT() : static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,8 @@
-// Dequant-GEMV/GEMM core shared by qmatmul.cu (kernel 1 over Q4_0,
-// kernel 13 over group codes, kernel 17 over Q4_K super-blocks), ffn.cu
-// (kernels 2 and 15, any of them; kernel 2's w13 also super-blocks) and
-// flash_decode.cu (kernel 16's Wo projection).
+// The weight forms, the norm's row statistics and the dequant-GEMV of
+// qmatmul.cu (kernel 1 over Q4_0, kernel 13 over group codes, kernel 17
+// over Q4_K super-blocks) for f32 x above 8 rows; decode rows run the walk
+// of gemv_stream.cuh and bf16 x above 8 rows the tensor-core GEMM of
+// qgemm_tc.cuh, which both take the forms from here.
 //
 // Weight layouts (tokenhawk_tpu_torch/ops/qweight.py), output-major:
 //   q4_0: qs uint8 [N, K/2]; group g of column n is 16 bytes at qs[n][16g],
@@ -16,8 +17,8 @@
 // of a column into 32 code values in registers plus the 32/G scales and
 // mins of its groups.
 //
-// Work split: a block of 8 warps owns a tile of ROWS activation rows and
-// 16 output columns (2 per warp).  K is walked in chunks of 32 slots
+// Work split: a block of 8 warps owns a tile of 8 activation rows and 16
+// output columns (2 per warp).  K is walked in chunks of 32 slots
 // (1024 inputs): the block stages the chunk of its rows, normalised
 // (x * inv_rms[row] * gain[k]) when a gain is given, into shared memory
 // as f32; then lane l of every warp takes slot l of the chunk for both of
@@ -38,11 +39,10 @@ namespace thawk {
 
 constexpr int kGemvWarps = 8;
 constexpr int kGemvThreads = kGemvWarps * 32;
+constexpr int kGemvRows = 8;    // activation rows per block
 constexpr int kGemvCols = 2;    // output columns per warp
 constexpr int kChunkSlots = 32;  // one 32-input slot per lane
 constexpr int kSlotStride = 36;  // floats per staged slot (32 + pad)
-
-enum Epilogue { kStore = 0, kSwiGLU = 1, kResidual = 2 };
 
 // Weight forms at the C boundary (ops/cuda/qmatmul.py form_code).
 enum Form {
@@ -188,18 +188,12 @@ struct QkReader {
 };
 
 // y = xn @ W for rows [blockIdx.x*ROWS, +ROWS), columns of this block.
-//   kStore:    y[B, N]   = acc
-//   kSwiGLU:   y[B, N/2] = silu(acc[:, f]) * acc[:, f + N/2]   (TY = float)
-//   kResidual: y[B, N]   = residual + acc
-// The gain (TG) and the residual (TR) may differ in type from x and y:
-// kernel 15 adds a bfloat16 residual into an f32 output, normalises an f32
-// input with a bfloat16 gain, and adds an f32 residual into a bfloat16
-// output, each value rounded once.
-template <typename TX, typename TY, int ROWS, int EPI, typename Reader, typename TG, typename TR>
+template <typename T, typename Reader>
 __global__ void __launch_bounds__(kGemvThreads, 2)
-    gemv_kernel(const TX* __restrict__ x, int B, int K, Reader wr, int N,
-                const TG* __restrict__ gain, const float* __restrict__ inv_rms,
-                const TR* __restrict__ residual, TY* __restrict__ y) {
+    gemv_kernel(const T* __restrict__ x, int B, int K, Reader wr, int N,
+                const T* __restrict__ gain, const float* __restrict__ inv_rms,
+                T* __restrict__ y) {
+  constexpr int ROWS = kGemvRows;
   constexpr int SUB = Reader::kSub;
   constexpr int F4_PER_SUB = 8 / SUB;  // float4s of one group
   __shared__ __align__(16) float xs[ROWS][kChunkSlots * kSlotStride];
@@ -209,19 +203,11 @@ __global__ void __launch_bounds__(kGemvThreads, 2)
 
   int col[kGemvCols];
   bool live[kGemvCols];
-  if (EPI == kSwiGLU) {
-    const int F = N / 2;
-    const int f = blockIdx.y * kGemvWarps + warp;
-    col[0] = f;      // gate column of w13
-    col[1] = f + F;  // matching up column
-    live[0] = live[1] = f < F;
-  } else {
-    const int base = blockIdx.y * (kGemvWarps * kGemvCols) + warp;
+  const int base = blockIdx.y * (kGemvWarps * kGemvCols) + warp;
 #pragma unroll
-    for (int c = 0; c < kGemvCols; ++c) {
-      col[c] = base + c * kGemvWarps;
-      live[c] = col[c] < N;
-    }
+  for (int c = 0; c < kGemvCols; ++c) {
+    col[c] = base + c * kGemvWarps;
+    live[c] = col[c] < N;
   }
 
   float acc[kGemvCols][ROWS];
@@ -298,68 +284,25 @@ __global__ void __launch_bounds__(kGemvThreads, 2)
     for (int c = 0; c < kGemvCols; ++c) v[c] = warp_sum(acc[c][r]);
     const int row = row0 + r;
     if (lane != 0 || row >= B) continue;
-    if (EPI == kSwiGLU) {
-      if (live[0]) {
-        const float gt = v[0];
-        y[static_cast<size_t>(row) * (N / 2) + col[0]] =
-            from_f32<TY>(gt / (1.f + expf(-gt)) * v[1]);
-      }
-    } else {
 #pragma unroll
-      for (int c = 0; c < kGemvCols; ++c) {
-        if (!live[c]) continue;
-        const size_t o = static_cast<size_t>(row) * N + col[c];
-        float out = v[c];
-        if (EPI == kResidual) out += to_f32(residual[o]);
-        y[o] = from_f32<TY>(out);
-      }
-    }
+    for (int c = 0; c < kGemvCols; ++c)
+      if (live[c]) y[static_cast<size_t>(row) * N + col[c]] = from_f32<T>(v[c]);
   }
 }
 
-// The column blocks of a launch: 16 output columns each (8 gate/up pairs
-// for kSwiGLU).
-inline int gemv_col_blocks(int EPI, int N) {
-  const int cols_per_block = EPI == kSwiGLU ? kGemvWarps : kGemvWarps * kGemvCols;
-  const int ncols = EPI == kSwiGLU ? N / 2 : N;
-  return (ncols + cols_per_block - 1) / cols_per_block;
-}
-
-template <typename T>
-struct Same {
-  using type = T;
-};
-
-// Host side: pick the row tile and launch.  Returns nothing; the caller
-// reads cudaGetLastError().  TG and TR default to the types of x and y;
-// the gain and residual arguments never deduce them (nullptr is allowed).
-template <typename TX, typename TY, int EPI, typename TG = TX, typename TR = TY, typename Reader>
-void launch_gemv(const TX* x, int B, int K, const Reader& wr, int N,
-                 const typename Same<TG>::type* gain, const float* inv_rms,
-                 const typename Same<TR>::type* residual, TY* y, cudaStream_t stream) {
-  const int col_blocks = gemv_col_blocks(EPI, N);
-  const dim3 block(kGemvThreads);
-  if (B <= 1) {
-    gemv_kernel<TX, TY, 1, EPI, Reader, TG, TR><<<dim3(B, col_blocks), block, 0, stream>>>(
-        x, B, K, wr, N, gain, inv_rms, residual, y);
-  } else if (B <= 2) {
-    gemv_kernel<TX, TY, 2, EPI, Reader, TG, TR><<<dim3(1, col_blocks), block, 0, stream>>>(
-        x, B, K, wr, N, gain, inv_rms, residual, y);
-  } else if (B <= 4) {
-    gemv_kernel<TX, TY, 4, EPI, Reader, TG, TR><<<dim3(1, col_blocks), block, 0, stream>>>(
-        x, B, K, wr, N, gain, inv_rms, residual, y);
-  } else {
-    gemv_kernel<TX, TY, 8, EPI, Reader, TG, TR>
-        <<<dim3((B + 7) / 8, col_blocks), block, 0, stream>>>(x, B, K, wr, N, gain, inv_rms,
-                                                              residual, y);
-  }
+// Host side: blocks of 8 rows by 16 output columns.  Returns nothing; the
+// caller reads cudaGetLastError().
+template <typename T, typename Reader>
+void launch_gemv(const T* x, int B, int K, const Reader& wr, int N, const T* gain,
+                 const float* inv_rms, T* y, cudaStream_t stream) {
+  const int col_blocks = (N + kGemvWarps * kGemvCols - 1) / (kGemvWarps * kGemvCols);
+  gemv_kernel<T, Reader><<<dim3((B + kGemvRows - 1) / kGemvRows, col_blocks), kGemvThreads, 0,
+                           stream>>>(x, B, K, wr, N, gain, inv_rms, y);
 }
 
 // Calls f(reader) with the reader of weight form `form` (enum Form);
-// returns false for an unknown form, and for kFormSb unless SB (the
-// launches that never take it do not instantiate its reader).  `hi` is
-// the sb form's scmn.
-template <bool SB, typename Fn>
+// returns false for an unknown form.  `hi` is the sb form's scmn.
+template <typename Fn>
 bool with_reader(int form, const void* qs, const void* scales, const void* mins, const void* hi,
                  Fn&& f) {
   const float* s = static_cast<const float*>(scales);
@@ -371,11 +314,8 @@ bool with_reader(int form, const void* qs, const void* scales, const void* mins,
       f(Q4Reader{q4, s});
       return true;
     case kFormSb:
-      if constexpr (SB) {
-        f(SbReader{q4, s, m, static_cast<const uint8_t*>(hi)});
-        return true;
-      }
-      return false;
+      f(SbReader{q4, s, m, static_cast<const uint8_t*>(hi)});
+      return true;
     case kFormG32:
       f(QkReader<32, false>{q8, s, nullptr});
       return true;

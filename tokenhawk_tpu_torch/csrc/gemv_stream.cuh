@@ -1,6 +1,7 @@
 // The decode-row walk of kernels 1, 13 and 17 at 1 to 8 rows (csrc/qmatmul.cu
-// th_quant_matmul_stream) and of kernel 2 (both launches, csrc/ffn.cu
-// th_ffn):
+// th_quant_matmul_stream), of kernel 2 (both launches, csrc/ffn.cu th_ffn),
+// of kernel 15 (its three launches, csrc/ffn.cu th_owo_ffn) and of kernel
+// 16's Wo (csrc/attn_wo.cu th_attn_wo):
 //   y[b, n] = epilogue(sum_g s[n,g] * (sum_{k in g} xn[b,k] q[n,k])
 //                      + sum_g m[n,g] * (sum_{k in g} xn[b,k])),
 // xn = (x * inv_rms[b]) * gain when a gain is given, else x, over the
@@ -32,20 +33,25 @@
 //     near 2.0 TB/s, bulk copies reach 3.0; the 4-bit forms' 64-slot
 //     stages make their codes 1 KB spans); a span whose address or size
 //     is not a multiple of 16 bytes goes by the lanes' cp.async.  The
-//     warp issues the ring's first two stages before it reads x (kernel
-//     2's launches the whole ring), the rest once x is staged, then waits
-//     on its oldest stage (its mbarrier's phase, cp.async.wait_group, a
-//     warp barrier), takes its slots into registers, refills the stage at
-//     once and computes.  The ring runs on across tasks and segments, and
-//     no block barrier stands between a stage's copy and its use;
-//   - kernel 2's down launch is a programmatic dependent of its own
-//     gate/up launch, the kernel launched just before it
-//     (cudaLaunchKernelEx): its blocks start, and issue their copies of
-//     w2, which the gate/up launch does not write, while the gate/up
-//     launch's last blocks run;
-//     griddepcontrol.wait stands before the first read of h, the residual
-//     and the gain and the first write of y.  Every other launch is an
-//     ordinary one, which finds the kernel before it finished;
+//     warp issues the ring's first two stages before it reads x (the
+//     residual and SwiGLU launches the whole ring), the rest once x is
+//     staged, then waits on its oldest stage (its mbarrier's phase,
+//     cp.async.wait_group, a warp barrier), takes its slots into
+//     registers, refills the stage at once and computes.  The ring runs on
+//     across tasks and segments, and no block barrier stands between a
+//     stage's copy and its use;
+//   - a launch is a programmatic dependent of the kernel before it on the
+//     stream where the host's plan says so (Plan::dependent: a
+//     cudaLaunchKernelEx attribute, no instance of its own), which the
+//     callers set only where that kernel is the same call's own launch and
+//     writes none of this launch's weights: kernel 2's down launch, kernel
+//     15's gate/up and down launches, kernel 16's Wo.  Its blocks start,
+//     and issue their first stages of weights, while the launch before's
+//     last blocks run; griddepcontrol.wait stands before the first read of
+//     x, the gain and the residual and the first write of y.  Every launch
+//     triggers its dependents once its first stages are issued.  The other
+//     launches (kernels 1, 13 and 17, kernel 2's gate/up, kernel 15's Wo)
+//     are ordinary ones, which find the kernel before them finished;
 //   - a lane converts its slot's codes four at a time (a byte permute and
 //     a subtract each: 2^23 + code, exactly) and sums each group in one
 //     FMA chain a column and row;
@@ -73,7 +79,9 @@
 //
 // The launches are built in their own translation units
 // (gemv_stream_*.cu: kernels 1, 13 and 17's store, kernel 2's gate/up and
-// down, each in both types), so that their instances compile in parallel.
+// down, each in both types, and the three bfloat16 launches of kernel 15
+// whose types kernel 2's lack), so that their instances compile in
+// parallel.
 #pragma once
 
 #include "gemv.cuh"
@@ -81,6 +89,9 @@
 
 namespace thawk {
 namespace stream {
+
+// A launch's epilogue (stream_kernel).
+enum Epilogue { kStore = 0, kSwiGLU = 1, kResidual = 2 };
 
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
@@ -108,17 +119,27 @@ struct Plan {
   int stages;  // the ring's depth
   int blocks;  // persistent blocks
   int parts;   // warps a pair's K is split over (1, 2 or 4; one segment only)
+  bool dependent = false;  // a programmatic dependent of the kernel before it
 };
 
 // The launches (gemv_stream_*.cu).  Each returns the launch's error, or an
 // invalid value for a form, shape or plan the walk does not take.
 //   matmul (kernels 1, 13, 17):  y[B, N] = xn @ W, every form;
-//   gate_up (kernel 2):  h[B, F] = silu(xn @ W1) * (xn @ W3), w13 [D, 2F]
-//                        in any form, the norm always given;
-//   down (kernel 2):     y[B, D] = residual + h @ W2, any form but sb;
-//                        launched only right after the gate_up launch
-//                        that writes h, on the same stream (ffn.cu run):
-//                        it is that launch's programmatic dependent.
+//   gate_up (kernels 2, 15):     h[B, F] = silu(xn @ W1) * (xn @ W3), w13
+//                                [D, 2F], the norm always given: x and the
+//                                gain in one type in any form (kernel 2,
+//                                and kernel 15 at float32), or f32 x' with
+//                                a bfloat16 gain in the forms without mins
+//                                but sb (kernel 15 at bfloat16);
+//   down (kernels 2, 15, 16):    y[B, N] = residual + x @ W: f32 x with a
+//                                residual and y in one type, any form but
+//                                sb (kernel 2's down, kernel 16's Wo and
+//                                kernel 15's three launches at float32);
+//                                bfloat16 x and residual into f32 y, the
+//                                forms without mins but sb (kernel 15's Wo
+//                                at bfloat16); f32 x and residual into
+//                                bfloat16 y, any form but sb (kernel 15's
+//                                down at bfloat16).
 cudaError_t matmul(const __nv_bfloat16* x, int B, int K, const Weights& w, int N,
                    const __nv_bfloat16* gain, float eps, __nv_bfloat16* y, const Plan& p,
                    cudaStream_t stream);
@@ -129,11 +150,18 @@ cudaError_t gate_up(const __nv_bfloat16* x, int B, int D, const Weights& w, int 
                     cudaStream_t stream);
 cudaError_t gate_up(const float* x, int B, int D, const Weights& w, int F2, const float* gain,
                     float eps, float* h, const Plan& p, cudaStream_t stream);
-cudaError_t down(const float* h, int B, int F, const Weights& w, int D,
+cudaError_t gate_up(const float* x, int B, int D, const Weights& w, int F2,
+                    const __nv_bfloat16* gain, float eps, float* h, const Plan& p,
+                    cudaStream_t stream);
+cudaError_t down(const float* x, int B, int K, const Weights& w, int N,
                  const __nv_bfloat16* residual, __nv_bfloat16* y, const Plan& p,
                  cudaStream_t stream);
-cudaError_t down(const float* h, int B, int F, const Weights& w, int D, const float* residual,
+cudaError_t down(const float* x, int B, int K, const Weights& w, int N, const float* residual,
                  float* y, const Plan& p, cudaStream_t stream);
+cudaError_t down(const __nv_bfloat16* x, int B, int K, const Weights& w, int N,
+                 const __nv_bfloat16* residual, float* y, const Plan& p, cudaStream_t stream);
+cudaError_t down(const float* x, int B, int K, const Weights& w, int N, const float* residual,
+                 __nv_bfloat16* y, const Plan& p, cudaStream_t stream);
 
 __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
@@ -177,23 +205,20 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, int n, uin
       : "memory");
 }
 
-// n bytes (a multiple of 4) from src to dst (16-byte aligned).  With BULK,
-// one bulk copy by lane 0 on bar where src and n are multiples of 16
-// (returns n, the bytes bar must expect); else the lanes of the warp in the
-// widest cp.async copies that src's alignment and n allow (returns 0).
-template <bool BULK>
+// n bytes (a multiple of 4) from src to dst (16-byte aligned): one bulk
+// copy by lane 0 on bar where src and n are multiples of 16 (returns n, the
+// bytes bar must expect); else the lanes of the warp in the widest cp.async
+// copies that src's alignment and n allow (returns 0).
 __device__ __forceinline__ int copy_span(unsigned char* dst, const void* src, int n, int lane,
                                          uint64_t* bar) {
   const unsigned char* s = static_cast<const unsigned char*>(src);
   const unsigned a =
       static_cast<unsigned>(reinterpret_cast<uintptr_t>(s)) | static_cast<unsigned>(n);
-  if (BULK && (a & 15u) == 0) {
+  if ((a & 15u) == 0) {
     if (lane == 0 && n > 0) bulk_copy(dst, s, n, bar);
     return n;
   }
-  if ((a & 15u) == 0) {
-    for (int i = lane * 16; i < n; i += 512) cp_async16(dst + i, s + i, true);
-  } else if ((a & 7u) == 0) {
+  if ((a & 7u) == 0) {
     for (int i = lane * 8; i < n; i += 256) cp_async8(dst + i, s + i);
   } else {
     for (int i = lane * 4; i < n; i += 128) cp_async4(dst + i, s + i, true);
@@ -240,7 +265,6 @@ struct Q4Stream {  // codes 16 B a slot | scales
   static constexpr int kStage = kNibbleStage;
   static constexpr int kSub = 1;
   static constexpr bool kMins = false;
-  static constexpr bool kBulk = true;
   static constexpr int kBytes = kStage * 16 + kStage * 4;
   const uint8_t* qs;
   const float* scales;
@@ -259,8 +283,8 @@ struct Q4Stream {  // codes 16 B a slot | scales
   }
   __device__ __forceinline__ int issue(unsigned char* buf, Cursor& c, int ns, int lane,
                                        uint64_t* bar) const {
-    const int bytes = copy_span<kBulk>(buf, c.q, ns * 16, lane, bar) +
-                      copy_span<kBulk>(buf + kStage * 16, c.s, ns * 4, lane, bar);
+    const int bytes = copy_span(buf, c.q, ns * 16, lane, bar) +
+                      copy_span(buf + kStage * 16, c.s, ns * 4, lane, bar);
     c.q += kStage * 16;
     c.s += kStage;
     return bytes;
@@ -287,7 +311,6 @@ struct SbStream {
   static constexpr int kStage = kNibbleStage;
   static constexpr int kSub = 1;
   static constexpr bool kMins = true;
-  static constexpr bool kBulk = true;
   static constexpr int kBytes = kStage * 16 + 2 * kStage + 2 * (kStage / 8) * 4;
   const uint8_t* qs;
   const float* d;
@@ -314,11 +337,11 @@ struct SbStream {
   __device__ __forceinline__ int issue(unsigned char* buf, Cursor& c, int ns, int lane,
                                        uint64_t* bar) const {
     const int bytes =
-        copy_span<kBulk>(buf, c.q, ns * 16, lane, bar) +
-        copy_span<kBulk>(buf + kStage * 16, c.h, ns, lane, bar) +
-        copy_span<kBulk>(buf + kStage * 17, c.h + c.mn, ns, lane, bar) +
-        copy_span<kBulk>(buf + kStage * 18, c.d, ns / 8 * 4, lane, bar) +
-        copy_span<kBulk>(buf + kStage * 18 + kStage / 2, c.d + c.dm, ns / 8 * 4, lane, bar);
+        copy_span(buf, c.q, ns * 16, lane, bar) +
+        copy_span(buf + kStage * 16, c.h, ns, lane, bar) +
+        copy_span(buf + kStage * 17, c.h + c.mn, ns, lane, bar) +
+        copy_span(buf + kStage * 18, c.d, ns / 8 * 4, lane, bar) +
+        copy_span(buf + kStage * 18 + kStage / 2, c.d + c.dm, ns / 8 * 4, lane, bar);
     c.q += kStage * 16;
     c.h += kStage;
     c.d += kStage / 8;
@@ -348,7 +371,6 @@ struct QkStream {
   static constexpr int kStage = kSlots;
   static constexpr int kSub = 32 / G;
   static constexpr bool kMins = MINS;
-  static constexpr bool kBulk = true;
   static constexpr int kBytes = kStage * 32 + kStage * kSub * 4 * (MINS ? 2 : 1);
   const int8_t* qs;
   const float* scales;
@@ -369,10 +391,10 @@ struct QkStream {
   }
   __device__ __forceinline__ int issue(unsigned char* buf, Cursor& c, int ns, int lane,
                                        uint64_t* bar) const {
-    int bytes = copy_span<kBulk>(buf, c.q, ns * 32, lane, bar) +
-                copy_span<kBulk>(buf + kSlots * 32, c.s, ns * kSub * 4, lane, bar);
+    int bytes = copy_span(buf, c.q, ns * 32, lane, bar) +
+                copy_span(buf + kSlots * 32, c.s, ns * kSub * 4, lane, bar);
     if (MINS)
-      bytes += copy_span<kBulk>(buf + kSlots * 32 + kSlots * kSub * 4, c.s + c.m,
+      bytes += copy_span(buf + kSlots * 32 + kSlots * kSub * 4, c.s + c.m,
                                 ns * kSub * 4, lane, bar);
     c.q += kSlots * 32;
     c.s += kSlots * kSub;
@@ -452,16 +474,6 @@ __device__ __forceinline__ void wait_stages(int stages) {
   }
 }
 
-// Programmatic dependent launch (Hopper): launch_dependents lets the next
-// kernel on the stream, where it was launched with the attribute, start (its
-// blocks take the SMs this grid frees); wait blocks until the kernel before
-// this one has completed and its writes are visible.  In a launch without
-// the attribute the kernel before has completed already, and wait returns.
-__device__ __forceinline__ void grid_launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-__device__ __forceinline__ void grid_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
-
 // The `n` warps of a part group (a named barrier a group, ids 1-8).
 __device__ __forceinline__ void group_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n * 32) : "memory");
@@ -507,7 +519,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* sums = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(red) + kRedBytes +
                                          kBarBytes) +
                 warp * tmax * kCols * ROWS;  // this warp's [tmax][kCols][ROWS]
-  if (Form::kBulk && lane == 0) {
+  if (lane == 0) {
     for (int k = 0; k < R; ++k) mbar_init(bars + k);
     mbar_init_fence();
   }
@@ -550,7 +562,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
       if (llive[c]) bytes += form.issue(st + c * Form::kBytes, cur[c], ns, lane, bars + slot);
-    if (Form::kBulk && lane == 0) mbar_expect(bars + slot, bytes);
+    if (lane == 0) mbar_expect(bars + slot, bytes);
     ln += STAGE;
     if (ln >= len) {
       ln = 0;
@@ -563,12 +575,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   // The ring's first E stages in flight before any other work, the rest
   // once x is staged: x's loads queue behind what is issued before them, so
-  // kernels 1, 13 and 17 issue two stages first; kernel 2's launches issue
-  // the whole ring.  The weights are read-only, so their copies start
-  // before the wait on the kernel before this one (kernel 2's down launch:
-  // its gate/up launch); every read of x, the gain and the residual and
-  // every write of y come after it.  Those four pointers are not
-  // __restrict__, so that no read of them moves above the wait.
+  // kernels 1, 13 and 17 issue two stages first; the residual and SwiGLU
+  // launches issue the whole ring.  The weights are read-only, so their
+  // copies start before the wait on the kernel before this one (where this
+  // launch is its programmatic dependent); every read of x, the gain and
+  // the residual and every write of y come after it.  Those four pointers
+  // are not __restrict__, so that no read of them moves above the wait.
   const int E = EPI == kStore ? min(R, 2) : R;
   for (int k = 0; k < E; ++k) {
     issue_next(k);
@@ -719,7 +731,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int r = 0; r < ROWS; ++r) acc[c][r] = 0.f;
       for (int ch = 0; ch < n_chunks; ++ch) {
         wait_stages(R);  // this lane's cp.async copies of the oldest stage
-        if (Form::kBulk) mbar_wait(bars + use, phase);  // its bulk copies
+        mbar_wait(bars + use, phase);  // its bulk copies
         __syncwarp();  // every lane's copies
         const unsigned char* st = ring + use * kCols * Form::kBytes;
         typename Form::Raw raw[PASSES][kCols];
@@ -729,7 +741,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int c = 0; c < kCols; ++c)
             raw[u][c] = form.load(st + c * Form::kBytes, u * kSlots + lane);
         __syncwarp();  // every lane has read the stage: refill it now
-        if (Form::kBulk && lane == 0) fence_async_shared();
+        if (lane == 0) fence_async_shared();
         issue_next(use);
         cp_async_commit();
         if (++use == R) {
@@ -856,26 +868,18 @@ cudaError_t launch_rows(const TX* x, int B, int K, const Form& form, int N, cons
   static const cudaError_t allowed =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (allowed != cudaSuccess) return allowed;
-  if constexpr (EPI != kResidual) {
-    fn<<<p.blocks, kThreads, smem, stream>>>(x, B, K, form, N, gain, eps, residual, y,
-                                             p.splits, p.stages, p.parts);
-    return cudaGetLastError();
-  } else {
-    // Kernel 2's down launch (stream::down), launched right after its own
-    // gate/up launch on the same stream: a programmatic dependent of it.
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[0].val.programmaticStreamSerializationAllowed = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(p.blocks);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    return cudaLaunchKernelEx(&cfg, fn, x, B, K, form, N, gain, eps, residual, y, p.splits,
-                              p.stages, p.parts);
-  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.dependent ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, fn, x, B, K, form, N, gain, eps, residual, y, p.splits,
+                            p.stages, p.parts);
 }
 
 template <typename TX, typename TY, int EPI, typename TG, typename TR, typename Form>
@@ -901,9 +905,10 @@ cudaError_t launch(const TX* x, int B, int K, const Form& form, int N, const TG*
 }
 
 // Calls f(form) with the stream form of w (gemv.cuh Form) and returns its
-// result; an invalid value for an unknown form, for kFormQ4 unless Q4 and
-// for kFormSb unless SB (kernel 2's w2 takes no sb).
-template <bool Q4, bool SB, typename Fn>
+// result; an invalid value for an unknown form, for kFormSb unless SB and
+// for the forms with mins unless MINS (the launches that never take them
+// do not instantiate their forms).
+template <bool SB, bool MINS, typename Fn>
 cudaError_t with_form(const Weights& w, Fn&& f) {
   const float* s = static_cast<const float*>(w.scales);
   const float* m = static_cast<const float*>(w.mins);
@@ -911,26 +916,29 @@ cudaError_t with_form(const Weights& w, Fn&& f) {
   const uint8_t* q4 = static_cast<const uint8_t*>(w.qs);
   switch (w.form) {
     case kFormQ4:
-      if constexpr (Q4) return f(Q4Stream{q4, s});
-      return cudaErrorInvalidValue;
+      return f(Q4Stream{q4, s});
     case kFormSb:
       if constexpr (SB) return f(SbStream{q4, s, m, static_cast<const uint8_t*>(w.hi)});
       return cudaErrorInvalidValue;
     case kFormG32:
       return f(QkStream<32, false>{q8, s, nullptr});
     case kFormG32Mins:
-      return f(QkStream<32, true>{q8, s, m});
+      if constexpr (MINS) return f(QkStream<32, true>{q8, s, m});
+      return cudaErrorInvalidValue;
     case kFormG16:
       return f(QkStream<16, false>{q8, s, nullptr});
     case kFormG16Mins:
-      return f(QkStream<16, true>{q8, s, m});
+      if constexpr (MINS) return f(QkStream<16, true>{q8, s, m});
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // The bodies of the launches declared above; each gemv_stream_*.cu file
-// defines one overload with them.
+// defines one overload with them.  ALL takes every form kernel 2's launch
+// takes (gate/up: all six; down: all but sb); without it, the forms without
+// mins but sb (kernel 15's Wo and w13, as its gate admits them).
 template <typename T>
 cudaError_t matmul_of(const T* x, int B, int K, const Weights& w, int N, const T* gain, float eps,
                       T* y, const Plan& p, cudaStream_t stream) {
@@ -939,20 +947,21 @@ cudaError_t matmul_of(const T* x, int B, int K, const Weights& w, int N, const T
   });
 }
 
-template <typename T>
-cudaError_t gate_up_of(const T* x, int B, int D, const Weights& w, int F2, const T* gain,
+template <bool ALL, typename TX, typename TG>
+cudaError_t gate_up_of(const TX* x, int B, int D, const Weights& w, int F2, const TG* gain,
                        float eps, float* h, const Plan& p, cudaStream_t stream) {
-  return with_form<true, true>(w, [&](const auto& f) {
-    return launch<T, float, kSwiGLU, T, float>(x, B, D, f, F2, gain, eps, nullptr, h, p, stream);
+  return with_form<ALL, ALL>(w, [&](const auto& f) {
+    return launch<TX, float, kSwiGLU, TG, float>(x, B, D, f, F2, gain, eps, nullptr, h, p,
+                                                 stream);
   });
 }
 
-template <typename T>
-cudaError_t down_of(const float* h, int B, int F, const Weights& w, int D, const T* residual,
-                    T* y, const Plan& p, cudaStream_t stream) {
-  return with_form<true, false>(w, [&](const auto& f) {
-    return launch<float, T, kResidual, float, T>(h, B, F, f, D, nullptr, 0.f, residual, y, p,
-                                                 stream);
+template <bool ALL, typename TX, typename TR, typename TY>
+cudaError_t down_of(const TX* x, int B, int K, const Weights& w, int N, const TR* residual,
+                    TY* y, const Plan& p, cudaStream_t stream) {
+  return with_form<false, ALL>(w, [&](const auto& f) {
+    return launch<TX, TY, kResidual, float, TR>(x, B, K, f, N, nullptr, 0.f, residual, y, p,
+                                                stream);
   });
 }
 

@@ -10,7 +10,7 @@ namespace stream {
 cudaError_t gate_up(const __nv_bfloat16* x, int B, int D, const Weights& w, int F2,
                     const __nv_bfloat16* gain, float eps, float* h, const Plan& p,
                     cudaStream_t stream) {
-  return gate_up_of(x, B, D, w, F2, gain, eps, h, p, stream);
+  return gate_up_of<true>(x, B, D, w, F2, gain, eps, h, p, stream);
 }
 
 }  // namespace stream

@@ -45,9 +45,9 @@ static bool run(const void* x, const void* qs, const void* scales, const void* m
                 int form, float eps, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const T* gt = static_cast<const T*>(gain);
-  return with_reader<true>(form, qs, scales, mins, hi, [&](const auto& wr) {
+  return with_reader(form, qs, scales, mins, hi, [&](const auto& wr) {
     if (gt != nullptr) row_inv_rms_kernel<T><<<B, 256, 0, stream>>>(xt, inv, K, eps);
-    launch_gemv<T, T, kStore>(xt, B, K, wr, N, gt, inv, nullptr, static_cast<T*>(y), stream);
+    launch_gemv(xt, B, K, wr, N, gt, inv, static_cast<T*>(y), stream);
   });
 }
 

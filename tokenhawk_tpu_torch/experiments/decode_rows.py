@@ -18,7 +18,12 @@ spin, caches or pools copied to span 3x the 50 MB L2) and alone
 whose host is slower than its kernels), the launch counters it ticked, its
 bound (the live codes and scales, q, the new rows and the output at 3.35
 TB/s), and kernel 3 or 5 on bfloat16 K/V of the same shape, timed the same
-way (kernel 3 takes a length of 0 as 1).  With --sweep, in a tree whose
+way (kernel 3 takes a length of 0 as 1); and back to back the plain
+version (`plain_ms`) and one PyTorch computation of the same attention
+(`library_ms`, as chip_smoke.py times it: dequantize the live rows +
+scaled_dot_product_attention at B=1 for kernel 8; gather the table's pages,
+dequantize, scaled_dot_product_attention under a length mask for kernel
+10; None for kernel 8 above one sequence).  With --sweep, in a tree whose
 wrappers force the split count (`flash_decode_int8_at`,
 `paged_decode_int8_at`), each case also at 1, 2, 4, 8 and 16 splits with
 ranges of at least 1 tile, and at the rule's count with floors of 1, 2
@@ -33,6 +38,7 @@ import argparse
 import json
 
 import torch
+import torch.nn.functional as tf
 
 from tokenhawk_tpu_torch.experiments.gemv_rows import check, device_ms, isolated_ms
 from tokenhawk_tpu_torch.ops.cuda import build, kv_int8, paged_decode, paged_int8
@@ -83,6 +89,11 @@ def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BPS * 1e3
 
 
+def deq(codes, scales):
+    """int8 codes times their row scales, in bfloat16 (the library calls')."""
+    return codes.to(torch.bfloat16) * scales[..., None].to(torch.bfloat16)
+
+
 def dense_case(name, Hkv, rep, Dh, lens, g, dev, sweep) -> dict:
     B = len(lens)
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -103,7 +114,14 @@ def dense_case(name, Hkv, rep, Dh, lens, g, dev, sweep) -> dict:
     rec = dict(case=name, kernel=8, path=path, max_abs_err=check(name, out, ref),
                **timings([lambda c=c: kv_int8.flash_decode_int8(q, kn, vn, *c, lengths)
                           for c in sets]),
-               bound_ms=bound_ms(2 * live * Hkv * (Dh + 2) + io))
+               bound_ms=bound_ms(2 * live * Hkv * (Dh + 2) + io),
+               plain_ms=device_ms([lambda c=c: kv_int8.flash_decode_int8_plain(
+                   q, kn, vn, *c, lengths) for c in sets]), library_ms=None)
+    if B == 1:
+        L = lens[0]
+        rec["library_ms"] = device_ms([lambda c=c: tf.scaled_dot_product_attention(
+            q, deq(c[0][:, :, :L], c[1][:, :, :L]), deq(c[2][:, :, :L], c[3][:, :, :L]),
+            scale=1.0) for c in sets])
     if sweep:
         splits = kv_int8.decode_int8_splits(B, Hkv, S_INT8, build.sm_count(dev))
         rec["rule"] = splits
@@ -140,7 +158,20 @@ def paged_case(name, Hkv, rep, Dh, lens, layout, g, dev, sweep) -> dict:
     rec = dict(case=name, kernel=10, path=path, max_abs_err=check(name, out, ref),
                **timings([lambda: paged_int8.paged_decode_int8(q, *pool, table, lengths,
                                                                layout)]),
-               bound_ms=bound_ms(2 * live * Hkv * (Dh + 4) + io))
+               bound_ms=bound_ms(2 * live * Hkv * (Dh + 4) + io),
+               plain_ms=device_ms([lambda: paged_int8.paged_decode_int8_plain(
+                   q, *pool, table, lengths, layout)]))
+    tl_ = table.long()
+    mask = (torch.arange(mp * PS, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+
+    def dense(c, s):
+        x = deq(c[tl_], s[tl_]) if layout == "contig" else deq(c[:, tl_], s[:, tl_])
+        x = x.transpose(1, 2) if layout == "contig" else x.permute(1, 0, 2, 3, 4)
+        return x.reshape(B, Hkv, mp * PS, Dh)
+
+    kp, ksp, vp, vsp = pool
+    rec["library_ms"] = device_ms([lambda: tf.scaled_dot_product_attention(
+        q, dense(kp, ksp), dense(vp, vsp), attn_mask=mask, scale=1.0)])
     kb, vb = kf.bfloat16(), vf.bfloat16()
     rec["kernel_5"] = timings([lambda: paged_decode.paged_decode(q, kb, vb, table, lengths,
                                                                  layout)])

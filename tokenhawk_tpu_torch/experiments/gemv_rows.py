@@ -101,16 +101,17 @@ def device_ms(fns, calls: int = 32) -> float:
 
 def isolated_ms(fns, trials: int = 21) -> float:
     """Median device ms of one call that finds the device idle: each call
-    between two events, queued behind a device spin (so the host's launch
-    cost stays outside the events) that follows the last call's end,
-    cycling through fns."""
+    between two events, queued behind a device spin of about 1 ms (so the
+    host's launch cost, a multi-launch call's wrappers included, stays
+    outside the events) that follows the last call's end, cycling through
+    fns."""
     for f in fns:
         f()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     times = []
     for i in range(trials):
-        torch.cuda._sleep(400_000)
+        torch.cuda._sleep(2_000_000)
         a.record()
         fns[i % len(fns)]()
         b.record()

@@ -23,14 +23,19 @@ each count one call of two launches; `fused_ffn_at` forces the two plans.
 Kernel 15, `fused_owo_ffn`, replaces tokenhawk_tpu/ops/pallas/ffn.py
 `fused_owo_ffn` (_fused_owo_ffn): the whole post-attention half of a
 decode layer, x' = x + ctx @ Wo kept in f32, then x' + SwiGLU-MLP(
-rms_norm(x') * g), rounded once.  It runs four launches of gemv.cuh's GEMV
-(csrc/ffn.cu th_owo_ffn): Wo with x in its epilogue into an f32 x'
-scratch, the row norm, the gate/up GEMV, the down GEMV with x' in its
-epilogue.  It is off by default, as in the reference: the model takes it
-where `can_fuse_owo_ffn` passes and the model's fusions ask for it
-(models/llama.py Fusions, THAWK_FUSED_OWO=1).  Launches are counted per
-(w13 form, w2 form) pairing as `launches["owo_ffn[q4_0/q4_0]"]` and so
-on; on the model's path Wo has w13's form.
+rms_norm(x') * g), rounded once.  It runs three launches of the decode-row
+walk (csrc/ffn.cu th_owo_ffn), each on `qmatmul.stream_plan`'s plan for
+its shape (`owo_plans`): Wo with x in its epilogue into an f32 x' scratch
+(an ordinary launch), then kernel 2's gate/up over x' with the norm inside
+it and its down launch with x' in its epilogue, each a programmatic
+dependent of the launch before it.  Wo and w13 take one form without mins
+(the gate's); a Wo or w13 with mins raises.  It is off by default, as in
+the reference: the model takes it where `can_fuse_owo_ffn` passes and the
+model's fusions ask for it (models/llama.py Fusions, THAWK_FUSED_OWO=1).
+Calls are counted per (w13 form, w2 form) pairing as
+`launches["owo_ffn[q4_0/q4_0]"]` and so on (on the model's path Wo has
+w13's form), their walk launches in `launches["owo_ffn_stream"]` (three a
+call); `fused_owo_ffn_at` forces the three plans.
 
 Tolerance against the plain versions: f32 arithmetic in both, one final
 rounding to x.dtype (2^-8 relative for bfloat16) plus summation order.
@@ -41,13 +46,21 @@ from __future__ import annotations
 import torch
 
 from tokenhawk_tpu_torch.ops.cuda import build
-from tokenhawk_tpu_torch.ops.cuda.qmatmul import FORM_NAMES, form_code, stream_plan, weight_args
+from tokenhawk_tpu_torch.ops.cuda.qmatmul import (
+    FORM_NAMES,
+    forced_plan,
+    form_code,
+    stream_plan,
+    weight_args,
+)
 from tokenhawk_tpu_torch.ops.qweight import QWeight
 
 # Launches per (w13 form, w2 form) pairing, e.g. "ffn[g32m/g16]" for a
 # Q4_K w13 (G 32, mins) over a Q6_K w2 (G 16, no mins).
 launches = {f"{k}[{a}/{b}]": 0 for k in ("ffn", "owo_ffn") for a in FORM_NAMES
-            for b in FORM_NAMES}
+            for b in FORM_NAMES} | {"owo_ffn_stream": 0}
+# Kernel 15's launches of the decode-row walk a call: Wo, gate/up, down.
+OWO_LAUNCHES = 3
 MAX_ROWS = 8
 # The reference's tiles, which its gate for kernel 15 requires: the FFN
 # walks F in tiles of 256, the Wo phase D in tiles of 512.  The port's
@@ -59,10 +72,10 @@ BLOCK_F, BLOCK_NW = 256, 512
 # eps; dtype, the two launches' plans (splits, stages, blocks, parts); stream.
 _ARGS = [build.P] + ([build.P] * 4 + [build.I]) * 2 + [build.P] * 3 + [build.I] * 3 + [
     build.F] + [build.I] * 9 + [build.P]
-# ctx, x; (qs, scales, mins, scmn, form) of wo, w13 and w2; gain, xp, h, inv,
-# y; B, Dq, D, F; eps; dtype; stream.
-_OWO_ARGS = [build.P] * 2 + ([build.P] * 4 + [build.I]) * 3 + [build.P] * 5 + [build.I] * 4 + [
-    build.F, build.I, build.P]
+# ctx, x; (qs, scales, mins, scmn, form) of wo, w13 and w2; gain, xp, h, y;
+# B, Dq, D, F; eps; dtype; the three launches' plans; stream.
+_OWO_ARGS = [build.P] * 2 + ([build.P] * 4 + [build.I]) * 3 + [build.P] * 4 + [build.I] * 4 + [
+    build.F] + [build.I] * 13 + [build.P]
 
 
 def can_fuse_ffn(w13, w2, rows: int) -> bool:
@@ -97,12 +110,8 @@ def ffn_plans(rows: int, w13: QWeight, w2: QWeight, sms: int, forced=None) -> tu
     stages, parts) tuple for each, None or a None entry for the rule's."""
     (D, F2), (F, _) = w13.shape, w2.shape
     fa, fb = forced or (None, None)
-    return (stream_plan(rows, D, F2, form_code(w13), sms, swiglu=True, **_forced(fa)),
-            stream_plan(rows, F, D, form_code(w2, sb=False), sms, **_forced(fb)))
-
-
-def _forced(plan) -> dict:
-    return {} if plan is None else dict(zip(("splits", "stages", "parts"), plan))
+    return (stream_plan(rows, D, F2, form_code(w13), sms, swiglu=True, **forced_plan(fa)),
+            stream_plan(rows, F, D, form_code(w2, sb=False), sms, **forced_plan(fb)))
 
 
 def fused_ffn_at(x, w13: QWeight, w2: QWeight, norm_gain, eps: float = 1e-6, plans=None):
@@ -171,6 +180,26 @@ def fused_owo_ffn(ctx, x, wo: QWeight, w13: QWeight, w2: QWeight, norm_gain,
                   eps: float = 1e-6):
     """ctx [..., Dq], x [..., D] -> x' + SwiGLU-MLP(rms_norm(x') * gain),
     x' = x + ctx @ Wo (f32); at most 8 rows, y in x.dtype."""
+    return fused_owo_ffn_at(ctx, x, wo, w13, w2, norm_gain, eps)
+
+
+def owo_plans(rows: int, wo: QWeight, w13: QWeight, w2: QWeight, sms: int,
+              forced=None) -> tuple:
+    """The plans (splits, stages, blocks, parts) of kernel 15's three
+    launches: Wo over [Dq, D], then kernel 2's two (`ffn_plans`).  `forced`
+    gives a (splits, stages) or (splits, stages, parts) tuple for each, None
+    or a None entry for the rule's."""
+    fo, *fb = forced or (None, None, None)
+    Dq, D = wo.shape
+    return (stream_plan(rows, Dq, D, form_code(wo, sb=False), sms, **forced_plan(fo)),
+            *ffn_plans(rows, w13, w2, sms, fb))
+
+
+def fused_owo_ffn_at(ctx, x, wo: QWeight, w13: QWeight, w2: QWeight, norm_gain,
+                     eps: float = 1e-6, plans=None):
+    """fused_owo_ffn with the three launches' plans forced by `plans`
+    (tests and sweeps; None: `owo_plans`'s).  A CPU tensor runs the plain
+    version whatever the plans."""
     if not x.is_cuda:
         return fused_owo_ffn_plain(ctx, x, wo, w13, w2, norm_gain, eps)
     Dq, Dw = wo.shape
@@ -180,6 +209,8 @@ def fused_owo_ffn(ctx, x, wo: QWeight, w13: QWeight, w2: QWeight, norm_gain,
                   and ctx.shape[-1] == Dq and ctx.shape[:-1] == x.shape[:-1],
                   f"ctx {tuple(ctx.shape)}, x {tuple(x.shape)}, wo {wo.shape}, w13 {w13.shape}, "
                   f"w2 {w2.shape} do not chain")
+    build.require(wo.mins is None and w13.mins is None,
+                  "fused_owo_ffn takes Wo and w13 in a form without mins")
     lead = x.shape[:-1]
     xb = x.reshape(-1, D).contiguous()
     cb = ctx.reshape(-1, Dq).to(xb.dtype).contiguous()
@@ -189,15 +220,16 @@ def fused_owo_ffn(ctx, x, wo: QWeight, w13: QWeight, w2: QWeight, norm_gain,
     build.require(gain.shape == (D,), f"gain {tuple(gain.shape)} != ({D},)")
     build.require_cuda(xb, cb, gain)
     fo, f13, f2 = (form_code(w, sb=False) for w in (wo, w13, w2))
+    pa, pb, pc = owo_plans(B, wo, w13, w2, build.sm_count(xb.device), plans)
     xp = torch.empty((B, D), dtype=torch.float32, device=xb.device)
     h = torch.empty((B, F), dtype=torch.float32, device=xb.device)
-    inv = torch.empty((B,), dtype=torch.float32, device=xb.device)
     y = torch.empty_like(xb)
     fn = build.function("th_owo_ffn", _OWO_ARGS)
     rc = fn(cb.data_ptr(), xb.data_ptr(), *weight_args(wo, xb), fo, *weight_args(w13, xb), f13,
             *weight_args(w2, xb), f2, gain.data_ptr(), xp.data_ptr(), h.data_ptr(),
-            inv.data_ptr(), y.data_ptr(), B, Dq, D, F, eps, build.dtype_code(xb.dtype),
+            y.data_ptr(), B, Dq, D, F, eps, build.dtype_code(xb.dtype), *pa, *pb, *pc,
             build.stream_of(xb))
     build.check(rc, "fused_owo_ffn")
     launches[f"owo_ffn[{FORM_NAMES[f13]}/{FORM_NAMES[f2]}]"] += 1
+    launches["owo_ffn_stream"] += OWO_LAUNCHES
     return y.reshape(*lead, D)

@@ -1,5 +1,5 @@
-"""Kernels 3, 14 and 18: decode attention over the dense KV cache (csrc/decode_append.cu,
-csrc/flash_decode.cu, csrc/decode_stats.cu).
+"""Kernels 3, 14, 16 and 18: decode attention over the dense KV cache
+(csrc/decode_append.cu, csrc/flash_decode.cu, csrc/attn_wo.cu, csrc/decode_stats.cu).
 
   flash_decode_append  kernel 3, replaces tokenhawk_tpu/ops/pallas/
                        flash_decode_dma.py `flash_decode_append_walk`
@@ -63,11 +63,16 @@ Kernel 16, `fused_attn_out`, replaces tokenhawk_tpu/ops/pallas/
 attn_block.py `fused_attn_out` (_attn_wo): the attention block of one
 decode token of one sequence with one query per kv head, x + attend(q,
 cache + new row) @ Wo, the new K / V rows written in place.  Two launches
-on one stream (csrc/flash_decode.cu th_attn_wo): kernel 3's body with q
-pre-scaled in the block and an f32 context, then the Wo GEMV with x in its
-epilogue.  Off by default, as in the reference: the model takes it where
-`can_fuse_attn_out` passes and its Fusions ask for it (THAWK_FUSED_ATTN=1).
-Counted as `launches["attn_wo"]`.
+on one stream (csrc/attn_wo.cu th_attn_wo): kernel 3's tile walk (q scaled
+in the block by 1/sqrt(Dh) in q's type, an f32 context; split by
+`decode_splits` as kernel 3 is), then Wo on the decode-row walk at one row
+over that context with x in its epilogue (`qmatmul.stream_plan`'s plan), a
+programmatic dependent of the attention launch.  Off by default, as in the
+reference: the model takes it where `can_fuse_attn_out` passes and its
+Fusions ask for it (THAWK_FUSED_ATTN=1).  Counted as `launches["attn_wo"]`,
+the cluster form also in `["attn_wo_split"]`, the Wo walk's launch in
+`["attn_wo_stream"]`; `fused_attn_out_at` forces the split count and Wo's
+plan.
 
 Tolerance against the plain versions: f32 scores and softmax in both;
 the kernel's online softmax sums in another order (~1e-6 relative; the
@@ -82,12 +87,12 @@ import torch
 
 from tokenhawk_tpu_torch.ops.attention import attend_cache, attend_stats
 from tokenhawk_tpu_torch.ops.cuda import build
-from tokenhawk_tpu_torch.ops.cuda.qmatmul import form_code, weight_args
+from tokenhawk_tpu_torch.ops.cuda.qmatmul import forced_plan, form_code, stream_plan, weight_args
 from tokenhawk_tpu_torch.ops.qweight import QWeight
 
 launches = {"flash_decode": 0, "flash_decode_append_split": 0, "flash_decode_attend": 0,
             "flash_decode_split": 0, "flash_decode_stats": 0, "flash_decode_stats_split": 0,
-            "attn_wo": 0}
+            "attn_wo": 0, "attn_wo_split": 0, "attn_wo_stream": 0}
 HEAD_DIMS = (64, 128)
 REPS = (1, 2, 4, 8)
 # Kernel 14's split form: at most 16 blocks a cluster (above 8 the
@@ -113,9 +118,10 @@ _ATTEND_ARGS = [build.P] * 5 + [build.I] * 9 + [build.P]
 # min_tiles, dtype; stream.
 _STATS_ARGS = [build.P] * 7 + [build.I] * 6 + [build.LL] * 3 + [build.I] * 3 + [build.P]
 # q, k_new, v_new, kc, vc, lengths, x; wo (qs, scales, mins, hi, form); ctx,
-# y; H, Dh, S, D; q_scale; q and cache dtypes; stream.
+# y; H, Dh, S, D; q_scale; splits, min_tiles; Wo's plan; q and cache dtypes;
+# stream.
 _ATTN_WO_ARGS = [build.P] * 11 + [build.I] + [build.P] * 2 + [build.I] * 4 + [
-    build.F, build.I, build.I, build.P]
+    build.F] + [build.I] * 8 + [build.P]
 
 
 def _attend(q, k_cache, v_cache, L):
@@ -378,6 +384,18 @@ def fused_attn_out(x, q, k_new, v_new, k_cache, v_cache, lengths, wo: QWeight):
     new one, Wo [H*Dh, D] -> x + attend @ Wo, [1, 1, D] in x.dtype."""
     if not q.is_cuda:
         return fused_attn_out_plain(x, q, k_new, v_new, k_cache, v_cache, lengths, wo)
+    H, S = q.shape[2], k_cache.shape[2]
+    return fused_attn_out_at(x, q, k_new, v_new, k_cache, v_cache, lengths, wo,
+                             decode_splits(1, H, S, build.sm_count(q.device), APPEND_MIN_TILES))
+
+
+def fused_attn_out_at(x, q, k_new, v_new, k_cache, v_cache, lengths, wo: QWeight, splits: int,
+                      min_tiles: int = APPEND_MIN_TILES, plan=None):
+    """Kernel 16 with the attention in `splits` blocks a head (1 to
+    MAX_SPLITS), its ranges at least min_tiles tiles, and Wo's plan forced
+    by `plan` ((splits, stages) or (splits, stages, parts); None: the
+    rule's): what fused_attn_out launches with decode_splits' count.  CUDA
+    tensors only."""
     B, T, H, Dh = q.shape
     S = k_cache.shape[2]
     Dq, D = wo.shape
@@ -395,19 +413,25 @@ def fused_attn_out(x, q, k_new, v_new, k_cache, v_cache, lengths, wo: QWeight):
     build.require(Dq == H * Dh and x.shape == (1, 1, D) and x.dtype == q.dtype,
                   f"x {tuple(x.shape)} {x.dtype}, Wo {wo.shape} do not match q {tuple(q.shape)} "
                   f"{q.dtype}")
+    build.require(1 <= splits <= MAX_SPLITS, f"splits {splits} not in 1..{MAX_SPLITS}")
+    build.require(min_tiles >= 1, f"min_tiles must be positive, got {min_tiles}")
     form = form_code(wo, sb=False)
     q = q.contiguous()
     k_new = k_new.to(q.dtype).contiguous()
     v_new = v_new.to(q.dtype).contiguous()
     x = x.contiguous()
     build.require_cuda(q, k_new, v_new, k_cache, v_cache, lengths, x)
+    wo_plan = stream_plan(1, Dq, D, form, build.sm_count(q.device), **forced_plan(plan))
     ctx = torch.empty((H * Dh,), dtype=torch.float32, device=q.device)
     y = torch.empty_like(x)
     fn = build.function("th_attn_wo", _ATTN_WO_ARGS)
     rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), lengths.data_ptr(), x.data_ptr(), *weight_args(wo, q), form,
-            ctx.data_ptr(), y.data_ptr(), H, Dh, S, D, _q_scale(q),
+            ctx.data_ptr(), y.data_ptr(), H, Dh, S, D, _q_scale(q), splits, min_tiles, *wo_plan,
             build.dtype_code(q.dtype), build.dtype_code(k_cache.dtype), build.stream_of(q))
     build.check(rc, "fused_attn_out")
     launches["attn_wo"] += 1
+    if splits > 1:
+        launches["attn_wo_split"] += 1
+    launches["attn_wo_stream"] += 1
     return y

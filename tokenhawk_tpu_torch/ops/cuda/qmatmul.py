@@ -204,6 +204,12 @@ def stream_plan(rows: int, K: int, N: int, form: int, sms: int, swiglu: bool = F
                      f"{parts} parts at K {K}, N {N}, {rows} rows")
 
 
+def forced_plan(plan) -> dict:
+    """stream_plan's keyword arguments for a forced (splits, stages) or
+    (splits, stages, parts) tuple; none for None (the rule's plan)."""
+    return {} if plan is None else dict(zip(("splits", "stages", "parts"), plan))
+
+
 def form_code(w: QWeight, sb: bool = True) -> int:
     """The kernels' code for w's (kind, group, mins); checks the dtypes.
     With sb=False (kernels 15, 16 and kernel 2's w2, whose gates refuse
