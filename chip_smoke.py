@@ -889,7 +889,7 @@ def _fused_layer_records(randn, case, library, g) -> list:
     unfused port kernels it replaces on the model's path, timed both ways
     at the same shapes (kernel 1's Wo + add + kernel 2 at 1 and 8 rows; the
     q scale + kernel 3 + kernel 1's Wo + add at 1, 37 and 512 live rows),
-    and the PyTorch calls that compute the same."""
+    and the PyTorch calls that compute the same at every case."""
     import torch
     import torch.nn.functional as tf
 
@@ -928,12 +928,13 @@ def _fused_layer_records(randn, case, library, g) -> list:
                 cases[-1]["unfused"] = unfused(
                     [lambda s=s: ffn.fused_ffn(x + qmatmul.quant_matmul(ctx, s[0]), s[1], s[2],
                                                gain) for s in sets])
+            cases[-1]["library_ms"] = library(
+                "dequantize Wo + matmul + add, then rms_norm + dequantize w13 and w2 + 2 "
+                "matmul + silu, bf16 (14+ calls)",
+                [lambda s=s: _ffn_library(x + ctx @ s[0].dequantize(torch.bfloat16), s[1],
+                                          s[2], gain) for s in sets])
             if quant == "q4_0" and rows == 1:
-                lib["owo"] = library(
-                    "dequantize Wo + matmul + add, then rms_norm + dequantize w13 and w2 + 2 "
-                    "matmul + silu, bf16 (14+ calls)",
-                    [lambda s=s: _ffn_library(x + ctx @ s[0].dequantize(torch.bfloat16), s[1],
-                                              s[2], gain) for s in sets])
+                lib["owo"] = cases[-1]["library_ms"]
         del ws, sets
     owo = _record("fused_owo_ffn", SRC2,
                   "tokenhawk_tpu/ops/pallas/ffn.py:431 (_fused_owo_ffn via fused_owo_ffn)",
@@ -972,13 +973,14 @@ def _fused_layer_records(randn, case, library, g) -> list:
                     flash_decode.flash_decode_append(
                         (q[:, 0] * scale).reshape(1, H, 1, Dh), kn[:, 0], vn[:, 0], *c[:2],
                         lengths).reshape(1, 1, D), c[2]) for c in sets])
+            cases[-1]["library_ms"] = library(
+                "scaled_dot_product_attention over the live rows (no append) + dequantize "
+                "Wo + matmul + add (4+ calls)",
+                [lambda c=c: x + tf.scaled_dot_product_attention(
+                    q.transpose(1, 2), c[0][:, :, :L], c[1][:, :, :L]).reshape(1, 1, D)
+                 @ c[2].dequantize(torch.bfloat16) for c in sets])
             if quant == "q4_0" and L == S:
-                lib["attn"] = library(
-                    "scaled_dot_product_attention over the live rows (no append) + dequantize "
-                    "Wo + matmul + add (4+ calls)",
-                    [lambda c=c: x + tf.scaled_dot_product_attention(
-                        q.transpose(1, 2), c[0][:, :, :L], c[1][:, :, :L]).reshape(1, 1, D)
-                     @ c[2].dequantize(torch.bfloat16) for c in sets])
+                lib["attn"] = cases[-1]["library_ms"]
             del kc, vc, kp, vp, sets
         del wo
     attn = _record("fused_attn_out", "tokenhawk_tpu_torch/csrc/attn_wo.cu",
@@ -1003,8 +1005,9 @@ def _paged_head_dim_64_cases(randn, case, g) -> dict:
     """Kernels 5-7 and 10-12 at TinyLlama's heads (4 KV heads of 64, 8
     queries each) over phase 2's paged shapes (B=8, PAGED_LENGTHS, a 140-page
     pool, shuffled table, two appends on the trash page), bf16 and int8
-    pages, both layouts, checked: appends and gathers exactly.  Returns
-    kernel name -> cases."""
+    pages, both layouts, checked: appends and gathers exactly; kernels 5
+    and 10 with their appends folded in (_fold_cases).  Returns kernel
+    name -> cases."""
     import torch
 
     from tokenhawk_tpu_torch.ops.cuda import paged_decode as pd
@@ -1051,6 +1054,8 @@ def _paged_head_dim_64_cases(randn, case, g) -> dict:
         got, want = pd.gather_pages(*pool, table, layout), pd.gather_pages_plain(*pool, table,
                                                                                  layout)
         check("gather_pages", f"{layout} (K and V, exact)", torch.cat(got), torch.cat(want), 0.0)
+        _fold_cases(False, q, pool, kn, vn, table, lengths, layout, trash, case,
+                    out.setdefault("paged_decode_append", []), f"dh64 {layout}")
 
         ipool = []
         for _ in range(2):
@@ -1068,6 +1073,8 @@ def _paged_head_dim_64_cases(randn, case, g) -> dict:
         want = pi.gather_pages_int8_plain(*ipool, table, layout, torch.bfloat16)
         check("gather_pages_int8", f"{layout} -> bf16 (K and V, exact)", torch.cat(got),
               torch.cat(want), 0.0)
+        _fold_cases(True, q, ipool, kn, vn, table, lengths, layout, trash, case,
+                    out.setdefault("paged_decode_int8_append", []), f"dh64 {layout}")
         del pool, ipool, pa, pb, got, want
     return out
 
@@ -1297,7 +1304,8 @@ def _ffn_library(x, w13, w2, gain, eps: float = 1e-6):
 def _gqa_cases(randn, case, g) -> dict:
     """Kernels 3-12 at Llama-3-8B's heads (8 KV heads, 4 queries each, head
     dim 128) against their plain versions, checked and not timed: the
-    lengths and pools of the cases above.  Returns kernel name -> cases."""
+    lengths and pools of the cases above (kernels 5 and 10 also with their
+    appends folded in, _fold_cases).  Returns kernel name -> cases."""
     import torch
 
     from tokenhawk_tpu_torch.ops.cuda import flash_attention as fa
@@ -1358,6 +1366,7 @@ def _gqa_cases(randn, case, g) -> dict:
     lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
     perm = torch.randperm(n_pool, generator=g, device=dev)
     table = perm[:B * mp].reshape(B, mp).to(torch.int32).contiguous()
+    trash = int(perm[-1])
     pos = lengths.long() - 1
     page = table.gather(1, (pos // ps)[:, None])[:, 0].to(torch.int32).contiguous()
     slot = (pos % ps).to(torch.int32)
@@ -1375,6 +1384,8 @@ def _gqa_cases(randn, case, g) -> dict:
     check("gather_pages", f"contig B={B} max_pages={mp}",
           torch.stack(pd.gather_pages(*pool, table, "contig")),
           torch.stack(pd.gather_pages_plain(*pool, table, "contig")), frac=0.0)
+    _fold_cases(False, q, pool, kn, vn, table, lengths, "contig", trash, case,
+                out.setdefault("paged_decode_append", []), "rep4 contig")
     del pool, a, b
     ipool = []
     for _ in range(2):
@@ -1392,6 +1403,8 @@ def _gqa_cases(randn, case, g) -> dict:
           torch.stack(pi.gather_pages_int8(*ipool, table, "contig", torch.bfloat16)),
           torch.stack(pi.gather_pages_int8_plain(*ipool, table, "contig", torch.bfloat16)),
           frac=0.0)
+    _fold_cases(True, q, ipool, kn, vn, table, lengths, "contig", trash, case,
+                out.setdefault("paged_decode_int8_append", []), "rep4 contig")
     return out
 
 
@@ -2146,12 +2159,114 @@ def _int8_kernel_records(randn, case, library) -> list:
     return [rec8]
 
 
+def _fold_cases(int8, q, pool, kn, vn, table, lengths, layout, trash, case, cases, shape,
+                timing: bool = False) -> dict:
+    """Kernel 5 (int8: 10) with its append folded in (`paged_decode_append`,
+    `paged_decode_int8_append`) at a paged shape: each sequence stores
+    lengths - 1 tokens and appends its newest at row lengths - 1, all live;
+    then again with the third-last at its table's capacity (nothing
+    appended) and the last two parked on the trash page (their table rows
+    all of it, both appending at its slot 5).  Each against the parent's
+    two launches (kernel 6 then 5, or 11 then 10: the appends of the rows
+    the table has, then the attention over one row more, at the same split
+    count): outputs of the sequences not parked and pools outside the trash
+    page bit for bit; against the plain version within the kernel tolerance
+    (pools exactly).  With `timing`, the all-live case times the folded
+    call back to back and alone beside the two launches, and the decode
+    layer's op (runtime/paged.py append_attend_paged_layer[_int8]) beside
+    the two layer ops it replaces.  Returns those times."""
+    import torch
+
+    from tokenhawk_tpu_torch.ops.cuda import paged_decode as pd
+    from tokenhawk_tpu_torch.ops.cuda import paged_int8 as pi
+    from tokenhawk_tpu_torch.runtime import paged as tp
+
+    mod, name = (pi, "paged_decode_int8_append") if int8 else (pd, "paged_decode_append")
+    n_pool, Hkv, ps, Dh = pd.pool_dims(pool[0], layout)
+    B, rep = q.shape[0], q.shape[2]
+    keep = torch.arange(n_pool, device=q.device) != trash
+
+    def kept(xs):
+        return [x[keep] if layout == "contig" else x[:, keep] for x in xs]
+
+    def calls(tab, stored):
+        """(folded, two launches, plain), each on the pools it is given."""
+        page, slot, fits = pd.append_rows(tab, stored, ps)
+        kf, vf, pf, sf = kn[fits], vn[fits], page[fits], slot[fits]
+        longer = stored + 1
+        if int8:
+            return (lambda p: pi.paged_decode_int8_append(q, *p, kn, vn, tab, stored, layout),
+                    lambda p: (pi.paged_append_int8(*p, kf, vf, pf, sf, layout),
+                               pi.paged_decode_int8(q, *p, tab, longer, layout))[1],
+                    lambda p: pi.paged_decode_int8_append_plain(q, *p, kn, vn, tab, stored,
+                                                                 layout))
+        return (lambda p: pd.paged_decode_append(q, *p, kn, vn, tab, stored, layout),
+                lambda p: (pd.paged_append(*p, kf, vf, pf, sf, layout),
+                           pd.paged_decode(q, *p, tab, longer, layout))[1],
+                lambda p: pd.paged_decode_append_plain(q, *p, kn, vn, tab, stored, layout))
+
+    stored = lengths - 1
+    edge_tab, edge_st = table.clone(), stored.clone()
+    edge_st[-3] = table.shape[1] * ps
+    edge_tab[-2:], edge_st[-2:] = trash, 5
+    live = torch.arange(B, device=q.device) < B - 2
+    times = {}
+    for tag, tab, st, rows in (("all live", table, stored, slice(None)),
+                               ("a full table, 2 parked on the trash page", edge_tab, edge_st,
+                                live)):
+        fold, two, plain = calls(tab, st)
+        pools = [[x.clone() for x in pool] for _ in range(3)]
+        before = mod.launches[name]
+        got = fold(pools[0])
+        if mod.launches[name] != before + 1:
+            raise AssertionError(f"{name}: {mod.launches[name] - before} launches counted")
+        ref2, ref = two(pools[1]), plain(pools[2])
+        if not (torch.equal(got[rows], ref2[rows])
+                and all(map(torch.equal, kept(pools[0]), kept(pools[1])))
+                and all(map(torch.equal, kept(pools[0]), kept(pools[2])))):
+            raise AssertionError(f"{name} {layout} {tag}: the output or the pools differ from "
+                                 f"the parent's two launches' or the plain version's")
+        label = (f"{name} {layout} Hkv={Hkv} rep={rep} Dh={Dh} B={B} lengths={PAGED_LENGTHS} "
+                 f"ps={ps}, {tag} (bit for bit the two launches')")
+        if not (timing and tag == "all live"):
+            case(cases, label, shape, B, got[rows], ref[rows])
+            continue
+        case(cases, label, shape, B, got, ref, [lambda: fold(pools[0])],
+             [lambda: plain(pools[2])], alone=True)
+        two_fns = [lambda: two(pools[1])]
+        q4 = q.reshape(B, 1, Hkv * rep, Dh) * Dh**0.5  # the layer ops scale it back
+        args = (kn, vn, tab, st, layout)
+        if int8:
+            layer = [lambda: tp.append_attend_paged_layer_int8(q4, *pools[0], *args)]
+            parent = [lambda: (tp.append_token_layer_int8(*pools[1], kn, vn, tab, st, layout),
+                               tp.attend_paged_layer_int8(q4, *pools[1], tab, st + 1, layout))]
+        else:
+            layer = [lambda: tp.append_attend_paged_layer(q4, *pools[0], *args)]
+            parent = [lambda: (tp.append_token_layer(*pools[1], kn, vn, tab, st, layout),
+                               tp.attend_paged_layer(q4, *pools[1], tab, st + 1, layout))]
+        if not torch.equal(layer[0](), parent[0]()[1]):
+            raise AssertionError(f"{name}: the decode layer's op differs from the two it replaces")
+        times = {"two_launch_ms": timed(two_fns)["ms"],
+                 "two_launch_isolated_ms": isolated_ms(two_fns),
+                 "layer_ms": timed(layer)["ms"], "layer_isolated_ms": isolated_ms(layer),
+                 "parent_layer_ms": timed(parent)["ms"],
+                 "parent_layer_isolated_ms": isolated_ms(parent)}
+        cases[-1].update(times)
+        log(f"  the parent's two launches {times['two_launch_ms']:.4f} ms (alone "
+            f"{times['two_launch_isolated_ms']:.4f}); the decode layer's op "
+            f"{times['layer_ms']:.4f} (alone {times['layer_isolated_ms']:.4f}) against the two "
+            f"it replaces {times['parent_layer_ms']:.4f} (alone "
+            f"{times['parent_layer_isolated_ms']:.4f})")
+    return times
+
+
 def _paged_int8_kernel_records(randn, case, library, g) -> list:
     """Kernels 10-12 at phase 2's paged shapes (B=8, PAGED_LENGTHS, a
     140-page pool, shuffled table, two appends on the trash page), on int8
     pages in both layouts; timed in the default (contig) layout, kernel 10
     back to back and alone, beside kernel 5 on bf16 pages of the same
-    shape (back to back and alone)."""
+    shape (back to back and alone); kernel 10 with kernel 11 folded in
+    (_fold_cases), timed beside the two launches it replaces."""
     import torch
     import torch.nn.functional as tf
 
@@ -2177,7 +2292,7 @@ def _paged_int8_kernel_records(randn, case, library, g) -> list:
     page[-2:], slot[-2:] = trash, 5
     keep = torch.arange(n_pool, device=dev) != trash
     mask = (torch.arange(mp * ps, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-    dec, app, gat, lib = [], [], [], {}
+    dec, app, gat, fold, lib, fold_times = [], [], [], [], {}, {}
     for layout in ("contig", "head"):
         shape = (n_pool, Hkv, ps, Dh) if layout == "contig" else (Hkv, n_pool, ps, Dh)
         pool = []
@@ -2219,6 +2334,8 @@ def _paged_int8_kernel_records(randn, case, library, g) -> list:
                   f"outside it identical)", layout, B, kept(pa), kept(pb),
              [lambda: pi.paged_append_int8(*pa, kn, vn, page, slot, layout)],
              [lambda: pi.paged_append_int8_plain(*pb, kn, vn, page, slot, layout)], frac=0.0)
+        fold_times = _fold_cases(True, q, pool, kn, vn, table, lengths, layout, trash, case,
+                                 fold, layout, timing=layout == "contig") or fold_times
 
         gk, gv = pi.gather_pages_int8(*pool, table, layout, torch.bfloat16)
         pk, pv = pi.gather_pages_int8_plain(*pool, table, layout, torch.bfloat16)
@@ -2248,6 +2365,19 @@ def _paged_int8_kernel_records(randn, case, library, g) -> list:
                          pa[1].__setitem__((pl_, slice(None), sl_), sk.float()),
                          pa[2].__setitem__((pl_, slice(None), sl_), qv),
                          pa[3].__setitem__((pl_, slice(None), sl_), sv.float()))])
+            fp, fs, _ = pd.append_rows(table, lengths - 1, ps)
+            fp, fs = fp.long(), fs.long()
+            lib["fold"] = library(
+                "index_put_ of the quantized K and V codes and scales (quantization not "
+                "included), then gather + dequantize K and V + scaled_dot_product_attention "
+                "with a length mask (12+ calls)", [
+                    lambda: (pa[0].__setitem__((fp, slice(None), fs), qk),
+                             pa[1].__setitem__((fp, slice(None), fs), sk.float()),
+                             pa[2].__setitem__((fp, slice(None), fs), qv),
+                             pa[3].__setitem__((fp, slice(None), fs), sv.float()),
+                             tf.scaled_dot_product_attention(
+                                 q, dense(pa[0], pa[1]), dense(pa[2], pa[3]), attn_mask=mask,
+                                 scale=1.0))])
             lib["gather"] = library("pages[table] and scales[table], the multiply and the "
                                     "permute, K and V", [lambda: (dense(kp, ksp), dense(vp, vsp))])
         del pool, pa, pb
@@ -2264,6 +2394,14 @@ def _paged_int8_kernel_records(randn, case, library, g) -> list:
                 "(paged_append_rows, int8 payload); paged_decode.py:286 (paged_append_scales)",
                 app, ("contig", B),
                 bound(2 * B * row * bf + 2 * B * (row + Hkv * 4) + 2 * B * 4, 0), lib["append"]),
+        # Kernel 10's bytes and k_new, v_new.
+        {**_record("paged_decode_int8_append", "tokenhawk_tpu_torch/csrc/decode_tiles.cuh",
+                   "tokenhawk_tpu/ops/pallas/paged_decode_int8.py:450 "
+                   "(paged_flash_decode_int8_walk) with paged_decode.py:205 (paged_append_rows, "
+                   "int8 payload) and paged_decode.py:286 (paged_append_scales) folded in",
+                   fold, ("contig", B),
+                   bound(2 * live * (row + Hkv * 4) + 4 * B * row * bf + B * (mp + 1) * 4,
+                         4 * live * Hkv * Dh), lib["fold"]), **fold_times},
         _record("gather_pages_int8", src, "tokenhawk_tpu/ops/pallas/paged_decode.py:456 "
                 "(gather_pages_dense_int8)", gat, ("contig", B),
                 bound(2 * B * mp * ps * (row + Hkv * 4) + 2 * B * mp * ps * row * bf + B * mp * 4,
@@ -2316,7 +2454,9 @@ def _paged_kernel_records(randn, case, library, g) -> list:
     (contig) layout; kernel 5 also at PAGED_SWEEP's split counts there
     (8 and 5 slots, ragged and all at 2048 rows), and
     at B=1 over 512 and 2048 live rows (its split form: 32 pairs), each
-    with its bound and the library call."""
+    with its bound and the library call; kernel 5 with kernel 6 folded in
+    (_fold_cases), timed in the contig layout beside the two launches it
+    replaces."""
     import torch
     import torch.nn.functional as tf
 
@@ -2341,6 +2481,7 @@ def _paged_kernel_records(randn, case, library, g) -> list:
     keep = torch.arange(n_pool, device=dev) != trash
     row = Hkv * Dh * bf
     sms = build.sm_count(dev)
+    fold_times = {}
 
     def b5(n, tokens):  # the live K/V rows, q and out, the table rows and lengths
         return bound(2 * tokens * row + 2 * n * row + n * (mp + 1) * 4, 4 * tokens * Hkv * Dh)
@@ -2356,7 +2497,7 @@ def _paged_kernel_records(randn, case, library, g) -> list:
         return [lambda: tf.scaled_dot_product_attention(q, dense(kp), dense(vp), attn_mask=mask,
                                                         scale=1.0)]
 
-    dec, app, gat, lib = [], [], [], {}
+    dec, app, gat, fold, lib = [], [], [], [], {}
     for layout in ("contig", "head"):
         shape = (n_pool, Hkv, ps, Dh) if layout == "contig" else (Hkv, n_pool, ps, Dh)
         kp, vp = randn(*shape), randn(*shape)
@@ -2386,6 +2527,8 @@ def _paged_kernel_records(randn, case, library, g) -> list:
              torch.stack([kept(kb), kept(vb)]),
              [lambda: pd.paged_append(ka, va, kn, vn, page, slot, layout)],
              [lambda: pd.paged_append_plain(kb, vb, kn, vn, page, slot, layout)], frac=0.0)
+        fold_times = _fold_cases(False, q, [kp, vp], kn, vn, table, lengths, layout, trash, case,
+                                 fold, layout, timing=layout == "contig") or fold_times
 
         gk, gv = pd.gather_pages(kp, vp, table, layout)
         pk, pv = pd.gather_pages_plain(kp, vp, table, layout)
@@ -2423,6 +2566,14 @@ def _paged_kernel_records(randn, case, library, g) -> list:
             lib["append"] = library("index_put_ of the new K and V rows (2 calls)", [
                 lambda: (ka.__setitem__((pl, slice(None), sl), kn),
                          va.__setitem__((pl, slice(None), sl), vn))])
+            fp, fs, _ = pd.append_rows(table, lengths - 1, ps)
+            fp, fs = fp.long(), fs.long()
+            sdpa = gathered_sdpa(q, ka, va, table, lengths)[0]
+            lib["fold"] = library(
+                "index_put_ of the new K and V rows, then gather K and V + "
+                "scaled_dot_product_attention with a length mask (8+ calls)", [
+                    lambda: (ka.__setitem__((fp, slice(None), fs), kn),
+                             va.__setitem__((fp, slice(None), fs), vn), sdpa())])
             lib["gather"] = library("pages[table] with its permute, K and V (2 x 2 calls)", [
                 lambda: [x[tl].transpose(1, 2).reshape(B, Hkv, mp * ps, Dh) for x in (kp, vp)]])
         del kp, vp, ka, va, kb, vb
@@ -2434,6 +2585,13 @@ def _paged_kernel_records(randn, case, library, g) -> list:
         _record("paged_append", src, "tokenhawk_tpu/ops/pallas/paged_decode.py:205 "
                 "(paged_append_rows)", app, ("contig", B),
                 bound(4 * B * row + 2 * B * 4, 0), lib["append"]),
+        # The live rows (the appended one written, the rest read), q, out,
+        # k_new and v_new, the table rows and lengths.
+        {**_record("paged_decode_append", "tokenhawk_tpu_torch/csrc/decode_tiles.cuh",
+                   "tokenhawk_tpu/ops/pallas/paged_decode.py:683 (paged_flash_decode_walk) "
+                   "with paged_decode.py:205 (paged_append_rows) folded in", fold,
+                   ("contig", B), bound(2 * live * row + 4 * B * row + B * (mp + 1) * 4,
+                                        4 * live * Hkv * Dh), lib["fold"]), **fold_times},
         _record("gather_pages", src, "tokenhawk_tpu/ops/pallas/paged_decode.py:384 "
                 "(gather_pages_dense)", gat, ("contig", B),
                 bound(4 * B * mp * ps * row + B * mp * 4, 0), lib["gather"]),
@@ -3144,7 +3302,7 @@ def _profile_paged(sched, rng, V) -> None:
     for e in avgs[:8]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {_kernel_name(e.key)}")
     for e in avgs:
-        m = re.search(r"paged_decode(_int8|_tiles)?_kernel|paged_append(_int8)?_kernel|"
+        m = re.search(r"paged_decode(_int8)?(_tiles)?_kernel|paged_append(_int8)?_kernel|"
                       r"gather_pages(_int8)?_kernel", e.key)
         if m:
             log(f"  {m.group(0)}: {e.self_device_time_total / 1e3:.3f} ms over {e.count} "
@@ -4032,7 +4190,8 @@ def phase_speculation(params, kernel_mods, model_path: str, tmp: str) -> dict:
     log(f"9a kernel launches: {counts}")
     _check_path(counts, [*Q4_PATHS, FFN_Q4_0, K4, "flash_decode_attend"],
                 ["flash_decode", Q4_GEMV, *QK_PATHS, QK_GEMV, "flash_decode_int8", K9,
-                 "paged_decode", "paged_append", "gather_pages", *CUDA_CORE_PREFILL])
+                 "paged_decode", "paged_decode_append", "paged_append", "gather_pages",
+                 *CUDA_CORE_PREFILL])
     _check_draft_splits("9a", counts)
     for p, (toks, _, _) in zip(prompts, runs):
         _check_greedy_identity(f"9a prompt={len(p)}", toks,
@@ -4073,18 +4232,19 @@ def phase_speculation(params, kernel_mods, model_path: str, tmp: str) -> dict:
         f"{busy * 1e3:.1f} ms, idle share {1 - busy / wall:.1%}")
     del self_spec, engine2, target2
 
-    _paged_speculation(params, draft, cfg, dcfg, kernel_mods)
+    paged_counts = _paged_speculation(params, draft, cfg, dcfg, kernel_mods)
     del draft, spec
     torch.cuda.empty_cache()
     _speculation_subprocesses(model_path, tmp)
-    return counts
+    return counts, paged_counts
 
 
-def _paged_speculation(params, draft, cfg, dcfg, kernel_mods) -> None:
+def _paged_speculation(params, draft, cfg, dcfg, kernel_mods) -> dict:
     """Phase 9c: PagedScheduler with the TinyLlama-width draft over the
     7B Q4_0 target at n_ctx 2048 (pages of 128, prefix cache, prefill
     chunks of 512): phase 4b's 12 prompts, half sampled, 32 tokens each;
-    every request ends at its length, no page leaks."""
+    every request ends at its length, no page leaks.  Returns the run's
+    launches."""
     import torch
 
     from tokenhawk_tpu_torch.config import SamplingConfig
@@ -4139,10 +4299,11 @@ def _paged_speculation(params, draft, cfg, dcfg, kernel_mods) -> None:
            or not all(0 <= t < V for t in r.output)]
     if bad:
         raise AssertionError(f"requests that did not finish cleanly: {bad}")
+    # Every step a verify: kernel 6 writes its B*T rows, no decode step runs.
     _check_path(counts, [*Q4_PATHS, K4, "flash_decode_attend", "paged_append", "gather_pages"],
-                ["paged_decode", "flash_decode", Q4_GEMV, *QK_PATHS, QK_GEMV,
-                 "flash_decode_int8", "paged_decode_int8", "paged_append_int8", "gather_pages_int8",
-                 *CUDA_CORE_PREFILL])
+                ["paged_decode", "paged_decode_append", "flash_decode", Q4_GEMV, *QK_PATHS,
+                 QK_GEMV, "flash_decode_int8", "paged_decode_int8", "paged_decode_int8_append",
+                 "paged_append_int8", "gather_pages_int8", *CUDA_CORE_PREFILL])
     _check_draft_splits("9c", counts)
     parked = set(sched._pc.values())
     if (sched.alloc.n_free + len(parked) != sched.n_pages - 1
@@ -4152,6 +4313,7 @@ def _paged_speculation(params, draft, cfg, dcfg, kernel_mods) -> None:
     log(f"pages: {sched.alloc.n_free} free + {len(parked)} cached + 1 trash = {sched.n_pages}")
     _profile_paged(sched, rng, V)
     sched.cache = sched.draft_cache = None
+    return counts
 
 
 def _spm_metadata(n_vocab: int) -> dict:
@@ -4654,7 +4816,7 @@ def phase_bench(kernel_mods) -> int:
              [Q4_PATHS[0], FFN_Q4_0, "flash_decode", K4]),
             ("serve", ["--batch", "8", "--requests", "16", "--tokens", "64"],
              "llama7b_q4_0_serve_agg_tokens_per_sec_b8",
-             [Q4_PATHS[0], FFN_Q4_0, K4, "paged_decode", "paged_append"])):
+             [Q4_PATHS[0], FFN_Q4_0, K4, "paged_decode_append"])):
         args = bench.parse_args(["--mode", mode, *argv])
         _reset_counts(mods)
         t0 = time.perf_counter()
@@ -4810,15 +4972,20 @@ def main() -> int:
     mods = [qmatmul, ffn, flash_decode, flash_attention]
     every = mods + [paged_decode, kv_int8, paged_int8]
     counts, params = phase_serve(mods)
-    bf16_paged = ["paged_decode", "paged_append", "gather_pages"]
+    # A paged decode layer appends and attends in one launch (kernel 5 with
+    # kernel 6 folded in; on int8 pages kernel 10 with kernel 11): kernels
+    # 5, 6, 10 and 11 launched apart (`unfolded`) stay off every decode
+    # path; kernel 6 serves the paged verify alone (phase 9c).
+    bf16_paged = ["paged_decode_append", "gather_pages"]
     int8_dense = ["flash_decode_int8", K9]
-    int8_paged = ["paged_decode_int8", "paged_append_int8", "gather_pages_int8"]
+    int8_paged = ["paged_decode_int8_append", "gather_pages_int8"]
+    unfolded = ["paged_decode", "paged_append", "paged_decode_int8", "paged_append_int8"]
     cfg_2k = dataclasses.replace(_seven_b(32), n_ctx=2048)
     paged_counts, sched = phase_paged_serve(
         params, cfg_2k, every, "bf16",
-        [*Q4_PATHS, FFN_Q4_0, K4, "paged_decode_split"] + bf16_paged,
+        [*Q4_PATHS, FFN_Q4_0, K4, "paged_decode_append_split"] + bf16_paged,
         [Q4_GEMV, *QK_PATHS, QK_GEMV, "flash_decode", *CUDA_CORE_PREFILL] + int8_dense
-        + int8_paged,
+        + int8_paged + unfolded,
         "phase 4b: paged serve, LLaMA-7B Q4_0, 32 layers")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "llama7b-2layer-q4_0.bin")
@@ -4834,12 +5001,12 @@ def main() -> int:
                                        + int8_dense,
                                        [Q4_GEMV, *QK_PATHS, QK_GEMV, "flash_decode", K4,
                                         *CUDA_CORE_PREFILL]
-                                       + bf16_paged + int8_paged)
+                                       + bf16_paged + int8_paged + unfolded)
         int8_paged_counts, sched = phase_paged_serve(
             params_i8, cfg_i8, every, "int8",
-            [*Q4_PATHS, FFN_Q4_0, K4, "paged_decode_int8_split"] + int8_paged,
+            [*Q4_PATHS, FFN_Q4_0, K4, "paged_decode_int8_append_split"] + int8_paged,
             [Q4_GEMV, *QK_PATHS, QK_GEMV, "flash_decode", *CUDA_CORE_PREFILL] + bf16_paged
-            + int8_dense,
+            + int8_dense + unfolded,
             f"phase 4bi: paged serve, LLaMA-7B Q4_0 widths, {INT8_LAYERS} layers")
         phase_cli(path)
         sched.cache = None
@@ -4848,13 +5015,13 @@ def main() -> int:
         # Phase 8: dense weights decode through kernel 14; phase 9: speculation
         # over the Q4_0 model, its draft's decode through kernel 14 at Dh 64.
         dense_counts = phase_dense_7b(every)
-        spec_counts = phase_speculation(params, every, path, tmp)
+        spec_counts, spec_paged_counts = phase_speculation(params, every, path, tmp)
         # Phase 10: the fused decode-layer kernels (10a Engine, 10b paged),
         # then a head-dim-64 model under the paged server (10c).
         fused_counts = phase_fused_engine(params, every)
-        phase_fused_paged(params, every, bf16_paged, int8_dense + int8_paged)
+        phase_fused_paged(params, every, bf16_paged, int8_dense + int8_paged + unfolded)
         torch.cuda.empty_cache()
-        phase_tinyllama_paged(every, bf16_paged, int8_paged, int8_dense, tmp)
+        phase_tinyllama_paged(every, bf16_paged, int8_paged, int8_dense + unfolded, tmp)
         torch.cuda.empty_cache()
         # Phase 12b: context parallelism over a one-rank NCCL group.
         cp_counts = phase_cp_engine(params, every, tmp)
@@ -4865,13 +5032,13 @@ def main() -> int:
         def engine_path(on, off):
             return ([*QK_PATHS, *on, "flash_decode", K4],
                     [*Q4_PATHS, Q4_GEMV, QK_GEMV, FFN_Q4_0, "flash_decode_attend", *off,
-                     *CUDA_CORE_PREFILL] + bf16_paged + int8_dense + int8_paged)
+                     *CUDA_CORE_PREFILL] + bf16_paged + int8_dense + int8_paged + unfolded)
 
         def paged_path(on, off):
             return ([*QK_PATHS, *on, K4] + bf16_paged,
                     [*Q4_PATHS, Q4_GEMV, QK_GEMV, FFN_Q4_0, "flash_decode", *off,
                      *CUDA_CORE_PREFILL]
-                    + int8_dense + int8_paged)
+                    + int8_dense + int8_paged + unfolded)
 
         # Without THAWK_Q4K_SB the super-block kernels stay off.
         flat_off = [*SB_PATHS, SB_GEMV, *FFN_SB]
@@ -4893,8 +5060,12 @@ def main() -> int:
     bench_records = [stream_rec, *phase_experiments()]
     # Each kernel's launches on the path of the slice that added it: the
     # Q4_0 Engine run for kernels 1-4, the paged server's run for kernels
-    # 5-7, the int8 Engine's for kernels 8-9, the int8 paged server's for
-    # kernels 10-12, and the Engine runs of phases 6 (Q4_K_M) and 6q (Q8_0)
+    # 5 (its kernel's launches as the folded form; none attend-only) and 7
+    # and the folded form, phase 9c's paged verify for kernel 6, the int8
+    # Engine's for kernels 8-9, the int8 paged server's for kernels 10
+    # (likewise) and 12 and its folded form, none for kernel 11 (since its
+    # append runs folded into kernel 10, on no path), and the Engine runs
+    # of phases 6 (Q4_K_M) and 6q (Q8_0)
     # for kernel 13 and kernel 2 over those kinds, each pairing its own;
     # phase 11a's (Q4_K_M in super-block forms) for kernel 17 and kernel 2
     # with an sb w13;
@@ -4920,9 +5091,15 @@ def main() -> int:
                 "fused_ffn[q4k_sb/q6_k]": sb_counts[FFN_SB[0]],
                 "fused_ffn[q4k_sb/q4_k]": sb_counts[FFN_SB[1]],
                 **{k: paged_counts[k] for k in bf16_paged},
+                "paged_decode": (paged_counts.get("paged_decode", 0)
+                                 + paged_counts["paged_decode_append"]),
+                "paged_append": spec_paged_counts["paged_append"],
                 "flash_decode_int8": int8_counts["flash_decode_int8"],
                 "flash_attention_int8": int8_counts[K9],
                 **{k: int8_paged_counts[k] for k in int8_paged},
+                "paged_decode_int8": (int8_paged_counts.get("paged_decode_int8", 0)
+                                      + int8_paged_counts["paged_decode_int8_append"]),
+                "paged_append_int8": int8_paged_counts.get("paged_append_int8", 0),
                 "flash_decode_attend": dense_counts["flash_decode_attend"],
                 "flash_decode_attend_split": spec_counts["flash_decode_split"],
                 "fused_owo_ffn": fused_counts["owo"][OWO_Q4_0],

@@ -1111,6 +1111,142 @@ def test_paged_append_and_gather_kernels_match_plain(layout, dtype, Dh):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _fold_case(g, dev, ps, Hkv, rep, Dh, q_dtype):
+    """Kernel 5's or 10's folded append at its edges: stored lengths 0, 1,
+    ps - 1, ps, ps + 1, 300 and the table's full rows but one (each appends
+    at that row), the table's full rows (the capacity edge: nothing
+    appended), and two sequences parked on the trash page (their table
+    rows all the trash page, both appending at its slot 5).  Returns (q,
+    k_new, v_new, table, lengths, live, n_pages, trash)."""
+    mp = 512 // ps + 1
+    stored = [0, 1, ps - 1, ps, ps + 1, 300, mp * ps - 1, mp * ps, 5, 5]
+    B, n_pages = len(stored), len(stored) * mp + 3
+    trash = n_pages - 1
+    table = torch.randperm(trash, generator=g, device=dev)[:B * mp].reshape(B, mp).int()
+    table[-2:] = trash
+    lengths = torch.tensor(stored, dtype=torch.int32, device=dev)
+    q = (torch.randn(B, Hkv, rep, Dh, generator=g, device=dev) / Dh**0.5).to(q_dtype)
+    kn, vn = (torch.randn(B, Hkv, Dh, generator=g, device=dev).to(q_dtype) for _ in range(2))
+    live = torch.arange(B, device=dev) < B - 2
+    return q, kn, vn, table, lengths, live, n_pages, trash
+
+
+def _outside(pools, layout, trash):
+    """The pools without the trash page."""
+    return [x[:trash] if layout == "contig" else x[:, :trash] for x in pools]
+
+
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
+@pytest.mark.parametrize("layout", ["contig", "head"])
+@pytest.mark.parametrize("ps", [16, 64])
+@pytest.mark.parametrize("q_dtype,pool_dtype", [(torch.bfloat16, torch.bfloat16),
+                                                (torch.float32, torch.float32),
+                                                (torch.bfloat16, torch.float32),
+                                                (torch.float32, torch.bfloat16)])
+def test_paged_decode_append_matches_the_two_launches(layout, ps, q_dtype, pool_dtype, Dh):
+    """Kernel 5 with kernel 6 folded in, at every split count (floors of 1
+    and 2 tiles): on live sequences its output and, outside the trash
+    page, its pools are bit for bit those of kernel 6 (the rows whose table
+    has room) then kernel 5 over lengths + 1 at the same split count, and
+    within one output rounding of the plain version; at the capacity edge
+    nothing is written.  Counted once a call, as the folded kernel."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(ps + Dh + 17)
+    Hkv, rep = 2, 4
+    q, kn, vn, table, lengths, live, n_pages, trash = _fold_case(g, dev, ps, Hkv, rep, Dh,
+                                                                 q_dtype)
+    pools = _pools(g, dev, layout, Hkv, n_pages, ps, pool_dtype, Dh)
+    page, slot, fits = paged_decode.append_rows(table, lengths, ps)
+    plain_pools = [x.clone() for x in pools]
+    want = paged_decode.paged_decode_append_plain(q, *plain_pools, kn, vn, table, lengths,
+                                                  layout)
+    assert not bool(fits[7]) and bool(fits[6])
+    for min_tiles in (1, flash_decode.APPEND_MIN_TILES):
+        for splits in range(1, flash_decode.MAX_SPLITS + 1):
+            folded, two = [x.clone() for x in pools], [x.clone() for x in pools]
+            before = dict(paged_decode.launches)
+            got = paged_decode.paged_decode_append_at(q, *folded, kn, vn, table, lengths,
+                                                      layout, splits, min_tiles)
+            torch.cuda.synchronize()
+            assert paged_decode.launches == {
+                **before, "paged_decode_append": before["paged_decode_append"] + 1,
+                "paged_decode_append_split": before["paged_decode_append_split"] + (splits > 1)}
+            paged_decode.paged_append(*two, kn[fits], vn[fits], page[fits], slot[fits], layout)
+            ref = paged_decode.paged_decode_at(q, *two, table, lengths + 1, layout, splits,
+                                               min_tiles)
+            msg = (splits, min_tiles)
+            assert got.dtype == q_dtype and torch.equal(got[live], ref[live]), msg
+            for a, b, c in zip(_outside(folded, layout, trash), _outside(two, layout, trash),
+                               _outside(plain_pools, layout, trash)):
+                assert torch.equal(a, b) and torch.equal(a, c), msg
+            assert _err(got[live], want[live]) <= _tol(want[live], q_dtype), msg
+
+
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
+@pytest.mark.parametrize("layout", ["contig", "head"])
+@pytest.mark.parametrize("ps", [16, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_int8_append_matches_the_two_launches(layout, ps, dtype, Dh):
+    """Kernel 10 with kernel 11 folded in, as kernel 5's test: outputs on
+    live sequences and the codes and scales outside the trash page bit for
+    bit those of kernel 11 then kernel 10 at the same split count."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(ps + Dh + 19)
+    Hkv, rep = 2, 4
+    q, kn, vn, table, lengths, live, n_pages, trash = _fold_case(g, dev, ps, Hkv, rep, Dh,
+                                                                 dtype)
+    pools = _int8_pools(g, dev, layout, Hkv, n_pages, ps, Dh)
+    page, slot, fits = paged_decode.append_rows(table, lengths, ps)
+    plain_pools = [x.clone() for x in pools]
+    want = paged_int8.paged_decode_int8_append_plain(q, *plain_pools, kn, vn, table, lengths,
+                                                     layout)
+    for min_tiles in (1, flash_decode.APPEND_MIN_TILES):
+        for splits in range(1, flash_decode.MAX_SPLITS + 1):
+            folded, two = [x.clone() for x in pools], [x.clone() for x in pools]
+            before = dict(paged_int8.launches)
+            got = paged_int8.paged_decode_int8_append_at(q, *folded, kn, vn, table, lengths,
+                                                         layout, splits, min_tiles)
+            torch.cuda.synchronize()
+            assert paged_int8.launches == {
+                **before, "paged_decode_int8_append": before["paged_decode_int8_append"] + 1,
+                "paged_decode_int8_append_split":
+                    before["paged_decode_int8_append_split"] + (splits > 1)}
+            paged_int8.paged_append_int8(*two, kn[fits], vn[fits], page[fits], slot[fits],
+                                         layout)
+            ref = paged_int8.paged_decode_int8_at(q, *two, table, lengths + 1, layout, splits,
+                                                  min_tiles)
+            msg = (splits, min_tiles)
+            assert got.dtype == dtype and torch.equal(got[live], ref[live]), msg
+            for a, b, c in zip(_outside(folded, layout, trash), _outside(two, layout, trash),
+                               _outside(plain_pools, layout, trash)):
+                assert torch.equal(a, b) and torch.equal(a, c), msg
+            assert _err(got[live], want[live]) <= _tol(want[live], dtype), msg
+
+
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+def test_paged_decode_launches_the_folded_kernel_once_a_layer(kv):
+    """forward_paged_decode on the card: one folded launch a layer, and
+    neither the append (kernel 6 or 11) nor the attention alone."""
+    from tokenhawk_tpu_torch.runtime.paged import PagedKVCache
+
+    dev = cuda_device()
+    cfg = LlamaConfig.tiny(n_vocab=300, n_embd=256, n_head=2, n_layer=2, n_ff=512, n_ctx=256)
+    g = torch.Generator(device=dev).manual_seed(5)
+    params = tl.fuse_params(tl.init_params(cfg, g, dtype=torch.float32, device=dev,
+                                           scale=0.05, quant="q4_0"))
+    pool = PagedKVCache.create(cfg, 6, 128, "int8" if kv == "int8" else torch.float32, dev)
+    table = torch.tensor([[4, 1], [2, 3]], dtype=torch.int32, device=dev)
+    mod = paged_int8 if kv == "int8" else paged_decode
+    name = "paged_decode_int8" if kv == "int8" else "paged_decode"
+    before = dict(mod.launches)
+    with torch.no_grad():
+        tl.forward_paged_decode(cfg, params, torch.tensor([[5], [7]], device=dev), pool, table,
+                                torch.tensor([3, 130], dtype=torch.int32, device=dev))
+    moved = {k: v - before[k] for k, v in mod.launches.items() if v != before[k]}
+    assert {k: v for k, v in moved.items() if not k.endswith("_split")} == {
+        f"{name}_append": cfg.n_layer}
+
+
 def test_paged_forward_decode_matches_dense_on_the_card():
     """A tiny 2-layer model (head dim 128) on the card: prefill 120 tokens
     into pages, then 12 decode steps across the page boundary, against the

@@ -26,7 +26,6 @@ chat template.
 
 import dataclasses
 import json
-import os
 import shutil
 import socket
 import subprocess
@@ -61,7 +60,7 @@ from tokenhawk_tpu_torch.runtime.paged_scheduler import PagedScheduler
 from tokenhawk_tpu_torch.runtime.scheduler import Scheduler
 
 from helpers import make_ggml_weights
-from torch_helpers import padded_vocab, spm_metadata
+from torch_helpers import padded_vocab, spm_metadata, subprocess_env
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = LlamaConfig.tiny(n_vocab=512, n_embd=512, n_head=4, n_kv_head=1, n_layer=2, n_ff=768,
@@ -299,7 +298,7 @@ def test_cli_stops_on_eot(stop_file):
     out = subprocess.run(
         [sys.executable, "-m", "tokenhawk_tpu_torch.cli", "-m", path, PROMPTS[0], "--device",
          "cpu", "--dtype", "f32", "--greedy", "--max-tokens", "8", "--n-ctx", "128"],
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True, text=True,
+        cwd=ROOT, env=subprocess_env(PYTHONPATH=str(ROOT)), capture_output=True, text=True,
         timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert f"{len(head)} generated" in out.stderr, out.stderr[-2000:]
@@ -322,7 +321,7 @@ def test_paged_server_stops_on_eot_and_renders_the_chat_template(stop_file, load
     proc = subprocess.Popen(
         [sys.executable, "-m", "tokenhawk_tpu_torch.serving", "-m", path, "--paged", "--device",
          "cpu", "--dtype", "f32", "--n-ctx", "128", "--page-size", "16", "--greedy", "--port",
-         str(port)], cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+         str(port)], cwd=ROOT, env=subprocess_env(PYTHONPATH=str(ROOT)),
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     base = f"http://127.0.0.1:{port}"
     try:

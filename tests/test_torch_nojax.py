@@ -19,6 +19,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from torch_helpers import subprocess_env
+
 ROOT = Path(__file__).resolve().parents[1]
 
 SCRIPT = r"""
@@ -123,8 +125,8 @@ print("OK", len(names))
 
 
 def test_port_imports_and_generates_without_jax():
-    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True,
-                         text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=subprocess_env(),
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("OK")
 

@@ -25,7 +25,6 @@ THAWK_POOL_LAYOUT):
 """
 
 import json
-import os
 import socket
 import subprocess
 import sys
@@ -55,7 +54,7 @@ from tokenhawk_tpu_torch.runtime import paged as tp
 from tokenhawk_tpu_torch.runtime.paged_scheduler import PagedScheduler
 
 from helpers import make_ggml_weights
-from torch_helpers import numpy_params, padded_vocab, port_config, t
+from torch_helpers import numpy_params, padded_vocab, port_config, subprocess_env, t
 
 LAYOUTS = ["contig", "head"]
 DH = 128
@@ -328,7 +327,7 @@ def test_entry_point_serves_int8_pages_on_the_cpu(tmp_path):
         [sys.executable, "-m", "tokenhawk_tpu_torch.serving", "-m", str(path), "--paged",
          "--kv", "int8", "--device", "cpu", "--dtype", "f32", "--n-ctx", "64",
          "--page-size", "16", "--port", str(port)], cwd=root,
-        env=dict(os.environ, PYTHONPATH=str(root)), stdout=subprocess.DEVNULL,
+        env=subprocess_env(PYTHONPATH=str(root)), stdout=subprocess.DEVNULL,
         stderr=subprocess.PIPE, text=True)
     base = f"http://127.0.0.1:{port}"
     try:

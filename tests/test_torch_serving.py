@@ -13,7 +13,6 @@ tests/test_torch_paged_int8.py).
 """
 
 import json
-import os
 import socket
 import subprocess
 import sys
@@ -40,7 +39,7 @@ from tokenhawk_tpu_torch.serving.server import serve
 from tokenhawk_tpu_torch.tokenizer import byte_fallback_vocab
 
 from helpers import make_ggml_weights
-from torch_helpers import numpy_params, port_config
+from torch_helpers import numpy_params, port_config, subprocess_env
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = LlamaConfig.tiny(n_vocab=512, n_ctx=64)
@@ -233,7 +232,7 @@ def test_entry_point_serves_on_the_cpu(tmp_path):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = subprocess_env(PYTHONPATH=str(ROOT))
     proc = subprocess.Popen(
         [sys.executable, "-m", "tokenhawk_tpu_torch.serving", "-m", str(path), "--paged",
          "--device", "cpu", "--dtype", "f32", "--n-ctx", "64", "--page-size", "16",

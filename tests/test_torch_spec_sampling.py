@@ -14,7 +14,6 @@ head dim 32 and a 1-layer draft of head dim 16):
 """
 
 import json
-import os
 import socket
 import subprocess
 import sys
@@ -50,7 +49,7 @@ from tokenhawk_tpu_torch.runtime.speculative import (
 from tokenhawk_tpu_torch.sampling import SamplingParams
 
 from helpers import make_ggml_weights
-from torch_helpers import numpy_params, padded_vocab, port_config, t
+from torch_helpers import numpy_params, padded_vocab, port_config, subprocess_env, t
 
 CFG = LlamaConfig(n_vocab=97, n_embd=64, n_head=2, n_layer=2, n_ctx=96, n_ff=96)
 DRAFT_CFG = LlamaConfig(n_vocab=97, n_embd=32, n_head=2, n_layer=1, n_ctx=96, n_ff=48)
@@ -259,7 +258,7 @@ def test_entry_point_serves_with_a_draft_model_on_the_cpu(tmp_path):
         [sys.executable, "-m", "tokenhawk_tpu_torch.serving", "-m", str(paths[0]),
          "--draft-model", str(paths[1]), "--gamma", "3", "--paged", "--device", "cpu",
          "--dtype", "f32", "--n-ctx", "64", "--page-size", "16", "--port", str(port)],
-        cwd=root, env=dict(os.environ, PYTHONPATH=str(root)), stdout=subprocess.DEVNULL,
+        cwd=root, env=subprocess_env(PYTHONPATH=str(root)), stdout=subprocess.DEVNULL,
         stderr=subprocess.PIPE, text=True)
     base = f"http://127.0.0.1:{port}"
     try:

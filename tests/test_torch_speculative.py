@@ -27,7 +27,7 @@ from tokenhawk_tpu_torch.runtime.engine import Engine
 from tokenhawk_tpu_torch.runtime.speculative import SpeculativeEngine
 
 from helpers import make_ggml_weights
-from torch_helpers import numpy_params, padded_vocab, port_config
+from torch_helpers import numpy_params, padded_vocab, port_config, subprocess_env
 
 CFG_T = LlamaConfig.tiny(n_vocab=512, n_embd=128, n_head=4, n_layer=4, n_ctx=64, n_ff=256)
 CFG_D = LlamaConfig.tiny(n_vocab=512, n_embd=64, n_head=2, n_layer=2, n_ctx=64, n_ff=128)
@@ -127,7 +127,7 @@ def test_cli_with_draft_model_prints_the_target_stream(tmp_path):
         [sys.executable, "-m", "tokenhawk_tpu_torch.cli", "-m", paths[0], "Hello there",
          "--draft-model", paths[1], "--gamma", "3", "--device", "cpu", "--dtype", "f32",
          "--n-ctx", "64", "--max-tokens", "10", "--greedy"],
-        cwd=root, capture_output=True, timeout=300)
+        cwd=root, env=subprocess_env(), capture_output=True, timeout=300)
     assert out.returncode == 0, out.stderr.decode()[-2000:]
     cfg, params, tok = load_model(paths[0], n_ctx=64, dtype=torch.float32, device="cpu")
     eng = Engine(cfg, params, tok, SamplingConfig(temperature=0.0), cache_dtype=torch.float32)

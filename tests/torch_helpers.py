@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -10,6 +12,14 @@ import torch
 # one intra-op thread per core in each of them oversubscribes the cores, and
 # the many tiny ops of these tests then wait on each other's threads.
 torch.set_num_threads(1)
+
+
+def subprocess_env(**extra) -> dict:
+    """os.environ, with `extra`, for a process a test starts: one OpenMP
+    and MKL thread, as this process has.  Torch's default of a thread per
+    core in each of several such processes beside the suite's workers
+    oversubscribes the cores by an order of magnitude."""
+    return dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1", **extra)
 
 
 def cuda_device() -> torch.device:

@@ -2,10 +2,12 @@
 // kernel 3 (decode_append.cu: append + attend over the dense cache),
 // kernel 16's attention (attn_wo.cu: the same with q scaled in the block,
 // into an f32 context), kernel 18 (decode_stats.cu: one shard's softmax
-// partials over a strided dense cache), kernel 5 (paged_decode.cu: attend through a page table),
-// and over int8 codes with a scale a row, kernel 8 (kv_int8.cu: quantize
-// and append, then attend over the dense int8 cache) and kernel 10
-// (paged_int8.cu: attend through a page table over int8 pages).
+// partials over a strided dense cache), kernel 5 (paged_decode.cu: attend
+// through a page table, appending first where the caller gives the new
+// row), and over int8 codes with a scale a row, kernel 8 (kv_int8.cu:
+// quantize and append, then attend over the dense int8 cache) and kernel 10
+// (paged_int8.cu: attend through a page table over int8 pages, quantizing
+// and appending first where the caller gives the new row).
 //
 // What bounds them on the H100: the bytes of the live K/V rows,
 // 2*L*Dh*sizeof(cache) a head (int8: 2*L*(Dh + the scale's bytes)).
@@ -48,14 +50,19 @@
 // K and V (DenseRows: r times a row stride; PagedRows: through the
 // sequence's page table, so a chunk may span pages; DenseRows8 and
 // PagedRows8 the same over int8 codes, each with its scales).  APPEND
-// (kernels 3, 8 and 16): the block whose range holds row L-1 writes k_new
-// / v_new there in the cache and puts the same values into its own tile in
-// place of a copy, so no block reads that row back from device memory.
-// Kernel 8's is a quantization: warp 0 quantizes k_new, warp 1 v_new
-// (kv_int8.cuh quantize_row) while the first chunks are in flight, writes
-// the codes and the bfloat16-rounded scale at row L-1, and puts the same
-// codes and rounded scale into the tile of the chunk that holds the row
-// (which its copies zero-filled) between that chunk's barrier and one more.
+// (kernels 3, 8 and 16, and kernels 5 and 10 where their k_new is not
+// null, a choice made at run time so that one instance serves both): the
+// block whose range holds row L-1 writes k_new / v_new there in the cache
+// and puts the same values into its own tile in place of a copy, so no
+// block reads that row back from device memory: its copies zero-fill row
+// L-1, and the first DH threads, holding element tid of k_new / v_new since
+// the start, write the row into the tile of the chunk that holds it (and
+// into the cache) between that chunk's barrier and one more, so the copy
+// loop itself carries no branch for the row.  Kernels 8 and 10 quantize:
+// warp 0 quantizes k_new, warp 1 v_new (kv_int8.cuh quantize_row) while
+// the first chunks are in flight, writes the codes and the bfloat16-rounded
+// scale at row L-1, and puts the same codes and rounded scale into the tile
+// at the same point.
 //
 // Modes:
 //   kOne: one block a pair takes [0, L);
@@ -162,11 +169,11 @@ struct DenseRows {
 };
 
 // Row r of a paged head: slot r % ps of page pages[r / ps], the head's base
-// `k` / `v` (h * head_stride) already applied.
+// `k` / `v` (h * head_stride) already applied (written only by APPEND).
 template <typename TC, int DH>
 struct PagedRows {
-  const TC* k;
-  const TC* v;
+  TC* k;
+  TC* v;
   const int* pages;  // the sequence's row of the page table
   int ps;
   long long page_stride;
@@ -210,14 +217,14 @@ struct DenseRows8 {
 
 // Row r of a paged int8 head (kernel 10): slot r % ps of page
 // pages[r / ps], codes at a page stride and f32 scales at theirs, the
-// head's bases applied.
+// head's bases applied (written only by APPEND).
 template <int DH>
 struct PagedRows8 {
   using Scale = float;
-  const int8_t* k;
-  const int8_t* v;
-  const Scale* ks;
-  const Scale* vs;
+  int8_t* k;
+  int8_t* v;
+  Scale* ks;
+  Scale* vs;
   const int* pages;  // the sequence's row of the page table
   int ps;
   long long page_stride, spage_stride;
@@ -293,7 +300,8 @@ __device__ __forceinline__ void put_codes(int8_t* p, uint32_t codes) {
 
 // One block's walk over its range of one (sequence, kv head) pair's L live
 // rows (see the header): q, k_new, v_new and the epilogue already at the
-// pair (and, kGrid, the split); `split` of `splits` from the grid.  q is
+// pair (and, kGrid, the split); `split` of `splits` from the grid; APPEND
+// appends only where kn is not null (kn and vn both or neither).  q is
 // staged as q * q_scale rounded to q's type (kernel 16's 1/sqrt(Dh); every
 // other kernel takes q pre-scaled and passes 1, which is exact); with
 // `trigger` each block lets the kernel launched after this one as its
@@ -335,22 +343,26 @@ __device__ __forceinline__ void walk(unsigned char* smem, const TQ* __restrict__
   }
   const bool merge = MODE == kCluster && n_live > 1;
   if (merge) cluster_arrive_relaxed();  // this block runs
+  const bool append = APPEND && kn != nullptr;
 
   if (begin < end) {
+    const int n_chunks = (end - begin + CR - 1) / CR;
+    // The block that appends (its range holds row L-1): its copies
+    // zero-fill row L-1, whose values come from k_new / v_new (kernels 8
+    // and 10: their quantization below) once that row's chunk has landed.
+    const bool app = append && end == L;
+    const int copy_end = app ? end - 1 : end;
+    // 2-byte and f32 rows: element tid of the new rows, loaded now and
+    // used when their chunk lands.
+    TQ app_k = from_f32<TQ>(0.f), app_v = from_f32<TQ>(0.f);
     if constexpr (APPEND && !SCALED) {
-      if (end == L && tid < DH) {  // this range holds row L-1: append it
-        const size_t dst = rows.at(L - 1) + tid;
-        rows.k[dst] = from_f32<TC>(to_f32(kn[tid]));
-        rows.v[dst] = from_f32<TC>(to_f32(vn[tid]));
+      if (app && tid < DH) {
+        app_k = kn[tid];
+        app_v = vn[tid];
       }
     }
-    const int n_chunks = (end - begin + CR - 1) / CR;
-    // Kernel 8's block that appends: its copies zero-fill row L-1, whose
-    // codes and scale come from the quantization below.
-    const bool app = APPEND && SCALED && end == L;
-    const int copy_end = app ? end - 1 : end;
     // Chunk c's K and V rows into ring half c & 1; rows past end are
-    // zero-filled (APPEND: row L-1 comes from k_new / v_new).
+    // zero-filled.
     auto issue = [&](int c) {
       TC* kt = ring + (c & 1) * 2 * CR * kRow;
       TC* vt = kt + CR * kRow;
@@ -358,16 +370,6 @@ __device__ __forceinline__ void walk(unsigned char* smem, const TQ* __restrict__
       for (int i = tid; i < CR * A::PIECES; i += NT) {
         const int j = i / A::PIECES, e = (i % A::PIECES) * EPP, row = row0 + j;
         const bool ok = row < copy_end;
-        if constexpr (APPEND && !SCALED) {
-          if (ok && row == L - 1) {
-#pragma unroll
-            for (int x = 0; x < EPP; ++x) {
-              kt[j * kRow + e + x] = from_f32<TC>(to_f32(kn[e + x]));
-              vt[j * kRow + e + x] = from_f32<TC>(to_f32(vn[e + x]));
-            }
-            continue;
-          }
-        }
         const size_t src = (ok ? rows.at(row) : 0) + e;
         cp_async16(kt + j * kRow + e, rows.k + src, ok);
         cp_async16(vt + j * kRow + e, rows.v + src, ok);
@@ -386,9 +388,9 @@ __device__ __forceinline__ void walk(unsigned char* smem, const TQ* __restrict__
     if (trigger) grid_launch_dependents();
     for (int i = tid; i < REP * DH; i += NT)
       qsm[i] = to_f32(from_f32<TQ>(to_f32(q[i]) * q_scale));
-    // Kernel 8's append: warp 0 quantizes k_new, warp 1 v_new, writes the
-    // codes and the bfloat16-rounded scale at row L-1 and keeps both for
-    // the tile (a lane's NQ codes packed in a word).
+    // Kernels 8 and 10's append: warp 0 quantizes k_new, warp 1 v_new,
+    // writes the codes and the bfloat16-rounded scale at row L-1 and keeps
+    // both for the tile (a lane's NQ codes packed in a word).
     uint32_t app_codes = 0;
     Scale app_scale = from_f32<Scale>(0.f);
     if constexpr (APPEND && SCALED) {
@@ -425,13 +427,22 @@ __device__ __forceinline__ void walk(unsigned char* smem, const TQ* __restrict__
       const TC* vt = kt + CR * kRow;
       const Scale* kss = scl + (c & 1) * 2 * CR;  // SCALED: the chunk's scales
       const Scale* vss = kss + CR;
-      if constexpr (APPEND && SCALED) {
+      if constexpr (APPEND) {
         if (app && c == n_chunks - 1) {  // the chunk of row L-1: that row from the append
           const int ja = L - 1 - (begin + c * CR);
-          if (warp < 2) {
-            put_codes<NQ>(ring + (c & 1) * 2 * CR * kRow + (warp * CR + ja) * kRow + lane * NQ,
-                          app_codes);
-            if (lane == 0) scl[(c & 1) * 2 * CR + warp * CR + ja] = app_scale;
+          TC* kw = ring + (c & 1) * 2 * CR * kRow;
+          if constexpr (SCALED) {
+            if (warp < 2) {
+              put_codes<NQ>(kw + (warp * CR + ja) * kRow + lane * NQ, app_codes);
+              if (lane == 0) scl[(c & 1) * 2 * CR + warp * CR + ja] = app_scale;
+            }
+          } else if (tid < DH) {  // the new row into the tile and the cache
+            const TC k = from_f32<TC>(to_f32(app_k)), v = from_f32<TC>(to_f32(app_v));
+            kw[ja * kRow + tid] = k;
+            kw[(CR + ja) * kRow + tid] = v;
+            const size_t dst = rows.at(L - 1) + tid;
+            rows.k[dst] = k;
+            rows.v[dst] = v;
           }
           __syncthreads();
         }

@@ -20,6 +20,16 @@
 // into ranges of at least min_tiles tiles over a thread-block cluster and
 // merged on chip, as kernel 3's split form.  A row of length 0 writes zeros.
 //
+// Kernel 5 with kernel 6 folded in (th_paged_decode_append, the decode
+// layer's one launch): lengths[b] counts the tokens already stored; the
+// block whose range holds row lengths[b] writes the new K / V row there
+// through the table, as kernel 3 writes its dense row, takes it into its
+// tile in place of a copy, and the pair attends over lengths[b] + 1 rows.
+// At the table's capacity (lengths[b] >= max_pages * ps) nothing is
+// written and the pair attends over the max_pages * ps rows it has.  The
+// same instances serve both entries: the append is chosen at run time by a
+// k_new that is not null.
+//
 // Kernel 6, paged append, replaces paged_append_rows (_append_kernel): one
 // block per sequence copies its new K and V rows [Hkv, Dh] into (page, slot)
 // of the K and V pools in one launch.  Sequences parked on the trash page
@@ -40,10 +50,12 @@ namespace {
 
 // Kernel 5: block (split, b * Hkv + h) of a cluster of `splits` (SPLIT) or
 // block b * Hkv + h runs the walk over the pair's live rows through the
-// sequence's row of the table.
+// sequence's row of the table; with k_new (kernel 6 folded in) it first
+// appends the pair's new row at lengths[b] where the table has room.
 template <typename TQ, typename TC, int REP, int DH, bool SPLIT>
 __global__ void __launch_bounds__(tiles::kThreads)
-    paged_decode_tiles_kernel(const TQ* __restrict__ q, const TC* kp, const TC* vp,
+    paged_decode_tiles_kernel(const TQ* __restrict__ q, TC* kp, TC* vp,
+                              const TQ* __restrict__ k_new, const TQ* __restrict__ v_new,
                               const int* __restrict__ table, const int* __restrict__ lengths,
                               TQ* __restrict__ out, int Hkv, int ps, int max_pages,
                               long long page_stride, long long head_stride, int min_tiles) {
@@ -52,19 +64,25 @@ __global__ void __launch_bounds__(tiles::kThreads)
   const int b = bh / Hkv, h = bh % Hkv;
   const size_t qo = static_cast<size_t>(bh) * REP * DH;
   const size_t ho = static_cast<size_t>(h) * head_stride;
-  tiles::walk<TQ, TC, REP, DH, SPLIT ? tiles::kCluster : tiles::kOne, false>(
+  const int cap = max_pages * ps, n = lengths[b];
+  const bool fold = k_new != nullptr;
+  const bool app = fold && n >= 0 && n < cap;  // row n lies in the table
+  const size_t no = static_cast<size_t>(bh) * DH;
+  tiles::walk<TQ, TC, REP, DH, SPLIT ? tiles::kCluster : tiles::kOne, true>(
       smem, q + qo,
       tiles::PagedRows<TC, DH>{kp + ho, vp + ho, table + static_cast<size_t>(b) * max_pages, ps,
                                page_stride},
-      static_cast<const TQ*>(nullptr), static_cast<const TQ*>(nullptr),
-      max(0, min(lengths[b], max_pages * ps)), SPLIT ? static_cast<int>(blockIdx.x) : 0,
+      app ? k_new + no : nullptr, app ? v_new + no : nullptr,
+      max(0, min(fold ? n + 1 : n, cap)), SPLIT ? static_cast<int>(blockIdx.x) : 0,
       SPLIT ? static_cast<int>(gridDim.x) : 1, min_tiles, tiles::Normalised<TQ>{out + qo});
 }
 
 struct DecodeArgs {
   const void* q;
-  const void* kp;
-  const void* vp;
+  void* kp;
+  void* vp;
+  const void* k_new;  // null: attend only
+  const void* v_new;
   const int* table;
   const int* lengths;
   void* out;
@@ -83,8 +101,9 @@ cudaError_t launch_decode(const DecodeArgs& a) {
   const int cluster = SPLIT ? a.splits : 1;
   return tiles::launch(fn, SPLIT ? dim3(a.splits, a.B * a.Hkv) : dim3(a.B * a.Hkv), cluster,
                        tiles::smem_bytes<TC, REP, DH>(cluster), a.stream,
-                       static_cast<const TQ*>(a.q), static_cast<const TC*>(a.kp),
-                       static_cast<const TC*>(a.vp), a.table, a.lengths,
+                       static_cast<const TQ*>(a.q), static_cast<TC*>(a.kp),
+                       static_cast<TC*>(a.vp), static_cast<const TQ*>(a.k_new),
+                       static_cast<const TQ*>(a.v_new), a.table, a.lengths,
                        static_cast<TQ*>(a.out), a.Hkv, a.ps, a.max_pages, a.page_stride,
                        a.head_stride, a.min_tiles);
 }
@@ -138,6 +157,14 @@ __global__ void gather_pages_kernel(const uint4* __restrict__ kp, const uint4* _
 
 }  // namespace
 
+static int run_decode(const DecodeArgs& a, int q_dtype, int pool_dtype, int rep, int Dh) {
+  if (a.splits < 1 || a.splits > tiles::kMaxSplits || a.min_tiles < 1 || a.ps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = tiles::dispatch<LaunchDecode, true>(a, q_dtype, pool_dtype, rep, Dh);
+  const int last = THAWK_LAUNCH_RESULT();  // also clears a failed launch's error
+  return e != cudaSuccess ? static_cast<int>(e) : last;
+}
+
 // q, out [B, Hkv, rep, Dh] in q_dtype (q pre-scaled); k_pages, v_pages one
 // layer's pools in pool_dtype (strides in elements); table [B, max_pages]
 // and lengths [B] int32.  rep must be 1, 2, 4 or 8 and Dh 64 or 128
@@ -149,14 +176,29 @@ extern "C" int th_paged_decode(const void* q, const void* k_pages, const void* v
                                int rep, int Dh, int ps, int max_pages, long long page_stride,
                                long long head_stride, int splits, int min_tiles, int q_dtype,
                                int pool_dtype, void* stream) {
-  if (splits < 1 || splits > tiles::kMaxSplits || min_tiles < 1 || ps < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const DecodeArgs a{q, k_pages, v_pages, static_cast<const int*>(table),
+  // Attend only: without k_new the walk never writes the pools.
+  const DecodeArgs a{q, const_cast<void*>(k_pages), const_cast<void*>(v_pages), nullptr,
+                     nullptr, static_cast<const int*>(table), static_cast<const int*>(lengths),
+                     out, B, Hkv, ps, max_pages, page_stride, head_stride, splits, min_tiles,
+                     static_cast<cudaStream_t>(stream)};
+  return run_decode(a, q_dtype, pool_dtype, rep, Dh);
+}
+
+// Kernel 5 with kernel 6 folded in: as th_paged_decode, and k_new, v_new
+// [B, Hkv, Dh] in q_dtype, appended at row lengths[b] (the tokens already
+// stored) of each sequence before it attends over lengths[b] + 1 rows;
+// nothing is appended where the table has no row lengths[b].
+extern "C" int th_paged_decode_append(const void* q, void* k_pages, void* v_pages,
+                                      const void* k_new, const void* v_new, const void* table,
+                                      const void* lengths, void* out, int B, int Hkv, int rep,
+                                      int Dh, int ps, int max_pages, long long page_stride,
+                                      long long head_stride, int splits, int min_tiles,
+                                      int q_dtype, int pool_dtype, void* stream) {
+  if (k_new == nullptr || v_new == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const DecodeArgs a{q, k_pages, v_pages, k_new, v_new, static_cast<const int*>(table),
                      static_cast<const int*>(lengths), out, B, Hkv, ps, max_pages, page_stride,
                      head_stride, splits, min_tiles, static_cast<cudaStream_t>(stream)};
-  const cudaError_t e = tiles::dispatch<LaunchDecode, true>(a, q_dtype, pool_dtype, rep, Dh);
-  const int last = THAWK_LAUNCH_RESULT();  // also clears a failed launch's error
-  return e != cudaSuccess ? static_cast<int>(e) : last;
+  return run_decode(a, q_dtype, pool_dtype, rep, Dh);
 }
 
 // k_new, v_new [B, Hkv, row] in the pools' type, row = row_bytes bytes;

@@ -28,6 +28,16 @@
 // into ranges of at least min_tiles tiles over a thread-block cluster and
 // merged on chip.  A row of length 0 writes zeros.
 //
+// Kernel 10 with kernel 11 folded in (th_paged_decode_int8_append, the int8
+// decode layer's one launch): lengths[b] counts the tokens already stored;
+// the block whose range holds row lengths[b] quantizes the new K and V rows
+// (a warp each, kernel 11's quantize_row and bfloat16-rounded scale, so the
+// pools come out bit for bit as kernel 11 writes them), writes codes and
+// scale there through the table and into its own tile, and the pair attends
+// over lengths[b] + 1 rows.  At the table's capacity nothing is written and
+// the pair attends over the max_pages * ps rows it has.  The same instances
+// serve both entries: a k_new that is not null chooses the append.
+//
 // Kernel 11, paged append, replaces paged_append_rows on int8 payloads
 // together with paged_append_scales (tokenhawk_tpu/ops/pallas/paged_decode.py):
 // blocks of 8 warps, a warp per row, quantize each sequence's new K and V
@@ -58,11 +68,14 @@ struct PoolStrides {
 
 // Kernel 10: block (split, b * Hkv + h) of a cluster of `splits` blocks
 // (one block a pair where splits is 1) runs the walk over the pair's live
-// rows through the sequence's row of the table.
+// rows through the sequence's row of the table; with k_new (kernel 11
+// folded in) it first quantizes and appends the pair's new row at
+// lengths[b] where the table has room.
 template <typename TQ, typename TC, int REP, int DH>
 __global__ void __launch_bounds__(tiles::kThreads)
-    paged_decode_int8_tiles_kernel(const TQ* __restrict__ q, const TC* kp, const float* ksp,
-                                   const TC* vp, const float* vsp, const int* __restrict__ table,
+    paged_decode_int8_tiles_kernel(const TQ* __restrict__ q, TC* kp, float* ksp, TC* vp,
+                                   float* vsp, const TQ* __restrict__ k_new,
+                                   const TQ* __restrict__ v_new, const int* __restrict__ table,
                                    const int* __restrict__ lengths, TQ* __restrict__ out,
                                    int Hkv, int ps, int max_pages, PoolStrides st,
                                    int min_tiles) {
@@ -71,21 +84,27 @@ __global__ void __launch_bounds__(tiles::kThreads)
   const int b = bh / Hkv, h = bh % Hkv;
   const size_t qo = static_cast<size_t>(bh) * REP * DH;
   const size_t ho = static_cast<size_t>(h) * st.head, so = static_cast<size_t>(h) * st.shead;
-  tiles::walk<TQ, TC, REP, DH, tiles::kCluster, false>(
+  const int cap = max_pages * ps, n = lengths[b];
+  const bool fold = k_new != nullptr;
+  const bool app = fold && n >= 0 && n < cap;  // row n lies in the table
+  const size_t no = static_cast<size_t>(bh) * DH;
+  tiles::walk<TQ, TC, REP, DH, tiles::kCluster, true>(
       smem, q + qo,
       tiles::PagedRows8<DH>{kp + ho, vp + ho, ksp + so, vsp + so,
                             table + static_cast<size_t>(b) * max_pages, ps, st.page, st.spage},
-      static_cast<const TQ*>(nullptr), static_cast<const TQ*>(nullptr),
-      max(0, min(lengths[b], max_pages * ps)), blockIdx.x, gridDim.x, min_tiles,
+      app ? k_new + no : nullptr, app ? v_new + no : nullptr,
+      max(0, min(fold ? n + 1 : n, cap)), blockIdx.x, gridDim.x, min_tiles,
       tiles::Normalised<TQ>{out + qo});
 }
 
 struct DecodeArgs {
   const void* q;
-  const void* kp;
-  const void* ksp;
-  const void* vp;
-  const void* vsp;
+  void* kp;
+  void* ksp;
+  void* vp;
+  void* vsp;
+  const void* k_new;  // null: attend only
+  const void* v_new;
   const int* table;
   const int* lengths;
   void* out;
@@ -106,9 +125,10 @@ struct LaunchDecode {
     if (allowed != cudaSuccess) return allowed;
     return tiles::launch(fn, dim3(a.splits, a.B * a.Hkv), a.splits,
                          tiles::smem_bytes<TC, REP, DH>(a.splits), a.stream,
-                         static_cast<const TQ*>(a.q), static_cast<const TC*>(a.kp),
-                         static_cast<const float*>(a.ksp), static_cast<const TC*>(a.vp),
-                         static_cast<const float*>(a.vsp), a.table, a.lengths,
+                         static_cast<const TQ*>(a.q), static_cast<TC*>(a.kp),
+                         static_cast<float*>(a.ksp), static_cast<TC*>(a.vp),
+                         static_cast<float*>(a.vsp), static_cast<const TQ*>(a.k_new),
+                         static_cast<const TQ*>(a.v_new), a.table, a.lengths,
                          static_cast<TQ*>(a.out), a.Hkv, a.ps, a.max_pages, a.st,
                          a.min_tiles);
   }
@@ -205,6 +225,14 @@ void launch_gather(const void* k_pages, const void* ks_pages, const void* v_page
       static_cast<TO*>(k_out), static_cast<TO*>(v_out), Hkv, max_pages, ps, st);
 }
 
+int run_decode(const DecodeArgs& a, int q_dtype, int rep, int Dh) {
+  if (a.splits < 1 || a.splits > tiles::kMaxSplits || a.min_tiles < 1 || a.ps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = tiles::dispatch_int8<LaunchDecode>(a, q_dtype, rep, Dh);
+  const int last = THAWK_LAUNCH_RESULT();  // also clears a failed launch's error
+  return e != cudaSuccess ? static_cast<int>(e) : last;
+}
+
 }  // namespace
 
 // Every entry point takes Dh, 64 or 128 (checked by the wrapper), and
@@ -233,15 +261,36 @@ extern "C" int th_paged_decode_int8(const void* q, const void* k_pages, const vo
                                     long long page_stride, long long head_stride,
                                     long long spage_stride, long long shead_stride, int splits,
                                     int min_tiles, int q_dtype, void* stream) {
-  if (splits < 1 || splits > tiles::kMaxSplits || min_tiles < 1 || ps < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const DecodeArgs a{q, k_pages, ks_pages, v_pages, vs_pages, static_cast<const int*>(table),
-                     static_cast<const int*>(lengths), out, B, Hkv, ps, max_pages,
+  // Attend only: without k_new the walk never writes the pools.
+  const DecodeArgs a{q, const_cast<void*>(k_pages), const_cast<void*>(ks_pages),
+                     const_cast<void*>(v_pages), const_cast<void*>(vs_pages), nullptr, nullptr,
+                     static_cast<const int*>(table), static_cast<const int*>(lengths), out, B,
+                     Hkv, ps, max_pages,
                      PoolStrides{page_stride, head_stride, spage_stride, shead_stride}, splits,
                      min_tiles, static_cast<cudaStream_t>(stream)};
-  const cudaError_t e = tiles::dispatch_int8<LaunchDecode>(a, q_dtype, rep, Dh);
-  const int last = THAWK_LAUNCH_RESULT();  // also clears a failed launch's error
-  return e != cudaSuccess ? static_cast<int>(e) : last;
+  return run_decode(a, q_dtype, rep, Dh);
+}
+
+// Kernel 10 with kernel 11 folded in: as th_paged_decode_int8, and k_new,
+// v_new [B, Hkv, Dh] in q_dtype, quantized and appended at row lengths[b]
+// (the tokens already stored) of each sequence before it attends over
+// lengths[b] + 1 rows; nothing is appended where the table has no row
+// lengths[b].
+extern "C" int th_paged_decode_int8_append(const void* q, void* k_pages, void* ks_pages,
+                                           void* v_pages, void* vs_pages, const void* k_new,
+                                           const void* v_new, const void* table,
+                                           const void* lengths, void* out, int B, int Hkv,
+                                           int rep, int Dh, int ps, int max_pages,
+                                           long long page_stride, long long head_stride,
+                                           long long spage_stride, long long shead_stride,
+                                           int splits, int min_tiles, int q_dtype, void* stream) {
+  if (k_new == nullptr || v_new == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const DecodeArgs a{q, k_pages, ks_pages, v_pages, vs_pages, k_new, v_new,
+                     static_cast<const int*>(table), static_cast<const int*>(lengths), out, B,
+                     Hkv, ps, max_pages,
+                     PoolStrides{page_stride, head_stride, spage_stride, shead_stride}, splits,
+                     min_tiles, static_cast<cudaStream_t>(stream)};
+  return run_decode(a, q_dtype, rep, Dh);
 }
 
 // k_new, v_new [B, Hkv, Dh] in new_dtype; page, slot [B] int32; the pools

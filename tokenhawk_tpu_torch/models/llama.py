@@ -86,10 +86,9 @@ from tokenhawk_tpu_torch.ops.qweight import (
 from tokenhawk_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from tokenhawk_tpu_torch.runtime.paged import (
     PagedKVCache,
+    append_attend_paged_layer,
+    append_attend_paged_layer_int8,
     append_token_layer,
-    append_token_layer_int8,
-    attend_paged_layer,
-    attend_paged_layer_int8,
     gather_pages,
     gather_pages_int8,
     paginate_fragment_layer,
@@ -364,18 +363,21 @@ def forward_paged_decode(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Te
                          lengths: torch.Tensor):
     """One decode step over the paged pool: tokens [B, 1] land at position
     lengths[b] (tokens already stored), through page_table [B, max_pages]
-    int32.  Returns (hidden [B, 1, D], the pool, updated in place)."""
+    int32.  Each layer appends its K / V row and attends over lengths + 1
+    tokens in one launch.  Returns (hidden [B, 1, D], the pool, updated in
+    place)."""
     x = params.tok_embd[tokens]
     positions = lengths.long()[:, None]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    stored = lengths.to(torch.int32)
     for lp, lc in zip(params.layers, cache.layers()):
         q, k, v = _qkv(cfg, x, lp, cos, sin)
-        if cache.quant:  # kernels 11 + 10
-            append_token_layer_int8(*lc, k[:, 0], v[:, 0], page_table, lengths, cache.layout)
-            ctx = attend_paged_layer_int8(q, *lc, page_table, lengths + 1, cache.layout)
-        else:
-            append_token_layer(*lc, k[:, 0], v[:, 0], page_table, lengths, cache.layout)
-            ctx = attend_paged_layer(q, *lc, page_table, lengths + 1, cache.layout)
+        if cache.quant:  # kernel 10 with kernel 11 folded in
+            ctx = append_attend_paged_layer_int8(q, *lc, k[:, 0], v[:, 0], page_table, stored,
+                                                 cache.layout)
+        else:  # kernel 5 with kernel 6 folded in
+            ctx = append_attend_paged_layer(q, *lc, k[:, 0], v[:, 0], page_table, stored,
+                                            cache.layout)
         x = _wo_ffn_block(cfg, x, ctx, lp, params.fusions)
     return x, cache
 

@@ -6,6 +6,11 @@
                  through per-sequence page tables, on kernel 3's
                  shared-memory tile walk (csrc/decode_tiles.cuh) with each
                  row's address read from the table;
+  paged_decode_append
+                 kernel 5 with kernel 6 folded in, the decode layer's one
+                 launch: each sequence's new K / V row appended at row
+                 lengths[b] (the tokens already stored) through the table,
+                 then attention over lengths[b] + 1 rows;
   paged_append   replaces `paged_append_rows` (_append_kernel): one K and
                  one V row per sequence into (page, slot), in place;
   gather_pages   replaces `gather_pages_dense` (_gather_kernel): each
@@ -24,6 +29,18 @@ SM count, never the lengths) gives more than 1, each pair's live rows cut
 on the card into tile-aligned ranges over a thread-block cluster, merged
 on chip (kernel 3's split form).  Counted as `launches["paged_decode"]`,
 the split form also in `["paged_decode_split"]`.
+
+paged_decode_append launches the same kernel with the new rows: the
+block whose range holds row lengths[b] writes them there and takes them
+into its tile in place of a copy, as kernel 3 appends.  Where the table
+has no row lengths[b] (a sequence at its capacity) nothing is written and
+the sequence attends over the rows it has.  Same split rule; counted as
+`launches["paged_decode_append"]`, the split form also in
+`["paged_decode_append_split"]`.  Its output and pools are bit for bit
+those of kernel 6 then kernel 5 (the new row reaches the tile as the
+pool's type holds it); sequences parked on the trash page read rows that
+another may be writing in the same launch, so their outputs, discarded by
+the scheduler, are unspecified.
 
 Tolerance of paged_decode against its plain version: f32 scores and
 softmax in both, another summation order (the split form also merges its
@@ -46,7 +63,8 @@ from tokenhawk_tpu_torch.ops.cuda.flash_decode import (
 )
 
 LAYOUTS = ("contig", "head")
-launches = {"paged_decode": 0, "paged_decode_split": 0, "paged_append": 0, "gather_pages": 0}
+launches = {"paged_decode": 0, "paged_decode_split": 0, "paged_decode_append": 0,
+            "paged_decode_append_split": 0, "paged_append": 0, "gather_pages": 0}
 # Kernel 5's splits where the (sequence, kv head) pairs fill the SMs (see
 # paged_splits): a paged server's ragged lengths leave its longest pair
 # setting the time.  Its sweep on an H100 at 700 W (chip_smoke.py phase 2,
@@ -62,6 +80,8 @@ _LL = build.LL
 # q, k, v, table, lengths, out; B, Hkv, rep, Dh, ps, max_pages; strides;
 # splits, min_tiles, q and pool dtypes; stream.
 _DECODE_ARGS = [build.P] * 6 + [build.I] * 6 + [_LL, _LL] + [build.I] * 4 + [build.P]
+# The same with k_new and v_new after the pools.
+_DECODE_APPEND_ARGS = [build.P] * 8 + [build.I] * 6 + [_LL, _LL] + [build.I] * 4 + [build.P]
 _APPEND_ARGS = [build.P] * 6 + [build.I] * 3 + [_LL, _LL, build.P]
 _GATHER_ARGS = [build.P] * 5 + [build.I] * 4 + [_LL, _LL, build.P]
 
@@ -161,20 +181,8 @@ def paged_decode_at(q, k_pages, v_pages, page_table, lengths, layout, splits: in
     """Kernel 5 at a given split count (1 to MAX_SPLITS), its ranges at
     least min_tiles tiles: what paged_decode launches with paged_splits'
     count; chip_smoke.py sweeps the count with it.  CUDA tensors only."""
-    B, Hkv, rep, Dh = q.shape
-    n_pages, pHkv, ps, pDh = pool_dims(k_pages, layout)
-    build.require(Dh in HEAD_DIMS and pDh == Dh,
-                  f"head dim {Dh} (pool {pDh}) not in {HEAD_DIMS}")
-    build.require(rep in REPS, f"query heads per kv head {rep} not in {REPS}")
-    build.require(pHkv == Hkv and v_pages.shape == k_pages.shape,
-                  f"pools {tuple(k_pages.shape)} do not match q {tuple(q.shape)}")
-    build.require(k_pages.dtype == v_pages.dtype, "k and v pools differ in dtype")
-    build.require(page_table.dtype == torch.int32 and page_table.dim() == 2
-                  and page_table.shape[0] == B, "page_table must be int32 [B, max_pages]")
-    build.require(lengths.dtype == torch.int32 and lengths.shape == (B,),
-                  "lengths must be int32 [B]")
-    build.require(1 <= splits <= MAX_SPLITS, f"splits {splits} not in 1..{MAX_SPLITS}")
-    build.require(min_tiles >= 1, f"min_tiles must be positive, got {min_tiles}")
+    B, Hkv, rep, Dh, ps = _check_decode(q, k_pages, v_pages, page_table, lengths, layout,
+                                        splits, min_tiles)
     q = q.contiguous()
     page_table = page_table.contiguous()
     build.require_cuda(q, k_pages, v_pages, page_table, lengths)
@@ -189,6 +197,92 @@ def paged_decode_at(q, k_pages, v_pages, page_table, lengths, layout, splits: in
     launches["paged_decode"] += 1
     if splits > 1:
         launches["paged_decode_split"] += 1
+    return out
+
+
+def _check_decode(q, k_pages, v_pages, page_table, lengths, layout, splits, min_tiles):
+    """Kernel 5's argument checks (both entries): (B, Hkv, rep, Dh, ps)."""
+    B, Hkv, rep, Dh = q.shape
+    n_pages, pHkv, ps, pDh = pool_dims(k_pages, layout)
+    build.require(Dh in HEAD_DIMS and pDh == Dh,
+                  f"head dim {Dh} (pool {pDh}) not in {HEAD_DIMS}")
+    build.require(rep in REPS, f"query heads per kv head {rep} not in {REPS}")
+    build.require(pHkv == Hkv and v_pages.shape == k_pages.shape,
+                  f"pools {tuple(k_pages.shape)} do not match q {tuple(q.shape)}")
+    build.require(k_pages.dtype == v_pages.dtype, "k and v pools differ in dtype")
+    build.require(page_table.dtype == torch.int32 and page_table.dim() == 2
+                  and page_table.shape[0] == B, "page_table must be int32 [B, max_pages]")
+    build.require(lengths.dtype == torch.int32 and lengths.shape == (B,),
+                  "lengths must be int32 [B]")
+    build.require(1 <= splits <= MAX_SPLITS, f"splits {splits} not in 1..{MAX_SPLITS}")
+    build.require(min_tiles >= 1, f"min_tiles must be positive, got {min_tiles}")
+    return B, Hkv, rep, Dh, ps
+
+
+# -- kernel 5 with kernel 6 folded in: append + attend ------------------------
+
+
+def append_rows(page_table, lengths, ps: int):
+    """(page, slot, fits) of row lengths[b] of each sequence, page and slot
+    int32 [B]: fits is false where the table has no such row (lengths[b]
+    outside [0, max_pages * ps)), and page and slot are then row 0's."""
+    n = lengths.long()
+    fits = (n >= 0) & (n < page_table.shape[1] * ps)
+    at = torch.where(fits, n, 0)
+    page = page_table.gather(1, (at // ps)[:, None])[:, 0].to(torch.int32)
+    return page, (at % ps).to(torch.int32), fits
+
+
+def paged_decode_append_plain(q, k_pages, v_pages, k_new, v_new, page_table, lengths, layout):
+    """The same function in plain PyTorch, the reference's order: kernel 6's
+    plain version at row lengths[b] of each sequence whose table has it, in
+    order, then kernel 5's over lengths + 1 rows."""
+    page, slot, fits = append_rows(page_table, lengths, pool_dims(k_pages, layout)[2])
+    paged_append_plain(k_pages, v_pages, k_new[fits], v_new[fits], page[fits], slot[fits],
+                       layout)
+    return paged_decode_plain(q, k_pages, v_pages, page_table, lengths + 1, layout)
+
+
+def paged_decode_append(q, k_pages, v_pages, k_new, v_new, page_table, lengths, layout):
+    """q [B, Hkv, rep, Dh] (pre-scaled), one layer's k/v pools in `layout`,
+    k_new / v_new [B, Hkv, Dh] in q.dtype, page_table [B, max_pages] int32,
+    lengths [B] int32 tokens already stored -> out [B, Hkv, rep, Dh] in
+    q.dtype: the new rows written at row lengths[b] of the pools, in place,
+    and attention over lengths[b] + 1 rows, in one launch."""
+    if not q.is_cuda:
+        return paged_decode_append_plain(q, k_pages, v_pages, k_new, v_new, page_table,
+                                         lengths, layout)
+    B, Hkv = q.shape[:2]
+    ps = pool_dims(k_pages, layout)[2]
+    return paged_decode_append_at(q, k_pages, v_pages, k_new, v_new, page_table, lengths,
+                                  layout, paged_splits(B, Hkv, page_table.shape[1] * ps,
+                                                       build.sm_count(q.device)))
+
+
+def paged_decode_append_at(q, k_pages, v_pages, k_new, v_new, page_table, lengths, layout,
+                           splits: int, min_tiles: int = APPEND_MIN_TILES):
+    """paged_decode_append at a given split count (1 to MAX_SPLITS), its
+    ranges at least min_tiles tiles.  CUDA tensors only."""
+    B, Hkv, rep, Dh, ps = _check_decode(q, k_pages, v_pages, page_table, lengths, layout,
+                                        splits, min_tiles)
+    build.require(k_new.shape == (B, Hkv, Dh) and v_new.shape == k_new.shape,
+                  f"new rows {tuple(k_new.shape)} do not match q {tuple(q.shape)}")
+    build.require(k_new.dtype == q.dtype and v_new.dtype == q.dtype,
+                  f"new rows in {k_new.dtype} / {v_new.dtype}, q in {q.dtype}")
+    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    page_table = page_table.contiguous()
+    build.require_cuda(q, k_pages, v_pages, k_new, v_new, page_table, lengths)
+    out = torch.empty_like(q)
+    page_stride, head_stride = _strides(k_pages, layout)
+    fn = build.function("th_paged_decode_append", _DECODE_APPEND_ARGS)
+    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_new.data_ptr(),
+            v_new.data_ptr(), page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, Hkv,
+            rep, Dh, ps, page_table.shape[1], page_stride, head_stride, splits, min_tiles,
+            build.dtype_code(q.dtype), build.dtype_code(k_pages.dtype), build.stream_of(q))
+    build.check(rc, "paged_decode_append")
+    launches["paged_decode_append"] += 1
+    if splits > 1:
+        launches["paged_decode_append_split"] += 1
     return out
 
 

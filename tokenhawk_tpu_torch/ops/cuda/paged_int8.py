@@ -7,6 +7,12 @@
                      on kernel 3's shared-memory tile walk
                      (csrc/decode_tiles.cuh) as kernel 5 runs it, each
                      row's codes and scale read through the table;
+  paged_decode_int8_append
+                     kernel 10 with kernel 11 folded in, the int8 decode
+                     layer's one launch: each sequence's new K / V row
+                     quantized and appended at row lengths[b] (the tokens
+                     already stored) through the table, then attention
+                     over lengths[b] + 1 rows;
   paged_append_int8  replaces `paged_append_rows` on int8 payloads and
                      `paged_append_scales` (ops/pallas/paged_decode.py):
                      quantizes one K and one V row per sequence and writes
@@ -32,6 +38,16 @@ live rows cut on the card into tile-aligned ranges over a thread-block
 cluster, merged on chip.  Counted as `launches["paged_decode_int8"]`, the
 split form also in `["paged_decode_int8_split"]`.
 
+paged_decode_int8_append launches the same kernel with the new rows: the
+block whose range holds row lengths[b] quantizes them (a warp each for K
+and V, kernel 11's codec) and writes codes and scale there and into its
+tile; nothing where the table has no row lengths[b].  Same split rule;
+counted as `launches["paged_decode_int8_append"]`, the split form also in
+`["paged_decode_int8_append_split"]`.  Its output and pools are bit for
+bit those of kernel 11 then kernel 10; sequences parked on the trash page
+read rows another may be writing in the same launch, so their discarded
+outputs are unspecified.
+
 Tolerance of paged_decode_int8 against its plain version: exact attention
 over the dequantized pages in f32 in both (a code times a bfloat16 scale
 is exact in f32), another summation order (the split form also merges its
@@ -52,6 +68,7 @@ from tokenhawk_tpu_torch.ops.cuda.paged_decode import (
     REPS,
     _check_ids,
     _strides,
+    append_rows,
     attend_gathered,
     gather_pool_payload,
     paged_splits,
@@ -59,8 +76,9 @@ from tokenhawk_tpu_torch.ops.cuda.paged_decode import (
 )
 from tokenhawk_tpu_torch.ops.kvquant import quantize_kv_block
 
-launches = {"paged_decode_int8": 0, "paged_decode_int8_split": 0, "paged_append_int8": 0,
-            "gather_pages_int8": 0}
+launches = {"paged_decode_int8": 0, "paged_decode_int8_split": 0,
+            "paged_decode_int8_append": 0, "paged_decode_int8_append_split": 0,
+            "paged_append_int8": 0, "gather_pages_int8": 0}
 # Kernel 10's splits where one block a pair would fill the SMs at most two
 # deep (kernel 5's FULL_SPLITS): at LLaMA-7B's heads over 8 slots on an
 # H100 at 700 W (experiments/decode_rows.py --sweep, ms at 1, 2, 4 splits),
@@ -72,6 +90,8 @@ _LL = build.LL
 # q, the pools (4), table, lengths, out; B, Hkv, rep, Dh, ps, max_pages;
 # strides; splits, min_tiles, q dtype; stream.
 _DECODE_ARGS = [build.P] * 8 + [build.I] * 6 + [_LL] * 4 + [build.I] * 3 + [build.P]
+# The same with k_new and v_new after the pools.
+_DECODE_APPEND_ARGS = [build.P] * 10 + [build.I] * 6 + [_LL] * 4 + [build.I] * 3 + [build.P]
 _APPEND_ARGS = [build.P] * 8 + [build.I] * 3 + [_LL] * 4 + [build.I, build.P]
 _GATHER_ARGS = [build.P] * 7 + [build.I] * 5 + [_LL] * 4 + [build.I, build.P]
 
@@ -145,17 +165,8 @@ def paged_decode_int8_at(q, k_pages, ks_pages, v_pages, vs_pages, page_table, le
     least min_tiles tiles: what paged_decode_int8 launches with
     paged_int8_splits' count; chip_smoke.py times splits = 1 beside it.
     CUDA tensors only."""
-    B, Hkv, rep, Dh = q.shape
-    n_pages, pHkv, ps, pDh = _check_pool(k_pages, ks_pages, v_pages, vs_pages, layout)
-    build.require(Dh == pDh and pHkv == Hkv,
-                  f"pools {tuple(k_pages.shape)} do not match q {tuple(q.shape)}")
-    build.require(rep in REPS, f"query heads per kv head {rep} not in {REPS}")
-    build.require(page_table.dtype == torch.int32 and page_table.dim() == 2
-                  and page_table.shape[0] == B, "page_table must be int32 [B, max_pages]")
-    build.require(lengths.dtype == torch.int32 and lengths.shape == (B,),
-                  "lengths must be int32 [B]")
-    build.require(1 <= splits <= MAX_SPLITS, f"splits {splits} not in 1..{MAX_SPLITS}")
-    build.require(min_tiles >= 1, f"min_tiles must be positive, got {min_tiles}")
+    B, Hkv, rep, Dh, ps = _check_decode(q, k_pages, ks_pages, v_pages, vs_pages, page_table,
+                                        lengths, layout, splits, min_tiles)
     q = q.contiguous()
     page_table = page_table.contiguous()
     build.require_cuda(q, k_pages, ks_pages, v_pages, vs_pages, page_table, lengths)
@@ -169,6 +180,85 @@ def paged_decode_int8_at(q, k_pages, ks_pages, v_pages, vs_pages, page_table, le
     launches["paged_decode_int8"] += 1
     if splits > 1:
         launches["paged_decode_int8_split"] += 1
+    return out
+
+
+def _check_decode(q, k_pages, ks_pages, v_pages, vs_pages, page_table, lengths, layout, splits,
+                  min_tiles):
+    """Kernel 10's argument checks (both entries): (B, Hkv, rep, Dh, ps)."""
+    B, Hkv, rep, Dh = q.shape
+    n_pages, pHkv, ps, pDh = _check_pool(k_pages, ks_pages, v_pages, vs_pages, layout)
+    build.require(Dh == pDh and pHkv == Hkv,
+                  f"pools {tuple(k_pages.shape)} do not match q {tuple(q.shape)}")
+    build.require(rep in REPS, f"query heads per kv head {rep} not in {REPS}")
+    build.require(page_table.dtype == torch.int32 and page_table.dim() == 2
+                  and page_table.shape[0] == B, "page_table must be int32 [B, max_pages]")
+    build.require(lengths.dtype == torch.int32 and lengths.shape == (B,),
+                  "lengths must be int32 [B]")
+    build.require(1 <= splits <= MAX_SPLITS, f"splits {splits} not in 1..{MAX_SPLITS}")
+    build.require(min_tiles >= 1, f"min_tiles must be positive, got {min_tiles}")
+    return B, Hkv, rep, Dh, ps
+
+
+# -- kernel 10 with kernel 11 folded in: quantizing append + attend --------------
+
+
+def paged_decode_int8_append_plain(q, k_pages, ks_pages, v_pages, vs_pages, k_new, v_new,
+                                   page_table, lengths, layout):
+    """The same function in plain PyTorch, the reference's order: kernel
+    11's plain version at row lengths[b] of each sequence whose table has
+    it, in order, then kernel 10's over lengths + 1 rows."""
+    page, slot, fits = append_rows(page_table, lengths, pool_dims(k_pages, layout)[2])
+    paged_append_int8_plain(k_pages, ks_pages, v_pages, vs_pages, k_new[fits], v_new[fits],
+                            page[fits], slot[fits], layout)
+    return paged_decode_int8_plain(q, k_pages, ks_pages, v_pages, vs_pages, page_table,
+                                   lengths + 1, layout)
+
+
+def paged_decode_int8_append(q, k_pages, ks_pages, v_pages, vs_pages, k_new, v_new, page_table,
+                             lengths, layout):
+    """q [B, Hkv, rep, Dh] (pre-scaled), one layer's int8 pools in
+    `layout`, k_new / v_new [B, Hkv, Dh] in q.dtype, page_table
+    [B, max_pages] int32, lengths [B] int32 tokens already stored ->
+    out [B, Hkv, rep, Dh] in q.dtype: the new rows quantized and written at
+    row lengths[b] of the pools, in place, and attention over lengths[b] + 1
+    rows, in one launch."""
+    if not q.is_cuda:
+        return paged_decode_int8_append_plain(q, k_pages, ks_pages, v_pages, vs_pages, k_new,
+                                              v_new, page_table, lengths, layout)
+    B, Hkv = q.shape[:2]
+    ps = pool_dims(k_pages, layout)[2]
+    return paged_decode_int8_append_at(
+        q, k_pages, ks_pages, v_pages, vs_pages, k_new, v_new, page_table, lengths, layout,
+        paged_int8_splits(B, Hkv, page_table.shape[1] * ps, build.sm_count(q.device)))
+
+
+def paged_decode_int8_append_at(q, k_pages, ks_pages, v_pages, vs_pages, k_new, v_new,
+                                page_table, lengths, layout, splits: int,
+                                min_tiles: int = APPEND_MIN_TILES):
+    """paged_decode_int8_append at a given split count (1 to MAX_SPLITS),
+    its ranges at least min_tiles tiles.  CUDA tensors only."""
+    B, Hkv, rep, Dh, ps = _check_decode(q, k_pages, ks_pages, v_pages, vs_pages, page_table,
+                                        lengths, layout, splits, min_tiles)
+    build.require(k_new.shape == (B, Hkv, Dh) and v_new.shape == k_new.shape,
+                  f"new rows {tuple(k_new.shape)} do not match q {tuple(q.shape)}")
+    build.require(k_new.dtype == q.dtype and v_new.dtype == q.dtype,
+                  f"new rows in {k_new.dtype} / {v_new.dtype}, q in {q.dtype}")
+    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    page_table = page_table.contiguous()
+    build.require_cuda(q, k_pages, ks_pages, v_pages, vs_pages, k_new, v_new, page_table,
+                       lengths)
+    out = torch.empty_like(q)
+    fn = build.function("th_paged_decode_int8_append", _DECODE_APPEND_ARGS)
+    rc = fn(q.data_ptr(), k_pages.data_ptr(), ks_pages.data_ptr(), v_pages.data_ptr(),
+            vs_pages.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), page_table.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), B, Hkv, rep, Dh, ps, page_table.shape[1],
+            *_all_strides(k_pages, layout), splits, min_tiles, build.dtype_code(q.dtype),
+            build.stream_of(q))
+    build.check(rc, "paged_decode_int8_append")
+    launches["paged_decode_int8_append"] += 1
+    if splits > 1:
+        launches["paged_decode_int8_append_split"] += 1
     return out
 
 

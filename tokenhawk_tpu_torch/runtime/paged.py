@@ -18,9 +18,11 @@ every op and kernel; nothing reads it from the environment (the reference
 reads THAWK_POOL_LAYOUT at trace time, and infers the head axis from the
 number of dimensions).
 
-Decode appends and attention run kernels 6 and 5, the chunked-prefill
-gather kernel 7 (ops/cuda/paged_decode.py); on an int8 pool kernels 11,
-10 and 12 (ops/cuda/paged_int8.py).  Whole-page fragment writes are plain
+A decode layer appends and attends in one launch, kernel 5 with kernel
+6's append folded in, the chunked-prefill gather runs kernel 7, the
+speculative verify's block append kernel 6 (ops/cuda/paged_decode.py); on
+an int8 pool kernel 10 with kernel 11's quantizing append folded in, and
+kernel 12 (ops/cuda/paged_int8.py).  Whole-page fragment writes are plain
 index copies (quantized first on an int8 pool), as in the reference.  An
 int8 scale is the codec's bfloat16-rounded scale held as f32
 (ops/kvquant.py).  Pages are updated in place.
@@ -41,6 +43,7 @@ from tokenhawk_tpu_torch.ops.cuda.paged_decode import (
     gather_pool_payload,
     paged_append,
     paged_decode,
+    paged_decode_append,
     pool_dims,
 )
 from tokenhawk_tpu_torch.ops.cuda.paged_int8 import (
@@ -48,14 +51,16 @@ from tokenhawk_tpu_torch.ops.cuda.paged_int8 import (
     gather_pool_scales,
     paged_append_int8,
     paged_decode_int8,
+    paged_decode_int8_append,
 )
 from tokenhawk_tpu_torch.ops.kvquant import quantize_kv_block
 
 __all__ = ["LAYOUTS", "PagedKVCache", "PageAllocator", "append_token_layer",
            "paginate_fragment_layer", "paginate_fragment_layer_at", "attend_paged_layer",
-           "gather_pool_payload", "gather_pages", "append_token_layer_int8",
-           "paginate_fragment_layer_int8", "paginate_fragment_layer_int8_at",
-           "attend_paged_layer_int8", "gather_pool_scales", "gather_pages_int8",
+           "append_attend_paged_layer", "gather_pool_payload", "gather_pages",
+           "append_token_layer_int8", "paginate_fragment_layer_int8",
+           "paginate_fragment_layer_int8_at", "attend_paged_layer_int8",
+           "append_attend_paged_layer_int8", "gather_pool_scales", "gather_pages_int8",
            "pool_from_jax"]
 
 
@@ -187,18 +192,34 @@ def paginate_fragment_layer(pages, frag, page_table, layout):
     paginate_fragment_layer_at(pages, frag, page_table, start, layout)
 
 
+def _grouped_q(q, k_pages, layout, scale: Optional[float]):
+    """q [B, 1, H, Dh] times scale (1/sqrt(Dh) by default) -> [B, Hkv, rep, Dh]."""
+    B, T, H, Dh = q.shape
+    Hkv = pool_dims(k_pages, layout)[1]
+    if scale is None:
+        scale = 1.0 / Dh**0.5
+    return (q[:, 0] * scale).reshape(B, Hkv, H // Hkv, Dh)
+
+
 def attend_paged_layer(q, k_pages, v_pages, page_table, lengths, layout,
                        scale: Optional[float] = None):
     """Decode attention, q [B, 1, H, Dh] over `lengths` [B] live tokens
     (the current one included) -> [B, 1, H, Dh] (kernel 5)."""
-    B, T, H, Dh = q.shape
-    Hkv = pool_dims(k_pages, layout)[1]
-    rep = H // Hkv
-    if scale is None:
-        scale = 1.0 / Dh**0.5
-    qg = (q[:, 0] * scale).reshape(B, Hkv, rep, Dh)
-    out = paged_decode(qg, k_pages, v_pages, page_table, lengths.to(torch.int32), layout)
-    return out.reshape(B, 1, H, Dh)
+    out = paged_decode(_grouped_q(q, k_pages, layout, scale), k_pages, v_pages, page_table,
+                       lengths.to(torch.int32), layout)
+    return out.reshape(q.shape)
+
+
+def append_attend_paged_layer(q, k_pages, v_pages, k_new, v_new, page_table, lengths, layout,
+                              scale: Optional[float] = None):
+    """One decode layer's append and attention in one launch (kernel 5
+    with kernel 6 folded in): k_new / v_new [B, Hkv, Dh] written at
+    position lengths[b] (int32 [B], the tokens already stored), then q
+    [B, 1, H, Dh] over lengths[b] + 1 tokens -> [B, 1, H, Dh]; what
+    append_token_layer then attend_paged_layer over lengths + 1 give."""
+    out = paged_decode_append(_grouped_q(q, k_pages, layout, scale), k_pages, v_pages, k_new,
+                              v_new, page_table, lengths, layout)
+    return out.reshape(q.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -239,15 +260,20 @@ def attend_paged_layer_int8(q, k_pages, ks_pages, v_pages, vs_pages, page_table,
                             layout, scale: Optional[float] = None):
     """Decode attention, q [B, 1, H, Dh] over `lengths` [B] live tokens of
     one layer's int8 pools -> [B, 1, H, Dh] (kernel 10)."""
-    B, T, H, Dh = q.shape
-    Hkv = pool_dims(k_pages, layout)[1]
-    rep = H // Hkv
-    if scale is None:
-        scale = 1.0 / Dh**0.5
-    qg = (q[:, 0] * scale).reshape(B, Hkv, rep, Dh)
-    out = paged_decode_int8(qg, k_pages, ks_pages, v_pages, vs_pages, page_table,
-                            lengths.to(torch.int32), layout)
-    return out.reshape(B, 1, H, Dh)
+    out = paged_decode_int8(_grouped_q(q, k_pages, layout, scale), k_pages, ks_pages, v_pages,
+                            vs_pages, page_table, lengths.to(torch.int32), layout)
+    return out.reshape(q.shape)
+
+
+def append_attend_paged_layer_int8(q, k_pages, ks_pages, v_pages, vs_pages, k_new, v_new,
+                                   page_table, lengths, layout, scale: Optional[float] = None):
+    """One decode layer's quantizing append and attention over its int8
+    pools in one launch (kernel 10 with kernel 11 folded in): as
+    append_attend_paged_layer; what append_token_layer_int8 then
+    attend_paged_layer_int8 over lengths + 1 give."""
+    out = paged_decode_int8_append(_grouped_q(q, k_pages, layout, scale), k_pages, ks_pages,
+                                   v_pages, vs_pages, k_new, v_new, page_table, lengths, layout)
+    return out.reshape(q.shape)
 
 
 # ---------------------------------------------------------------------------
