@@ -60,11 +60,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      the PagedScheduler; kernels 13 and 2 launched, kernel 1 not;
   6q. the 32-layer LLaMA-7B model in Q8_0 through Engine.generate;
   7. a 2-layer Llama-3-8B-width Q4_K_M GGUF file with a byte-level BPE
-     vocab of 128256 tokens: load_model, the CLI (--kv auto; since phase
-     10 was added the CLI's bf16 run is phase 5's alone, a load of this
-     file taking 35-50 s), and `python -m tokenhawk_tpu_torch.serving --paged` (SSE, one chat
-     request through the file's template, a request that stops on
-     <|eot_id|>);
+     vocab of 128256 tokens: load_model (its k-quant blocks unpacked on
+     the card, ggml/kquant_decode.py: 64 rows of a tensor of each kind
+     held bit for bit to the numpy decode), the CLI (--kv auto; the
+     CLI's bf16 run is phase 5's alone), and `python -m
+     tokenhawk_tpu_torch.serving --paged` (SSE, one chat request through
+     the file's template, a request that stops on <|eot_id|>);
   8. dense weights: the 32-layer LLaMA-7B in bf16 (TokenHawk's f16
      config) through Engine at n_ctx 512, prompts of 5 and 300 tokens:
      kernel 14 (decode attention without append, behind an index copy)
@@ -142,6 +143,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      sets, then the script; kernel 22 (experiments/sm90_probe.py) through
      the script (all seven probes ok), each probe against its plain
      version, and the int8 tensor-core product on random codes.
+  14. tensor parallelism (parallel/tp.py, tp_paged.py, multihost_serving.py,
+     runtime/sharded_loader.py): 14a, at the end of phase 2, kernel 1
+     (Q4_0, the decode-row walk) at the 7B's rank-local projections at tp 2
+     and 4 (wqkv 4096->6144 / 3072, wo 2048 / 1024->4096, w13 4096->11008 /
+     5504, w2 5504 / 2752->4096, output 4096->16000 / 8000) at 1 and 8 rows,
+     kernel 3 at B=1 over 512 and kernel 5 with its append folded in at 8
+     ragged slots at the ranks' 16 and 8 heads, each against its plain
+     version, timed with its bound and the library call; after phase 12b,
+     over the same world-1 NCCL group, 14b the 7B Q4_0's first 8 layers
+     through Engine(parallel="tp") (prompts of 5 and 300 tokens, 32 greedy
+     tokens each; kernels 1, 3 and 4 launched, kernels 2, 15 and 16 not,
+     though asked for; each stream held against the dense Engine's up to
+     near-ties; tok/s, a profiled request's idle share); 14c
+     PagedScheduler(mesh=...) on bf16 and on int8 pages, 8 greedy requests
+     of phase 4b's kind driven through MultihostServingDriver as the
+     coordinator (packets broadcast over NCCL): every request finished, no
+     page leaked, streams against the one-process scheduler's up to
+     near-ties; 14d load_model_sharded of phase 4c's 2-layer file bit for
+     bit load_model(mesh=...)'s, both load times.  One H100 runs one
+     rank: tp 2 and 4 are held to the JAX package on the CPU
+     (tests/test_torch_tp*.py), and 14a's records show 0 launches (no
+     path here runs a rank's shapes), with 14b/14c's launches at world 1
+     beside them under tp_path_launches_at_world_1_full_width.
 The entry points a phase runs as subprocesses (CLI, servers) run side by
 side, as their loads are host work.
 Phase 2 also holds kernel 17 (Q4_K super-blocks) beside kernel 13 over the
@@ -164,6 +188,7 @@ It needs one CUDA device and the rest of the repository beside it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -601,6 +626,7 @@ def phase_kernels() -> list:
     records += _sb_kernel_records(randn, case, library, g)
     records += _fused_layer_records(randn, case, library, g)
     records += _cp_kernel_records(randn, case)
+    records += _tp_kernel_records(randn, case)
     _check_parent_digests()
     return records
 
@@ -3543,6 +3569,44 @@ STOP_PROMPT = "Once upon a time, in a land far away,"
 EOT_ID = 128009
 
 
+def _check_kquant_decode(path: str, rows: int = 64) -> dict:
+    """The first `rows` rows of one tensor of each k-quant kind in the
+    file, unpacked on the card (ggml/kquant_decode.py, the loader's path)
+    and by ggml/kquants.py's numpy decode: codes, sides (and Q4_K's
+    super-block parts) and the dense decode, bit for bit.  Returns
+    {kind: tensor name}."""
+    from tokenhawk_tpu_torch.ggml import kquant_decode as kd
+    from tokenhawk_tpu_torch.ggml import kquants
+    from tokenhawk_tpu_torch.ggml.format import GGMLType
+    from tokenhawk_tpu_torch.runtime.loader import open_model_file
+
+    f = open_model_file(path)
+    try:
+        seen = {}
+        for name, rec in f.tensors.items():
+            if rec.ggml_type in kd.EXTRACT and len(rec.shape) == 2:
+                seen.setdefault(rec.ggml_type, name)
+        for kind, name in seen.items():
+            shape = (rows, f.tensors[name].shape[1])
+            n = shape[0] * shape[1]
+            raw = bytes(f.raw(name)[:n // kquants.QK_K * kquants.KQUANT_BLOCK_BYTES[kind]])
+            buf = kd.blocks(kind, raw, n, "cuda")
+            pairs = [(kd.EXTRACT[kind](buf), getattr(kquants, f"extract_{kind.name.lower()}")(raw, n)),
+                     ((kd.dequant(kind, raw, shape, "cuda"),),
+                      (kquants.dequant_kquant(kind, raw, shape),))]
+            if kind == GGMLType.Q4_K:
+                pairs.append((kd.extract_q4_k_sb(buf), kquants.extract_q4_k_sb(raw, n)))
+            for got, want in pairs:
+                for g, w in zip(got, want, strict=True):
+                    g = g.cpu().numpy()
+                    if g.dtype != w.dtype or g.shape != w.shape or g.tobytes() != w.tobytes():
+                        raise AssertionError(f"{name} ({kind.name}): the card's unpacking "
+                                             f"differs from the numpy decode")
+    finally:
+        f.close()
+    return {kind.name: name for kind, name in seen.items()}
+
+
 def phase_gguf(tmp: str, kernel_mods) -> str:
     """Phase 7: a 2-layer Llama-3-8B-width Q4_K_M GGUF through load_model,
     the CLI and the paged server; a request stops on <|eot_id|>.  Returns
@@ -3570,6 +3634,10 @@ def phase_gguf(tmp: str, kernel_mods) -> str:
     log(f"load_model in {time.perf_counter() - t0:.1f} s: {type(tok).__name__} ({tok.pre}), "
         f"bos {tok.bos_id}, eog {sorted(tok.eog_ids)}; n_kv_head {lcfg.n_kv_head}, rope base "
         f"{lcfg.rope_theta}, eps {lcfg.rms_norm_eps}, n_ff {lcfg.n_ff}")
+    t0 = time.perf_counter()
+    kinds = _check_kquant_decode(path)
+    log(f"k-quant blocks unpacked on the card equal the numpy decode bit for bit: "
+        f"{kinds} [{time.perf_counter() - t0:.1f} s]")
     # GGUF stores the eps as float32.
     want = (cfg.n_kv_head, cfg.rope_theta, float(np.float32(cfg.rms_norm_eps)), cfg.n_ff,
             cfg.n_vocab)
@@ -3598,8 +3666,7 @@ def phase_gguf(tmp: str, kernel_mods) -> str:
     torch.cuda.empty_cache()
 
     # The CLI with --kv auto (int8 at n_ctx 2048); its bf16 run on a file
-    # is phase 5's, and each load of this file takes 35-50 s of host time.
-    # The server loads its copy of the file meanwhile.
+    # is phase 5's.  The server loads its copy of the file meanwhile.
     def run_cli():
         extra = ["--kv", "auto", "--n-ctx", str(INT8_CTX)]
         _reset_counts(kernel_mods)
@@ -4634,14 +4701,25 @@ def _cp_forms(dense, cp, prompt, n: int) -> tuple:
     history (kernel 19, then kernel 18 a token): per step, the dense
     token, the CP form's argmax, the dense logits' top-two gap and the two
     forms' largest logit difference, both over the largest |logit|."""
+    from tokenhawk_tpu_torch.parallel.cp import forward_cp_decode
+
+    def decode(params, tok, cache, pos):
+        return forward_cp_decode(dense.cfg, cp.mesh, params, tok, cache, pos)[0], None
+
+    return _stepped_forms(dense, cp, prompt, n, decode)
+
+
+def _stepped_forms(dense, other, prompt, n: int, decode, tp=None) -> tuple:
+    """_cp_forms over any other Engine: its prefill, then decode(params,
+    tok, cache, pos) -> (hidden, _) a token; its logits gathered over
+    `tp` (a TpMesh) where given."""
     import torch
 
     from tokenhawk_tpu_torch.models.llama import forward, logits_from_hidden
-    from tokenhawk_tpu_torch.parallel.cp import forward_cp_decode
 
     cfg, params, dev = dense.cfg, dense.params, dense.device
     c_d, lg_d, _ = dense.prefill(dense.new_cache(1), [prompt])
-    c_c, lg_c, _ = cp.prefill(cp.new_cache(1), [prompt])
+    c_c, lg_c, _ = other.prefill(other.new_cache(1), [prompt])
     lg_d, lg_c = lg_d[0].float(), lg_c[0].float()
     toks, ctoks, gaps, diffs = [], [], [], []
     with torch.inference_mode():
@@ -4656,21 +4734,37 @@ def _cp_forms(dense, cp, prompt, n: int) -> tuple:
             tok = torch.tensor([[toks[-1]]], device=dev)
             h, _ = forward(cfg, params, tok, c_d, pos)
             lg_d = logits_from_hidden(cfg, params, h[:, 0])[0].float()
-            h, _ = forward_cp_decode(cfg, cp.mesh, params, tok, c_c, pos)
-            lg_c = logits_from_hidden(cfg, params, h[:, 0])[0].float()
+            h, _ = decode(other.params, tok, c_c, pos)
+            lg_c = logits_from_hidden(cfg, other.params, h[:, 0], tp)[0].float()
     return toks, ctoks, gaps, diffs
 
 
-def phase_cp_engine(params, kernel_mods, tmp: str) -> dict:
+@contextlib.contextmanager
+def _nccl_world_of_one(tmp: str):
+    """A NCCL process group of one rank on the card (a file store in `tmp`),
+    destroyed on leaving: phases 12b and 14 run their parallel paths in it."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store", rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_cp_engine(params, kernel_mods) -> dict:
     """Phase 12b: the 7B Q4_0 model (its first CP_LAYERS layers) through
-    Engine(parallel="cp") at n_ctx 2048 over a NCCL group of one rank (one
-    H100): prompts of 5,
+    Engine(parallel="cp") at n_ctx 2048 over the NCCL group of one rank
+    (one H100; _nccl_world_of_one): prompts of 5,
     300 and 1500 tokens, 32 greedy tokens each.  Kernels 1, 18 and 19
     launch; kernels 2, 3, 4 and 14 do not.  Each stream is held against
     the dense Engine's (near-ties apart: kernel 19 takes the scaled q in
     f32 where kernel 4 takes it in bf16); decode tok/s beside the dense
-    Engine's; a profiled request's idle share.  The group is destroyed
-    before the phase returns.  Returns the CP run's launches."""
+    Engine's; a profiled request's idle share.  Returns the CP run's
+    launches."""
     import torch
     import torch.distributed as dist
 
@@ -4683,44 +4777,427 @@ def phase_cp_engine(params, kernel_mods, tmp: str) -> dict:
         f"{CP_LAYERS} layers, bf16 KV, n_ctx 2048")
     cfg = dataclasses.replace(_seven_b(CP_LAYERS), n_ctx=2048)
     params = dataclasses.replace(params, layers=params.layers[:CP_LAYERS])
-    torch.cuda.set_device(0)
-    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store", rank=0,
-                            world_size=1)
-    try:
-        mesh = make_cp_mesh()
-        log(f"ctx group: backend {dist.get_backend(mesh.group)}, {mesh.ncp} rank")
-        tok, greedy = byte_fallback_vocab(), SamplingConfig(temperature=0.0)
-        cp = Engine(cfg, params, tok, sampling=greedy, eos_id=-1, mesh=mesh, parallel="cp")
-        dense = Engine(cfg, params, tok, sampling=greedy, eos_id=-1)
-        rng = np.random.default_rng(SEED + 12)
-        prompts = [[1] + rng.integers(3, cfg.n_vocab, size=n - 1).tolist() for n in (5, 300, 1500)]
-        _reset_counts(kernel_mods)
-        runs = [cp.generate(p, max_new_tokens=32) for p in prompts]
-        torch.cuda.synchronize()
-        counts = _read_counts(kernel_mods)
-        log(f"CP kernel launches over the 3 requests: {counts}")
-        _check_path(counts, [*Q4_PATHS, "flash_decode_stats", "flash_decode_stats_split",
-                             "flash_attention_stats_tc"],
-                    [FFN_Q4_0, Q4_GEMV, "flash_decode", K4, "flash_attention",
-                     "flash_decode_attend", "flash_attention_stats"])
-        rates = {"cp": [], "dense": []}
-        for p, r in zip(prompts, runs):
-            d = dense.generate(p, max_new_tokens=32)
-            if len(r.tokens) != 32 or not all(0 <= t < cfg.n_vocab for t in r.tokens):
-                raise AssertionError(f"CP request produced {len(r.tokens)} tokens")
-            rates["cp"].append(r.decode_tokens_per_second)
-            rates["dense"].append(d.decode_tokens_per_second)
-            log(f"prompt {len(p)}: prefill CP {r.prefill_seconds:.3f} s, dense "
-                f"{d.prefill_seconds:.3f} s; decode CP {r.decode_tokens_per_second:.1f} tok/s, "
-                f"dense {d.decode_tokens_per_second:.1f} tok/s")
-            _check_greedy_identity(f"CP stream, prompt {len(p)}", r.tokens,
-                                   _cp_forms(dense, cp, p, 32), band_tol=DEEP_BF16_TOL)
-        log(f"decode tok/s over the 3 requests: CP {np.mean(rates['cp']):.1f}, dense "
-            f"{np.mean(rates['dense']):.1f}")
-        _profile_request(cp, prompts[0])
-    finally:
-        dist.destroy_process_group()
+    mesh = make_cp_mesh()
+    log(f"ctx group: backend {dist.get_backend(mesh.group)}, {mesh.ncp} rank")
+    tok, greedy = byte_fallback_vocab(), SamplingConfig(temperature=0.0)
+    cp = Engine(cfg, params, tok, sampling=greedy, eos_id=-1, mesh=mesh, parallel="cp")
+    dense = Engine(cfg, params, tok, sampling=greedy, eos_id=-1)
+    rng = np.random.default_rng(SEED + 12)
+    prompts = [[1] + rng.integers(3, cfg.n_vocab, size=n - 1).tolist() for n in (5, 300, 1500)]
+    _reset_counts(kernel_mods)
+    runs = [cp.generate(p, max_new_tokens=32) for p in prompts]
+    torch.cuda.synchronize()
+    counts = _read_counts(kernel_mods)
+    log(f"CP kernel launches over the 3 requests: {counts}")
+    _check_path(counts, [*Q4_PATHS, "flash_decode_stats", "flash_decode_stats_split",
+                         "flash_attention_stats_tc"],
+                [FFN_Q4_0, Q4_GEMV, "flash_decode", K4, "flash_attention",
+                 "flash_decode_attend", "flash_attention_stats"])
+    rates = {"cp": [], "dense": []}
+    for p, r in zip(prompts, runs):
+        d = dense.generate(p, max_new_tokens=32)
+        if len(r.tokens) != 32 or not all(0 <= t < cfg.n_vocab for t in r.tokens):
+            raise AssertionError(f"CP request produced {len(r.tokens)} tokens")
+        rates["cp"].append(r.decode_tokens_per_second)
+        rates["dense"].append(d.decode_tokens_per_second)
+        log(f"prompt {len(p)}: prefill CP {r.prefill_seconds:.3f} s, dense "
+            f"{d.prefill_seconds:.3f} s; decode CP {r.decode_tokens_per_second:.1f} tok/s, "
+            f"dense {d.decode_tokens_per_second:.1f} tok/s")
+        _check_greedy_identity(f"CP stream, prompt {len(p)}", r.tokens,
+                               _cp_forms(dense, cp, p, 32), band_tol=DEEP_BF16_TOL)
+    log(f"decode tok/s over the 3 requests: CP {np.mean(rates['cp']):.1f}, dense "
+        f"{np.mean(rates['dense']):.1f}")
+    _profile_request(cp, prompts[0])
     return counts
+
+
+# -- phase 14: tensor parallelism (parallel/tp.py, tp_paged.py) ----------------
+
+# The ranks of the 7B's tensor-parallel shapes phase 14a times, and the
+# depth and requests of phases 14b-14c.  One H100 runs one rank: the
+# kernels at the ranks' local shapes stand in for tp > 1 on the card, and
+# the paths run over a NCCL group of one rank (tests/test_torch_tp*.py
+# hold tp 2 and 4 to the JAX package on the CPU, over gloo).
+TP_WIDTHS = (2, 4)
+TP_LAYERS = 8
+TP_PAGED_REQUESTS = 8
+
+
+def _tp_kernel_records(randn, case) -> list:
+    """Phase 14a: kernel 1 (Q4_0, the decode-row walk) at the 7B's
+    rank-local projections (wqkv, wo, w13, w2, output over tp) at 1 and 8
+    rows, kernel 3 at B=1 over 512 rows and kernel 5 with its append folded
+    in at 8 ragged slots (PAGED_LENGTHS), both at the rank's 32/tp heads,
+    each against its plain version, timed back to back (and alone) with
+    its bound and the library call.  One record a kernel and tp."""
+    import torch
+    import torch.nn.functional as tf
+
+    from tokenhawk_tpu_torch.ops.cuda import flash_decode as fd
+    from tokenhawk_tpu_torch.ops.cuda import paged_decode as pd
+    from tokenhawk_tpu_torch.ops.cuda import qmatmul
+    from tokenhawk_tpu_torch.ops.qweight import QWeight
+
+    log("-- phase 14a: kernels 1, 3 and 5 at the tensor-parallel ranks' shapes (7B at tp "
+        f"{' and '.join(map(str, TP_WIDTHS))})")
+    dev = torch.device("cuda")
+    D, F, V, H, Dh, bf = 4096, 11008, 32000, 32, 128, 2
+    records = []
+    for tp in TP_WIDTHS:
+        cases = []
+        for name, K, N, norm in (("wqkv", D, 3 * D // tp, True), ("wo", D // tp, D, False),
+                                 ("w13", D, 2 * F // tp, True), ("w2", F // tp, D, False),
+                                 ("output", D, V // tp, True)):
+            w = QWeight.quantize(randn(K, N, scale=0.02, dtype=torch.float32))
+            ws = [QWeight(*c) for c in copies([w.qs, w.scales], w.nbytes)]
+            gain = 1.0 + randn(K, scale=0.1) if norm else None
+            for rows in (1, 8):
+                x = randn(rows, K)
+                case(cases, f"q4_matmul tp={tp} {name} K={K} N={N} rows={rows} norm={norm}",
+                     name, rows, qmatmul.quant_matmul(x, w, gain),
+                     qmatmul.quant_matmul_plain(x, w, gain),
+                     [lambda w=w: qmatmul.quant_matmul(x, w, gain) for w in ws],
+                     [lambda w=w: qmatmul.quant_matmul_plain(x, w, gain) for w in ws],
+                     alone=True)
+                b = bound(K * N * 0.625 + (rows * (K + N) + K * norm) * bf, 2 * rows * K * N,
+                          peak=_peak(rows))
+                lib = timed([lambda w=w: x @ w.dequantize(torch.bfloat16) for w in ws])["ms"]
+                cases[-1].update(b, library_ms=lib)
+                log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}); dequantize + "
+                    f"torch.matmul: {lib:.4f} ms")
+            del w, ws
+        main = next(c for c in cases if (c["shape"], c["rows"]) == ("wqkv", 1))
+        records.append(_record(
+            f"q4_matmul_stream[tp{tp}]", "tokenhawk_tpu_torch/csrc/gemv_stream.cuh",
+            "tokenhawk_tpu/ops/pallas/qmatmul.py:807 (q4_matmul) at a rank's shapes under "
+            "tokenhawk_tpu/parallel/tp.py:157 (_layer_forward_tp)", cases, ("wqkv", 1),
+            {k: main[k] for k in ("bound_ms", "bound_by")}, main["library_ms"]))
+
+        Hkv, S = H // tp, S_CTX
+        q = randn(1, Hkv, 1, Dh, scale=Dh**-0.5)
+        kn, vn = randn(1, Hkv, Dh), randn(1, Hkv, Dh)
+        kc, vc = randn(1, Hkv, S, Dh), randn(1, Hkv, S, Dh)
+        lengths = torch.tensor([S], dtype=torch.int32, device=dev)
+        kp, vp, k1, v1 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        ref, out = (fd.flash_decode_append_plain(q, kn, vn, kp, vp, lengths),
+                    fd.flash_decode_append(q, kn, vn, k1, v1, lengths))
+        if not (torch.equal(k1, kp) and torch.equal(v1, vp)):
+            raise AssertionError(f"kernel 3 at {Hkv} heads: caches differ from the plain's")
+        caches = copies([kc, vc], 2 * kc.nbytes)
+        cases = []
+        shape = f"B=1 L={S} Hkv={Hkv}"
+        case(cases, f"flash_decode_append (kernel 3) tp={tp} {shape} Dh={Dh} "
+                    f"{fd.decode_splits(1, Hkv, S, _sms(), fd.APPEND_MIN_TILES)} splits "
+                    f"(caches identical)", shape, 1, out, ref,
+             [lambda c=c: fd.flash_decode_append(q, kn, vn, *c, lengths) for c in caches],
+             [lambda c=c: fd.flash_decode_append_plain(q, kn, vn, *c, lengths) for c in caches],
+             alone=True)
+        b = bound((2 * S + 6) * Hkv * Dh * bf + 4, 4 * S * Hkv * Dh)
+        lib = _sdpa_ms(q, caches, [S])
+        cases[-1].update(b, library_ms=lib)
+        log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}); scaled_dot_product_attention "
+            f"over the live rows (no append): {lib:.4f} ms")
+        records.append(_record(
+            f"flash_decode_append[tp{tp}]", "tokenhawk_tpu_torch/csrc/decode_append.cu",
+            "tokenhawk_tpu/ops/pallas/flash_decode_dma.py:1218 (flash_decode_append) at a "
+            "rank's heads", cases, (shape, 1), b, lib))
+        del kc, vc, kp, vp, k1, v1, caches
+
+        ps, n_pool = PAGED_PS, PAGED_POOL
+        B, mp = len(PAGED_LENGTHS), max(PAGED_LENGTHS) // ps
+        live = sum(PAGED_LENGTHS)
+        table = torch.randperm(n_pool, device=dev)[:B * mp].reshape(B, mp).to(torch.int32)
+        stored = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev) - 1
+        pools = [randn(n_pool, Hkv, ps, Dh), randn(n_pool, Hkv, ps, Dh)]
+        q = randn(B, Hkv, 1, Dh, scale=Dh**-0.5)
+        kn, vn = randn(B, Hkv, Dh), randn(B, Hkv, Dh)
+        mine, theirs = [x.clone() for x in pools], [x.clone() for x in pools]
+        out = pd.paged_decode_append(q, *mine, kn, vn, table, stored, "contig")
+        ref = pd.paged_decode_append_plain(q, *theirs, kn, vn, table, stored, "contig")
+        if not all(map(torch.equal, mine, theirs)):
+            raise AssertionError(f"kernel 5 (folded) at {Hkv} heads: pools differ from the "
+                                 f"plain's")
+        cases = []
+        shape = f"contig Hkv={Hkv}"
+        case(cases, f"paged_decode_append (kernel 5, kernel 6 folded in) tp={tp} B={B} "
+                    f"Hkv={Hkv} lengths={PAGED_LENGTHS} ps={ps}, "
+                    f"{pd.paged_splits(B, Hkv, mp * ps, _sms())} splits (pools identical)",
+             shape, B, out, ref,
+             [lambda: pd.paged_decode_append(q, *mine, kn, vn, table, stored, "contig")],
+             [lambda: pd.paged_decode_append_plain(q, *theirs, kn, vn, table, stored,
+                                                   "contig")], alone=True)
+        row = Hkv * Dh * bf
+        b = bound(2 * live * row + 4 * B * row + B * (mp + 1) * 4, 4 * live * Hkv * Dh)
+        fp, fs, _ = pd.append_rows(table, stored, ps)
+        fp, fs, tab = fp.long(), fs.long(), table.long()
+        mask = (torch.arange(mp * ps, device=dev)[None, :] < (stored + 1)[:, None])[:, None, None]
+
+        def dense(x):
+            return x[tab].transpose(1, 2).reshape(B, Hkv, mp * ps, Dh)
+
+        def library_call():
+            mine[0][fp, :, fs] = kn
+            mine[1][fp, :, fs] = vn
+            return tf.scaled_dot_product_attention(q, dense(mine[0]), dense(mine[1]),
+                                                   attn_mask=mask, scale=1.0)
+
+        lib = timed([library_call])["ms"]
+        cases[-1].update(b, library_ms=lib)
+        log(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}); index_put_ of the new rows, "
+            f"then gather + scaled_dot_product_attention with a length mask: {lib:.4f} ms")
+        records.append(_record(
+            f"paged_decode_append[tp{tp}]", "tokenhawk_tpu_torch/csrc/decode_tiles.cuh",
+            "tokenhawk_tpu/ops/pallas/paged_decode.py:683 (paged_flash_decode_walk) with "
+            "paged_decode.py:205 (paged_append_rows) folded in, at a rank's heads under "
+            "tokenhawk_tpu/parallel/tp_paged.py:142", cases, (shape, B), b, lib))
+        del pools, mine, theirs
+    return records
+
+
+def _sms() -> int:
+    import torch
+
+    from tokenhawk_tpu_torch.ops.cuda import build
+
+    return build.sm_count(torch.device("cuda"))
+
+
+def _tp_forms(dense, tpe, prompt, n: int) -> tuple:
+    """_cp_forms for the TP Engine: its prefill, then its forward a token
+    with the model axis's hooks (the unfused FFN, all_reduce, gathered
+    logits)."""
+    from tokenhawk_tpu_torch.models.llama import forward
+
+    def decode(params, tok, cache, pos):
+        return forward(dense.cfg, params, tok, cache, pos, tpe.mesh)
+
+    return _stepped_forms(dense, tpe, prompt, n, decode, tpe.mesh)
+
+
+def _tp_params(params, n_layer: int, mesh):
+    """The 7B's first n_layer layers at n_ctx 2048, and this rank's shard
+    of them (at one rank, views of the same tensors) with both fused
+    decode-layer kernels asked for: the TP path must ignore them."""
+    from tokenhawk_tpu_torch.models.llama import Fusions
+    from tokenhawk_tpu_torch.parallel.tp import shard_params_tp
+
+    cfg = dataclasses.replace(_seven_b(n_layer), n_ctx=2048)
+    params = dataclasses.replace(params, layers=params.layers[:n_layer])
+    local = shard_params_tp(cfg, params, mesh)
+    local.fusions = Fusions(owo=True, attn=True)
+    return cfg, params, local
+
+
+# Kernels off every tensor-parallel path: kernel 2 and the fused
+# decode-layer kernels 15 and 16 (the all_reduce sits inside their
+# fusions), and the GEMV (bf16 x).
+TP_OFF = [FFN_Q4_0, OWO_Q4_0, OWO_STREAM, ATTN_WO, ATTN_SPLIT, ATTN_STREAM, Q4_GEMV,
+          *CUDA_CORE_PREFILL]
+
+
+def phase_tp_engine(params, kernel_mods, mesh) -> dict:
+    """Phase 14b: the 7B Q4_0 model (its first TP_LAYERS layers, full
+    width) through Engine(parallel="tp") at n_ctx 2048 over the NCCL group
+    of one rank: prompts of 5 and 300 tokens, 32 greedy tokens each.
+    Kernels 1, 3 and 4 launch; kernels 2, 15 and 16 do not (asked for,
+    they are ignored under TP).  Each stream is held against the dense
+    Engine's up to near-ties under DEEP_BF16_TOL (the unfused FFN rounds
+    where kernel 2 does not); decode tok/s beside the dense Engine's; a
+    profiled request's idle share.  Returns the TP run's launches."""
+    import torch
+    import torch.distributed as dist
+
+    from tokenhawk_tpu_torch.config import SamplingConfig
+    from tokenhawk_tpu_torch.runtime.engine import Engine
+    from tokenhawk_tpu_torch.tokenizer import byte_fallback_vocab
+
+    log(f"== phase 14b: Engine(parallel='tp'), NCCL group of 1 rank, LLaMA-7B Q4_0, "
+        f"{TP_LAYERS} layers, bf16 KV, n_ctx 2048")
+    cfg, params, local = _tp_params(params, TP_LAYERS, mesh)
+    log(f"model group: backend {dist.get_backend(mesh.group)}, {mesh.tp} rank")
+    tok, greedy = byte_fallback_vocab(), SamplingConfig(temperature=0.0)
+    tpe = Engine(cfg, local, tok, sampling=greedy, eos_id=-1, mesh=mesh, parallel="tp")
+    dense = Engine(cfg, params, tok, sampling=greedy, eos_id=-1)
+    rng = np.random.default_rng(SEED + 14)
+    prompts = [[1] + rng.integers(3, cfg.n_vocab, size=n - 1).tolist() for n in (5, 300)]
+    _reset_counts(kernel_mods)
+    runs = [tpe.generate(p, max_new_tokens=32) for p in prompts]
+    torch.cuda.synchronize()
+    counts = _read_counts(kernel_mods)
+    log(f"TP kernel launches over the 2 requests: {counts}")
+    _check_path(counts, [*Q4_PATHS, "flash_decode", K4],
+                TP_OFF + ["flash_decode_attend", "flash_decode_stats",
+                          "flash_attention_stats_tc"])
+    rates = {"tp": [], "dense": []}
+    for p, r in zip(prompts, runs):
+        d = dense.generate(p, max_new_tokens=32)
+        if len(r.tokens) != 32 or not all(0 <= t < cfg.n_vocab for t in r.tokens):
+            raise AssertionError(f"TP request produced {len(r.tokens)} tokens")
+        rates["tp"].append(r.decode_tokens_per_second)
+        rates["dense"].append(d.decode_tokens_per_second)
+        log(f"prompt {len(p)}: prefill TP {r.prefill_seconds:.3f} s, dense "
+            f"{d.prefill_seconds:.3f} s; decode TP {r.decode_tokens_per_second:.1f} tok/s, "
+            f"dense {d.decode_tokens_per_second:.1f} tok/s")
+        _check_greedy_identity(f"TP stream, prompt {len(p)}", r.tokens,
+                               _tp_forms(dense, tpe, p, 32), band_tol=DEEP_BF16_TOL)
+    log(f"decode tok/s over the 2 requests: TP {np.mean(rates['tp']):.1f}, dense "
+        f"{np.mean(rates['dense']):.1f}")
+    # What a decode token's collectives cost at one rank: 2 all_reduces of
+    # a row a layer and the embedding's, one all_gather of the logits.
+    row = torch.zeros((1, 1, cfg.n_embd), dtype=torch.bfloat16, device="cuda")
+    logits = torch.zeros((1, cfg.n_vocab), dtype=torch.float32, device="cuda")
+    for label, fn in (("all_reduce of a [1, 1, 4096] bf16 row", lambda: mesh.all_reduce(row)),
+                      ("all_gather of [1, 32000] f32 logits",
+                       lambda: mesh.all_gather_last(logits))):
+        t = timed([fn])
+        log(f"NCCL {label}: {t['ms']:.4f} ms of device time, {t['call_ms']:.4f} ms a call "
+            f"as the host issues them")
+    _profile_request(tpe, prompts[0])
+    return counts
+
+
+def _tp_paged_run(sched, prompts, driver=None) -> list:
+    """Greedy requests of 32 tokens through `sched`, or through `driver`
+    (its coordinator) in lockstep rounds -> their outputs."""
+    from tokenhawk_tpu_torch.runtime.scheduler import Request
+
+    reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
+    for r in reqs:
+        (driver or sched).submit(r)
+    (driver or sched).run()
+    bad = [(len(r.output), r.finish_reason) for r in reqs
+           if r.finish_reason != "length" or len(r.output) != 32]
+    if bad:
+        raise AssertionError(f"requests that did not finish cleanly: {bad}")
+    return [r.output for r in reqs]
+
+
+def _near_tie(label: str, dense, prompt, want, got) -> None:
+    """Two greedy streams of one prompt: equal, or first apart at a step
+    where the dense Engine's logits of the two tokens lie within
+    DEEP_BF16_TOL of the largest |logit| of each other (a near-tie that
+    two correct bfloat16 forms may break either way)."""
+    i = next((j for j, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if i is None:
+        return
+    _, lg, _ = dense.prefill(dense.new_cache(1), [list(prompt) + list(want[:i])])
+    lg = lg[0].float()
+    gap = float((lg[want[i]] - lg[got[i]]).abs() / lg.abs().max())
+    log(f"  {label}: first differs at step {i}, the two tokens' logits {gap:.3%} apart")
+    if not gap <= DEEP_BF16_TOL:
+        raise AssertionError(f"{label}: streams diverge at step {i} at a logit gap of {gap}")
+
+
+def phase_tp_paged(params, kernel_mods, mesh, kv: str, on_path, off_path) -> dict:
+    """Phase 14c: PagedScheduler(mesh=...) over the NCCL group of one rank,
+    the 7B's first TP_LAYERS layers, `kv` pages: TP_PAGED_REQUESTS greedy
+    requests of phase 4b's kind (four over a 384-token shared prefix, four
+    of 5-1500 tokens), driven through MultihostServingDriver as the
+    coordinator, every round's packet encoded, broadcast over NCCL and
+    decoded.  Gates: no step raises, every request finishes, no page
+    leaks, the path's kernels; each stream against the one-process
+    scheduler's up to near-ties (_near_tie).  Returns the run's launches."""
+    import torch
+
+    from tokenhawk_tpu_torch.config import SamplingConfig
+    from tokenhawk_tpu_torch.parallel.multihost_serving import MultihostServingDriver
+    from tokenhawk_tpu_torch.runtime.engine import Engine
+    from tokenhawk_tpu_torch.runtime.paged_scheduler import PagedScheduler
+
+    log(f"== phase 14c: PagedScheduler(mesh=...), NCCL group of 1 rank, LLaMA-7B Q4_0, "
+        f"{TP_LAYERS} layers, {kv} pages of {PAGED_PS}, lockstep driver")
+    cfg, params, local = _tp_params(params, TP_LAYERS, mesh)
+    rng = np.random.default_rng(SEED + 4)
+    V = cfg.n_vocab
+    shared = [1] + rng.integers(3, V, 383).tolist()
+    prompts = [shared + rng.integers(3, V, 20 + 10 * i).tolist() for i in range(4)]
+    prompts += [[1] + rng.integers(3, V, n - 1).tolist() for n in (1500, 5, 100, 300)]
+    kw = dict(sampling=SamplingConfig(temperature=0.0), max_batch=8, max_seq=2048,
+              page_size=PAGED_PS, prefix_cache=True, prefill_chunk=512, eos_id=-1,
+              cache_dtype="int8" if kv == "int8" else torch.bfloat16)
+    sched = PagedScheduler(cfg, local, mesh=mesh, **kw)
+    driver = MultihostServingDriver(sched)
+    packets = {"rounds": 0, "bytes": 0}
+    bcast = driver._bcast
+
+    def counted(payload):
+        data = bcast(payload)
+        packets["rounds"] += 1
+        packets["bytes"] += len(data)
+        return data
+
+    driver._bcast = counted
+    _reset_counts(kernel_mods)
+    t0 = time.perf_counter()
+    got = _tp_paged_run(sched, prompts, driver)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts(kernel_mods)
+    n_out = sum(map(len, got))
+    log(f"TP {kv} pages: {len(prompts)} requests, {n_out} tokens in {wall:.2f} s "
+        f"({n_out / wall:.1f} tok/s overall) over {packets['rounds']} lockstep rounds, "
+        f"{packets['bytes']} packet bytes broadcast; prefix cache hits {sched.prefix_hits}")
+    log(f"kernel launches in the run: {counts}")
+    _check_path(counts, on_path, off_path)
+    parked = set(sched._pc.values())
+    if (sched.alloc.n_free + len(parked) != sched.n_pages - 1
+            or any(sched.page_refs.get(p, 0) for p in parked)):
+        raise AssertionError(f"page leak: {sched.alloc.n_free} free + {len(parked)} cached "
+                             f"of {sched.n_pages}")
+    if sched.prefix_hits <= 0:
+        raise AssertionError("the shared prefix was never reused")
+    sched.cache = None
+    del sched, driver
+    torch.cuda.empty_cache()
+    ref = PagedScheduler(cfg, params, **kw)
+    want = _tp_paged_run(ref, prompts)
+    ref.cache = None
+    del ref
+    torch.cuda.empty_cache()
+    dense = Engine(cfg, params, sampling=SamplingConfig(temperature=0.0), eos_id=-1)
+    same = sum(a == b for a, b in zip(want, got))
+    log(f"streams equal to the one-process scheduler's: {same} of {len(prompts)}")
+    for p, a, b in zip(prompts, want, got):
+        _near_tie(f"TP {kv} stream, prompt {len(p)}", dense, p, a, b)
+    return counts
+
+
+def phase_tp_sharded_load(path: str, mesh) -> None:
+    """Phase 14d: runtime/sharded_loader.py load_model_sharded of the
+    rank's shard of the 2-layer 7B Q4_0 file (write_two_layer_file) at one
+    rank, bit for bit load_model(..., mesh)'s; both load times."""
+    import torch
+
+    from tokenhawk_tpu_torch.ops.qweight import QWeight
+    from tokenhawk_tpu_torch.runtime.loader import load_model
+    from tokenhawk_tpu_torch.runtime.sharded_loader import load_model_sharded
+
+    log("== phase 14d: load_model_sharded at one rank against load_model(mesh=...)")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg, want, _ = load_model(path, n_ctx=S_CTX, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cfg2, got, _, rd = load_model_sharded(path, mesh, n_ctx=S_CTX, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+
+    def tensors(p):
+        out = [p.tok_embd, p.norm, p.output]
+        for lp in p.layers:
+            out += [getattr(lp, f.name) for f in dataclasses.fields(lp)]
+        return [t for w in out if w is not None
+                for t in (w.tensors() if isinstance(w, QWeight) else [w])]
+
+    a, b = tensors(want), tensors(got)
+    if cfg != cfg2 or len(a) != len(b) or not all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("load_model_sharded differs from load_model(mesh=...)")
+    log(f"{len(a)} tensors bit for bit; load_model {t1 - t0:.2f} s, load_model_sharded "
+        f"{t2 - t1:.2f} s ({rd.bytes_read / 1e6:.1f} MB of the file's "
+        f"{os.path.getsize(path) / 1e6:.1f} MB decoded)")
+    del want, got
+    torch.cuda.empty_cache()
 
 
 # -- phase 13: the bench entry point and kernels 20-22 ------------------------
@@ -5023,8 +5500,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_tinyllama_paged(every, bf16_paged, int8_paged, int8_dense + unfolded, tmp)
         torch.cuda.empty_cache()
-        # Phase 12b: context parallelism over a one-rank NCCL group.
-        cp_counts = phase_cp_engine(params, every, tmp)
+        # Phase 12b: context parallelism over a one-rank NCCL group; phase
+        # 14b-14d: tensor parallelism over the same group (the Engine, the
+        # paged server through the lockstep driver, the sharded loader).
+        with _nccl_world_of_one(tmp):
+            from tokenhawk_tpu_torch.parallel.mesh import make_mesh
+
+            cp_counts = phase_cp_engine(params, every)
+            mesh = make_mesh()
+            tp_counts = phase_tp_engine(params, every, mesh)
+            tp_paged_off = TP_OFF + ["flash_decode", *QK_PATHS, QK_GEMV] + int8_dense + unfolded
+            tp_paged_counts = phase_tp_paged(params, every, mesh, "bf16",
+                                             [*Q4_PATHS, K4] + bf16_paged,
+                                             tp_paged_off + int8_paged)
+            phase_tp_paged(params, every, mesh, "int8", [*Q4_PATHS, K4] + int8_paged,
+                           tp_paged_off + bf16_paged)
+            phase_tp_sharded_load(path, mesh)
         del params  # the Q4_0 model goes before the GGUF kinds' phases
         torch.cuda.empty_cache()
         # Phases 6 and 6q: group-code projections (kernel 13) and the FFN over
@@ -5072,7 +5563,7 @@ def main() -> int:
     # the dense 7B Engine's of phase 8 for kernel 14; phase 10a's requests
     # with OWO for kernel 15 and with ATTN for kernel 16; phase 12b's CP
     # Engine for kernels 18 and 19 (kernel 19's tensor-core walk: its bf16
-    # K/V).
+    # K/V); phase 14's TP runs for phase 14a's records (below).
     launches = {"q4_matmul_stream": counts["q4_matmul_stream"],
                 "q4_matmul_tc": counts["q4_matmul_tc"],
                 "fused_ffn": counts[FFN_Q4_0],
@@ -5106,8 +5597,21 @@ def main() -> int:
                 "fused_attn_out": fused_counts["attn"][ATTN_WO],
                 "flash_decode_stats": cp_counts["flash_decode_stats"],
                 "flash_attention_stats": cp_counts["flash_attention_stats_tc"]}
+    # Phase 14a's records: no path of this run launches a kernel at a rank's
+    # shapes at tp 2 or 4 (one card, world 1), so their launches are 0.  The
+    # TP paths' launches at world 1, at the model's whole widths, go beside
+    # them under a key that says so: phases 14b (the Engine) and 14c (the
+    # paged server, bf16 pages).
+    at_world_1 = {"q4_matmul_stream": tp_counts["q4_matmul_stream"],
+                  "flash_decode_append": tp_counts["flash_decode"],
+                  "paged_decode_append": tp_paged_counts["paged_decode_append"]}
+    for tp in TP_WIDTHS:
+        launches.update({f"{k}[tp{tp}]": 0 for k in at_world_1})
     for rec in records:
         rec["launches"] = launches[rec["name"]]
+        base = rec["name"].split("[tp")[0]
+        if rec["name"].startswith(base + "[tp") and base in at_world_1:
+            rec["tp_path_launches_at_world_1_full_width"] = at_world_1[base]
     records += bench_records  # kernels 20-22, launches on their own paths
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))

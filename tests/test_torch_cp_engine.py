@@ -13,7 +13,8 @@ package's on a ctx mesh of as many CPU devices:
   - each rank's cache after the prefill: its cyclic slice of the dense
     Engine's cache (shard_cache_cp), within 1e-4;
   - what the port does not run raises: dp > 1, an int8 cache with CP,
-    parallel="tp", and a mesh without a process group.
+    and a mesh without a process group; parallel="tp" without a mesh
+    runs the one-device path, as the reference's.
 """
 
 import dataclasses
@@ -124,12 +125,17 @@ def world_of_one(tmp_path):
 
 def test_what_the_port_does_not_run_raises(dense_port, world_of_one):
     cfg, params, _ = dense_port
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         make_cp_mesh(dp=2, cp=2)
     with pytest.raises(ValueError, match="int8"):
         TEngine(cfg, params, cache_dtype="int8", mesh=world_of_one, parallel="cp")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        TEngine(cfg, params, parallel="tp")
+    # Without a mesh `parallel` is ignored, as the reference ignores it:
+    # parallel="tp" runs the one-device path.
+    single = TEngine(cfg, params, sampling=TSamplingConfig(temperature=0.0),
+                     cache_dtype=torch.float32, decode_chunk=4, parallel="tp")
+    assert single.parallel is None
+    assert (single.generate(SHORT, max_new_tokens=6).tokens
+            == dense_port[2].generate(SHORT, max_new_tokens=6).tokens)
     with pytest.raises(ValueError, match="cp=2"):
         make_cp_mesh(cp=2)
     auto = TEngine(cfg, params, cache_dtype="auto", max_seq=1024, mesh=world_of_one,

@@ -8,8 +8,10 @@ and int8 caches, then with the fused decode-layer kernels 15 and 16 that
 THAWK_FUSED_OWO / THAWK_FUSED_ATTN turn on), both continuous-batching schedulers (the paged one
 on bf16 and int8 pages), speculative decoding (SpeculativeEngine and
 both schedulers with a draft) and the perplexity of a Q4_K_M model in the
-super-block form (runtime/eval.py) and a context-parallel
-Engine.generate (parallel/, a gloo group of one rank) and a decode run of
+super-block form (runtime/eval.py), a context-parallel and a
+tensor-parallel Engine.generate and a tensor-parallel PagedScheduler on
+int8 pages driven through the lockstep driver (parallel/, a gloo group
+of one rank) and a decode run of
 the bench (bench.py) on the CPU.  A source scan backs it up for imports
 inside functions.
 """
@@ -30,6 +32,9 @@ sys.modules["regex"] = None
 import torch
 import tokenhawk_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+assert {"tokenhawk_tpu_torch.parallel." + m for m in
+        ("tp", "tp_paged", "multihost", "multihost_serving")} <= set(names), names
+assert "tokenhawk_tpu_torch.runtime.sharded_loader" in names
 for n in names:
     importlib.import_module(n)
 assert not any(m == "tokenhawk_tpu" or m.startswith("tokenhawk_tpu.") for m in sys.modules)
@@ -111,8 +116,26 @@ with tempfile.TemporaryDirectory() as tmp:
     r = Engine(cfg, params, byte_fallback_vocab(), SamplingConfig(temperature=0.7),
                cache_dtype=torch.float32, decode_chunk=4, eos_id=-1, mesh=make_cp_mesh(),
                parallel="cp").generate("hi there", max_new_tokens=9)
+    assert len(r.tokens) == 9 and all(0 <= t < 300 for t in r.tokens), r.tokens
+    from tokenhawk_tpu_torch.parallel.mesh import make_mesh
+    from tokenhawk_tpu_torch.parallel.multihost_serving import MultihostServingDriver
+    from tokenhawk_tpu_torch.parallel.tp import shard_params_tp
+    from tokenhawk_tpu_torch.runtime.scheduler import Request
+    mesh = make_mesh()
+    tparams = fuse_params(shard_params_tp(cfg, init_params(
+        cfg, torch.Generator().manual_seed(0), dtype=torch.float32, device="cpu",
+        quant="q4_0"), mesh))
+    r = Engine(cfg, tparams, byte_fallback_vocab(), SamplingConfig(temperature=0.7),
+               cache_dtype=torch.float32, decode_chunk=4, eos_id=-1, mesh=mesh,
+               parallel="tp").generate("hi there", max_new_tokens=9)
+    assert len(r.tokens) == 9 and all(0 <= t < 300 for t in r.tokens), r.tokens
+    drv = MultihostServingDriver(PagedScheduler(cfg, tparams, max_batch=2, page_size=16,
+                                                cache_dtype="int8", eos_id=-1, mesh=mesh))
+    req = Request(prompt=[1, 5, 9], max_new_tokens=5)
+    drv.submit(req)
+    drv.run()
+    assert req.finish_reason == "length" and len(req.output) == 5, req
     dist.destroy_process_group()
-assert len(r.tokens) == 9 and all(0 <= t < 300 for t in r.tokens), r.tokens
 import contextlib, dataclasses, io
 from tokenhawk_tpu_torch import bench
 with contextlib.redirect_stdout(io.StringIO()):  # the bench's JSON line

@@ -300,5 +300,7 @@ def test_pool_layout_is_stored_not_read_from_the_environment(monkeypatch):
                      if re.search(r"os\.environ|getenv", p.read_text()))
     # build.py: where nvcc lives, read once at build time; llama.py: the
     # reference's THAWK_FUSED_OWO / THAWK_FUSED_ATTN, read once per built model;
-    # loader.py: the reference's THAWK_Q4K_SB, read once per load.
-    assert readers == ["build.py", "llama.py", "loader.py"]
+    # loader.py: the reference's THAWK_Q4K_SB, read once per load;
+    # multihost.py: the launcher's WORLD_SIZE and LOCAL_RANK (torchrun), read
+    # when a --tp N process joins its group.
+    assert readers == ["build.py", "llama.py", "loader.py", "multihost.py"]

@@ -196,8 +196,9 @@ def test_cancel_mid_chunking_and_reset_device_state(params):
 
 
 def test_unported_options_raise(params):
-    """Tensor-parallel serving is refused with its ROADMAP item, with or
-    without a draft; speculation refuses int8 pages (as the reference's)
+    """A mesh that is not the model axis (a TpMesh: tensor-parallel
+    serving, tests/test_torch_tp_paged.py) is refused, with or without a
+    draft; speculation refuses int8 pages (as the reference's)
     and a draft without its config; int8 pages are served
     (tests/test_torch_paged_int8.py), while the dense Scheduler refuses an
     int8 cache (the reference's would truncate bf16 K/V into int8, ROADMAP
@@ -205,7 +206,7 @@ def test_unported_options_raise(params):
     tparams = params[1]
     for kw in (dict(cache_dtype="int8", mesh=object()), dict(mesh=object()),
                dict(mesh=object(), draft_cfg=TCFG, draft_params=tparams)):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(ValueError, match="make_mesh"):
             PagedScheduler(TCFG, tparams, **kw)
     with pytest.raises(ValueError, match="bf16 pages"):
         PagedScheduler(TCFG, tparams, cache_dtype="int8", draft_cfg=TCFG, draft_params=tparams)

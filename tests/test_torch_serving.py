@@ -210,10 +210,12 @@ def test_web_assets_are_the_reference_ones():
 @pytest.mark.parametrize("flag", [["--tp", "2"], ["--draft-model", "d.bin", "--tp", "2"],
                                   ["--gamma", "3", "--tp", "4"], ["--kv", "int8", "--tp", "2"]])
 def test_entry_point_refuses_unported_options(flag, capsys):
+    """--tp N > 1 outside a launcher of N ranks (here: one process, no
+    torchrun) exits 2 naming torchrun, whatever else is asked."""
     with pytest.raises(SystemExit) as e:
         serving_main.main(["-m", "model.bin", *flag])
     assert e.value.code == 2
-    assert "ROADMAP Queue 1" in capsys.readouterr().err
+    assert "torchrun --nproc-per-node" in capsys.readouterr().err
     assert serving_main.build_parser().parse_args(["-m", "x"]).device == "cuda"
 
 

@@ -60,24 +60,28 @@ def padded_vocab(n: int):
             v.scores + [-1e9] * pad)
 
 
-def numpy_params(params):
+def numpy_params(params, take=np.asarray):
     """The JAX package's LlamaParams as the numpy mapping the port's
-    params_from_jax takes (stacked or unrolled layers)."""
+    params_from_jax takes (stacked or unrolled layers).  `take(array)` ->
+    numpy reads each array (numpy_shard_params: one device's shard)."""
     import dataclasses
 
     from tokenhawk_tpu.ops.qweight import QWeight as JQWeight
+
+    def asarray(a, dtype=None):
+        return np.asarray(take(a), dtype)
 
     def conv(w):
         if w is None:
             return None
         if isinstance(w, JQWeight) and w.kind == "q4_0":
-            return {"qs": np.asarray(w.qs), "scales": np.asarray(w.scales, np.float32),
-                    "scales_hi": np.asarray(w.scales_hi, np.float32)}
+            return {"qs": asarray(w.qs), "scales": asarray(w.scales, np.float32),
+                    "scales_hi": asarray(w.scales_hi, np.float32)}
         if isinstance(w, JQWeight):  # int codes [K, N] with [K//G, N] sides
-            return {"kind": w.kind, "group": w.group, "qs": np.asarray(w.qs).astype(np.int8),
-                    "scales": np.asarray(w.scales, np.float32),
-                    "mins": None if w.mins is None else np.asarray(w.mins, np.float32)}
-        return np.asarray(w, np.float32)
+            return {"kind": w.kind, "group": w.group, "qs": asarray(w.qs).astype(np.int8),
+                    "scales": asarray(w.scales, np.float32),
+                    "mins": None if w.mins is None else asarray(w.mins, np.float32)}
+        return asarray(w, np.float32)
 
     def layer(lp):
         return {f.name: conv(getattr(lp, f.name)) for f in dataclasses.fields(lp)}
@@ -86,6 +90,19 @@ def numpy_params(params):
     return {"tok_embd": conv(params.tok_embd), "norm": conv(params.norm),
             "output": conv(params.output),
             "layers": [layer(lp) for lp in lay] if isinstance(lay, tuple) else layer(lay)}
+
+
+def numpy_shard_params(params, mesh, index: int):
+    """numpy_params of the shard that the model axis's device `index` of a
+    JAX (data=1, model) mesh holds (parallel/tp.py shard_params_tp's
+    output): the JAX package's rank-`index` parameters."""
+    device = mesh.devices[0, index]
+
+    def take(a):
+        shard, = [s for s in a.addressable_shards if s.device == device]
+        return np.asarray(shard.data)
+
+    return numpy_params(params, take)
 
 
 def port_config(jcfg):

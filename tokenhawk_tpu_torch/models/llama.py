@@ -36,6 +36,16 @@ Both fusions are off by default, as in the reference; each model reads
 the two variables once, when its LlamaParams are built, and a caller may
 set `params.fusions` on a built model.
 
+Tensor parallelism (parallel/tp.py, parallel/tp_paged.py): every forward
+takes an optional `tp` (parallel/mesh.py TpMesh) and then runs this rank's
+shard of the model, as the reference's forwards run inside shard_map with
+their psum hooks: the embedding is vocab-parallel (a local gather, then
+all_reduce), q / k / v come out at the local head counts, Wo and w2 are
+row-parallel and their partials are all_reduced before the residual adds,
+and the logits are gathered from the vocab shards.  Under TP the FFN is
+unfused (w13, SiLU, w2: the reduce sits between w2 and the residual) and
+the fusions are ignored, so kernels 2, 15 and 16 are not on the TP path.
+
 Weight orientation is [in, out] (y = x @ W) at every public function,
 as in the reference, whatever the quantized storage layout.
 
@@ -258,15 +268,16 @@ def _attend_and_update(cfg: LlamaConfig, q, k, v, lcache, offsets, positions,
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, Dh)
 
 
-def _ffn_block(cfg: LlamaConfig, x, lp: LayerParams):
+def _ffn_block(cfg: LlamaConfig, x, lp: LayerParams, tp=None):
     """SwiGLU MLP with residual: x + silu(norm(x)@w1)*(norm(x)@w3) @ w2.
 
     At most 8 rows over quantized w13/w2 (any pairing of Q4_0 and
     group-code forms; a super-block w13 too): kernel 2 in one call.
-    Otherwise (prefill, dense weights): two matmuls and a SiLU, as the
-    reference's unfused form."""
+    Otherwise (prefill, dense weights, and always under `tp`): two
+    matmuls and a SiLU, as the reference's unfused form; under `tp` the
+    w2 partial is all_reduced before the residual."""
     rows = x.numel() // x.shape[-1]
-    if can_fuse_ffn(lp.w13, lp.w2, rows):
+    if tp is None and can_fuse_ffn(lp.w13, lp.w2, rows):
         return fused_ffn(x, lp.w13, lp.w2, lp.ffn_norm, eps=cfg.rms_norm_eps)
     if lp.w13 is not None:
         gate_up = matmul(x, lp.w13, lp.ffn_norm, eps=cfg.rms_norm_eps)
@@ -276,13 +287,37 @@ def _ffn_block(cfg: LlamaConfig, x, lp: LayerParams):
         g = matmul(x, lp.w1, lp.ffn_norm, eps=cfg.rms_norm_eps)
         u = matmul(x, lp.w3, lp.ffn_norm, eps=cfg.rms_norm_eps)
     gate = torch.nn.functional.silu(g.float()).to(x.dtype)
-    return x + matmul(gate * u, lp.w2)
+    ffn = matmul(gate * u, lp.w2)
+    if tp is not None:
+        tp.all_reduce(ffn)
+    return x + ffn
 
 
-def _qkv(cfg: LlamaConfig, x, lp: LayerParams, cos, sin):
-    """Normed q / k / v projections with RoPE: [B, T, H|Hkv, Dh] each."""
+def local_heads(cfg: LlamaConfig, tp=None):
+    """(H, Hkv) on this rank: the model's, or its 1/tp share under `tp`."""
+    n = 1 if tp is None else tp.tp
+    return cfg.n_head // n, cfg.n_kv_head // n
+
+
+def embed(params: "LlamaParams", tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """Token embeddings [..., D]; under `tp` the table holds this rank's
+    rows of the vocabulary: a local gather, zero outside it, summed over
+    the group (the reference's _embed_vp)."""
+    if tp is None:
+        return params.tok_embd[tokens]
+    v_local = params.tok_embd.shape[0]
+    local = tokens - tp.index * v_local
+    valid = (local >= 0) & (local < v_local)
+    x = params.tok_embd[torch.clamp(local, 0, v_local - 1)]
+    x = torch.where(valid[..., None], x, torch.zeros_like(x))
+    return tp.all_reduce(x)
+
+
+def _qkv(cfg: LlamaConfig, x, lp: LayerParams, cos, sin, tp=None):
+    """Normed q / k / v projections with RoPE: [B, T, H|Hkv, Dh] each (the
+    local heads under `tp`: the fused shard is [wq_s|wk_s|wv_s])."""
     B, T, D = x.shape
-    H, Hkv, Dh = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    (H, Hkv), Dh = local_heads(cfg, tp), cfg.head_dim
     Dq, Dkv = H * Dh, Hkv * Dh
     eps = cfg.rms_norm_eps
     if lp.wqkv is not None:
@@ -297,28 +332,33 @@ def _qkv(cfg: LlamaConfig, x, lp: LayerParams, cos, sin):
     return apply_rope(q, cos, sin, cfg.rope_style), apply_rope(k, cos, sin, cfg.rope_style), v
 
 
-def _wo_ffn_block(cfg: LlamaConfig, x, ctx, lp: LayerParams, fusions: Fusions):
+def _wo_ffn_block(cfg: LlamaConfig, x, ctx, lp: LayerParams, fusions: Fusions, tp=None):
     """x + ctx @ Wo, then the SwiGLU MLP block with its residual; kernel 15
-    in one call where fusions.owo asks for it and its gate passes."""
+    in one call where fusions.owo asks for it and its gate passes.  Under
+    `tp` ctx holds the local heads, Wo is row-parallel and its partial is
+    all_reduced before the residual (no fusion)."""
     B, T = ctx.shape[:2]
     ctx = ctx.reshape(B, T, -1)
-    if fusions.owo and can_fuse_owo_ffn(lp.wo, lp.w13, lp.w2, B * T):
+    if tp is None and fusions.owo and can_fuse_owo_ffn(lp.wo, lp.w13, lp.w2, B * T):
         return fused_owo_ffn(ctx, x, lp.wo, lp.w13, lp.w2, lp.ffn_norm, eps=cfg.rms_norm_eps)
-    x = x + matmul(ctx, lp.wo)
-    return _ffn_block(cfg, x, lp)
+    attn = matmul(ctx, lp.wo)
+    if tp is not None:
+        tp.all_reduce(attn)
+    return _ffn_block(cfg, x + attn, lp, tp)
 
 
 def _layer_forward(cfg: LlamaConfig, x, lp: LayerParams, lcache, cos, sin, offsets,
-                   positions, fusions: Fusions):
+                   positions, fusions: Fusions, tp=None):
     """One layer of the dense-cache forward.  Where fusions.attn asks for it
     (one token of one sequence over a bf16/f32 cache with quantized weights
-    and H == Hkv) and its gate passes, kernel 16 runs the attention block
-    and the layer goes on with the FFN block, as the reference does."""
+    and H == Hkv, never under `tp`) and its gate passes, kernel 16 runs the
+    attention block and the layer goes on with the FFN block, as the
+    reference does."""
     B, T = x.shape[:2]
-    q, k, v = _qkv(cfg, x, lp, cos, sin)
+    q, k, v = _qkv(cfg, x, lp, cos, sin, tp)
     quantized = isinstance(lp.wqkv if lp.wqkv is not None else lp.wq, QWeight)
-    if (fusions.attn and quantized and B == 1 and T == 1 and cfg.n_head == cfg.n_kv_head
-            and len(lcache) == 2):
+    if (tp is None and fusions.attn and quantized and B == 1 and T == 1
+            and cfg.n_head == cfg.n_kv_head and len(lcache) == 2):
         S = lcache[0].shape[2]
         if can_fuse_attn_out(lp.wo, B, T, 1, cfg.head_dim, S):
             lengths = torch.clamp(positions[:, 0] + 1, max=S).to(torch.int32)
@@ -326,20 +366,22 @@ def _layer_forward(cfg: LlamaConfig, x, lp: LayerParams, lcache, cos, sin, offse
             return _ffn_block(cfg, x, lp)
     ctx = _attend_and_update(cfg, q, k, v, lcache, offsets, positions,
                              prefer_append=quantized)
-    return _wo_ffn_block(cfg, x, ctx, lp, fusions)
+    return _wo_ffn_block(cfg, x, ctx, lp, fusions, tp)
 
 
 def forward(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor,
-            cache: Union[KVCache, QuantKVCache], offsets: torch.Tensor):
+            cache: Union[KVCache, QuantKVCache], offsets: torch.Tensor, tp=None):
     """Run a token block [B, T] through all layers; `offsets` [B] int32
     is each sequence's cache write offset.  Returns the hidden states
-    [B, T, D] (before the final norm) and the cache, updated in place."""
+    [B, T, D] (before the final norm) and the cache, updated in place.
+    Under `tp` params and cache are this rank's shards."""
     B, T = tokens.shape
-    x = params.tok_embd[tokens]
+    x = embed(params, tokens, tp)
     positions = offsets.long()[:, None] + torch.arange(T, device=tokens.device)[None, :]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     for lp, lcache in zip(params.layers, cache.layers()):
-        x = _layer_forward(cfg, x, lp, lcache, cos, sin, offsets, positions, params.fusions)
+        x = _layer_forward(cfg, x, lp, lcache, cos, sin, offsets, positions, params.fusions,
+                           tp)
     return x, cache
 
 
@@ -360,30 +402,31 @@ def _prefill_attention(q, k, v, offsets):
 
 def forward_paged_decode(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor,
                          cache: PagedKVCache, page_table: torch.Tensor,
-                         lengths: torch.Tensor):
+                         lengths: torch.Tensor, tp=None):
     """One decode step over the paged pool: tokens [B, 1] land at position
     lengths[b] (tokens already stored), through page_table [B, max_pages]
     int32.  Each layer appends its K / V row and attends over lengths + 1
     tokens in one launch.  Returns (hidden [B, 1, D], the pool, updated in
-    place)."""
-    x = params.tok_embd[tokens]
+    place).  Under `tp` (every forward_paged_*) the pool holds this
+    rank's KV heads and params its shards."""
+    x = embed(params, tokens, tp)
     positions = lengths.long()[:, None]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     stored = lengths.to(torch.int32)
     for lp, lc in zip(params.layers, cache.layers()):
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        q, k, v = _qkv(cfg, x, lp, cos, sin, tp)
         if cache.quant:  # kernel 10 with kernel 11 folded in
             ctx = append_attend_paged_layer_int8(q, *lc, k[:, 0], v[:, 0], page_table, stored,
                                                  cache.layout)
         else:  # kernel 5 with kernel 6 folded in
             ctx = append_attend_paged_layer(q, *lc, k[:, 0], v[:, 0], page_table, stored,
                                             cache.layout)
-        x = _wo_ffn_block(cfg, x, ctx, lp, params.fusions)
+        x = _wo_ffn_block(cfg, x, ctx, lp, params.fusions, tp)
     return x, cache
 
 
 def forward_paged_prefill(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor,
-                          cache: PagedKVCache, page_table: torch.Tensor):
+                          cache: PagedKVCache, page_table: torch.Tensor, tp=None):
     """Prefill fresh prompts tokens [B, Tb] (positions 0..Tb-1) straight
     into their pages: the block attends only to itself (kernel 4, over
     its unquantized K / V even on an int8 pool, as the reference does) and
@@ -391,12 +434,12 @@ def forward_paged_prefill(cfg: LlamaConfig, params: LlamaParams, tokens: torch.T
     causally masked from its real rows.  Returns (hidden [B, Tb, D], the
     pool)."""
     B, T = tokens.shape
-    x = params.tok_embd[tokens]
+    x = embed(params, tokens, tp)
     positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     zeros = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
     for lp, lc in zip(params.layers, cache.layers()):
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        q, k, v = _qkv(cfg, x, lp, cos, sin, tp)
         k_b = k.transpose(1, 2).contiguous()  # [B, Hkv, T, Dh]
         v_b = v.transpose(1, 2).contiguous()
         ctx = _prefill_attention(q, k_b, v_b, zeros)
@@ -408,13 +451,13 @@ def forward_paged_prefill(cfg: LlamaConfig, params: LlamaParams, tokens: torch.T
             k_l, v_l = lc
             paginate_fragment_layer(k_l, k_b, page_table, cache.layout)
             paginate_fragment_layer(v_l, v_b, page_table, cache.layout)
-        x = _wo_ffn_block(cfg, x, ctx, lp, params.fusions)
+        x = _wo_ffn_block(cfg, x, ctx, lp, params.fusions, tp)
     return x, cache
 
 
 def forward_paged_prefill_cont(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor,
                                cache: PagedKVCache, page_table: torch.Tensor,
-                               start: torch.Tensor, n_new: torch.Tensor):
+                               start: torch.Tensor, n_new: torch.Tensor, tp=None):
     """One chunk tokens [B, C] of longer prompts, its first row at the
     page-aligned position start[b], n_new[b] of its rows real: the chunk's
     K / V page out in place, then every row attends to the slot's pages
@@ -427,7 +470,7 @@ def forward_paged_prefill_cont(cfg: LlamaConfig, params: LlamaParams, tokens: to
     padding rows' outputs are discarded on both sides.  Returns
     (hidden [B, C, D], the pool)."""
     B, C = tokens.shape
-    x = params.tok_embd[tokens]
+    x = embed(params, tokens, tp)
     t = torch.arange(C, device=tokens.device)[None, :]
     start = start.to(tokens.device)
     positions = torch.where(t < n_new.to(tokens.device).long()[:, None],
@@ -435,7 +478,7 @@ def forward_paged_prefill_cont(cfg: LlamaConfig, params: LlamaParams, tokens: to
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     start_page = start // cache.page_size
     for lp, lc in zip(params.layers, cache.layers()):
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        q, k, v = _qkv(cfg, x, lp, cos, sin, tp)
         if cache.quant:
             k_l, ks_l, v_l, vs_l = lc
             paginate_fragment_layer_int8_at(k_l, ks_l, k.transpose(1, 2), page_table,
@@ -451,13 +494,13 @@ def forward_paged_prefill_cont(cfg: LlamaConfig, params: LlamaParams, tokens: to
                                        cache.layout)
             kg, vg = gather_pages(k_l, v_l, page_table, cache.layout)
         ctx = _prefill_attention(q, kg, vg, start)
-        x = _wo_ffn_block(cfg, x, ctx, lp, params.fusions)
+        x = _wo_ffn_block(cfg, x, ctx, lp, params.fusions, tp)
     return x, cache
 
 
 def forward_paged_verify(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor,
                          cache: PagedKVCache, page_table: torch.Tensor, start: torch.Tensor,
-                         adv: torch.Tensor):
+                         adv: torch.Tensor, tp=None):
     """The target's verify block of speculative decoding over bf16/f32
     pages: tokens [B, T] (T = gamma+1) at positions start[b] + adv[b]*t,
     any alignment (adv 1 for a live slot, 0 for a frozen one).  Each
@@ -476,28 +519,31 @@ def forward_paged_verify(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Te
     if cache.quant:
         raise ValueError("the speculative verify runs over bf16/f32 pages")
     B, T = tokens.shape
-    H, Hkv, Dh = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    (H, Hkv), Dh = local_heads(cfg, tp), cfg.head_dim
     dev = tokens.device
-    x = params.tok_embd[tokens]
+    x = embed(params, tokens, tp)
     start = start.to(dev)
     positions = start.long()[:, None] + adv.to(dev).long()[:, None] * torch.arange(T, device=dev)
     cos, sin = rope_cos_sin(positions, Dh, cfg.rope_theta)
     rows_table = page_table.repeat_interleave(T, dim=0)  # one table row per block row
     flat = positions.reshape(-1)
     for lp, (k_l, v_l) in zip(params.layers, cache.layers()):
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        q, k, v = _qkv(cfg, x, lp, cos, sin, tp)
         append_token_layer(k_l, v_l, k.reshape(B * T, Hkv, Dh), v.reshape(B * T, Hkv, Dh),
                            rows_table, flat, cache.layout)
         kg, vg = gather_pages(k_l, v_l, page_table, cache.layout)
         ctx = _prefill_attention(q, kg, vg, start)
-        x = _wo_ffn_block(cfg, x, ctx, lp, params.fusions)
+        x = _wo_ffn_block(cfg, x, ctx, lp, params.fusions, tp)
     return x, cache
 
 
-def logits_from_hidden(cfg: LlamaConfig, params: LlamaParams, hidden: torch.Tensor):
+def logits_from_hidden(cfg: LlamaConfig, params: LlamaParams, hidden: torch.Tensor, tp=None):
     """Final RMSNorm + output projection -> f32 logits [..., V] (rounded
-    through the activation dtype first, as the reference does)."""
-    return matmul(hidden, params.output, params.norm, eps=cfg.rms_norm_eps).float()
+    through the activation dtype first, as the reference does).  Under
+    `tp` the output holds this rank's vocabulary columns and the logits
+    are gathered from every rank (the reference's _logits_tp)."""
+    logits = matmul(hidden, params.output, params.norm, eps=cfg.rms_norm_eps).float()
+    return logits if tp is None else tp.all_gather_last(logits)
 
 
 # ---------------------------------------------------------------------------
@@ -618,13 +664,15 @@ def q4_k_m_more_bits(layer: int, n_layer: int) -> bool:
             or (layer - n_layer // 8) % 3 == 2)
 
 
-HostTensor = Union[np.ndarray, QuantizedTensor]
+HostTensor = Union[np.ndarray, QuantizedTensor, torch.Tensor]
 
 
 def _device_weight(t: HostTensor, dtype, device, transpose: bool,
                    scale_dtype=torch.float32) -> ArrayOrQ:
     if isinstance(t, QWeight):
         return t.to(device)  # built by the loader (k-quants)
+    if isinstance(t, torch.Tensor):  # dequantized on the device by the loader (k-quants)
+        return (t.T if transpose else t).to(device=device, dtype=dtype).contiguous()
     if isinstance(t, QuantizedTensor):
         if transpose:
             return QWeight.from_quantized_tensor(t, device, scale_dtype)

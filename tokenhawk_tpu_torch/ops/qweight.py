@@ -188,34 +188,30 @@ class QWeight:
         q4k_sb kind where the reference's gate puts it: `sb_ok` (the loader
         clears it for feed_forward.w2) and q4k_sb_fits(in_dim).  Its d and
         dmin are rounded to scale_dtype, as there."""
-        from tokenhawk_tpu_torch.ggml import kquants
+        from tokenhawk_tpu_torch.ggml import kquant_decode as kd
 
         out_dim, in_dim = shape
-        n = out_dim * in_dim
+        if gtype not in kd.EXTRACT:
+            raise ValueError(f"not a supported k-quant: {gtype!r}")
+        # Unpacked on the device (ggml/kquant_decode.py): kquants.extract_*'s
+        # values, without numpy's seconds a large tensor on the host.
+        buf = kd.blocks(gtype, raw, out_dim * in_dim, device)
         if gtype == GGMLType.Q4_K and sb and sb_ok and q4k_sb_fits(in_dim):
-            codes, sc, mn, d, dmin = kquants.extract_q4_k_sb(raw, n)
+            codes, sc, mn, d, dmin = kd.extract_q4_k_sb(buf)
             return QWeight.from_super_blocks(
                 codes.reshape(out_dim, in_dim), sc, mn, d, dmin, device, scale_dtype)
+        out = kd.EXTRACT[gtype](buf)
+        codes, s = out[0], out[1]
         if gtype == GGMLType.Q4_K:
-            codes, s, m = kquants.extract_q4_k(raw, n)
-            group, qs, bias = 32, codes.astype(np.int8), -m
+            group, qs, bias = 32, codes.to(torch.int8), -out[2]
         elif gtype == GGMLType.Q5_K:
-            codes, s, m = kquants.extract_q5_k(raw, n)
-            group, qs, bias = 32, (codes.astype(np.int16) - 16).astype(np.int8), 16.0 * s - m
-        elif gtype == GGMLType.Q6_K:
-            codes, s = kquants.extract_q6_k(raw, n)
-            group, qs, bias = 16, codes, None
+            group, qs, bias = 32, (codes.to(torch.int16) - 16).to(torch.int8), 16.0 * s - out[2]
         elif gtype == GGMLType.Q2_K:
-            codes, s, m = kquants.extract_q2_k(raw, n)
-            group, qs, bias = 16, codes.astype(np.int8), -m
-        elif gtype == GGMLType.Q3_K:
-            codes, s = kquants.extract_q3_k(raw, n)
+            group, qs, bias = 16, codes.to(torch.int8), -out[2]
+        else:  # Q6_K, Q3_K: signed codes, no min
             group, qs, bias = 16, codes, None
-        else:
-            raise ValueError(f"not a supported k-quant: {gtype!r}")
-        return QWeight.from_group_codes(
-            qs.reshape(out_dim, in_dim), s.astype(np.float32),
-            None if bias is None else bias.astype(np.float32), group, device, scale_dtype)
+        return QWeight.from_group_codes(qs.reshape(out_dim, in_dim), s, bias, group, device,
+                                        scale_dtype)
 
     @staticmethod
     def from_jax_packed(qs, scales, scales_hi, device=None) -> "QWeight":

@@ -15,12 +15,19 @@ on one device; bfloat16 under a mesh).
 With `mesh` (parallel/mesh.py make_cp_mesh) and parallel="cp", every rank
 of the ctx group runs the same Engine over the whole parameters and its
 slice of the cache (parallel/cp.py), as the reference's Engine does over
-its (data, ctx) mesh.
+its (data, ctx) mesh.  With a make_mesh() mesh and parallel="tp" every
+rank of the model group runs it over its shard of the parameters
+(parallel/tp.py shard_params_tp) and of the cache's KV heads
+(parallel/tp.py), as the reference's Engine does over its (data, model)
+mesh; sampling runs on every rank over the gathered logits from
+generators seeded alike, so every rank draws the same token.  Without a
+mesh `parallel` is ignored, as the reference ignores it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, List, Optional, Sequence
 
@@ -85,26 +92,30 @@ def last_rows(h: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return h[torch.arange(h.shape[0], device=h.device), idx]
 
 
-def make_prefill_fn(cfg: LlamaConfig):
+def make_prefill_fn(cfg: LlamaConfig, tp=None):
     """fn: (params, cache, tokens [B,Tb], lengths [B], offsets [B]) ->
-    (cache, last_logits [B,V] f32)."""
+    (cache, last_logits [B,V] f32).  `tp` (parallel/mesh.py TpMesh): this
+    rank's shard of the model (parallel/tp.py)."""
 
     @torch.inference_mode()
     def prefill(params, cache, tokens, lengths, offsets):
-        h, cache = forward(cfg, params, tokens, cache, offsets)
-        return cache, logits_from_hidden(cfg, params, last_rows(h, lengths))
+        h, cache = forward(cfg, params, tokens, cache, offsets, tp)
+        return cache, logits_from_hidden(cfg, params, last_rows(h, lengths), tp)
 
     return prefill
 
 
 def make_decode_fn(cfg: LlamaConfig, sampling: SamplingConfig, chunk: int,
-                   eos_id: int = EOS_ID, forward=forward):
+                   eos_id: int = EOS_ID, forward=forward, tp=None):
     """fn decoding `chunk` tokens:
     (params, cache, last_tok [B], offsets [B], last_n [B,N], done [B], generator)
       -> (cache, tokens [B,chunk], offsets, last_n, done).
     `forward(cfg, params, tokens [B, 1], cache, offsets)` -> (hidden, cache)
-    runs one token (models/llama.py forward; parallel/cp.py passes its own)."""
+    runs one token (models/llama.py forward, with `tp` under tensor
+    parallelism; parallel/cp.py passes its own)."""
     eos0, eos_ids = normalize_eos(eos_id)
+    if tp is not None:
+        forward = functools.partial(forward, tp=tp)
 
     @torch.inference_mode()
     def decode(params, cache, last_tok, offsets, last_n, done, generator):
@@ -112,7 +123,7 @@ def make_decode_fn(cfg: LlamaConfig, sampling: SamplingConfig, chunk: int,
         tok = last_tok
         for _ in range(chunk):
             h, cache = forward(cfg, params, tok[:, None], cache, offsets)
-            logits = logits_from_hidden(cfg, params, h[:, 0])
+            logits = logits_from_hidden(cfg, params, h[:, 0], tp)
             nxt = sample(logits, generator, sampling, last_n)
             nxt = torch.where(done, eos0, nxt)
             # Finished slots do not advance: an unbounded offset would walk
@@ -127,7 +138,7 @@ def make_decode_fn(cfg: LlamaConfig, sampling: SamplingConfig, chunk: int,
     return decode
 
 
-def make_decode_fn_dynamic(cfg: LlamaConfig, chunk: int, eos_id: int = EOS_ID):
+def make_decode_fn_dynamic(cfg: LlamaConfig, chunk: int, eos_id: int = EOS_ID, tp=None):
     """Decode chunk with per-slot sampling parameters (the dense
     Scheduler's step):
     (params, cache, last_tok [B], offsets [B], last_n [B,N], done [B],
@@ -135,7 +146,7 @@ def make_decode_fn_dynamic(cfg: LlamaConfig, chunk: int, eos_id: int = EOS_ID):
       -> (cache, tokens [B,chunk], offsets, last_n, done, counters).
     Each slot draws from its own (seed, counter) stream.  Runs under
     no_grad, not inference_mode: the scheduler updates the returned slot
-    state in place outside the call."""
+    state in place outside the call.  `tp`: as make_prefill_fn."""
     eos0, eos_ids = normalize_eos(eos_id)
 
     @torch.no_grad()
@@ -143,8 +154,8 @@ def make_decode_fn_dynamic(cfg: LlamaConfig, chunk: int, eos_id: int = EOS_ID):
         toks = []
         tok = last_tok
         for _ in range(chunk):
-            h, cache = forward(cfg, params, tok[:, None], cache, offsets)
-            logits = logits_from_hidden(cfg, params, h[:, 0])
+            h, cache = forward(cfg, params, tok[:, None], cache, offsets, tp)
+            logits = logits_from_hidden(cfg, params, h[:, 0], tp)
             nxt = sample_dynamic(logits, sp, counters, last_n)
             nxt = torch.where(done, eos0, nxt)
             offsets = offsets + (~done).to(offsets.dtype)
@@ -175,13 +186,20 @@ class Engine:
         mesh=None,
         parallel: Optional[str] = None,
     ):
-        if parallel in ("tp", "pp"):
-            item = "item 5" if parallel == "tp" else "item 5, after TP"
-            raise NotImplementedError(f"parallel={parallel!r} is not ported yet "
-                                      f"(ROADMAP.md Queue 1 {item})")
-        if parallel not in (None, "cp") or (parallel == "cp") != (mesh is not None):
-            raise ValueError(f"parallel={parallel!r} with mesh={mesh!r}: the port runs "
-                             "parallel='cp' over a make_cp_mesh() mesh, or neither")
+        from tokenhawk_tpu_torch.parallel.mesh import CtxMesh, TpMesh
+
+        if mesh is not None:
+            if parallel == "pp":
+                raise NotImplementedError("parallel='pp' is not ported yet "
+                                          "(ROADMAP.md Queue 1 item 5)")
+            kinds = {"tp": TpMesh, "cp": CtxMesh}
+            parallel = parallel or ("tp" if isinstance(mesh, TpMesh) else "cp")
+            if not isinstance(mesh, kinds.get(parallel, ())):
+                raise ValueError(f"parallel={parallel!r} with mesh={mesh!r}: the port runs "
+                                 "parallel='tp' over a make_mesh() mesh or parallel='cp' "
+                                 "over a make_cp_mesh() mesh")
+        else:
+            parallel = None  # ignored without a mesh, as the reference ignores it
         if eos_id is None:
             eos_id = tokenizer_eos(tokenizer)
         self.cfg = cfg
@@ -192,10 +210,13 @@ class Engine:
         self.max_seq = max_seq or cfg.n_ctx
         self.batch_size = batch_size
         self.mesh = mesh
+        self.parallel = parallel
         if mesh is not None:
-            # The reference's CP caches are bfloat16 or f32; it has no int8 CP.
+            # The reference's TP and CP caches are bfloat16 or f32: its
+            # shard_map paths take no int8 cache.
             if cache_dtype == "int8":
-                raise ValueError("an int8 cache has no CP form (the reference's neither)")
+                raise ValueError(f"an int8 cache has no {parallel.upper()} form "
+                                 "(the reference's neither)")
             if cache_dtype == "auto":
                 cache_dtype = torch.bfloat16
         self.cache_dtype = resolve_cache_dtype(cache_dtype, self.max_seq)
@@ -203,7 +224,7 @@ class Engine:
         self.eos_id, self.eos_ids = normalize_eos(eos_id)
         eos_id = self.eos_ids if len(self.eos_ids) > 1 else self.eos_id
 
-        if mesh is not None:
+        if parallel == "cp":
             from tokenhawk_tpu_torch.parallel.cp import (
                 make_cp_decode_fn,
                 make_cp_prefill_fn,
@@ -215,9 +236,14 @@ class Engine:
             self._decode = make_cp_decode_fn(cfg, mesh, sampling, decode_chunk, eos_id)
             self._decode1 = make_cp_decode_fn(cfg, mesh, sampling, 1, eos_id)
         else:
-            self._prefill = make_prefill_fn(cfg)
-            self._decode = make_decode_fn(cfg, sampling, decode_chunk, eos_id)
-            self._decode1 = make_decode_fn(cfg, sampling, 1, eos_id)
+            tp = mesh if parallel == "tp" else None
+            if tp is not None:
+                from tokenhawk_tpu_torch.parallel.tp import validate_tp
+
+                validate_tp(cfg, tp.tp)
+            self._prefill = make_prefill_fn(cfg, tp=tp)
+            self._decode = make_decode_fn(cfg, sampling, decode_chunk, eos_id, tp=tp)
+            self._decode1 = make_decode_fn(cfg, sampling, 1, eos_id, tp=tp)
 
         self.buckets = prefill_buckets(self.max_seq)
 
@@ -228,7 +254,12 @@ class Engine:
 
     def new_cache(self, batch: Optional[int] = None):
         batch = batch or self.batch_size
-        if self.mesh is not None:  # this rank's max_seq / ncp slots (parallel/cp.py)
+        if self.parallel == "tp":  # this rank's KV heads (parallel/tp.py)
+            from tokenhawk_tpu_torch.parallel.tp import local_config
+
+            return KVCache.create(local_config(self.cfg, self.mesh.tp), batch, self.max_seq,
+                                  self.cache_dtype, self.device)
+        if self.parallel == "cp":  # this rank's max_seq / ncp slots (parallel/cp.py)
             return KVCache.create(self.cfg, batch, self.max_seq // self.mesh.ncp,
                                   self.cache_dtype, self.device)
         if self.cache_dtype == "int8":

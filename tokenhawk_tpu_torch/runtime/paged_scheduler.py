@@ -24,8 +24,12 @@ free list.
     per-slot cache, prefilled with the whole prompt at activation, and
     the target verifies its gamma tokens with forward_paged_verify at
     each slot's frontier, over the table cut to the live pages.
-
-Not ported yet: tensor parallelism (ROADMAP Queue 1 item 8).
+  - With `mesh` (parallel/mesh.py make_mesh): tensor parallelism
+    (parallel/tp_paged.py).  Every rank of the model group runs the same
+    scheduler over its shard of the parameters and a pool of its KV heads
+    (int8 pages' scale pages with them); page tables, lengths and token
+    ids are the same on every rank, and so is every control decision
+    (parallel/multihost_serving.py replays the coordinator's).
 """
 
 from __future__ import annotations
@@ -52,22 +56,23 @@ from tokenhawk_tpu_torch.runtime import speculative
 from tokenhawk_tpu_torch.runtime.engine import _bucket, last_rows, prefill_buckets
 from tokenhawk_tpu_torch.runtime.paged import PageAllocator, PagedKVCache
 from tokenhawk_tpu_torch.runtime.scheduler import (
-    TP_TODO,
     Request,
     admit_state,
     make_rings,
     to_device,
+    tp_mesh,
 )
 from tokenhawk_tpu_torch.sampling import SamplingParams, normalize_eos, sample_dynamic
 from tokenhawk_tpu_torch.sampling import is_eos as _is_eos
 from tokenhawk_tpu_torch.tokenizer import EOS_ID
 
 
-def make_paged_decode_fn_dynamic(cfg: LlamaConfig, chunk: int, eos_id: int = EOS_ID):
+def make_paged_decode_fn_dynamic(cfg: LlamaConfig, chunk: int, eos_id: int = EOS_ID, tp=None):
     """fn decoding `chunk` tokens over the pool with per-slot sampling:
     (params, cache, table [B,mp] i32, last_tok [B], lengths [B] i32,
      last_n [B,N], done [B], sp, counters [B])
-      -> (cache, tokens [B,chunk], done, counters, last_n)."""
+      -> (cache, tokens [B,chunk], done, counters, last_n).
+    `tp` (every make_paged_*): this rank's shard (parallel/tp_paged.py)."""
     eos0, eos_ids = normalize_eos(eos_id)
 
     @torch.no_grad()
@@ -75,8 +80,9 @@ def make_paged_decode_fn_dynamic(cfg: LlamaConfig, chunk: int, eos_id: int = EOS
         toks = []
         tok = last_tok
         for _ in range(chunk):
-            h, cache = forward_paged_decode(cfg, params, tok[:, None], cache, table, lengths)
-            logits = logits_from_hidden(cfg, params, h[:, 0])
+            h, cache = forward_paged_decode(cfg, params, tok[:, None], cache, table, lengths,
+                                            tp)
+            logits = logits_from_hidden(cfg, params, h[:, 0], tp)
             nxt = sample_dynamic(logits, sp, counters, last_n)
             nxt = torch.where(done, eos0, nxt)
             lengths = lengths + (~done).to(lengths.dtype)
@@ -90,27 +96,28 @@ def make_paged_decode_fn_dynamic(cfg: LlamaConfig, chunk: int, eos_id: int = EOS
     return decode
 
 
-def make_paged_prefill_fn(cfg: LlamaConfig):
+def make_paged_prefill_fn(cfg: LlamaConfig, tp=None):
     """fn: (params, cache, tokens [B,Tb], lengths [B], table [B,mp]) ->
     (cache, last logits [B,V] f32): fresh prompts straight into pages."""
 
     @torch.no_grad()
     def prefill(params, cache, tokens, lengths, table):
-        h, cache = forward_paged_prefill(cfg, params, tokens, cache, table)
-        return cache, logits_from_hidden(cfg, params, last_rows(h, lengths))
+        h, cache = forward_paged_prefill(cfg, params, tokens, cache, table, tp)
+        return cache, logits_from_hidden(cfg, params, last_rows(h, lengths), tp)
 
     return prefill
 
 
-def make_paged_prefill_cont_fn(cfg: LlamaConfig):
+def make_paged_prefill_cont_fn(cfg: LlamaConfig, tp=None):
     """fn: (params, cache, tokens [B,C], table [B,W], start [B], n_new [B])
     -> (cache, logits [B,V] f32 of each row's last real token): one chunk
     attends to the slot's pages so far and writes its own KV in place."""
 
     @torch.no_grad()
     def prefill_cont(params, cache, tokens, table, start, n_new):
-        h, cache = forward_paged_prefill_cont(cfg, params, tokens, cache, table, start, n_new)
-        return cache, logits_from_hidden(cfg, params, last_rows(h, n_new))
+        h, cache = forward_paged_prefill_cont(cfg, params, tokens, cache, table, start, n_new,
+                                              tp)
+        return cache, logits_from_hidden(cfg, params, last_rows(h, n_new), tp)
 
     return prefill_cont
 
@@ -149,8 +156,7 @@ class PagedScheduler:
         makes int8 pages with per-token scales (runtime/paged.py).
         draft_cfg / draft_params: speculative serving, gamma draft tokens
         per round."""
-        if mesh is not None:
-            raise NotImplementedError(TP_TODO)
+        self.mesh, self.cache_cfg = tp_mesh(mesh, cfg)
         if prefill_chunk is not None and prefill_chunk % page_size:
             raise ValueError("prefill_chunk must be a page_size multiple")
         self.cfg = cfg
@@ -170,11 +176,11 @@ class PagedScheduler:
         self.n_pages = n_pages
         self.cache_dtype = cache_dtype
         self.layout = layout
-        self.cache = PagedKVCache.create(cfg, n_pages, page_size, cache_dtype, self.device,
-                                         layout)
-        self._prefill = make_paged_prefill_fn(cfg)
-        self._decode = make_paged_decode_fn_dynamic(cfg, decode_chunk, eos_id)
-        self._prefill_cont = make_paged_prefill_cont_fn(cfg)
+        self._prefill = make_paged_prefill_fn(cfg, tp=mesh)
+        self._decode = make_paged_decode_fn_dynamic(cfg, decode_chunk, eos_id, tp=mesh)
+        self._prefill_cont = make_paged_prefill_cont_fn(cfg, tp=mesh)
+        self.cache = PagedKVCache.create(self.cache_cfg, n_pages, page_size, cache_dtype,
+                                         self.device, layout)
         self.spec = draft_params is not None
         self.gamma = gamma
         if self.spec:
@@ -184,10 +190,11 @@ class PagedScheduler:
             self.draft_cfg, self.draft_params = draft_cfg, draft_params
             self.draft_cache = KVCache.create(draft_cfg, self.B, self.S, cache_dtype,
                                               self.device)
+            # Under a mesh the draft is whole on every rank.
             self._spec_step = speculative.make_spec_serving_fn_paged(draft_cfg, cfg, gamma,
-                                                                     eos_id)
+                                                                     eos_id, tp=mesh)
             self._spec_step_sampled = speculative.make_spec_serving_fn_paged_sampled(
-                draft_cfg, cfg, gamma, eos_id)
+                draft_cfg, cfg, gamma, eos_id, tp=mesh)
             self._slot_sampled = [False] * self.B
         self.prefill_chunk = prefill_chunk
         self.prefix_cache_enabled = prefix_cache
@@ -716,7 +723,7 @@ class PagedScheduler:
         """Recovery path: rebuild the page pool and slot state from scratch
         after repeated step failures (callers retire the active slots
         first); the pending queue is untouched."""
-        self.cache = PagedKVCache.create(self.cfg, self.n_pages, self.ps, self.cache_dtype,
+        self.cache = PagedKVCache.create(self.cache_cfg, self.n_pages, self.ps, self.cache_dtype,
                                          self.device, self.layout)
         if self.spec:
             self.draft_cache = KVCache.create(self.draft_cfg, self.B, self.S, self.cache_dtype,

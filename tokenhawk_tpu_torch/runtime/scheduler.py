@@ -18,7 +18,13 @@ prefix and one token of its own.  Greedy slots take the exact-match
 rule (the target-only greedy stream); a round with a sampled slot takes
 rejection sampling for every slot.
 
-Not ported yet: tensor parallelism (a mesh; ROADMAP Queue 1 item 8).
+With `mesh` (parallel/mesh.py make_mesh) every rank of the model group
+runs the same Scheduler over its shard of the parameters
+(parallel/tp.py shard_params_tp) and of the cache's KV heads, as the
+reference's does under shard_map TP: the draft, when there is one, stays
+whole on every rank.  Every rank must take the same control decisions:
+parallel/multihost_serving.py replays the coordinator's admissions and
+cancellations on every other rank.
 """
 
 from __future__ import annotations
@@ -44,7 +50,20 @@ from tokenhawk_tpu_torch.runtime.engine import (
 from tokenhawk_tpu_torch.sampling import SamplingParams, normalize_eos, sample_dynamic
 from tokenhawk_tpu_torch.tokenizer import EOS_ID
 
-TP_TODO = "tensor-parallel serving is not ported yet (ROADMAP Queue 1 item 8)"
+def tp_mesh(mesh, cfg: LlamaConfig):
+    """(`mesh` checked to be a model axis (parallel/mesh.py TpMesh) whose
+    ranks divide cfg's widths, or None; the config of this rank's KV
+    heads, which the cache holds)."""
+    if mesh is None:
+        return None, cfg
+    from tokenhawk_tpu_torch.parallel.mesh import TpMesh
+    from tokenhawk_tpu_torch.parallel.tp import local_config, validate_tp
+
+    if not isinstance(mesh, TpMesh):
+        raise ValueError(f"the schedulers run tensor parallelism over a make_mesh() mesh, "
+                         f"not {mesh!r}")
+    validate_tp(cfg, mesh.tp)
+    return mesh, local_config(cfg, mesh.tp)
 
 
 @dataclasses.dataclass
@@ -191,8 +210,7 @@ class Scheduler:
         draft_params: Optional[LlamaParams] = None,
         gamma: int = 4,
     ):
-        if mesh is not None:
-            raise NotImplementedError(TP_TODO)
+        self.mesh, self.cache_cfg = tp_mesh(mesh, cfg)
         if cache_dtype in ("int8", "auto"):
             # The reference's dense Scheduler would build an int8 (k, v)
             # cache and truncate bf16 K/V into it (ROADMAP Queue 3).
@@ -207,10 +225,10 @@ class Scheduler:
         self.eos_id, self.eos_ids = normalize_eos(eos_id)
         eos_id = self.eos_ids if len(self.eos_ids) > 1 else self.eos_id
         self.decode_chunk = decode_chunk
-        self._prefill = make_prefill_fn(cfg)
-        self._decode = make_decode_fn_dynamic(cfg, decode_chunk, eos_id)
+        self._prefill = make_prefill_fn(cfg, tp=mesh)
+        self._decode = make_decode_fn_dynamic(cfg, decode_chunk, eos_id, tp=mesh)
         self.cache_dtype = cache_dtype
-        self.cache = KVCache.create(cfg, self.B, self.S, cache_dtype, self.device)
+        self.cache = KVCache.create(self.cache_cfg, self.B, self.S, cache_dtype, self.device)
         self.buckets = prefill_buckets(self.S)
 
         self.spec = draft_params is not None
@@ -220,9 +238,11 @@ class Scheduler:
             self.draft_cfg, self.draft_params = draft_cfg, draft_params
             self.draft_cache = KVCache.create(draft_cfg, self.B, self.S, cache_dtype,
                                               self.device)
-            self._spec_step = speculative.make_spec_serving_fn(draft_cfg, cfg, gamma, eos_id)
+            # Under a mesh the draft is whole on every rank.
+            self._spec_step = speculative.make_spec_serving_fn(draft_cfg, cfg, gamma, eos_id,
+                                                               tp=mesh)
             self._spec_step_sampled = speculative.make_spec_serving_fn_sampled(
-                draft_cfg, cfg, gamma, eos_id)
+                draft_cfg, cfg, gamma, eos_id, tp=mesh)
             # Host mirror of the slots' temperatures: a round whose live
             # slots are all greedy takes the cheaper exact-match round.
             self._slot_sampled = [False] * self.B
@@ -303,7 +323,7 @@ class Scheduler:
         Tb = group[0][2]
         n = len(group)
         Nb = 1 << (n - 1).bit_length()
-        frag = KVCache.create(self.cfg, Nb, Tb, self.cache_dtype, self.device)
+        frag = KVCache.create(self.cache_cfg, Nb, Tb, self.cache_dtype, self.device)
         toks = np.zeros((Nb, Tb), np.int64)
         lengths = np.zeros((Nb,), np.int32)
         slots = np.full((Nb,), self.B, np.int64)
@@ -467,7 +487,8 @@ class Scheduler:
         """Recovery path: rebuild every device buffer from scratch after
         repeated step failures (callers retire the active slots first).
         Sessions lose their context; the pending queue is untouched."""
-        self.cache = KVCache.create(self.cfg, self.B, self.S, self.cache_dtype, self.device)
+        self.cache = KVCache.create(self.cache_cfg, self.B, self.S, self.cache_dtype,
+                                    self.device)
         if self.spec:
             self.draft_cache = KVCache.create(self.draft_cfg, self.B, self.S, self.cache_dtype,
                                               self.device)

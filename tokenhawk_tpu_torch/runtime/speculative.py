@@ -226,27 +226,30 @@ def _spec_round_sampled(cfg_draft, gamma, eos_ids, target, params_d, cache_d, la
     return out, n_new, offsets, done_new, last_tok, ring, counters + (gamma + 2)
 
 
-def _dense_target(cfg_target, params_t, cache_t):
+def _dense_target(cfg_target, params_t, cache_t, tp=None):
     """The verify over a dense cache: the block's forward at offsets
-    (kernel 4), its logits.  Frozen slots write past their frontier."""
+    (kernel 4), its logits.  Frozen slots write past their frontier.
+    Under `tp` (parallel/mesh.py TpMesh) the target is this rank's shard
+    and its logits are gathered; the draft stays whole on every rank."""
     def target(seq, offsets, adv):
-        h, _ = forward(cfg_target, params_t, seq, cache_t, offsets)
-        return logits_from_hidden(cfg_target, params_t, h)
+        h, _ = forward(cfg_target, params_t, seq, cache_t, offsets, tp)
+        return logits_from_hidden(cfg_target, params_t, h, tp)
 
     return target
 
 
-def _paged_target(cfg_target, params_t, cache_t, table):
+def _paged_target(cfg_target, params_t, cache_t, table, tp=None):
     """The verify over the page pool (forward_paged_verify), its logits."""
     def target(seq, lengths, adv):
-        h, _ = forward_paged_verify(cfg_target, params_t, seq, cache_t, table, lengths, adv)
-        return logits_from_hidden(cfg_target, params_t, h)
+        h, _ = forward_paged_verify(cfg_target, params_t, seq, cache_t, table, lengths, adv,
+                                    tp)
+        return logits_from_hidden(cfg_target, params_t, h, tp)
 
     return target
 
 
 def make_spec_serving_fn(cfg_draft: LlamaConfig, cfg_target: LlamaConfig, gamma: int,
-                         eos_id=EOS_ID):
+                         eos_id=EOS_ID, tp=None):
     """One greedy round shaped for the dense Scheduler:
     (params_d, params_t, cache_d, cache_t, last_tok [B], offsets [B], done [B])
       -> (cache_d, cache_t, out [B, gamma+1] (-1 past n_new), n_new [B],
@@ -258,7 +261,7 @@ def make_spec_serving_fn(cfg_draft: LlamaConfig, cfg_target: LlamaConfig, gamma:
 
     @torch.no_grad()
     def step(params_d, params_t, cache_d, cache_t, last_tok, offsets, done):
-        target = _dense_target(cfg_target, params_t, cache_t)
+        target = _dense_target(cfg_target, params_t, cache_t, tp)
         return (cache_d, cache_t, *_spec_round_greedy(
             cfg_draft, gamma, eos_ids, target, params_d, cache_d, last_tok, offsets, done))
 
@@ -266,7 +269,7 @@ def make_spec_serving_fn(cfg_draft: LlamaConfig, cfg_target: LlamaConfig, gamma:
 
 
 def make_spec_serving_fn_paged(cfg_draft: LlamaConfig, cfg_target: LlamaConfig, gamma: int,
-                               eos_id=EOS_ID):
+                               eos_id=EOS_ID, tp=None):
     """make_spec_serving_fn over a paged target pool: the draft keeps a
     dense per-slot cache (it is small), the verify block goes through
     forward_paged_verify at each slot's frontier.
@@ -276,7 +279,7 @@ def make_spec_serving_fn_paged(cfg_draft: LlamaConfig, cfg_target: LlamaConfig, 
 
     @torch.no_grad()
     def step(params_d, params_t, cache_d, cache_t, table, last_tok, lengths, done):
-        target = _paged_target(cfg_target, params_t, cache_t, table)
+        target = _paged_target(cfg_target, params_t, cache_t, table, tp)
         return (cache_d, cache_t, *_spec_round_greedy(
             cfg_draft, gamma, eos_ids, target, params_d, cache_d, last_tok, lengths, done))
 
@@ -284,7 +287,7 @@ def make_spec_serving_fn_paged(cfg_draft: LlamaConfig, cfg_target: LlamaConfig, 
 
 
 def make_spec_serving_fn_sampled(cfg_draft: LlamaConfig, cfg_target: LlamaConfig, gamma: int,
-                                 eos_id=EOS_ID):
+                                 eos_id=EOS_ID, tp=None):
     """make_spec_serving_fn with per-slot sampled acceptance:
     (params_d, params_t, cache_d, cache_t, last_tok, offsets, done, last_n
      [B, N], sp: SamplingParams, counters [B])
@@ -295,7 +298,7 @@ def make_spec_serving_fn_sampled(cfg_draft: LlamaConfig, cfg_target: LlamaConfig
     @torch.no_grad()
     def step(params_d, params_t, cache_d, cache_t, last_tok, offsets, done, last_n, sp,
              counters):
-        target = _dense_target(cfg_target, params_t, cache_t)
+        target = _dense_target(cfg_target, params_t, cache_t, tp)
         return (cache_d, cache_t, *_spec_round_sampled(
             cfg_draft, gamma, eos_ids, target, params_d, cache_d, last_tok, offsets, done,
             last_n, sp, counters))
@@ -304,7 +307,7 @@ def make_spec_serving_fn_sampled(cfg_draft: LlamaConfig, cfg_target: LlamaConfig
 
 
 def make_spec_serving_fn_paged_sampled(cfg_draft: LlamaConfig, cfg_target: LlamaConfig,
-                                       gamma: int, eos_id=EOS_ID):
+                                       gamma: int, eos_id=EOS_ID, tp=None):
     """Sampled acceptance over a paged target pool:
     (params_d, params_t, cache_d, cache_t, table, last_tok, lengths, done,
      last_n, sp, counters)
@@ -315,7 +318,7 @@ def make_spec_serving_fn_paged_sampled(cfg_draft: LlamaConfig, cfg_target: Llama
     @torch.no_grad()
     def step(params_d, params_t, cache_d, cache_t, table, last_tok, lengths, done, last_n, sp,
              counters):
-        target = _paged_target(cfg_target, params_t, cache_t, table)
+        target = _paged_target(cfg_target, params_t, cache_t, table, tp)
         return (cache_d, cache_t, *_spec_round_sampled(
             cfg_draft, gamma, eos_ids, target, params_d, cache_d, last_tok, lengths, done,
             last_n, sp, counters))

@@ -14,22 +14,32 @@ the dense Scheduler keeps bf16 KV whatever --kv says, as the reference's
 does (a note on stderr).  --draft-model FILE (with --gamma N) serves
 speculatively through either scheduler: greedy requests get the target's
 greedy stream, sampled ones rejection sampling (bf16 pages only with
---paged).  Not ported yet, and refused with an error: --tp (ROADMAP
-Queue 1 item 8).
+--paged).
+
+--tp N serves tensor-parallel (parallel/tp.py, tp_paged.py) from N
+processes, one a rank, under torchrun:
+
+    torchrun --nproc-per-node N -m tokenhawk_tpu_torch.serving --tp N -m model.bin [--paged]
+
+Each rank loads its shard and builds its scheduler; rank 0 serves HTTP and
+steps its scheduler through parallel/multihost_serving.py's driver, which
+broadcasts each step's admissions, cancellations and session resets; the
+other ranks replay them into their own scheduler in lockstep until rank 0
+stops.  A step error on any rank ends the group: that rank exits 1 (rank
+0 after failing its requests) and torchrun stops the others.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+import threading
 import time
-
-NOT_PORTED = {"tp": "--tp (tensor parallelism) is not ported yet (ROADMAP Queue 1 item 8)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tokenhawk-torch-serve",
-                                description="LLaMA chat server on one CUDA GPU")
+                                description="LLaMA chat server on CUDA GPUs")
     p.add_argument("-m", "--model", help="GGML or GGUF model file")
     p.add_argument("-d", "--dir", help="TH chunk directory (split model)")
     p.add_argument("--host", default="127.0.0.1")
@@ -56,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "with decode (paged only)")
     p.add_argument("--kv", choices=["bf16", "int8"], default="bf16",
                    help="paged KV dtype (int8 halves page traffic)")
-    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks; N > 1 runs under torchrun --nproc-per-node N")
     p.add_argument("--draft-model",
                    help="GGML or GGUF draft model: speculative continuous batching")
     p.add_argument("--gamma", type=int, default=4,
@@ -71,9 +82,21 @@ def main(argv=None) -> int:
     model_path = args.model or args.dir
     if not model_path:
         parser.error("one of -m/--model or -d/--dir is required")
-    if args.tp != 1:
-        parser.error(NOT_PORTED["tp"])
+    from tokenhawk_tpu_torch.cli import tp_mesh_from_args
 
+    device, mesh = tp_mesh_from_args(parser, args)
+    rc = 1
+    try:
+        rc = _serve(args, model_path, device, mesh)
+        return rc
+    finally:
+        if mesh is not None and rc == 0:  # a failed group's collectives may hang
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _serve(args, model_path, device, mesh) -> int:
     import torch
 
     from tokenhawk_tpu_torch.config import SamplingConfig
@@ -85,12 +108,12 @@ def main(argv=None) -> int:
     print(f"Loading {model_path} ...", file=sys.stderr)
     t0 = time.perf_counter()
     cfg, params, tokenizer = load_model(model_path, n_ctx=args.n_ctx, dtype=dtype,
-                                        device=args.device)
+                                        device=device, mesh=mesh)
     print(f"Loaded in {time.perf_counter() - t0:.1f}s", file=sys.stderr)
     draft_cfg = draft_params = None
-    if args.draft_model:
+    if args.draft_model:  # whole on every rank
         draft_cfg, draft_params, _ = load_model(args.draft_model, n_ctx=args.n_ctx, dtype=dtype,
-                                                device=args.device)
+                                                device=device)
     spec = dict(draft_cfg=draft_cfg, draft_params=draft_params, gamma=args.gamma)
     sampling = SamplingConfig(
         temperature=0.0 if args.greedy else args.temp,
@@ -106,7 +129,7 @@ def main(argv=None) -> int:
             decode_chunk=args.decode_chunk, page_size=args.page_size,
             cache_dtype="int8" if args.kv == "int8" else dtype,
             prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache, eos_id=eos_id,
-            **spec)
+            mesh=mesh, **spec)
     else:
         from tokenhawk_tpu_torch.runtime.scheduler import Scheduler
 
@@ -115,11 +138,28 @@ def main(argv=None) -> int:
                   file=sys.stderr)
         sched = Scheduler(cfg, params, sampling=sampling, max_batch=args.max_batch,
                           max_seq=args.n_ctx, decode_chunk=args.decode_chunk, eos_id=eos_id,
-                          **spec)
+                          mesh=mesh, **spec)
+    lockstep = None
+    if mesh is not None:
+        from tokenhawk_tpu_torch.parallel.multihost_serving import (
+            LockstepScheduler,
+            MultihostServingDriver,
+            follow,
+        )
+
+        driver = MultihostServingDriver(sched, detok=tokenizer.decode_token_bytes)
+        if not driver.is_coordinator:
+            print(f"rank {mesh.index} of {mesh.tp}: following rank 0", file=sys.stderr)
+            return follow(driver)  # until rank 0's stop round
+        sched = lockstep = LockstepScheduler(driver)
     httpd = serve(sched, tokenizer, host=args.host, port=args.port,
                   model_info={"model": model_path, "n_ctx": args.n_ctx, "paged": args.paged,
                               "chat_template": tokenizer.chat_template, "speculative": bool(args.draft_model),
-                              "device": str(params.device)})
+                              "device": str(params.device), "tp": args.tp})
+    if lockstep is not None:
+        # A failed round ends the server (the round has failed the requests).
+        lockstep.on_fatal = lambda: threading.Thread(target=httpd.shutdown,
+                                                     daemon=True).start()
     print(f"Serving on http://{args.host}:{args.port}", file=sys.stderr)
     try:
         httpd.serve_forever()
@@ -127,6 +167,11 @@ def main(argv=None) -> int:
         pass
     finally:
         httpd.serving_loop.stop()
+        if lockstep is not None:
+            lockstep.shutdown()  # the stop round: the followers return
+    if lockstep is not None and lockstep.failed is not None:
+        print(f"tensor-parallel group failed: {lockstep.failed!r}", file=sys.stderr)
+        return 1
     return 0
 
 
